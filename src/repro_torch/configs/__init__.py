@@ -1,0 +1,16 @@
+"""Architecture registry of the port (the dense family so far)."""
+from __future__ import annotations
+
+import importlib
+
+from ..models.base import ModelConfig
+
+ARCH_IDS = ["qwen2_5_3b"]
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG
+
+
+def get_smoke(arch_id: str) -> ModelConfig:
+    return importlib.import_module(f"repro_torch.configs.{arch_id}").SMOKE

@@ -1,0 +1,279 @@
+"""Lowering: scheduled Task IR -> a Python callable over torch ops.
+
+``emit`` walks the graph once in topological order and returns
+``run(inputs) -> outputs``.  Each library node dispatches on
+``node.schedule.impl`` alone — the name the scheduler's impl registry bound
+as the roofline argmin; nothing here asks which device a tensor is on:
+
+* a matmul, ``fused_kernel`` or ``"opaque"`` (a sealed node, the per-op
+  control), calls ``kernels.fused_matmul.ops.fused_matmul``, the
+  hand-written Hopper GEMM with its epilogue chain applied in the kernel
+  (its wrapper takes the plain version for a CPU tensor): no GEMM of the
+  port has another route;
+* attention's ``materialized_*`` / ``ref`` / ``"opaque"`` lower to plain
+  torch composites with fp32 accumulation (its kernel is not ported yet,
+  and no attention node is on the slot-serving path).
+
+Indexing keeps the JAX package's semantics, which torch does not share:
+gathers wrap negative indices and then CLAMP out-of-range ones, and
+scatters wrap negative indices and then DROP out-of-range updates.  Both
+are computed with tensor ops and no host synchronization; an unchecked
+out-of-range index would raise on the CPU and device-assert on the card.
+
+Donation: a scatter that donates a region INPUT writes that tensor in
+place (``index_put_``) and returns it, so a KV pool keeps its storage (and
+``data_ptr``) across steps.  A write whose
+buffer has earlier readers (``Node.anti``) or is not a region input
+writes a copy instead — a reader may hold a view of the buffer.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..kernels.fused_matmul import ops as fm_ops
+from ..kernels.fused_matmul.ref import _EW
+from .dtypes import to_torch_dtype
+from .ir import Node, TaskGraph
+
+
+def _apply_epilogue(y, node: Node, env: dict) -> Any:
+    for fn, extras, at in node.epilogue:
+        # replay the un-fused chain bitwise: the head materialized in the
+        # consumer's dtype before the ew op ran
+        edt = at.get("dtype")
+        if edt is not None:
+            y = y.to(to_torch_dtype(edt))
+        vals = [env[e].to(y.dtype) for e in extras]
+        f = _EW[fn]
+        if at.get("head_pos", 0) == 0:
+            y = f(y, *vals)
+        else:
+            y = f(vals[0], y, *vals[1:])
+    return y
+
+
+# -- library lowerings --------------------------------------------------------
+
+
+def _lower_matmul(node: Node, env: dict) -> Any:
+    """Every GEMM goes through the kernel's wrapper: ``fused_kernel`` with
+    the epilogue chain fusion folded in, ``opaque`` (a sealed node, which
+    fusion never touched) with none."""
+    impl = node.schedule.impl
+    if impl not in ("fused_kernel", "opaque"):
+        raise NotImplementedError(f"matmul impl {impl!r} is not ported")
+    epi = [(fn, [env[e] for e in extras], at)
+           for fn, extras, at in node.epilogue]
+    return fm_ops.fused_matmul(env[node.inputs[0]], env[node.inputs[1]],
+                               epilogue=epi, tile=node.schedule.tile,
+                               out_dtype=to_torch_dtype(node.ttype.dtype))
+
+
+def _materialized_attention(q, k, v, causal, bias, grouped):
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    grp = hq // hkv
+    scale = 1.0 / np.sqrt(d)
+    f32 = torch.float32
+    if grouped and grp > 1:
+        qg = q.reshape(b, sq, hkv, grp, d).to(f32)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(f32)) * scale
+        s = s.reshape(b, hq, sq, skv)
+    else:
+        if hkv != hq:
+            k = torch.repeat_interleave(k, grp, dim=2)
+            v = torch.repeat_interleave(v, grp, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
+    if bias is not None:
+        s = s + bias
+    if causal:
+        mask = torch.ones((sq, skv), dtype=torch.bool,
+                          device=q.device).tril(skv - sq)
+        s = torch.where(mask, s, torch.finfo(f32).min)
+    p = torch.softmax(s, dim=-1).to(v.dtype).to(f32)
+    if grouped and grp > 1:
+        pg = p.reshape(b, hkv, grp, sq, skv)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", pg, v.to(f32))
+        return o.reshape(b, sq, hq, v.shape[-1])
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(f32))
+
+
+def _lower_attention(node: Node, env: dict) -> Any:
+    q, k, v = (env[i] for i in node.inputs[:3])
+    bias = env[node.inputs[3]] if len(node.inputs) > 3 else None
+    causal = node.attrs.get("causal", False)
+    exposed = node.attrs.get("exposed", False)
+    impl = node.schedule.impl or ("ref" if exposed else "opaque")
+    if impl in ("opaque", "materialized_repeat"):
+        y = _materialized_attention(q, k, v, causal, bias, grouped=False)
+    elif impl in ("materialized_grouped", "ref"):
+        y = _materialized_attention(q, k, v, causal, bias, grouped=True)
+    else:
+        raise NotImplementedError(f"attention impl {impl!r} is not ported")
+    return _apply_epilogue(y, node, env).to(to_torch_dtype(node.ttype.dtype))
+
+
+# -- indexing with the reference's semantics ---------------------------------
+
+
+def _norm_indices(idx: tuple, lead: tuple) -> tuple:
+    """Wrap negative indices, broadcast to one shape, as int64."""
+    out = []
+    for i, n in zip(idx, lead):
+        i = torch.as_tensor(i).to(torch.int64)
+        out.append(torch.where(i < 0, i + n, i))
+    return tuple(torch.broadcast_tensors(*out))
+
+
+def gather_clamped(src: torch.Tensor, idx: tuple) -> torch.Tensor:
+    """``src[i0, i1, ...]`` with the reference's clamping of out-of-range
+    indices (after negative wrap)."""
+    lead = tuple(src.shape[:len(idx)])
+    idx = _norm_indices(idx, lead)
+    return src[tuple(i.clamp(0, n - 1) for i, n in zip(idx, lead))]
+
+
+def scatter_drop(buf: torch.Tensor, idx: tuple, upd, mode: str,
+                 in_place: bool) -> torch.Tensor:
+    """``buf.at[i0, i1, ...].set/add(upd, mode="drop")``.
+
+    Out-of-range rows must write nothing.  Every row is clamped in range and
+    writes the FINAL value of its target instead: for "add" the dropped
+    rows add zero; for "set" each row writes the update of the last
+    in-range row aimed at the same target (duplicates: last wins, as the
+    reference's sequential scatter does), or the target's old value when no
+    in-range row aims there.  Rows sharing a target then write identical
+    values, so the write order cannot matter — and no host sync is needed
+    to find the valid rows."""
+    n_idx = len(idx)
+    lead = tuple(buf.shape[:n_idx])
+    idx = _norm_indices(idx, lead)
+    ishape = idx[0].shape
+    valid = torch.ones(ishape, dtype=torch.bool, device=buf.device)
+    for i, n in zip(idx, lead):
+        valid &= (i >= 0) & (i < n)
+    cl = tuple(i.clamp(0, n - 1) for i, n in zip(idx, lead))
+    upd = torch.as_tensor(upd).to(buf.dtype)
+    upd = upd.expand(ishape + tuple(buf.shape[n_idx:]))
+    out = buf if in_place else buf.clone()
+    if mode == "add":
+        keep = valid.reshape(ishape + (1,) * (buf.ndim - n_idx))
+        out.index_put_(cl, torch.where(keep, upd, torch.zeros_like(upd)),
+                       accumulate=True)
+        return out
+    R = int(np.prod(ishape)) if ishape else 1
+    lin = torch.zeros(ishape, dtype=torch.int64, device=buf.device)
+    for i, n in zip(cl, lead):
+        lin = lin * n + i
+    lin, vf = lin.reshape(R), valid.reshape(R)
+    rows = upd.reshape((R,) + tuple(buf.shape[n_idx:]))
+    same = (lin[:, None] == lin[None, :]) & vf[None, :]      # [j, i]
+    has = same.any(dim=1)
+    order = torch.arange(1, R + 1, device=buf.device)
+    last = (same * order[None, :]).argmax(dim=1)
+    old = buf[cl].reshape(rows.shape)
+    keep = has.reshape((R,) + (1,) * (rows.ndim - 1))
+    vals = torch.where(keep, rows[last], old)
+    out.index_put_(cl, vals.reshape(upd.shape))
+    return out
+
+
+def _decode_index(enc: tuple) -> tuple:
+    out = []
+    for e in enc:
+        if e[0] == "i":
+            out.append(e[1])
+        elif e[0] == "s":
+            out.append(slice(e[1], e[2], e[3]))
+        elif e[0] == "e":
+            out.append(Ellipsis)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+# -- primitive lowerings -------------------------------------------------------
+
+
+def _donated_in_place(node: Node, nodes: dict) -> bool:
+    return (node.donates is not None and not node.anti
+            and nodes[node.donates].op == "input")
+
+
+def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
+    op = node.op
+    if op == "input":
+        return inputs[node.attrs["name"]]
+    if op == "const":
+        return _const(node)
+    if op == "ew":
+        return _EW[node.attrs["fn"]](*[env[i] for i in node.inputs])
+    if op == "reshape":
+        return env[node.inputs[0]].reshape(node.ttype.shape)
+    if op == "slice":
+        x = env[node.inputs[0]]
+        ax = node.attrs["axis"] % x.ndim
+        return x.narrow(ax, node.attrs["start"],
+                        node.attrs["limit"] - node.attrs["start"])
+    if op == "concat":
+        return torch.cat([env[i] for i in node.inputs], dim=node.attrs["axis"])
+    if op == "convert":
+        return env[node.inputs[0]].to(to_torch_dtype(node.ttype.dtype))
+    if op == "pyfunc":
+        res = node.attrs["fn"](*[env[i] for i in node.inputs],
+                               **dict(node.attrs.get("static", ())))
+        out_i = node.attrs.get("out")
+        return res if out_i is None else res[out_i]
+    if op == "index":
+        return env[node.inputs[0]][_decode_index(node.attrs["idx"])]
+    if op == "gather":
+        return gather_clamped(env[node.inputs[0]],
+                              tuple(env[i] for i in node.inputs[1:]))
+    if op == "scatter":
+        n_idx = node.attrs["n_idx"]
+        idx = tuple(env[i] for i in node.inputs[1:1 + n_idx])
+        return scatter_drop(env[node.inputs[0]], idx,
+                            env[node.inputs[1 + n_idx]],
+                            node.attrs.get("mode", "set"),
+                            _donated_in_place(node, nodes))
+    if op == "matmul":
+        return _lower_matmul(node, env)
+    if op == "attention":
+        return _lower_attention(node, env)
+    raise NotImplementedError(f"lowering of {op!r} is not ported yet")
+
+
+def _const(node: Node) -> torch.Tensor:
+    """A const node's tensor, on the device the tracer recorded for it."""
+    return torch.as_tensor(np.asarray(node.attrs["value"]),
+                           dtype=to_torch_dtype(node.ttype.dtype),
+                           device=node.attrs.get("device", "cpu"))
+
+
+def emit(g: TaskGraph) -> Callable[[dict], tuple]:
+    """Compile the scheduled graph into ``run(inputs dict) -> outputs``."""
+    order = g.topo_order()
+    nodes = [g.nodes[nid] for nid in order]
+    by_id = dict(g.nodes)
+    outputs = list(g.outputs)
+
+    # consts are built once per program, not per call: a host->device copy
+    # inside the decode loop would stall the host on the stream
+    consts: dict[int, torch.Tensor] = {}
+
+    def run(inputs: dict) -> tuple:
+        env: dict[int, Any] = {}
+        for node in nodes:
+            if node.op == "const":
+                val = consts.get(node.nid)
+                if val is None:
+                    val = consts[node.nid] = _const(node)
+                env[node.nid] = val
+            else:
+                env[node.nid] = _lower_node(node, env, inputs, by_id)
+        return tuple(env[o] for o in outputs)
+
+    return run

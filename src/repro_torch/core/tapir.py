@@ -1,0 +1,909 @@
+"""Public op layer: models call these; each call builds a Task IR graph,
+runs the pass pipeline (cached), and executes the lowered program.
+
+The port of the JAX package's ``core/tapir.py`` (the part slot serving
+needs).  Two execution regimes, as there:
+
+* **Per-op** — each public op builds, optimizes, caches and runs its own
+  TaskGraph; no pass ever sees more than one op.
+* **Region capture** — under ``@parallel_region`` the same public ops
+  *trace*: they return lazy :class:`TracedTensor` handles and append nodes
+  to one region-wide TaskGraph.  At region exit the merged graph runs the
+  full pass pipeline (CSE, added-GEMM fusion, shared-input fusion, epilogue
+  fusion, late scheduling) across every op in the region, is emitted once
+  as a Python callable over torch ops, cached by structural signature, and
+  executed.  Structurally repeated calls replay through ``_PROGRAMS``
+  without re-tracing.
+
+"Compile" here means emitting that callable: PyTorch runs eagerly, so a
+region program is one Python function that launches the region's kernels
+in topological order.  Donation becomes an in-place write into the
+region-input tensor (see ``core.lowering``): a KV pool passed into a slot
+body comes back as the SAME tensor object, updated.
+
+Not in this slice (see ROADMAP): the on-disk program cache, ``scan_layers``,
+``cache_write``/``cache_read``, ``attention``, ``wkv_scan``, ``expert_mlp``,
+``lstm_step``, ``conv2d`` and ``invalidate_mesh``.
+"""
+from __future__ import annotations
+
+import functools
+import threading
+import time
+import weakref
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .dtypes import dtype_name, to_torch_dtype
+from .ir import TaskGraph, TensorType
+from .lowering import _EW, emit, gather_clamped, scatter_drop
+from .passes import MESH_FINGERPRINT, run_pipeline
+from .schedule import CPU_COST_MODEL, H100_COST_MODEL, CostModel
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TapirConfig:
+    mode: str = "tapir"                  # "tapir" | "opaque"
+    #: None: the H100 model when a card is present, else the CPU model
+    cost_model: Optional[CostModel] = None
+    #: region capture; False runs every op in the per-op regime (the A/B
+    #: control)
+    regions: bool = True
+
+    def resolved_cost_model(self) -> CostModel:
+        if self.cost_model is not None:
+            return self.cost_model
+        return H100_COST_MODEL if torch.cuda.is_available() \
+            else CPU_COST_MODEL
+
+
+_tls = threading.local()
+
+
+def get_config() -> TapirConfig:
+    return getattr(_tls, "cfg", TapirConfig())
+
+
+class use:
+    """``with tapir.use(cfg):`` — the active config for ops on this thread."""
+
+    def __init__(self, cfg: TapirConfig):
+        self.cfg = cfg
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "cfg", None)
+        _tls.cfg = self.cfg
+        return self.cfg
+
+    def __exit__(self, *exc):
+        if self._prev is None:
+            del _tls.cfg
+        else:
+            _tls.cfg = self._prev
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Graph build/execute machinery
+# ---------------------------------------------------------------------------
+
+_CACHE: dict[tuple, Callable] = {}
+_CACHE_STATS = {"hits": 0, "misses": 0, "pipeline_s": 0.0,
+                "compiled_programs": 0}
+#: optimized graphs by cache key — introspection for tests and explain()
+_GRAPHS: dict[tuple, TaskGraph] = {}
+
+
+def _tt(x) -> TensorType:
+    return TensorType(tuple(x.shape), dtype_name(x.dtype))
+
+
+def _cfg_key(cfg: TapirConfig) -> tuple:
+    return (cfg.mode, cfg.resolved_cost_model().name, MESH_FINGERPRINT)
+
+
+def _compile(g: TaskGraph, cfg: TapirConfig, key: tuple,
+             region: bool = False) -> Callable:
+    """Pipeline + emit with cache bookkeeping (shared by per-op + region)."""
+    t0 = time.perf_counter()
+    g = run_pipeline(g, cfg.mode, cfg.resolved_cost_model())
+    fn = emit(g)
+    if region:
+        _CACHE_STATS["compiled_programs"] += 1
+    _CACHE_STATS["pipeline_s"] += time.perf_counter() - t0
+    _GRAPHS[key] = g
+    _CACHE[key] = fn
+    return fn
+
+
+def _execute(op_key: tuple, build: Callable[[TaskGraph], None],
+             inputs: dict[str, Any]) -> tuple:
+    cfg = get_config()
+    key = (op_key,) + _cfg_key(cfg)
+    fn = _CACHE.get(key)
+    if fn is None:
+        _CACHE_STATS["misses"] += 1
+        g = TaskGraph(op_key[0])
+        build(g)
+        fn = _compile(g, cfg, key)
+    else:
+        _CACHE_STATS["hits"] += 1
+    return fn(inputs)
+
+
+# ---------------------------------------------------------------------------
+# Containers (the port's pytree): tuples, lists and dicts; all else a leaf
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree) -> tuple[list, tuple]:
+    """(leaves, hashable structure).  Dict keys are visited sorted."""
+    leaves: list = []
+
+    def rec(v):
+        if isinstance(v, (list, tuple)):
+            return (type(v) is tuple, tuple(rec(e) for e in v))
+        if isinstance(v, dict):
+            keys = tuple(sorted(v))
+            return ("dict", keys, tuple(rec(v[k]) for k in keys))
+        leaves.append(v)
+        return None
+
+    return leaves, rec(tree)
+
+
+def _unflatten(spec: tuple, leaves: Sequence) -> Any:
+    it = iter(leaves)
+
+    def rec(s):
+        if s is None:
+            return next(it)
+        if s[0] == "dict":
+            return {k: rec(c) for k, c in zip(s[1], s[2])}
+        items = [rec(c) for c in s[1]]
+        return tuple(items) if s[0] else items
+
+    return rec(spec)
+
+
+# ---------------------------------------------------------------------------
+# Region capture: TracedTensor + _Region
+# ---------------------------------------------------------------------------
+
+
+class TracedTensor:
+    """Lazy handle to a node in an open region graph.
+
+    Supports the tensor surface model code uses between op calls
+    (arithmetic, ``reshape``, ``to``, indexing).  ``materialize()`` flushes
+    the pending segment and returns the concrete tensor."""
+
+    __slots__ = ("_region", "nid", "ttype", "_concrete", "__weakref__")
+
+    def __init__(self, region: "_Region", nid: Optional[int],
+                 ttype: TensorType, concrete=None):
+        self._region = region
+        self.nid = nid
+        self.ttype = ttype
+        self._concrete = concrete
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.ttype.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return to_torch_dtype(self.ttype.dtype)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.ttype.shape)
+
+    def __repr__(self) -> str:
+        state = "concrete" if self._concrete is not None else "lazy"
+        return (f"TracedTensor({self.ttype.dtype}{list(self.ttype.shape)}, "
+                f"{state})")
+
+    def materialize(self) -> torch.Tensor:
+        """Concrete value; flushes the region segment if still pending."""
+        if self._concrete is None:
+            if self._region.closed:
+                raise RuntimeError("TracedTensor from an abandoned region")
+            self._region.flush()
+        return self._concrete
+
+    def _bin(self, other, fn: str, swap: bool = False):
+        reg = self._region
+        if reg.closed:
+            a = self.materialize()
+            b = other.materialize() if isinstance(other, TracedTensor) \
+                else other
+            return _EW[fn](b, a) if swap else _EW[fn](a, b)
+        a = reg.nid_of(self)
+        b = reg.operand_nid(other, like=self)
+        o_shape = np.broadcast_shapes(self.shape, tuple(getattr(other, "shape", ())))
+        out_t = TensorType(tuple(int(s) for s in o_shape),
+                           _promote(self.ttype.dtype, other))
+        ins = (b, a) if swap else (a, b)
+        nid = reg.g.add("ew", ins, out_t,
+                        pdims=tuple(range(len(out_t.shape))), fn=fn)
+        return reg.handle(nid)
+
+    def __add__(self, other):
+        return self._bin(other, "add")
+
+    def __radd__(self, other):
+        return self._bin(other, "add", swap=True)
+
+    def __sub__(self, other):
+        return self._bin(other, "sub")
+
+    def __rsub__(self, other):
+        return self._bin(other, "sub", swap=True)
+
+    def __mul__(self, other):
+        return self._bin(other, "mul")
+
+    def __rmul__(self, other):
+        return self._bin(other, "mul", swap=True)
+
+    def __truediv__(self, other):
+        return self._bin(other, "div")
+
+    def __rtruediv__(self, other):
+        return self._bin(other, "div", swap=True)
+
+    def __neg__(self):
+        reg = self._region
+        if reg.closed:
+            return -self.materialize()
+        nid = reg.g.add("ew", (reg.nid_of(self),), self.ttype,
+                        pdims=tuple(range(self.ndim)), fn="neg")
+        return reg.handle(nid)
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        shape = _resolve_reshape(self.shape, shape)
+        reg = self._region
+        if reg.closed:
+            return self.materialize().reshape(shape)
+        nid = reg.g.add("reshape", (reg.nid_of(self),),
+                        TensorType(shape, self.ttype.dtype),
+                        pdims=tuple(range(len(shape))))
+        return reg.handle(nid)
+
+    def to(self, dtype):
+        dt = dtype_name(dtype)
+        if dt == self.ttype.dtype:
+            return self
+        reg = self._region
+        if reg.closed:
+            return self.materialize().to(to_torch_dtype(dt))
+        nid = reg.g.add("convert", (reg.nid_of(self),),
+                        TensorType(self.shape, dt),
+                        pdims=tuple(range(self.ndim)))
+        return reg.handle(nid)
+
+    def __getitem__(self, item):
+        """Integer-array indexing stays lazy as a ``gather`` node; basic
+        static indexing (ints/slices/Ellipsis/None) as an ``index`` node."""
+        reg = self._region
+        items = item if isinstance(item, tuple) else (item,)
+        if not reg.closed and items and all(_is_int_array(s) for s in items):
+            return gather(self, items)
+        enc = _encode_index(item)
+        if reg.closed or enc is None:
+            raise TypeError(f"unsupported index on a traced tensor: {item!r}")
+        out = torch.empty(self.shape, dtype=self.dtype, device="meta")[item]
+        out_t = TensorType(tuple(out.shape), self.ttype.dtype)
+        nid = reg.g.add("index", (reg.nid_of(self),), out_t,
+                        pdims=tuple(range(len(out_t.shape))), idx=enc)
+        return reg.handle(nid)
+
+
+def _is_int_array(v) -> bool:
+    """An integer index ARRAY operand (traced or concrete)."""
+    if isinstance(v, TracedTensor):
+        return v.ndim >= 1 and not v.dtype.is_floating_point \
+            and v.dtype != torch.bool
+    if isinstance(v, np.ndarray):
+        return v.ndim >= 1 and np.issubdtype(v.dtype, np.integer)
+    if isinstance(v, torch.Tensor):
+        return v.ndim >= 1 and not v.dtype.is_floating_point \
+            and v.dtype != torch.bool
+    return False
+
+
+def _encode_index(item) -> Optional[tuple]:
+    """Hashable encoding of a basic index expression (None if unsupported)."""
+    items = item if isinstance(item, tuple) else (item,)
+    enc = []
+    for s in items:
+        if isinstance(s, (bool, np.bool_)):
+            return None
+        if isinstance(s, (int, np.integer)):
+            enc.append(("i", int(s)))
+        elif isinstance(s, slice):
+            if not all(x is None or isinstance(x, (int, np.integer))
+                       for x in (s.start, s.stop, s.step)):
+                return None
+            enc.append(("s", s.start, s.stop, s.step))
+        elif s is Ellipsis:
+            enc.append(("e",))
+        elif s is None:
+            enc.append(("n",))
+        else:
+            return None
+    return tuple(enc)
+
+
+def _promote(dtype: str, other) -> str:
+    if isinstance(other, (int, float, bool)):
+        return dtype   # python scalars are weakly typed: keep tensor dtype
+    return dtype_name(torch.promote_types(to_torch_dtype(dtype),
+                                          to_torch_dtype(other.dtype)
+                                          if isinstance(other, TracedTensor)
+                                          else other.dtype))
+
+
+def _resolve_reshape(cur: tuple, shape: tuple) -> tuple[int, ...]:
+    shape = tuple(int(s) for s in shape)
+    if -1 in shape:
+        known = int(np.prod([s for s in shape if s != -1])) or 1
+        total = int(np.prod(cur)) if cur else 1
+        shape = tuple(total // known if s == -1 else s for s in shape)
+    return shape
+
+
+def is_traced(x) -> bool:
+    return isinstance(x, TracedTensor)
+
+
+def in_region() -> bool:
+    """True while a region capture is open on this thread."""
+    return _active_region() is not None
+
+
+class _Region:
+    """One open capture: a growing TaskGraph plus the concrete tensors
+    bound to its input nodes.  A region lives on one device: consts the
+    tracer creates (index patterns, scalars) are placed there."""
+
+    def __init__(self, name: str, cfg: TapirConfig):
+        self.name = name
+        self.cfg = cfg
+        self.closed = False
+        self.segments = 0
+        self.device: Optional[str] = None
+        self.g = TaskGraph(name)
+        self._inp_by_id: dict[int, int] = {}
+        self._inp_vals: list[Any] = []
+        self._handles: list[weakref.ref] = []
+
+    def nid_of(self, x) -> int:
+        if isinstance(x, TracedTensor):
+            if x._concrete is not None:
+                x = x._concrete
+            elif x._region is self:
+                return x.nid
+            else:
+                raise ValueError(
+                    "TracedTensor used outside the region that created it")
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"region input must be a tensor, got {type(x)}")
+        key = id(x)
+        nid = self._inp_by_id.get(key)
+        if nid is None:
+            if self.device is None:
+                self.device = str(x.device)
+            nid = self.g.add_input(f"a{len(self._inp_vals)}", _tt(x))
+            self._inp_by_id[key] = nid
+            self._inp_vals.append(x)     # also pins id(x)
+        return nid
+
+    def const(self, value, dtype: str) -> int:
+        value = np.asarray(value)
+        return self.g.add("const", (), TensorType(tuple(value.shape), dtype),
+                          value=value, device=self.device or "cpu")
+
+    def operand_nid(self, v, like: TracedTensor) -> int:
+        if isinstance(v, (int, float, bool)):
+            return self.const(v, like.ttype.dtype)
+        return self.nid_of(v)
+
+    def handle(self, nid: int) -> TracedTensor:
+        h = TracedTensor(self, nid, self.g.nodes[nid].ttype)
+        self._handles.append(weakref.ref(h))
+        return h
+
+    def wrap(self, val) -> TracedTensor:
+        """Wrap a concrete tensor as a passthrough handle (region arg)."""
+        return TracedTensor(self, None, _tt(val), concrete=val)
+
+    def _pending(self) -> list[TracedTensor]:
+        out, live = [], []
+        for r in self._handles:
+            h = r()
+            if h is None:
+                continue
+            live.append(r)
+            if h._concrete is None and h.nid is not None:
+                out.append(h)
+        self._handles = live
+        return out
+
+    def _run(self, outs: list[TracedTensor]) -> None:
+        self.g.set_outputs([h.nid for h in outs])
+        key = ("region", self.g.signature()) + _cfg_key(self.cfg)
+        inputs = {f"a{i}": v for i, v in enumerate(self._inp_vals)}
+        fn = _CACHE.get(key)
+        if fn is None:
+            _CACHE_STATS["misses"] += 1
+            fn = _compile(self.g, self.cfg, key, region=True)
+        else:
+            _CACHE_STATS["hits"] += 1
+        self._last_fn = fn
+        for h, r in zip(outs, fn(inputs)):
+            h._concrete = r
+
+    def flush(self) -> None:
+        """Materialize the current segment; capture continues afresh."""
+        pending = self._pending()
+        if pending:
+            self._run(pending)
+        self.segments += 1
+        self.g = TaskGraph(f"{self.name}#{self.segments}")
+        self._inp_by_id = {}
+        self._inp_vals = []
+
+    def abandon(self) -> None:
+        self.closed = True
+
+
+def _region_stack() -> list:
+    if not hasattr(_tls, "regions"):
+        _tls.regions = []
+    return _tls.regions
+
+
+def _active_region() -> Optional[_Region]:
+    stack = _region_stack()
+    return stack[-1] if stack else None
+
+
+#: call-site program cache: (body identity, arg structure, leaf shapes /
+#: dtypes / devices, aliasing, config) -> a replay closure.  A hit skips
+#: tracing: one dict probe plus one call of the emitted program.  Values
+#: hold strong refs to the body so ids in the key cannot be recycled.
+_PROGRAMS: dict[tuple, tuple] = {}
+
+
+def _leaf_key(v):
+    if isinstance(v, torch.Tensor):
+        return ("arr", tuple(v.shape), dtype_name(v.dtype), str(v.device))
+    try:
+        hash(v)
+    except TypeError:
+        return None
+    return ("obj", v)
+
+
+def parallel_region(fn=None, *, name: Optional[str] = None):
+    """Decorator form of region capture: tensor arguments enter the region
+    as lazy handles, the returned structure is materialized (one pipeline
+    run + one emitted program for the whole body) and returned as concrete
+    tensors.  Structurally repeated calls replay through ``_PROGRAMS``."""
+    def deco(f):
+        f_id = (id(getattr(f, "__func__", f)), id(getattr(f, "__self__", None)))
+
+        @functools.wraps(f)
+        def wrapper(*args, **kwargs):
+            if _active_region() is not None or not get_config().regions:
+                return f(*args, **kwargs)
+            cfg = get_config()
+            leaves, spec = _flatten((args, kwargs))
+            lks = [_leaf_key(v) for v in leaves]
+            # aliasing pattern: which leaves are the SAME tensor object (the
+            # region dedups them into one input; a replay is valid only for
+            # calls with the identical aliasing)
+            first_seen: dict[int, int] = {}
+            alias = tuple(first_seen.setdefault(id(v), i)
+                          if isinstance(v, torch.Tensor) else -1
+                          for i, v in enumerate(leaves))
+            key = None
+            if all(k is not None for k in lks):
+                key = (f_id, spec, tuple(lks), alias) + _cfg_key(cfg)
+                hit = _PROGRAMS.get(key)
+                if hit is not None and hit[0] is getattr(f, "__func__", f):
+                    _CACHE_STATS["hits"] += 1
+                    return hit[2](leaves)
+
+            r = _Region(name or getattr(f, "__name__", "region"), cfg)
+            argpos: dict[int, int] = {}
+            for i, v in enumerate(leaves):
+                if isinstance(v, torch.Tensor):
+                    argpos.setdefault(id(v), i)
+            handles = [r.wrap(v) if isinstance(v, torch.Tensor) else v
+                       for v in leaves]
+            targs, tkwargs = _unflatten(spec, handles)
+            stack = _region_stack()
+            stack.append(r)
+            try:
+                out = f(*targs, **tkwargs)
+            except BaseException:
+                r.abandon()
+                raise
+            finally:
+                stack.pop()
+            out_leaves, out_spec = _flatten(out)
+            pending = r._pending()
+            if pending:
+                r._run(pending)
+            r.closed = True
+            _maybe_cache_program(key, f, r, pending, out_leaves, out_spec,
+                                 argpos)
+            return _unflatten(out_spec, [
+                v._concrete if isinstance(v, TracedTensor) else v
+                for v in out_leaves])
+        return wrapper
+    return deco(fn) if fn is not None else deco
+
+
+def _maybe_cache_program(key, f, r: _Region, pending, out_leaves,
+                         out_spec, argpos) -> None:
+    """Record a replay closure for this call site if the capture was clean:
+    no mid-region flush, every region input came from an argument leaf, and
+    the output is reconstructible from (results, arg leaves, constants)."""
+    if key is None or r.segments > 0 or not pending:
+        return
+    binding = []
+    for v in r._inp_vals:
+        j = argpos.get(id(v))
+        if j is None:
+            return          # closure-captured tensor: can't rebind safely
+        binding.append(j)
+    pend_idx = {id(h): i for i, h in enumerate(pending)}
+    spec = []
+    for lv in out_leaves:
+        if isinstance(lv, TracedTensor):
+            if id(lv) in pend_idx:
+                spec.append(("res", pend_idx[id(lv)]))
+            elif lv._concrete is not None and id(lv._concrete) in argpos:
+                spec.append(("arg", argpos[id(lv._concrete)]))
+            else:
+                return
+        elif isinstance(lv, torch.Tensor):
+            return          # stray tensor output: don't capture it
+        else:
+            spec.append(("const", lv))
+    fn_c, binding, spec = r._last_fn, tuple(binding), tuple(spec)
+
+    def replay(leaves, fn_c=fn_c, binding=binding, spec=spec,
+               out_spec=out_spec):
+        results = fn_c({f"a{i}": leaves[j] for i, j in enumerate(binding)})
+        outs = [results[i] if tag == "res"
+                else leaves[i] if tag == "arg" else i
+                for tag, i in spec]
+        return _unflatten(out_spec, outs)
+
+    _PROGRAMS[key] = (getattr(f, "__func__", f),
+                      getattr(f, "__self__", None), replay)
+
+
+# ---------------------------------------------------------------------------
+# Data-dependent indexing
+# ---------------------------------------------------------------------------
+
+
+def _index_operand(reg: _Region, ix) -> int:
+    """Graph value for one gather/scatter index operand: traced tensors are
+    graph values already; numpy integer arrays become ``const`` nodes (a
+    static pattern like ``np.arange(slots)`` must not become a fresh
+    region input per call — that would disable program replay); tensors
+    become region inputs."""
+    if isinstance(ix, TracedTensor):
+        return reg.nid_of(ix)
+    if isinstance(ix, (int, np.integer)):
+        ix = np.asarray(ix, np.int32)
+    if isinstance(ix, np.ndarray):
+        return reg.const(np.ascontiguousarray(ix, dtype=np.int32), "int32")
+    return reg.nid_of(ix)
+
+
+def _concrete(v):
+    if isinstance(v, TracedTensor):
+        return v.materialize()
+    if isinstance(v, np.ndarray):
+        return torch.as_tensor(v)
+    return v
+
+
+def gather(src, indices):
+    """Integer-array indexing with graph-value indices over the leading
+    axes: ``src[i0, i1, ...]``; out-of-range indices clamp (the
+    reference's semantics).  Inside a region it records ONE ``gather``
+    node."""
+    indices = tuple(indices) if isinstance(indices, (tuple, list)) \
+        else (indices,)
+    reg = _active_region()
+    if reg is None:
+        src = _concrete(src)
+        return gather_clamped(src, tuple(_concrete(i).to(src.device)
+                                         for i in indices))
+    si = reg.nid_of(src)
+    s_t = reg.g.nodes[si].ttype
+    idx_nids = tuple(_index_operand(reg, i) for i in indices)
+    ishape = np.broadcast_shapes(*[reg.g.nodes[n].ttype.shape
+                                   for n in idx_nids])
+    out_t = TensorType(tuple(int(s) for s in ishape)
+                       + tuple(s_t.shape[len(idx_nids):]), s_t.dtype)
+    nid = reg.g.add("gather", (si,) + idx_nids, out_t,
+                    pdims=tuple(range(len(out_t.shape))),
+                    n_idx=len(idx_nids))
+    return reg.handle(nid)
+
+
+def scatter(buf, indices, upd, mode: str = "set", donate: bool = True):
+    """Write ``upd`` into ``buf`` at integer-array indices over the leading
+    axes; out-of-range updates are dropped (the reference's semantics).
+
+    Inside a region the ``scatter`` node is never CSE'd and, with
+    ``donate=True``, writes a region-input ``buf`` in place (after every
+    read of the pre-write buffer).  Outside a region the write is
+    functional: ``buf`` is left as it was."""
+    indices = tuple(indices) if isinstance(indices, (tuple, list)) \
+        else (indices,)
+    reg = _active_region()
+    if reg is None:
+        b = _concrete(buf)
+        return scatter_drop(b, tuple(_concrete(i).to(b.device)
+                                     for i in indices),
+                            _concrete(upd), mode, in_place=False)
+    bi = reg.nid_of(buf)
+    b_t = reg.g.nodes[bi].ttype
+    idx_nids = tuple(_index_operand(reg, i) for i in indices)
+    ui = reg.nid_of(upd)
+    nid = reg.g.add("scatter", (bi,) + idx_nids + (ui,), b_t,
+                    pdims=tuple(range(len(b_t.shape))),
+                    donates=bi if donate else None,
+                    n_idx=len(idx_nids), mode=mode)
+    return reg.handle(nid)
+
+
+def lift(fn: Callable, *args, **static):
+    """Record a python composite as ONE region node (``pyfunc``), or one
+    node per output for tuple-returning fns.
+
+    ``fn(*tensors, **static)`` must be a pure torch function of its tensor
+    arguments that creates any tensor of its own on its inputs' device (it
+    runs once on ``meta`` tensors to infer output shapes).  Outside a region
+    this just calls ``fn``.  ``fn`` must be a module-level function (its
+    identity is part of the graph signature)."""
+    reg = _active_region()
+    if reg is None:
+        return fn(*args, **static)
+    nids = [reg.nid_of(a) for a in args]
+    metas = [torch.empty(reg.g.nodes[n].ttype.shape,
+                         dtype=to_torch_dtype(reg.g.nodes[n].ttype.dtype),
+                         device="meta") for n in nids]
+    out = fn(*metas, **static)
+    st = tuple(sorted(static.items()))
+    if isinstance(out, torch.Tensor):
+        nid = reg.g.add("pyfunc", tuple(nids), _tt(out), fn=fn, static=st)
+        return reg.handle(nid)
+    if isinstance(out, (tuple, list)) and all(
+            isinstance(o, torch.Tensor) for o in out):
+        return tuple(
+            reg.handle(reg.g.add("pyfunc", tuple(nids), _tt(o), fn=fn,
+                                 static=st, out=i))
+            for i, o in enumerate(out))
+    raise TypeError(f"lift({fn.__name__}) must return a tensor or a flat "
+                    f"tuple of tensors, got {type(out)}")
+
+
+def capture_region(fn: Callable, *args, **kwargs) -> TaskGraph:
+    """Trace ``fn`` under a region and return the RAW merged graph (outputs
+    set, pipeline NOT run, nothing executed)."""
+    r = _Region(getattr(fn, "__name__", "region"), get_config())
+    leaves, spec = _flatten((args, kwargs))
+    targs, tkwargs = _unflatten(spec, [
+        r.wrap(v) if isinstance(v, torch.Tensor) else v for v in leaves])
+    stack = _region_stack()
+    stack.append(r)
+    try:
+        out = fn(*targs, **tkwargs)
+    finally:
+        stack.pop()
+    outs = [v for v in _flatten(out)[0]
+            if isinstance(v, TracedTensor) and v.nid is not None]
+    r.g.set_outputs([h.nid for h in outs])
+    r.abandon()
+    return r.g
+
+
+# ---------------------------------------------------------------------------
+# Shared graph builders (the per-op path and the region tracer)
+# ---------------------------------------------------------------------------
+
+
+def _pd(t: TensorType) -> tuple[int, ...]:
+    return tuple(range(len(t.shape)))
+
+
+def _build_linear(g: TaskGraph, xi: int, wi: int, bi: Optional[int],
+                  ri: Optional[int], activation: Optional[str]) -> int:
+    x_t, w_t = g.nodes[xi].ttype, g.nodes[wi].ttype
+    out_t = TensorType(tuple(x_t.shape[:-1]) + (w_t.shape[-1],), x_t.dtype)
+    k = x_t.shape[-1]
+    head = g.add("matmul", (xi, wi), out_t, pdims=_pd(out_t),
+                 rdims=(("k", k),), k=k)
+    if bi is not None:
+        head = g.add("ew", (head, bi), out_t, pdims=_pd(out_t), fn="add")
+    if activation is not None:
+        head = g.add("ew", (head,), out_t, pdims=_pd(out_t), fn=activation)
+    if ri is not None:
+        head = g.add("ew", (head, ri), out_t, pdims=_pd(out_t), fn="add")
+    return head
+
+
+def _build_multi_linear(g: TaskGraph, xi: int, wis: Sequence[int],
+                        bis: Sequence[Optional[int]]) -> list[int]:
+    x_t = g.nodes[xi].ttype
+    k = x_t.shape[-1]
+    outs = []
+    for wi, bi in zip(wis, bis):
+        w_t = g.nodes[wi].ttype
+        out_t = TensorType(tuple(x_t.shape[:-1]) + (w_t.shape[-1],), x_t.dtype)
+        mm = g.add("matmul", (xi, wi), out_t, pdims=_pd(out_t),
+                   rdims=(("k", k),), k=k)
+        if bi is not None:
+            mm = g.add("ew", (mm, bi), out_t, pdims=_pd(out_t), fn="add")
+        outs.append(mm)
+    return outs
+
+
+def _build_gated_mlp(g: TaskGraph, xi: int, wgi: int, wui: int, wdi: int,
+                     activation: str) -> int:
+    x_t = g.nodes[xi].ttype
+    f = g.nodes[wgi].ttype.shape[-1]
+    hid_t = TensorType(tuple(x_t.shape[:-1]) + (f,), x_t.dtype)
+    k = x_t.shape[-1]
+    mg = g.add("matmul", (xi, wgi), hid_t, pdims=_pd(hid_t),
+               rdims=(("k", k),), k=k)
+    mu = g.add("matmul", (xi, wui), hid_t, pdims=_pd(hid_t),
+               rdims=(("k", k),), k=k)
+    act = g.add("ew", (mg,), hid_t, pdims=_pd(hid_t), fn=activation)
+    prod = g.add("ew", (act, mu), hid_t, pdims=_pd(hid_t), fn="mul")
+    out_t = TensorType(tuple(x_t.shape[:-1]) +
+                       (g.nodes[wdi].ttype.shape[-1],), x_t.dtype)
+    return g.add("matmul", (prod, wdi), out_t, pdims=_pd(out_t),
+                 rdims=(("k", f),), k=f)
+
+
+# ---------------------------------------------------------------------------
+# Ops
+# ---------------------------------------------------------------------------
+
+
+def _sig(t) -> tuple:
+    return (tuple(t.shape), dtype_name(t.dtype))
+
+
+def linear(x, w, b=None, activation: Optional[str] = None, residual=None):
+    """y = act(x @ w + b) (+ residual).  Library GEMM with open epilogue."""
+    reg = _active_region()
+    if reg is not None:
+        head = _build_linear(reg.g, reg.nid_of(x), reg.nid_of(w),
+                             None if b is None else reg.nid_of(b),
+                             None if residual is None else reg.nid_of(residual),
+                             activation)
+        return reg.handle(head)
+    sig = ("linear", _sig(x), _sig(w), None if b is None else _sig(b),
+           activation, None if residual is None else _sig(residual))
+    inputs = {"x": x, "w": w}
+    if b is not None:
+        inputs["b"] = b
+    if residual is not None:
+        inputs["res"] = residual
+
+    def build(g: TaskGraph):
+        xi = g.add_input("x", _tt(x))
+        wi = g.add_input("w", _tt(w))
+        bi = g.add_input("b", _tt(b)) if b is not None else None
+        ri = g.add_input("res", _tt(residual)) if residual is not None else None
+        g.set_outputs([_build_linear(g, xi, wi, bi, ri, activation)])
+
+    return _execute(sig, build, inputs)[0]
+
+
+def multi_linear(x, ws: Sequence, bs: Optional[Sequence] = None):
+    """k projections of the same activation (Q,K,V).  In tapir mode the
+    shared-input fusion pass turns these into ONE wide GEMM + slices."""
+    bs = list(bs) if bs is not None else [None] * len(ws)
+    reg = _active_region()
+    if reg is not None:
+        outs = _build_multi_linear(
+            reg.g, reg.nid_of(x), [reg.nid_of(w) for w in ws],
+            [None if b is None else reg.nid_of(b) for b in bs])
+        return tuple(reg.handle(o) for o in outs)
+    sig = ("multi_linear", _sig(x), tuple(_sig(w) for w in ws),
+           tuple(None if b is None else _sig(b) for b in bs))
+    inputs = {"x": x}
+    for i, w in enumerate(ws):
+        inputs[f"w{i}"] = w
+    for i, b in enumerate(bs):
+        if b is not None:
+            inputs[f"b{i}"] = b
+
+    def build(g: TaskGraph):
+        xi = g.add_input("x", _tt(x))
+        wis = [g.add_input(f"w{i}", _tt(w)) for i, w in enumerate(ws)]
+        bis = [g.add_input(f"b{i}", _tt(b)) if b is not None else None
+               for i, b in enumerate(bs)]
+        g.set_outputs(_build_multi_linear(g, xi, wis, bis))
+
+    return _execute(sig, build, inputs)
+
+
+def gated_mlp(x, w_gate, w_up, w_down, activation: str = "silu"):
+    """SwiGLU MLP: down( act(x@w_gate) * (x@w_up) ).  Gate/up share input ->
+    fused into one GEMM; the mul and the down-proj epilogue fuse too."""
+    reg = _active_region()
+    if reg is not None:
+        out = _build_gated_mlp(reg.g, reg.nid_of(x), reg.nid_of(w_gate),
+                               reg.nid_of(w_up), reg.nid_of(w_down),
+                               activation)
+        return reg.handle(out)
+    sig = ("gated_mlp", _sig(x), _sig(w_gate), _sig(w_up), _sig(w_down),
+           activation)
+    inputs = {"x": x, "wg": w_gate, "wu": w_up, "wd": w_down}
+
+    def build(g: TaskGraph):
+        xi = g.add_input("x", _tt(x))
+        wg = g.add_input("wg", _tt(w_gate))
+        wu = g.add_input("wu", _tt(w_up))
+        wd = g.add_input("wd", _tt(w_down))
+        g.set_outputs([_build_gated_mlp(g, xi, wg, wu, wd, activation)])
+
+    return _execute(sig, build, inputs)[0]
+
+
+# ---------------------------------------------------------------------------
+# Introspection
+# ---------------------------------------------------------------------------
+
+
+def cache_stats() -> dict:
+    return dict(_CACHE_STATS, size=len(_CACHE), programs=len(_PROGRAMS))
+
+
+def cached_graphs() -> dict[tuple, TaskGraph]:
+    """Optimized TaskGraphs by cache key."""
+    return dict(_GRAPHS)
+
+
+def explain(g: Optional[TaskGraph] = None) -> str:
+    """Per library node: the impl the registry chose, the candidate cost
+    table, tiles and schedule notes — for ``g``, or for every graph
+    compiled so far in this process."""
+    if g is not None:
+        return g.dump_schedule()
+    if not _GRAPHS:
+        return "(no compiled graphs yet — run something under tapir first)"
+    return "\n".join(gr.dump_schedule() for gr in _GRAPHS.values())
+
+
+def clear_cache() -> None:
+    """Drop every in-memory program, graph and replay entry."""
+    _CACHE.clear()
+    _GRAPHS.clear()
+    _PROGRAMS.clear()
+    _CACHE_STATS.update(hits=0, misses=0, pipeline_s=0.0, compiled_programs=0)

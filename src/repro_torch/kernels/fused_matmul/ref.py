@@ -1,0 +1,44 @@
+"""Plain PyTorch version of the fused GEMM + open epilogue: the kernel's
+reference on the card and the path a CPU tensor takes."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ...core.dtypes import to_torch_dtype
+
+_EW = {
+    "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
+    "maximum": torch.maximum, "minimum": torch.minimum, "neg": torch.neg,
+    "exp": torch.exp, "square": torch.square, "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid, "relu": torch.relu,
+    # jax.nn.gelu's default is the tanh approximation; torch's is not
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+}
+
+
+def apply_epilogue(y, epilogue):
+    """epilogue: list of (fn_name, [operand tensors], attrs).
+
+    An attrs ``dtype`` casts the running value first — the dtype the
+    un-fused consumer op computed in — so fusing is bitwise-invisible."""
+    for fn, vals, at in epilogue or []:
+        edt = at.get("dtype")
+        if edt is not None:
+            y = y.to(to_torch_dtype(edt))
+        vals = [torch.as_tensor(v).to(y.dtype) for v in vals]
+        f = _EW[fn]
+        if at.get("head_pos", 0) == 0:
+            y = f(y, *vals)
+        else:
+            y = f(vals[0], y, *vals[1:])
+    return y
+
+
+def fused_matmul_ref(x, w, epilogue=None, out_dtype=None):
+    """x: [..., m, k] @ w: [k, n] with fp32 accumulation, then epilogue."""
+    out_dtype = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    y = apply_epilogue(y, epilogue)
+    return y.to(out_dtype)

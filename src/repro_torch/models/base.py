@@ -1,0 +1,106 @@
+"""Model base: config, parameter specs (shape, logical axes, init rule) and
+the family registry — the port of the JAX package's ``models/base.py``."""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from ..core.dtypes import to_torch_dtype
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str = "dense"
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 1024
+    vocab: int = 1024
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope: str = "full"             # "full" | "half" (chatglm 2d rope)
+    norm: str = "rmsnorm"          # "rmsnorm" | "layernorm"
+    act: str = "silu"
+    gated_mlp: bool = True
+    tie_embeddings: bool = False
+    max_seq: int = 8192
+    # params live in param_dtype; the slot path computes in compute_dtype
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def n_params(self) -> float:
+        """Approximate parameter count (dense family)."""
+        d, L, ff, V = self.d_model, self.n_layers, self.d_ff, self.vocab
+        hd = self.hd
+        attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads \
+            + hd * self.n_heads * d
+        mlp = (3 if self.gated_mlp else 2) * d * ff
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + mlp) + emb
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    dtype: str
+    axes: tuple[Optional[str], ...]     # logical axis names per dim
+    init: str = "normal"                # normal|zeros|ones
+    scale: float = 1.0
+
+
+def materialize(spec: ParamSpec, generator: torch.Generator,
+                device) -> torch.Tensor:
+    """The reference's init rule: zeros, ones, or normal * scale /
+    sqrt(shape[0]) drawn from ``generator`` (its own stream: the numbers
+    differ from ``jax.random``'s for the same seed)."""
+    dt = to_torch_dtype(spec.dtype)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dt, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dt, device=device)
+    fan_in = spec.shape[0] if spec.shape else 1
+    std = spec.scale / math.sqrt(max(fan_in, 1))
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(dt)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  ``cuda`` (the default of every
+    entry point) raises when no card is present: the port never runs on
+    the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda is not "
+                           "available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+_REGISTRY: dict[str, Callable] = {}
+
+
+def register_family(name: str):
+    def deco(cls):
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def get_model(cfg: ModelConfig, **kwargs):
+    """Build the registered family's model (``kwargs``: device, params,
+    generator)."""
+    from . import transformer  # noqa: F401  (registers "dense")
+    if cfg.family not in _REGISTRY:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return _REGISTRY[cfg.family](cfg, **kwargs)

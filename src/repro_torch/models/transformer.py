@@ -1,0 +1,384 @@
+"""Dense GQA transformer LM — the slot-paged serving path of the JAX
+package's ``models/transformer.py``.
+
+``DenseLM`` is an ``nn.Module`` owning its parameters under the reference
+tree's names (``embed``, ``blocks.{wq,wk,wv,bq,bk,bv,wo,wg,wu,wd,ln1,ln2}``
+stacked ``[L, ...]``, ``ln_f``, ``lm_head``).  Params are kept in
+``param_dtype`` (fp32) and ``slot_params`` casts them once to the compute
+dtype, so every region input rebinds to the same tensors each step.
+
+Slot serving: the cache is per-layer page pools ``[P, page_len, Hkv, hd]``
+plus a per-slot page table ``ptab [slots, pps]`` and length vector ``pos``.
+Occupancy and page binding are DATA, not shape: each block of a decode step
+is ONE region program (per-slot RoPE rows gathered at ``pos``, K/V
+scattered in place at ``(ptab[s, pos // page_len], pos % page_len)``,
+masked attention over the gathered per-slot view ``pool[ptab[s]]``),
+replayed from ``_PROGRAMS`` whichever slots are live.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core import tapir
+from ..core.dtypes import to_torch_dtype
+from ..serve.pages import identity_row, page_geometry
+from . import layers as L
+from .base import ModelConfig, ParamSpec, materialize, register_family, \
+    resolve_device
+
+
+def _embed_lookup(embed, tokens, cdt: str):
+    return embed[tokens.to(torch.int64)].to(to_torch_dtype(cdt))
+
+
+def _block_specs(cfg: ModelConfig, n_layers: int) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    H, Hkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    pdt = cfg.param_dtype
+    Lx = (n_layers,)
+    spec = {
+        "ln1": ParamSpec(Lx + (d,), pdt, ("layers", "embed"), "ones"),
+        "ln2": ParamSpec(Lx + (d,), pdt, ("layers", "embed"), "ones"),
+        "wq": ParamSpec(Lx + (d, H * hd), pdt, ("layers", "embed", "heads")),
+        "wk": ParamSpec(Lx + (d, Hkv * hd), pdt, ("layers", "embed", "kv")),
+        "wv": ParamSpec(Lx + (d, Hkv * hd), pdt, ("layers", "embed", "kv")),
+        "wo": ParamSpec(Lx + (H * hd, d), pdt, ("layers", "heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = ParamSpec(Lx + (H * hd,), pdt, ("layers", "heads"), "zeros")
+        spec["bk"] = ParamSpec(Lx + (Hkv * hd,), pdt, ("layers", "kv"), "zeros")
+        spec["bv"] = ParamSpec(Lx + (Hkv * hd,), pdt, ("layers", "kv"), "zeros")
+    spec["wg"] = ParamSpec(Lx + (d, ff), pdt, ("layers", "embed", "mlp"))
+    spec["wu"] = ParamSpec(Lx + (d, ff), pdt, ("layers", "embed", "mlp"))
+    spec["wd"] = ParamSpec(Lx + (ff, d), pdt, ("layers", "mlp", "embed"))
+    return spec
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """ParamSpec tree with the reference's structure and names."""
+    p = {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), cfg.param_dtype,
+                           ("vocab", "embed"), scale=1.0),
+        "blocks": _block_specs(cfg, cfg.n_layers),
+        "ln_f": ParamSpec((cfg.d_model,), cfg.param_dtype, ("embed",), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), cfg.param_dtype,
+                                 ("embed", "vocab"))
+    return p
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+@register_family("dense")
+class DenseLM(nn.Module):
+    """Dense GQA transformer.  ``params`` (a tree like ``abstract_params``
+    of tensors) supplies the weights; otherwise they are drawn from
+    ``generator`` (default: seed 0 on ``device``) by the reference's init
+    rule.  ``device`` defaults to ``cuda`` and raises without a card."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 params: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "dense" or not cfg.gated_mlp:
+            raise NotImplementedError("only the gated dense family is ported")
+        self.cfg = cfg
+        dev = resolve_device(device)
+        specs = abstract_params(cfg)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            params = {
+                "embed": materialize(specs["embed"], generator, dev),
+                "blocks": {k: materialize(specs["blocks"][k], generator, dev)
+                           for k in sorted(specs["blocks"])},
+                "ln_f": materialize(specs["ln_f"], generator, dev),
+            }
+            if "lm_head" in specs:
+                params["lm_head"] = materialize(specs["lm_head"], generator,
+                                                dev)
+        for k, s in specs["blocks"].items():
+            got = tuple(params["blocks"][k].shape)
+            if got != s.shape:
+                raise ValueError(f"blocks.{k}: expected {s.shape}, got {got}")
+        self.embed = _frozen(params["embed"].to(dev))
+        self.blocks = nn.ParameterDict(
+            {k: _frozen(v.to(dev)) for k, v in params["blocks"].items()})
+        self.ln_f = _frozen(params["ln_f"].to(dev))
+        self.lm_head = _frozen(params["lm_head"].to(dev)) \
+            if "lm_head" in params else None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def supports_slots(self) -> bool:
+        return True
+
+    def _rope_frac(self) -> float:
+        return 0.5 if self.cfg.rope == "half" else 1.0
+
+    def _norm(self, x, scale):
+        return L.rmsnorm(x, scale) if self.cfg.norm == "rmsnorm" \
+            else L.layernorm(x, scale)
+
+    def _mlp(self, p, x):
+        return tapir.gated_mlp(x, p["wg"], p["wu"], p["wd"], self.cfg.act)
+
+    def _embed(self, embed, tokens):
+        return tapir.lift(_embed_lookup, embed, tokens,
+                          cdt=self.cfg.compute_dtype)
+
+    # -- slot-paged serving ----------------------------------------------
+    def init_slot_cache(self, slots: int, max_len: int,
+                        page_len: Optional[int] = None,
+                        shared_pages: Optional[int] = None) -> dict:
+        """Per-layer pools ``[P, page_len, Hkv, hd]`` (a python list: each
+        layer's pool is written in place on its own), the page table and
+        the per-slot lengths.  ``P = 1 (trash) + slots*pps + shared_pages``
+        (see ``serve.pages``)."""
+        cfg = self.cfg
+        kv = to_torch_dtype(cfg.compute_dtype)
+        pl, pps = page_geometry(max_len, page_len)
+        if shared_pages is None:
+            shared_pages = slots * pps
+        P = 1 + slots * pps + shared_pages
+        shape = (P, pl, cfg.n_kv_heads, cfg.hd)
+        dev = self.device
+        ptab = np.stack([identity_row(s, pps) for s in range(slots)])
+        return {"k": [torch.zeros(shape, dtype=kv, device=dev)
+                      for _ in range(cfg.n_layers)],
+                "v": [torch.zeros(shape, dtype=kv, device=dev)
+                      for _ in range(cfg.n_layers)],
+                "ptab": torch.as_tensor(ptab, device=dev),
+                "pos": torch.zeros((slots,), dtype=torch.int32, device=dev)}
+
+    def slot_params(self) -> dict:
+        """Per-layer param dicts + head params with STABLE tensor ids:
+        slicing and casting are hoisted out of the decode loop so every
+        region input rebinds to the same tensors and programs replay."""
+        cdt = to_torch_dtype(self.cfg.compute_dtype)
+        w = self.lm_head if self.lm_head is not None else self.embed.T
+        layers = [{k: v[i].to(cdt) for k, v in self.blocks.items()}
+                  for i in range(self.cfg.n_layers)]
+        return {"layers": layers,
+                "head": {"ln_f": self.ln_f.data, "w": w.data.to(cdt)},
+                "embed": self.embed.data}
+
+    def _slot_attn_body(self, p, x, rope_cos, rope_sin, ck, cv, pos, ptab):
+        """Attention sub-block over the paged pool; every data-dependent
+        piece (RoPE rows, page targets, per-slot lengths) is a graph value."""
+        cfg = self.cfg
+        B = x.shape[0]
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        xn = self._norm(x, p["ln1"])
+        bs = [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None
+        q, k, v = tapir.multi_linear(xn, [p["wq"], p["wk"], p["wv"]], bs)
+        q = q.reshape(B, 1, H, hd)
+        k = k.reshape(B, 1, Hkv, hd)
+        v = v.reshape(B, 1, Hkv, hd)
+        rot2 = rope_cos.shape[-1]
+        cos = tapir.gather(rope_cos, (pos,)).reshape(B, 1, rot2)
+        sin = tapir.gather(rope_sin, (pos,)).reshape(B, 1, rot2)
+        frac = self._rope_frac()
+        q = L.apply_rope(q, cos, sin, frac)
+        k = L.apply_rope(k, cos, sin, frac)
+        pidx, off = _page_coords_t(pos, page_len=int(ck.shape[1]))
+        phys = tapir.gather(ptab, (np.arange(B), pidx))
+        ck = tapir.scatter(ck, (phys, off), k.reshape(B, Hkv, hd))
+        cv = tapir.scatter(cv, (phys, off), v.reshape(B, Hkv, hd))
+        o = _paged_attention(q, ck, cv, ptab, pos + 1)
+        x = x + tapir.linear(o.reshape(B, 1, H * hd), p["wo"])
+        return x, ck, cv
+
+    def _slot_block_body(self, p, x, rope_cos, rope_sin, ck, cv, pos, ptab):
+        x, ck, cv = self._slot_attn_body(p, x, rope_cos, rope_sin, ck, cv,
+                                         pos, ptab)
+        x = x + self._mlp(p, self._norm(x, p["ln2"]))
+        return x, ck, cv
+
+    def _slot_prefill_attn_body(self, p, x, rope_cos, rope_sin, ck, cv,
+                                pos_vec, phys_vec, off_vec, prow, vlen):
+        """Prefill one request's rows into its page run (B == 1): K/V land
+        at ``(phys_vec[i], off_vec[i])`` (bucket padding past capacity
+        targets the trash page) and attention runs the masked composite
+        over the slot's gathered page view, so a suffix prefill computes
+        each row exactly as a full prefill does."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        xn = self._norm(x, p["ln1"])
+        bs = [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None
+        q, k, v = tapir.multi_linear(xn, [p["wq"], p["wk"], p["wv"]], bs)
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, Hkv, hd)
+        v = v.reshape(B, S, Hkv, hd)
+        cos = tapir.gather(rope_cos, (pos_vec,))
+        sin = tapir.gather(rope_sin, (pos_vec,))
+        frac = self._rope_frac()
+        q = L.apply_rope(q, cos, sin, frac)
+        k = L.apply_rope(k, cos, sin, frac)
+        ck = tapir.scatter(ck, (phys_vec, off_vec), k.reshape(S, Hkv, hd))
+        cv = tapir.scatter(cv, (phys_vec, off_vec), v.reshape(S, Hkv, hd))
+        o = _paged_prefill_attn(q, ck, cv, prow, vlen)
+        x = x + tapir.linear(o.reshape(B, S, H * hd), p["wo"])
+        return x, ck, cv
+
+    def _slot_prefill_block_body(self, p, x, rope_cos, rope_sin, ck, cv,
+                                 pos_vec, phys_vec, off_vec, prow, vlen):
+        x, ck, cv = self._slot_prefill_attn_body(
+            p, x, rope_cos, rope_sin, ck, cv, pos_vec, phys_vec, off_vec,
+            prow, vlen)
+        x = x + self._mlp(p, self._norm(x, p["ln2"]))
+        return x, ck, cv
+
+    def _slot_head_body(self, hp, x):
+        x = self._norm(x, hp["ln_f"])
+        return tapir.linear(x, hp["w"])[:, -1]
+
+    def decode_step_slots(self, sp, tokens, cache):
+        """One decode step for EVERY slot.  tokens: [slots, 1] int32 (free
+        slots carry don't-care tokens).  Returns (logits [slots, vocab],
+        cache); per-slot positions advance by one and the pools update in
+        place."""
+        cfg = self.cfg
+        h = self._embed(sp["embed"], tokens)
+        pl = cache["k"][0].shape[1]
+        ptab = cache["ptab"]
+        cos_t, sin_t = L.full_rope_table(ptab.shape[1] * pl, cfg.hd,
+                                         fraction=self._rope_frac(),
+                                         device=tokens.device)
+        pos = cache["pos"]
+        blk = tapir.parallel_region(self._slot_block_body,
+                                    name="slot_dense_block")
+        for i, p in enumerate(sp["layers"]):
+            h, ck, cv = blk(p, h, cos_t, sin_t, cache["k"][i], cache["v"][i],
+                            pos, ptab)
+            cache["k"][i], cache["v"][i] = ck, cv
+        head = tapir.parallel_region(self._slot_head_body, name="slot_head")
+        logits = head(sp["head"], h)
+        cache["pos"] = pos + 1
+        return logits, cache
+
+    def prefill_into_slot(self, sp, tokens, cache, slot: int, plen: int,
+                          start: int = 0):
+        """Insert one request into slot ``slot``.  tokens: [1, Sb] rows
+        ``[start, start + Sb)`` of the prompt, right-padded to a bucket;
+        ``start > 0`` is a suffix prefill over resident shared-prefix
+        pages.  Returns (logits [1, vocab] at prompt row plen-1, cache)."""
+        cfg = self.cfg
+        dev = tokens.device
+        Sb = tokens.shape[1]
+        pl = int(cache["k"][0].shape[1])
+        row = cache["ptab"][slot].cpu().numpy()
+        pps = row.shape[0]
+        max_len = pps * pl
+        h = self._embed(sp["embed"], tokens)
+        cos_t, sin_t = L.full_rope_table(max(max_len, Sb), cfg.hd,
+                                         fraction=self._rope_frac(),
+                                         device=dev)
+        p_abs = start + np.arange(Sb)
+        ok = p_abs < max_len
+        pidx = np.minimum(p_abs // pl, pps - 1)
+        phys = np.where(ok, row[pidx], 0).astype(np.int32)
+        off = np.where(ok, p_abs % pl, 0).astype(np.int32)
+        pos_clip = np.minimum(p_abs, cos_t.shape[0] - 1).astype(np.int32)
+        # device tensors: rebindable region inputs, not baked-in consts
+        pos_vec = torch.as_tensor(pos_clip, device=dev)
+        phys_vec = torch.as_tensor(phys, device=dev)
+        off_vec = torch.as_tensor(off, device=dev)
+        prow = torch.as_tensor(row, device=dev)
+        vlen = torch.tensor(start + Sb, dtype=torch.int32, device=dev)
+        blk = tapir.parallel_region(self._slot_prefill_block_body,
+                                    name="slot_dense_prefill")
+        for i, p in enumerate(sp["layers"]):
+            h, ck, cv = blk(p, h, cos_t, sin_t, cache["k"][i], cache["v"][i],
+                            pos_vec, phys_vec, off_vec, prow, vlen)
+            cache["k"][i], cache["v"][i] = ck, cv
+        r = plen - 1 - start
+        head = tapir.parallel_region(self._slot_head_body, name="slot_head")
+        logits = head(sp["head"], h[:, r:r + 1])
+        cache["pos"][slot] = plen
+        return logits, cache
+
+
+def _masked_decode_attention(q, ck, cv, valid_len):
+    """Masked attention over a static-length KV view.  q: [B,S,H,hd],
+    ck/cv: [B,maxlen,Hkv,hd]; key positions >= the query's position are
+    masked; ``valid_len`` is a scalar or a per-slot [B] vector.  Scores and
+    the PV product accumulate in fp32 (the reference's
+    ``preferred_element_type``), and masked scores take fp32's most
+    negative finite value, as there."""
+    B, S, H, hd = q.shape
+    maxlen, Hkv = ck.shape[1], ck.shape[2]
+    grp = H // Hkv
+    f32 = torch.float32
+    qg = q.reshape(B, S, Hkv, grp, hd).to(f32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.to(f32)) / np.sqrt(hd)
+    kpos = torch.arange(maxlen, device=q.device)
+    qpos = valid_len[..., None] - S + torch.arange(S, device=q.device)
+    mask = kpos <= qpos[..., None]
+    if mask.ndim == 2:
+        mask = mask[None]
+    s = torch.where(mask[:, None, None], s, torch.finfo(f32).min)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(cv.dtype).to(f32),
+                     cv.to(f32))
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _page_coords(pos, *, page_len):
+    """Split absolute positions into (page index, in-page offset)."""
+    return ((pos // page_len).to(torch.int32),
+            (pos % page_len).to(torch.int32))
+
+
+def _page_coords_t(pos, *, page_len):
+    if tapir.is_traced(pos):
+        return tapir.lift(_page_coords, pos, page_len=page_len)
+    return _page_coords(pos, page_len=page_len)
+
+
+def _paged_decode_attention(q, ck, cv, ptab, valid_len):
+    """Masked attention over each slot's view ``pool[ptab[s]]`` of the page
+    pool: each query row depends only on its own keys, never on which
+    pages back them."""
+    B = q.shape[0]
+    pl, Hkv, hd = ck.shape[1], ck.shape[2], ck.shape[3]
+    pps = ptab.shape[-1]
+    idx = ptab.to(torch.int64)
+    vk = ck[idx].reshape(B, pps * pl, Hkv, hd)
+    vv = cv[idx].reshape(B, pps * pl, Hkv, hd)
+    return _masked_decode_attention(q, vk, vv, valid_len)
+
+
+def _paged_attention(q, ck, cv, ptab, valid_len):
+    if any(tapir.is_traced(t) for t in (q, ck, cv, ptab, valid_len)):
+        return tapir.lift(_paged_decode_attention, q, ck, cv, ptab, valid_len)
+    return _paged_decode_attention(q, ck, cv, ptab, valid_len)
+
+
+def _paged_prefill_attention(q, ck, cv, prow, valid_len):
+    """Prefill attention for one slot through its page row (q: [1,S,H,hd],
+    prow: [pps]); the masked decode composite, so a suffix prefill is
+    row-for-row equal to a full one."""
+    pl, Hkv, hd = ck.shape[1], ck.shape[2], ck.shape[3]
+    pps = prow.shape[-1]
+    idx = prow.to(torch.int64)
+    vk = ck[idx].reshape(1, pps * pl, Hkv, hd)
+    vv = cv[idx].reshape(1, pps * pl, Hkv, hd)
+    return _masked_decode_attention(q, vk, vv, valid_len)
+
+
+def _paged_prefill_attn(q, ck, cv, prow, valid_len):
+    if any(tapir.is_traced(t) for t in (q, ck, cv, prow, valid_len)):
+        return tapir.lift(_paged_prefill_attention, q, ck, cv, prow,
+                          valid_len)
+    return _paged_prefill_attention(q, ck, cv, prow, valid_len)

@@ -1,0 +1,481 @@
+"""Serving: slot-paged KV cache with mid-wave continuous batching — the port
+of the JAX package's ``serve/engine.py`` slot path.
+
+``ServingEngine`` schedules requests over a fixed pool of ``slots``:
+
+* **admit** — a request enters any free slot *mid-decode* through
+  ``model.prefill_into_slot``: its prompt (right-padded to a power-of-two
+  bucket) prefills in one shot; a resident shared prefix is bound first so
+  only the divergent suffix runs (an exact-cover prompt copies its boundary
+  page on write).
+* **decode** — every step runs ALL slots through
+  ``model.decode_step_slots``: each block is ONE region program replayed
+  from ``_PROGRAMS`` whichever slots are live; pools update in place.
+* **free** — a finished request releases its slot at once.  A strictly
+  higher-priority arrival may preempt the lowest-priority slot, parked
+  (pages copied aside) or dropped for replay, by the ``preempt_cost``
+  roofline.
+
+``run_wave`` is the A/B baseline: the same slot primitives with wave
+admission.  Per-request outputs are bitwise identical between the two,
+between prefix sharing on and off, and between regions on and off.
+
+The host reads each step's argmax tokens (the reference's behaviour); the
+loop adds no other device synchronization.
+
+Not in this slice: fault injection, checkpoints, the straggler watchdog,
+meshes and the persistent program cache.  Asking for one raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..core.schedule import CPU_COST_MODEL, H100_COST_MODEL
+from ..core.tapir import TapirConfig, cache_stats, use
+from ..models.base import resolve_device
+from ..models.layers import bucket_pow2
+from .pages import (PagePool, copy_cache_pages, identity_row, preempt_cost,
+                    private_page)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    mode: str = "tapir"
+    #: schedule cost model: "gpu" (the H100 profile) | "cpu"
+    target: str = "gpu"
+    #: region capture (False = the per-op control)
+    regions: bool = True
+    #: "strict" raises on a request whose prompt + max_new overflows the
+    #: slot page; "reject" counts it and serves the rest; "slo" also sheds
+    #: requests whose ``deadline_s`` the observed step p50 cannot meet
+    admit_policy: str = "strict"
+    #: bind resident shared-prefix pages on admit (prefill only the suffix)
+    prefix_sharing: bool = True
+    #: KV page length (None: 64 when it divides max_len, else max_len)
+    page_len: Optional[int] = None
+    #: shared-region size in pages (None: one slot's worth per slot)
+    shared_pages: Optional[int] = None
+    #: eviction arm for priority preemption: "auto" | "park" | "replay"
+    preempt_mode: str = "auto"
+    #: not ported yet; setting any of them raises NotImplementedError
+    fault_injector: Any = None
+    ckpt_dir: Optional[str] = None
+    program_cache_dir: Optional[str] = None
+
+    def __post_init__(self):
+        for name in ("fault_injector", "ckpt_dir", "program_cache_dir"):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"ServeConfig.{name} is not ported to the torch engine "
+                    f"yet")
+        if self.target not in ("gpu", "cpu"):
+            raise ValueError(f"target must be 'gpu' or 'cpu', got "
+                             f"{self.target!r}")
+        if self.admit_policy not in ("strict", "reject", "slo"):
+            raise ValueError(
+                f"admit_policy must be 'strict', 'reject' or 'slo', "
+                f"got {self.admit_policy!r}")
+        if self.preempt_mode not in ("auto", "park", "replay"):
+            raise ValueError(
+                f"preempt_mode must be 'auto', 'park' or 'replay', "
+                f"got {self.preempt_mode!r}")
+        if self.page_len is not None and self.page_len <= 0:
+            raise ValueError(f"page_len must be positive, got "
+                             f"{self.page_len}")
+        if self.shared_pages is not None and self.shared_pages < 0:
+            raise ValueError(f"shared_pages must be >= 0, got "
+                             f"{self.shared_pages}")
+
+    def cost_model(self):
+        return H100_COST_MODEL if self.target == "gpu" else CPU_COST_MODEL
+
+    def tapir_config(self) -> TapirConfig:
+        return TapirConfig(mode=self.mode, cost_model=self.cost_model(),
+                           regions=self.regions)
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # [S] int32
+    max_new: int = 32
+    #: scheduling priority, 0 (lowest) .. 9 (highest)
+    priority: int = 0
+    #: SLO deadline in seconds from run start (admit_policy="slo")
+    deadline_s: Optional[float] = None
+    #: earliest pool decode step at which the request is schedulable
+    arrival_step: int = 0
+    out: list = field(default_factory=list)
+    done: bool = False
+
+    def __post_init__(self):
+        if not 0 <= int(self.priority) <= 9:
+            raise ValueError(
+                f"request {self.rid}: priority must be in 0..9, got "
+                f"{self.priority}")
+        if self.arrival_step < 0:
+            raise ValueError(
+                f"request {self.rid}: arrival_step must be >= 0, got "
+                f"{self.arrival_step}")
+
+
+@dataclass
+class _SlotRunState:
+    cache: Any
+    slot_idx: list               # per-slot index into ``requests``, -1 free
+    slot_steps: list             # per-slot decode-step budget used
+    tokens: np.ndarray           # [slots, 1] next feed token per slot
+    pool: PagePool
+    ptab_host: np.ndarray        # [slots, pps] mirror of cache["ptab"]
+    pending: list = field(default_factory=list)
+    fed: list = field(default_factory=list)      # per-slot out tokens fed
+    slot_seq: list = field(default_factory=list)  # admission order stamp
+    seq: int = 0
+    parked: dict = field(default_factory=dict)   # rid -> feed-state record
+    step: int = 0                # completed pool-wide scheduler ticks
+    occ_sum: float = 0.0
+    step_s: list = field(default_factory=list)  # wall time per decode step
+    ttft: list = field(default_factory=list)
+    qwait: list = field(default_factory=list)
+    st: dict = field(default_factory=dict)
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(xs, q)) if xs else 0.0
+
+
+class ServingEngine:
+    """Host-side serving loop: a slot allocator over a paged KV cache
+    (continuous batching, greedy sampling)."""
+
+    def __init__(self, model, batch: int = 8, max_len: int = 2048,
+                 cfg: ServeConfig = ServeConfig(), device="cuda", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("meshes are not ported to the torch "
+                                      "engine yet")
+        self.device = resolve_device(device)
+        if model.device.type != self.device.type:
+            raise ValueError(f"model lives on {model.device}, engine on "
+                             f"{self.device}")
+        if not model.supports_slots():
+            raise NotImplementedError("only slot-capable families are ported")
+        self.model = model
+        self.batch, self.max_len = batch, max_len
+        self.slots = batch
+        self.cfg = cfg
+        #: scheduling stats of the most recent ``run``/``run_wave`` call
+        self.last_stats: dict = {}
+        self._sp = None            # lazy pre-cast slot params
+
+    def run(self, requests: list[Request],
+            max_steps: int = 256) -> list[Request]:
+        """Continuous batching: requests admit into free slots mid-decode,
+        finished slots free immediately.  ``max_steps`` caps each request's
+        decode-step budget (exhausted: freed with ``done=False``)."""
+        return self._run_slots(requests, max_steps, continuous=True)
+
+    def run_wave(self, requests: list[Request],
+                 max_steps: int = 256) -> list[Request]:
+        """A/B baseline: the same slot primitives with WAVE scheduling —
+        admit a full batch, decode until every member finishes, repeat."""
+        return self._run_slots(requests, max_steps, continuous=False)
+
+    def _fresh_slot_state(self, requests) -> _SlotRunState:
+        for r in requests:
+            r.out, r.done = [], False
+        cfg = self.cfg
+        pool = PagePool(self.slots, self.max_len, cfg.page_len,
+                        cfg.shared_pages)
+        return _SlotRunState(
+            cache=self.model.init_slot_cache(self.slots, self.max_len,
+                                             cfg.page_len, cfg.shared_pages),
+            slot_idx=[-1] * self.slots,
+            slot_steps=[0] * self.slots,
+            tokens=np.zeros((self.slots, 1), np.int32),
+            pool=pool,
+            ptab_host=np.stack([identity_row(s, pool.pps)
+                                for s in range(self.slots)]),
+            pending=list(range(len(requests))),
+            fed=[0] * self.slots,
+            slot_seq=[0] * self.slots,
+            st={"tokens": 0, "admitted": 0, "rejected": 0, "preempted": 0,
+                "decode_steps": 0, "prefix_hits": 0,
+                "prefix_tokens_saved": 0, "preemptions": 0, "parked": 0,
+                "replayed": 0, "slo_shed": 0})
+
+    def _run_slots(self, requests, max_steps: int, continuous: bool):
+        compiled0 = cache_stats()["compiled_programs"]
+        t0 = time.perf_counter()
+        with use(self.cfg.tapir_config()):
+            if self._sp is None:
+                self._sp = self.model.slot_params()
+            rs = self._fresh_slot_state(requests)
+            self._slot_session(requests, max_steps, continuous, rs, t0)
+        wall = time.perf_counter() - t0
+        st = rs.st
+        st.update(step_p50=_pct(rs.step_s, 50), step_p95=_pct(rs.step_s, 95),
+                  ttft_p50=_pct(rs.ttft, 50), ttft_p95=_pct(rs.ttft, 95),
+                  queue_wait_p50=_pct(rs.qwait, 50),
+                  queue_wait_p95=_pct(rs.qwait, 95),
+                  wall_s=wall,
+                  tok_per_s=st["tokens"] / wall if wall > 0 else 0.0,
+                  mean_occupancy=(rs.occ_sum / st["decode_steps"]
+                                  if st["decode_steps"] else 0.0),
+                  compiled_programs=cache_stats()["compiled_programs"]
+                  - compiled0)
+        self.last_stats = st
+        return requests
+
+    # -- page-policy helpers ---------------------------------------------
+    def _push_ptab(self, rs: _SlotRunState) -> None:
+        """Mirror the host page table to the device: page indirection is
+        DATA, so this is the only thing a rebinding ever changes."""
+        rs.cache["ptab"] = torch.as_tensor(rs.ptab_host, device=self.device)
+
+    def _reset_slot(self, s: int, rs: _SlotRunState) -> None:
+        rs.ptab_host[s] = identity_row(s, rs.pool.pps)
+        self._push_ptab(rs)
+        rs.cache["pos"][s] = 0
+
+    def _release(self, s: int, rs: _SlotRunState, slot_req) -> None:
+        """Free slot ``s``: drop its shared-prefix binding and reset its
+        page-table row to the private identity run."""
+        rs.pool.unbind(s)
+        slot_req[s] = None
+        rs.slot_idx[s] = -1
+        self._reset_slot(s, rs)
+
+    def _flops_per_tok(self) -> float:
+        return 2.0 * sum(p.numel() for p in self.model.parameters())
+
+    def _page_bytes(self, rs: _SlotRunState) -> int:
+        """Bytes one page copy moves (K+V, all layers)."""
+        k0 = rs.cache["k"][0]
+        return k0[0].numel() * k0.element_size() * len(rs.cache["k"]) * 2
+
+    def _admit_into(self, requests, idx: int, s: int, rs: _SlotRunState,
+                    slot_req, t0: float) -> None:
+        """Admit ``requests[idx]`` into free slot ``s``: resume it from
+        parked pages, replay it from its recorded tokens, or prefill it
+        fresh — binding any resident shared prefix first."""
+        model, cfg, pool, sp = self.model, self.cfg, rs.pool, self._sp
+        r = requests[idx]
+        plen = len(r.prompt)
+        # the slot's page run must hold every position a decode step will
+        # write: past capacity the write would be DROPPED while sampling
+        # went on — corrupt output, so refuse at admission instead
+        if plen + r.max_new - 1 > self.max_len:
+            if cfg.admit_policy in ("reject", "slo"):
+                rs.pending.remove(idx)
+                rs.st["rejected"] += 1
+                return
+            raise ValueError(
+                f"request {r.rid}: prompt ({plen}) + "
+                f"max_new ({r.max_new}) overflows the "
+                f"slot page (max_len={self.max_len})")
+        rs.pending.remove(idx)
+        if r.rid in pool.parked:
+            rec = pool.resume(rs.cache, r.rid, s)
+            row = identity_row(s, pool.pps)
+            ent = pool.entries.get(rec["entry"]) if rec["entry"] else None
+            if ent is not None:
+                row[:rec["bound"]] = ent.pages[:rec["bound"]]
+            rs.ptab_host[s] = row
+            self._push_ptab(rs)
+            rs.cache["pos"][s] = rec["length"]
+            hp = rs.parked.pop(r.rid)
+            rs.tokens[s, 0] = hp["tok"]
+            rs.slot_steps[s] = hp["steps"]
+            rs.fed[s] = hp["fed"]
+            slot_req[s] = r
+            rs.slot_idx[s] = idx
+            rs.seq += 1
+            rs.slot_seq[s] = rs.seq
+            return
+        replaying = bool(r.out)
+        prompt = np.asarray(r.prompt, np.int32)
+        k, pages = pool.lookup(prompt) if cfg.prefix_sharing else (0, [])
+        row = identity_row(s, pool.pps)
+        start = 0
+        if k > 0:
+            pool.bind(s, prompt, k)
+            if plen == k * pool.page_len:
+                # exact cover: the last token must re-run for its logits and
+                # its K/V write would land in the boundary shared page —
+                # copy that page into the private run first
+                copy_cache_pages(rs.cache, [pages[k - 1]],
+                                 [private_page(s, k - 1, pool.pps)])
+                pool.slot_bound[s] = k - 1
+                row[:k - 1] = pages[:k - 1]
+                start = plen - 1
+            else:
+                row[:k] = pages[:k]
+                start = k * pool.page_len
+            rs.st["prefix_hits"] += 1
+            rs.st["prefix_tokens_saved"] += start
+        rs.ptab_host[s] = row
+        self._push_ptab(rs)
+        suf = prompt[start:]
+        padded = np.zeros((1, min(bucket_pow2(len(suf)), self.max_len)),
+                          np.int32)
+        padded[0, :len(suf)] = suf
+        logits, rs.cache = model.prefill_into_slot(
+            sp, torch.as_tensor(padded, device=self.device), rs.cache, s,
+            plen, start=start)
+        tok = int(torch.argmax(logits, -1)[0])
+        if not replaying:
+            r.out.append(tok)
+            rs.st["admitted"] += 1
+            rs.st["tokens"] += 1
+            now = time.perf_counter() - t0
+            rs.qwait.append(now)
+            rs.ttft.append(now)
+        if cfg.prefix_sharing and k == 0:
+            # total miss: publish the prompt-covering pages so the NEXT
+            # request sharing this prefix prefills only its suffix
+            pool.publish(rs.cache, s, prompt)
+        rs.fed[s] = 1
+        rs.tokens[s, 0] = r.out[0]
+        if not replaying and len(r.out) >= r.max_new:
+            r.done = True
+            rs.pool.unbind(s)
+            self._reset_slot(s, rs)
+            return
+        slot_req[s] = r
+        rs.slot_idx[s] = idx
+        rs.slot_steps[s] = len(r.out) - 1 if replaying else 0
+        rs.seq += 1
+        rs.slot_seq[s] = rs.seq
+
+    def _slo_shed(self, requests, elig: list, rs: _SlotRunState,
+                  t0: float) -> list:
+        """admit_policy="slo": drop eligible requests whose deadline the
+        observed p50 step time says can no longer be met."""
+        if self.cfg.admit_policy != "slo":
+            return elig
+        now = time.perf_counter() - t0
+        p50 = _pct(rs.step_s, 50)
+        keep = []
+        for i in elig:
+            r = requests[i]
+            if r.deadline_s is not None:
+                est = (r.max_new - len(r.out)) * p50
+                if now + est > r.deadline_s:
+                    rs.pending.remove(i)
+                    rs.st["rejected"] += 1
+                    rs.st["slo_shed"] += 1
+                    continue
+            keep.append(i)
+        return keep
+
+    def _preempt_for(self, requests, idx: int, rs: _SlotRunState,
+                     slot_req) -> Optional[int]:
+        """Evict the lowest-priority running slot (ties: most recently
+        admitted) iff ``requests[idx]`` outranks it STRICTLY; the victim is
+        parked or dropped for replay, whichever ``preempt_cost`` prices
+        cheaper, and re-enters the queue.  Returns the freed slot, or None."""
+        cfg, pool = self.cfg, rs.pool
+        occ = [(requests[rs.slot_idx[s]].priority, -rs.slot_seq[s], s)
+               for s in range(self.slots) if slot_req[s] is not None]
+        if not occ:
+            return None
+        vprio, _, s = min(occ)
+        if requests[idx].priority <= vprio:
+            return None
+        victim = slot_req[s]
+        length = int(rs.cache["pos"][s])
+        arm = cfg.preempt_mode
+        if arm == "auto":
+            arm = preempt_cost(
+                cfg.cost_model(), length=length,
+                prefix_len=pool.slot_bound[s] * pool.page_len,
+                n_out=len(victim.out), page_bytes=self._page_bytes(rs),
+                pps=pool.pps, page_len=pool.page_len,
+                model_flops_per_tok=self._flops_per_tok(),
+                step_s=(_pct(rs.step_s, 50) or 1e-3)).arm
+        if arm == "park":
+            if pool.park(rs.cache, victim.rid, s, length):
+                rs.parked[victim.rid] = {"tok": int(rs.tokens[s, 0]),
+                                         "steps": rs.slot_steps[s],
+                                         "fed": rs.fed[s]}
+                rs.st["parked"] += 1
+            else:
+                arm = "replay"     # shared region full: drop the pages
+        if arm == "replay":
+            pool.unbind(s)
+            rs.st["replayed"] += 1
+        rs.st["preemptions"] += 1
+        rs.pending.append(rs.slot_idx[s])
+        slot_req[s] = None
+        rs.slot_idx[s] = -1
+        self._reset_slot(s, rs)
+        return s
+
+    def _slot_session(self, requests, max_steps: int, continuous: bool,
+                      rs: _SlotRunState, t0: float) -> None:
+        model, sp = self.model, self._sp
+
+        def eligible():
+            # highest priority first; FIFO (submission index) within one
+            return sorted((i for i in rs.pending
+                           if requests[i].arrival_step <= rs.step),
+                          key=lambda i: (-requests[i].priority, i))
+
+        slot_req: list[Optional[Request]] = [None] * self.slots
+        while rs.pending or any(r is not None for r in slot_req):
+            # admission: continuous fills ANY free slot every tick; wave
+            # only refills once the whole pool has drained
+            if continuous or all(r is None for r in slot_req):
+                for idx in self._slo_shed(requests, eligible(), rs, t0):
+                    s = next((t for t in range(self.slots)
+                              if slot_req[t] is None), None)
+                    if s is None:
+                        break
+                    self._admit_into(requests, idx, s, rs, slot_req, t0)
+                if continuous:
+                    elig = eligible()
+                    if elig and all(r is not None for r in slot_req):
+                        s = self._preempt_for(requests, elig[0], rs, slot_req)
+                        if s is not None:
+                            self._admit_into(requests, elig[0], s, rs,
+                                             slot_req, t0)
+            if not any(r is not None for r in slot_req):
+                if rs.pending:
+                    rs.step += 1    # nothing runnable yet: advance the clock
+                continue
+            # one decode step for the WHOLE pool (free slots carry
+            # don't-care tokens; their writes land in their own pages)
+            rs.occ_sum += sum(r is not None for r in slot_req) / self.slots
+            rs.st["decode_steps"] += 1
+            t_step = time.perf_counter()
+            logits, rs.cache = model.decode_step_slots(
+                sp, torch.as_tensor(rs.tokens, device=self.device), rs.cache)
+            nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+            rs.step_s.append(time.perf_counter() - t_step)
+            for s, r in enumerate(slot_req):
+                if r is None:
+                    continue
+                tok = int(nxt[s])
+                if rs.fed[s] < len(r.out):
+                    # replaying a preempted request: feed the record forward
+                    rs.tokens[s, 0] = r.out[rs.fed[s]]
+                    rs.fed[s] += 1
+                    continue
+                r.out.append(tok)
+                rs.fed[s] += 1
+                rs.st["tokens"] += 1
+                rs.tokens[s, 0] = tok
+                rs.slot_steps[s] += 1
+                if len(r.out) >= r.max_new:
+                    r.done = True
+                if r.done or rs.slot_steps[s] >= max_steps:
+                    if not r.done:
+                        rs.st["preempted"] += 1
+                    self._release(s, rs, slot_req)
+            rs.step += 1
