@@ -3,31 +3,42 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line; any failure exits non-zero.  Every
+main-path run zeroes both kernels' launch counts just before it and reads
+them just after:
 
-1. device and build — the card's name and power limit, then the kernel
-   library built by nvcc from the checkout's CUDA source;
+1. device and build — the card's name and power limit, then both kernel
+   libraries built by nvcc from the checkout's CUDA sources, in parallel;
 2. serve — qwen2.5-3b at full width (all 36 layers, random weights from a
    seed) through ``ServingEngine.run``: 4 slots, max_len 512, 6 requests of
-   48-200 prompt tokens (3 sharing a 128-token prefix), 16 new tokens each.
-   The kernel launch counts are zeroed just before and read just after;
-3. kernel vs plain — ``fused_matmul`` against ``fused_matmul_ref`` on the
-   card at every (m, n, k, epilogue) the serve phase launched, in bf16 and
-   fp32, plus a chain with unary, row and full stages, ``head_pos=1`` and a
-   bf16 stage cast;
-4. small parity — the slot path on the card against the same path on the
-   CPU (the kernels' plain versions) at the SMOKE config in fp32: logits
-   of a prefill and three decode steps within 1e-3;
-5. port-internal guarantees on the card — ``run`` equals ``run_wave``,
-   prefix sharing on equals off, and the per-op control
-   (``mode="opaque"``: no fusion, every GEMM its own launch) equals the
-   fused path, per request, token for token; each of these runs has its
-   launch counts zeroed before it and checked after it;
-6. profile — full-occupancy decode steps under ``torch.profiler``: host
-   wall time, device time by kernel, device busy share, finite logits;
-7. times — per path shape: the kernel, its plain version, ``torch.matmul``
-   / ``torch.addmm`` (the library yardstick, never called by the port) and
-   the roofline bound.
+   48-200 prompt tokens (3 sharing a 128-token prefix), 16 new tokens each;
+3. forward — ``forward`` and ``loss`` of the same model on 2 x 2048 tokens:
+   36 ``flash_attention`` launches per call, every attention node bound to
+   ``flash_kernel``, finite logits and loss, wall time, peak memory and a
+   profile of the device time by kernel;
+4. forward guarantees — the region forward equals the per-op forward
+   (``TapirConfig(regions=False)``) bitwise; the per-op control's
+   (``mode="opaque"``) largest difference from it;
+5. padded prefill/decode — ``make_prefill_step`` / ``make_decode_step`` on
+   4 prompts of 512 tokens (max_len 1024), then 16 greedy decode steps: 36
+   flash launches per prefill, the K/V caches written in place, the
+   prefill's logits against ``forward``'s at position 511;
+6. kernel vs plain — ``fused_matmul`` against ``fused_matmul_ref`` at every
+   (m, n, k, epilogue) the paths launched, in bf16 and fp32, plus a chain
+   with unary, row and full stages; ``flash_attention`` against
+   ``flash_attention_ref`` at every path shape, SMOKE, a causal query
+   offset, ragged 1000-key causal and non-causal calls and 8192 tokens;
+7. small parity — at the SMOKE config in fp32, the slot path and the
+   forward/prefill/decode path on the card against the same code on the
+   CPU (the kernels' plain versions);
+8. port-internal guarantees on the card — ``run`` equals ``run_wave``,
+   prefix sharing on equals off, and the per-op control equals the fused
+   path, per request, token for token, each run with its counts checked;
+9. profile — full-occupancy slot decode steps under ``torch.profiler``;
+10. times — per path shape: each kernel, its plain version, the library
+   yardstick (``torch.matmul`` / ``torch.addmm``,
+   ``scaled_dot_product_attention``; never called by the port) and the
+   roofline bound.
 
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
@@ -35,11 +46,14 @@ repository is not beside this file.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -50,6 +64,17 @@ SLOTS, MAX_LEN, MAX_NEW = 4, 512, 16
 SOURCE = "src/repro_torch/kernels/fused_matmul/csrc/fused_matmul.cu"
 REPLACES = "src/repro/kernels/fused_matmul/kernel.py:64"
 TOL = {"bfloat16": 0.1, "float32": 2e-3}   # max |kernel - plain|
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:77"
+#: max |kernel - plain|: the JAX package's own flash tolerances
+#: (tests/test_kernels.py)
+FA_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
+#: max over (batch, query, head) rows of max |kernel - plain| / max |plain|:
+#: a late causal row's values are about the size of FA_TOL's bf16 bound, so
+#: each row is also held to a few bf16 ulps of its own largest value
+FA_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+FWD_B, FWD_S = 2, 2048                     # the forward's tokens
+PF_B, PF_S, PF_MAX, PF_NEW = 4, 512, 1024, 16   # padded prefill/decode
 
 
 def emit(obj) -> None:
@@ -176,6 +201,362 @@ def small_parity() -> dict:
             "tolerance": 1e-3, "finite": finite}
 
 
+def kernel_ops():
+    """The two kernel wrappers' modules (each keeps a launch count)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_matmul import ops as fm_ops
+    return fm_ops, fa_ops
+
+
+def counted(tag: str, fn, flash: int, gemm: int):
+    """Run ``fn``, one call of a main path, with both kernels' launch counts
+    zeroed just before it and read just after; fail unless
+    ``flash_attention`` launched ``flash`` times and ``fused_matmul``
+    ``gemm`` times.  Returns (result, host wall seconds to the end of its
+    device work, fused_matmul launches by shape, flash launches by
+    shape)."""
+    import torch
+    fm_ops, fa_ops = kernel_ops()
+    torch.cuda.synchronize()
+    fm_ops.reset_counts()
+    fa_ops.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if fa_ops.launches != flash or fm_ops.launches != gemm:
+        raise SystemExit(f"{tag}: {fa_ops.launches} flash_attention and "
+                         f"{fm_ops.launches} fused_matmul launches (expected "
+                         f"{flash} and {gemm})")
+    return (out, wall, collections.Counter(fm_ops.launches_by_shape),
+            collections.Counter(fa_ops.launches_by_shape))
+
+
+def attention_impls(mode: str) -> set:
+    """The impls bound to every attention node of the card's programs."""
+    from repro_torch.core import tapir
+    return {n.schedule.impl for key, g in tapir.cached_graphs().items()
+            if key[-3] == mode and key[-2] == "h100_sxm"
+            for n in g.nodes.values() if n.op == "attention"}
+
+
+def device_time_by_kernel(prof, steps: int) -> dict:
+    """(ms, launches) per step by kernel name, from the device's own
+    events (kernels, copies), not the host ops that launched them:
+    counting both would count each kernel twice."""
+    import torch
+    return {ev.key: (ev.self_device_time_total / steps / 1e3,
+                     ev.count // steps)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def top_kernels(by_name: dict, n: int = 8) -> list:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": k[:60], "ms_per_step": ms, "calls_per_step": c}
+            for k, (ms, c) in top]
+
+
+def forward_phase(model, cfg):
+    """``forward`` and ``loss`` at full width on FWD_B x FWD_S tokens: a
+    first call (region programs built), a timed call, the loss, and one
+    profiled forward.  Each zeroes and checks the counts: one flash launch
+    per layer, 4 GEMMs per layer (QKV, wo, gate|up, wd) plus the head."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    rng = np.random.default_rng(2)
+    batch = {name: torch.as_tensor(rng.integers(lo, cfg.vocab,
+                                                (FWD_B, FWD_S)),
+                                   dtype=torch.int32, device="cuda")
+             for name, lo in (("tokens", 1), ("labels", 0))}
+    n_l = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    with tapir.use(ServeConfig(target="gpu").tapir_config()):
+        _, cold_s, _, _ = counted("forward (first call)",
+                                  lambda: model.forward(batch), n_l,
+                                  4 * n_l + 1)
+        logits, wall_s, fm, fa = counted(
+            "forward", lambda: model.forward(batch), n_l, 4 * n_l + 1)
+        peak = torch.cuda.max_memory_allocated()
+        loss, loss_s, _, _ = counted("loss", lambda: model.loss(batch), n_l,
+                                     4 * n_l + 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.forward(batch)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    impls = attention_impls("tapir")
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(loss))
+    by_name = device_time_by_kernel(prof, 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    flash_ms = sum(ms for k, (ms, _) in by_name.items() if "flash" in k)
+    gemm_ms = sum(ms for k, (ms, _) in by_name.items() if "gemm" in k)
+    line = {"phase": "forward", "batch": FWD_B, "seq": FWD_S,
+            "layers": n_l, "logits_shape": list(logits.shape),
+            "finite": finite, "loss": float(loss),
+            "attention_impls": sorted(impls),
+            "flash_launches_per_forward": sum(fa.values()),
+            "gemm_launches_per_forward": sum(fm.values()),
+            "first_call_s": cold_s, "wall_s": wall_s, "loss_wall_s": loss_s,
+            "tok_per_s": FWD_B * FWD_S / wall_s,
+            "peak_mem_gb": peak / 1e9,
+            "profiled_wall_s": prof_s, "device_ms": busy,
+            "device_busy_share": busy / (wall_s * 1e3),
+            "flash_device_ms": flash_ms, "gemm_device_ms": gemm_ms,
+            "top": top_kernels(by_name)}
+    if impls != {"flash_kernel"}:
+        raise SystemExit(f"forward: attention nodes bound to {impls}")
+    if not finite or tuple(logits.shape) != (FWD_B, FWD_S, cfg.vocab):
+        raise SystemExit(f"forward: {line}")
+    return line, batch, logits, fm, fa
+
+
+def forward_guarantees(model, cfg, batch, logits) -> dict:
+    """The region forward against the per-op forward (bitwise, the
+    reference ``_block``'s promise) and against the per-op control
+    (``mode="opaque"``: no fusion, 7 GEMM launches per layer)."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    n_l = cfg.n_layers
+    with tapir.use(ServeConfig(target="gpu", regions=False).tapir_config()):
+        per_op, per_op_s, _, _ = counted(
+            "forward per-op", lambda: model.forward(batch), n_l, 4 * n_l + 1)
+    bitwise = torch.equal(per_op, logits)
+    del per_op
+    with tapir.use(ServeConfig(target="gpu", mode="opaque").tapir_config()):
+        opaque, opaque_s, _, _ = counted(
+            "forward opaque", lambda: model.forward(batch), n_l, 7 * n_l + 1)
+    err = float((opaque.float() - logits.float()).abs().max())
+    impls = attention_impls("opaque")
+    line = {"phase": "forward_guarantees", "region_eq_per_op": bitwise,
+            "per_op_wall_s": per_op_s, "opaque_max_abs_diff": err,
+            "opaque_wall_s": opaque_s,
+            "opaque_attention_impls": sorted(impls)}
+    if not bitwise or impls != {"opaque"}:
+        raise SystemExit(f"forward guarantees: {line}")
+    return line
+
+
+def padded_phase(model, cfg):
+    """``make_prefill_step`` / ``make_decode_step`` at full width: PF_B
+    prompts of PF_S tokens into a PF_MAX cache (a first call, then a timed
+    one into a fresh cache), then PF_NEW greedy decode steps.  A prefill
+    launches flash once per layer; a decode step attends over the cache
+    with the masked composite (no flash launch); both run 4 GEMMs per
+    layer plus the head over one row per prompt.  The steps run under
+    regions, where ``_run_with_cache`` raises unless every layer's program
+    hands back the cache slab it wrote in place."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig, make_decode_step, \
+        make_prefill_step
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(1, cfg.vocab, (PF_B, PF_S)).astype(np.int32)
+    scfg = ServeConfig(target="gpu")
+    if not scfg.tapir_config().regions:
+        raise SystemExit("padded serve: the steps must run under regions")
+    prefill = make_prefill_step(model, cfg=scfg)
+    decode = make_decode_step(model, cfg=scfg)
+    n_l = cfg.n_layers
+    walls = []
+    for tag in ("prefill (first call)", "prefill"):
+        cache = model.init_cache(PF_B, PF_MAX)
+        ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
+        (logits, cache), wall, fm_pf, fa_pf = counted(
+            tag, lambda: prefill(prompts, cache), n_l, 4 * n_l + 1)
+        walls.append(wall)
+        if (cache["k"].data_ptr(), cache["v"].data_ptr()) != ptrs:
+            raise SystemExit(f"{tag}: the K/V caches were not written in "
+                             f"place")
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    fm_dec = collections.Counter()
+    steps, out = [], []
+    for i in range(PF_NEW):
+        (nxt, cache), wall, fm, _ = counted(
+            f"decode step {i}", lambda: decode(tok, cache), 0, 4 * n_l + 1)
+        fm_dec += fm
+        steps.append(wall)
+        tok = nxt[:, None]
+        out.append(nxt)
+    toks = torch.stack(out, dim=1).cpu().numpy()
+    in_place = (cache["k"].data_ptr(), cache["v"].data_ptr()) == ptrs
+    with tapir.use(scfg.tapir_config()):
+        full = model.forward({"tokens": torch.as_tensor(prompts,
+                                                        device="cuda")})
+    err = float((logits.float() - full[:, -1].float()).abs().max())
+    same_top = bool(torch.equal(torch.argmax(logits, -1),
+                                torch.argmax(full[:, -1], -1)))
+    steps.sort()
+    line = {"phase": "padded_serve", "batch": PF_B, "prompt": PF_S,
+            "max_len": PF_MAX, "decode_steps": PF_NEW,
+            "flash_launches_per_prefill": sum(fa_pf.values()),
+            "gemm_launches_per_prefill": sum(fm_pf.values()),
+            "gemm_launches_per_decode_step": sum(fm_dec.values()) // PF_NEW,
+            "prefill_first_call_s": walls[0], "prefill_s": walls[1],
+            "decode_step_p50_ms": steps[len(steps) // 2] * 1e3,
+            "decode_step_max_ms": steps[-1] * 1e3,
+            "pos": int(cache["pos"]), "kv_in_place": in_place,
+            "prefill_vs_forward_max_abs_diff": err,
+            "prefill_vs_forward_same_argmax": same_top,
+            "finite": bool(torch.isfinite(logits).all()),
+            "sample_out": toks[0, :8].tolist()}
+    if not (in_place and line["finite"] and line["pos"] == PF_S + PF_NEW
+            and ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise SystemExit(f"padded serve: {line}")
+    return line, fm_pf, fa_pf, fm_dec
+
+
+def small_forward_parity() -> dict:
+    """The forward and the padded prefill/decode on the card against the
+    same code on the CPU (the kernels' plain versions, which the CPU tests
+    hold against the JAX package): SMOKE in fp32 on the same weights.
+    Forward logits within 1e-4; prefill plus 4 decode steps against the
+    full-sequence forward within 3e-3, the reference's own serving
+    tolerance (tests/test_serving.py)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import ServeConfig
+    cfg = dataclasses.replace(get_smoke("qwen2_5_3b"), compute_dtype="float32")
+    cpu = get_model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    params = {"embed": cpu.embed.data, "ln_f": cpu.ln_f.data,
+              "lm_head": cpu.lm_head.data,
+              "blocks": {k: v.data for k, v in cpu.blocks.items()}}
+    s, new = 24, 4
+    toks = np.random.default_rng(4).integers(1, cfg.vocab, (2, s + new))
+    toks = toks.astype(np.int32)
+    res = {}
+    for dev, target in (("cpu", "cpu"), ("cuda", "gpu")):
+        model = cpu if dev == "cpu" else get_model(cfg, device=dev,
+                                                   params=params)
+        with tapir.use(ServeConfig(target=target).tapir_config()):
+            full = model.forward({"tokens": torch.as_tensor(toks,
+                                                            device=dev)})
+            cache = model.init_cache(2, s + new + 4)
+            lg, cache = model.prefill(torch.as_tensor(toks[:, :s],
+                                                      device=dev), cache)
+            outs = [lg]
+            for t in range(new):
+                lg, cache = model.decode_step(
+                    torch.as_tensor(toks[:, s + t:s + t + 1], device=dev),
+                    cache)
+                outs.append(lg)
+        res[dev] = (full.float().cpu(), [o.float().cpu() for o in outs])
+    (f_cpu, o_cpu), (f_gpu, o_gpu) = res["cpu"], res["cuda"]
+    return {"phase": "small_forward_parity", "config": cfg.name,
+            "compute_dtype": cfg.compute_dtype,
+            "forward_max_abs_err": float((f_cpu - f_gpu).abs().max()),
+            "forward_tolerance": 1e-4,
+            "serve_vs_forward_max_abs_err": max(
+                float((o - f_gpu[:, s - 1 + i]).abs().max())
+                for i, o in enumerate(o_gpu)),
+            "serve_tolerance": 3e-3,
+            "serve_card_vs_cpu_max_abs_err": max(
+                float((a - b).abs().max()) for a, b in zip(o_cpu, o_gpu)),
+            "finite": bool(torch.isfinite(f_gpu).all())}
+
+
+def flash_inputs(shape, dt, seed: int):
+    import torch
+    b, sq, skv, hq, hkv, d, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dt)
+                 for s in ((b, sq, hq, d), (b, skv, hkv, d),
+                           (b, skv, hkv, d)))
+
+
+def flash_vs_plain(path_shapes) -> tuple:
+    """``flash_attention`` against ``flash_attention_ref`` in bf16 and fp32
+    at every path shape, the SMOKE shapes, a causal query offset
+    (Sq < Skv), ragged 1000-key calls (causal and not) and 8192 tokens.
+    Returns max |kernel - plain| and its largest row-relative size (see
+    FA_RTOL), each by (shape, dtype)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    extra = [(2, 28, 28, 4, 2, 24, True), (2, 24, 24, 4, 2, 24, True),
+             (2, 100, 300, 16, 2, 128, True),
+             (2, 1000, 1000, 16, 2, 128, False),
+             (2, 1000, 1000, 16, 2, 128, True),
+             (1, 8192, 8192, 16, 2, 128, True)]
+    errs, rels = {}, {}
+    for i, shape in enumerate(sorted(set(path_shapes) | set(extra))):
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            q, k, v = flash_inputs(shape, dt, seed=10 + i)
+            o = fa_ops.flash_attention(q, k, v, causal=shape[-1])
+            want = fa_ref.flash_attention_ref(q, k, v, causal=shape[-1])
+            diff = (o.float() - want.float()).abs()
+            err = float(diff.max())
+            rel = float((diff.amax(-1) / want.float().abs().amax(-1)).max())
+            if not (err <= FA_TOL[dname] and rel <= FA_RTOL[dname]):
+                raise SystemExit(f"flash vs plain: {shape} {dname} max err "
+                                 f"{err} (<= {FA_TOL[dname]}), row-relative "
+                                 f"{rel} (<= {FA_RTOL[dname]})")
+            errs[(shape, dname)] = err
+            rels[(shape, dname)] = rel
+            del q, k, v, o, want, diff
+    return errs, rels
+
+
+def flash_bound(shape, eb: int, peak: float):
+    """(bound ms, what bounds it): q, k, v read once and o written once
+    over the memory rate; 4 * D FLOPs per visible (query, key) pair (QK^T
+    and PV), counting the keys this call's causal mask leaves visible,
+    over the peak rate."""
+    b, sq, skv, hq, hkv, d, causal = shape
+    off = skv - sq
+    pairs = (sum(min(skv, off + i + 1) for i in range(sq)) if causal
+             else sq * skv)
+    t_bytes = eb * (2 * b * sq * hq * d + 2 * b * skv * hkv * d) / HBM_BW
+    t_ops = 4.0 * d * pairs * b * hq / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_times(paths, errs) -> list:
+    """Per path shape, bf16: the kernel, its plain version and
+    ``scaled_dot_product_attention`` (is_causal, enable_gqa; the yardstick,
+    which the port never calls), each timed alone with L2 flushed, and the
+    roofline bound.  ``paths``: (phase, shape, launches in that path's
+    counted run)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    out = []
+    for phase, shape, launches in paths:
+        b, sq, skv, hq, hkv, d, causal = shape
+        q, k, v = flash_inputs(shape, torch.bfloat16, seed=1)
+        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal))
+        plain = time_ms(lambda: fa_ref.flash_attention_ref(q, k, v,
+                                                           causal=causal))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        bound, by = flash_bound(shape, 2, PEAK_FLOPS["bfloat16"])
+        out.append({
+            "name": f"flash_attention[{phase} B={b} Sq={sq} Skv={skv} "
+                    f"Hq={hq} Hkv={hkv} D={d}{' causal' if causal else ''}]",
+            "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+            "launches": launches,
+            "max_abs_err": errs[(shape, "bfloat16")],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib})
+        del q, k, v, qt, kt, vt
+    return out
+
+
 def profile_decode(model, eng, steps: int = 3) -> dict:
     """Full-occupancy decode steps, timed bare and then under
     ``torch.profiler``: host wall time per step, device time per step by
@@ -203,15 +584,8 @@ def profile_decode(model, eng, steps: int = 3) -> dict:
                 logits, cache = model.decode_step_slots(eng._sp, tok, cache)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / steps
-    by_name = {}
-    for ev in prof.key_averages():
-        # the device's own events (kernels, copies), not the host ops that
-        # launched them: counting both would count each kernel twice
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.key] = (ev.self_device_time_total / steps / 1e3,
-                               ev.count // steps)
+    by_name = device_time_by_kernel(prof, steps)
     busy = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"phase": "profile_decode", "slots": SLOTS,
             "finite": bool(torch.isfinite(logits).all()),
             "logits_shape": list(logits.shape),
@@ -221,8 +595,7 @@ def profile_decode(model, eng, steps: int = 3) -> dict:
             "device_ms_per_step": busy,
             "device_busy_share": busy / (bare * 1e3),
             "kernels_per_step": sum(c for _, c in by_name.values()),
-            "top": [{"name": k[:60], "ms_per_step": ms, "calls_per_step": c}
-                    for k, (ms, c) in top]}
+            "top": top_kernels(by_name, 10)}
 
 
 def main() -> int:
@@ -233,6 +606,8 @@ def main() -> int:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import tapir
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_matmul import kernel, ops, ref
     from repro_torch.models.base import get_model
     from repro_torch.serve import Request, ServeConfig, ServingEngine
@@ -244,10 +619,14 @@ def main() -> int:
     # -- 1. device and build ---------------------------------------------
     card = card_line()
     t0 = time.perf_counter()
-    lib = kernel.build(verbose=True)   # ptxas report on stderr
+    # one nvcc per source, both started together; ptxas reports on stderr
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda mod: mod.build(verbose=True),
+                             (kernel, fa_kernel)))
     emit({"phase": "build", "card": card,
           "kind": torch.cuda.get_device_name(0),
-          "build_s": time.perf_counter() - t0, "library": lib.name,
+          "build_s": time.perf_counter() - t0,
+          "libraries": [lib.name for lib in libs],
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # -- 2. serve at full width ------------------------------------------
@@ -287,6 +666,7 @@ def main() -> int:
         return by_shape, decode, per_step, impls
 
     ops.reset_counts()
+    fa_ops.reset_counts()
     out = eng.run(reqs)
     launches = ops.launches
     st = dict(eng.last_stats)
@@ -311,10 +691,34 @@ def main() -> int:
           "matmul_impls": sorted(impls),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "sample_out": out[0].out[:8]})
+    # fused_matmul launches of every main-path run by shape, and the path
+    # that first launched each shape
+    fm_paths = collections.Counter(by_shape)
+    phase_of = {s: "decode" if s[0] == SLOTS else "prefill" for s in by_shape}
 
-    # -- 3. kernel vs plain at every path shape ----------------------------
+    # -- 3. the dense forward at full width --------------------------------
+    fwd, batch, logits, fm_fwd, fa_fwd = forward_phase(model, cfg)
+    emit(fwd)
+
+    # -- 4. its guarantees -------------------------------------------------
+    emit(forward_guarantees(model, cfg, batch, logits))
+    del logits, batch
+
+    # -- 5. padded-cache prefill and decode --------------------------------
+    pad, fm_pf, fa_pf, fm_dec = padded_phase(model, cfg)
+    emit(pad)
+    for tag, cnt in (("forward", fm_fwd), ("padded prefill", fm_pf),
+                     ("padded decode", fm_dec)):
+        fm_paths.update(cnt)
+        for s_ in cnt:
+            phase_of.setdefault(s_, tag)
+    flash_paths = [("forward", s_, c) for s_, c in fa_fwd.items()] + [
+        ("padded prefill", s_, c) for s_, c in fa_pf.items()]
+    flash_paths = [(ph, s_[:6] + (s_[7],), c) for ph, s_, c in flash_paths]
+
+    # -- 6. kernel vs plain at every path shape ----------------------------
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = sorted(by_shape, key=lambda s: (s[0], s[1], s[2]))
+    shapes = sorted(fm_paths, key=lambda s: (s[0], s[1], s[2]))
     errs = {}
     for (m, n, k, _, spec) in shapes:
         for dname, dt in (("bfloat16", torch.bfloat16),
@@ -347,14 +751,27 @@ def main() -> int:
           "max_err_fp32": max(
               v for kk, v in errs.items() if kk[-1] == "float32"),
           "chain_max_err": chain_err})
+    fa_errs, fa_rels = flash_vs_plain([s_ for _, s_, _ in flash_paths])
+    emit({"phase": "flash_vs_plain", "shapes": len(fa_errs) // 2,
+          "tolerance": FA_TOL, "row_relative_tolerance": FA_RTOL,
+          "max_err": {f"{s_}/{d}": e for (s_, d), e in fa_errs.items()},
+          "row_relative_err": {f"{s_}/{d}": e
+                               for (s_, d), e in fa_rels.items()}})
 
-    # -- 4. the slot path on the card against the CPU, at SMOKE size -------
+    # -- 7. the paths on the card against the CPU, at SMOKE size ----------
     par = small_parity()
     emit(par)
     if not (par["finite"] and par["max_abs_err"] <= par["tolerance"]):
         raise SystemExit(f"small parity: {par}")
+    fpar = small_forward_parity()
+    emit(fpar)
+    if not (fpar["finite"]
+            and fpar["forward_max_abs_err"] <= fpar["forward_tolerance"]
+            and fpar["serve_vs_forward_max_abs_err"]
+            <= fpar["serve_tolerance"]):
+        raise SystemExit(f"small forward parity: {fpar}")
 
-    # -- 5. port-internal guarantees on the card --------------------------
+    # -- 8. port-internal guarantees on the card --------------------------
     def fresh():
         return [Request(rid=r.rid, prompt=r.prompt.copy(), max_new=r.max_new)
                 for r in reqs]
@@ -362,6 +779,7 @@ def main() -> int:
     def counted_run(tag: str, engine, wave: bool = False,
                     mode: str = "tapir"):
         ops.reset_counts()
+        fa_ops.reset_counts()
         res = engine.run_wave(fresh()) if wave else engine.run(fresh())
         st_ = dict(engine.last_stats)
         _, decode, per, _ = check_launches(tag, res, st_, mode)
@@ -398,13 +816,13 @@ def main() -> int:
     if not (same_wave and same_prefix and same_opaque and same_first):
         raise SystemExit("guarantees: outputs differ")
 
-    # -- 6. where a decode step's time goes --------------------------------
+    # -- 9. where a slot decode step's time goes ---------------------------
     prof = profile_decode(model, eng)
     emit(prof)
     if not prof["finite"]:
         raise SystemExit("profile: non-finite logits at full width")
 
-    # -- 7. times at the path shapes --------------------------------------
+    # -- 10. times at the path shapes -------------------------------------
     entries = []
     for (m, n, k, xdt, spec) in shapes:
         dt = torch.bfloat16
@@ -425,12 +843,11 @@ def main() -> int:
             v.numel() * v.element_size() for _, vals, _ in epi for v in vals)
         flops = 2.0 * m * n * k
         t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS["bfloat16"]
-        phase = "decode" if m == SLOTS else "prefill"
         entries.append({
-            "name": f"fused_matmul[{phase} {label(n, k, cfg)} m={m} n={n} "
-                    f"k={k}]",
+            "name": f"fused_matmul[{phase_of[(m, n, k, xdt, spec)]} "
+                    f"{label(n, k, cfg)} m={m} n={n} k={k}]",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": by_shape[(m, n, k, xdt, spec)],
+            "launches": fm_paths[(m, n, k, xdt, spec)],
             "max_abs_err": errs[(m, n, k, spec, "bfloat16")],
             "ms": ms, "plain_ms": plain,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -446,7 +863,20 @@ def main() -> int:
         (e["library_ms"] or 0.0)
         * (cfg.n_layers if "head" not in e["name"] else 1) for e in step)})
 
-    emit({"kernels": entries})
+    fa_entries = flash_times(flash_paths, fa_errs)
+    emit({"phase": "flash_times",
+          "launches_per_forward": sum(fa_fwd.values()),
+          "launches_per_prefill": sum(fa_pf.values()),
+          "forward_flash_ms": sum(e["ms"] * e["launches"] for e in fa_entries
+                                  if "[forward" in e["name"]),
+          "forward_flash_bound_ms": sum(
+              e["bound_ms"] * e["launches"] for e in fa_entries
+              if "[forward" in e["name"]),
+          "forward_sdpa_ms": sum(e["library_ms"] * e["launches"]
+                                 for e in fa_entries
+                                 if "[forward" in e["name"])})
+
+    emit({"kernels": entries + fa_entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

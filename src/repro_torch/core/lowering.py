@@ -3,27 +3,32 @@
 ``emit`` walks the graph once in topological order and returns
 ``run(inputs) -> outputs``.  Each library node dispatches on
 ``node.schedule.impl`` alone — the name the scheduler's impl registry bound
-as the roofline argmin; nothing here asks which device a tensor is on:
+as the roofline argmin; no route is chosen by the device a tensor is on:
 
 * a matmul, ``fused_kernel`` or ``"opaque"`` (a sealed node, the per-op
   control), calls ``kernels.fused_matmul.ops.fused_matmul``, the
   hand-written Hopper GEMM with its epilogue chain applied in the kernel
   (its wrapper takes the plain version for a CPU tensor): no GEMM of the
   port has another route;
-* attention's ``materialized_*`` / ``ref`` / ``"opaque"`` lower to plain
-  torch composites with fp32 accumulation (its kernel is not ported yet,
-  and no attention node is on the slot-serving path).
+* an attention node, ``flash_kernel`` or ``"opaque"``, calls
+  ``kernels.flash_attention.ops.flash_attention``, the hand-written Hopper
+  flash kernel, with any fused epilogue applied after it;
+  ``materialized_*`` and ``ref`` (which differ only in cost) all lower to
+  ``attention_ref``, the plain fp32-score oracle, on a CPU tensor and
+  raise on a CUDA one: on the card no attention runs outside the kernel.
 
 Indexing keeps the JAX package's semantics, which torch does not share:
-gathers wrap negative indices and then CLAMP out-of-range ones, and
-scatters wrap negative indices and then DROP out-of-range updates.  Both
-are computed with tensor ops and no host synchronization; an unchecked
-out-of-range index would raise on the CPU and device-assert on the card.
+gathers wrap negative indices and then CLAMP out-of-range ones, scatters
+wrap negative indices and then DROP out-of-range updates, and the window
+ops (``dynamic_slice`` / ``dynamic_update_slice``) wrap a negative start
+once and then CLAMP each start to ``[0, dim - window]``.  All are computed with tensor ops and no host
+synchronization; an unchecked out-of-range index would raise on the CPU
+and device-assert on the card.
 
-Donation: a scatter that donates a region INPUT writes that tensor in
-place (``index_put_``) and returns it, so a KV pool keeps its storage (and
-``data_ptr``) across steps.  A write whose
-buffer has earlier readers (``Node.anti``) or is not a region input
+Donation: a scatter or window write that donates a region INPUT writes
+that tensor in place (``index_put_``) and returns it, so a KV pool or
+cache slab keeps its storage (and ``data_ptr``) across steps.  A write
+whose buffer has earlier readers (``Node.anti``) or is not a region input
 writes a copy instead — a reader may hold a view of the buffer.
 """
 from __future__ import annotations
@@ -33,6 +38,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.flash_attention import ref as fa_ref
 from ..kernels.fused_matmul import ops as fm_ops
 from ..kernels.fused_matmul.ref import _EW
 from .dtypes import to_torch_dtype
@@ -72,45 +79,20 @@ def _lower_matmul(node: Node, env: dict) -> Any:
                                out_dtype=to_torch_dtype(node.ttype.dtype))
 
 
-def _materialized_attention(q, k, v, causal, bias, grouped):
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    grp = hq // hkv
-    scale = 1.0 / np.sqrt(d)
-    f32 = torch.float32
-    if grouped and grp > 1:
-        qg = q.reshape(b, sq, hkv, grp, d).to(f32)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(f32)) * scale
-        s = s.reshape(b, hq, sq, skv)
-    else:
-        if hkv != hq:
-            k = torch.repeat_interleave(k, grp, dim=2)
-            v = torch.repeat_interleave(v, grp, dim=2)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
-    if bias is not None:
-        s = s + bias
-    if causal:
-        mask = torch.ones((sq, skv), dtype=torch.bool,
-                          device=q.device).tril(skv - sq)
-        s = torch.where(mask, s, torch.finfo(f32).min)
-    p = torch.softmax(s, dim=-1).to(v.dtype).to(f32)
-    if grouped and grp > 1:
-        pg = p.reshape(b, hkv, grp, sq, skv)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", pg, v.to(f32))
-        return o.reshape(b, sq, hq, v.shape[-1])
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(f32))
-
-
 def _lower_attention(node: Node, env: dict) -> Any:
     q, k, v = (env[i] for i in node.inputs[:3])
     bias = env[node.inputs[3]] if len(node.inputs) > 3 else None
     causal = node.attrs.get("causal", False)
-    exposed = node.attrs.get("exposed", False)
-    impl = node.schedule.impl or ("ref" if exposed else "opaque")
-    if impl in ("opaque", "materialized_repeat"):
-        y = _materialized_attention(q, k, v, causal, bias, grouped=False)
-    elif impl in ("materialized_grouped", "ref"):
-        y = _materialized_attention(q, k, v, causal, bias, grouped=True)
+    impl = node.schedule.impl
+    if impl in ("flash_kernel", "opaque"):
+        y = fa_ops.flash_attention(q, k, v, causal=causal, bias=bias)
+    elif impl in ("materialized_repeat", "materialized_grouped", "ref"):
+        # the three differ only in what the cost model charges them
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                f"attention impl {impl!r} is a plain composite: it runs on "
+                f"the CPU only (on {q.device} attention is the kernel's)")
+        y = fa_ref.attention_ref(q, k, v, causal=causal, bias=bias)
     else:
         raise NotImplementedError(f"attention impl {impl!r} is not ported")
     return _apply_epilogue(y, node, env).to(to_torch_dtype(node.ttype.dtype))
@@ -181,6 +163,66 @@ def scatter_drop(buf: torch.Tensor, idx: tuple, upd, mode: str,
     return out
 
 
+def _window(buf: torch.Tensor, starts: tuple, window: tuple):
+    """(view, index): ``buf`` narrowed on its static-start dims, and, when a
+    start is a tensor, the broadcast index tuple of the window inside that
+    view (else None).  As ``lax.dynamic_slice`` / ``dynamic_update_slice``
+    do, a negative start wraps once (``start + dim``) and every start then
+    clamps to ``[0, dim - window]``; a tensor start does so on its own
+    device, with no host synchronization."""
+    view = buf
+    dyn = []
+    for d, (s, w) in enumerate(zip(starts, window)):
+        n = buf.shape[d]
+        if isinstance(s, torch.Tensor):
+            s = s.to(torch.int64)
+            dyn.append((d, torch.where(s < 0, s + n, s).clamp(0, n - w)))
+        else:
+            s = int(s)
+            s = s + n if s < 0 else s
+            view = view.narrow(d, min(max(s, 0), n - w), w)
+    if not dyn:
+        return view, None
+    idx = []
+    for d, w in enumerate(window):
+        shape = [1] * len(window)
+        shape[d] = w
+        ar = torch.arange(w, device=buf.device)
+        start = next((s for dd, s in dyn if dd == d), None)
+        idx.append((ar if start is None else start + ar).reshape(shape))
+    return view, tuple(idx)
+
+
+def dynamic_slice_clamped(buf: torch.Tensor, starts: tuple,
+                          sizes: tuple) -> torch.Tensor:
+    """``lax.dynamic_slice(buf, starts, sizes)``."""
+    view, idx = _window(buf, starts, tuple(sizes))
+    return view if idx is None else view[idx]
+
+
+def dynamic_update_slice_clamped(buf: torch.Tensor, upd, starts: tuple,
+                                 in_place: bool) -> torch.Tensor:
+    """``lax.dynamic_update_slice(buf, upd, starts)``: ``upd`` (cast to
+    ``buf``'s dtype) written at the clamped window; in place when
+    ``in_place`` (the donated case), else into a copy."""
+    upd = torch.as_tensor(upd).to(buf.dtype)
+    out = buf if in_place else buf.clone()
+    view, idx = _window(out, starts, tuple(upd.shape))
+    if idx is None:
+        view.copy_(upd)
+    else:
+        view.index_put_(idx, upd)
+    return out
+
+
+def _resolve_starts(node: Node, env: dict, dyn_inputs: tuple) -> tuple:
+    """Interleave static int starts with dynamic scalar operands (the None
+    holes of ``static_starts`` consume ``dyn_inputs`` in order)."""
+    it = iter(dyn_inputs)
+    return tuple(s if s is not None else env[next(it)]
+                 for s in node.attrs["static_starts"])
+
+
 def _decode_index(enc: tuple) -> tuple:
     out = []
     for e in enc:
@@ -229,6 +271,15 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
         return res if out_i is None else res[out_i]
     if op == "index":
         return env[node.inputs[0]][_decode_index(node.attrs["idx"])]
+    if op == "dynamic_slice":
+        return dynamic_slice_clamped(
+            env[node.inputs[0]], _resolve_starts(node, env, node.inputs[1:]),
+            node.attrs["sizes"])
+    if op == "dynamic_update_slice":
+        return dynamic_update_slice_clamped(
+            env[node.inputs[0]], env[node.inputs[1]],
+            _resolve_starts(node, env, node.inputs[2:]),
+            _donated_in_place(node, nodes))
     if op == "gather":
         return gather_clamped(env[node.inputs[0]],
                               tuple(env[i] for i in node.inputs[1:]))

@@ -62,9 +62,8 @@ H100_COST_MODEL = CostModel(name="h100_sxm", peak_flops=989e12,
                             spawn_s=5e-6, score_passes_fused=4.0)
 
 #: library op -> the impl name of its hand-written Hopper kernel, for the
-#: kernels this port has so far.  ``flash_kernel`` and the scan ``kernel``
-#: are still Pallas-only.
-PORTED_KERNELS = {"matmul": "fused_kernel"}
+#: kernels this port has so far.  The scan ``kernel`` is still Pallas-only.
+PORTED_KERNELS = {"matmul": "fused_kernel", "attention": "flash_kernel"}
 
 
 def _align(x: int, m: int) -> int:
@@ -98,7 +97,9 @@ def pick_matmul_tiles(m: int, n: int, k: int, dtype: str, cm: CostModel) -> dict
 
 def pick_attention_tiles(s_q: int, s_kv: int, d: int, dtype: str, cm: CostModel) -> dict[str, int]:
     """Flash-attention blocking: (block_q, block_kv) whose q/k/v tiles and
-    running stats fit a quarter of ``vmem_bytes``."""
+    running stats fit a quarter of ``vmem_bytes``.  Recorded in the
+    schedule for ``explain()``; the Hopper kernel's tiles are fixed (64
+    query rows by 64 keys), so a row's result never depends on them."""
     eb = dtype_bytes(dtype)
     budget = cm.vmem_bytes // 4
     bq = min(_align(s_q, cm.mxu), 512)
@@ -164,9 +165,13 @@ def _not_ported(op: str, impl: str) -> Optional[ImplCandidate]:
 
 def attention_candidates(g: TaskGraph, node: Node, cm: CostModel
                          ) -> list[ImplCandidate]:
-    """``flash_kernel`` (not ported yet), ``blockwise`` (not ported yet),
-    ``materialized_repeat`` / ``materialized_grouped`` (fp32 score matrix,
-    K/V repeated or grouped) and ``ref`` (one composite expression)."""
+    """``flash_kernel`` (the hand-written Hopper kernel: no score matrix in
+    device memory, any ``Sq`` including decode's 1, no bias operand),
+    ``blockwise`` (not ported yet), ``materialized_repeat`` /
+    ``materialized_grouped`` (fp32 score matrix, K/V repeated or grouped)
+    and ``ref`` (one composite expression).  The last three are plain
+    composites: their lowering runs them on a CPU tensor and raises on a
+    CUDA one."""
     b, sq, h, d = node.attrs["q_shape"]
     skv = node.attrs["kv_len"]
     hkv = node.attrs.get("kv_heads", h) or h
@@ -178,8 +183,14 @@ def attention_candidates(g: TaskGraph, node: Node, cm: CostModel
         c = attention_cost(b, sq, skv, h, hkv, d, eb, impl)
         return c, c["flops"] / cm.peak_flops + c["io_bytes"] / cm.hbm_bw
 
-    out = [_not_ported("attention", "flash_kernel"),
-           ImplCandidate("blockwise", None, "not ported yet")]
+    flash = _not_ported("attention", "flash_kernel")
+    if flash is None:
+        if len(node.inputs) > 3:
+            flash = ImplCandidate("flash_kernel", None,
+                                  "kernel has no bias operand")
+        else:
+            flash = ImplCandidate("flash_kernel", base("flash_kernel")[1])
+    out = [flash, ImplCandidate("blockwise", None, "not ported yet")]
     if grp <= 1:
         out.append(ImplCandidate("materialized_repeat", None,
                                  "no K/V head group to repeat"))
@@ -265,7 +276,8 @@ def assign_schedules(g: TaskGraph, cm: CostModel) -> TaskGraph:
     """Bind schedules on the optimized graph: per parallel dim ``grid`` when
     the per-task work clears the grain, ``vector`` for a wide trailing dim,
     else ``serial``; library ops get tiles and their impl (``pick_impl``)."""
-    cache_ops = ("index", "slice", "gather", "scatter")
+    cache_ops = ("dynamic_update_slice", "dynamic_slice", "index", "slice",
+                 "gather", "scatter")
     for nid in g.topo_order():
         node = g.nodes[nid]
         if node.op in ("input", "const"):
@@ -274,7 +286,9 @@ def assign_schedules(g: TaskGraph, cm: CostModel) -> TaskGraph:
         shape = node.ttype.shape
         moved = None
         if node.op in cache_ops:
-            if node.op == "scatter":
+            if node.op == "dynamic_update_slice":
+                upd_t = g.nodes[node.inputs[1]].ttype
+            elif node.op == "scatter":
                 upd_t = g.nodes[node.inputs[-1]].ttype
             else:
                 upd_t = None

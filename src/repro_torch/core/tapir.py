@@ -21,9 +21,9 @@ in topological order.  Donation becomes an in-place write into the
 region-input tensor (see ``core.lowering``): a KV pool passed into a slot
 body comes back as the SAME tensor object, updated.
 
-Not in this slice (see ROADMAP): the on-disk program cache, ``scan_layers``,
-``cache_write``/``cache_read``, ``attention``, ``wkv_scan``, ``expert_mlp``,
-``lstm_step``, ``conv2d`` and ``invalidate_mesh``.
+Not ported yet (see ROADMAP): the on-disk program cache, ``wkv_scan``,
+``expert_mlp``, ``lstm_step``, ``conv2d``, ``invalidate_mesh`` and
+``scan_layers``' remat policies (they wait for training).
 """
 from __future__ import annotations
 
@@ -39,7 +39,9 @@ import torch
 
 from .dtypes import dtype_name, to_torch_dtype
 from .ir import TaskGraph, TensorType
-from .lowering import _EW, emit, gather_clamped, scatter_drop
+from .lowering import (_EW, dynamic_slice_clamped,
+                       dynamic_update_slice_clamped, emit, gather_clamped,
+                       scatter_drop)
 from .passes import MESH_FINGERPRINT, run_pipeline
 from .schedule import CPU_COST_MODEL, H100_COST_MODEL, CostModel
 
@@ -678,6 +680,74 @@ def scatter(buf, indices, upd, mode: str = "set", donate: bool = True):
     return reg.handle(nid)
 
 
+# ---------------------------------------------------------------------------
+# Stateful buffer ops (KV cache)
+# ---------------------------------------------------------------------------
+
+
+def _start_operands(reg: _Region, starts) -> tuple[tuple, tuple]:
+    """Split window starts into static ints and dynamic scalar operands.
+    Returns (static_starts with None holes, nids of the dynamic holes)."""
+    static, nids = [], []
+    for s in starts:
+        if isinstance(s, (int, np.integer)):
+            static.append(int(s))
+        else:
+            static.append(None)
+            nids.append(reg.nid_of(s))
+    return tuple(static), tuple(nids)
+
+
+def cache_write(buf, update, starts):
+    """Window write with in-place intent: ``buf[starts:starts+update.shape]
+    = update``, a negative start wrapped once and each start clamped to
+    ``[0, dim - update.shape]``, as ``lax.dynamic_update_slice`` does.
+
+    Outside a region the write is functional: ``buf`` is left as it was and
+    a new tensor returned.  Inside a region it records a
+    ``dynamic_update_slice`` node whose buffer input is *donated*: the
+    region program writes the input tensor in place and returns it, so the
+    caller must treat ``buf`` as consumed and use the returned tensor.
+    ``starts`` entries are python ints or integer scalar tensors (traced or
+    concrete)."""
+    reg = _active_region()
+    if reg is None:
+        return dynamic_update_slice_clamped(
+            buf, _concrete(update), tuple(_concrete(s) for s in starts),
+            in_place=False)
+    bi = reg.nid_of(buf)
+    ui = reg.nid_of(update)
+    b_t = reg.g.nodes[bi].ttype
+    if len(update.shape) != len(b_t.shape):
+        raise ValueError(f"cache_write update rank {len(update.shape)} != "
+                         f"buffer rank {len(b_t.shape)}")
+    static, dyn = _start_operands(reg, starts)
+    nid = reg.g.add("dynamic_update_slice", (bi, ui) + dyn, b_t,
+                    pdims=tuple(range(len(b_t.shape))), donates=bi,
+                    static_starts=static)
+    return reg.handle(nid)
+
+
+def cache_read(buf, starts, sizes):
+    """Window read ``buf[starts : starts+sizes]`` (``lax.dynamic_slice``:
+    a negative start wrapped once, then every start clamped).  Inside a
+    region it stays lazy as a ``dynamic_slice`` node, ordered before any
+    later in-place write of the same buffer."""
+    reg = _active_region()
+    if reg is None:
+        return dynamic_slice_clamped(_concrete(buf),
+                                     tuple(_concrete(s) for s in starts),
+                                     tuple(sizes))
+    bi = reg.nid_of(buf)
+    b_t = reg.g.nodes[bi].ttype
+    static, dyn = _start_operands(reg, starts)
+    out_t = TensorType(tuple(int(s) for s in sizes), b_t.dtype)
+    nid = reg.g.add("dynamic_slice", (bi,) + dyn, out_t,
+                    pdims=tuple(range(len(out_t.shape))),
+                    static_starts=static, sizes=tuple(int(s) for s in sizes))
+    return reg.handle(nid)
+
+
 def lift(fn: Callable, *args, **static):
     """Record a python composite as ONE region node (``pyfunc``), or one
     node per output for tuple-returning fns.
@@ -788,6 +858,18 @@ def _build_gated_mlp(g: TaskGraph, xi: int, wgi: int, wui: int, wdi: int,
                  rdims=(("k", f),), k=f)
 
 
+def _build_attention(g: TaskGraph, qi: int, ki: int, vi: int,
+                     biasi: Optional[int], causal: bool) -> int:
+    q_t, k_t = g.nodes[qi].ttype, g.nodes[ki].ttype
+    ins = [qi, ki, vi] + ([biasi] if biasi is not None else [])
+    out_t = TensorType(tuple(q_t.shape), q_t.dtype)
+    b, s, h, d = q_t.shape
+    return g.add("attention", tuple(ins), out_t, pdims=(0, 1, 2),
+                 rdims=(("kv", k_t.shape[1]),),
+                 causal=causal, q_shape=(b, s, h, d), kv_len=k_t.shape[1],
+                 kv_heads=k_t.shape[2])
+
+
 # ---------------------------------------------------------------------------
 # Ops
 # ---------------------------------------------------------------------------
@@ -874,6 +956,53 @@ def gated_mlp(x, w_gate, w_up, w_down, activation: str = "silu"):
         g.set_outputs([_build_gated_mlp(g, xi, wg, wu, wd, activation)])
 
     return _execute(sig, build, inputs)[0]
+
+
+def attention(q, k, v, causal: bool = False, bias=None):
+    """Multi-head attention library op.  q: [B,Sq,Hq,D], k/v:
+    [B,Skv,Hkv,D]; GQA is implicit (Hq a multiple of Hkv); causal queries
+    align to the end of the keys."""
+    reg = _active_region()
+    if reg is not None:
+        out = _build_attention(reg.g, reg.nid_of(q), reg.nid_of(k),
+                               reg.nid_of(v),
+                               None if bias is None else reg.nid_of(bias),
+                               causal)
+        return reg.handle(out)
+    sig = ("attention", _sig(q), _sig(k), _sig(v), causal,
+           None if bias is None else _sig(bias))
+    inputs = {"q": q, "k": k, "v": v}
+    if bias is not None:
+        inputs["bias"] = bias
+
+    def build(g: TaskGraph):
+        qi = g.add_input("q", _tt(q))
+        ki = g.add_input("k", _tt(k))
+        vi = g.add_input("v", _tt(v))
+        bi = g.add_input("bias", _tt(bias)) if bias is not None else None
+        g.set_outputs([_build_attention(g, qi, ki, vi, bi, causal)])
+
+    return _execute(sig, build, inputs)[0]
+
+
+# ---------------------------------------------------------------------------
+# Structured control flow
+# ---------------------------------------------------------------------------
+
+
+def scan_layers(body: Callable, stacked_params, x):
+    """Run ``x = body(params_i, x)`` over a stacked layer tree (every leaf
+    ``[L, ...]``), layer by layer in order.
+
+    One Python loop serves both regimes: eagerly each ``a[i]`` is a view
+    of the stacked tensor, and under region capture it is an ``index``
+    node, so the stack unrolls into the region graph and the passes see
+    across layers.  The reference's ``lax.scan`` / unroll choice has no
+    counterpart here (PyTorch runs eagerly)."""
+    leaves, spec = _flatten(stacked_params)
+    for i in range(int(leaves[0].shape[0])):
+        x = body(_unflatten(spec, [a[i] for a in leaves]), x)
+    return x
 
 
 # ---------------------------------------------------------------------------

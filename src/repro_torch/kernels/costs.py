@@ -1,5 +1,5 @@
-"""Roofline cost descriptors the scheduler's impl registry reads for the
-library ops whose kernels are not ported yet (attention, linear scan).
+"""Roofline cost descriptors the scheduler's impl registry reads for
+attention and the linear scan.
 
 They are plain arithmetic over shapes, copied from the JAX package's
 ``kernels/flash_attention/ops.py`` and ``kernels/linear_scan/ops.py`` so the

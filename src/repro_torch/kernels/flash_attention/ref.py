@@ -1,0 +1,80 @@
+"""Plain PyTorch versions of attention: the kernel's reference on the card
+and the path a CPU tensor takes.
+
+* ``attention_ref`` is the JAX package's oracle
+  (``kernels/flash_attention/ref.py``): grouped, fp32 scores and softmax,
+  a ``-inf`` causal mask, output in ``q.dtype``.
+* ``flash_attention_ref`` follows the Hopper kernel's own arithmetic: an
+  online softmax over fixed ``BLOCK_KV``-key tiles, masked scores at
+  ``finfo(float32).min``, ``p`` rounded to ``v``'s dtype before the PV
+  product, and ``l == 0 -> 1`` at the end.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: keys per tile of the Hopper kernel (``csrc/flash_attention.cu``: BKV)
+BLOCK_KV = 64
+NEG_INF = float(np.finfo(np.float32).min)
+
+
+def attention_ref(q, k, v, causal: bool = False, bias=None):
+    """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D]; Hq % Hkv == 0.  Returns
+    [B, Sq, Hq, D] in q.dtype.  Queries align to the end of the keys."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    grp = hq // hkv
+    f32 = torch.float32
+    qg = q.reshape(b, sq, hkv, grp, d).to(f32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(f32)) * (1.0 / np.sqrt(d))
+    if bias is not None:
+        s = s + (bias.reshape(b, hkv, grp, sq, skv) if bias.ndim == 4
+                 else bias)
+    if causal:
+        mask = torch.ones((sq, skv), dtype=torch.bool,
+                          device=q.device).tril(skv - sq)
+        s = torch.where(mask, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(f32), v.to(f32))
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, causal: bool = False):
+    """The kernel's arithmetic, tile by tile.  q: [B, Sq, Hq, D]; k, v:
+    [B, Skv, Hkv, D].  Causal queries align to the end of the keys
+    (``q_offset = Skv - Sq``); keys past ``Skv`` never exist here (the
+    kernel masks its padded tile, which changes no value)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    grp = hq // hkv
+    f32 = torch.float32
+    dev = q.device
+    qg = q.reshape(b, sq, hkv, grp, d).permute(0, 2, 3, 1, 4).to(f32)
+    kt = k.permute(0, 2, 1, 3)          # [B, Hkv, Skv, D]
+    vt = v.permute(0, 2, 1, 3)
+    scale = 1.0 / np.sqrt(d)
+    q_off = skv - sq if causal else 0
+    qpos = q_off + torch.arange(sq, device=dev)
+    m = torch.full((b, hkv, grp, sq, 1), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((b, hkv, grp, sq, 1), dtype=f32, device=dev)
+    acc = torch.zeros((b, hkv, grp, sq, d), dtype=f32, device=dev)
+    end = min(skv, q_off + sq) if causal else skv
+    for kv0 in range(0, end, BLOCK_KV):
+        kb = kt[:, :, kv0:kv0 + BLOCK_KV]
+        vb = vt[:, :, kv0:kv0 + BLOCK_KV]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb.to(f32)) * scale
+        if causal:
+            kpos = kv0 + torch.arange(kb.shape[2], device=dev)
+            s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(v.dtype).to(f32), vb.to(f32))
+        m = m_new
+    o = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)

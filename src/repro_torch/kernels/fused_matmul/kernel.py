@@ -2,22 +2,19 @@
 
 The CUDA source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``build/`` at the root
-of the checkout, and loaded with ``ctypes``.  Importing this module needs
-no ``nvcc`` and no card; nothing is compiled until a CUDA tensor reaches
-:func:`launch`.
+of the checkout (``kernels.build``), and loaded with ``ctypes``.
+Importing this module needs no ``nvcc`` and no card; nothing is compiled
+until a CUDA tensor reaches :func:`launch`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import sys
 import threading
 from pathlib import Path
 
 import torch
+
+from ..build import BUILD_DIR, build_library  # noqa: F401 (BUILD_DIR: re-export)
 
 MAX_STAGES = 8
 DT = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,44 +25,15 @@ FN = {name: i for i, name in enumerate(
 CAST = {None: -1, "float32": 0, "bfloat16": 1}
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_matmul.cu"
-#: <checkout>/build — four levels up from src/repro_torch/kernels/fused_matmul
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
 
 _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused_matmul kernel is built "
-                       "from csrc/fused_matmul.cu at first use on a CUDA "
-                       "machine")
-
-
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library (once per source digest) and return its
-    path.  ``verbose`` rebuilds with ``-Xptxas -v`` and prints nvcc's
-    report (registers, shared memory, spills per kernel) to stderr."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_matmul_{digest}.so"
-    if out.exists() and not verbose:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="", file=sys.stderr)
-    os.replace(tmp, out)
-    return out
+    path; ``verbose`` prints nvcc's ptxas report to stderr."""
+    return build_library(SOURCE, verbose)
 
 
 def library() -> ctypes.CDLL:

@@ -7,8 +7,29 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+from torch import nn
 
+from ..core import tapir
 from ..core.dtypes import to_torch_dtype
+
+
+def _ce_loss(logits, labels, mask):
+    """Masked mean cross-entropy in fp32 — module-level so its identity is
+    stable in region graph signatures (one ``pyfunc`` node under capture)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.to(torch.int64)[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                         min=1.0)
+
+
+def _ce_loss_unmasked(logits, labels):
+    # the all-ones mask is built inside the lifted fn, so a region capture
+    # needs no concrete mask input
+    return _ce_loss(logits, labels,
+                    torch.ones(labels.shape, dtype=torch.float32,
+                               device=labels.device))
 
 
 @dataclass(frozen=True)
@@ -85,6 +106,34 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+class BaseModel(nn.Module):
+    """The train/serve entry points every family implements."""
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """Returns logits [B, S, vocab]."""
+        raise NotImplementedError
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean cross-entropy of ``forward`` against ``batch["labels"]``
+        (over ``batch["mask"]`` when given), a scalar fp32 tensor.  Through
+        ``lift``, so a region capture keeps it as one node; outside a region
+        it is a direct call."""
+        logits = self.forward(batch)
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        if mask is None:
+            return tapir.lift(_ce_loss_unmasked, logits, labels)
+        return tapir.lift(_ce_loss, logits, labels, mask)
+
+    def capture_aux(self, batch: dict) -> tuple:
+        """Concrete auxiliary leaves the forward binds under region capture
+        (identity-stable memoized tables); families with none return ()."""
+        return ()
+
+    def supports_slots(self) -> bool:
+        return False
 
 
 _REGISTRY: dict[str, Callable] = {}

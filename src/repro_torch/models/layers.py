@@ -85,6 +85,28 @@ def full_rope_table(max_len: int, head_dim: int, base: float = 10000.0,
     return tab
 
 
+#: arange tables by (seq_len, head_dim, base, fraction, device)
+_ARANGE_ROPE: dict = {}
+
+
+def arange_rope_table(seq_len: int, head_dim: int, base: float = 10000.0,
+                      fraction: float = 1.0, device="cpu"):
+    """cos/sin for positions ``arange(seq_len)`` exactly (no bucketing) on
+    ``device``, memoized so the tensor IDENTITIES are stable across calls:
+    a region that binds them as inputs replays instead of re-tracing.
+    Values are those of ``rope_table(arange(seq_len))`` (it is that call,
+    made once)."""
+    dev = torch.device(device)
+    key = (int(seq_len), int(head_dim), float(base), float(fraction),
+           str(dev))
+    tab = _ARANGE_ROPE.get(key)
+    if tab is None:
+        tab = rope_table(torch.arange(int(seq_len), device=dev), head_dim,
+                         base, fraction)
+        _ARANGE_ROPE[key] = tab
+    return tab
+
+
 def apply_rope(x, cos, sin, fraction: float = 1.0):
     """x: [B,S,H,D]; cos/sin [S, rot/2] or [B, S, rot/2].  ``fraction=0.5``
     rotates only the first half of the head dims."""

@@ -1,11 +1,24 @@
-"""Dense GQA transformer LM — the slot-paged serving path of the JAX
-package's ``models/transformer.py``.
+"""Dense GQA transformer LM — the port of the JAX package's
+``models/transformer.py``: the full-sequence forward, the padded-cache
+prefill/decode and the slot-paged serving path.
 
 ``DenseLM`` is an ``nn.Module`` owning its parameters under the reference
 tree's names (``embed``, ``blocks.{wq,wk,wv,bq,bk,bv,wo,wg,wu,wd,ln1,ln2}``
-stacked ``[L, ...]``, ``ln_f``, ``lm_head``).  Params are kept in
-``param_dtype`` (fp32) and ``slot_params`` casts them once to the compute
-dtype, so every region input rebinds to the same tensors each step.
+stacked ``[L, ...]``, ``ln_f``, ``lm_head``), kept in ``param_dtype``
+(fp32).  As in the reference, every layer's params are cast to the compute
+dtype just before its block runs.
+
+Forward: embed, then ``scan_layers`` over ``dense_block`` regions (each
+block ONE region program: norms, the fused QKV GEMM, RoPE, the causal
+flash-attention node, the O-projection with its residual epilogue and the
+gated MLP), then the head.  ``loss`` adds the cross-entropy.
+
+Padded cache (``init_cache`` / ``prefill`` / ``decode_step``): one
+``[L, B, max_len, Hkv, hd]`` tensor for K and one for V plus a scalar
+``pos``.  Each layer's block region writes its slab view ``cache["k"][i]``
+in place (a donated ``dynamic_update_slice`` at ``pos``); prefill attends
+over the fresh K/V with the flash node, decode over the cache with the
+masked composite.
 
 Slot serving: the cache is per-layer page pools ``[P, page_len, Hkv, hd]``
 plus a per-slot page table ``ptab [slots, pps]`` and length vector ``pos``.
@@ -13,7 +26,9 @@ Occupancy and page binding are DATA, not shape: each block of a decode step
 is ONE region program (per-slot RoPE rows gathered at ``pos``, K/V
 scattered in place at ``(ptab[s, pos // page_len], pos % page_len)``,
 masked attention over the gathered per-slot view ``pool[ptab[s]]``),
-replayed from ``_PROGRAMS`` whichever slots are live.
+replayed from ``_PROGRAMS`` whichever slots are live.  ``slot_params``
+casts the params once, so every region input rebinds to the same tensors
+each step.
 """
 from __future__ import annotations
 
@@ -27,8 +42,8 @@ from ..core import tapir
 from ..core.dtypes import to_torch_dtype
 from ..serve.pages import identity_row, page_geometry
 from . import layers as L
-from .base import ModelConfig, ParamSpec, materialize, register_family, \
-    resolve_device
+from .base import BaseModel, ModelConfig, ParamSpec, materialize, \
+    register_family, resolve_device
 
 
 def _embed_lookup(embed, tokens, cdt: str):
@@ -77,7 +92,7 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 @register_family("dense")
-class DenseLM(nn.Module):
+class DenseLM(BaseModel):
     """Dense GQA transformer.  ``params`` (a tree like ``abstract_params``
     of tensors) supplies the weights; otherwise they are drawn from
     ``generator`` (default: seed 0 on ``device``) by the reference's init
@@ -135,6 +150,164 @@ class DenseLM(nn.Module):
     def _embed(self, embed, tokens):
         return tapir.lift(_embed_lookup, embed, tokens,
                           cdt=self.cfg.compute_dtype)
+
+    def _layer_params(self, i: int) -> dict:
+        """Layer ``i``'s params in the compute dtype (a fresh cast, as the
+        reference's per-layer ``astype`` is)."""
+        cdt = to_torch_dtype(self.cfg.compute_dtype)
+        return {k: v[i].to(cdt) for k, v in self.blocks.items()}
+
+    # -- attention block (forward and padded cache) ----------------------
+    def _attn(self, p, x, cos, sin, causal=True, kv_cache=None):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        bs = [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None
+        q, k, v = tapir.multi_linear(x, [p["wq"], p["wk"], p["wv"]], bs)
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, Hkv, hd)
+        v = v.reshape(B, S, Hkv, hd)
+        frac = self._rope_frac()
+        q = L.apply_rope(q, cos, sin, frac)
+        k = L.apply_rope(k, cos, sin, frac)
+        if kv_cache is None:
+            o = tapir.attention(q, k, v, causal=causal)
+        else:
+            ck, cv, cpos, is_prefill = kv_cache
+            # inside a region these are dynamic_update_slice nodes that
+            # donate the cache slabs: the program writes them in place
+            ck = tapir.cache_write(ck, k, (0, cpos, 0, 0))
+            cv = tapir.cache_write(cv, v, (0, cpos, 0, 0))
+            if is_prefill:
+                # the flash node over the fresh K/V (the cache only written)
+                o = tapir.attention(q, k, v, causal=True)
+            else:
+                o = _decode_attention(q, ck, cv, cpos + S)
+            kv_cache = (ck, cv)
+        out = tapir.linear(o.reshape(B, S, H * hd), p["wo"])
+        return out, kv_cache
+
+    def _attn_body(self, p, x, cos, sin):
+        """Attention sub-block: norm, attention, residual."""
+        a, _ = self._attn(p, self._norm(x, p["ln1"]), cos, sin)
+        return x + a
+
+    def _block_body(self, p, x, cos, sin):
+        x = self._attn_body(p, x, cos, sin)
+        return x + self._mlp(p, self._norm(x, p["ln2"]))
+
+    def _block(self, p, x, cos, sin):
+        """One block as ONE region program: the pass pipeline fuses across
+        op boundaries (Q/K/V into one GEMM, each residual add into a GEMM
+        epilogue).  With ``TapirConfig(regions=False)`` the same body runs
+        op by op, bitwise-equal."""
+        blk = tapir.parallel_region(self._block_body, name="dense_block")
+        return blk(p, x, cos, sin)
+
+    # -- forward ----------------------------------------------------------
+    def backbone(self, h):
+        """The block stack over ``h [B, S, d]`` at positions ``arange(S)``."""
+        cos, sin = L.arange_rope_table(int(h.shape[1]), self.cfg.hd,
+                                       fraction=self._rope_frac(),
+                                       device=self.device)
+        cdt = h.dtype
+
+        def body(p, x):
+            p = {k: v.to(cdt) for k, v in p.items()}
+            return self._block(p, x, cos, sin)
+
+        return tapir.scan_layers(body, dict(self.blocks), h)
+
+    def capture_aux(self, batch: dict) -> tuple:
+        # the same memoized tensors ``backbone`` binds
+        return L.arange_rope_table(int(batch["tokens"].shape[1]),
+                                   self.cfg.hd, fraction=self._rope_frac(),
+                                   device=self.device)
+
+    def _head(self, x):
+        x = self._norm(x, self.ln_f)
+        w = self.lm_head if self.lm_head is not None else self.embed.T
+        return tapir.linear(x, w.to(x.dtype))
+
+    def forward(self, batch: dict):
+        """Logits ``[B, S, vocab]`` of ``batch["tokens"] [B, S]``."""
+        h = self._embed(self.embed, batch["tokens"])
+        return self._head(self.backbone(h))
+
+    # -- padded-cache serving ----------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """``k`` / ``v``: ``[L, batch, max_len, Hkv, hd]`` in the compute
+        dtype; ``pos``: the shared length, a scalar int32."""
+        cfg = self.cfg
+        kv = to_torch_dtype(cfg.compute_dtype)
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        dev = self.device
+        return {"k": torch.zeros(shape, dtype=kv, device=dev),
+                "v": torch.zeros(shape, dtype=kv, device=dev),
+                "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def _cached_attn_body(self, p, x, cos, sin, ck, cv, pos0,
+                          is_prefill: bool):
+        """Attention sub-block against its KV-cache slab (stateful)."""
+        a, (ck, cv) = self._attn(p, self._norm(x, p["ln1"]), cos, sin,
+                                 kv_cache=(ck, cv, pos0, is_prefill))
+        return x + a, ck, cv
+
+    def _cached_block_body(self, p, x, cos, sin, ck, cv, pos0,
+                           is_prefill: bool):
+        """One block against its cache slab; under region capture the cache
+        writes donate the slab, which the program updates in place."""
+        x, ck, cv = self._cached_attn_body(p, x, cos, sin, ck, cv, pos0,
+                                           is_prefill)
+        x = x + self._mlp(p, self._norm(x, p["ln2"]))
+        return x, ck, cv
+
+    def _run_with_cache(self, tokens, cache, positions, is_prefill: bool):
+        cfg = self.cfg
+        h = self._embed(self.embed, tokens)
+        cos, sin = L.rope_table(positions, cfg.hd, fraction=self._rope_frac())
+        pos0 = cache["pos"]
+        blk = tapir.parallel_region(self._cached_block_body,
+                                    name="dense_cached_block")
+        regions = tapir.get_config().regions
+        for i in range(cfg.n_layers):
+            slab_k, slab_v = cache["k"][i], cache["v"][i]
+            h, ck, cv = blk(self._layer_params(i), h, cos, sin, slab_k,
+                            slab_v, pos0, is_prefill)
+            if regions:
+                # the region program writes the donated slab in place and
+                # returns it; a copy would cost a slab clone per layer
+                if ck is not slab_k or cv is not slab_v:
+                    raise RuntimeError(
+                        f"layer {i}: the region returned a copy of its "
+                        f"cache slab instead of writing it in place")
+            else:
+                # the per-op write is functional: copy it into the slab
+                slab_k.copy_(ck)
+                slab_v.copy_(cv)
+        cache = {"k": cache["k"], "v": cache["v"],
+                 "pos": pos0 + tokens.shape[1]}
+        if is_prefill:
+            h = h[:, -1:]   # only the last position's logits are served
+        return self._head(h), cache
+
+    def prefill(self, tokens, cache):
+        """Prompts ``tokens [B, S]`` into an empty ``cache``; returns
+        (logits ``[B, vocab]`` at position S-1, cache).  The cache's K/V
+        tensors are updated in place."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        logits, cache = self._run_with_cache(tokens, cache, positions,
+                                             is_prefill=True)
+        return logits[:, -1], cache
+
+    def decode_step(self, tokens, cache):
+        """``tokens [B, S]`` at positions ``pos ..``; returns (logits
+        ``[B, vocab]`` of the last, cache)."""
+        positions = cache["pos"] + torch.arange(tokens.shape[1],
+                                                device=tokens.device)
+        logits, cache = self._run_with_cache(tokens, cache, positions,
+                                             is_prefill=False)
+        return logits[:, -1], cache
 
     # -- slot-paged serving ----------------------------------------------
     def init_slot_cache(self, slots: int, max_len: int,
@@ -307,6 +480,15 @@ class DenseLM(nn.Module):
         logits = head(sp["head"], h[:, r:r + 1])
         cache["pos"][slot] = plen
         return logits, cache
+
+
+def _decode_attention(q, ck, cv, valid_len):
+    """Masked attention over the padded cache: inside a region ONE
+    ``pyfunc`` node (ordered after the cache writes it reads), outside a
+    direct call of the same composite."""
+    if any(tapir.is_traced(t) for t in (q, ck, cv, valid_len)):
+        return tapir.lift(_masked_decode_attention, q, ck, cv, valid_len)
+    return _masked_decode_attention(q, ck, cv, valid_len)
 
 
 def _masked_decode_attention(q, ck, cv, valid_len):

@@ -23,7 +23,12 @@ between prefix sharing on and off, and between regions on and off.
 The host reads each step's argmax tokens (the reference's behaviour); the
 loop adds no other device synchronization.
 
-Not in this slice: fault injection, checkpoints, the straggler watchdog,
+``make_prefill_step`` / ``make_decode_step`` drive the padded cache of
+``model.init_cache`` (the reference's path for slot-less families); the
+padded-wave loop over them (``_run_padded_waves``) waits for the first
+slot-less family.
+
+Not ported yet: fault injection, checkpoints, the straggler watchdog,
 meshes and the persistent program cache.  Asking for one raises
 ``NotImplementedError``.
 """
@@ -98,6 +103,41 @@ class ServeConfig:
     def tapir_config(self) -> TapirConfig:
         return TapirConfig(mode=self.mode, cost_model=self.cost_model(),
                            regions=self.regions)
+
+
+def make_prefill_step(model, mesh=None, cfg: ServeConfig = ServeConfig()):
+    """``prefill(tokens [B, S], cache) -> (logits [B, vocab], cache)``: the
+    padded-cache prefill of ``model.init_cache``'s cache under ``cfg``, on
+    the model's device.  The cache's K/V tensors are written in place (the
+    reference donates the cache)."""
+    if mesh is not None:
+        raise NotImplementedError("meshes are not ported to the torch "
+                                  "engine yet")
+    tap = cfg.tapir_config()
+
+    def prefill(tokens, cache):
+        with use(tap):
+            return model.prefill(torch.as_tensor(tokens, device=model.device),
+                                 cache)
+
+    return prefill
+
+
+def make_decode_step(model, mesh=None, cfg: ServeConfig = ServeConfig()):
+    """``decode(tokens [B, 1], cache) -> (next_token [B] int32, cache)``:
+    one greedy step (argmax, the first index on a tie)."""
+    if mesh is not None:
+        raise NotImplementedError("meshes are not ported to the torch "
+                                  "engine yet")
+    tap = cfg.tapir_config()
+
+    def decode(tokens, cache):
+        with use(tap):
+            logits, cache = model.decode_step(
+                torch.as_tensor(tokens, device=model.device), cache)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return decode
 
 
 @dataclass

@@ -176,9 +176,22 @@ def test_unported_impls_say_so(models):
     g.set_outputs([a])
     run_pipeline(g, "tapir", H100_COST_MODEL)
     costs = g.nodes[a].schedule.impl_costs
-    assert costs["flash_kernel"] == "n/a (not ported yet)"
     assert costs["blockwise"] == "n/a (not ported yet)"
-    assert g.nodes[a].schedule.impl in ("materialized_grouped", "ref")
+    assert isinstance(costs["flash_kernel"], float)
+    assert g.nodes[a].schedule.impl == "flash_kernel"
+    # the kernel has no bias operand: a biased node binds a composite
+    gb = TaskGraph("attn_bias")
+    ins = [gb.add_input(n, TensorType((1, 4, 4, 8), "float32"))
+           for n in "qkv"]
+    bias = gb.add_input("bias", TensorType((1, 4, 4, 4), "float32"))
+    ab = gb.add("attention", tuple(ins) + (bias,),
+                TensorType((1, 4, 4, 8), "float32"), pdims=(0, 1, 2),
+                causal=False, q_shape=(1, 4, 4, 8), kv_len=4, kv_heads=4)
+    gb.set_outputs([ab])
+    run_pipeline(gb, "tapir", H100_COST_MODEL)
+    assert gb.nodes[ab].schedule.impl_costs["flash_kernel"] == \
+        "n/a (kernel has no bias operand)"
+    assert gb.nodes[ab].schedule.impl in ("materialized_grouped", "ref")
     # a library op none of whose impls is ported refuses at schedule time
     g2 = TaskGraph("scan")
     t = TensorType((1, 8, 4), "float32")
