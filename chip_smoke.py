@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
-main-path run zeroes both kernels' launch counts just before it and reads
-them just after:
+main-path run zeroes the three kernels' launch counts just before it and
+reads them just after:
 
-1. device and build — the card's name and power limit, then both kernel
-   libraries built by nvcc from the checkout's CUDA sources, in parallel;
+1. device and build — the card's name and power limit, then the three
+   kernel libraries (fused_matmul, flash_attention, linear_scan) built by
+   nvcc from the checkout's CUDA sources, in parallel;
 2. serve — qwen2.5-3b at full width (all 36 layers, random weights from a
    seed) through ``ServingEngine.run``: 4 slots, max_len 512, 6 requests of
    48-200 prompt tokens (3 sharing a 128-token prefix), 16 new tokens each;
@@ -40,6 +41,29 @@ them just after:
    ``scaled_dot_product_attention``; never called by the port) and the
    roofline bound.
 
+The qwen model is then released, and RWKV6-7B at full width (32 layers,
+d_model 4096; random weights from seed 0) takes its place:
+
+11. rwkv_forward — ``forward`` and ``loss`` on 2 x 2048 tokens: 32
+   ``linear_scan`` and 321 ``fused_matmul`` launches per call, every scan
+   node bound to ``kernel`` and every matmul to ``fused_kernel``, finite
+   logits and loss, wall time, peak memory, device time by kernel;
+12. rwkv_guarantees — region forward = per-op forward bitwise; the per-op
+   control's largest difference; the stateful prefill of 4 x 512 tokens
+   and 16 greedy decode steps (state written in place), the prefill's last
+   logits against the forward's at position 511;
+13. rwkv_serve — ``ServingEngine.run`` through the padded-wave loop (the
+   serve phase's requests), every request finished, ``run`` = ``run_wave``;
+14. scan_vs_plain — ``linear_scan`` against ``linear_scan_chunked`` in
+   bf16 and fp32, both variants: the forward's shape, SMOKE, ragged S
+   (37, 1000) and the decay clip in every position (S = 37, 2048, 8192);
+15. rwkv_gemm_vs_plain — ``fused_matmul`` at every RWKV path shape;
+16. small_rwkv_parity — SMOKE in fp32, the forward and the stateful steps
+   on the card against the CPU;
+17. scan_times — per path shape the scan kernel, its plain version and the
+   bound (no PyTorch call computes the scan: no library time), and the
+   RWKV forward and decode GEMM shapes as in phase 10.
+
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
 repository is not beside this file.
@@ -49,6 +73,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -202,42 +227,49 @@ def small_parity() -> dict:
 
 
 def kernel_ops():
-    """The two kernel wrappers' modules (each keeps a launch count)."""
+    """The three kernel wrappers' modules (each keeps a launch count)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_matmul import ops as fm_ops
-    return fm_ops, fa_ops
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    return fm_ops, fa_ops, ls_ops
 
 
-def counted(tag: str, fn, flash: int, gemm: int):
-    """Run ``fn``, one call of a main path, with both kernels' launch counts
-    zeroed just before it and read just after; fail unless
-    ``flash_attention`` launched ``flash`` times and ``fused_matmul``
-    ``gemm`` times.  Returns (result, host wall seconds to the end of its
-    device work, fused_matmul launches by shape, flash launches by
-    shape)."""
+def reset_counts() -> None:
+    for mod in kernel_ops():
+        mod.reset_counts()
+
+
+def counted(tag: str, fn, flash: int, gemm: int, scan: int = 0):
+    """Run ``fn``, one call of a main path, with every kernel's launch
+    count zeroed just before it and read just after; fail unless
+    ``flash_attention`` launched ``flash`` times, ``fused_matmul`` ``gemm``
+    times and ``linear_scan`` ``scan`` times.  Returns (result, host wall
+    seconds to the end of its device work, and the launches by shape of
+    fused_matmul, flash_attention and linear_scan)."""
     import torch
-    fm_ops, fa_ops = kernel_ops()
+    fm_ops, fa_ops, ls_ops = kernel_ops()
     torch.cuda.synchronize()
-    fm_ops.reset_counts()
-    fa_ops.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if fa_ops.launches != flash or fm_ops.launches != gemm:
-        raise SystemExit(f"{tag}: {fa_ops.launches} flash_attention and "
-                         f"{fm_ops.launches} fused_matmul launches (expected "
-                         f"{flash} and {gemm})")
+    got = (fa_ops.launches, fm_ops.launches, ls_ops.launches)
+    if got != (flash, gemm, scan):
+        raise SystemExit(f"{tag}: {got[0]} flash_attention, {got[1]} "
+                         f"fused_matmul and {got[2]} linear_scan launches "
+                         f"(expected {flash}, {gemm} and {scan})")
     return (out, wall, collections.Counter(fm_ops.launches_by_shape),
-            collections.Counter(fa_ops.launches_by_shape))
+            collections.Counter(fa_ops.launches_by_shape),
+            collections.Counter(ls_ops.launches_by_shape))
 
 
-def attention_impls(mode: str) -> set:
-    """The impls bound to every attention node of the card's programs."""
+def bound_impls(op: str, mode: str) -> set:
+    """The impls bound to every ``op`` node of the card's programs."""
     from repro_torch.core import tapir
     return {n.schedule.impl for key, g in tapir.cached_graphs().items()
             if key[-3] == mode and key[-2] == "h100_sxm"
-            for n in g.nodes.values() if n.op == "attention"}
+            for n in g.nodes.values() if n.op == op}
 
 
 def device_time_by_kernel(prof, steps: int) -> dict:
@@ -275,13 +307,13 @@ def forward_phase(model, cfg):
     n_l = cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     with tapir.use(ServeConfig(target="gpu").tapir_config()):
-        _, cold_s, _, _ = counted("forward (first call)",
+        _, cold_s, *_ = counted("forward (first call)",
                                   lambda: model.forward(batch), n_l,
                                   4 * n_l + 1)
-        logits, wall_s, fm, fa = counted(
+        logits, wall_s, fm, fa, _ = counted(
             "forward", lambda: model.forward(batch), n_l, 4 * n_l + 1)
         peak = torch.cuda.max_memory_allocated()
-        loss, loss_s, _, _ = counted("loss", lambda: model.loss(batch), n_l,
+        loss, loss_s, *_ = counted("loss", lambda: model.loss(batch), n_l,
                                      4 * n_l + 1)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -289,7 +321,7 @@ def forward_phase(model, cfg):
             model.forward(batch)
             torch.cuda.synchronize()
             prof_s = time.perf_counter() - t0
-    impls = attention_impls("tapir")
+    impls = bound_impls("attention", "tapir")
     finite = bool(torch.isfinite(logits).all()) and bool(
         torch.isfinite(loss))
     by_name = device_time_by_kernel(prof, 1)
@@ -325,15 +357,15 @@ def forward_guarantees(model, cfg, batch, logits) -> dict:
     from repro_torch.serve import ServeConfig
     n_l = cfg.n_layers
     with tapir.use(ServeConfig(target="gpu", regions=False).tapir_config()):
-        per_op, per_op_s, _, _ = counted(
+        per_op, per_op_s, *_ = counted(
             "forward per-op", lambda: model.forward(batch), n_l, 4 * n_l + 1)
     bitwise = torch.equal(per_op, logits)
     del per_op
     with tapir.use(ServeConfig(target="gpu", mode="opaque").tapir_config()):
-        opaque, opaque_s, _, _ = counted(
+        opaque, opaque_s, *_ = counted(
             "forward opaque", lambda: model.forward(batch), n_l, 7 * n_l + 1)
     err = float((opaque.float() - logits.float()).abs().max())
-    impls = attention_impls("opaque")
+    impls = bound_impls("attention", "opaque")
     line = {"phase": "forward_guarantees", "region_eq_per_op": bitwise,
             "per_op_wall_s": per_op_s, "opaque_max_abs_diff": err,
             "opaque_wall_s": opaque_s,
@@ -369,7 +401,7 @@ def padded_phase(model, cfg):
     for tag in ("prefill (first call)", "prefill"):
         cache = model.init_cache(PF_B, PF_MAX)
         ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
-        (logits, cache), wall, fm_pf, fa_pf = counted(
+        (logits, cache), wall, fm_pf, fa_pf, _ = counted(
             tag, lambda: prefill(prompts, cache), n_l, 4 * n_l + 1)
         walls.append(wall)
         if (cache["k"].data_ptr(), cache["v"].data_ptr()) != ptrs:
@@ -379,7 +411,7 @@ def padded_phase(model, cfg):
     fm_dec = collections.Counter()
     steps, out = [], []
     for i in range(PF_NEW):
-        (nxt, cache), wall, fm, _ = counted(
+        (nxt, cache), wall, fm, *_ = counted(
             f"decode step {i}", lambda: decode(tok, cache), 0, 4 * n_l + 1)
         fm_dec += fm
         steps.append(wall)
@@ -598,36 +630,562 @@ def profile_decode(model, eng, steps: int = 3) -> dict:
             "top": top_kernels(by_name, 10)}
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card", file=sys.stderr)
-        return 2
+# -- RWKV6-7B ----------------------------------------------------------------
+
+LS_SOURCE = "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu"
+LS_REPLACES = "src/repro/kernels/linear_scan/kernel.py:70"
+#: per output row (batch, position, head): max |kernel - plain| over the
+#: row's own scale, its max of the same scan over |q|, |k|, |v|, |u| (the
+#: magnitudes of the terms each output sums, which bound the rounding
+#: error of a signed sum; a row whose terms nearly cancel has a max |plain|
+#: far below it).  bf16: one rounding of the output, 2^-8 of its size;
+#: fp32: prefix sums and products summed in another order
+LS_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: the stateful prefill's last logits against the forward's at the same
+#: position, per row over the row's max |logit|: the composite (prefill)
+#: and the kernel (forward) round differently in bf16, over 32 layers
+RW_PF_RTOL = 5e-2
+#: RWKV6's decay clip: log w >= -exp(2)
+CLIP_W = math.exp(-math.exp(2.0))
+
+
+def rwkv_label(n: int, k: int, spec, cfg) -> str:
+    from repro_torch.models.rwkv import LORA_RANK
+    d, ff, r = cfg.d_model, cfg.d_ff, LORA_RANK
+    names = {(d, d): "wr|wk|wv|wg|wo|wcr", (r, d): "wA", (d, r): "wB",
+             (ff, d): "wck", (d, ff): "wcv", (cfg.vocab, d): "head"}
+    name = names.get((n, k), f"n{n}_k{k}")
+    return name + "".join(f"+{fn}" for fn, *_ in spec)
+
+
+def rwkv_forward_phase(model, cfg):
+    """``forward`` and ``loss`` of RWKV6-7B at full width on FWD_B x FWD_S
+    tokens: a first call, a timed call, the loss and one profiled forward,
+    each with the counts checked: one scan per layer, ten GEMMs per layer
+    (wr, wk, wv, wg, wA, wB, wo, wck, wcr, wcv: every one reads its own
+    input, so no fusion merges two) plus the head, no flash."""
     import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    rng = np.random.default_rng(5)
+    batch = {name: torch.as_tensor(rng.integers(lo, cfg.vocab,
+                                                (FWD_B, FWD_S)),
+                                   dtype=torch.int32, device="cuda")
+             for name, lo in (("tokens", 1), ("labels", 0))}
+    n_l = cfg.n_layers
+    gemm = 10 * n_l + 1
+    torch.cuda.reset_peak_memory_stats()
+    with tapir.use(ServeConfig(target="gpu").tapir_config()):
+        _, cold_s, *_ = counted("rwkv forward (first call)",
+                                lambda: model.forward(batch), 0, gemm, n_l)
+        logits, wall_s, fm, _, ls = counted(
+            "rwkv forward", lambda: model.forward(batch), 0, gemm, n_l)
+        peak = torch.cuda.max_memory_allocated()
+        loss, loss_s, *_ = counted("rwkv loss", lambda: model.loss(batch),
+                                   0, gemm, n_l)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.forward(batch)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    scan_impls = bound_impls("linear_scan", "tapir")
+    mm_impls = bound_impls("matmul", "tapir")
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(loss))
+    by_name = device_time_by_kernel(prof, 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    line = {"phase": "rwkv_forward", "batch": FWD_B, "seq": FWD_S,
+            "layers": n_l, "d_model": cfg.d_model,
+            "logits_shape": list(logits.shape), "finite": finite,
+            "loss": float(loss), "scan_impls": sorted(scan_impls),
+            "matmul_impls": sorted(mm_impls),
+            "scan_launches_per_forward": sum(ls.values()),
+            "gemm_launches_per_forward": sum(fm.values()),
+            "first_call_s": cold_s, "wall_s": wall_s, "loss_wall_s": loss_s,
+            "tok_per_s": FWD_B * FWD_S / wall_s,
+            "peak_mem_gb": peak / 1e9,
+            "profiled_wall_s": prof_s, "device_ms": busy,
+            "device_busy_share": busy / (wall_s * 1e3),
+            "scan_device_ms": sum(ms for k, (ms, _) in by_name.items()
+                                  if "linear_scan" in k),
+            "gemm_device_ms": sum(ms for k, (ms, _) in by_name.items()
+                                  if "gemm" in k),
+            "top": top_kernels(by_name)}
+    if scan_impls != {"kernel"} or mm_impls != {"fused_kernel"}:
+        raise SystemExit(f"rwkv forward: impls {scan_impls}, {mm_impls}")
+    if not finite or tuple(logits.shape) != (FWD_B, FWD_S, cfg.vocab):
+        raise SystemExit(f"rwkv forward: {line}")
+    return line, batch, logits, fm, ls
+
+
+def rwkv_guarantees(model, cfg, batch, logits):
+    """Region forward = per-op forward bitwise; the per-op control's
+    largest difference; the stateful prefill of PF_B x PF_S tokens (the
+    lifted chunked composite, no scan launch) then PF_NEW greedy decode
+    steps, its state written in place, its last logits against the
+    forward's at position PF_S - 1."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig, make_decode_step, \
+        make_prefill_step
+    n_l = cfg.n_layers
+    gemm = 10 * n_l + 1
+    torch.cuda.reset_peak_memory_stats()
+    with tapir.use(ServeConfig(target="gpu", regions=False).tapir_config()):
+        per_op, per_op_s, *_ = counted(
+            "rwkv forward per-op", lambda: model.forward(batch), 0, gemm, n_l)
+    bitwise = torch.equal(per_op, logits)
+    del per_op
+    with tapir.use(ServeConfig(target="gpu", mode="opaque").tapir_config()):
+        opaque, opaque_s, *_ = counted(
+            "rwkv forward opaque", lambda: model.forward(batch), 0, gemm,
+            n_l)
+    err = float((opaque.float() - logits.float()).abs().max())
+    del opaque
+    opaque_impls = bound_impls("linear_scan", "opaque")
+
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(1, cfg.vocab, (PF_B, PF_S)).astype(np.int32)
+    scfg = ServeConfig(target="gpu")
+    prefill = make_prefill_step(model, cfg=scfg)
+    decode = make_decode_step(model, cfg=scfg)
+    keys = ("tm_shift", "cm_shift", "wkv")
+    walls = []
+    for tag in ("rwkv prefill (first call)", "rwkv prefill"):
+        cache = model.init_cache(PF_B, PF_MAX)
+        ptrs = [cache[k].data_ptr() for k in keys]
+        (lg, cache), wall, fm_pf, *_ = counted(
+            tag, lambda: prefill(prompts, cache), 0, gemm, 0)
+        walls.append(wall)
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+    fm_dec = collections.Counter()
+    steps, out = [], []
+    for i in range(PF_NEW):
+        (nxt, cache), wall, fm, *_ = counted(
+            f"rwkv decode step {i}", lambda: decode(tok, cache), 0, gemm, 0)
+        fm_dec += fm
+        steps.append(wall)
+        tok = nxt[:, None]
+        out.append(nxt)
+    toks = torch.stack(out, dim=1).cpu().numpy()
+    in_place = [cache[k].data_ptr() for k in keys] == ptrs
+    with tapir.use(scfg.tapir_config()):
+        full = model.forward({"tokens": torch.as_tensor(prompts,
+                                                        device="cuda")})
+    last = full[:, -1].float()
+    diff = (lg.float() - last).abs()
+    rel = float((diff.amax(-1) / last.abs().amax(-1)).max())
+    steps.sort()
+    line = {"phase": "rwkv_guarantees", "region_eq_per_op": bitwise,
+            "per_op_wall_s": per_op_s, "opaque_max_abs_diff": err,
+            "opaque_wall_s": opaque_s,
+            "opaque_scan_impls": sorted(opaque_impls),
+            "batch": PF_B, "prompt": PF_S, "decode_steps": PF_NEW,
+            "gemm_launches_per_prefill": sum(fm_pf.values()),
+            "gemm_launches_per_decode_step": sum(fm_dec.values()) // PF_NEW,
+            "prefill_first_call_s": walls[0], "prefill_s": walls[1],
+            "decode_step_p50_ms": steps[len(steps) // 2] * 1e3,
+            "decode_step_max_ms": steps[-1] * 1e3,
+            "pos": int(cache["pos"]), "state_in_place": in_place,
+            "prefill_vs_forward_max_abs_diff": float(diff.max()),
+            "prefill_vs_forward_row_rel": rel,
+            "prefill_vs_forward_row_rtol": RW_PF_RTOL,
+            "prefill_vs_forward_same_argmax": bool(torch.equal(
+                torch.argmax(lg, -1), torch.argmax(full[:, -1], -1))),
+            "finite": bool(torch.isfinite(lg).all()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sample_out": toks[0, :8].tolist()}
+    if not (bitwise and opaque_impls == {"opaque"} and in_place
+            and line["finite"] and rel <= RW_PF_RTOL
+            and line["pos"] == PF_S + PF_NEW
+            and ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise SystemExit(f"rwkv guarantees: {line}")
+    return line, fm_pf, fm_dec
+
+
+def rwkv_serve(model, cfg):
+    """``ServingEngine.run`` on a family without slots: the padded-wave
+    loop, SLOTS rows, the serve phase's 6 requests (48-200 prompt tokens),
+    MAX_NEW new tokens each.  Every prefill and decode step runs 10 GEMMs
+    per layer plus the head and no scan kernel (the stateful step is the
+    lifted composite).  ``run`` equals ``run_wave`` token for token."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    fm_ops, fa_ops, ls_ops = kernel_ops()
+    eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
+                        cfg=ServeConfig(target="gpu"), device="cuda")
+    reqs = requests(cfg.vocab, seed=0)
+    per_call = 10 * cfg.n_layers + 1
+    waves = -(-len(reqs) // SLOTS)
+    torch.cuda.reset_peak_memory_stats()
+    runs, stats, fm = {}, {}, collections.Counter()
+    for name in ("run", "run_wave"):
+        fresh = [Request(rid=r.rid, prompt=r.prompt.copy(),
+                         max_new=r.max_new) for r in reqs]
+        torch.cuda.synchronize()
+        reset_counts()
+        out = getattr(eng, name)(fresh)
+        torch.cuda.synchronize()
+        st = dict(eng.last_stats)
+        want = (waves + st["decode_steps"]) * per_call
+        if (fm_ops.launches, fa_ops.launches, ls_ops.launches) != (want, 0,
+                                                                    0):
+            raise SystemExit(
+                f"rwkv {name}: {fm_ops.launches} fused_matmul, "
+                f"{fa_ops.launches} flash and {ls_ops.launches} scan "
+                f"launches (expected {want}, 0 and 0)")
+        if not all(r.done and len(r.out) == MAX_NEW for r in out):
+            raise SystemExit(f"rwkv {name}: not every request finished")
+        for r in out:
+            toks = np.asarray(r.out)
+            if not ((toks >= 0) & (toks < cfg.vocab)).all():
+                raise SystemExit(f"rwkv {name}: request {r.rid} emitted "
+                                 f"{r.out}")
+        fm.update(fm_ops.launches_by_shape)
+        runs[name], stats[name] = out, st
+    same = [r.out for r in runs["run"]] == [r.out for r in runs["run_wave"]]
+    st = stats["run"]
+    line = {"phase": "rwkv_serve", "slots": SLOTS, "requests": len(reqs),
+            "waves": waves, "tokens": st["tokens"],
+            "decode_steps": st["decode_steps"], "wall_s": st["wall_s"],
+            "tok_per_s": st["tok_per_s"],
+            "mean_occupancy": st["mean_occupancy"],
+            "run_wave_wall_s": stats["run_wave"]["wall_s"],
+            "gemm_launches_per_call": per_call, "run_eq_run_wave": same,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sample_out": runs["run"][0].out[:8]}
+    if not same:
+        raise SystemExit(f"rwkv serve: {line}")
+    return line, fm
+
+
+def scan_inputs(shape, dt, seed: int):
+    """q/k/v in ``dt``, w and u in fp32.  decay ``model``: the RWKV6 decay
+    of a log-log weight uniform in its clip [-8, 2]; ``clip``: exp(-e^2),
+    the strongest decay the model allows, in every position."""
+    import torch
+    b, s, h, dk, dv, decay = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(b, s, h, dk, generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    v = torch.randn(b, s, h, dv, generator=gen, device="cuda").to(dt)
+    if decay == "clip":
+        w = torch.full((b, s, h, dk), CLIP_W, device="cuda")
+    else:
+        r = torch.rand(b, s, h, dk, generator=gen, device="cuda")
+        w = torch.exp(-torch.exp(-8.0 + 10.0 * r))
+    u = torch.randn(h, dk, generator=gen, device="cuda")
+    return q, k, v, w, u
+
+
+def scan_vs_plain(path_shapes, smoke_shape) -> dict:
+    """``linear_scan`` against ``linear_scan_chunked`` at the same chunk
+    (SAFE_CHUNK), in bf16 and fp32, both variants: the forward's path
+    shapes, SMOKE, ragged S (37, 1000) and the decay clip in every position
+    at S = 37, 2048 and 8192.  Stops on the first miss (LS_RTOL).  Returns
+    {(shape, variant, dtype): (max abs err, max row-relative err)}."""
+    import torch
+    from repro_torch.kernels.costs import SAFE_CHUNK
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    shapes = list(path_shapes) + [
+        smoke_shape, (2, 37, 64, 64, 64, "model"),
+        (2, 1000, 64, 64, 64, "model"), (2, 37, 64, 64, 64, "clip"),
+        (2, 2048, 64, 64, 64, "clip"), (1, 8192, 64, 64, 64, "clip")]
+    out = {}
+    for i, shape in enumerate(shapes):
+        for variant in ("rwkv6", "gla"):
+            for dname, dt in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+                q, k, v, w, u = scan_inputs(shape, dt, seed=20 + i)
+                u = u if variant == "rwkv6" else None
+                o = ls_ops.linear_scan(q, k, v, w, u=u, chunk=SAFE_CHUNK)
+                want = ls_ref.linear_scan_chunked(q, k, v, w, u=u,
+                                                  chunk=SAFE_CHUNK)
+                scale = ls_ref.linear_scan_chunked(
+                    q.float().abs(), k.float().abs(), v.float().abs(), w,
+                    u=None if u is None else u.abs(),
+                    chunk=SAFE_CHUNK).amax(-1)
+                diff = (o.float() - want.float()).abs()
+                err = float(diff.max())
+                rel = float((diff.amax(-1) / scale.clamp_min(1e-30)).max())
+                finite = bool(torch.isfinite(o).all())
+                if not (finite and rel <= LS_RTOL[dname]):
+                    raise SystemExit(
+                        f"scan vs plain: {shape} {variant} {dname}: max err "
+                        f"{err}, row-relative {rel} (<= {LS_RTOL[dname]}), "
+                        f"finite {finite}")
+                out[(shape, variant, dname)] = (err, rel)
+                del q, k, v, w, u, o, want, scale, diff
+    return out
+
+
+def gemm_vs_plain(shapes, gen, name_of) -> dict:
+    """``fused_matmul`` against ``fused_matmul_ref`` at every (m, n, k,
+    x dtype, epilogue) of ``shapes`` in bf16 and fp32 (TOL); max err by
+    (m, n, k, epilogue, dtype).  ``name_of(shape)`` labels a miss."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    errs = {}
+    for shape in shapes:
+        m, n, k, _, spec = shape
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+            y = ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt)
+            want = ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt)
+            err = float((y.float() - want.float()).abs().max())
+            if not err <= TOL[dname]:
+                raise SystemExit(f"kernel vs plain: {name_of(shape)} {dname} "
+                                 f"max err {err} > {TOL[dname]}")
+            errs[(m, n, k, spec, dname)] = err
+            del x, w, epi, y, want
+    return errs
+
+
+def small_rwkv_parity() -> dict:
+    """RWKV6 SMOKE in fp32 on the same weights: the forward and the
+    stateful prefill + 4 decode steps on the card against the same code on
+    the CPU (the kernels' plain versions, which the CPU tests hold against
+    the JAX package).  Forward within 1e-4; the steps against the
+    full-sequence forward within 3e-3, the reference's serving tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import ServeConfig
+    cfg = dataclasses.replace(get_smoke("rwkv6_7b"), compute_dtype="float32")
+    cpu = get_model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    params = {"embed": cpu.embed.data, "ln_f": cpu.ln_f.data,
+              "lm_head": cpu.lm_head.data,
+              "blocks": {k: v.data for k, v in cpu.blocks.items()}}
+    s, new = 24, 4
+    toks = np.random.default_rng(7).integers(1, cfg.vocab, (2, s + new))
+    toks = toks.astype(np.int32)
+    res = {}
+    for dev, target in (("cpu", "cpu"), ("cuda", "gpu")):
+        model = cpu if dev == "cpu" else get_model(cfg, device=dev,
+                                                   params=params)
+        with tapir.use(ServeConfig(target=target).tapir_config()):
+            full = model.forward({"tokens": torch.as_tensor(toks,
+                                                            device=dev)})
+            cache = model.init_cache(2, s + new)
+            lg, cache = model.prefill(torch.as_tensor(toks[:, :s],
+                                                      device=dev), cache)
+            outs = [lg]
+            for t in range(new):
+                lg, cache = model.decode_step(
+                    torch.as_tensor(toks[:, s + t:s + t + 1], device=dev),
+                    cache)
+                outs.append(lg)
+        res[dev] = (full.float().cpu(), [o.float().cpu() for o in outs])
+    (f_cpu, o_cpu), (f_gpu, o_gpu) = res["cpu"], res["cuda"]
+    return {"phase": "small_rwkv_parity", "config": cfg.name,
+            "compute_dtype": cfg.compute_dtype,
+            "forward_max_abs_err": float((f_cpu - f_gpu).abs().max()),
+            "forward_tolerance": 1e-4,
+            "serve_vs_forward_max_abs_err": max(
+                float((o - f_gpu[:, s - 1 + i]).abs().max())
+                for i, o in enumerate(o_gpu)),
+            "serve_tolerance": 3e-3,
+            "serve_card_vs_cpu_max_abs_err": max(
+                float((a - b).abs().max()) for a, b in zip(o_cpu, o_gpu)),
+            "finite": bool(torch.isfinite(f_gpu).all())}
+
+
+def scan_bound(key) -> tuple:
+    """(bound ms, what bounds it) of one scan launch: q/k/v/o in their
+    dtype and w in fp32, each moved once, over the memory rate; the
+    chunked FLOPs of ``scan_cost`` over the fp32 rate (the kernel computes
+    in fp32 FMAs)."""
+    from repro_torch.kernels.costs import scan_cost
+    b, s, h, dk, dv, dname, _, chunk = key
+    eb = 2 if "bfloat16" in dname else 4
+    nbytes = eb * b * s * h * (2 * dk + 2 * dv) + 4 * b * s * h * dk
+    flops = scan_cost(b, s, h, dk, dv, eb, "kernel", chunk=chunk)["flops"]
+    t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def scan_times(ls_fwd, errs) -> list:
+    """Per path shape of the scan (bf16, as the forward runs it): the
+    kernel and its plain version, each one launch timed alone with L2
+    flushed, median of 10, and the roofline bound.  No single PyTorch call
+    computes this function (no library op runs a gated linear-attention
+    scan), so ``library_ms`` is None."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    out = []
+    for key, launches in sorted(ls_fwd.items()):
+        b, s, h, dk, dv, dname, variant, chunk = key
+        shape = (b, s, h, dk, dv, "model")
+        q, k, v, w, u = scan_inputs(shape, torch.bfloat16, seed=1)
+        u = u if variant == "rwkv6" else None
+        ms = time_ms(lambda: ls_ops.linear_scan(q, k, v, w, u=u,
+                                                chunk=chunk))
+        plain = time_ms(lambda: ls_ref.linear_scan_chunked(
+            q, k, v, w, u=u, chunk=chunk))
+        bound, by = scan_bound(key)
+        out.append({
+            "name": f"linear_scan[forward B={b} S={s} H={h} Dk={dk} "
+                    f"Dv={dv} {variant} chunk={chunk}]",
+            "route": "cuda", "source": LS_SOURCE, "replaces": LS_REPLACES,
+            "launches": launches,
+            "max_abs_err": errs[(shape, variant, "bfloat16")][0],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+        del q, k, v, w, u
+    return out
+
+
+def gemm_times(shapes, launches, errs, gen, name_of) -> list:
+    """Per GEMM path shape, bf16: the kernel, its plain version and the
+    library yardstick (``torch.matmul`` for a bare product, ``torch.addmm``
+    for one added full operand, else none; never called by the port), each
+    timed alone with L2 flushed, and the roofline bound: x, w, the output
+    and the epilogue operands moved once, 2mnk bf16 FLOPs."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    out = []
+    for shape in shapes:
+        m, n, k, _, spec = shape
+        dt = torch.bfloat16
+        x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+        ms = time_ms(lambda: ops.fused_matmul(x, w, epilogue=epi,
+                                              out_dtype=dt))
+        plain = time_ms(lambda: ref.fused_matmul_ref(x, w, epilogue=epi,
+                                                     out_dtype=dt))
+        if not spec:
+            lib_fn = lambda: torch.matmul(x, w)   # noqa: E731
+        elif len(spec) == 1 and spec[0][0] == "add" and spec[0][1] == "full":
+            res = epi[0][1][0]
+            lib_fn = lambda: torch.addmm(res, x, w)   # noqa: E731
+        else:
+            lib_fn = None
+        lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+        nbytes = (x.numel() + w.numel() + m * n) * x.element_size() + sum(
+            v.numel() * v.element_size() for _, vals, _ in epi for v in vals)
+        t_bytes = nbytes / HBM_BW
+        t_ops = 2.0 * m * n * k / PEAK_FLOPS["bfloat16"]
+        out.append({
+            "name": name_of(shape),
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": launches[shape],
+            "max_abs_err": errs[(m, n, k, spec, "bfloat16")],
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms})
+        del x, w, epi
+    return out
+
+
+def rwkv_phases() -> list:
+    """Phases 11-17 on RWKV6-7B at full width (all 32 layers, random
+    weights from seed 0); returns their entries of the kernels line."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models.base import get_model
+    cfg = get_config("rwkv6_7b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # -- 11. forward and loss ----------------------------------------------
+    fwd, batch, logits, fm_fwd, ls_fwd = rwkv_forward_phase(model, cfg)
+    fwd.update(init_s=init_s, params=n_params)
+    emit(fwd)
+    # -- 12. guarantees: region = per-op, stateful prefill / decode ---------
+    gua, fm_pf, fm_dec = rwkv_guarantees(model, cfg, batch, logits)
+    emit(gua)
+    del batch, logits
+    # -- 13. padded-wave serving --------------------------------------------
+    srv, fm_srv = rwkv_serve(model, cfg)
+    emit(srv)
+
+    # -- 14. the scan kernel against its plain version ----------------------
+    smoke = get_smoke("rwkv6_7b")
+    path = sorted({(k[0], k[1], k[2], k[3], k[4], "model") for k in ls_fwd})
+    ls_errs = scan_vs_plain(path, (2, 28, smoke.n_heads, smoke.hd,
+                                   smoke.hd, "model"))
+    emit({"phase": "scan_vs_plain", "cases": len(ls_errs),
+          "row_relative_tolerance": LS_RTOL,
+          "max_abs_err": {f"{k[0]}/{k[1]}/{k[2]}": e[0]
+                          for k, e in ls_errs.items()},
+          "row_relative_err": {f"{k[0]}/{k[1]}/{k[2]}": e[1]
+                               for k, e in ls_errs.items()}})
+
+    # -- 15. the GEMM kernel at every RWKV path shape ------------------------
+    launches, phase_of = collections.Counter(), {}
+    for tag, cnt in (("forward", fm_fwd), ("prefill", fm_pf),
+                     ("decode", fm_dec), ("serve", fm_srv)):
+        launches.update(cnt)
+        for s_ in cnt:
+            phase_of.setdefault(s_, tag)
+    shapes = sorted(launches, key=lambda s_: (s_[0], s_[1], s_[2]))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    def name_of(s_):
+        return (f"fused_matmul[rwkv {phase_of[s_]} "
+                f"{rwkv_label(s_[1], s_[2], s_[4], cfg)} "
+                f"m={s_[0]} n={s_[1]} k={s_[2]}]")
+
+    gemm_errs = gemm_vs_plain(shapes, gen, name_of)
+    emit({"phase": "rwkv_gemm_vs_plain", "shapes": len(shapes),
+          "tolerance": TOL,
+          "max_err_bf16": max(v for k, v in gemm_errs.items()
+                              if k[-1] == "bfloat16"),
+          "max_err_fp32": max(v for k, v in gemm_errs.items()
+                              if k[-1] == "float32")})
+
+    # -- 16. SMOKE on the card against the CPU ------------------------------
+    par = small_rwkv_parity()
+    emit(par)
+    if not (par["finite"]
+            and par["forward_max_abs_err"] <= par["forward_tolerance"]
+            and par["serve_vs_forward_max_abs_err"] <= par["serve_tolerance"]):
+        raise SystemExit(f"small rwkv parity: {par}")
+
+    # -- 17. times at the path shapes ----------------------------------------
+    del model
+    torch.cuda.empty_cache()
+    ls_entries = scan_times(ls_fwd, ls_errs)
+    timed = [s_ for s_ in shapes if phase_of[s_] in ("forward", "decode")]
+    gemm_entries = gemm_times(timed, launches, gemm_errs, gen, name_of)
+    fwd_gemm = [e for e in gemm_entries if "rwkv forward" in e["name"]]
+    emit({"phase": "scan_times", "launches_per_forward": sum(ls_fwd.values()),
+          "forward_scan_ms": sum(e["ms"] * e["launches"]
+                                 for e in ls_entries),
+          "forward_scan_bound_ms": sum(e["bound_ms"] * e["launches"]
+                                       for e in ls_entries),
+          "forward_gemm_ms": sum(e["ms"] * e["launches"] for e in fwd_gemm),
+          "forward_gemm_bound_ms": sum(e["bound_ms"] * e["launches"]
+                                       for e in fwd_gemm)})
+    return gemm_entries + ls_entries
+
+
+def qwen_phases() -> list:
+    """Phases 2-10 on qwen2.5-3b; returns their entries of the kernels
+    line.  Everything they allocate is local, so it is freed on return."""
+    import numpy as np
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.core import tapir
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.fused_matmul import kernel, ops, ref
+    from repro_torch.kernels.fused_matmul import ops, ref
     from repro_torch.models.base import get_model
     from repro_torch.serve import Request, ServeConfig, ServingEngine
-
-    # fp32 products in full fp32 on both sides (state it, don't inherit it)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # -- 1. device and build ---------------------------------------------
-    card = card_line()
-    t0 = time.perf_counter()
-    # one nvcc per source, both started together; ptxas reports on stderr
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda mod: mod.build(verbose=True),
-                             (kernel, fa_kernel)))
-    emit({"phase": "build", "card": card,
-          "kind": torch.cuda.get_device_name(0),
-          "build_s": time.perf_counter() - t0,
-          "libraries": [lib.name for lib in libs],
-          "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # -- 2. serve at full width ------------------------------------------
     cfg = get_config("qwen2_5_3b")
@@ -665,8 +1223,7 @@ def main() -> int:
             raise SystemExit(f"{tag}: matmul nodes bound to {impls}")
         return by_shape, decode, per_step, impls
 
-    ops.reset_counts()
-    fa_ops.reset_counts()
+    reset_counts()
     out = eng.run(reqs)
     launches = ops.launches
     st = dict(eng.last_stats)
@@ -719,19 +1276,8 @@ def main() -> int:
     # -- 6. kernel vs plain at every path shape ----------------------------
     gen = torch.Generator(device="cuda").manual_seed(1)
     shapes = sorted(fm_paths, key=lambda s: (s[0], s[1], s[2]))
-    errs = {}
-    for (m, n, k, _, spec) in shapes:
-        for dname, dt in (("bfloat16", torch.bfloat16),
-                          ("float32", torch.float32)):
-            x, w, epi = make_inputs(m, n, k, spec, dt, gen)
-            y = ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt)
-            want = ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt)
-            err = float((y.float() - want.float()).abs().max())
-            if not err <= TOL[dname]:
-                raise SystemExit(f"kernel vs plain: {label(n, k, cfg)} m={m} "
-                                 f"{dname} max err {err} > {TOL[dname]}")
-            errs[(m, n, k, spec, dname)] = err
-            del x, w, epi, y, want
+    errs = gemm_vs_plain(shapes, gen,
+                         lambda s_: f"{label(s_[1], s_[2], cfg)} m={s_[0]}")
     x, w, _ = make_inputs(SLOTS, cfg.d_model, cfg.d_model, (), torch.bfloat16,
                           gen)
     row = torch.randn(cfg.d_model, generator=gen, device="cuda")
@@ -778,8 +1324,7 @@ def main() -> int:
 
     def counted_run(tag: str, engine, wave: bool = False,
                     mode: str = "tapir"):
-        ops.reset_counts()
-        fa_ops.reset_counts()
+        reset_counts()
         res = engine.run_wave(fresh()) if wave else engine.run(fresh())
         st_ = dict(engine.last_stats)
         _, decode, per, _ = check_launches(tag, res, st_, mode)
@@ -823,37 +1368,10 @@ def main() -> int:
         raise SystemExit("profile: non-finite logits at full width")
 
     # -- 10. times at the path shapes -------------------------------------
-    entries = []
-    for (m, n, k, xdt, spec) in shapes:
-        dt = torch.bfloat16
-        x, w, epi = make_inputs(m, n, k, spec, dt, gen)
-        ms = time_ms(lambda: ops.fused_matmul(x, w, epilogue=epi,
-                                              out_dtype=dt))
-        plain = time_ms(lambda: ref.fused_matmul_ref(x, w, epilogue=epi,
-                                                     out_dtype=dt))
-        if not spec:
-            lib_fn = lambda: torch.matmul(x, w)   # noqa: E731
-        elif len(spec) == 1 and spec[0][0] == "add" and spec[0][1] == "full":
-            res = epi[0][1][0]
-            lib_fn = lambda: torch.addmm(res, x, w)   # noqa: E731
-        else:
-            lib_fn = None
-        lib_ms = time_ms(lib_fn) if lib_fn is not None else None
-        nbytes = (x.numel() + w.numel() + m * n) * x.element_size() + sum(
-            v.numel() * v.element_size() for _, vals, _ in epi for v in vals)
-        flops = 2.0 * m * n * k
-        t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS["bfloat16"]
-        entries.append({
-            "name": f"fused_matmul[{phase_of[(m, n, k, xdt, spec)]} "
-                    f"{label(n, k, cfg)} m={m} n={n} k={k}]",
-            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": fm_paths[(m, n, k, xdt, spec)],
-            "max_abs_err": errs[(m, n, k, spec, "bfloat16")],
-            "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
-        del x, w, epi
+    entries = gemm_times(
+        shapes, fm_paths, errs, gen,
+        lambda s_: f"fused_matmul[{phase_of[s_]} {label(s_[1], s_[2], cfg)} "
+                   f"m={s_[0]} n={s_[1]} k={s_[2]}]")
     step = [e for e in entries if e["name"].startswith("fused_matmul[decode")]
     emit({"phase": "times", "decode_step_gemm_ms": sum(
         e["ms"] * (cfg.n_layers if "head" not in e["name"] else 1)
@@ -876,7 +1394,51 @@ def main() -> int:
                                  for e in fa_entries
                                  if "[forward" in e["name"])})
 
-    emit({"kernels": entries + fa_entries})
+    return entries + fa_entries
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.core import tapir
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fused_matmul import kernel
+    from repro_torch.kernels.linear_scan import kernel as ls_kernel
+
+    # fp32 products in full fp32 on both sides (state it, don't inherit it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # -- 1. device and build ---------------------------------------------
+    card = card_line()
+    t0 = time.perf_counter()
+    # one nvcc per source, all started together; ptxas reports on stderr
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda mod: mod.build(verbose=True),
+                             (kernel, fa_kernel, ls_kernel)))
+    emit({"phase": "build", "card": card,
+          "kind": torch.cuda.get_device_name(0),
+          "build_s": time.perf_counter() - t0,
+          "libraries": [lib.name for lib in libs],
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # -- 2-10. qwen2.5-3b ----------------------------------------------------
+    entries = qwen_phases()
+    # the region programs hold their models (bound methods): drop them
+    # before the next model is built
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "release", "elapsed_s": time.perf_counter() - t_start,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+
+    # -- 11-17. RWKV6-7B ---------------------------------------------------
+    entries += rwkv_phases()
+
+    emit({"kernels": entries})
+    emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

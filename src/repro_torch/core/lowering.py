@@ -15,7 +15,16 @@ as the roofline argmin; no route is chosen by the device a tensor is on:
   flash kernel, with any fused epilogue applied after it;
   ``materialized_*`` and ``ref`` (which differ only in cost) all lower to
   ``attention_ref``, the plain fp32-score oracle, on a CPU tensor and
-  raise on a CUDA one: on the card no attention runs outside the kernel.
+  raise on a CUDA one: on the card no attention runs outside the kernel;
+* a linear-scan node, ``kernel`` or ``"opaque"``, calls
+  ``kernels.linear_scan.ops.linear_scan``, the hand-written Hopper chunked
+  scan, at the scheduled chunk (``SAFE_CHUNK`` where none was set: never a
+  chunk past it, where the factored form stops being exact), with any
+  fused epilogue applied after it; ``chunked`` and ``ref`` lower to the
+  plain versions on a CPU tensor and raise on a CUDA one.
+
+A lifted composite that returns a tuple is one ``pyfunc`` node per output;
+a program runs the function once and hands each node its element.
 
 Indexing keeps the JAX package's semantics, which torch does not share:
 gathers wrap negative indices and then CLAMP out-of-range ones, scatters
@@ -38,10 +47,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..kernels.costs import SAFE_CHUNK
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.flash_attention import ref as fa_ref
 from ..kernels.fused_matmul import ops as fm_ops
 from ..kernels.fused_matmul.ref import _EW
+from ..kernels.linear_scan import ops as ls_ops
+from ..kernels.linear_scan import ref as ls_ref
 from .dtypes import to_torch_dtype
 from .ir import Node, TaskGraph
 
@@ -95,6 +107,25 @@ def _lower_attention(node: Node, env: dict) -> Any:
         y = fa_ref.attention_ref(q, k, v, causal=causal, bias=bias)
     else:
         raise NotImplementedError(f"attention impl {impl!r} is not ported")
+    return _apply_epilogue(y, node, env).to(to_torch_dtype(node.ttype.dtype))
+
+
+def _lower_linear_scan(node: Node, env: dict) -> Any:
+    q, k, v, w = (env[i] for i in node.inputs[:4])
+    u = env[node.inputs[4]] if len(node.inputs) > 4 else None
+    impl = node.schedule.impl
+    chunk = node.schedule.tile.get("chunk") or SAFE_CHUNK
+    if impl in ("kernel", "opaque"):
+        y = ls_ops.linear_scan(q, k, v, w, u=u, chunk=chunk)
+    elif impl in ("chunked", "ref"):
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                f"linear_scan impl {impl!r} is a plain composite: it runs on "
+                f"the CPU only (on {q.device} the scan is the kernel's)")
+        y = (ls_ref.linear_scan_chunked(q, k, v, w, u=u, chunk=chunk)
+             if impl == "chunked" else ls_ref.linear_scan_ref(q, k, v, w, u=u))
+    else:
+        raise NotImplementedError(f"linear_scan impl {impl!r} is not ported")
     return _apply_epilogue(y, node, env).to(to_torch_dtype(node.ttype.dtype))
 
 
@@ -265,10 +296,19 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
     if op == "convert":
         return env[node.inputs[0]].to(to_torch_dtype(node.ttype.dtype))
     if op == "pyfunc":
-        res = node.attrs["fn"](*[env[i] for i in node.inputs],
-                               **dict(node.attrs.get("static", ())))
         out_i = node.attrs.get("out")
-        return res if out_i is None else res[out_i]
+        if out_i is None:
+            return node.attrs["fn"](*[env[i] for i in node.inputs],
+                                    **dict(node.attrs.get("static", ())))
+        # one call per tuple: the nodes of its other outputs share it
+        key = ("pyfunc", node.attrs["fn"], node.attrs.get("static", ()),
+               node.inputs)
+        res = env.get(key)
+        if res is None:
+            res = env[key] = node.attrs["fn"](
+                *[env[i] for i in node.inputs],
+                **dict(node.attrs.get("static", ())))
+        return res[out_i]
     if op == "index":
         return env[node.inputs[0]][_decode_index(node.attrs["idx"])]
     if op == "dynamic_slice":
@@ -294,6 +334,8 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
         return _lower_matmul(node, env)
     if op == "attention":
         return _lower_attention(node, env)
+    if op == "linear_scan":
+        return _lower_linear_scan(node, env)
     raise NotImplementedError(f"lowering of {op!r} is not ported yet")
 
 

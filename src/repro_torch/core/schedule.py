@@ -21,8 +21,9 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ..kernels.costs import SAFE_CHUNK, attention_cost
+from ..kernels.costs import SAFE_CHUNK, attention_cost, scan_cost
 from ..kernels.fused_matmul.ops import matmul_cost
+from ..kernels.linear_scan.kernel import MAX_DK as SCAN_MAX_DK
 from .ir import LIBRARY_OPS, Node, TaskGraph, dtype_bytes
 
 
@@ -61,9 +62,9 @@ H100_COST_MODEL = CostModel(name="h100_sxm", peak_flops=989e12,
                             hbm_bw=3.35e12, vmem_bytes=232_448, mxu=16,
                             spawn_s=5e-6, score_passes_fused=4.0)
 
-#: library op -> the impl name of its hand-written Hopper kernel, for the
-#: kernels this port has so far.  The scan ``kernel`` is still Pallas-only.
-PORTED_KERNELS = {"matmul": "fused_kernel", "attention": "flash_kernel"}
+#: library op -> the impl name of its hand-written Hopper kernel
+PORTED_KERNELS = {"matmul": "fused_kernel", "attention": "flash_kernel",
+                  "linear_scan": "kernel"}
 
 
 def _align(x: int, m: int) -> int:
@@ -228,9 +229,32 @@ def matmul_candidates(g: TaskGraph, node: Node, cm: CostModel
 
 def linear_scan_candidates(g: TaskGraph, node: Node, cm: CostModel
                            ) -> list[ImplCandidate]:
-    """No linear-scan lowering is ported yet: every candidate says so."""
-    return [ImplCandidate(name, None, "not ported yet")
-            for name in ("kernel", "chunked", "ref")]
+    """``kernel`` (the hand-written Hopper chunked scan: the chunk loop runs
+    inside the kernel, no per-chunk dispatch) vs ``chunked`` (a Python loop
+    over chunks: the factored-score FLOPs plus ``spawn_s`` per chunk) vs
+    ``ref`` (the element recurrence: ``spawn_s`` per *timestep*).  The last
+    two are plain composites: their lowering runs them on a CPU tensor and
+    raises on a CUDA one."""
+    seq = node.attrs["seq"]
+    q_t = g.nodes[node.inputs[0]].ttype
+    b, _, h, d_k = q_t.shape
+    d_v = g.nodes[node.inputs[2]].ttype.shape[-1]
+    eb = dtype_bytes(node.ttype.dtype)
+    chunk = node.schedule.tile.get("chunk") or pick_scan_chunk(
+        seq, d_k, d_v, node.ttype.dtype, cm)
+
+    def roof(impl: str) -> float:
+        c = scan_cost(b, seq, h, d_k, d_v, eb, impl, chunk=chunk)
+        return (c["flops"] / cm.peak_flops + c["io_bytes"] / cm.hbm_bw
+                + c["steps"] * cm.spawn_s)
+
+    kern = _not_ported("linear_scan", "kernel")
+    if kern is None:
+        kern = (ImplCandidate("kernel", roof("kernel")) if d_k <= SCAN_MAX_DK
+                else ImplCandidate("kernel", None,
+                                   f"kernel takes Dk <= {SCAN_MAX_DK}"))
+    return [kern, ImplCandidate("chunked", roof("chunked")),
+            ImplCandidate("ref", roof("ref"))]
 
 
 # Candidate order is the tie-break: the argmin takes a strict ``<``, so on an

@@ -21,9 +21,9 @@ in topological order.  Donation becomes an in-place write into the
 region-input tensor (see ``core.lowering``): a KV pool passed into a slot
 body comes back as the SAME tensor object, updated.
 
-Not ported yet (see ROADMAP): the on-disk program cache, ``wkv_scan``,
-``expert_mlp``, ``lstm_step``, ``conv2d``, ``invalidate_mesh`` and
-``scan_layers``' remat policies (they wait for training).
+Not ported yet (see ROADMAP): the on-disk program cache, ``expert_mlp``,
+``lstm_step``, ``conv2d``, ``invalidate_mesh`` and ``scan_layers``' remat
+policies (they wait for training).
 """
 from __future__ import annotations
 
@@ -870,6 +870,16 @@ def _build_attention(g: TaskGraph, qi: int, ki: int, vi: int,
                  kv_heads=k_t.shape[2])
 
 
+def _build_wkv_scan(g: TaskGraph, qi: int, ki: int, vi: int, wi: int,
+                    ui: Optional[int]) -> int:
+    q_t, v_t = g.nodes[qi].ttype, g.nodes[vi].ttype
+    ins = [qi, ki, vi, wi] + ([ui] if ui is not None else [])
+    out_t = TensorType(tuple(v_t.shape), v_t.dtype)
+    return g.add("linear_scan", tuple(ins), out_t, pdims=(0, 2),
+                 rdims=(("seq", q_t.shape[1]),), seq=q_t.shape[1],
+                 variant="rwkv6" if ui is not None else "gla")
+
+
 # ---------------------------------------------------------------------------
 # Ops
 # ---------------------------------------------------------------------------
@@ -981,6 +991,31 @@ def attention(q, k, v, causal: bool = False, bias=None):
         vi = g.add_input("v", _tt(v))
         bi = g.add_input("bias", _tt(bias)) if bias is not None else None
         g.set_outputs([_build_attention(g, qi, ki, vi, bi, causal)])
+
+    return _execute(sig, build, inputs)[0]
+
+
+def wkv_scan(q, k, v, w, u=None):
+    """Gated linear-attention scan:  S_t = diag(w_t) S_{t-1} + k_t^T v_t,
+    o_t = q_t S_t (+ u * (q_t . k_t) v_t bonus when u given — RWKV6).
+    q/k/w: [B,S,H,Dk], v: [B,S,H,Dv], u: [H,Dk] or None."""
+    reg = _active_region()
+    if reg is not None:
+        out = _build_wkv_scan(reg.g, reg.nid_of(q), reg.nid_of(k),
+                              reg.nid_of(v), reg.nid_of(w),
+                              None if u is None else reg.nid_of(u))
+        return reg.handle(out)
+    sig = ("wkv_scan", _sig(q), _sig(k), _sig(v), _sig(w),
+           None if u is None else _sig(u))
+    inputs = {"q": q, "k": k, "v": v, "w": w}
+    if u is not None:
+        inputs["u"] = u
+
+    def build(g: TaskGraph):
+        ins = [g.add_input(n, _tt(t)) for n, t in
+               (("q", q), ("k", k), ("v", v), ("w", w))]
+        ui = g.add_input("u", _tt(u)) if u is not None else None
+        g.set_outputs([_build_wkv_scan(g, *ins, ui)])
 
     return _execute(sig, build, inputs)[0]
 

@@ -13,6 +13,12 @@ from ..core import tapir
 from ..core.dtypes import to_torch_dtype
 
 
+def embed_lookup(embed, tokens, cdt: str):
+    """Rows of ``embed`` at ``tokens`` in the compute dtype ``cdt`` —
+    module-level so a region captures it as one ``pyfunc`` node."""
+    return embed[tokens.to(torch.int64)].to(to_torch_dtype(cdt))
+
+
 def _ce_loss(logits, labels, mask):
     """Masked mean cross-entropy in fp32 — module-level so its identity is
     stable in region graph signatures (one ``pyfunc`` node under capture)."""
@@ -108,8 +114,61 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
 class BaseModel(nn.Module):
-    """The train/serve entry points every family implements."""
+    """The train/serve entry points every family implements, and the
+    weights they share: ``embed``, ``blocks`` (stacked ``[L, ...]``),
+    ``ln_f`` and ``lm_head`` under the reference tree's names."""
+
+    cfg: "ModelConfig"
+
+    def _set_params(self, specs: dict, device, params: Optional[dict],
+                    generator: Optional[torch.Generator]) -> None:
+        """Own the weights as frozen parameters: ``params`` (a tree like
+        ``specs`` of tensors, block shapes checked), or drawn from
+        ``generator`` (default: seed 0 on ``device``) by the reference's
+        init rule, leaf by leaf in a fixed order.  ``device`` defaults to
+        ``cuda`` at every entry point and raises without a card."""
+        dev = resolve_device(device)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            params = {
+                "embed": materialize(specs["embed"], generator, dev),
+                "blocks": {k: materialize(specs["blocks"][k], generator, dev)
+                           for k in sorted(specs["blocks"])},
+                "ln_f": materialize(specs["ln_f"], generator, dev),
+            }
+            if "lm_head" in specs:
+                params["lm_head"] = materialize(specs["lm_head"], generator,
+                                                dev)
+        for k, s in specs["blocks"].items():
+            got = tuple(params["blocks"][k].shape)
+            if got != s.shape:
+                raise ValueError(f"blocks.{k}: expected {s.shape}, got {got}")
+        self.embed = _frozen(params["embed"].to(dev))
+        self.blocks = nn.ParameterDict(
+            {k: _frozen(v.to(dev)) for k, v in params["blocks"].items()})
+        self.ln_f = _frozen(params["ln_f"].to(dev))
+        self.lm_head = _frozen(params["lm_head"].to(dev)) \
+            if "lm_head" in params else None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _embed(self, embed, tokens):
+        return tapir.lift(embed_lookup, embed, tokens,
+                          cdt=self.cfg.compute_dtype)
+
+    def _layer_params(self, i: int) -> dict:
+        """Layer ``i``'s params in the compute dtype (a fresh cast, as the
+        reference's per-layer ``astype`` is)."""
+        cdt = to_torch_dtype(self.cfg.compute_dtype)
+        return {k: v[i].to(cdt) for k, v in self.blocks.items()}
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Returns logits [B, S, vocab]."""
@@ -149,7 +208,7 @@ def register_family(name: str):
 def get_model(cfg: ModelConfig, **kwargs):
     """Build the registered family's model (``kwargs``: device, params,
     generator)."""
-    from . import transformer  # noqa: F401  (registers "dense")
+    from . import rwkv, transformer  # noqa: F401  (register "ssm", "dense")
     if cfg.family not in _REGISTRY:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return _REGISTRY[cfg.family](cfg, **kwargs)

@@ -1,7 +1,7 @@
-"""Shared layer primitives (norms, RoPE) — plain torch; the GEMM-heavy
-paths live behind ``repro_torch.core.tapir`` ops.
+"""Shared layer primitives (norms, RoPE, the RWKV token shift) — plain
+torch; the GEMM-heavy paths live behind ``repro_torch.core.tapir`` ops.
 
-Inside an open region the norm/RoPE entry points dispatch through
+Inside an open region these entry points dispatch through
 ``tapir.lift``: the same torch function becomes ONE node of the region
 graph (identical numerics), so a whole block captures as one TaskGraph."""
 from __future__ import annotations
@@ -132,3 +132,44 @@ def _apply_rope_impl(x, cos, sin, fraction: float = 1.0):
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(*x1.shape[:-1], rot)
     return torch.cat([yr.to(x.dtype), xp], dim=-1).to(x.dtype)
+
+
+def _groupnorm_heads_impl(x, scale, eps: float = 64e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def groupnorm_heads(x, scale, eps: float = 64e-5):
+    """Per-head groupnorm (the RWKV6 wkv output norm).  x: [B,S,H,D],
+    scale: [H,D]; eps is RWKV6's 64e-5, not the rmsnorm default."""
+    if tapir.is_traced(x) or tapir.is_traced(scale):
+        return tapir.lift(_groupnorm_heads_impl, x, scale, eps=eps)
+    return _groupnorm_heads_impl(x, scale, eps=eps)
+
+
+def _token_shift_shifted(x, state):
+    return torch.cat([state, x[:, :-1]], dim=1)
+
+
+def _token_shift_zero(x):
+    # the zero initial state is made INSIDE the lifted fn: a fresh zeros
+    # tensor as a region input would disable program replay (its identity
+    # cannot be rebound to an argument leaf)
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def token_shift(x, state=None):
+    """RWKV token shift: x_{t-1}, with zeros (or ``state`` [B,1,D]) at
+    t = 0.  Returns (shifted, new_state [B,1,D])."""
+    if tapir.is_traced(x) or tapir.is_traced(state):
+        if state is None:
+            shifted = tapir.lift(_token_shift_zero, x)
+        else:
+            shifted = tapir.lift(_token_shift_shifted, x, state)
+        return shifted, x[:, -1:]
+    if state is None:
+        return _token_shift_zero(x), x[:, -1:]
+    return _token_shift_shifted(x, state), x[:, -1:]

@@ -36,18 +36,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..core import tapir
 from ..core.dtypes import to_torch_dtype
 from ..serve.pages import identity_row, page_geometry
 from . import layers as L
-from .base import BaseModel, ModelConfig, ParamSpec, materialize, \
-    register_family, resolve_device
-
-
-def _embed_lookup(embed, tokens, cdt: str):
-    return embed[tokens.to(torch.int64)].to(to_torch_dtype(cdt))
+from .base import BaseModel, ModelConfig, ParamSpec, register_family
 
 
 def _block_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -87,10 +81,6 @@ def abstract_params(cfg: ModelConfig) -> dict:
     return p
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 @register_family("dense")
 class DenseLM(BaseModel):
     """Dense GQA transformer.  ``params`` (a tree like ``abstract_params``
@@ -105,34 +95,7 @@ class DenseLM(BaseModel):
         if cfg.family != "dense" or not cfg.gated_mlp:
             raise NotImplementedError("only the gated dense family is ported")
         self.cfg = cfg
-        dev = resolve_device(device)
-        specs = abstract_params(cfg)
-        if params is None:
-            if generator is None:
-                generator = torch.Generator(device=dev).manual_seed(0)
-            params = {
-                "embed": materialize(specs["embed"], generator, dev),
-                "blocks": {k: materialize(specs["blocks"][k], generator, dev)
-                           for k in sorted(specs["blocks"])},
-                "ln_f": materialize(specs["ln_f"], generator, dev),
-            }
-            if "lm_head" in specs:
-                params["lm_head"] = materialize(specs["lm_head"], generator,
-                                                dev)
-        for k, s in specs["blocks"].items():
-            got = tuple(params["blocks"][k].shape)
-            if got != s.shape:
-                raise ValueError(f"blocks.{k}: expected {s.shape}, got {got}")
-        self.embed = _frozen(params["embed"].to(dev))
-        self.blocks = nn.ParameterDict(
-            {k: _frozen(v.to(dev)) for k, v in params["blocks"].items()})
-        self.ln_f = _frozen(params["ln_f"].to(dev))
-        self.lm_head = _frozen(params["lm_head"].to(dev)) \
-            if "lm_head" in params else None
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
+        self._set_params(abstract_params(cfg), device, params, generator)
 
     def supports_slots(self) -> bool:
         return True
@@ -146,16 +109,6 @@ class DenseLM(BaseModel):
 
     def _mlp(self, p, x):
         return tapir.gated_mlp(x, p["wg"], p["wu"], p["wd"], self.cfg.act)
-
-    def _embed(self, embed, tokens):
-        return tapir.lift(_embed_lookup, embed, tokens,
-                          cdt=self.cfg.compute_dtype)
-
-    def _layer_params(self, i: int) -> dict:
-        """Layer ``i``'s params in the compute dtype (a fresh cast, as the
-        reference's per-layer ``astype`` is)."""
-        cdt = to_torch_dtype(self.cfg.compute_dtype)
-        return {k: v[i].to(cdt) for k, v in self.blocks.items()}
 
     # -- attention block (forward and padded cache) ----------------------
     def _attn(self, p, x, cos, sin, causal=True, kv_cache=None):

@@ -24,9 +24,9 @@ The host reads each step's argmax tokens (the reference's behaviour); the
 loop adds no other device synchronization.
 
 ``make_prefill_step`` / ``make_decode_step`` drive the padded cache of
-``model.init_cache`` (the reference's path for slot-less families); the
-padded-wave loop over them (``_run_padded_waves``) waits for the first
-slot-less family.
+``model.init_cache``.  A family without slots (RWKV6) is served by the
+reference's padded-wave loop over them (``_run_padded_waves``): ``run``
+and ``run_wave`` both take it.
 
 Not ported yet: fault injection, checkpoints, the straggler watchdog,
 meshes and the persistent program cache.  Asking for one raises
@@ -203,8 +203,6 @@ class ServingEngine:
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
-        if not model.supports_slots():
-            raise NotImplementedError("only slot-capable families are ported")
         self.model = model
         self.batch, self.max_len = batch, max_len
         self.slots = batch
@@ -217,14 +215,71 @@ class ServingEngine:
             max_steps: int = 256) -> list[Request]:
         """Continuous batching: requests admit into free slots mid-decode,
         finished slots free immediately.  ``max_steps`` caps each request's
-        decode-step budget (exhausted: freed with ``done=False``)."""
+        decode-step budget (exhausted: freed with ``done=False``).  A
+        family without slots (RWKV6) is served by padded waves."""
+        if not self.model.supports_slots():
+            return self._run_padded_waves(requests, max_steps)
         return self._run_slots(requests, max_steps, continuous=True)
 
     def run_wave(self, requests: list[Request],
                  max_steps: int = 256) -> list[Request]:
         """A/B baseline: the same slot primitives with WAVE scheduling —
         admit a full batch, decode until every member finishes, repeat."""
+        if not self.model.supports_slots():
+            return self._run_padded_waves(requests, max_steps)
         return self._run_slots(requests, max_steps, continuous=False)
+
+    # -- padded-wave loop (families without slots) -------------------------
+    def _run_padded_waves(self, requests: list[Request],
+                          max_steps: int = 256) -> list[Request]:
+        """Padded-batch waves over ``model.prefill`` / ``decode_step``:
+        prompts left-PADDED to the wave's longest (pad tokens sit at the
+        sequence start and are processed), one prefill, then greedy decode
+        until every member is done or ``max_steps`` is reached; the wave
+        blocks until its slowest member finishes."""
+        prefill = make_prefill_step(self.model, cfg=self.cfg)
+        decode = make_decode_step(self.model, cfg=self.cfg)
+        for r in requests:
+            r.out, r.done = [], False
+        st = {"tokens": 0, "admitted": 0, "rejected": 0, "preempted": 0,
+              "decode_steps": 0}
+        occ_sum = 0.0
+        compiled0 = cache_stats()["compiled_programs"]
+        t0 = time.perf_counter()
+        for wave_start in range(0, len(requests), self.batch):
+            wave = requests[wave_start: wave_start + self.batch]
+            B = len(wave)
+            st["admitted"] += B
+            S = max(len(r.prompt) for r in wave)
+            toks = np.zeros((B, S), np.int32)
+            for i, r in enumerate(wave):
+                toks[i, S - len(r.prompt):] = r.prompt    # left-pad
+            cache = self.model.init_cache(B, self.max_len)
+            logits, cache = prefill(toks, cache)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            steps = 0
+            while not all(r.done for r in wave) and steps < max_steps:
+                occ_sum += sum(not r.done for r in wave) / self.batch
+                st["decode_steps"] += 1
+                nxt_np = nxt.cpu().numpy()
+                for i, r in enumerate(wave):
+                    if not r.done:
+                        r.out.append(int(nxt_np[i]))
+                        st["tokens"] += 1
+                        if len(r.out) >= r.max_new:
+                            r.done = True
+                nxt, cache = decode(nxt[:, None], cache)
+                steps += 1
+            st["preempted"] += sum(not r.done for r in wave)
+        wall = time.perf_counter() - t0
+        st.update(wall_s=wall,
+                  tok_per_s=st["tokens"] / wall if wall > 0 else 0.0,
+                  mean_occupancy=(occ_sum / st["decode_steps"]
+                                  if st["decode_steps"] else 0.0),
+                  compiled_programs=cache_stats()["compiled_programs"]
+                  - compiled0)
+        self.last_stats = st
+        return requests
 
     def _fresh_slot_state(self, requests) -> _SlotRunState:
         for r in requests:

@@ -1,5 +1,5 @@
-"""The Hopper kernels (the fused-epilogue GEMM and flash attention) against
-their plain PyTorch versions, on the card.  Every test here needs an NVIDIA
+"""The Hopper kernels (the fused-epilogue GEMM, flash attention and the
+chunked linear scan) against their plain PyTorch versions, on the card.  Every test here needs an NVIDIA
 card and skips without one; run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -10,7 +10,15 @@ one bf16 rounding of values of order 10 (atol 0.125, rtol 2e-2).
 Flash-attention tolerances are the JAX package's own kernel tolerances
 (``tests/test_kernels.py``): max abs 2e-4 in fp32 (the exponentials and
 sums run in another order than the plain version's), 2e-2 in bf16 (the
-output and the probabilities round to bf16)."""
+output and the probabilities round to bf16).
+
+Linear-scan tolerances are per output row (batch, position, head), each
+against its own scale: the row's max of the same scan over |q|, |k|, |v|,
+|u| (the sum of the magnitudes of the terms that make each output, which
+bounds a sum's rounding error; a row whose terms nearly cancel has a max
+|plain| far below it).  max |kernel - plain| / scale at most 1e-4 in fp32
+(the prefix sums and products sum in another order) and 2e-2 in bf16 (the
+output rounds once to bf16, 2^-8 of its size)."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +28,8 @@ from repro_torch.core.lowering import emit
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fused_matmul import kernel, ops, ref
+from repro_torch.kernels.linear_scan import ops as ls_ops
+from repro_torch.kernels.linear_scan import ref as ls_ref
 
 
 @pytest.fixture
@@ -238,3 +248,131 @@ def test_plain_attention_impls_raise_on_the_card(cuda, impl):
         torch.testing.assert_close(
             o, fa_ref.flash_attention_ref(q, k, v, causal=True),
             atol=2e-4, rtol=0)
+
+
+# -- chunked linear scan -----------------------------------------------------
+
+LS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: RWKV6's decay clip: log w >= -exp(2)
+CLIP_W = float(np.exp(-np.exp(2.0)))
+#: (B, S, H, Dk, Dv, chunk, decay): the RWKV6-7B forward and prefill, SMOKE,
+#: the reference sweep's shapes, S < C, ragged S, and the decay clip in
+#: every position ("clip") at short and long S
+LS_SHAPES = [(2, 2048, 64, 64, 64, 16, "model"), (4, 512, 64, 64, 64, 16,
+                                                   "model"),
+             (2, 25, 4, 16, 16, 16, "model"), (2, 37, 2, 16, 48, 16, "uniform"),
+             (2, 128, 2, 64, 64, 8, "uniform"), (2, 16, 2, 8, 8, 16,
+                                                 "uniform"),
+             (2, 3, 4, 64, 64, 16, "model"), (1, 100, 8, 64, 64, 16, "model"),
+             (1, 1000, 8, 64, 64, 16, "model"), (2, 37, 4, 64, 64, 16, "clip"),
+             (1, 2048, 8, 64, 64, 16, "clip")]
+
+
+def _scan_inputs(cuda, b, s, h, dk, dv, decay, dt, seed):
+    """q/k/v in ``dt``, w and u in fp32.  ``model``: the RWKV6 decay of a
+    clipped log-log weight in [-8, 2]; ``uniform``: the reference sweep's
+    exp(U(-7.3, 0)); ``clip``: exp(-e^2) everywhere."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(b, s, h, dk, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    v = torch.randn(b, s, h, dv, generator=g, device=cuda).to(dt)
+    r = torch.rand(b, s, h, dk, generator=g, device=cuda)
+    if decay == "model":
+        w = torch.exp(-torch.exp(-8.0 + 10.0 * r))
+    elif decay == "uniform":
+        w = torch.exp(-7.3 * r - 1e-3)
+    else:
+        w = torch.full((b, s, h, dk), CLIP_W, device=cuda)
+    u = torch.randn(h, dk, generator=g, device=cuda)
+    return q, k, v, w, u
+
+
+def _row_rel(o, want, q, k, v, w, u, chunk=16):
+    """max over rows of max |o - want| / the row's magnitude scale."""
+    scale = ls_ref.linear_scan_chunked(
+        q.float().abs(), k.float().abs(), v.float().abs(), w,
+        u=None if u is None else u.abs(), chunk=chunk).amax(-1)
+    diff = (o.float() - want.float()).abs().amax(-1)
+    return float((diff / scale.clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rwkv", [True, False])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LS_SHAPES)
+def test_scan_kernel_matches_plain(cuda, dt, rwkv, shape):
+    b, s, h, dk, dv, chunk, decay = shape
+    q, k, v, w, u = _scan_inputs(cuda, b, s, h, dk, dv, decay, dt,
+                                 seed=s + dk + dv)
+    u = u if rwkv else None
+    before = ls_ops.launches
+    o = ls_ops.linear_scan(q, k, v, w, u=u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ls_ops.launches == before + 1
+    want = ls_ref.linear_scan_chunked(q, k, v, w, u=u, chunk=chunk)
+    assert o.shape == v.shape and o.dtype == dt
+    assert bool(torch.isfinite(o).all())
+    rel = _row_rel(o, want, q, k, v, w, u, chunk)
+    assert rel <= LS_RTOL[dt], rel
+
+
+@pytest.mark.cuda
+def test_scan_row_result_does_not_depend_on_the_batch(cuda):
+    """Rows of different batch entries never interact and every reduction
+    runs in a fixed order: a batch entry's output is bitwise the same alone
+    and inside a batch of three."""
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, w, u = _scan_inputs(cuda, 3, 300, 4, 64, 64, "model", dt,
+                                     seed=7)
+        full = ls_ops.linear_scan(q, k, v, w, u=u)
+        one = ls_ops.linear_scan(q[1:2], k[1:2], v[1:2], w[1:2], u=u)
+        assert torch.equal(one, full[1:2]), dt
+
+
+@pytest.mark.cuda
+def test_scan_wrapper_raises_instead_of_falling_back(cuda):
+    q, k, v, w, u = _scan_inputs(cuda, 1, 40, 2, 64, 64, "model",
+                                 torch.bfloat16, seed=8)
+    with pytest.raises(ValueError, match="chunk"):
+        ls_ops.linear_scan(q, k, v, w, u=u, chunk=17)
+    with pytest.raises(ValueError):
+        ls_ops.linear_scan(q, k, v, w.bfloat16(), u=u)
+    with pytest.raises(ValueError):
+        ls_ops.linear_scan(q, k, v, w, u=u.bfloat16())
+    with pytest.raises(ValueError):
+        ls_ops.linear_scan(q.half(), k.half(), v.half(), w, u=u)
+    with pytest.raises(ValueError):
+        ls_ops.linear_scan(q, k.float(), v, w, u=u)
+    big = torch.zeros(1, 8, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="Dk"):
+        ls_ops.linear_scan(big, big, big, big + 0.5)
+    before = ls_ops.launches
+    assert torch.isfinite(ls_ops.linear_scan(q, k, v, w, u=u)).all()
+    assert ls_ops.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["chunked", "ref"])
+def test_plain_scan_impls_raise_on_the_card(cuda, impl):
+    """Lowering a scan node bound to a plain composite raises on a CUDA
+    tensor: on the card the scan runs only in the kernel."""
+    g = TaskGraph("scan")
+    t = TensorType((1, 40, 2, 64), "float32")
+    ins = [g.add_input(n, t) for n in "qkvw"]
+    ins.append(g.add_input("u", TensorType((2, 64), "float32")))
+    s_ = g.add("linear_scan", tuple(ins), t, pdims=(0, 2),
+               rdims=(("seq", 40),), seq=40, variant="rwkv6")
+    g.set_outputs([s_])
+    g.nodes[s_].schedule.impl = impl
+    q, k, v, w, u = _scan_inputs(cuda, 1, 40, 2, 64, 64, "model",
+                                 torch.float32, seed=9)
+    feed = {"q": q, "k": k, "v": v, "w": w, "u": u}
+    with pytest.raises(NotImplementedError):
+        emit(g)(feed)
+    for ok in ("kernel", "opaque"):
+        g.nodes[s_].schedule.impl = ok
+        before = ls_ops.launches
+        (o,) = emit(g)(feed)
+        assert ls_ops.launches == before + 1
+        want = ls_ref.linear_scan_chunked(q, k, v, w, u=u)
+        assert _row_rel(o, want, q, k, v, w, u) <= LS_RTOL[torch.float32]

@@ -193,13 +193,27 @@ def test_unported_impls_say_so(models):
         "n/a (kernel has no bias operand)"
     assert gb.nodes[ab].schedule.impl in ("materialized_grouped", "ref")
     # a library op none of whose impls is ported refuses at schedule time
-    g2 = TaskGraph("scan")
-    t = TensorType((1, 8, 4), "float32")
-    q = g2.add_input("q", t)
-    s = g2.add("linear_scan", (q, q, q, q), t, pdims=(0,), seq=8)
-    g2.set_outputs([s])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    g2 = TaskGraph("conv")
+    x = g2.add_input("x", TensorType((1, 8, 8, 4), "float32"))
+    kw = g2.add_input("kw", TensorType((3, 3, 4, 4), "float32"))
+    c = g2.add("conv2d", (x, kw), TensorType((1, 8, 8, 4), "float32"),
+               pdims=(0, 1, 2, 3), k_elems=36)
+    g2.set_outputs([c])
+    with pytest.raises(NotImplementedError, match="is ported yet"):
         run_pipeline(g2, "tapir", H100_COST_MODEL)
+    # the linear scan's kernel is ported: a scan node binds it, and the
+    # plain composites keep their costs
+    g3 = TaskGraph("scan")
+    t = TensorType((1, 8, 2, 4), "float32")
+    ins = [g3.add_input(n, t) for n in "qkvw"]
+    s = g3.add("linear_scan", tuple(ins), t, pdims=(0, 2),
+               rdims=(("seq", 8),), seq=8, variant="gla")
+    g3.set_outputs([s])
+    run_pipeline(g3, "tapir", H100_COST_MODEL)
+    costs = g3.nodes[s].schedule.impl_costs
+    assert g3.nodes[s].schedule.impl == "kernel"
+    assert all(isinstance(costs[i], float) for i in ("kernel", "chunked",
+                                                     "ref"))
 
 
 def test_signature_is_stable_and_sees_the_impl(models):
