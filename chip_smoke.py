@@ -2,6 +2,12 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gemm-times OUT [--src DIR] [--plan BN,SPLIT,STAGES]
+
+The second form times the GEMM again at the path shapes that a full run
+(its output in OUT) counted, and does nothing else: ``--src`` times
+another checkout's wrapper (its ``src``), so two trees compare under one
+timing method in one call; ``--plan`` launches one plan at every shape.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts just before it and
@@ -9,7 +15,9 @@ reads them just after:
 
 1. device and build — the card's name and power limit, then the three
    kernel libraries (fused_matmul, flash_attention, linear_scan) built by
-   nvcc from the checkout's CUDA sources, in parallel;
+   nvcc from the checkout's CUDA sources, in parallel; the GEMM's ptxas
+   report (registers, stack, spills per kernel; a spill in the bf16
+   kernel fails the run);
 2. serve — qwen2.5-3b at full width (all 36 layers, random weights from a
    seed) through ``ServingEngine.run``: 4 slots, max_len 512, 6 requests of
    48-200 prompt tokens (3 sharing a 128-token prefix), 16 new tokens each;
@@ -39,7 +47,9 @@ reads them just after:
 10. times — per path shape: each kernel, its plain version, the library
    yardstick (``torch.matmul`` / ``torch.addmm``,
    ``scaled_dot_product_attention``; never called by the port) and the
-   roofline bound.
+   roofline bound; for the GEMM also its plan (``kernel.plan(n, k)``: BN,
+   the cluster split, the TMA ring depth), its achieved TFLOP/s, and the
+   wrapper's host time per call at two decode shapes.
 
 The qwen model is then released, and RWKV6-7B at full width (32 layers,
 d_model 4096; random weights from seed 0) takes its place:
@@ -62,7 +72,8 @@ d_model 4096; random weights from seed 0) takes its place:
    on the card against the CPU;
 17. scan_times — per path shape the scan kernel, its plain version and the
    bound (no PyTorch call computes the scan: no library time), and the
-   RWKV forward and decode GEMM shapes as in phase 10.
+   RWKV forward and decode GEMM shapes as in phase 10 (plan, TFLOP/s,
+   the wrapper's host time at the 4096² and wA decode shapes).
 
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
@@ -159,18 +170,24 @@ def make_inputs(m, n, k, spec, dt, gen):
     return x, w, epi
 
 
-def time_ms(fn, iters: int = 10) -> float:
-    """Median device time of one call, each launch measured alone with L2
-    flushed before it (the serving path finds its weights cold: 36 layers
-    of weights stream through the 50 MB L2 between two uses of one).  The
+def time_ms(fn, iters: int = 10, hold: bool = True) -> float:
+    """Median time of one call in ms, each launch measured alone with L2
+    flushed before it (the serving path finds its weights cold: a model's
+    layers stream through the 50 MB L2 between two uses of one).  The
     flush READS 64 MB, so it leaves no dirty lines whose write-back the
-    timed call would pay for."""
+    timed call would pay for.  With ``hold`` the card is kept busy for
+    about 1 ms (``torch.cuda._sleep``) while the host enqueues the call,
+    so the events bracket the call's device time alone; without it they
+    also hold the host's time to issue the call (``ms_with_issue`` of
+    ``--gemm-times``)."""
     import torch
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     times = []
     for _ in range(iters):
         flush.max()
+        if hold:
+            torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -180,6 +197,21 @@ def time_ms(fn, iters: int = 10) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs per call over ``calls`` calls issued back to back with no
+    synchronisation between them (at decode shapes the card finishes each
+    call before the host issues the next, so this is the host's cost)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
 
 
 def small_parity() -> dict:
@@ -1047,6 +1079,19 @@ def scan_times(ls_fwd, errs) -> list:
     return out
 
 
+def library_fn(x, w, epi, spec):
+    """One PyTorch call computing the same function: ``torch.matmul`` for
+    a bare product, ``torch.addmm`` for one added full operand, else
+    None.  A yardstick only; the port never calls it."""
+    import torch
+    if not spec:
+        return lambda: torch.matmul(x, w)
+    if len(spec) == 1 and spec[0][0] == "add" and spec[0][1] == "full":
+        res = epi[0][1][0]
+        return lambda: torch.addmm(res, x, w)
+    return None
+
+
 def gemm_times(shapes, launches, errs, gen, name_of) -> list:
     """Per GEMM path shape, bf16: the kernel, its plain version and the
     library yardstick (``torch.matmul`` for a bare product, ``torch.addmm``
@@ -1054,23 +1099,18 @@ def gemm_times(shapes, launches, errs, gen, name_of) -> list:
     timed alone with L2 flushed, and the roofline bound: x, w, the output
     and the epilogue operands moved once, 2mnk bf16 FLOPs."""
     import torch
-    from repro_torch.kernels.fused_matmul import ops, ref
+    from repro_torch.kernels.fused_matmul import kernel, ops, ref
     out = []
     for shape in shapes:
         m, n, k, _, spec = shape
         dt = torch.bfloat16
+        p = kernel.plan(n, k, dt)
         x, w, epi = make_inputs(m, n, k, spec, dt, gen)
         ms = time_ms(lambda: ops.fused_matmul(x, w, epilogue=epi,
                                               out_dtype=dt))
         plain = time_ms(lambda: ref.fused_matmul_ref(x, w, epilogue=epi,
                                                      out_dtype=dt))
-        if not spec:
-            lib_fn = lambda: torch.matmul(x, w)   # noqa: E731
-        elif len(spec) == 1 and spec[0][0] == "add" and spec[0][1] == "full":
-            res = epi[0][1][0]
-            lib_fn = lambda: torch.addmm(res, x, w)   # noqa: E731
-        else:
-            lib_fn = None
+        lib_fn = library_fn(x, w, epi, spec)
         lib_ms = time_ms(lib_fn) if lib_fn is not None else None
         nbytes = (x.numel() + w.numel() + m * n) * x.element_size() + sum(
             v.numel() * v.element_size() for _, vals, _ in epi for v in vals)
@@ -1084,8 +1124,75 @@ def gemm_times(shapes, launches, errs, gen, name_of) -> list:
             "ms": ms, "plain_ms": plain,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
+            "library_ms": lib_ms,
+            "design": f"TMA ring + wgmma m64n{p.bn}k16, 128x{p.bn} tile, "
+                      + (f"{p.split}-way fixed-order cluster split-K, "
+                         if p.split > 1 else "no split-K, ")
+                      + f"{p.stages} stages",
+            "plan": p._asdict(),
+            "tflops": 2.0 * m * n * k / (ms * 1e-3) / 1e12,
+            "shape": [m, n, k, spec]})
         del x, w, epi
+    return out
+
+
+def forward_tflops(entries) -> float:
+    """Achieved TFLOP/s over the forward's GEMM shapes, each weighted by
+    its launches."""
+    fwd = [e for e in entries if "forward " in e["name"]]
+    flops = sum(e["tflops"] * e["ms"] * e["launches"] for e in fwd)
+    return flops / max(sum(e["ms"] * e["launches"] for e in fwd), 1e-30)
+
+
+def gemm_tflops(entries) -> dict:
+    """Achieved TFLOP/s of each timed GEMM shape (2mnk over its time)."""
+    return {e["name"]: e["tflops"] for e in entries}
+
+
+def wrapper_host_us(shapes, gen) -> dict:
+    """Host µs of one ``fused_matmul`` call (shape checks, the plan,
+    padding, two tensor maps encoded, the ctypes launch) and of one
+    ``torch.matmul`` beside it, at decode shapes (``host_us``)."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops
+    out = {}
+    for m, n, k in shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+        out[f"fused_matmul m={m} n={n} k={k}"] = host_us(
+            lambda: ops.fused_matmul(x, w))
+        out[f"torch.matmul m={m} n={n} k={k}"] = host_us(
+            lambda: torch.matmul(x, w))
+        del x, w
+    return out
+
+
+def ptxas_summary(report: str) -> dict:
+    """Registers, stack frame, spills and static shared memory of every
+    kernel in nvcc's ``-Xptxas -v`` report."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        hit = re.search(r"Function properties for _Z(\d+)(\w+)", line)
+        if hit:   # the mangled name: its length, then the name
+            size, rest = int(hit[1]), hit[2]
+            arg = re.match(r"ILi(\d+)E", rest[size:])
+            name = rest[:size] + (f"<{arg[1]}>" if arg else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                        r" (\d+) bytes spill loads", line)
+        if hit:
+            out[name].update(stack=int(hit[1]), spill_stores=int(hit[2]),
+                             spill_loads=int(hit[3]))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            out[name]["registers"] = int(hit[1])
+        hit = re.search(r"(\d+) bytes smem", line)
+        if hit:
+            out[name]["static_smem"] = int(hit[1])
     return out
 
 
@@ -1172,7 +1279,11 @@ def rwkv_phases() -> list:
                                        for e in ls_entries),
           "forward_gemm_ms": sum(e["ms"] * e["launches"] for e in fwd_gemm),
           "forward_gemm_bound_ms": sum(e["bound_ms"] * e["launches"]
-                                       for e in fwd_gemm)})
+                                       for e in fwd_gemm),
+          "forward_gemm_tflops": forward_tflops(fwd_gemm),
+          "gemm_tflops": gemm_tflops(gemm_entries),
+          "wrapper_host_us": wrapper_host_us(
+              [(4, cfg.d_model, cfg.d_model), (4, 64, cfg.d_model)], gen)})
     return gemm_entries + ls_entries
 
 
@@ -1379,7 +1490,12 @@ def qwen_phases() -> list:
         e["bound_ms"] * (cfg.n_layers if "head" not in e["name"] else 1)
         for e in step), "decode_step_library_ms": sum(
         (e["library_ms"] or 0.0)
-        * (cfg.n_layers if "head" not in e["name"] else 1) for e in step)})
+        * (cfg.n_layers if "head" not in e["name"] else 1) for e in step),
+        "forward_gemm_tflops": forward_tflops(entries),
+        "gemm_tflops": gemm_tflops(entries),
+        "wrapper_host_us": wrapper_host_us(
+            [(SLOTS, cfg.d_model, cfg.d_model),
+             (SLOTS, cfg.d_model, cfg.d_ff)], gen)})
 
     fa_entries = flash_times(flash_paths, fa_errs)
     emit({"phase": "flash_times",
@@ -1397,12 +1513,80 @@ def qwen_phases() -> list:
     return entries + fa_entries
 
 
+def gemm_times_again(out_path: str, plan) -> int:
+    """The ``--gemm-times`` mode: time the GEMM again at every bf16 path
+    shape that a full run counted (the ``shape`` of each GEMM entry of
+    the kernels line in its output ``out_path``), without building a
+    model.  One JSON line per shape: the device time (``ms``), the time
+    with the host's issue time inside (``ms_with_issue``), the library
+    yardstick, max |kernel - plain|; then the card line.  ``plan``
+    (``Plan``) replaces ``kernel.plan`` at every shape (a plan sweep;
+    only ``ms`` and the error are measured then)."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel, ops, ref
+    with open(out_path) as f:
+        entries = next(json.loads(line)["kernels"] for line in f
+                       if line.startswith('{"kernels"'))
+    if plan is not None:
+        kernel.plan = lambda n, k, dtype: plan
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for e in entries:
+        if "shape" not in e:
+            continue
+        m, n, k, spec = e["shape"]
+        spec = tuple(tuple(st) for st in spec)
+        x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+        fn = lambda: ops.fused_matmul(x, w, epilogue=epi,  # noqa: E731
+                                      out_dtype=dt)
+        row = {"name": e["name"], "launches": e["launches"],
+               "bound_ms": e["bound_ms"],
+               "plan": getattr(kernel, "plan", lambda *a: None)(n, k, dt)}
+        try:
+            want = ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt)
+            row["max_abs_err"] = float((fn().float() - want.float())
+                                       .abs().max())
+        except RuntimeError as exc:   # a plan the kernel refuses
+            emit({**row, "error": str(exc)})
+            continue
+        row["ms"] = time_ms(fn)
+        if plan is None:
+            row["ms_with_issue"] = time_ms(fn, hold=False)
+            lib_fn = library_fn(x, w, epi, spec)
+            row["library_ms"] = time_ms(lib_fn) if lib_fn else None
+        row["tflops"] = 2.0 * m * n * k / (row["ms"] * 1e-3) / 1e12
+        emit(row)
+        del x, w, epi, want
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--gemm-times", metavar="OUT",
+                    help="time the GEMM again at the path shapes of the "
+                         "full run whose output is OUT, and stop")
+    ap.add_argument("--src", help="with --gemm-times: another checkout's "
+                                  "src directory, whose wrapper is timed")
+    ap.add_argument("--plan", metavar="BN,SPLIT,STAGES",
+                    help="with --gemm-times: launch this plan at every "
+                         "shape in place of kernel.plan")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
+    if args.gemm_times:
+        if args.src:
+            sys.path.insert(0, os.path.abspath(args.src))
+        plan = None
+        if args.plan:
+            from repro_torch.kernels.fused_matmul.kernel import Plan
+            plan = Plan(*(int(v) for v in args.plan.split(",")))
+        return gemm_times_again(args.gemm_times, plan)
     from repro_torch.core import tapir
+    from repro_torch.kernels.build import REPORTS
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.fused_matmul import kernel
     from repro_torch.kernels.linear_scan import kernel as ls_kernel
@@ -1419,11 +1603,18 @@ def main() -> int:
     with ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(lambda mod: mod.build(verbose=True),
                              (kernel, fa_kernel, ls_kernel)))
+    gemm_ptxas = ptxas_summary(REPORTS["fused_matmul"])
     emit({"phase": "build", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0,
           "libraries": [lib.name for lib in libs],
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "gemm_ptxas": gemm_ptxas})
+    spills = {k: v for k, v in gemm_ptxas.items()
+              if k.startswith("gemm_bf16") and v.get("spill_stores", 0)}
+    if spills or not any(k.startswith("gemm_bf16") for k in gemm_ptxas):
+        raise SystemExit(f"build: the bf16 GEMM spills or is missing: "
+                         f"{gemm_ptxas}")
 
     # -- 2-10. qwen2.5-3b ----------------------------------------------------
     entries = qwen_phases()

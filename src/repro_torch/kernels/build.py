@@ -17,6 +17,9 @@ from pathlib import Path
 #: <checkout>/build — three levels up from src/repro_torch/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
+#: nvcc's ``-Xptxas -v`` report of the last verbose build, by source stem
+REPORTS: dict = {}
+
 
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
@@ -46,6 +49,7 @@ def build_library(source: Path, verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed on {source.name} "
                            f"({res.returncode}):\n{res.stderr}")
     if verbose:
+        REPORTS[source.stem] = res.stderr
         print(res.stderr, end="", file=sys.stderr)
     os.replace(tmp, out)
     return out

@@ -15,8 +15,8 @@ chain)``.
 from __future__ import annotations
 
 import collections
+import math
 
-import numpy as np
 import torch
 
 from ...core.dtypes import to_torch_dtype
@@ -58,8 +58,9 @@ def fused_matmul(x, w, epilogue=None, tile=None, out_dtype=None):
     """y = epilogue(x @ w);  x: [..., k], w: [k, n].
 
     ``tile`` is the schedule's tile choice, accepted for the reference's
-    contract: the Hopper kernel's tiles are fixed, so the order in which a
-    row's k-sum is taken never depends on how many rows run."""
+    contract and not read: the Hopper kernel's plan (``kernel.plan``) is a
+    function of ``(n, k, dtype)`` alone, so the order in which a row's
+    k-sum is taken never depends on how many rows run."""
     out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
     if x.device.type == "cpu":
         return ref.fused_matmul_ref(x, w, epilogue=epilogue, out_dtype=out_dt)
@@ -68,7 +69,7 @@ def fused_matmul(x, w, epilogue=None, tile=None, out_dtype=None):
     lead = x.shape[:-1]
     k = x.shape[-1]
     n = w.shape[-1]
-    m = int(np.prod(lead)) if lead else 1
+    m = math.prod(lead)
     if w.ndim != 2 or w.shape[0] != k:
         raise ValueError(f"fused_matmul: w must be [k={k}, n], got "
                          f"{tuple(w.shape)}")
@@ -85,10 +86,14 @@ def fused_matmul(x, w, epilogue=None, tile=None, out_dtype=None):
                              f"{op.device} not supported")
     x2 = x.reshape(m, k).contiguous()
     w2 = w.contiguous()
+    kk = k
+    if x.dtype == torch.bfloat16:   # TMA rows: copies where (n, k) need it
+        x2, w2, kk = kernel.tma_operands(x2, w2)
     y = torch.empty((m, n), dtype=out_dt, device=x.device)
     global launches
     if m > 0 and n > 0:
-        kernel.launch(x2, w2, y, spec, operands)
+        kernel.launch(x2, w2, y, n, kk, kernel.plan(n, kk, x.dtype), spec,
+                      operands)
         launches += 1
         launches_by_shape[(m, n, k, str(x.dtype), spec)] += 1
     return y.reshape(*lead, n)

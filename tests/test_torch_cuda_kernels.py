@@ -4,7 +4,8 @@ card and skips without one; run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py``.
 
 GEMM tolerances: fp32 runs plain FMAs in another summation order than the
-plain matmul (atol/rtol 1e-4 at k <= 2048); bf16 outputs differ by at most
+plain matmul (atol/rtol 1e-4; the weights are scaled by 1/sqrt(k), so the
+outputs stay of order 1 up to k = 14336); bf16 outputs differ by at most
 one bf16 rounding of values of order 10 (atol 0.125, rtol 2e-2).
 
 Flash-attention tolerances are the JAX package's own kernel tolerances
@@ -47,7 +48,10 @@ def _tol(dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (4, 2048, 2560),
                                    (37, 100, 300), (128, 96, 200),
-                                   (200, 1000, 1003), (5, 8, 8)])
+                                   (200, 1000, 1003), (5, 8, 8),
+                                   # the paths' narrow and split shapes
+                                   (4, 4096, 64), (4096, 64, 4096),
+                                   (4, 11008, 2048), (4096, 4096, 14336)])
 def test_kernel_matches_plain(cuda, dt, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m * 131 + k * 7 + n)
     x = torch.randn(m, k, generator=g, device=cuda).to(dt)
@@ -114,17 +118,66 @@ def test_chain_with_stage_casts_and_mixed_operands(cuda):
                                    rtol=2e-2)
 
 
+#: (dtype, k, n): unsplit (256- and 128-column tiles), split (n = 64 and
+#: n = 2048), padded unsplit, padded in n and k and split, and the fp32
+#: FMA kernel
+M_STABLE = [(torch.bfloat16, 1024, 16384), (torch.bfloat16, 2048, 2560),
+            (torch.bfloat16, 4096, 64), (torch.bfloat16, 11008, 2048),
+            (torch.bfloat16, 1000, 1003), (torch.bfloat16, 8193, 1003),
+            (torch.float32, 2048, 512)]
+
+
 @pytest.mark.cuda
-def test_row_result_does_not_depend_on_m(cuda):
-    """The k-reduction order of a row is fixed: the first rows of a
-    512-row product are bitwise those of a 1-, 4- or 37-row product."""
+@pytest.mark.parametrize("dt,k,n", M_STABLE)
+def test_row_result_does_not_depend_on_m(cuda, dt, k, n):
+    """The plan reads (n, k, dtype), never m, and a split adds its partial
+    tiles in rank order: the first rows of a 4096-row product are bitwise
+    those of every smaller product, across the 64-row warpgroup and
+    128-row block boundaries."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    for dt in (torch.bfloat16, torch.float32):
-        x = torch.randn(512, 2048, generator=g, device=cuda).to(dt)
-        w = torch.randn(2048, 512, generator=g, device=cuda).to(dt)
-        full = ops.fused_matmul(x, w)
-        for m in (1, 4, 37, 256):
-            assert torch.equal(ops.fused_matmul(x[:m], w), full[:m]), (dt, m)
+    x = torch.randn(4096, k, generator=g, device=cuda).to(dt)
+    w = (torch.randn(k, n, generator=g, device=cuda) / k ** 0.5).to(dt)
+    full = ops.fused_matmul(x, w)
+    for m in (1, 4, 8, 9, 37, 63, 64, 65, 128, 129, 512, 4096):
+        assert torch.equal(ops.fused_matmul(x[:m], w), full[:m]), (dt, k, n,
+                                                                   m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 4096])
+@pytest.mark.parametrize("k,n", [(4096, 64), (11008, 2048), (8193, 1003)])
+def test_split_k_result_repeats(cuda, m, k, n):
+    """A split sums through distributed shared memory in a fixed order, no
+    atomics: the same call twice gives the same bits."""
+    assert kernel.plan(n, k, torch.bfloat16).split > 1
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(k, n, generator=g, device=cuda) / k ** 0.5).bfloat16()
+    row = torch.randn(n, generator=g, device=cuda)
+    epi = [("add", [row], {"dtype": "float32"}), ("silu", [], {})]
+    first = ops.fused_matmul(x, w, epilogue=epi)
+    again = ops.fused_matmul(x, w, epilogue=epi)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    want = ref.fused_matmul_ref(x, w, epilogue=epi)
+    torch.testing.assert_close(first.float(), want.float(), atol=0.125,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_empty_k_gives_the_epilogue_of_zeros(cuda, dt):
+    """k = 0 launches on both routes (bf16 walks one tile of zeros) and
+    gives the plain version's bits: the epilogue of a zero product."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.zeros(5, 0, device=cuda, dtype=dt)
+    w = torch.zeros(0, 300, device=cuda, dtype=dt)
+    row = torch.randn(300, generator=g, device=cuda)
+    epi = [("add", [row], {"dtype": "float32"}), ("relu", [], {})]
+    before = ops.launches
+    got = ops.fused_matmul(x, w, epilogue=epi)
+    assert ops.launches == before + 1
+    assert torch.equal(got, ref.fused_matmul_ref(x, w, epilogue=epi))
 
 
 @pytest.mark.cuda

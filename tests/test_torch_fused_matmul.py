@@ -134,3 +134,106 @@ def test_gelu_is_the_tanh_approximation():
     want = np.asarray(j_ref.apply_epilogue(jnp.asarray(x.numpy()),
                                            [("gelu", [], {})]))
     np.testing.assert_allclose(y.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+# -- the Hopper kernel's tile plan and TMA padding (plain code, on the CPU) --
+
+from repro_torch.kernels.fused_matmul import kernel  # noqa: E402
+
+#: (n, k) of the full-width paths' GEMMs that split k: qwen2.5-3b wd,
+#: RWKV6-7B wcv (deep k) and wA (one output tile)
+SPLIT = [(2048, 11008), (4096, 14336), (64, 4096)]
+#: the others: qwen qkv, wo, gate|up, head; RWKV's 4096² weights, wck, wB,
+#: head
+UNSPLIT = [(2560, 2048), (2048, 2048), (22016, 2048), (151936, 2048),
+           (4096, 4096), (14336, 4096), (4096, 64), (65536, 4096)]
+
+
+def test_plan_takes_no_m():
+    import inspect
+    assert list(inspect.signature(kernel.plan).parameters) == ["n", "k",
+                                                               "dtype"]
+    assert kernel.plan(1003, 1000, torch.bfloat16) == \
+        kernel.plan(1003, 1000, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,k", SPLIT + UNSPLIT + [(1003, 1000), (1003, 100),
+                                                   (1003, 8193), (8, 8),
+                                                   (300, 37)])
+def test_split_cuts_k_into_whole_k_tiles(n, k):
+    p = kernel.plan(n, k, torch.bfloat16)
+    assert 1 <= p.split <= kernel.MAX_SPLIT and p.bn in (64, 128, 256)
+    assert (p.bn // 8) % p.split == 0   # a rank sums whole 8-column groups
+    assert 2 <= p.stages <= 8
+    if p.split > 1:   # every rank, the last too, walks >= 16 whole k tiles
+        k_tiles = -(-k // kernel.BK)
+        per = -(-k_tiles // p.split)
+        assert per >= 16 and k_tiles - (p.split - 1) * per >= 16
+
+
+@pytest.mark.parametrize("n,k", SPLIT)
+def test_deep_and_single_tile_path_shapes_are_split(n, k):
+    """Few output tiles over a long k: the k range is split, and the split
+    blocks still fit on the card at once at decode."""
+    p = kernel.plan(n, k, torch.bfloat16)
+    assert p.split > 1
+    assert -(-n // p.bn) * p.split <= kernel.SMS
+
+
+@pytest.mark.parametrize("n,k", UNSPLIT)
+def test_other_path_shapes_are_not_split(n, k):
+    assert kernel.plan(n, k, torch.bfloat16).split == 1
+
+
+def test_fp32_plan_is_the_fma_kernel():
+    assert kernel.plan(4096, 4096, torch.float32) == kernel.Plan(64, 1, 0)
+    with pytest.raises(ValueError):
+        kernel.plan(64, 64, torch.float16)
+
+
+@pytest.mark.parametrize("shape", [(3, 1003), (5, 100), (1, 7)])
+def test_pad_cols_zero_pads_and_slices_back_exactly(shape):
+    t = torch.randn(*shape).bfloat16()
+    p = kernel.pad_cols(t)
+    assert p.shape == (shape[0], -(-shape[1] // 8) * 8)
+    assert p.data_ptr() % 16 == 0 and p.is_contiguous()
+    assert torch.equal(p[:, :shape[1]], t)
+    assert not p[:, shape[1]:].any()
+
+
+def test_pad_cols_keeps_aligned_rows_and_copies_a_misaligned_base():
+    t = torch.randn(4, 64).bfloat16()
+    assert kernel.pad_cols(t) is t
+    flat = torch.randn(1 + 4 * 64).bfloat16()
+    view = flat[1:].view(4, 64)          # base 2 bytes past an aligned one
+    assert view.data_ptr() % 16 != 0
+    p = kernel.pad_cols(view)
+    assert p.shape == (4, 64) and p.data_ptr() % 16 == 0
+    assert torch.equal(p, view)
+
+
+@pytest.mark.parametrize("k", [0, 100, 64])
+def test_zero_k_padding_adds_nothing(k):
+    """The operands the bf16 route launches: the padded k columns of x
+    meet w rows that TMA fills with zeros (an empty k: one slice of zeros).
+    Small integers, so every sum is exact."""
+    rng = np.random.default_rng(8 + k)
+    x = torch.from_numpy(rng.integers(-3, 4, (5, k)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-3, 4, (k, 37)).astype(np.float32))
+    xp, wp, kp = kernel.tma_operands(x, w)
+    assert kp == max(k, kernel.ALIGN) and xp.shape == (5, -(-kp // 8) * 8)
+    assert wp.shape == (kp, 40)   # TMA rows: multiples of 16 bytes
+    wz = torch.cat([wp, wp.new_zeros(xp.shape[1] - wp.shape[0], wp.shape[1])])
+    assert torch.equal(xp @ wz[:, :37], x @ w)
+
+
+def test_cpu_bf16_padded_shape_takes_the_plain_version_and_counts_no_launch():
+    before, by_shape = ops.launches, dict(ops.launches_by_shape)
+    x = torch.randn(7, 100).bfloat16()
+    w = torch.randn(100, 1003).bfloat16()
+    row = torch.randn(1003)
+    epi = [("add", [row], {"dtype": "float32"}), ("relu", [], {})]
+    assert torch.equal(ops.fused_matmul(x, w, epilogue=epi),
+                       ref.fused_matmul_ref(x, w, epilogue=epi))
+    assert ops.launches == before
+    assert dict(ops.launches_by_shape) == by_shape
