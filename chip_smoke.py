@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times OUT [--src DIR] [--plan BN,SPLIT,STAGES]
+    python3 chip_smoke.py --flash-times OUT [--src DIR]
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, and does nothing else: ``--src`` times
 another checkout's wrapper (its ``src``), so two trees compare under one
 timing method in one call; ``--plan`` launches one plan at every shape.
+The third does the same for flash attention, at the path shapes of OUT
+and at ``FA_EXTRA``.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts just before it and
@@ -15,9 +18,11 @@ reads them just after:
 
 1. device and build — the card's name and power limit, then the three
    kernel libraries (fused_matmul, flash_attention, linear_scan) built by
-   nvcc from the checkout's CUDA sources, in parallel; the GEMM's ptxas
-   report (registers, stack, spills per kernel; a spill in the bf16
-   kernel fails the run);
+   nvcc from the checkout's CUDA sources, in parallel; the GEMM's and
+   flash attention's ptxas reports (registers, stack, spills per kernel;
+   a spill in either bf16 kernel fails the run); flash attention's tiles
+   as the built kernel states them, at every head dim in both dtypes,
+   against ``kernel.plan`` (whose tile the plain version steps over);
 2. serve — qwen2.5-3b at full width (all 36 layers, random weights from a
    seed) through ``ServingEngine.run``: 4 slots, max_len 512, 6 requests of
    48-200 prompt tokens (3 sharing a 128-token prefix), 16 new tokens each;
@@ -49,7 +54,8 @@ reads them just after:
    ``scaled_dot_product_attention``; never called by the port) and the
    roofline bound; for the GEMM also its plan (``kernel.plan(n, k)``: BN,
    the cluster split, the TMA ring depth), its achieved TFLOP/s, and the
-   wrapper's host time per call at two decode shapes.
+   wrapper's host time per call at two decode shapes; for flash its route
+   and tiles (``kernel.plan(dtype, D)``) and its achieved TFLOP/s.
 
 The qwen model is then released, and RWKV6-7B at full width (32 layers,
 d_model 4096; random weights from seed 0) takes its place:
@@ -109,6 +115,16 @@ FA_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 #: a late causal row's values are about the size of FA_TOL's bf16 bound, so
 #: each row is also held to a few bf16 ulps of its own largest value
 FA_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: flash shapes beyond the paths' (B, Sq, Skv, Hq, Hkv, D, causal): SMOKE,
+#: a causal query offset, ragged 1000-key calls, tile edges (127 and 129
+#: rows, an offset of 1983 keys) and 8192 tokens
+FA_EXTRA = [(2, 28, 28, 4, 2, 24, True), (2, 24, 24, 4, 2, 24, True),
+            (2, 100, 300, 16, 2, 128, True),
+            (2, 1000, 1000, 16, 2, 128, False),
+            (2, 1000, 1000, 16, 2, 128, True),
+            (2, 127, 127, 16, 2, 64, False),
+            (1, 129, 2112, 16, 2, 128, True),
+            (1, 8192, 8192, 16, 2, 128, True)]
 FWD_B, FWD_S = 2, 2048                     # the forward's tokens
 PF_B, PF_S, PF_MAX, PF_NEW = 4, 512, 1024, 16   # padded prefill/decode
 
@@ -541,20 +557,14 @@ def flash_inputs(shape, dt, seed: int):
 
 def flash_vs_plain(path_shapes) -> tuple:
     """``flash_attention`` against ``flash_attention_ref`` in bf16 and fp32
-    at every path shape, the SMOKE shapes, a causal query offset
-    (Sq < Skv), ragged 1000-key calls (causal and not) and 8192 tokens.
-    Returns max |kernel - plain| and its largest row-relative size (see
-    FA_RTOL), each by (shape, dtype)."""
+    at every path shape and at ``FA_EXTRA``.  Returns max |kernel - plain|
+    and its largest row-relative size (see FA_RTOL), each by (shape,
+    dtype)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    extra = [(2, 28, 28, 4, 2, 24, True), (2, 24, 24, 4, 2, 24, True),
-             (2, 100, 300, 16, 2, 128, True),
-             (2, 1000, 1000, 16, 2, 128, False),
-             (2, 1000, 1000, 16, 2, 128, True),
-             (1, 8192, 8192, 16, 2, 128, True)]
     errs, rels = {}, {}
-    for i, shape in enumerate(sorted(set(path_shapes) | set(extra))):
+    for i, shape in enumerate(sorted(set(path_shapes) | set(FA_EXTRA))):
         for dname, dt in (("bfloat16", torch.bfloat16),
                           ("float32", torch.float32)):
             q, k, v = flash_inputs(shape, dt, seed=10 + i)
@@ -573,51 +583,87 @@ def flash_vs_plain(path_shapes) -> tuple:
     return errs, rels
 
 
-def flash_bound(shape, eb: int, peak: float):
-    """(bound ms, what bounds it): q, k, v read once and o written once
-    over the memory rate; 4 * D FLOPs per visible (query, key) pair (QK^T
-    and PV), counting the keys this call's causal mask leaves visible,
-    over the peak rate."""
+def flash_flops(shape) -> float:
+    """4 * D FLOPs per visible (query, key) pair (QK^T and PV), counting
+    the keys this call's causal mask leaves visible."""
     b, sq, skv, hq, hkv, d, causal = shape
     off = skv - sq
     pairs = (sum(min(skv, off + i + 1) for i in range(sq)) if causal
              else sq * skv)
+    return 4.0 * d * pairs * b * hq
+
+
+def flash_bound(shape, eb: int, peak: float):
+    """(bound ms, what bounds it): q, k, v read once and o written once
+    over the memory rate; ``flash_flops`` over the peak rate."""
+    b, sq, skv, hq, hkv, d, causal = shape
     t_bytes = eb * (2 * b * sq * hq * d + 2 * b * skv * hkv * d) / HBM_BW
-    t_ops = 4.0 * d * pairs * b * hq / peak
+    t_ops = flash_flops(shape) / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def flash_times(paths, errs) -> list:
-    """Per path shape, bf16: the kernel, its plain version and
-    ``scaled_dot_product_attention`` (is_causal, enable_gqa; the yardstick,
-    which the port never calls), each timed alone with L2 flushed, and the
-    roofline bound.  ``paths``: (phase, shape, launches in that path's
-    counted run)."""
+def flash_design(shape):
+    """(design, plan) of the bf16 call at ``shape`` (``kernel.plan``);
+    (None, None) for an older checkout, timed through ``--src``, whose
+    wrapper has no plan."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    if not hasattr(fa_kernel, "plan"):
+        return None, None
+    p = fa_kernel.plan(torch.bfloat16, shape[5])
+    design = (f"TMA ring + wgmma (QK^T SS m64n128k16, PV RS m64n{p.head_pad}"
+              f"k16), {p.block_q}x{p.block_kv} tiles, ping-pong warpgroups"
+              if p.route == "wgmma" else
+              f"fp32 FMAs, {p.block_q}x{p.block_kv} tiles")
+    return design, p._asdict()
+
+
+def flash_entry(name: str, shape, launches: int, plain: bool = True) -> dict:
+    """One shape's flash entry, bf16: the kernel, (``plain``) its plain
+    version and ``scaled_dot_product_attention`` (is_causal, enable_gqa;
+    the yardstick, which the port never calls), each timed alone with L2
+    flushed; max |kernel - plain| on the same inputs, the roofline bound,
+    TFLOP/s and the route and tiles."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    causal = shape[-1]
+    q, k, v = flash_inputs(shape, torch.bfloat16, seed=1)
+    fn = lambda: fa_ops.flash_attention(q, k, v,  # noqa: E731
+                                        causal=causal)
+    ref_fn = lambda: fa_ref.flash_attention_ref(q, k, v,  # noqa: E731
+                                                causal=causal)
+    err = float((fn().float() - ref_fn().float()).abs().max())
+    ms = time_ms(fn)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    bound, by = flash_bound(shape, 2, PEAK_FLOPS["bfloat16"])
+    design, plan = flash_design(shape)
+    entry = {"name": name, "route": "cuda", "source": FA_SOURCE,
+             "replaces": FA_REPLACES, "launches": launches,
+             "max_abs_err": err, "ms": ms}
+    if plain:
+        entry["plain_ms"] = time_ms(ref_fn)
+    entry.update({"bound_ms": bound, "bound_by": by, "library_ms": lib,
+                  "design": design, "plan": plan,
+                  "tflops": flash_flops(shape) / (ms * 1e-3) / 1e12,
+                  "shape": list(shape)})
+    return entry
+
+
+def flash_times(paths) -> list:
+    """Per path shape, ``flash_entry``.  ``paths``: (phase, shape, launches
+    in that path's counted run)."""
     out = []
     for phase, shape, launches in paths:
         b, sq, skv, hq, hkv, d, causal = shape
-        q, k, v = flash_inputs(shape, torch.bfloat16, seed=1)
-        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal))
-        plain = time_ms(lambda: fa_ref.flash_attention_ref(q, k, v,
-                                                           causal=causal))
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
-        bound, by = flash_bound(shape, 2, PEAK_FLOPS["bfloat16"])
-        out.append({
-            "name": f"flash_attention[{phase} B={b} Sq={sq} Skv={skv} "
-                    f"Hq={hq} Hkv={hkv} D={d}{' causal' if causal else ''}]",
-            "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
-            "launches": launches,
-            "max_abs_err": errs[(shape, "bfloat16")],
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib})
-        del q, k, v, qt, kt, vt
+        out.append(flash_entry(
+            f"flash_attention[{phase} B={b} Sq={sq} Skv={skv} Hq={hq} "
+            f"Hkv={hkv} D={d}{' causal' if causal else ''}]", shape,
+            launches))
     return out
 
 
@@ -1497,7 +1543,7 @@ def qwen_phases() -> list:
             [(SLOTS, cfg.d_model, cfg.d_model),
              (SLOTS, cfg.d_model, cfg.d_ff)], gen)})
 
-    fa_entries = flash_times(flash_paths, fa_errs)
+    fa_entries = flash_times(flash_paths)
     emit({"phase": "flash_times",
           "launches_per_forward": sum(fa_fwd.values()),
           "launches_per_prefill": sum(fa_pf.values()),
@@ -1508,7 +1554,9 @@ def qwen_phases() -> list:
               if "[forward" in e["name"]),
           "forward_sdpa_ms": sum(e["library_ms"] * e["launches"]
                                  for e in fa_entries
-                                 if "[forward" in e["name"])})
+                                 if "[forward" in e["name"]),
+          "flash_tflops": {e["name"]: e["tflops"] for e in fa_entries},
+          "flash_design": {e["name"]: e["design"] for e in fa_entries}})
 
     return entries + fa_entries
 
@@ -1561,14 +1609,37 @@ def gemm_times_again(out_path: str, plan) -> int:
     return 0
 
 
+def flash_times_again(out_path: str) -> int:
+    """The ``--flash-times`` mode: ``flash_entry`` without the plain
+    version's time, one JSON line each, at every flash path shape that a
+    full run counted (the ``shape`` of each flash entry of the kernels line
+    in its output ``out_path``) and at ``FA_EXTRA``, without building a
+    model; then the card line."""
+    with open(out_path) as f:
+        entries = next(json.loads(line)["kernels"] for line in f
+                       if line.startswith('{"kernels"'))
+    paths = [(e["name"], tuple(e["shape"]), e["launches"]) for e in entries
+             if e["name"].startswith("flash_attention[")]
+    paths += [(f"flash_attention[extra {s_}]", s_, 0) for s_ in FA_EXTRA]
+    for name, shape, launches in paths:
+        emit(flash_entry(name, shape, launches, plain=False))
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gemm-times", metavar="OUT",
                     help="time the GEMM again at the path shapes of the "
                          "full run whose output is OUT, and stop")
-    ap.add_argument("--src", help="with --gemm-times: another checkout's "
-                                  "src directory, whose wrapper is timed")
+    ap.add_argument("--flash-times", metavar="OUT",
+                    help="time flash attention again at the path shapes "
+                         "of the full run whose output is OUT and at "
+                         "FA_EXTRA, and stop")
+    ap.add_argument("--src", help="with --gemm-times or --flash-times: "
+                                  "another checkout's src directory, whose "
+                                  "wrapper is timed")
     ap.add_argument("--plan", metavar="BN,SPLIT,STAGES",
                     help="with --gemm-times: launch this plan at every "
                          "shape in place of kernel.plan")
@@ -1577,9 +1648,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
+    if args.flash_times:
+        return flash_times_again(args.flash_times)
     if args.gemm_times:
-        if args.src:
-            sys.path.insert(0, os.path.abspath(args.src))
         plan = None
         if args.plan:
             from repro_torch.kernels.fused_matmul.kernel import Plan
@@ -1604,17 +1677,28 @@ def main() -> int:
         libs = list(pool.map(lambda mod: mod.build(verbose=True),
                              (kernel, fa_kernel, ls_kernel)))
     gemm_ptxas = ptxas_summary(REPORTS["fused_matmul"])
+    flash_ptxas = ptxas_summary(REPORTS["flash_attention"])
     emit({"phase": "build", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0,
           "libraries": [lib.name for lib in libs],
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "gemm_ptxas": gemm_ptxas})
-    spills = {k: v for k, v in gemm_ptxas.items()
-              if k.startswith("gemm_bf16") and v.get("spill_stores", 0)}
-    if spills or not any(k.startswith("gemm_bf16") for k in gemm_ptxas):
-        raise SystemExit(f"build: the bf16 GEMM spills or is missing: "
-                         f"{gemm_ptxas}")
+          "gemm_ptxas": gemm_ptxas, "flash_ptxas": flash_ptxas})
+    for what, report, prefix in (("GEMM", gemm_ptxas, "gemm_bf16"),
+                                 ("flash", flash_ptxas, "flash_bf16")):
+        spills = {k: v for k, v in report.items()
+                  if k.startswith(prefix) and v.get("spill_stores", 0)}
+        if spills or not any(k.startswith(prefix) for k in report):
+            raise SystemExit(f"build: the bf16 {what} kernel spills or is "
+                             f"missing: {report}")
+    # the plain version steps over kernel.plan's tile: it must be the
+    # built kernel's own
+    for dt in (torch.bfloat16, torch.float32):
+        for d in range(1, fa_kernel.MAX_HEAD_DIM + 1):
+            if fa_kernel.kernel_tiles(dt, d) != fa_kernel.plan(dt, d):
+                raise SystemExit(f"build: flash tiles at {dt} D={d}: kernel "
+                                 f"{fa_kernel.kernel_tiles(dt, d)}, plan "
+                                 f"{fa_kernel.plan(dt, d)}")
 
     # -- 2-10. qwen2.5-3b ----------------------------------------------------
     entries = qwen_phases()

@@ -9,10 +9,13 @@
   dim past the kernel's, or causal ``Sq > Skv`` (a query row with no
   visible key, which the reference leaves ill-defined) raise.
 
-The kernel masks keys past ``Skv`` itself, so ragged non-causal lengths
-need no fallback either.  ``launches`` counts kernel launches (incremented
-where the kernel launches and nowhere else); ``launches_by_shape`` splits
-it by ``(B, Sq, Skv, Hq, Hkv, D, dtype, causal)``.
+The route and tiles are ``kernel.plan(dtype, D)``: bf16 runs the TMA +
+``wgmma`` kernel (a layout TMA cannot address is first copied into one it
+can, ``kernel.tma_operand``), fp32 the FMA kernel.  The kernel masks keys
+past ``Skv`` itself, so ragged non-causal lengths need no fallback either.
+``launches`` counts kernel launches (incremented where the kernel launches
+and nowhere else); ``launches_by_shape`` splits it by ``(B, Sq, Skv, Hq,
+Hkv, D, dtype, causal)``.
 """
 from __future__ import annotations
 
@@ -73,7 +76,14 @@ def flash_attention(q, k, v, causal: bool = False, bias=None):
         return o
     if skv == 0:
         return o.zero_()
-    kernel.launch(q, k, v, o, causal)
+    if kernel.plan(q.dtype, d).route == "wgmma":
+        q, k, v = (kernel.tma_operand(t) for t in (q, k, v))
+    # the head dim zero-padded for TMA: the padded columns are dropped
+    out = o if q.shape[-1] == d else torch.empty(q.shape, dtype=q.dtype,
+                                                  device=q.device)
+    kernel.launch(q, k, v, out, causal, kernel.score_scale(q.dtype, d))
+    if out is not o:
+        o.copy_(out[..., :d])
     global launches
     launches += 1
     launches_by_shape[(b, sq, skv, hq, hkv, d, str(q.dtype), bool(causal))] += 1

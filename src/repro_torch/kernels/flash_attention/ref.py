@@ -5,8 +5,10 @@ and the path a CPU tensor takes.
   (``kernels/flash_attention/ref.py``): grouped, fp32 scores and softmax,
   a ``-inf`` causal mask, output in ``q.dtype``.
 * ``flash_attention_ref`` follows the Hopper kernel's own arithmetic: an
-  online softmax over fixed ``BLOCK_KV``-key tiles, masked scores at
-  ``finfo(float32).min``, ``p`` rounded to ``v``'s dtype before the PV
+  online softmax over the fixed K/V tiles of the route the call takes
+  (``kernel.plan(dtype, D)``: 128 keys in bf16, 64 in fp32), in base 2
+  with the scale folded in where the route does so (bf16), masked scores
+  at ``finfo(float32).min``, ``p`` rounded to ``v``'s dtype before the PV
   product, and ``l == 0 -> 1`` at the end.
 """
 from __future__ import annotations
@@ -14,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: keys per tile of the Hopper kernel (``csrc/flash_attention.cu``: BKV)
-BLOCK_KV = 64
+from .kernel import plan, score_scale
+
 NEG_INF = float(np.finfo(np.float32).min)
 
 
@@ -43,11 +45,15 @@ def attention_ref(q, k, v, causal: bool = False, bias=None):
 
 
 def flash_attention_ref(q, k, v, causal: bool = False):
-    """The kernel's arithmetic, tile by tile.  q: [B, Sq, Hq, D]; k, v:
+    """The kernel's arithmetic, tile by tile, over the K/V tile of the
+    route the call takes (``kernel.plan``).  q: [B, Sq, Hq, D]; k, v:
     [B, Skv, Hkv, D].  Causal queries align to the end of the keys
     (``q_offset = Skv - Sq``); keys past ``Skv`` never exist here (the
     kernel masks its padded tile, which changes no value)."""
     b, sq, hq, d = q.shape
+    route = plan(q.dtype, d)
+    block_kv = route.block_kv
+    exp = torch.exp2 if route.base2 else torch.exp
     skv, hkv = k.shape[1], k.shape[2]
     grp = hq // hkv
     f32 = torch.float32
@@ -55,23 +61,23 @@ def flash_attention_ref(q, k, v, causal: bool = False):
     qg = q.reshape(b, sq, hkv, grp, d).permute(0, 2, 3, 1, 4).to(f32)
     kt = k.permute(0, 2, 1, 3)          # [B, Hkv, Skv, D]
     vt = v.permute(0, 2, 1, 3)
-    scale = 1.0 / np.sqrt(d)
+    scale = score_scale(q.dtype, d)
     q_off = skv - sq if causal else 0
     qpos = q_off + torch.arange(sq, device=dev)
     m = torch.full((b, hkv, grp, sq, 1), NEG_INF, dtype=f32, device=dev)
     l = torch.zeros((b, hkv, grp, sq, 1), dtype=f32, device=dev)
     acc = torch.zeros((b, hkv, grp, sq, d), dtype=f32, device=dev)
     end = min(skv, q_off + sq) if causal else skv
-    for kv0 in range(0, end, BLOCK_KV):
-        kb = kt[:, :, kv0:kv0 + BLOCK_KV]
-        vb = vt[:, :, kv0:kv0 + BLOCK_KV]
+    for kv0 in range(0, end, block_kv):
+        kb = kt[:, :, kv0:kv0 + block_kv]
+        vb = vt[:, :, kv0:kv0 + block_kv]
         s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb.to(f32)) * scale
         if causal:
             kpos = kv0 + torch.arange(kb.shape[2], device=dev)
             s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
+        p = exp(s - m_new)
+        alpha = exp(m - m_new)
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         acc = alpha * acc + torch.einsum(
             "bhgqk,bhkd->bhgqd", p.to(v.dtype).to(f32), vb.to(f32))

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.ir import TaskGraph, TensorType
 from repro_torch.core.lowering import emit
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fused_matmul import kernel, ops, ref
@@ -203,11 +204,19 @@ FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 FA_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: (B, Sq, Skv, Hq, Hkv, D, causal): the full-width forward and padded
 #: prefill of qwen2.5-3b, SMOKE, a causal query offset, ragged non-causal
-#: and causal key lengths, one K/V head per query head and a long sequence
+#: and causal key lengths, one K/V head per query head and a long sequence;
+#: then every 128-row / 128-key tile edge (1, 127, 128, 129 and 2112 rows
+#: and keys), causal offsets that are not a multiple of 128 (1983, 128, 173)
+#: and D = 24, 64, 128 on both sides of them
 FA_SHAPES = [(2, 2048, 2048, 16, 2, 128, True), (4, 512, 512, 16, 2, 128, True),
              (2, 24, 24, 4, 2, 24, True), (2, 100, 300, 8, 2, 128, True),
              (2, 77, 1000, 8, 1, 128, False), (1, 1000, 1000, 4, 4, 64, True),
-             (1, 8192, 8192, 16, 2, 128, True)]
+             (1, 8192, 8192, 16, 2, 128, True),
+             (1, 1, 1, 4, 2, 64, True), (2, 127, 127, 8, 2, 64, True),
+             (2, 128, 128, 8, 2, 128, False), (2, 129, 129, 8, 2, 24, True),
+             (1, 129, 2112, 16, 2, 128, True),
+             (1, 2112, 2112, 8, 1, 128, False), (2, 1, 129, 4, 2, 128, True),
+             (1, 127, 300, 4, 1, 24, True), (2, 129, 127, 4, 2, 64, False)]
 
 
 def _qkv(cuda, b, sq, skv, hq, hkv, d, dt, seed):
@@ -238,23 +247,81 @@ def test_flash_kernel_matches_plain(cuda, dt, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_plan_is_the_kernels_tiles(cuda, dt):
+    """``kernel.plan``, whose tile the plain version steps over, states the
+    tiles the built kernel launches, at every head dim."""
+    for d in range(1, fa_kernel.MAX_HEAD_DIM + 1):
+        assert fa_kernel.kernel_tiles(dt, d) == fa_kernel.plan(dt, d), d
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_row_result_does_not_depend_on_sq(cuda, causal):
     """The K/V tile is fixed: a query row's output is bitwise the same when
-    16 more query rows run over the same keys (causal: the 16 new keys sit
-    after every old row's position, so they are masked for it)."""
+    more query rows run over the same keys.  The first s rows (causal: over
+    the first s keys, so the keys the longer run adds sit after every old
+    row's position and are masked for it) and, causal, the last s rows over
+    all 516 keys (a causal offset of 516 - s), for s across the 64-row and
+    128-row query-tile edges: a row's query tile holds other rows in the
+    longer run than in the shorter."""
     for dt in (torch.bfloat16, torch.float32):
-        # 500 is not a multiple of the 64-row query tile: the query tile
-        # holding rows 448-499 also holds rows 500-511 in the longer run
         q, k, v = _qkv(cuda, 2, 516, 516, 16, 2, 128, dt, seed=3)
-        s = 500
         full = fa_ops.flash_attention(q, k, v, causal=causal)
-        if causal:
-            part = fa_ops.flash_attention(q[:, :s], k[:, :s], v[:, :s],
-                                          causal=True)
-        else:
-            part = fa_ops.flash_attention(q[:, :s], k, v, causal=False)
-        assert torch.equal(part, full[:, :s]), dt
+        for s in (1, 127, 128, 129, 500):
+            if causal:
+                part = fa_ops.flash_attention(q[:, :s], k[:, :s], v[:, :s],
+                                              causal=True)
+                tail = fa_ops.flash_attention(q[:, -s:], k, v, causal=True)
+                assert torch.equal(tail, full[:, -s:]), (dt, s, "offset")
+            else:
+                part = fa_ops.flash_attention(q[:, :s], k, v, causal=False)
+            assert torch.equal(part, full[:, :s]), (dt, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 2048, 2048, 16, 2, 128, True),
+                                   (1, 129, 2112, 16, 2, 128, True),
+                                   (2, 77, 1000, 8, 1, 24, False)])
+def test_flash_result_repeats(cuda, dt, shape):
+    """No atomics and a fixed reduction order: the same call twice gives
+    the same bits."""
+    *dims, causal = shape
+    q, k, v = _qkv(cuda, *dims, dt, seed=6)
+    first = fa_ops.flash_attention(q, k, v, causal=causal)
+    again = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["head_dim_20", "misaligned_base",
+                                    "odd_row_stride"])
+def test_flash_copies_a_layout_tma_cannot_address(cuda, layout):
+    """bf16 inputs that TMA cannot read in place (D % 8 != 0, a base off
+    16 bytes, rows of an odd number of elements) are copied into a layout
+    it can, then take the same kernel: one launch, within tolerance of the
+    plain version on the original tensors."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    d = 20 if layout == "head_dim_20" else 64
+    pad = 3 if layout == "odd_row_stride" else 0   # elements past D a row
+
+    def make(s, h):
+        n = 2 * s * h * (d + pad)
+        t = torch.randn(n + 1, generator=g, device=cuda).bfloat16()
+        if layout == "misaligned_base":
+            return t[1:].view(2, s, h, d)
+        return t[:n].view(2, s, h, d + pad)[..., :d]
+    q, k, v = make(100, 8), make(150, 2), make(150, 2)
+    before = fa_ops.launches
+    o = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ref.flash_attention_ref(q, k, v, causal=True)
+    assert o.shape == q.shape and o.is_contiguous()
+    assert float((o.float() - want.float()).abs().max()) <= FA_TOL[
+        torch.bfloat16]
 
 
 @pytest.mark.cuda

@@ -9,6 +9,9 @@ Tolerances are the JAX package's own kernel tolerances
 (``tests/test_kernels.py``): max abs 2e-4 in fp32 (exponentials and sums
 in another order), 2e-2 in bf16 (probabilities and output round to bf16).
 """
+import inspect
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from repro.kernels.flash_attention import ops as j_ops
 from repro.kernels.flash_attention import ref as j_ref
 from repro_torch.core.ir import TaskGraph, TensorType
 from repro_torch.core.lowering import emit
-from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.flash_attention import kernel, ops, ref
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
@@ -33,7 +36,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 #: (B, Sq, Skv, Hq, Hkv, D, causal): Sq == Skv, Sq < Skv (causal queries at
-#: the end of the keys), ragged lengths off every tile, GQA groups 1, 2, 8
+#: the end of the keys), ragged lengths off every tile, GQA groups 1, 2, 8;
+#: the last three span two 128-key tiles (a ragged second tile, causal and
+#: not, a causal offset of 190 keys)
 SHAPES = [
     (2, 64, 64, 4, 4, 32, True),
     (2, 64, 64, 4, 2, 32, False),
@@ -42,6 +47,9 @@ SHAPES = [
     (1, 77, 150, 8, 1, 32, False),
     (2, 1, 70, 4, 2, 24, True),
     (1, 130, 130, 2, 1, 48, False),
+    (1, 200, 200, 4, 2, 32, True),
+    (2, 60, 250, 4, 1, 24, True),
+    (1, 60, 250, 4, 2, 32, False),
 ]
 
 
@@ -65,10 +73,15 @@ def _np(x):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_versions_match_the_reference(shape, dtype):
+    """Both plain versions against the JAX package's Pallas kernel
+    (interpret mode) at the tiles of the route the call takes
+    (``kernel.plan``: 128 x 128 in bf16, 64 x 64 in fp32) and its oracle."""
     causal = shape[-1]
     (q, k, v), (jq, jk, jv) = _inputs(shape, dtype, seed=sum(shape[:-1]))
+    tiles = kernel.plan(q.dtype, shape[5])
     want_kernel = _np(j_ops.flash_attention(jq, jk, jv, causal=causal,
-                                            block_q=64, block_kv=64,
+                                            block_q=tiles.block_q,
+                                            block_kv=tiles.block_kv,
                                             interpret=True))
     want_oracle = _np(j_ref.attention_ref(jq, jk, jv, causal=causal))
     flash = ref.flash_attention_ref(q, k, v, causal=causal)
@@ -126,3 +139,60 @@ def test_plain_attention_impls_lower_to_the_oracle_on_cpu(impl):
     want = _np(j_ref.attention_ref(jq, jk, jv, causal=True,
                                    bias=jnp.asarray(bias)))
     np.testing.assert_allclose(_np(got), want, atol=2e-4, rtol=0)
+
+
+# -- the route and tile plan ---------------------------------------------------
+
+
+def test_plan_reads_dtype_and_head_dim_only():
+    """The route and tiles are a function of (dtype, D) (alignment is
+    ``tma_operand``'s, below), never of B, Sq or Skv: a query row's K/V
+    tiles are the same set in the same order however many rows run."""
+    assert list(inspect.signature(kernel.plan).parameters) == ["dtype", "d"]
+    for d in range(1, kernel.MAX_HEAD_DIM + 1):
+        bf = kernel.plan(torch.bfloat16, d)
+        assert bf == ("wgmma", 128, 128, 64 if d <= 64 else 128, True)
+        f32 = kernel.plan(torch.float32, d)
+        assert f32 == ("fma", 64, 64, 32 if d <= 32 else 64 if d <= 64
+                       else 128, False)
+        assert kernel.score_scale(torch.bfloat16, d) == (
+            1.0 / math.sqrt(d) * math.log2(math.e))
+        assert kernel.score_scale(torch.float32, d) == 1.0 / math.sqrt(d)
+
+
+@pytest.mark.parametrize("d", [24, 64, 128])
+def test_tma_operand_keeps_an_addressable_layout(d):
+    """A contiguous tensor, a head slice of a wider one (strides a multiple
+    of 8 elements, base 16-byte aligned) and a size-1 batch with an odd
+    stride are read in place."""
+    t = torch.zeros(2, 5, 6, d, dtype=torch.bfloat16)
+    assert kernel.tma_operand(t) is t
+    wide = torch.zeros(2, 5, 6, d, dtype=torch.bfloat16)[:, :, 2:]
+    assert kernel.tma_operand(wide) is wide
+    one = torch.zeros(7, 5, 6, d, dtype=torch.bfloat16).as_strided(
+        (1, 5, 6, d), (3, 6 * d, d, 1))
+    assert kernel.tma_operand(one) is one
+    assert kernel.strides(one) == (5 * 6 * d, 6 * d, d)
+
+
+def test_tma_operand_copies_what_tma_cannot_address():
+    """D % 8 != 0 is zero-padded to a multiple of 8; a misaligned base or
+    stride is copied.  The values and the zero padding are exact, so the
+    kernel's scores do not change."""
+    rng = np.random.default_rng(6)
+    t = torch.from_numpy(rng.standard_normal((2, 5, 3, 20)).astype(
+        np.float32)).bfloat16()
+    out = kernel.tma_operand(t)
+    assert out.shape == (2, 5, 3, 24)
+    assert torch.equal(out[..., :20], t)
+    assert not out[..., 20:].any()
+    base = torch.from_numpy(rng.standard_normal(2 * 5 * 3 * 64 + 1).astype(
+        np.float32)).bfloat16()
+    shifted = base[1:].view(2, 5, 3, 64)          # base off by 2 bytes
+    out = kernel.tma_operand(shifted)
+    assert out is not shifted and torch.equal(out, shifted)
+    assert out.data_ptr() % 16 == 0
+    odd = torch.zeros(2, 5, 3, 68, dtype=torch.bfloat16)[..., :64]
+    out = kernel.tma_operand(odd)                 # rows of 68 elements
+    assert out is not odd and torch.equal(out, odd)
+    assert all(s % kernel.ALIGN == 0 for s in kernel.strides(out))
