@@ -4,13 +4,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times OUT [--src DIR] [--plan BN,SPLIT,STAGES]
     python3 chip_smoke.py --flash-times OUT [--src DIR]
+    python3 chip_smoke.py --scan-times OUT [--src DIR]
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, and does nothing else: ``--src`` times
 another checkout's wrapper (its ``src``), so two trees compare under one
 timing method in one call; ``--plan`` launches one plan at every shape.
 The third does the same for flash attention, at the path shapes of OUT
-and at ``FA_EXTRA``.
+and at ``FA_EXTRA``; the fourth for the linear scan, at OUT's scan path
+shapes.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts just before it and
@@ -18,9 +20,11 @@ reads them just after:
 
 1. device and build — the card's name and power limit, then the three
    kernel libraries (fused_matmul, flash_attention, linear_scan) built by
-   nvcc from the checkout's CUDA sources, in parallel; the GEMM's and
-   flash attention's ptxas reports (registers, stack, spills per kernel;
-   a spill in either bf16 kernel fails the run); flash attention's tiles
+   nvcc from the checkout's CUDA sources, in parallel; the three ptxas
+   reports (registers, stack, spills per kernel; a spill in any of the
+   bf16 kernels fails the run) and the bf16 scan kernel's tensor-core
+   (HMMA) instruction count in its SASS (none fails the run); flash
+   attention's tiles
    as the built kernel states them, at every head dim in both dtypes,
    against ``kernel.plan`` (whose tile the plain version steps over);
 2. serve — qwen2.5-3b at full width (all 36 layers, random weights from a
@@ -66,18 +70,26 @@ d_model 4096; random weights from seed 0) takes its place:
    logits and loss, wall time, peak memory, device time by kernel;
 12. rwkv_guarantees — region forward = per-op forward bitwise; the per-op
    control's largest difference; the stateful prefill of 4 x 512 tokens
-   and 16 greedy decode steps (state written in place), the prefill's last
-   logits against the forward's at position 511;
+   and 16 greedy decode steps (state written in place; 32 carried-state
+   ``linear_scan`` launches each), the prefill's last logits against the
+   forward's at position 511;
 13. rwkv_serve — ``ServingEngine.run`` through the padded-wave loop (the
-   serve phase's requests), every request finished, ``run`` = ``run_wave``;
+   serve phase's requests; 32 scan launches per prefill and decode step),
+   every request finished, ``run`` = ``run_wave``;
 14. scan_vs_plain — ``linear_scan`` against ``linear_scan_chunked`` in
    bf16 and fp32, both variants: the forward's shape, SMOKE, ragged S
    (37, 1000) and the decay clip in every position (S = 37, 2048, 8192);
+   the carried-state variant at the stateful prefill's, decode step's
+   and padded-wave serving's shapes and the clip (outputs and final
+   carry); a prefill and single-row
+   steps chained through the carry against one call (bitwise or not), and
+   the state variant's batch independence (bitwise);
 15. rwkv_gemm_vs_plain — ``fused_matmul`` at every RWKV path shape;
 16. small_rwkv_parity — SMOKE in fp32, the forward and the stateful steps
    on the card against the CPU;
-17. scan_times — per path shape the scan kernel, its plain version and the
-   bound (no PyTorch call computes the scan: no library time), and the
+17. scan_times — per path shape (forward, stateful prefill, decode step,
+   serving) the scan kernel, its plain version and the bound (no PyTorch call
+   computes the scan: no library time), and the
    RWKV forward and decode GEMM shapes as in phase 10 (plan, TFLOP/s,
    the wrapper's host time at the 4096² and wA decode shapes).
 
@@ -720,8 +732,9 @@ LS_REPLACES = "src/repro/kernels/linear_scan/kernel.py:70"
 #: fp32: prefix sums and products summed in another order
 LS_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: the stateful prefill's last logits against the forward's at the same
-#: position, per row over the row's max |logit|: the composite (prefill)
-#: and the kernel (forward) round differently in bf16, over 32 layers
+#: position, per row over the row's max |logit|: two region programs (the
+#: stateful block with its carried-state scan, the forward's block), each
+#: rounding in bf16, over 32 layers
 RW_PF_RTOL = 5e-2
 #: RWKV6's decay clip: log w >= -exp(2)
 CLIP_W = math.exp(-math.exp(2.0))
@@ -788,7 +801,8 @@ def rwkv_forward_phase(model, cfg):
             "profiled_wall_s": prof_s, "device_ms": busy,
             "device_busy_share": busy / (wall_s * 1e3),
             "scan_device_ms": sum(ms for k, (ms, _) in by_name.items()
-                                  if "linear_scan" in k),
+                                  if "scan_bf16_kernel" in k
+                                  or "scan_f32_kernel" in k),
             "gemm_device_ms": sum(ms for k, (ms, _) in by_name.items()
                                   if "gemm" in k),
             "top": top_kernels(by_name)}
@@ -801,9 +815,9 @@ def rwkv_forward_phase(model, cfg):
 
 def rwkv_guarantees(model, cfg, batch, logits):
     """Region forward = per-op forward bitwise; the per-op control's
-    largest difference; the stateful prefill of PF_B x PF_S tokens (the
-    lifted chunked composite, no scan launch) then PF_NEW greedy decode
-    steps, its state written in place, its last logits against the
+    largest difference; the stateful prefill of PF_B x PF_S tokens then
+    PF_NEW greedy decode steps (one carried-state scan launch per layer
+    each), its state written in place, its last logits against the
     forward's at position PF_S - 1."""
     import numpy as np
     import torch
@@ -836,16 +850,18 @@ def rwkv_guarantees(model, cfg, batch, logits):
     for tag in ("rwkv prefill (first call)", "rwkv prefill"):
         cache = model.init_cache(PF_B, PF_MAX)
         ptrs = [cache[k].data_ptr() for k in keys]
-        (lg, cache), wall, fm_pf, *_ = counted(
-            tag, lambda: prefill(prompts, cache), 0, gemm, 0)
+        (lg, cache), wall, fm_pf, _, ls_pf = counted(
+            tag, lambda: prefill(prompts, cache), 0, gemm, n_l)
         walls.append(wall)
     tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
-    fm_dec = collections.Counter()
+    fm_dec, ls_dec = collections.Counter(), collections.Counter()
     steps, out = [], []
     for i in range(PF_NEW):
-        (nxt, cache), wall, fm, *_ = counted(
-            f"rwkv decode step {i}", lambda: decode(tok, cache), 0, gemm, 0)
+        (nxt, cache), wall, fm, _, ls = counted(
+            f"rwkv decode step {i}", lambda: decode(tok, cache), 0, gemm,
+            n_l)
         fm_dec += fm
+        ls_dec += ls
         steps.append(wall)
         tok = nxt[:, None]
         out.append(nxt)
@@ -865,6 +881,9 @@ def rwkv_guarantees(model, cfg, batch, logits):
             "batch": PF_B, "prompt": PF_S, "decode_steps": PF_NEW,
             "gemm_launches_per_prefill": sum(fm_pf.values()),
             "gemm_launches_per_decode_step": sum(fm_dec.values()) // PF_NEW,
+            "scan_launches_per_prefill": sum(ls_pf.values()),
+            "scan_launches_per_decode_step": sum(ls_dec.values()) // PF_NEW,
+            "scan_variants": sorted({k[6] for k in ls_pf + ls_dec}),
             "prefill_first_call_s": walls[0], "prefill_s": walls[1],
             "decode_step_p50_ms": steps[len(steps) // 2] * 1e3,
             "decode_step_max_ms": steps[-1] * 1e3,
@@ -879,18 +898,19 @@ def rwkv_guarantees(model, cfg, batch, logits):
             "sample_out": toks[0, :8].tolist()}
     if not (bitwise and opaque_impls == {"opaque"} and in_place
             and line["finite"] and rel <= RW_PF_RTOL
+            and all("+state" in k[6] for k in ls_pf + ls_dec)
             and line["pos"] == PF_S + PF_NEW
             and ((toks >= 0) & (toks < cfg.vocab)).all()):
         raise SystemExit(f"rwkv guarantees: {line}")
-    return line, fm_pf, fm_dec
+    return line, fm_pf, fm_dec, ls_pf, ls_dec
 
 
 def rwkv_serve(model, cfg):
     """``ServingEngine.run`` on a family without slots: the padded-wave
     loop, SLOTS rows, the serve phase's 6 requests (48-200 prompt tokens),
     MAX_NEW new tokens each.  Every prefill and decode step runs 10 GEMMs
-    per layer plus the head and no scan kernel (the stateful step is the
-    lifted composite).  ``run`` equals ``run_wave`` token for token."""
+    per layer plus the head and one carried-state scan per layer.  ``run``
+    equals ``run_wave`` token for token."""
     import numpy as np
     import torch
     from repro_torch.serve import Request, ServeConfig, ServingEngine
@@ -901,7 +921,8 @@ def rwkv_serve(model, cfg):
     per_call = 10 * cfg.n_layers + 1
     waves = -(-len(reqs) // SLOTS)
     torch.cuda.reset_peak_memory_stats()
-    runs, stats, fm = {}, {}, collections.Counter()
+    runs, stats = {}, {}
+    fm, ls = collections.Counter(), collections.Counter()
     for name in ("run", "run_wave"):
         fresh = [Request(rid=r.rid, prompt=r.prompt.copy(),
                          max_new=r.max_new) for r in reqs]
@@ -910,13 +931,13 @@ def rwkv_serve(model, cfg):
         out = getattr(eng, name)(fresh)
         torch.cuda.synchronize()
         st = dict(eng.last_stats)
-        want = (waves + st["decode_steps"]) * per_call
-        if (fm_ops.launches, fa_ops.launches, ls_ops.launches) != (want, 0,
-                                                                    0):
+        calls = waves + st["decode_steps"]
+        want = (calls * per_call, 0, calls * cfg.n_layers)
+        if (fm_ops.launches, fa_ops.launches, ls_ops.launches) != want:
             raise SystemExit(
                 f"rwkv {name}: {fm_ops.launches} fused_matmul, "
                 f"{fa_ops.launches} flash and {ls_ops.launches} scan "
-                f"launches (expected {want}, 0 and 0)")
+                f"launches (expected {want[0]}, 0 and {want[2]})")
         if not all(r.done and len(r.out) == MAX_NEW for r in out):
             raise SystemExit(f"rwkv {name}: not every request finished")
         for r in out:
@@ -925,6 +946,7 @@ def rwkv_serve(model, cfg):
                 raise SystemExit(f"rwkv {name}: request {r.rid} emitted "
                                  f"{r.out}")
         fm.update(fm_ops.launches_by_shape)
+        ls.update(ls_ops.launches_by_shape)
         runs[name], stats[name] = out, st
     same = [r.out for r in runs["run"]] == [r.out for r in runs["run_wave"]]
     st = stats["run"]
@@ -934,12 +956,13 @@ def rwkv_serve(model, cfg):
             "tok_per_s": st["tok_per_s"],
             "mean_occupancy": st["mean_occupancy"],
             "run_wave_wall_s": stats["run_wave"]["wall_s"],
-            "gemm_launches_per_call": per_call, "run_eq_run_wave": same,
+            "gemm_launches_per_call": per_call,
+            "scan_launches_per_call": cfg.n_layers, "run_eq_run_wave": same,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "sample_out": runs["run"][0].out[:8]}
     if not same:
         raise SystemExit(f"rwkv serve: {line}")
-    return line, fm
+    return line, fm, ls
 
 
 def scan_inputs(shape, dt, seed: int):
@@ -961,45 +984,144 @@ def scan_inputs(shape, dt, seed: int):
     return q, k, v, w, u
 
 
-def scan_vs_plain(path_shapes, smoke_shape) -> dict:
-    """``linear_scan`` against ``linear_scan_chunked`` at the same chunk
-    (SAFE_CHUNK), in bf16 and fp32, both variants: the forward's path
-    shapes, SMOKE, ragged S (37, 1000) and the decay clip in every position
-    at S = 37, 2048 and 8192.  Stops on the first miss (LS_RTOL).  Returns
-    {(shape, variant, dtype): (max abs err, max row-relative err)}."""
-    import torch
+def scan_errors(q, k, v, w, u, s0=None) -> tuple:
+    """``linear_scan`` against ``linear_scan_chunked`` on the same inputs
+    at SAFE_CHUNK, the carry seeded by ``s0`` and returned when ``s0`` is
+    given: (max abs err of o, its max row-relative err, the final carry's
+    max row-relative err or None, all finite).  A row's scale is its max of
+    the same scan over |q|, |k|, |v|, |u| (and |s0|)."""
     from repro_torch.kernels.costs import SAFE_CHUNK
     from repro_torch.kernels.linear_scan import ops as ls_ops
     from repro_torch.kernels.linear_scan import ref as ls_ref
+    st = s0 is not None
+    got = ls_ops.linear_scan(q, k, v, w, u=u, chunk=SAFE_CHUNK,
+                             init_state=s0, return_state=st)
+    want = ls_ref.linear_scan_chunked(q, k, v, w, u=u, chunk=SAFE_CHUNK,
+                                      init_state=s0, return_state=st)
+    scale = ls_ref.linear_scan_chunked(
+        q.float().abs(), k.float().abs(), v.float().abs(), w,
+        u=None if u is None else u.abs(), chunk=SAFE_CHUNK,
+        init_state=None if s0 is None else s0.abs(), return_state=st)
+    if not st:
+        got, want, scale = (got, None), (want, None), (scale, None)
+    diff = (got[0].float() - want[0].float()).abs()
+    rel = float((diff.amax(-1) / scale[0].amax(-1).clamp_min(1e-30)).max())
+    finite = bool(got[0].isfinite().all())
+    st_rel = None
+    if st:
+        sd = (got[1] - want[1]).abs().amax(-1)
+        st_rel = float((sd / scale[1].amax(-1).clamp_min(1e-30)).max())
+        finite = finite and bool(got[1].isfinite().all())
+    return float(diff.max()), rel, st_rel, finite
+
+
+def scan_vs_plain(path_shapes, smoke_shape, state_shapes) -> tuple:
+    """``linear_scan`` against ``linear_scan_chunked`` at the same chunk
+    (SAFE_CHUNK), in bf16 and fp32, both variants: the forward's path
+    shapes, SMOKE, ragged S (37, 1000) and the decay clip in every position
+    at S = 37, 2048 and 8192; the carried-state variant (a non-zero
+    ``init_state`` in, the final carry out, both held to LS_RTOL) at the
+    stateful path's shapes and the clip.  Stops on the first miss.  Then,
+    per dtype: a prefill of PF_S rows and PF_NEW single-row steps chained
+    through the carry against one call over all rows (LS_RTOL; whether it
+    came out bitwise), the same split on a chunk boundary (PF_S + PF_NEW
+    rows in two calls), and the state variant's batch independence
+    (bitwise, or the run fails).  Returns ({(shape, variant, dtype): (max
+    abs err, row-relative err, carry row-relative err)}, the chaining and
+    batch checks)."""
+    import torch
     shapes = list(path_shapes) + [
         smoke_shape, (2, 37, 64, 64, 64, "model"),
         (2, 1000, 64, 64, 64, "model"), (2, 37, 64, 64, 64, "clip"),
         (2, 2048, 64, 64, 64, "clip"), (1, 8192, 64, 64, 64, "clip")]
+    cases = [(sh, var) for sh in shapes for var in ("rwkv6", "gla")]
+    cases += [(sh, var + "+state") for sh in list(state_shapes) + [
+        (PF_B, PF_S, 64, 64, 64, "clip")] for var in ("rwkv6", "gla")]
     out = {}
-    for i, shape in enumerate(shapes):
-        for variant in ("rwkv6", "gla"):
-            for dname, dt in (("bfloat16", torch.bfloat16),
-                              ("float32", torch.float32)):
-                q, k, v, w, u = scan_inputs(shape, dt, seed=20 + i)
-                u = u if variant == "rwkv6" else None
-                o = ls_ops.linear_scan(q, k, v, w, u=u, chunk=SAFE_CHUNK)
-                want = ls_ref.linear_scan_chunked(q, k, v, w, u=u,
-                                                  chunk=SAFE_CHUNK)
-                scale = ls_ref.linear_scan_chunked(
-                    q.float().abs(), k.float().abs(), v.float().abs(), w,
-                    u=None if u is None else u.abs(),
-                    chunk=SAFE_CHUNK).amax(-1)
-                diff = (o.float() - want.float()).abs()
-                err = float(diff.max())
-                rel = float((diff.amax(-1) / scale.clamp_min(1e-30)).max())
-                finite = bool(torch.isfinite(o).all())
-                if not (finite and rel <= LS_RTOL[dname]):
-                    raise SystemExit(
-                        f"scan vs plain: {shape} {variant} {dname}: max err "
-                        f"{err}, row-relative {rel} (<= {LS_RTOL[dname]}), "
-                        f"finite {finite}")
-                out[(shape, variant, dname)] = (err, rel)
-                del q, k, v, w, u, o, want, scale, diff
+    for i, (shape, variant) in enumerate(cases):
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            q, k, v, w, u = scan_inputs(shape, dt, seed=20 + i)
+            u = u if variant.startswith("rwkv6") else None
+            s0 = None
+            if variant.endswith("+state"):
+                gen = torch.Generator(device="cuda").manual_seed(i)
+                b, _, h, dk, dv, _ = shape
+                s0 = torch.randn(b, h, dk, dv, generator=gen, device="cuda")
+            err, rel, st_rel, finite = scan_errors(q, k, v, w, u, s0)
+            if not (finite and rel <= LS_RTOL[dname]
+                    and (st_rel is None or st_rel <= LS_RTOL[dname])):
+                raise SystemExit(
+                    f"scan vs plain: {shape} {variant} {dname}: max err "
+                    f"{err}, row-relative {rel}, carry {st_rel} (<= "
+                    f"{LS_RTOL[dname]}), finite {finite}")
+            out[(shape, variant, dname)] = (err, rel, st_rel)
+            del q, k, v, w, u, s0
+    return out, scan_state_checks()
+
+
+def scan_state_checks() -> dict:
+    """The carried-state variant's chaining and batch independence (see
+    ``scan_vs_plain``)."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    out = {}
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        n = PF_S + PF_NEW
+        q, k, v, w, u = scan_inputs((PF_B, n, 64, 64, 64, "model"), dt,
+                                    seed=9)
+        whole, st_whole = ls_ops.linear_scan(q, k, v, w, u=u,
+                                             return_state=True)
+
+        def piece(lo, hi, st):
+            return ls_ops.linear_scan(q[:, lo:hi], k[:, lo:hi], v[:, lo:hi],
+                                      w[:, lo:hi], u=u, init_state=st,
+                                      return_state=True)
+
+        outs, st = [], None
+        for lo, hi in [(0, PF_S)] + [(t, t + 1) for t in range(PF_S, n)]:
+            o, st = piece(lo, hi, st)
+            outs.append(o)
+        steps = torch.cat(outs, dim=1)
+        o1, st1 = piece(0, PF_S, None)
+        o2, st2 = piece(PF_S, n, st1)
+        aligned = torch.cat([o1, o2], dim=1)
+        scale = tuple(t.amax(-1).clamp_min(1e-30) for t in
+                      ls_ref.linear_scan_chunked(
+                          q.float().abs(), k.float().abs(), v.float().abs(),
+                          w, u=u.abs(), return_state=True))
+
+        def rel(o, st_):
+            return max(float(((o.float() - whole.float()).abs().amax(-1)
+                              / scale[0]).max()),
+                       float(((st_ - st_whole).abs().amax(-1)
+                              / scale[1]).max()))
+
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        s0 = torch.randn(PF_B, 64, 64, 64, generator=gen, device="cuda")
+        full, st_full = ls_ops.linear_scan(q, k, v, w, u=u, init_state=s0,
+                                           return_state=True)
+        one, st_one = ls_ops.linear_scan(q[2:3], k[2:3], v[2:3], w[2:3],
+                                         u=u, init_state=s0[2:3],
+                                         return_state=True)
+        row = {"steps_vs_one_call_rel": rel(steps, st),
+               "steps_vs_one_call_bitwise": bool(
+                   torch.equal(steps, whole) and torch.equal(st, st_whole)),
+               "chunk_aligned_split_rel": rel(aligned, st2),
+               "chunk_aligned_split_bitwise": bool(
+                   torch.equal(aligned, whole) and torch.equal(st2,
+                                                               st_whole)),
+               "batch_independent_bitwise": bool(
+                   torch.equal(one, full[2:3])
+                   and torch.equal(st_one, st_full[2:3]))}
+        if not (row["steps_vs_one_call_rel"] <= LS_RTOL[dname]
+                and row["chunk_aligned_split_rel"] <= LS_RTOL[dname]
+                and row["batch_independent_bitwise"]):
+            raise SystemExit(f"scan state checks {dname}: {row}")
+        out[dname] = row
+        del q, k, v, w, u, whole, st_whole, steps, full, one
     return out
 
 
@@ -1080,48 +1202,75 @@ def small_rwkv_parity() -> dict:
 
 def scan_bound(key) -> tuple:
     """(bound ms, what bounds it) of one scan launch: q/k/v/o in their
-    dtype and w in fp32, each moved once, over the memory rate; the
-    chunked FLOPs of ``scan_cost`` over the fp32 rate (the kernel computes
-    in fp32 FMAs)."""
+    dtype, w in fp32 and, for the carried-state variant, the fp32 carry in
+    and out, each moved once, over the memory rate; the chunked FLOPs of
+    ``scan_cost`` over the peak rate of the route (bf16: the tensor cores;
+    fp32: FMAs)."""
     from repro_torch.kernels.costs import scan_cost
-    b, s, h, dk, dv, dname, _, chunk = key
+    b, s, h, dk, dv, dname, variant, chunk = key
     eb = 2 if "bfloat16" in dname else 4
     nbytes = eb * b * s * h * (2 * dk + 2 * dv) + 4 * b * s * h * dk
+    if variant.endswith("+state"):
+        nbytes += 2 * 4 * b * h * dk * dv
     flops = scan_cost(b, s, h, dk, dv, eb, "kernel", chunk=chunk)["flops"]
-    t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS["float32"]
+    peak = PEAK_FLOPS["bfloat16" if eb == 2 else "float32"]
+    t_bytes, t_ops = nbytes / HBM_BW, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def scan_times(ls_fwd, errs) -> list:
-    """Per path shape of the scan (bf16, as the forward runs it): the
-    kernel and its plain version, each one launch timed alone with L2
-    flushed, median of 10, and the roofline bound.  No single PyTorch call
-    computes this function (no library op runs a gated linear-attention
-    scan), so ``library_ms`` is None."""
+def scan_entry(name: str, key, launches: int, plain: bool = True):
+    """One scan entry of the kernels line at ``key`` (a launches_by_shape
+    key), on bf16 inputs as the paths run it: the kernel's device time and
+    its plain version's, each one launch timed alone with L2 flushed,
+    median of 10, max |kernel - plain| of the output on the same inputs,
+    and the roofline bound.  No single PyTorch call computes
+    this function (no library op runs a gated linear-attention scan), so
+    ``library_ms`` is None.  ``plain=False`` skips the plain version's
+    time."""
     import torch
     from repro_torch.kernels.linear_scan import ops as ls_ops
     from repro_torch.kernels.linear_scan import ref as ls_ref
+    b, s, h, dk, dv, _, variant, chunk = key
+    q, k, v, w, u = scan_inputs((b, s, h, dk, dv, "model"), torch.bfloat16,
+                                seed=1)
+    u = u if variant.startswith("rwkv6") else None
+    kw = {}
+    if variant.endswith("+state"):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        kw = {"init_state": torch.randn(b, h, dk, dv, generator=gen,
+                                        device="cuda"),
+              "return_state": True}
+    fn = lambda: ls_ops.linear_scan(q, k, v, w, u=u,  # noqa: E731
+                                    chunk=chunk, **kw)
+    ref_fn = lambda: ls_ref.linear_scan_chunked(  # noqa: E731
+        q, k, v, w, u=u, chunk=chunk, **kw)
+    got, want = fn(), ref_fn()
+    if kw:
+        got, want = got[0], want[0]
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    ms = time_ms(fn)
+    plain_ms = time_ms(ref_fn) if plain else None
+    bound, by = scan_bound(key)
+    return {"name": name, "route": "cuda", "source": LS_SOURCE,
+            "replaces": LS_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": list(key)}
+
+
+def scan_times(paths) -> list:
+    """``scan_entry`` at every scan shape of the paths: ``paths`` is
+    [(path name, launches_by_shape)], the forward's, the stateful
+    prefill's, the decode steps' and padded-wave serving's."""
     out = []
-    for key, launches in sorted(ls_fwd.items()):
-        b, s, h, dk, dv, dname, variant, chunk = key
-        shape = (b, s, h, dk, dv, "model")
-        q, k, v, w, u = scan_inputs(shape, torch.bfloat16, seed=1)
-        u = u if variant == "rwkv6" else None
-        ms = time_ms(lambda: ls_ops.linear_scan(q, k, v, w, u=u,
-                                                chunk=chunk))
-        plain = time_ms(lambda: ls_ref.linear_scan_chunked(
-            q, k, v, w, u=u, chunk=chunk))
-        bound, by = scan_bound(key)
-        out.append({
-            "name": f"linear_scan[forward B={b} S={s} H={h} Dk={dk} "
-                    f"Dv={dv} {variant} chunk={chunk}]",
-            "route": "cuda", "source": LS_SOURCE, "replaces": LS_REPLACES,
-            "launches": launches,
-            "max_abs_err": errs[(shape, variant, "bfloat16")][0],
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None})
-        del q, k, v, w, u
+    for phase, counts in paths:
+        for key, launches in sorted(counts.items()):
+            b, s, h, dk, dv, _, variant, chunk = key
+            out.append(scan_entry(
+                f"linear_scan[{phase} B={b} S={s} H={h} Dk={dk} Dv={dv} "
+                f"{variant} chunk={chunk}]", key, launches))
     return out
 
 
@@ -1242,6 +1391,25 @@ def ptxas_summary(report: str) -> dict:
     return out
 
 
+def sass_count(lib, kernel: str, opcode: str):
+    """How many ``opcode`` instructions the SASS of ``kernel`` (a
+    substring of its mangled name) in the built library ``lib`` holds, by
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    res = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True)
+    n, inside = 0, False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and opcode in line:
+            n += 1
+    return n
+
+
 def rwkv_phases() -> list:
     """Phases 11-17 on RWKV6-7B at full width (all 32 layers, random
     weights from seed 0); returns their entries of the kernels line."""
@@ -1262,24 +1430,35 @@ def rwkv_phases() -> list:
     fwd.update(init_s=init_s, params=n_params)
     emit(fwd)
     # -- 12. guarantees: region = per-op, stateful prefill / decode ---------
-    gua, fm_pf, fm_dec = rwkv_guarantees(model, cfg, batch, logits)
+    gua, fm_pf, fm_dec, ls_pf, ls_dec = rwkv_guarantees(model, cfg, batch,
+                                                        logits)
     emit(gua)
     del batch, logits
     # -- 13. padded-wave serving --------------------------------------------
-    srv, fm_srv = rwkv_serve(model, cfg)
+    srv, fm_srv, ls_srv = rwkv_serve(model, cfg)
     emit(srv)
 
     # -- 14. the scan kernel against its plain version ----------------------
     smoke = get_smoke("rwkv6_7b")
-    path = sorted({(k[0], k[1], k[2], k[3], k[4], "model") for k in ls_fwd})
-    ls_errs = scan_vs_plain(path, (2, 28, smoke.n_heads, smoke.hd,
-                                   smoke.hd, "model"))
+
+    def shapes_of(counts):
+        return sorted({(k[0], k[1], k[2], k[3], k[4], "model")
+                       for k in counts})
+
+    ls_errs, ls_state = scan_vs_plain(
+        shapes_of(ls_fwd),
+        (2, 28, smoke.n_heads, smoke.hd, smoke.hd, "model"),
+        shapes_of(ls_pf + ls_dec + ls_srv))
     emit({"phase": "scan_vs_plain", "cases": len(ls_errs),
           "row_relative_tolerance": LS_RTOL,
           "max_abs_err": {f"{k[0]}/{k[1]}/{k[2]}": e[0]
                           for k, e in ls_errs.items()},
           "row_relative_err": {f"{k[0]}/{k[1]}/{k[2]}": e[1]
-                               for k, e in ls_errs.items()}})
+                               for k, e in ls_errs.items()},
+          "state_row_relative_err": {f"{k[0]}/{k[1]}/{k[2]}": e[2]
+                                     for k, e in ls_errs.items()
+                                     if e[2] is not None},
+          "state_checks": ls_state})
 
     # -- 15. the GEMM kernel at every RWKV path shape ------------------------
     launches, phase_of = collections.Counter(), {}
@@ -1314,15 +1493,19 @@ def rwkv_phases() -> list:
     # -- 17. times at the path shapes ----------------------------------------
     del model
     torch.cuda.empty_cache()
-    ls_entries = scan_times(ls_fwd, ls_errs)
+    ls_entries = scan_times([("forward", ls_fwd), ("prefill", ls_pf),
+                             ("decode", ls_dec), ("serve", ls_srv)])
     timed = [s_ for s_ in shapes if phase_of[s_] in ("forward", "decode")]
     gemm_entries = gemm_times(timed, launches, gemm_errs, gen, name_of)
     fwd_gemm = [e for e in gemm_entries if "rwkv forward" in e["name"]]
+    fwd_scan = [e for e in ls_entries if "[forward " in e["name"]]
     emit({"phase": "scan_times", "launches_per_forward": sum(ls_fwd.values()),
-          "forward_scan_ms": sum(e["ms"] * e["launches"]
-                                 for e in ls_entries),
+          "launches_per_prefill": sum(ls_pf.values()),
+          "launches_per_decode_step": sum(ls_dec.values()) // PF_NEW,
+          "launches_per_serve_run": sum(ls_srv.values()) // 2,
+          "forward_scan_ms": sum(e["ms"] * e["launches"] for e in fwd_scan),
           "forward_scan_bound_ms": sum(e["bound_ms"] * e["launches"]
-                                       for e in ls_entries),
+                                       for e in fwd_scan),
           "forward_gemm_ms": sum(e["ms"] * e["launches"] for e in fwd_gemm),
           "forward_gemm_bound_ms": sum(e["bound_ms"] * e["launches"]
                                        for e in fwd_gemm),
@@ -1627,6 +1810,24 @@ def flash_times_again(out_path: str) -> int:
     return 0
 
 
+def scan_times_again(out_path: str) -> int:
+    """The ``--scan-times`` mode: ``scan_entry`` without the plain
+    version's time, one JSON line each, at every scan path shape that a
+    full run counted (the ``shape`` of each scan entry of the kernels line
+    in its output ``out_path``), without building a model; then the card
+    line."""
+    with open(out_path) as f:
+        entries = next(json.loads(line)["kernels"] for line in f
+                       if line.startswith('{"kernels"'))
+    for e in entries:
+        if not e["name"].startswith("linear_scan[") or "shape" not in e:
+            continue
+        emit(scan_entry(e["name"], tuple(e["shape"]), e["launches"],
+                        plain=False))
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1637,9 +1838,12 @@ def main() -> int:
                     help="time flash attention again at the path shapes "
                          "of the full run whose output is OUT and at "
                          "FA_EXTRA, and stop")
-    ap.add_argument("--src", help="with --gemm-times or --flash-times: "
-                                  "another checkout's src directory, whose "
-                                  "wrapper is timed")
+    ap.add_argument("--scan-times", metavar="OUT",
+                    help="time the linear scan again at the path shapes "
+                         "of the full run whose output is OUT, and stop")
+    ap.add_argument("--src", help="with --gemm-times, --flash-times or "
+                                  "--scan-times: another checkout's src "
+                                  "directory, whose wrapper is timed")
     ap.add_argument("--plan", metavar="BN,SPLIT,STAGES",
                     help="with --gemm-times: launch this plan at every "
                          "shape in place of kernel.plan")
@@ -1652,6 +1856,8 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(args.src))
     if args.flash_times:
         return flash_times_again(args.flash_times)
+    if args.scan_times:
+        return scan_times_again(args.scan_times)
     if args.gemm_times:
         plan = None
         if args.plan:
@@ -1678,14 +1884,21 @@ def main() -> int:
                              (kernel, fa_kernel, ls_kernel)))
     gemm_ptxas = ptxas_summary(REPORTS["fused_matmul"])
     flash_ptxas = ptxas_summary(REPORTS["flash_attention"])
+    scan_ptxas = ptxas_summary(REPORTS["linear_scan"])
+    scan_mma = sass_count(libs[2], "scan_bf16_kernel", "HMMA")
     emit({"phase": "build", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0,
           "libraries": [lib.name for lib in libs],
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "gemm_ptxas": gemm_ptxas, "flash_ptxas": flash_ptxas})
+          "gemm_ptxas": gemm_ptxas, "flash_ptxas": flash_ptxas,
+          "scan_ptxas": scan_ptxas, "scan_bf16_hmma_instructions": scan_mma})
+    if not scan_mma:
+        raise SystemExit("build: the bf16 scan kernel has no tensor-core "
+                         f"(HMMA) instruction, or no cuobjdump: {scan_mma}")
     for what, report, prefix in (("GEMM", gemm_ptxas, "gemm_bf16"),
-                                 ("flash", flash_ptxas, "flash_bf16")):
+                                 ("flash", flash_ptxas, "flash_bf16"),
+                                 ("scan", scan_ptxas, "scan_bf16")):
         spills = {k: v for k, v in report.items()
                   if k.startswith(prefix) and v.get("spill_stores", 0)}
         if spills or not any(k.startswith(prefix) for k in report):

@@ -15,7 +15,8 @@ Everything accumulates in fp32; the output is in ``v.dtype``.
   (``kernels/linear_scan/ref.py``): the sequential element recurrence.
 * ``linear_scan_chunked`` is its chunked form
   (``kernels/linear_scan/ops.py::linear_scan_chunked``), the arithmetic the
-  Hopper kernel follows: ``C = min(chunk, S)``; ``w`` padded with 1 and
+  Hopper kernel follows (its bf16 route in base 2, with bf16 tensor-core
+  operands): ``C = min(chunk, S)``; ``w`` padded with 1 and
   q/k/v with 0 to a multiple of ``C``; inside a chunk the inclusive prefix
   sum ``lb`` of ``log w``, the mid-chunk normalizer ``lb[C // 2]``, both
   factor exponents clamped at 80, the inclusive triangle (GLA) or the

@@ -25,8 +25,11 @@ token-shift rows ``[B, 1, d]`` and the WKV carry ``[B, H, hd, hd]`` in
 fp32, stacked ``[L, ...]``.  The reference's ``lax.scan`` over layers is a
 Python loop over one ``rwkv_stateful_block`` region per layer, whose new
 state is copied into that layer's slab of the cache tensors in place (no
-host sync).  The stateful WKV step is the chunked composite lifted as one
-node, the reference's own route; the forward's scans run the kernel.
+host sync).  The stateful WKV step is one lifted node, as in the
+reference, whose body is the scan kernel's wrapper with a carried state
+(``ops.linear_scan(init_state=..., return_state=True)``): on the card it
+launches the same kernel as the forward's scans, on the CPU it runs the
+reference's chunked composite.
 The reference's ``shard_act`` calls are dropped: one chip has nothing to
 constrain.
 """
@@ -38,7 +41,7 @@ import torch
 
 from ..core import tapir
 from ..core.dtypes import to_torch_dtype
-from ..kernels.linear_scan import ref as ls_ref
+from ..kernels.linear_scan import ops as ls_ops
 from . import layers as L
 from .base import BaseModel, ModelConfig, ParamSpec, register_family
 
@@ -53,8 +56,8 @@ def _decay_from_lora(lora, w0):
 def _wkv_step(r, k, v, w, u, state):
     """Stateful WKV step: one chunked scan carrying the ``[B,H,Dk,Dv]``
     state in and out — the SSM-state analogue of a KV-cache write."""
-    return ls_ref.linear_scan_chunked(r, k, v, w, u=u, init_state=state,
-                                      return_state=True)
+    return ls_ops.linear_scan(r, k, v, w, u=u, init_state=state,
+                              return_state=True)
 
 
 def _rwkv_block_specs(cfg: ModelConfig, n_layers: int) -> dict:

@@ -28,12 +28,18 @@ loop adds no other device synchronization.
 reference's padded-wave loop over them (``_run_padded_waves``): ``run``
 and ``run_wave`` both take it.
 
-Not ported yet: fault injection, checkpoints, the straggler watchdog,
-meshes and the persistent program cache.  Asking for one raises
-``NotImplementedError``.
+The step-time statistics (``last_stats``' ``step_p50`` / ``step_p95``,
+the SLO shed's estimate, ``preempt_cost``'s step time) come from the
+decode steps' rolling window of the last 256 (``StepWindow``), as the
+reference takes them from its straggler watchdog's.
+
+Not ported yet: fault injection, checkpoints, the straggler watchdog's
+flagging (shed and escalate), meshes and the persistent program cache.
+Asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -165,6 +171,34 @@ class Request:
                 f"{self.arrival_step}")
 
 
+#: decode steps the step-time statistics cover: the reference watchdog's
+#: rolling window
+STEP_WINDOW = 256
+
+
+class StepWindow:
+    """The wall times of the last ``STEP_WINDOW`` decode steps, with the
+    median and 95th percentile that the reference's ``StragglerWatchdog``
+    reports over its rolling window (``dist/fault.py``)."""
+
+    def __init__(self):
+        self._durations: collections.deque = collections.deque(
+            maxlen=STEP_WINDOW)
+
+    def observe(self, duration_s: float) -> None:
+        self._durations.append(duration_s)
+
+    @property
+    def p50(self) -> float:
+        return float(np.median(list(self._durations))) \
+            if self._durations else 0.0
+
+    @property
+    def p95(self) -> float:
+        return float(np.percentile(list(self._durations), 95)) \
+            if self._durations else 0.0
+
+
 @dataclass
 class _SlotRunState:
     cache: Any
@@ -180,7 +214,7 @@ class _SlotRunState:
     parked: dict = field(default_factory=dict)   # rid -> feed-state record
     step: int = 0                # completed pool-wide scheduler ticks
     occ_sum: float = 0.0
-    step_s: list = field(default_factory=list)  # wall time per decode step
+    steps: StepWindow = field(default_factory=StepWindow)  # step wall times
     ttft: list = field(default_factory=list)
     qwait: list = field(default_factory=list)
     st: dict = field(default_factory=dict)
@@ -314,7 +348,7 @@ class ServingEngine:
             self._slot_session(requests, max_steps, continuous, rs, t0)
         wall = time.perf_counter() - t0
         st = rs.st
-        st.update(step_p50=_pct(rs.step_s, 50), step_p95=_pct(rs.step_s, 95),
+        st.update(step_p50=rs.steps.p50, step_p95=rs.steps.p95,
                   ttft_p50=_pct(rs.ttft, 50), ttft_p95=_pct(rs.ttft, 95),
                   queue_wait_p50=_pct(rs.qwait, 50),
                   queue_wait_p95=_pct(rs.qwait, 95),
@@ -455,7 +489,7 @@ class ServingEngine:
         if self.cfg.admit_policy != "slo":
             return elig
         now = time.perf_counter() - t0
-        p50 = _pct(rs.step_s, 50)
+        p50 = rs.steps.p50
         keep = []
         for i in elig:
             r = requests[i]
@@ -493,7 +527,7 @@ class ServingEngine:
                 n_out=len(victim.out), page_bytes=self._page_bytes(rs),
                 pps=pool.pps, page_len=pool.page_len,
                 model_flops_per_tok=self._flops_per_tok(),
-                step_s=(_pct(rs.step_s, 50) or 1e-3)).arm
+                step_s=(rs.steps.p50 or 1e-3)).arm
         if arm == "park":
             if pool.park(rs.cache, victim.rid, s, length):
                 rs.parked[victim.rid] = {"tok": int(rs.tokens[s, 0]),
@@ -552,7 +586,7 @@ class ServingEngine:
             logits, rs.cache = model.decode_step_slots(
                 sp, torch.as_tensor(rs.tokens, device=self.device), rs.cache)
             nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
-            rs.step_s.append(time.perf_counter() - t_step)
+            rs.steps.observe(time.perf_counter() - t_step)
             for s, r in enumerate(slot_req):
                 if r is None:
                     continue

@@ -449,6 +449,107 @@ def test_scan_row_result_does_not_depend_on_the_batch(cuda):
         assert torch.equal(one, full[1:2]), dt
 
 
+def _state_row_rel(st, want, q, k, v, w, u, s0, chunk=16):
+    """max over (batch, head, key) rows of the final carry of max |st -
+    want| / the row's magnitude scale (the same scan over |k|, |v| and
+    |init_state|)."""
+    _, scale = ls_ref.linear_scan_chunked(
+        q.float().abs(), k.float().abs(), v.float().abs(), w,
+        u=None if u is None else u.abs(), chunk=chunk,
+        init_state=s0.abs(), return_state=True)
+    diff = (st - want).abs().amax(-1)
+    return float((diff / scale.amax(-1).clamp_min(1e-30)).max())
+
+
+#: (B, S, H, Dk, Dv, decay) of the carried-state variant: the RWKV6-7B
+#: stateful prefill and decode step, ragged S, small Dk/Dv and the clip
+LS_STATE_SHAPES = [(4, 512, 64, 64, 64, "model"), (4, 1, 64, 64, 64, "model"),
+                   (2, 37, 4, 64, 64, "model"), (2, 25, 4, 16, 48, "uniform"),
+                   (2, 100, 4, 64, 64, "clip")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rwkv", [True, False])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LS_STATE_SHAPES)
+def test_scan_state_variant_matches_plain(cuda, dt, rwkv, shape):
+    """``init_state`` (non-zero) in, the final carry out: the outputs and
+    the carry against the plain chunked form under ``LS_RTOL``."""
+    b, s, h, dk, dv, decay = shape
+    q, k, v, w, u = _scan_inputs(cuda, b, s, h, dk, dv, decay, dt,
+                                 seed=3 * s + dv)
+    u = u if rwkv else None
+    g = torch.Generator(device=cuda).manual_seed(s)
+    s0 = torch.randn(b, h, dk, dv, generator=g, device=cuda)
+    before = ls_ops.launches
+    o, st = ls_ops.linear_scan(q, k, v, w, u=u, init_state=s0,
+                               return_state=True)
+    torch.cuda.synchronize()
+    assert ls_ops.launches == before + 1
+    want, want_st = ls_ref.linear_scan_chunked(q, k, v, w, u=u,
+                                               init_state=s0,
+                                               return_state=True)
+    assert o.shape == v.shape and o.dtype == dt
+    assert st.shape == s0.shape and st.dtype == torch.float32
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(st).all())
+    scale = ls_ref.linear_scan_chunked(
+        q.float().abs(), k.float().abs(), v.float().abs(), w,
+        u=None if u is None else u.abs(), init_state=s0.abs()).amax(-1)
+    diff = (o.float() - want.float()).abs().amax(-1)
+    assert float((diff / scale.clamp_min(1e-30)).max()) <= LS_RTOL[dt]
+    assert _state_row_rel(st, want_st, q, k, v, w, u, s0) <= LS_RTOL[dt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_scan_chained_calls_match_one_long_call(cuda, dt):
+    """A prefill of 512 rows then 16 single-row steps, the carry handed
+    from call to call, against one call over all 528 rows (``LS_RTOL``);
+    split on a chunk boundary instead (512 + 16 rows), the two calls run
+    the one call's chunks in its order and agree bitwise."""
+    q, k, v, w, u = _scan_inputs(cuda, 2, 528, 8, 64, 64, "model", dt,
+                                 seed=12)
+    whole, st_whole = ls_ops.linear_scan(q, k, v, w, u=u, return_state=True)
+    outs = []
+    o, st = ls_ops.linear_scan(q[:, :512], k[:, :512], v[:, :512],
+                               w[:, :512], u=u, return_state=True)
+    outs.append(o)
+    for t in range(512, 528):
+        o, st = ls_ops.linear_scan(q[:, t:t + 1], k[:, t:t + 1],
+                                   v[:, t:t + 1], w[:, t:t + 1], u=u,
+                                   init_state=st, return_state=True)
+        outs.append(o)
+    got = torch.cat(outs, dim=1)
+    assert _row_rel(got, whole, q, k, v, w, u) <= LS_RTOL[dt]
+    zero = torch.zeros_like(st)
+    assert _state_row_rel(st, st_whole, q, k, v, w, u, zero) <= LS_RTOL[dt]
+    o1, st1 = ls_ops.linear_scan(q[:, :512], k[:, :512], v[:, :512],
+                                 w[:, :512], u=u, return_state=True)
+    o2, st2 = ls_ops.linear_scan(q[:, 512:], k[:, 512:], v[:, 512:],
+                                 w[:, 512:], u=u, init_state=st1,
+                                 return_state=True)
+    assert torch.equal(torch.cat([o1, o2], dim=1), whole)
+    assert torch.equal(st2, st_whole)
+
+
+@pytest.mark.cuda
+def test_scan_state_row_result_does_not_depend_on_the_batch(cuda):
+    """The state variant's outputs and final carry of one batch entry are
+    bitwise the same alone and inside a batch of three."""
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, w, u = _scan_inputs(cuda, 3, 300, 4, 64, 64, "model", dt,
+                                     seed=17)
+        g = torch.Generator(device=cuda).manual_seed(4)
+        s0 = torch.randn(3, 4, 64, 64, generator=g, device=cuda)
+        full, st_full = ls_ops.linear_scan(q, k, v, w, u=u, init_state=s0,
+                                           return_state=True)
+        one, st_one = ls_ops.linear_scan(q[1:2], k[1:2], v[1:2], w[1:2], u=u,
+                                         init_state=s0[1:2],
+                                         return_state=True)
+        assert torch.equal(one, full[1:2]), dt
+        assert torch.equal(st_one, st_full[1:2]), dt
+
+
 @pytest.mark.cuda
 def test_scan_wrapper_raises_instead_of_falling_back(cuda):
     q, k, v, w, u = _scan_inputs(cuda, 1, 40, 2, 64, 64, "model",
@@ -466,6 +567,11 @@ def test_scan_wrapper_raises_instead_of_falling_back(cuda):
     big = torch.zeros(1, 8, 2, 128, device=cuda)
     with pytest.raises(ValueError, match="Dk"):
         ls_ops.linear_scan(big, big, big, big + 0.5)
+    s0 = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="init_state"):
+        ls_ops.linear_scan(q, k, v, w, u=u, init_state=s0[..., :32])
+    with pytest.raises(ValueError, match="init_state"):
+        ls_ops.linear_scan(q, k, v, w, u=u, init_state=s0.bfloat16())
     before = ls_ops.launches
     assert torch.isfinite(ls_ops.linear_scan(q, k, v, w, u=u)).all()
     assert ls_ops.launches == before + 1

@@ -172,3 +172,90 @@ def test_wrapper_checks_shapes():
         ops.linear_scan(q, k, v, w, u=u[:, :8])
     with pytest.raises(ValueError, match="expected"):
         ops.linear_scan(q, k[:, :4], v, w, u=u)
+
+
+def _state(b, h, dk, dv, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (b, h, dk, dv)).astype(np.float32)
+
+
+# (s, dk, dv, chunk): the chunk, ragged S, S < C, a chunk of 1 and S = 1
+# (a decode step)
+STATE_CASES = [(64, 16, 16, 16), (37, 16, 24, 16), (5, 8, 8, 16),
+               (9, 8, 12, 1), (1, 16, 16, 16)]
+
+
+@pytest.mark.parametrize("rwkv", [False, True])
+@pytest.mark.parametrize("s,dk,dv,chunk", STATE_CASES)
+def test_wrapper_carries_the_state_like_the_reference(s, dk, dv, chunk,
+                                                      rwkv):
+    """``ops.linear_scan(init_state=..., return_state=True)`` on CPU
+    tensors is the plain chunked form with the same arguments (bitwise),
+    and matches the JAX ``linear_scan_chunked`` with the same state in and
+    out (``SAME`` of scale)."""
+    arrs = _inputs(s, dk, dv, rwkv, seed=3 * s + dk)
+    st0 = _state(2, 2, dk, dv, seed=s)
+    q, k, v, w, u = _t(*arrs)
+    ts0 = torch.from_numpy(st0)
+    o, st = ops.linear_scan(q, k, v, w, u=u, chunk=chunk, init_state=ts0,
+                            return_state=True)
+    o_p, st_p = ref.linear_scan_chunked(q, k, v, w, u=u, chunk=chunk,
+                                        init_state=ts0, return_state=True)
+    assert torch.equal(o, o_p) and torch.equal(st, st_p)
+    assert st.dtype == torch.float32 and st.shape == (2, 2, dk, dv)
+    jq, jk, jv, jw, ju = _j(*arrs)
+    jo, jst = j_ops.linear_scan_chunked(jq, jk, jv, jw, u=ju, chunk=chunk,
+                                        init_state=jnp.asarray(st0),
+                                        return_state=True)
+    _close(o.numpy(), jo)
+    _close(st.numpy(), jst)
+
+
+@pytest.mark.parametrize("rwkv", [False, True])
+@pytest.mark.parametrize("split", [16, 21])
+def test_wrapper_chained_calls_match_one_long_call(split, rwkv):
+    """A prefill then its continuation, the state carried between two
+    wrapper calls, give one long call's outputs and final state: bitwise
+    where the split falls on a chunk boundary (the same chunks in the
+    same order), within ``SAME`` of scale elsewhere (the chunks regroup)."""
+    q, k, v, w, u = _t(*_inputs(48, 16, 16, rwkv, seed=11 + split))
+    st0 = torch.from_numpy(_state(2, 2, 16, 16, seed=split))
+    whole, st_whole = ops.linear_scan(q, k, v, w, u=u, init_state=st0,
+                                      return_state=True)
+    o1, st1 = ops.linear_scan(q[:, :split], k[:, :split], v[:, :split],
+                              w[:, :split], u=u, init_state=st0,
+                              return_state=True)
+    o2, st2 = ops.linear_scan(q[:, split:], k[:, split:], v[:, split:],
+                              w[:, split:], u=u, init_state=st1,
+                              return_state=True)
+    got = torch.cat([o1, o2], dim=1)
+    if split % SAFE_CHUNK == 0:
+        assert torch.equal(got, whole) and torch.equal(st2, st_whole)
+    _close(got.numpy(), whole.numpy())
+    _close(st2.numpy(), st_whole.numpy())
+
+
+def test_wrapper_on_meta_tensors_gives_shapes_only():
+    """The region tracer infers a lifted composite's outputs on ``meta``
+    tensors: the wrapper answers with shapes and dtypes, launching
+    nothing."""
+    q = torch.empty((2, 7, 3, 16), device="meta", dtype=torch.bfloat16)
+    v = torch.empty((2, 7, 3, 24), device="meta", dtype=torch.bfloat16)
+    w = torch.empty((2, 7, 3, 16), device="meta")
+    u = torch.empty((3, 16), device="meta")
+    st = torch.empty((2, 3, 16, 24), device="meta")
+    before = ops.launches
+    o, st1 = ops.linear_scan(q, q, v, w, u=u, init_state=st,
+                             return_state=True)
+    assert o.device.type == "meta" and o.shape == v.shape
+    assert o.dtype == torch.bfloat16
+    assert st1.shape == st.shape and st1.dtype == torch.float32
+    assert ops.linear_scan(q, q, v, w).shape == v.shape
+    assert ops.launches == before
+
+
+def test_wrapper_checks_the_state_shape():
+    q, k, v, w, u = _t(*_inputs(8, 16, 24, True, seed=4))
+    with pytest.raises(ValueError, match="init_state"):
+        ops.linear_scan(q, k, v, w, u=u,
+                        init_state=torch.zeros(2, 2, 24, 16))
