@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gemm-times OUT [--src DIR] [--plan BN,SPLIT,STAGES]
     python3 chip_smoke.py --flash-times OUT [--src DIR]
     python3 chip_smoke.py --scan-times OUT [--src DIR]
+    python3 chip_smoke.py --decode-times [--src DIR]
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, and does nothing else: ``--src`` times
@@ -12,7 +13,10 @@ another checkout's wrapper (its ``src``), so two trees compare under one
 timing method in one call; ``--plan`` launches one plan at every shape.
 The third does the same for flash attention, at the path shapes of OUT
 and at ``FA_EXTRA``; the fourth for the linear scan, at OUT's scan path
-shapes.
+shapes.  The fifth times the three decode steps at full width (the
+``decode_steps`` phase without its checks) and the serve phase's time to
+first token, cold and warm, with ``--src``'s tree where given: parent and
+change in one call.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts just before it and
@@ -53,6 +57,15 @@ reads them just after:
    prefix sharing on equals off, and the per-op control equals the fused
    path, per request, token for token, each run with its counts checked;
 9. profile — full-occupancy slot decode steps under ``torch.profiler``;
+9b. decode_steps — the slot decode step (4 slots at 256 cached tokens) and
+   the padded cache's decode step (4 rows at 512), each after warm-up:
+   host wall p50 / p95 over DEC_TIMED steps, device ms, kernels and busy
+   share per step from the profiler, the CUDA graphs replayed per step
+   (one per dispatch-bound region: every block; the head is device-bound
+   and runs eagerly), captures inside the timed window (any fails the
+   run), the graphs and their pools' bytes; the graphed steps against the
+   eager walk (``regions=False``) bitwise; the per-op control
+   (``mode="opaque"``, no graphs) timed the same way;
 10. times — per path shape: each kernel, its plain version, the library
    yardstick (``torch.matmul`` / ``torch.addmm``,
    ``scaled_dot_product_attention``; never called by the port) and the
@@ -75,7 +88,9 @@ d_model 4096; random weights from seed 0) takes its place:
    forward's at position 511;
 13. rwkv_serve — ``ServingEngine.run`` through the padded-wave loop (the
    serve phase's requests; 32 scan launches per prefill and decode step),
-   every request finished, ``run`` = ``run_wave``;
+   every request finished, ``run`` = ``run_wave``, time to first token of
+   both;
+13b. decode_steps — the stateful decode step (4 rows) as in 9b;
 14. scan_vs_plain — ``linear_scan`` against ``linear_scan_chunked`` in
    bf16 and fp32, both variants: the forward's shape, SMOKE, ragged S
    (37, 1000) and the decay clip in every position (S = 37, 2048, 8192);
@@ -104,6 +119,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +155,9 @@ FA_EXTRA = [(2, 28, 28, 4, 2, 24, True), (2, 24, 24, 4, 2, 24, True),
             (1, 8192, 8192, 16, 2, 128, True)]
 FWD_B, FWD_S = 2, 2048                     # the forward's tokens
 PF_B, PF_S, PF_MAX, PF_NEW = 4, 512, 1024, 16   # padded prefill/decode
+#: decode-step timing: warm-up steps, timed steps, profiled steps; and the
+#: steps the graphed path is held to the eager walk over
+DEC_WARM, DEC_TIMED, DEC_PROF, DEC_CHECK = 3, 20, 5, 6
 
 
 def emit(obj) -> None:
@@ -268,7 +287,7 @@ def small_parity() -> dict:
         model = cpu if dev == "cpu" else get_model(cfg, device=dev,
                                                    params=params)
         with tapir.use(ServeConfig(target=target).tapir_config()):
-            sp = model.slot_params()
+            sp = model.compute_params()
             cache = model.init_slot_cache(2, 32, page_len=8)
             out, cache = model.prefill_into_slot(
                 sp, torch.as_tensor(prompt, device=dev), cache, 1, 11)
@@ -341,6 +360,24 @@ def device_time_by_kernel(prof, steps: int) -> dict:
                      ev.count // steps)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+#: the port's kernels by the names their launches carry in a profile,
+#: demangled or not (cuBLAS's own kernels, ``..._gemm_...``, do not match)
+PORT_KERNEL = re.compile(r"(?<![A-Za-z_])(flash|gemm|scan)_(?:bf16|f32)_kernel")
+
+
+def profiled_launches(prof) -> tuple:
+    """(flash, GEMM, scan) launches in a profile, counted from the device's
+    own kernel events: inside a CUDA graph's replays too, so a replay that
+    launched fewer kernels than its capture recorded shows here."""
+    import torch
+    n = {"flash": 0, "gemm": 0, "scan": 0}
+    for ev in prof.key_averages():
+        m = PORT_KERNEL.search(ev.key)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and m:
+            n[m.group(1)] += ev.count
+    return n["flash"], n["gemm"], n["scan"]
 
 
 def top_kernels(by_name: dict, n: int = 8) -> list:
@@ -720,6 +757,220 @@ def profile_decode(model, eng, steps: int = 3) -> dict:
             "top": top_kernels(by_name, 10)}
 
 
+def decode_harness(step, per_step: tuple) -> dict:
+    """One decode path, timed: DEC_WARM steps, then DEC_TIMED steps each
+    ended by a synchronise (host wall p50 / p95), with the kernels' launch
+    counts zeroed just before the window and held after it to ``per_step``
+    (flash, GEMM and scan launches a step), and the graph cache's captures
+    and replays read around it; then DEC_PROF steps under torch.profiler:
+    the port's kernels it saw (held to ``per_step`` too where graphs
+    replayed), device ms and kernels per step, and the device's busy share
+    of the p50 step.  ``step()`` runs one step through the path's entry
+    point."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import tapir
+    fm_ops, fa_ops, ls_ops = kernel_ops()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    for _ in range(DEC_WARM):
+        step()
+    torch.cuda.synchronize()
+    reset_counts()
+    st0 = tapir.cache_stats()
+    walls = []
+    for _ in range(DEC_TIMED):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    st1 = tapir.cache_stats()
+    got = (fa_ops.launches, fm_ops.launches, ls_ops.launches)
+    want = tuple(DEC_TIMED * n for n in per_step)
+    if got != want:
+        raise SystemExit(f"decode steps: {got} flash, GEMM and scan "
+                         f"launches over {DEC_TIMED} steps (expected "
+                         f"{want})")
+    # one step of profiler warm-up, whose events are dropped; each step is
+    # synchronised before the profiler moves on, so none of its kernels is
+    # cut off.  The active steps' events are read when their cycle ends.
+    seen = {}
+
+    def ready(prof):
+        seen["ran"] = profiled_launches(prof)
+        seen["by_name"] = device_time_by_kernel(prof, DEC_PROF)
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=DEC_PROF),
+                 on_trace_ready=ready) as prof:
+        for _ in range(1 + DEC_PROF):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    # On a graphed path the counts above are bookkeeping (a replay adds
+    # what its capture counted): there the profile's reading of the
+    # kernels the device ran must equal them.  An eager path's counts are
+    # the launches themselves, and its profile (thousands of launches a
+    # step) has been seen to drop a few records: it is reported only.
+    ran = seen.get("ran")
+    replays = st1.get("graph_replays", 0) - st0.get("graph_replays", 0)
+    if replays and ran != tuple(DEC_PROF * n for n in per_step):
+        raise SystemExit(f"decode steps: the profile saw {ran} flash, GEMM "
+                         f"and scan kernels over {DEC_PROF} graphed steps "
+                         f"(expected {per_step} a step)")
+    by_name = seen["by_name"]
+    dev = sum(ms for ms, _ in by_name.values())
+    p50 = float(np.median(walls)) * 1e3
+    return {"step_p50_ms": p50,
+            "step_p95_ms": float(np.percentile(walls, 95)) * 1e3,
+            "device_ms_per_step": dev, "device_busy_share": dev / p50,
+            "kernels_per_step": sum(c for _, c in by_name.values()),
+            "profiled_launches_per_step": [n / DEC_PROF for n in ran],
+            "graph_replays_per_step": replays / DEC_TIMED,
+            "graph_captures_in_window": (st1.get("graph_captures", 0)
+                                         - st0.get("graph_captures", 0)),
+            "graphs": st1.get("graphs"),
+            "graph_pool_bytes": st1.get("graph_pool_bytes"),
+            "reserved_delta_bytes": torch.cuda.memory_reserved() - reserved0,
+            "top": top_kernels(by_name, 6)}
+
+
+def decode_attention_ms(cfg, slot: bool) -> float:
+    """Device ms of one call of the decode-attention composite at the
+    path's full-width shape, alone (``time_ms``): the slot step's masked
+    attention over each slot's gathered page view (SLOTS slots, MAX_LEN
+    positions, MAX_LEN // 2 + 1 valid), or the padded step's over the
+    cache slab (PF_B rows, PF_MAX positions, PF_S + 1 valid)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.pages import identity_row, page_geometry
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    if slot:
+        # init_slot_cache's layout: a trash page, SLOTS private runs and
+        # as many shared pages
+        pl, pps = page_geometry(MAX_LEN)
+        ptab = torch.as_tensor(np.stack([identity_row(s, pps)
+                                         for s in range(SLOTS)]),
+                               device="cuda")
+        q = rnd(SLOTS, 1, h, hd)
+        ck, cv = (rnd(1 + 2 * SLOTS * pps, pl, hkv, hd) for _ in range(2))
+        valid = torch.full((SLOTS,), MAX_LEN // 2 + 1, dtype=torch.int32,
+                           device="cuda")
+        return time_ms(lambda: transformer._paged_decode_attention(
+            q, ck, cv, ptab, valid))
+    q = rnd(PF_B, 1, h, hd)
+    ck, cv = rnd(PF_B, PF_MAX, hkv, hd), rnd(PF_B, PF_MAX, hkv, hd)
+    valid = torch.tensor(PF_S + 1, dtype=torch.int32, device="cuda")
+    return time_ms(lambda: transformer._masked_decode_attention(q, ck, cv,
+                                                                valid))
+
+
+def slot_params(model) -> dict:
+    """The slot step's params, cast once: ``compute_params``, or
+    ``slot_params`` in a tree from before it (``--decode-times --src``)."""
+    if hasattr(model, "compute_params"):
+        return model.compute_params()
+    return model.slot_params()
+
+
+def decode_paths(model, cfg, check: bool = True) -> list:
+    """The decode steps of ``model``'s serving paths at full width: for
+    qwen2.5-3b the slot step (SLOTS slots at MAX_LEN // 2 cached tokens)
+    and the padded cache's step (PF_B rows at PF_S), for RWKV6-7B the
+    stateful step (PF_B rows); each under region capture (graphs in play)
+    and under the per-op control (``mode="opaque"``), in that order, in
+    this process.  With ``check``: the graphed path's first DEC_CHECK
+    steps equal the eager walk's (``regions=False``) bitwise, every block
+    replays one graph a step and nothing else does, and no graph is
+    captured in the timed window; any miss fails the run."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    n_l = cfg.n_layers
+    rwkv = cfg.family == "ssm"
+    if rwkv:
+        paths = [("rwkv stateful", PF_B, 10 * n_l + 1, 10 * n_l + 1, n_l)]
+    else:
+        paths = [("qwen slot", SLOTS, 4 * n_l + 1, 7 * n_l + 1, 0),
+                 ("qwen padded", PF_B, 4 * n_l + 1, 7 * n_l + 1, 0)]
+    # the cost model's ``dispatch_s``: one small torch op from Python
+    a = torch.ones((SLOTS, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    dispatch_us = host_us(lambda: torch.add(a, a))
+    lines = []
+    for name, rows, gemm, gemm_opaque, scan in paths:
+        slot = name == "qwen slot"
+        tok = torch.ones((rows, 1), dtype=torch.int32, device="cuda")
+
+        def fresh():
+            if slot:
+                cache = model.init_slot_cache(SLOTS, MAX_LEN)
+                cache["pos"].fill_(MAX_LEN // 2)
+            else:
+                cache = model.init_cache(PF_B, PF_MAX)
+                cache["pos"].fill_(0 if rwkv else PF_S)
+            return {"cache": cache}
+
+        def stepper(state, sp):
+            def step():
+                if slot:
+                    lg, state["cache"] = model.decode_step_slots(
+                        sp, tok, state["cache"])
+                else:
+                    lg, state["cache"] = model.decode_step(tok,
+                                                           state["cache"])
+                return lg
+            return step
+
+        line = {"phase": "decode_steps", "path": name, "rows": rows,
+                "layers": n_l, "timed_steps": DEC_TIMED,
+                "dispatch_host_us": dispatch_us}
+        for tag, scfg, want in (
+                ("region", ServeConfig(target="gpu"), (0, gemm, scan)),
+                ("per_op", ServeConfig(target="gpu", mode="opaque"),
+                 (0, gemm_opaque, scan))):
+            with tapir.use(scfg.tapir_config()):
+                sp = slot_params(model) if slot else None
+                line[tag] = decode_harness(stepper(fresh(), sp), want)
+        if check and not rwkv:
+            line["decode_attention_ms"] = decode_attention_ms(cfg, slot)
+        if check:
+            logits = {}
+            for tag, scfg in (("graphed", ServeConfig(target="gpu")),
+                              ("eager", ServeConfig(target="gpu",
+                                                    regions=False))):
+                with tapir.use(scfg.tapir_config()):
+                    sp = slot_params(model) if slot else None
+                    step = stepper(fresh(), sp)
+                    logits[tag] = [step() for _ in range(DEC_CHECK)]
+            line["graphed_eq_eager"] = all(
+                torch.equal(a, b)
+                for a, b in zip(logits["graphed"], logits["eager"]))
+            rules = {k: sorted(v) for k, v in tapir.replay_rules().items()}
+            block = ("rwkv_stateful_block" if rwkv else "slot_dense_block"
+                     if slot else "dense_cached_block")
+            head = "rwkv_stateful_head" if rwkv else "slot_head"
+            line["replay_rules"] = {block: rules.get(block),
+                                    head: rules.get(head)}
+            line["expected_replays_per_step"] = n_l
+            reg = line["region"]
+            if not (line["graphed_eq_eager"]
+                    and True in rules.get(block, [])
+                    and reg["graph_captures_in_window"] == 0
+                    and reg["graph_replays_per_step"] == n_l
+                    and line["per_op"]["graph_replays_per_step"] == 0):
+                raise SystemExit(f"decode steps: {line}")
+        lines.append(line)
+    return lines
+
+
 # -- RWKV6-7B ----------------------------------------------------------------
 
 LS_SOURCE = "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu"
@@ -956,6 +1207,8 @@ def rwkv_serve(model, cfg):
             "tok_per_s": st["tok_per_s"],
             "mean_occupancy": st["mean_occupancy"],
             "run_wave_wall_s": stats["run_wave"]["wall_s"],
+            "ttft_p50_ms": st["ttft_p50"] * 1e3,
+            "warm_ttft_p50_ms": stats["run_wave"]["ttft_p50"] * 1e3,
             "gemm_launches_per_call": per_call,
             "scan_launches_per_call": cfg.n_layers, "run_eq_run_wave": same,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1437,6 +1690,9 @@ def rwkv_phases() -> list:
     # -- 13. padded-wave serving --------------------------------------------
     srv, fm_srv, ls_srv = rwkv_serve(model, cfg)
     emit(srv)
+    # -- 13b. the stateful decode step, graphed and per-op -----------------
+    for line in decode_paths(model, cfg):
+        emit(line)
 
     # -- 14. the scan kernel against its plain version ----------------------
     smoke = get_smoke("rwkv6_7b")
@@ -1706,6 +1962,9 @@ def qwen_phases() -> list:
     emit(prof)
     if not prof["finite"]:
         raise SystemExit("profile: non-finite logits at full width")
+    # -- 9b. the slot and padded decode steps, graphed and per-op ----------
+    for line in decode_paths(model, cfg):
+        emit(line)
 
     # -- 10. times at the path shapes -------------------------------------
     entries = gemm_times(
@@ -1828,6 +2087,56 @@ def scan_times_again(out_path: str) -> int:
     return 0
 
 
+def decode_times() -> int:
+    """The ``--decode-times`` mode: the serve phase's run twice (time to
+    first token cold, then warm) and ``decode_paths`` without its checks,
+    for qwen2.5-3b and then RWKV6-7B at full width, with the tree on
+    ``sys.path`` (``--src``: another checkout's); one JSON line each, then
+    the card line.  The kernels are built first, outside every timing."""
+    import torch
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fused_matmul import kernel
+    from repro_torch.kernels.linear_scan import kernel as ls_kernel
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda mod: mod.build(),
+                      (kernel, fa_kernel, ls_kernel)))
+    emit({"phase": "decode_times",
+          "tree": os.path.relpath(os.path.dirname(repro_torch.__file__),
+                                  HERE)})
+    for arch in ("qwen2_5_3b", "rwkv6_7b"):
+        cfg = get_config(arch)
+        model = get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        if arch == "qwen2_5_3b":
+            eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
+                                cfg=ServeConfig(target="gpu"), device="cuda")
+            reqs = requests(cfg.vocab, seed=0)
+            for tag in ("cold", "warm"):
+                eng.run([Request(rid=r.rid, prompt=r.prompt.copy(),
+                                 max_new=r.max_new) for r in reqs])
+                st = eng.last_stats
+                emit({"phase": "serve_ttft", "run": tag,
+                      "ttft_p50_ms": st["ttft_p50"] * 1e3,
+                      "ttft_p95_ms": st["ttft_p95"] * 1e3,
+                      "step_p50_ms": st["step_p50"] * 1e3,
+                      "tok_per_s": st["tok_per_s"], "wall_s": st["wall_s"]})
+            del eng
+        for line in decode_paths(model, cfg, check=False):
+            emit(line)
+        del model
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1841,9 +2150,13 @@ def main() -> int:
     ap.add_argument("--scan-times", metavar="OUT",
                     help="time the linear scan again at the path shapes "
                          "of the full run whose output is OUT, and stop")
-    ap.add_argument("--src", help="with --gemm-times, --flash-times or "
-                                  "--scan-times: another checkout's src "
-                                  "directory, whose wrapper is timed")
+    ap.add_argument("--decode-times", action="store_true",
+                    help="time the three decode steps and the serve "
+                         "phase's time to first token, and stop")
+    ap.add_argument("--src", help="with --gemm-times, --flash-times, "
+                                  "--scan-times or --decode-times: another "
+                                  "checkout's src directory, whose code is "
+                                  "timed")
     ap.add_argument("--plan", metavar="BN,SPLIT,STAGES",
                     help="with --gemm-times: launch this plan at every "
                          "shape in place of kernel.plan")
@@ -1854,6 +2167,8 @@ def main() -> int:
         return 2
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
+    if args.decode_times:
+        return decode_times()
     if args.flash_times:
         return flash_times_again(args.flash_times)
     if args.scan_times:

@@ -36,9 +36,11 @@ and device-assert on the card.
 
 Donation: a scatter or window write that donates a region INPUT writes
 that tensor in place (``index_put_``) and returns it, so a KV pool or
-cache slab keeps its storage (and ``data_ptr``) across steps.  A write
-whose buffer has earlier readers (``Node.anti``) or is not a region input
-writes a copy instead — a reader may hold a view of the buffer.
+cache slab keeps its storage (and ``data_ptr``) across steps.  The
+anti edges run every earlier reader of the buffer (``Node.anti``) before
+the write; a write still goes to a copy where one of those readers
+returned a view of the buffer (its value would change under it), or
+where the buffer is not a region input.
 """
 from __future__ import annotations
 
@@ -149,48 +151,72 @@ def gather_clamped(src: torch.Tensor, idx: tuple) -> torch.Tensor:
     return src[tuple(i.clamp(0, n - 1) for i, n in zip(idx, lead))]
 
 
+def scatter_prep(idx: tuple, lead: tuple, mode: str, device) -> tuple:
+    """The index preparation of ``scatter_drop``, a function of the
+    indices alone (two writes through the same indices share it): per
+    axis the target index, in range for every row (a negative index
+    wrapped once; an out-of-range row aims at some in-range target and
+    will write that target's final value), and the row-validity mask.
+    For "set" also, per row, whether any valid row aims at the same
+    target and the LAST such row (duplicates: last wins, as the
+    reference's sequential scatter does): a stable sort of the valid rows'
+    linear targets keeps each target's rows in row order, and a search
+    finds the end of each row's run.  The work grows with the rows
+    written, not with the buffer.  No host sync."""
+    idx = [torch.as_tensor(i, device=device) for i in idx]
+    total = int(np.prod(lead)) if lead else 1
+    if total >= 2 ** 31:
+        idx = [i.to(torch.int64) for i in idx]
+    valid = lin = None
+    tgt = []
+    for i, n in zip(idx, lead):
+        ok = (i >= -n) & (i < n)
+        valid = ok if valid is None else valid & ok
+        r = i.remainder(n)
+        tgt.append(r)
+        lin = r if lin is None else torch.add(r, lin, alpha=n)
+    tgt = tuple(torch.broadcast_tensors(*tgt))
+    valid = valid.expand(tgt[0].shape).reshape(-1)
+    if mode == "add":
+        return tgt, valid
+    lin = lin.expand(tgt[0].shape).reshape(-1).to(torch.int64)
+    keys, order = torch.sort(torch.where(valid, lin, -1), stable=True)
+    last = torch.searchsorted(keys, lin, right=True) - 1
+    # a row no valid row aims with may find row -1 (torch wraps it) or
+    # another target's row; its ``has`` is False and the row is discarded
+    return tgt, keys[last] == lin, order[last]
+
+
 def scatter_drop(buf: torch.Tensor, idx: tuple, upd, mode: str,
-                 in_place: bool) -> torch.Tensor:
+                 in_place: bool, prep: tuple = None) -> torch.Tensor:
     """``buf.at[i0, i1, ...].set/add(upd, mode="drop")``.
 
-    Out-of-range rows must write nothing.  Every row is clamped in range and
-    writes the FINAL value of its target instead: for "add" the dropped
-    rows add zero; for "set" each row writes the update of the last
-    in-range row aimed at the same target (duplicates: last wins, as the
-    reference's sequential scatter does), or the target's old value when no
-    in-range row aims there.  Rows sharing a target then write identical
-    values, so the write order cannot matter — and no host sync is needed
-    to find the valid rows."""
-    n_idx = len(idx)
-    lead = tuple(buf.shape[:n_idx])
-    idx = _norm_indices(idx, lead)
-    ishape = idx[0].shape
-    valid = torch.ones(ishape, dtype=torch.bool, device=buf.device)
-    for i, n in zip(idx, lead):
-        valid &= (i >= 0) & (i < n)
-    cl = tuple(i.clamp(0, n - 1) for i, n in zip(idx, lead))
-    upd = torch.as_tensor(upd).to(buf.dtype)
-    upd = upd.expand(ishape + tuple(buf.shape[n_idx:]))
+    Out-of-range rows must write nothing.  Every row writes an in-range
+    target (``scatter_prep``) and writes the FINAL value of that target:
+    for "add" the dropped rows add zero; for "set" each row writes the
+    update of the last valid row aimed at the same target, or the
+    target's old value when no valid row aims there.  Rows sharing a
+    target then write identical values, so the write order cannot matter
+    — and no host sync is needed to find the valid rows.  ``prep``: this
+    write's ``scatter_prep``, when another write through the same
+    indices already made it (``idx`` is then not read)."""
+    if prep is None:
+        prep = scatter_prep(idx, tuple(buf.shape[:len(idx)]), mode,
+                            buf.device)
+    tgt = prep[0]
+    tail = tuple(buf.shape[len(tgt):])
+    ishape = tuple(tgt[0].shape)
+    upd = torch.as_tensor(upd).to(buf.dtype).expand(ishape + tail)
     out = buf if in_place else buf.clone()
     if mode == "add":
-        keep = valid.reshape(ishape + (1,) * (buf.ndim - n_idx))
-        out.index_put_(cl, torch.where(keep, upd, torch.zeros_like(upd)),
-                       accumulate=True)
+        keep = prep[1].reshape(ishape + (1,) * len(tail))
+        out.index_put_(tgt, torch.where(keep, upd, 0), accumulate=True)
         return out
-    R = int(np.prod(ishape)) if ishape else 1
-    lin = torch.zeros(ishape, dtype=torch.int64, device=buf.device)
-    for i, n in zip(cl, lead):
-        lin = lin * n + i
-    lin, vf = lin.reshape(R), valid.reshape(R)
-    rows = upd.reshape((R,) + tuple(buf.shape[n_idx:]))
-    same = (lin[:, None] == lin[None, :]) & vf[None, :]      # [j, i]
-    has = same.any(dim=1)
-    order = torch.arange(1, R + 1, device=buf.device)
-    last = (same * order[None, :]).argmax(dim=1)
-    old = buf[cl].reshape(rows.shape)
-    keep = has.reshape((R,) + (1,) * (rows.ndim - 1))
-    vals = torch.where(keep, rows[last], old)
-    out.index_put_(cl, vals.reshape(upd.shape))
+    has, win = prep[1], prep[2]
+    rows = upd.reshape((-1,) + tail)
+    vals = torch.where(has.reshape((-1,) + (1,) * len(tail)), rows[win],
+                       buf[tgt].reshape(rows.shape))
+    out.index_put_(tgt, vals.reshape(upd.shape))
     return out
 
 
@@ -271,9 +297,28 @@ def _decode_index(enc: tuple) -> tuple:
 # -- primitive lowerings -------------------------------------------------------
 
 
-def _donated_in_place(node: Node, nodes: dict) -> bool:
-    return (node.donates is not None and not node.anti
-            and nodes[node.donates].op == "input")
+def _donates_input(node: Node, nodes: dict) -> bool:
+    return node.donates is not None and nodes[node.donates].op == "input"
+
+
+def _donated_in_place(node: Node, nodes: dict, env: dict) -> bool:
+    """Whether this donating write goes to its region input in place: no
+    earlier reader of the buffer (all of which ran before it) returned a
+    view of the buffer — a value made from the pre-write buffer must not
+    change under its consumers.  A host-side check, no sync."""
+    if not _donates_input(node, nodes):
+        return False
+    store = env[node.donates].untyped_storage().data_ptr()
+    return not any(isinstance(v, torch.Tensor)
+                   and v.untyped_storage().data_ptr() == store
+                   for v in (env.get(r) for r in node.anti))
+
+
+def written_inputs(g: TaskGraph) -> frozenset:
+    """The names of the inputs the emitted program may write in place
+    (those its donating writes target)."""
+    return frozenset(g.nodes[n.donates].attrs["name"]
+                     for n in g.nodes.values() if _donates_input(n, g.nodes))
 
 
 def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
@@ -319,17 +364,25 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
         return dynamic_update_slice_clamped(
             env[node.inputs[0]], env[node.inputs[1]],
             _resolve_starts(node, env, node.inputs[2:]),
-            _donated_in_place(node, nodes))
+            _donated_in_place(node, nodes, env))
     if op == "gather":
         return gather_clamped(env[node.inputs[0]],
                               tuple(env[i] for i in node.inputs[1:]))
     if op == "scatter":
         n_idx = node.attrs["n_idx"]
-        idx = tuple(env[i] for i in node.inputs[1:1 + n_idx])
-        return scatter_drop(env[node.inputs[0]], idx,
-                            env[node.inputs[1 + n_idx]],
-                            node.attrs.get("mode", "set"),
-                            _donated_in_place(node, nodes))
+        buf = env[node.inputs[0]]
+        mode = node.attrs.get("mode", "set")
+        lead = tuple(buf.shape[:n_idx])
+        # the K and V writes of a block go through the same index nodes:
+        # they share one preparation
+        pkey = ("scatter_prep", node.inputs[1:1 + n_idx], lead, mode)
+        prep = env.get(pkey)
+        if prep is None:
+            prep = env[pkey] = scatter_prep(
+                tuple(env[i] for i in node.inputs[1:1 + n_idx]), lead, mode,
+                buf.device)
+        return scatter_drop(buf, None, env[node.inputs[1 + n_idx]], mode,
+                            _donated_in_place(node, nodes, env), prep=prep)
     if op == "matmul":
         return _lower_matmul(node, env)
     if op == "attention":

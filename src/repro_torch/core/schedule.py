@@ -44,6 +44,10 @@ class CostModel:
     gqa_repeat_frac: float = 0.25
     # per-serial-step dispatch overhead charged to blockwise/chunked impls
     spawn_s: float = 1e-6
+    # host seconds to dispatch one lowered op from eager Python: a region
+    # whose roofline is below its op count times this is dispatch-bound
+    # (``dispatch_bound``) and replays as a CUDA graph
+    dispatch_s: float = 5e-6
     # round-trips over the fp32 score matrix of impls that materialize it
     score_passes_materialized: float = 4.0
     score_passes_fused: float = 1.0
@@ -57,10 +61,17 @@ CPU_COST_MODEL = CostModel(name="cpu_host", peak_flops=5e10, hbm_bw=2e10,
 #: NVIDIA H100 SXM (data sheet, dense bf16; 227 KB of shared memory a
 #: block may use).  A kernel launch from eager PyTorch costs a few
 #: microseconds, and eager composites materialize their score matrices
-#: like the CPU's do.
+#: like the CPU's do.  ``dispatch_s``: the host time of one small torch op
+#: issued back to back from Python on an H100 SXM machine, read at 4.9 to
+#: 15.3 us across runs (``chip_smoke.py``'s ``dispatch_host_us``, torch
+#: 2.11, CUDA 12.8).  Between 5 and 15.3 us the rule moves three of the
+#: full-width paths' regions only: qwen2.5-3b's 256-row slot prefill
+#: (graphed above 5.4 us) and RWKV6-7B's padded-wave prefills of 2 x 176
+#: (above 8.4) and 4 x 200 rows (above 15.3).
 H100_COST_MODEL = CostModel(name="h100_sxm", peak_flops=989e12,
                             hbm_bw=3.35e12, vmem_bytes=232_448, mxu=16,
-                            spawn_s=5e-6, score_passes_fused=4.0)
+                            spawn_s=5e-6, score_passes_fused=4.0,
+                            dispatch_s=9e-6)
 
 #: library op -> the impl name of its hand-written Hopper kernel
 PORTED_KERNELS = {"matmul": "fused_kernel", "attention": "flash_kernel",
@@ -360,6 +371,52 @@ def assign_schedules(g: TaskGraph, cm: CostModel) -> TaskGraph:
             b == "serial" for b in node.schedule.dim_binding.values()) and bool(
             node.schedule.dim_binding)
     return g
+
+
+_VIEW_OPS = ("reshape", "index", "slice")
+
+
+def region_roofline_s(g: TaskGraph, cm: CostModel) -> float:
+    """The least time the card could take for a scheduled region: per
+    node, its bound impl's roofline cost where the registry costed one,
+    else operations over peak plus bytes over bandwidth (a view moves
+    nothing; a cache op moves its window)."""
+    total = 0.0
+    for node in g.nodes.values():
+        if node.op in ("input", "const"):
+            continue
+        cost = node.schedule.impl_costs.get(node.schedule.impl)
+        if isinstance(cost, float):
+            total += cost
+            continue
+        if node.op in _VIEW_OPS:
+            moved = 0.0
+        elif node.op in ("dynamic_update_slice", "scatter"):
+            upd = node.inputs[1] if node.op == "dynamic_update_slice" \
+                else node.inputs[-1]
+            moved = node.bytes_moved(g.nodes[upd].ttype)
+        elif node.op in ("dynamic_slice", "gather"):
+            moved = node.bytes_moved()
+        else:
+            moved = node.ttype.bytesize + sum(
+                g.nodes[i].ttype.bytesize for i in set(node.inputs))
+        total += node.flops() / cm.peak_flops + moved / cm.hbm_bw
+    return total
+
+
+def lowered_ops(g: TaskGraph) -> int:
+    """The ops a region's emitted program dispatches: every node but its
+    inputs and constants (constants are built once per program)."""
+    return sum(1 for n in g.nodes.values() if n.op not in ("input", "const"))
+
+
+def dispatch_bound(g: TaskGraph, cm: CostModel) -> bool:
+    """Whether dispatching a scheduled region from the host takes longer
+    than the card needs for it: its roofline time below its lowered op
+    count times ``cm.dispatch_s``.  Such a region replays as one CUDA
+    graph (``core.graphs``); a device-bound one runs eagerly, and keeps
+    no graph pool of its activations."""
+    return region_roofline_s(g, cm) < lowered_ops(g) * cm.dispatch_s
 
 
 def assign_early_heuristics(g: TaskGraph, cm: CostModel) -> TaskGraph:

@@ -19,7 +19,11 @@ needs).  Two execution regimes, as there:
 region program is one Python function that launches the region's kernels
 in topological order.  Donation becomes an in-place write into the
 region-input tensor (see ``core.lowering``): a KV pool passed into a slot
-body comes back as the SAME tensor object, updated.
+body comes back as the SAME tensor object, updated.  A region program the
+schedule finds dispatch-bound (``core.schedule.dispatch_bound``) that
+writes an input in place replays on CUDA inputs as one CUDA graph
+(``core.graphs``), the counterpart of the reference's one ``jax.jit`` per
+region; the per-op control (``mode="opaque"``) always runs eagerly.
 
 Not ported yet (see ROADMAP): the on-disk program cache, ``expert_mlp``,
 ``lstm_step``, ``conv2d``, ``invalidate_mesh`` and ``scan_layers``' remat
@@ -32,18 +36,20 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import graphs
 from .dtypes import dtype_name, to_torch_dtype
 from .ir import TaskGraph, TensorType
 from .lowering import (_EW, dynamic_slice_clamped,
                        dynamic_update_slice_clamped, emit, gather_clamped,
-                       scatter_drop)
+                       scatter_drop, written_inputs)
 from .passes import MESH_FINGERPRINT, run_pipeline
-from .schedule import CPU_COST_MODEL, H100_COST_MODEL, CostModel
+from .schedule import (CPU_COST_MODEL, H100_COST_MODEL, CostModel,
+                       dispatch_bound)
 
 # ---------------------------------------------------------------------------
 # Config
@@ -96,7 +102,15 @@ class use:
 # Graph build/execute machinery
 # ---------------------------------------------------------------------------
 
-_CACHE: dict[tuple, Callable] = {}
+class _Program(NamedTuple):
+    """An emitted program and, for a region's, whether it replays as a CUDA
+    graph on CUDA inputs and the input names it may write in place."""
+    fn: Callable[[dict], tuple]
+    graphed: bool = False
+    written: frozenset = frozenset()
+
+
+_CACHE: dict[tuple, _Program] = {}
 _CACHE_STATS = {"hits": 0, "misses": 0, "pipeline_s": 0.0,
                 "compiled_programs": 0}
 #: optimized graphs by cache key — introspection for tests and explain()
@@ -112,32 +126,36 @@ def _cfg_key(cfg: TapirConfig) -> tuple:
 
 
 def _compile(g: TaskGraph, cfg: TapirConfig, key: tuple,
-             region: bool = False) -> Callable:
+             region: bool = False) -> _Program:
     """Pipeline + emit with cache bookkeeping (shared by per-op + region)."""
     t0 = time.perf_counter()
     g = run_pipeline(g, cfg.mode, cfg.resolved_cost_model())
-    fn = emit(g)
+    prog = _Program(emit(g))
     if region:
         _CACHE_STATS["compiled_programs"] += 1
+        prog = prog._replace(
+            graphed=cfg.mode == "tapir" and dispatch_bound(
+                g, cfg.resolved_cost_model()),
+            written=written_inputs(g))
     _CACHE_STATS["pipeline_s"] += time.perf_counter() - t0
     _GRAPHS[key] = g
-    _CACHE[key] = fn
-    return fn
+    _CACHE[key] = prog
+    return prog
 
 
 def _execute(op_key: tuple, build: Callable[[TaskGraph], None],
              inputs: dict[str, Any]) -> tuple:
     cfg = get_config()
     key = (op_key,) + _cfg_key(cfg)
-    fn = _CACHE.get(key)
-    if fn is None:
+    prog = _CACHE.get(key)
+    if prog is None:
         _CACHE_STATS["misses"] += 1
         g = TaskGraph(op_key[0])
         build(g)
-        fn = _compile(g, cfg, key)
+        prog = _compile(g, cfg, key)
     else:
         _CACHE_STATS["hits"] += 1
-    return fn(inputs)
+    return prog.fn(inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -148,31 +166,33 @@ def _execute(op_key: tuple, build: Callable[[TaskGraph], None],
 def _flatten(tree) -> tuple[list, tuple]:
     """(leaves, hashable structure).  Dict keys are visited sorted."""
     leaves: list = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def rec(v):
-        if isinstance(v, (list, tuple)):
-            return (type(v) is tuple, tuple(rec(e) for e in v))
-        if isinstance(v, dict):
-            keys = tuple(sorted(v))
-            return ("dict", keys, tuple(rec(v[k]) for k in keys))
-        leaves.append(v)
-        return None
 
-    return leaves, rec(tree)
+def _flatten_into(v, leaves: list):
+    # module-level (not a recursive closure, whose reference cycle would
+    # keep every leaf -- a step's activations -- alive until the next
+    # garbage collection)
+    if isinstance(v, (list, tuple)):
+        return (type(v) is tuple, tuple(_flatten_into(e, leaves) for e in v))
+    if isinstance(v, dict):
+        keys = tuple(sorted(v))
+        return ("dict", keys, tuple(_flatten_into(v[k], leaves) for k in keys))
+    leaves.append(v)
+    return None
 
 
 def _unflatten(spec: tuple, leaves: Sequence) -> Any:
-    it = iter(leaves)
+    return _unflatten_from(spec, iter(leaves))
 
-    def rec(s):
-        if s is None:
-            return next(it)
-        if s[0] == "dict":
-            return {k: rec(c) for k, c in zip(s[1], s[2])}
-        items = [rec(c) for c in s[1]]
-        return tuple(items) if s[0] else items
 
-    return rec(spec)
+def _unflatten_from(s, it) -> Any:
+    if s is None:
+        return next(it)
+    if s[0] == "dict":
+        return {k: _unflatten_from(c, it) for k, c in zip(s[1], s[2])}
+    items = [_unflatten_from(c, it) for c in s[1]]
+    return tuple(items) if s[0] else items
 
 
 # ---------------------------------------------------------------------------
@@ -446,14 +466,14 @@ class _Region:
         self.g.set_outputs([h.nid for h in outs])
         key = ("region", self.g.signature()) + _cfg_key(self.cfg)
         inputs = {f"a{i}": v for i, v in enumerate(self._inp_vals)}
-        fn = _CACHE.get(key)
-        if fn is None:
+        prog = _CACHE.get(key)
+        if prog is None:
             _CACHE_STATS["misses"] += 1
-            fn = _compile(self.g, self.cfg, key, region=True)
+            prog = _compile(self.g, self.cfg, key, region=True)
         else:
             _CACHE_STATS["hits"] += 1
-        self._last_fn = fn
-        for h, r in zip(outs, fn(inputs)):
+        self._last_prog, self._last_key = prog, key
+        for h, r in zip(outs, _run_program(key, prog, inputs)):
             h._concrete = r
 
     def flush(self) -> None:
@@ -468,6 +488,12 @@ class _Region:
 
     def abandon(self) -> None:
         self.closed = True
+
+
+def _run_program(key: tuple, prog: _Program, inputs: dict) -> tuple:
+    """One call of a compiled region program: through the graph cache,
+    which replays it as a CUDA graph where ``prog.graphed`` says so."""
+    return graphs.CACHE.run(key, prog.fn, inputs, prog.graphed, prog.written)
 
 
 def _region_stack() -> list:
@@ -586,11 +612,14 @@ def _maybe_cache_program(key, f, r: _Region, pending, out_leaves,
             return          # stray tensor output: don't capture it
         else:
             spec.append(("const", lv))
-    fn_c, binding, spec = r._last_fn, tuple(binding), tuple(spec)
+    prog_c, key_c = r._last_prog, r._last_key
+    binding, spec = tuple(binding), tuple(spec)
 
-    def replay(leaves, fn_c=fn_c, binding=binding, spec=spec,
-               out_spec=out_spec):
-        results = fn_c({f"a{i}": leaves[j] for i, j in enumerate(binding)})
+    def replay(leaves, prog_c=prog_c, key_c=key_c, binding=binding,
+               spec=spec, out_spec=out_spec):
+        results = _run_program(
+            key_c, prog_c,
+            {f"a{i}": leaves[j] for i, j in enumerate(binding)})
         outs = [results[i] if tag == "res"
                 else leaves[i] if tag == "arg" else i
                 for tag, i in spec]
@@ -1046,7 +1075,21 @@ def scan_layers(body: Callable, stacked_params, x):
 
 
 def cache_stats() -> dict:
-    return dict(_CACHE_STATS, size=len(_CACHE), programs=len(_PROGRAMS))
+    """Program-cache counters, and the graph cache's: ``graphs`` live,
+    ``graph_pool_bytes`` their pools hold, ``graph_captures`` and
+    ``graph_replays`` so far."""
+    return dict(_CACHE_STATS, size=len(_CACHE), programs=len(_PROGRAMS),
+                **graphs.CACHE.summary())
+
+
+def replay_rules() -> dict[str, set]:
+    """For each region name, the capture verdicts of its compiled
+    programs (True: replayed as a CUDA graph on CUDA inputs)."""
+    out: dict[str, set] = {}
+    for key, prog in _CACHE.items():
+        if key[0] == "region":
+            out.setdefault(key[1][0], set()).add(prog.graphed)
+    return out
 
 
 def cached_graphs() -> dict[tuple, TaskGraph]:
@@ -1066,8 +1109,9 @@ def explain(g: Optional[TaskGraph] = None) -> str:
 
 
 def clear_cache() -> None:
-    """Drop every in-memory program, graph and replay entry."""
+    """Drop every in-memory program, graph, replay entry and CUDA graph."""
     _CACHE.clear()
     _GRAPHS.clear()
     _PROGRAMS.clear()
+    graphs.CACHE.clear()
     _CACHE_STATS.update(hits=0, misses=0, pipeline_s=0.0, compiled_programs=0)

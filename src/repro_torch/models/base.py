@@ -155,6 +155,7 @@ class BaseModel(nn.Module):
         self.ln_f = _frozen(params["ln_f"].to(dev))
         self.lm_head = _frozen(params["lm_head"].to(dev)) \
             if "lm_head" in params else None
+        self._compute = None
 
     @property
     def device(self) -> torch.device:
@@ -164,11 +165,30 @@ class BaseModel(nn.Module):
         return tapir.lift(embed_lookup, embed, tokens,
                           cdt=self.cfg.compute_dtype)
 
-    def _layer_params(self, i: int) -> dict:
-        """Layer ``i``'s params in the compute dtype (a fresh cast, as the
-        reference's per-layer ``astype`` is)."""
-        cdt = to_torch_dtype(self.cfg.compute_dtype)
-        return {k: v[i].to(cdt) for k, v in self.blocks.items()}
+    def compute_params(self) -> dict:
+        """Per-layer param dicts and the head's params in the compute
+        dtype, cast once and kept (the same cast as the reference's
+        per-layer ``astype``, so the same values): the serving paths read
+        them, so no step re-casts a weight and every region input is the
+        same tensor at every step.  The cast is made anew when a weight
+        changed since (an in-place update bumps its version; a write
+        through ``.data`` does not, and is not seen).  It stays resident
+        while the model lives: a second copy of the weights in the compute
+        dtype.  The forward casts per call, as the reference does.
+        ``embed`` stays in the param dtype (``embed_lookup`` casts the rows
+        it reads)."""
+        w = self.lm_head if self.lm_head is not None else self.embed
+        stamp = tuple((t._version, t.data_ptr())
+                      for t in (*self.blocks.values(), self.ln_f, w))
+        if self._compute is None or self._compute[0] != stamp:
+            cdt = to_torch_dtype(self.cfg.compute_dtype)
+            w = self.lm_head if self.lm_head is not None else self.embed.T
+            self._compute = stamp, {
+                "layers": [{k: v[i].to(cdt) for k, v in self.blocks.items()}
+                           for i in range(self.cfg.n_layers)],
+                "head": {"ln_f": self.ln_f.data, "w": w.data.to(cdt)},
+                "embed": self.embed.data}
+        return self._compute[1]
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Returns logits [B, S, vocab]."""

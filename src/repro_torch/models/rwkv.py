@@ -23,10 +23,15 @@ Stateful serving (``init_cache`` / ``prefill`` / ``decode_step``): no KV
 cache, O(1) state per token — per layer the time-mix and channel-mix
 token-shift rows ``[B, 1, d]`` and the WKV carry ``[B, H, hd, hd]`` in
 fp32, stacked ``[L, ...]``.  The reference's ``lax.scan`` over layers is a
-Python loop over one ``rwkv_stateful_block`` region per layer, whose new
-state is copied into that layer's slab of the cache tensors in place (no
-host sync).  The stateful WKV step is one lifted node, as in the
-reference, whose body is the scan kernel's wrapper with a carried state
+Python loop over one ``rwkv_stateful_block`` region per layer, which
+writes its new state over that layer's slabs of the cache tensors in
+place (donated, as the dense cache's K/V slabs are; no host sync); the
+params are cast once (``compute_params``), the head is a
+``rwkv_stateful_head`` region and ``pos`` advances in place, so a decode
+step's region inputs are the same tensors at every step and its programs
+replay as CUDA graphs, which live as long as the cache they write.  The
+stateful WKV step is one lifted node, as in the reference, whose body is
+the scan kernel's wrapper with a carried state
 (``ops.linear_scan(init_state=..., return_state=True)``): on the card it
 launches the same kernel as the forward's scans, on the CPU it runs the
 reference's chunked composite.
@@ -124,6 +129,10 @@ class RWKV6(BaseModel):
         x = L.rmsnorm(x, self.ln_f)
         return tapir.linear(x, self.lm_head.to(x.dtype))
 
+    def _stateful_head_body(self, hp, x):
+        """The last position's logits from the params cast once."""
+        return tapir.linear(L.rmsnorm(x, hp["ln_f"]), hp["w"])[:, -1]
+
     # -- block ------------------------------------------------------------
     def _decay(self, p, xw):
         """w_t = exp(-exp(w0 + tanh(xw @ A) @ B))  in (0, 1), in fp32."""
@@ -189,12 +198,17 @@ class RWKV6(BaseModel):
     def _stateful_block_body(self, p, x, tm, cm, wkv):
         """One block threading its (token-shift, WKV) state through — the
         wkv state update is the same stateful-capture problem as a KV
-        cache, traced here as a single region."""
-        a, tm, wkv = self._time_mix(p, L.rmsnorm(x, p["ln1"]),
-                                    shift_state=tm, wkv_state=wkv)
+        cache, traced here as a single region.  The new state is written
+        over the old (``cache_write``): under region capture the program
+        writes the donated slabs in place, after every read of them."""
+        a, new_tm, new_wkv = self._time_mix(p, L.rmsnorm(x, p["ln1"]),
+                                            shift_state=tm, wkv_state=wkv)
         x = x + a
-        c, cm = self._channel_mix(p, L.rmsnorm(x, p["ln2"]), shift_state=cm)
-        return x + c, tm, cm, wkv
+        c, new_cm = self._channel_mix(p, L.rmsnorm(x, p["ln2"]),
+                                      shift_state=cm)
+        return (x + c, tapir.cache_write(tm, new_tm, (0, 0, 0)),
+                tapir.cache_write(cm, new_cm, (0, 0, 0)),
+                tapir.cache_write(wkv, new_wkv, (0, 0, 0, 0)))
 
     # -- forward ----------------------------------------------------------
     def forward(self, batch: dict):
@@ -227,23 +241,35 @@ class RWKV6(BaseModel):
         }
 
     def _run_stateful(self, tokens, cache):
+        cp = self.compute_params()
         h = self._embed(self.embed, tokens)
         blk = tapir.parallel_region(self._stateful_block_body,
                                     name="rwkv_stateful_block")
+        regions = tapir.get_config().regions
         for i in range(self.cfg.n_layers):
             slabs = (cache["tm_shift"][i], cache["cm_shift"][i],
                      cache["wkv"][i])
-            h, *new = blk(self._layer_params(i), h, *slabs)
+            h, *new = blk(cp["layers"][i], h, *slabs)
             for slab, val in zip(slabs, new):
-                slab.copy_(val)
-        cache = {"tm_shift": cache["tm_shift"], "cm_shift": cache["cm_shift"],
-                 "wkv": cache["wkv"], "pos": cache["pos"] + tokens.shape[1]}
-        return self._head(h[:, -1:])[:, -1], cache
+                if regions:
+                    # the region program wrote the donated slab in place
+                    if val is not slab:
+                        raise RuntimeError(
+                            f"layer {i}: the region returned a copy of its "
+                            f"state slab instead of writing it in place")
+                else:
+                    # the per-op write is functional: copy it into the slab
+                    slab.copy_(val)
+        head = tapir.parallel_region(self._stateful_head_body,
+                                     name="rwkv_stateful_head")
+        logits = head(cp["head"], h[:, -1:])
+        cache["pos"].add_(tokens.shape[1])
+        return logits, cache
 
     def prefill(self, tokens, cache):
         """Prompts ``tokens [B, S]`` into ``cache``; returns (logits
-        ``[B, vocab]`` at position S-1, cache).  The state tensors are
-        updated in place."""
+        ``[B, vocab]`` at position S-1, cache).  The state tensors and
+        ``pos`` are updated in place."""
         return self._run_stateful(tokens, cache)
 
     def decode_step(self, tokens, cache):

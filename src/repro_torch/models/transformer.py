@@ -18,7 +18,11 @@ Padded cache (``init_cache`` / ``prefill`` / ``decode_step``): one
 ``pos``.  Each layer's block region writes its slab view ``cache["k"][i]``
 in place (a donated ``dynamic_update_slice`` at ``pos``); prefill attends
 over the fresh K/V with the flash node, decode over the cache with the
-masked composite.
+masked composite, its RoPE rows gathered at ``pos`` from the memoized
+full table into buffers kept per row count.  Both read the params cast once
+(``compute_params``), end in a ``slot_head`` region, and advance ``pos``
+in place, so a decode step's region inputs are the same tensors at every
+step and its programs replay as CUDA graphs.
 
 Slot serving: the cache is per-layer page pools ``[P, page_len, Hkv, hd]``
 plus a per-slot page table ``ptab [slots, pps]`` and length vector ``pos``.
@@ -26,9 +30,9 @@ Occupancy and page binding are DATA, not shape: each block of a decode step
 is ONE region program (per-slot RoPE rows gathered at ``pos``, K/V
 scattered in place at ``(ptab[s, pos // page_len], pos % page_len)``,
 masked attention over the gathered per-slot view ``pool[ptab[s]]``),
-replayed from ``_PROGRAMS`` whichever slots are live.  ``slot_params``
-casts the params once, so every region input rebinds to the same tensors
-each step.
+replayed from ``_PROGRAMS`` whichever slots are live.  The params come
+cast once from ``compute_params``, and ``pos`` advances in place, so every
+region input rebinds to the same tensors each step.
 """
 from __future__ import annotations
 
@@ -96,6 +100,7 @@ class DenseLM(BaseModel):
             raise NotImplementedError("only the gated dense family is ported")
         self.cfg = cfg
         self._set_params(abstract_params(cfg), device, params, generator)
+        self._rope_bufs: dict = {}      # decode RoPE rows (``_rope_rows``)
 
     def supports_slots(self) -> bool:
         return True
@@ -215,17 +220,27 @@ class DenseLM(BaseModel):
         x = x + self._mlp(p, self._norm(x, p["ln2"]))
         return x, ck, cv
 
-    def _run_with_cache(self, tokens, cache, positions, is_prefill: bool):
+    def _run_with_cache(self, tokens, cache, is_prefill: bool):
+        """Logits ``[B, vocab]`` of the last position; ``cache["pos"]``
+        advances in place."""
         cfg = self.cfg
+        cp = self.compute_params()
         h = self._embed(self.embed, tokens)
-        cos, sin = L.rope_table(positions, cfg.hd, fraction=self._rope_frac())
         pos0 = cache["pos"]
+        if is_prefill:
+            # positions arange(S): the forward's own table
+            cos, sin = L.arange_rope_table(int(tokens.shape[1]), cfg.hd,
+                                           fraction=self._rope_frac(),
+                                           device=tokens.device)
+        else:
+            cos, sin = self._rope_rows(pos0, int(tokens.shape[1]),
+                                       int(cache["k"].shape[2]))
         blk = tapir.parallel_region(self._cached_block_body,
                                     name="dense_cached_block")
         regions = tapir.get_config().regions
         for i in range(cfg.n_layers):
             slab_k, slab_v = cache["k"][i], cache["v"][i]
-            h, ck, cv = blk(self._layer_params(i), h, cos, sin, slab_k,
+            h, ck, cv = blk(cp["layers"][i], h, cos, sin, slab_k,
                             slab_v, pos0, is_prefill)
             if regions:
                 # the region program writes the donated slab in place and
@@ -238,29 +253,43 @@ class DenseLM(BaseModel):
                 # the per-op write is functional: copy it into the slab
                 slab_k.copy_(ck)
                 slab_v.copy_(cv)
-        cache = {"k": cache["k"], "v": cache["v"],
-                 "pos": pos0 + tokens.shape[1]}
-        if is_prefill:
-            h = h[:, -1:]   # only the last position's logits are served
-        return self._head(h), cache
+        head = tapir.parallel_region(self._slot_head_body, name="slot_head")
+        # only the last position's logits are served
+        logits = head(cp["head"], h[:, -1:])
+        pos0.add_(tokens.shape[1])
+        return logits, cache
+
+    def _rope_rows(self, pos, n: int, max_len: int) -> tuple:
+        """cos / sin rows of the ``n`` positions from ``pos`` on, gathered
+        (clamped) from the memoized full table into buffers kept per
+        ``n``: the decode step's regions bind the same two tensors at
+        every step.  The rows equal ``rope_table`` of those positions (the
+        table is elementwise in the position)."""
+        cos_t, sin_t = L.full_rope_table(max_len, self.cfg.hd,
+                                         fraction=self._rope_frac(),
+                                         device=pos.device)
+        key = (n, cos_t.shape, str(pos.device))
+        bufs = self._rope_bufs.get(key)
+        if bufs is None:
+            bufs = self._rope_bufs[key] = tuple(
+                torch.empty((n, cos_t.shape[-1]), dtype=cos_t.dtype,
+                            device=pos.device) for _ in range(2))
+        rows = (pos + torch.arange(n, dtype=pos.dtype, device=pos.device)
+                ).clamp(0, cos_t.shape[0] - 1)
+        for tab, buf in zip((cos_t, sin_t), bufs):
+            torch.index_select(tab, 0, rows, out=buf)
+        return bufs
 
     def prefill(self, tokens, cache):
         """Prompts ``tokens [B, S]`` into an empty ``cache``; returns
         (logits ``[B, vocab]`` at position S-1, cache).  The cache's K/V
-        tensors are updated in place."""
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        logits, cache = self._run_with_cache(tokens, cache, positions,
-                                             is_prefill=True)
-        return logits[:, -1], cache
+        tensors and ``pos`` are updated in place."""
+        return self._run_with_cache(tokens, cache, is_prefill=True)
 
     def decode_step(self, tokens, cache):
         """``tokens [B, S]`` at positions ``pos ..``; returns (logits
         ``[B, vocab]`` of the last, cache)."""
-        positions = cache["pos"] + torch.arange(tokens.shape[1],
-                                                device=tokens.device)
-        logits, cache = self._run_with_cache(tokens, cache, positions,
-                                             is_prefill=False)
-        return logits[:, -1], cache
+        return self._run_with_cache(tokens, cache, is_prefill=False)
 
     # -- slot-paged serving ----------------------------------------------
     def init_slot_cache(self, slots: int, max_len: int,
@@ -285,18 +314,6 @@ class DenseLM(BaseModel):
                       for _ in range(cfg.n_layers)],
                 "ptab": torch.as_tensor(ptab, device=dev),
                 "pos": torch.zeros((slots,), dtype=torch.int32, device=dev)}
-
-    def slot_params(self) -> dict:
-        """Per-layer param dicts + head params with STABLE tensor ids:
-        slicing and casting are hoisted out of the decode loop so every
-        region input rebinds to the same tensors and programs replay."""
-        cdt = to_torch_dtype(self.cfg.compute_dtype)
-        w = self.lm_head if self.lm_head is not None else self.embed.T
-        layers = [{k: v[i].to(cdt) for k, v in self.blocks.items()}
-                  for i in range(self.cfg.n_layers)]
-        return {"layers": layers,
-                "head": {"ln_f": self.ln_f.data, "w": w.data.to(cdt)},
-                "embed": self.embed.data}
 
     def _slot_attn_body(self, p, x, rope_cos, rope_sin, ck, cv, pos, ptab):
         """Attention sub-block over the paged pool; every data-dependent
@@ -390,7 +407,7 @@ class DenseLM(BaseModel):
             cache["k"][i], cache["v"][i] = ck, cv
         head = tapir.parallel_region(self._slot_head_body, name="slot_head")
         logits = head(sp["head"], h)
-        cache["pos"] = pos + 1
+        pos.add_(1)
         return logits, cache
 
     def prefill_into_slot(self, sp, tokens, cache, slot: int, plen: int,

@@ -205,6 +205,7 @@ class _SlotRunState:
     slot_idx: list               # per-slot index into ``requests``, -1 free
     slot_steps: list             # per-slot decode-step budget used
     tokens: np.ndarray           # [slots, 1] next feed token per slot
+    tokens_dev: Any              # its device copy, one buffer for the run
     pool: PagePool
     ptab_host: np.ndarray        # [slots, pps] mirror of cache["ptab"]
     pending: list = field(default_factory=list)
@@ -243,7 +244,7 @@ class ServingEngine:
         self.cfg = cfg
         #: scheduling stats of the most recent ``run``/``run_wave`` call
         self.last_stats: dict = {}
-        self._sp = None            # lazy pre-cast slot params
+        self._sp = None            # the run's params (compute_params)
 
     def run(self, requests: list[Request],
             max_steps: int = 256) -> list[Request]:
@@ -278,6 +279,7 @@ class ServingEngine:
         st = {"tokens": 0, "admitted": 0, "rejected": 0, "preempted": 0,
               "decode_steps": 0}
         occ_sum = 0.0
+        ttft = []
         compiled0 = cache_stats()["compiled_programs"]
         t0 = time.perf_counter()
         for wave_start in range(0, len(requests), self.batch):
@@ -298,6 +300,8 @@ class ServingEngine:
                 nxt_np = nxt.cpu().numpy()
                 for i, r in enumerate(wave):
                     if not r.done:
+                        if not r.out:
+                            ttft.append(time.perf_counter() - t0)
                         r.out.append(int(nxt_np[i]))
                         st["tokens"] += 1
                         if len(r.out) >= r.max_new:
@@ -306,7 +310,8 @@ class ServingEngine:
                 steps += 1
             st["preempted"] += sum(not r.done for r in wave)
         wall = time.perf_counter() - t0
-        st.update(wall_s=wall,
+        st.update(wall_s=wall, ttft_p50=_pct(ttft, 50),
+                  ttft_p95=_pct(ttft, 95),
                   tok_per_s=st["tokens"] / wall if wall > 0 else 0.0,
                   mean_occupancy=(occ_sum / st["decode_steps"]
                                   if st["decode_steps"] else 0.0),
@@ -327,6 +332,8 @@ class ServingEngine:
             slot_idx=[-1] * self.slots,
             slot_steps=[0] * self.slots,
             tokens=np.zeros((self.slots, 1), np.int32),
+            tokens_dev=torch.zeros((self.slots, 1), dtype=torch.int32,
+                                   device=self.device),
             pool=pool,
             ptab_host=np.stack([identity_row(s, pool.pps)
                                 for s in range(self.slots)]),
@@ -342,8 +349,7 @@ class ServingEngine:
         compiled0 = cache_stats()["compiled_programs"]
         t0 = time.perf_counter()
         with use(self.cfg.tapir_config()):
-            if self._sp is None:
-                self._sp = self.model.slot_params()
+            self._sp = self.model.compute_params()
             rs = self._fresh_slot_state(requests)
             self._slot_session(requests, max_steps, continuous, rs, t0)
         wall = time.perf_counter() - t0
@@ -363,9 +369,10 @@ class ServingEngine:
 
     # -- page-policy helpers ---------------------------------------------
     def _push_ptab(self, rs: _SlotRunState) -> None:
-        """Mirror the host page table to the device: page indirection is
-        DATA, so this is the only thing a rebinding ever changes."""
-        rs.cache["ptab"] = torch.as_tensor(rs.ptab_host, device=self.device)
+        """Mirror the host page table to the device, in place: page
+        indirection is DATA, so this is the only thing a rebinding ever
+        changes, and the table stays the tensor the step's programs read."""
+        rs.cache["ptab"].copy_(torch.from_numpy(rs.ptab_host))
 
     def _reset_slot(self, s: int, rs: _SlotRunState) -> None:
         rs.ptab_host[s] = identity_row(s, rs.pool.pps)
@@ -583,8 +590,9 @@ class ServingEngine:
             rs.occ_sum += sum(r is not None for r in slot_req) / self.slots
             rs.st["decode_steps"] += 1
             t_step = time.perf_counter()
-            logits, rs.cache = model.decode_step_slots(
-                sp, torch.as_tensor(rs.tokens, device=self.device), rs.cache)
+            rs.tokens_dev.copy_(torch.from_numpy(rs.tokens))
+            logits, rs.cache = model.decode_step_slots(sp, rs.tokens_dev,
+                                                       rs.cache)
             nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
             rs.steps.observe(time.perf_counter() - t_step)
             for s, r in enumerate(slot_req):

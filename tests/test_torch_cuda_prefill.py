@@ -71,7 +71,7 @@ def test_suffix_prefill_equals_full_prefill_bitwise(cuda):
     toks = toks.astype(np.int32)
     failing = []
     with tapir.use(ServeConfig(target="gpu").tapir_config()):
-        sp = model.slot_params()
+        sp = model.compute_params()
         full = {}
         for plen in range(PAGE + 1, MAX_LEN + 1):
             cache = model.init_slot_cache(1, MAX_LEN, PAGE)

@@ -291,8 +291,7 @@ def test_cache_write_and_read_clamp_like_lax(start, in_region):
 
 def test_read_before_write_sees_the_old_buffer():
     """A read ordered before a donated write of the same buffer sees the
-    pre-write value (the write then goes to a copy, since a reader may hold
-    a view of the buffer)."""
+    pre-write value."""
     @tapir.parallel_region
     def step(buf, upd, pos):
         before = tapir.cache_read(buf, (0, pos, 0), (5, 4, 3))
@@ -307,6 +306,27 @@ def test_read_before_write_sees_the_old_buffer():
     np.testing.assert_array_equal(before.numpy(), BUF[:, 3:7])
     np.testing.assert_array_equal(after.numpy(), UPD)
     np.testing.assert_array_equal(new.numpy()[:, 3:7], UPD)
+
+
+@pytest.mark.parametrize("start", ["int", "tensor"])
+def test_a_write_after_a_view_read_goes_to_a_copy(start):
+    """A donated write runs after every read of its buffer; it writes the
+    region input in place where those reads made values of their own (a
+    tensor start gathers the window), and a copy where a read is a view
+    of the buffer (an int start narrows it), whose consumers must still
+    see the pre-write values."""
+    @tapir.parallel_region
+    def step(buf, upd, pos):
+        before = tapir.cache_read(buf, (0, pos, 0), (5, 4, 3))
+        return before * 1.0, tapir.cache_write(buf, upd, (0, pos, 0))
+
+    buf = torch.from_numpy(BUF.copy())
+    pos = 3 if start == "int" else torch.tensor(3)
+    with tapir.use(CPU.tapir_config()):
+        before, new = step(buf, torch.from_numpy(UPD), pos)
+    np.testing.assert_array_equal(before.numpy(), BUF[:, 3:7])
+    np.testing.assert_array_equal(new.numpy()[:, 3:7], UPD)
+    assert (new is buf) == (start == "tensor")
 
 
 def test_cse_never_merges_writes_and_distinguishes_reads():

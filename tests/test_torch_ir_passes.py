@@ -80,7 +80,7 @@ def _decode_args_jax(jm, jp):
 
 def _decode_args_torch(tm):
     from repro_torch.models import layers as L
-    sp = tm.slot_params()
+    sp = tm.compute_params()
     cache = tm.init_slot_cache(SLOTS, MAX_LEN)
     cos, sin = L.full_rope_table(MAX_LEN, tm.cfg.hd)
     x = torch.zeros((SLOTS, 1, tm.cfg.d_model))
@@ -105,7 +105,7 @@ def _prefill_args(S, jax_side, model, params=None):
                 cache["v"][0], jnp.asarray(pos), jnp.asarray(phys),
                 jnp.asarray(off), jnp.asarray(prow), jnp.asarray(S, jnp.int32))
     from repro_torch.models import layers as L
-    sp = model.slot_params()
+    sp = model.compute_params()
     cache = model.init_slot_cache(SLOTS, MAX_LEN, page_len=8)
     cos, sin = L.full_rope_table(MAX_LEN, model.cfg.hd)
     t = torch.as_tensor

@@ -109,7 +109,7 @@ def test_slot_prefill_and_decode_logits_match_reference(pair):
             jlogits.append(np.asarray(jl))
             tok = np.argmax(jlogits[-1], -1).astype(np.int32)[:, None]
     with tapir.use(CPU.tapir_config()):
-        tsp = tm.slot_params()
+        tsp = tm.compute_params()
         tc = tm.init_slot_cache(slots, max_len, page_len=pl)
         tl, tc = tm.prefill_into_slot(tsp, torch.as_tensor(padded), tc, 1, 6)
         tlogits = [tl.numpy()]
@@ -264,7 +264,7 @@ def test_pools_update_in_place_and_programs_replay(bf16_model):
     nothing and hits the program cache once per block and head."""
     m = bf16_model
     with tapir.use(CPU.tapir_config()):
-        sp = m.slot_params()
+        sp = m.compute_params()
         cache = m.init_slot_cache(2, 32, page_len=8)
         pools = [(id(t), t.data_ptr()) for t in cache["k"] + cache["v"]]
         tok = torch.as_tensor(_prompts(8, [8])[0][None])
