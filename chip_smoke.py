@@ -22,11 +22,11 @@ Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts just before it and
 reads them just after:
 
-1. device and build — the card's name and power limit, then the three
-   kernel libraries (fused_matmul, flash_attention, linear_scan) built by
-   nvcc from the checkout's CUDA sources, in parallel; the three ptxas
-   reports (registers, stack, spills per kernel; a spill in any of the
-   bf16 kernels fails the run) and the bf16 scan kernel's tensor-core
+1. device and build — the card's name and power limit, then the four
+   kernel libraries (fused_matmul, flash_attention, linear_scan and the
+   flash backward) built by nvcc from the checkout's CUDA sources, in
+   parallel; the ptxas reports (registers, stack, spills per kernel; a
+   spill in any of the bf16 kernels fails the run) and the bf16 scan kernel's tensor-core
    (HMMA) instruction count in its SASS (none fails the run); flash
    attention's tiles
    as the built kernel states them, at every head dim in both dtypes,
@@ -66,13 +66,34 @@ reads them just after:
    run), the graphs and their pools' bytes; the graphed steps against the
    eager walk (``regions=False``) bitwise; the per-op control
    (``mode="opaque"``, no graphs) timed the same way;
+9c. train — ``make_train_step`` (``launch/train.py``'s step) at full
+   width on 2 x 2048 tokens of ``TokenPipeline``, remat full, fp32 AdamW:
+   one warm-up step and 3 timed steps, each held to the launches the code
+   implies (GEMM forward 289 = 145 + 144 recomputed, dX 145, dW 145, flash
+   forward 72, flash backward 36), step p50, tokens/s, MFU, peak memory,
+   then one profiled step: device ms by kernel and route, and no library
+   GEMM or attention kernel (cuBLAS, SDPA, cuDNN) in it; the loss finite
+   and falling.  Then the qwen model is released, and:
+   gemm_bwd_vs_plain — dX and dW against their plain versions at every
+   (route, shape) the step launched, and ``FusedMatmulFn``'s gradients
+   against autograd through ``fused_matmul_ref`` at every forward (shape,
+   epilogue), bf16 and fp32, two calls bitwise equal;
+   flash_bwd_vs_plain — the flash backward against
+   ``flash_attention_bwd_ref`` and ``FlashAttentionFn`` against autograd
+   through ``attention_ref``, the forward's lse against the plain
+   version's, at the step's shape and FA_BWD_EXTRA;
+   small_train_parity — SMOKE fp32, the first gradients and 3 steps on the
+   card against the CPU;
 10. times — per path shape: each kernel, its plain version, the library
    yardstick (``torch.matmul`` / ``torch.addmm``,
    ``scaled_dot_product_attention``; never called by the port) and the
    roofline bound; for the GEMM also its plan (``kernel.plan(n, k)``: BN,
    the cluster split, the TMA ring depth), its achieved TFLOP/s, and the
    wrapper's host time per call at two decode shapes; for flash its route
-   and tiles (``kernel.plan(dtype, D)``) and its achieved TFLOP/s.
+   and tiles (``kernel.plan(dtype, D)``) and its achieved TFLOP/s; the
+   backward routes of the train phase (dX and dW beside ``torch.matmul`` on
+   the same transposed operands, the flash backward beside SDPA's backward
+   through autograd) the same way (``train_times``).
 
 The qwen model is then released, and RWKV6-7B at full width (32 layers,
 d_model 4096; random weights from seed 0) takes its place:
@@ -158,6 +179,9 @@ PF_B, PF_S, PF_MAX, PF_NEW = 4, 512, 1024, 16   # padded prefill/decode
 #: decode-step timing: warm-up steps, timed steps, profiled steps; and the
 #: steps the graphed path is held to the eager walk over
 DEC_WARM, DEC_TIMED, DEC_PROF, DEC_CHECK = 3, 20, 5, 6
+#: profiled windows a graphed decode path may take to read every kernel
+#: (see ``decode_harness``)
+PROF_WINDOWS = 3
 
 
 def emit(obj) -> None:
@@ -795,31 +819,45 @@ def decode_harness(step, per_step: tuple) -> dict:
     # one step of profiler warm-up, whose events are dropped; each step is
     # synchronised before the profiler moves on, so none of its kernels is
     # cut off.  The active steps' events are read when their cycle ends.
-    seen = {}
-
-    def ready(prof):
-        seen["ran"] = profiled_launches(prof)
-        seen["by_name"] = device_time_by_kernel(prof, DEC_PROF)
-
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                  active=DEC_PROF),
-                 on_trace_ready=ready) as prof:
-        for _ in range(1 + DEC_PROF):
-            step()
-            torch.cuda.synchronize()
-            prof.step()
     # On a graphed path the counts above are bookkeeping (a replay adds
     # what its capture counted): there the profile's reading of the
     # kernels the device ran must equal them.  An eager path's counts are
     # the launches themselves, and its profile (thousands of launches a
-    # step) has been seen to drop a few records: it is reported only.
-    ran = seen.get("ran")
+    # step) has been seen to drop a few records: it is reported only.  A
+    # graphed window has been seen to drop records too (697 of 725 GEMMs
+    # in one of four full runs): a window that reads fewer kernels than
+    # expected is profiled again, at most PROF_WINDOWS times in all.  A
+    # replay that launched too few kernels would read short in every
+    # window, and one that read more fails at once.
     replays = st1.get("graph_replays", 0) - st0.get("graph_replays", 0)
-    if replays and ran != tuple(DEC_PROF * n for n in per_step):
-        raise SystemExit(f"decode steps: the profile saw {ran} flash, GEMM "
-                         f"and scan kernels over {DEC_PROF} graphed steps "
-                         f"(expected {per_step} a step)")
+    expect = tuple(DEC_PROF * n for n in per_step)
+    windows = []
+    for _ in range(PROF_WINDOWS):
+        seen = {}
+
+        def ready(prof):
+            seen["ran"] = profiled_launches(prof)
+            seen["by_name"] = device_time_by_kernel(prof, DEC_PROF)
+
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                      active=DEC_PROF),
+                     on_trace_ready=ready) as prof:
+            for _ in range(1 + DEC_PROF):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        ran = seen.get("ran")
+        windows.append(ran)
+        if not replays or ran == expect:
+            break
+        if any(a > b for a, b in zip(ran, expect)):
+            break
+    if replays and ran != expect:
+        raise SystemExit(f"decode steps: the profile saw {windows} flash, "
+                         f"GEMM and scan kernels over {DEC_PROF} graphed "
+                         f"steps, window by window (expected {per_step} a "
+                         f"step)")
     by_name = seen["by_name"]
     dev = sum(ms for ms, _ in by_name.values())
     p50 = float(np.median(walls)) * 1e3
@@ -828,6 +866,7 @@ def decode_harness(step, per_step: tuple) -> dict:
             "device_ms_per_step": dev, "device_busy_share": dev / p50,
             "kernels_per_step": sum(c for _, c in by_name.values()),
             "profiled_launches_per_step": [n / DEC_PROF for n in ran],
+            "profile_windows": [list(w) for w in windows],
             "graph_replays_per_step": replays / DEC_TIMED,
             "graph_captures_in_window": (st1.get("graph_captures", 0)
                                          - st0.get("graph_captures", 0)),
@@ -969,6 +1008,451 @@ def decode_paths(model, cfg, check: bool = True) -> list:
                 raise SystemExit(f"decode steps: {line}")
         lines.append(line)
     return lines
+
+
+# -- training (qwen2.5-3b) ----------------------------------------------------
+
+FA_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention_bwd.cu")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 3   # 1 warm-up step, then these
+#: max |grad - plain grad| / max |plain grad| of the backward routes and
+#: of the autograd Functions: in bf16 the products round dY0, P and dS to
+#: bf16 (a few bf16 ulps of the largest gradient); in fp32 the sums run in
+#: another order than the plain version's
+BWD_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: flash backward shapes beyond the train phase's (B, Sq, Skv, Hq, Hkv, D,
+#: causal): SMOKE, groups 1 and 8, ragged lengths off every tile, Skv > Sq
+#: (causal queries at the end of the keys), head dims 24, 64, 128
+FA_BWD_EXTRA = [(2, 28, 28, 4, 2, 24, True), (1, 77, 150, 8, 1, 32, False),
+                (2, 100, 300, 16, 2, 128, True), (1, 130, 130, 2, 2, 64, True),
+                (1, 200, 200, 8, 8, 128, False)]
+#: a library product or attention kernel in a profile: cuBLAS / cuBLASLt
+#: (xmma, nvjet, cutlass, gemv, any other "gemm"), SDPA's flash and
+#: memory-efficient kernels, cuDNN.  The port's own kernels are excluded
+#: by PORT_ANY before this is tried.
+LIBRARY_KERNEL = re.compile(
+    r"gemm|gemv|xmma|nvjet|cutlass|cublas|flash_fwd|flash_bwd|fmha|"
+    r"efficient_attention|mem_eff|cudnn|sdpa", re.IGNORECASE)
+PORT_ANY = re.compile(r"(?<![A-Za-z_])((flash|gemm|scan|dkdv|dq)_(bf16|f32)"
+                      r"_kernel|delta_kernel)")
+#: the GEMM's three layouts as its template arguments <BN, TA, TB> show
+#: them in a profile: the forward, dX = dY W^T and dW = X^T dY
+GEMM_ROUTE = {("0", "1"): "forward", ("0", "0"): "dx", ("1", "1"): "dw"}
+
+
+def train_launches(n_l: int) -> dict:
+    """The launches one train step makes, from the code: the forward's 4
+    GEMMs a layer and the head, remat's recompute of each layer's 4 (the
+    head is outside the remat'd stack), dX and dW of each of the forward's
+    GEMMs (every input needs its gradient: the embedding is trained), and
+    no epilogue recompute (the qwen block's chains are adds); flash once
+    a layer forward, once more in the recompute, one backward a layer."""
+    return {"gemm_forward": 8 * n_l + 1, "gemm_dx": 4 * n_l + 1,
+            "gemm_dw": 4 * n_l + 1, "flash_forward": 2 * n_l,
+            "flash_backward": n_l}
+
+
+def train_counts() -> dict:
+    fm_ops, fa_ops, _ = kernel_ops()
+    return {"gemm_forward": fm_ops.launches,
+            "gemm_dx": fm_ops.bwd_launches["dx"],
+            "gemm_dw": fm_ops.bwd_launches["dw"],
+            "flash_forward": fa_ops.launches,
+            "flash_backward": fa_ops.bwd_launches}
+
+
+def train_phase(model, cfg):
+    """``make_train_step`` at full width on TRAIN_B x TRAIN_S tokens of
+    ``TokenPipeline`` (remat full, fp32 AdamW): one warm-up step, then
+    TRAIN_STEPS timed steps, each with the counts zeroed just before it
+    and held to ``train_launches`` just after, then one profiled step: no
+    library GEMM or attention kernel may appear in it.  The loss must be
+    finite and fall.  Returns (line, forward GEMM launches by shape, the
+    backward routes' by shape, flash launches by shape) of the last timed
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    fm_ops, fa_ops, _ = kernel_ops()
+    want = train_launches(cfg.n_layers)
+    opt = AdamWConfig(total_steps=TRAIN_STEPS + 2, warmup_steps=1)
+    step = make_train_step(model, opt, TrainConfig(remat="full",
+                                                   target="gpu"))
+    pipe = TokenPipeline(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                    vocab=cfg.vocab))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_state(model, opt)
+    losses, norms, lrs, walls = [], [], [], []
+    for s_ in range(1 + TRAIN_STEPS):
+        batch = to_device(pipe.batch_at(s_), "cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(met["grad_norm"]))
+        lrs.append(float(met["lr"]))
+        got = train_counts()
+        if got != want:
+            raise SystemExit(f"train step {s_}: launches {got}, expected "
+                             f"{want}")
+        fm = collections.Counter(fm_ops.launches_by_shape)
+        bwd = collections.Counter(fm_ops.bwd_launches_by_shape)
+        fa = collections.Counter(fa_ops.launches_by_shape)
+        fab = collections.Counter(fa_ops.bwd_launches_by_shape)
+    peak = torch.cuda.max_memory_allocated()
+    batch = to_device(pipe.batch_at(1 + TRAIN_STEPS), "cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+    by_name = device_time_by_kernel(prof, 1)
+    library = sorted(k[:80] for k in by_name
+                     if LIBRARY_KERNEL.search(k) and not PORT_ANY.search(k))
+    gemm_ms = collections.Counter()
+    for k, (ms, _) in by_name.items():
+        m_ = re.search(r"gemm_(?:bf16|f32)_kernel<\d+, (\d), (\d)>", k)
+        if m_:
+            gemm_ms[GEMM_ROUTE.get(m_.groups(), "other")] += ms
+        elif "gemm_f32_kernel" in k:
+            gemm_ms["fp32"] += ms
+    busy = sum(ms for ms, _ in by_name.values())
+    timed = sorted(walls[1:])
+    p50 = timed[len(timed) // 2]
+    n_params = sum(p.numel() for p in model.parameters())
+    dense = n_params - cfg.vocab * cfg.d_model   # the embedding is a lookup
+    tokens = TRAIN_B * TRAIN_S
+    line = {"phase": "train", "batch": TRAIN_B, "seq": TRAIN_S,
+            "layers": cfg.n_layers, "params": n_params, "remat": "full",
+            "optimizer": "AdamW fp32 (mu, nu fp32)",
+            "losses": losses, "grad_norms": norms, "lrs": lrs,
+            "first_step_s": walls[0], "step_s": walls[1:],
+            "step_p50_s": p50, "tok_per_s": tokens / p50,
+            "model_tflop_per_step": 6.0 * dense * tokens / 1e12,
+            "mfu": 6.0 * dense * tokens / p50 / PEAK_FLOPS["bfloat16"],
+            "peak_mem_gb": peak / 1e9,
+            "state_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+            "launches_per_step": got, "expected_launches": want,
+            "device_ms": busy, "device_busy_share": busy / (p50 * 1e3),
+            "gemm_device_ms": dict(gemm_ms),
+            "flash_forward_device_ms": sum(
+                ms for k, (ms, _) in by_name.items() if "flash_" in k),
+            "flash_backward_device_ms": sum(
+                ms for k, (ms, _) in by_name.items()
+                if re.search(r"dkdv_|dq_|delta_kernel", k)),
+            "library_kernels": library, "top": top_kernels(by_name, 12)}
+    finite = all(math.isfinite(v) for v in losses + norms)
+    if not finite or not losses[-1] < losses[0]:
+        raise SystemExit(f"train: loss not finite or not falling: {line}")
+    if library:
+        raise SystemExit(f"train: library kernels in the profile: {library}")
+    del state, met, batch, prof
+    model.release_compute()
+    return line, fm, bwd, fa, fab
+
+
+def gemm_bwd_inputs(route, m, n, k, dt, gen):
+    """Operands of one backward product ``y [m, n]`` over a contraction of
+    k: for dx, dy [m, k] and w stored [n, k]; for dw, x stored [k, m] and
+    dy [k, n]; the contraction's factor scaled by 1 / sqrt(k)."""
+    import torch
+    a_shape, b_shape = ((m, k), (n, k)) if route == "dx" else ((k, m), (k, n))
+    a = torch.randn(a_shape, generator=gen, device="cuda").to(dt)
+    b = (torch.randn(b_shape, generator=gen, device="cuda")
+         / k ** 0.5).to(dt)
+    return a, b
+
+
+def gemm_bwd_call(route, a, b):
+    """(kernel call, plain call, library call) of one backward product."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    dt = a.dtype
+    if route == "dx":
+        return (lambda: ops.matmul_dx(a, b, dt),
+                lambda: ref.matmul_dx_ref(a, b, dt),
+                lambda: torch.matmul(a, b.T))
+    return (lambda: ops.matmul_dw(a, b, dt),
+            lambda: ref.matmul_dw_ref(a, b, dt),
+            lambda: torch.matmul(a.T, b))
+
+
+def grads_rel_err(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def gemm_bwd_vs_plain(bwd_shapes, fwd_shapes, gen) -> dict:
+    """The backward routes against their plain versions at every (route,
+    m, n, k) the train phase launched, bf16 and fp32 (TOL; two calls
+    bitwise equal); and ``FusedMatmulFn``'s gradients (the epilogue VJP,
+    dX, dW, the operands') against autograd through ``fused_matmul_ref``
+    at every forward (m, n, k, epilogue) it launched (BWD_RTOL)."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    errs, fn_errs, repeat = {}, {}, True
+    for route, m, n, k, _ in sorted({s_[:4] + (None,) for s_ in bwd_shapes}):
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            a, b = gemm_bwd_inputs(route, m, n, k, dt, gen)
+            fn, plain, _ = gemm_bwd_call(route, a, b)
+            y = fn()
+            err = float((y.float() - plain().float()).abs().max())
+            repeat &= bool(torch.equal(y, fn()))
+            if not err <= TOL[dname]:
+                raise SystemExit(f"gemm_bwd vs plain: {route} m={m} n={n} "
+                                 f"k={k} {dname} max err {err}")
+            errs[(route, m, n, k, dname)] = err
+            del a, b, y
+    for m, n, k, _, spec in sorted(fwd_shapes, key=lambda s_: s_[:3]):
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+            leaves = [x, w] + [v for _, vals, _ in epi for v in vals]
+            for t in leaves:
+                t.requires_grad_(True)
+            dy = torch.randn(m, n, generator=gen, device="cuda").to(dt)
+            got = torch.autograd.grad(
+                ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt), leaves,
+                dy)
+            want = torch.autograd.grad(
+                ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt),
+                leaves, dy)
+            err = grads_rel_err(got, want)
+            if not err <= BWD_RTOL[dname]:
+                raise SystemExit(f"FusedMatmulFn vs plain autograd: m={m} "
+                                 f"n={n} k={k} {spec} {dname}: {err}")
+            fn_errs[(m, n, k, spec, dname)] = err
+            del x, w, epi, leaves, dy, got, want
+    if not repeat:
+        raise SystemExit("gemm_bwd: two calls differ")
+    return {"phase": "gemm_bwd_vs_plain", "shapes": len(errs) // 2,
+            "tolerance": TOL, "function_rel_tolerance": BWD_RTOL,
+            "max_err": {f"{r} m={m} n={n} k={k}/{d}": e
+                        for (r, m, n, k, d), e in errs.items()},
+            "function_rel_err": {f"m={m} n={n} k={k} {list(sp)}/{d}": e
+                                 for (m, n, k, sp, d), e in fn_errs.items()},
+            "bitwise_repeat": repeat}, errs
+
+
+def flash_bwd_vs_plain(shapes) -> tuple:
+    """The flash backward against ``flash_attention_bwd_ref`` (the plain
+    version, explicit fp32 over the scores) and ``FlashAttentionFn``'s
+    gradients against autograd through ``attention_ref`` on fp32 copies,
+    in bf16 and fp32, at every shape the train phase launched and
+    FA_BWD_EXTRA (BWD_RTOL); the forward's lse against the plain
+    version's (1e-4 absolute); two calls bitwise equal."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    out, repeat = {}, True
+    for i, shape in enumerate(sorted(set(shapes) | set(FA_BWD_EXTRA))):
+        b, sq, skv, hq, hkv, d, causal = shape
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            q, k, v = flash_inputs(shape, dt, seed=40 + i)
+            o, lse = fa_ops.flash_attention(q, k, v, causal=causal,
+                                            return_lse=True)
+            _, lse_p = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                                  return_lse=True)
+            lse_err = float((lse - lse_p).abs().max())
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+            got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            repeat &= all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+            want = fa_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+            err = grads_rel_err(got, want)
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            fgot = torch.autograd.grad(
+                fa_ops.flash_attention(*qkv, causal=causal), qkv, do)
+            ref32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+            fwant = torch.autograd.grad(
+                fa_ref.attention_ref(*ref32, causal=causal), ref32,
+                do.float())
+            ferr = grads_rel_err(fgot, fwant)
+            if not (err <= BWD_RTOL[dname] and ferr <= BWD_RTOL[dname]
+                    and lse_err <= 1e-4):
+                raise SystemExit(f"flash_bwd vs plain: {shape} {dname}: rel "
+                                 f"{err}, autograd rel {ferr}, lse {lse_err}")
+            out[(shape, dname)] = (err, ferr, lse_err, max(
+                float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)))
+            del q, k, v, o, lse, do, got, again, want, qkv, fgot, ref32, fwant
+    if not repeat:
+        raise SystemExit("flash_bwd: two calls differ")
+    return {"phase": "flash_bwd_vs_plain", "rel_tolerance": BWD_RTOL,
+            "lse_tolerance": 1e-4,
+            "rel_err": {f"{s_}/{d}": e[0] for (s_, d), e in out.items()},
+            "autograd_rel_err": {f"{s_}/{d}": e[1]
+                                 for (s_, d), e in out.items()},
+            "lse_err": {f"{s_}/{d}": e[2] for (s_, d), e in out.items()},
+            "bitwise_repeat": repeat}, out
+
+
+#: small_train_parity's tolerances, those of the CPU tests against the JAX
+#: package (tests/test_torch_train.py): each leaf's first gradient within
+#: 2e-4 of its largest entry; each step's loss rtol 1e-5 and lr 1e-6; the
+#: grad norm rtol 1e-4 at the first step and 1e-3 after it (Adam's first
+#: update moves every weight by about +-lr, so an entry whose gradient is
+#: near zero and differs in its last places can move the other way)
+TRAIN_PAR_TOL = {"grad": 2e-4, "loss": 1e-5, "lr": 1e-6,
+                 "grad_norm": (1e-4, 1e-3)}
+
+
+def small_train_parity() -> dict:
+    """SMOKE in fp32 on the same weights, the card against the CPU (the
+    kernels' plain versions, which the CPU tests hold against the JAX
+    package): the first batch's gradient of every leaf (max |diff| / max
+    |grad| per leaf), then TRAIN_STEPS steps of ``make_train_step`` (loss,
+    lr and grad norm each step); ``ok`` against TRAIN_PAR_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tapir
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    from repro_torch.models.base import get_model
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = dataclasses.replace(get_smoke("qwen2_5_3b"), compute_dtype="float32")
+    cpu = get_model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    card = get_model(cfg, device="cuda", params={
+        "embed": cpu.embed.data, "ln_f": cpu.ln_f.data,
+        "lm_head": cpu.lm_head.data,
+        "blocks": {k: v.data for k, v in cpu.blocks.items()}})
+    pipe = TokenPipeline(DataConfig(seq_len=32, global_batch=2,
+                                    vocab=cfg.vocab))
+    opt = AdamWConfig(lr=1e-3, total_steps=TRAIN_STEPS, warmup_steps=1)
+    grads, mets = {}, {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        tcfg = TrainConfig(target="cpu" if dev == "cpu" else "gpu")
+        with tapir.use(tcfg.tapir_config()), model.trainable():
+            loss = model.loss(to_device(pipe.batch_at(0), dev))
+            grads[dev] = [g.cpu() for g in torch.autograd.grad(
+                loss, tree_leaves(model.param_tree()))]
+        step = make_train_step(model, opt, tcfg)
+        state = init_state(model, opt)
+        mets[dev] = []
+        for s_ in range(TRAIN_STEPS):
+            state, m = step(state, to_device(pipe.batch_at(s_), dev))
+            mets[dev].append([float(m[k]) for k in ("loss", "lr",
+                                                    "grad_norm")])
+    grad_err = grads_rel_err(grads["cuda"], grads["cpu"])
+    rel = [[abs(a - b) / max(abs(b), 1e-30) for a, b in zip(ra, rb)]
+           for ra, rb in zip(mets["cuda"], mets["cpu"])]
+    tol = TRAIN_PAR_TOL
+    ok = grad_err <= tol["grad"] and all(
+        r[0] <= tol["loss"] and r[1] <= tol["lr"]
+        and r[2] <= tol["grad_norm"][min(s_, 1)] for s_, r in enumerate(rel))
+    finite = all(math.isfinite(v) for r in mets["cuda"] for v in r)
+    return {"phase": "small_train_parity", "config": cfg.name,
+            "compute_dtype": "float32", "steps": TRAIN_STEPS,
+            "grad_rel_err": grad_err,
+            "step_rel_err": {"loss": [r[0] for r in rel],
+                             "lr": [r[1] for r in rel],
+                             "grad_norm": [r[2] for r in rel]},
+            "cuda": mets["cuda"], "cpu": mets["cpu"], "tolerance": tol,
+            "finite": finite, "ok": ok and finite}
+
+
+def gemm_bwd_entries(bwd_shapes, errs, gen, cfg) -> list:
+    """Per backward route shape of the train phase, bf16: the kernel, its
+    plain version and ``torch.matmul`` on the same (transposed) operands
+    (the yardstick; never called by the port), each timed alone with L2
+    flushed, and the bound: both operands read once, the output written
+    once, 2mnk bf16 FLOPs."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel
+    out = []
+    for (route, m, n, k, dts), launches in sorted(bwd_shapes.items()):
+        dt = torch.bfloat16
+        a, b = gemm_bwd_inputs(route, m, n, k, dt, gen)
+        fn, plain, lib = gemm_bwd_call(route, a, b)
+        ms = time_ms(fn)
+        nbytes = (a.numel() + b.numel() + m * n) * 2
+        t_bytes, t_ops = nbytes / HBM_BW, 2.0 * m * n * k / PEAK_FLOPS[
+            "bfloat16"]
+        p = kernel.plan(n, k, dt)
+        what = (label(k, n, cfg) if route == "dx" else label(n, m, cfg))
+        out.append({
+            "name": f"fused_matmul_{route}[train {what} m={m} n={n} k={k}]",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": launches,
+            "max_abs_err": errs[(route, m, n, k, "bfloat16")],
+            "ms": ms, "plain_ms": time_ms(plain),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lib),
+            "design": ("TMA ring + wgmma, w read as the K-major B operand "
+                       "(dY W^T)" if route == "dx" else
+                       "TMA ring + wgmma, x read as the MN-major A operand "
+                       "(transpose bit; X^T dY)")
+                      + f", 128x{p.bn} tile, split {p.split}, "
+                        f"{p.stages} stages",
+            "plan": p._asdict(),
+            "tflops": 2.0 * m * n * k / (ms * 1e-3) / 1e12,
+            "shape": [route, m, n, k]})
+        del a, b
+    return out
+
+
+def flash_bwd_entry(shape, launches: int, errs) -> dict:
+    """The flash backward at one train shape, bf16: the kernels (delta,
+    dK/dV, dQ), the plain version and SDPA's backward through autograd
+    (the yardstick, timed alone over a kept graph; never called by the
+    port), each timed alone with L2 flushed; the bound: q, k, v, o, dO and
+    lse read once, dq, dk, dv written once, and the 5 products of a
+    backward (S, dP, dV, dK, dQ: 2.5 forwards) at the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    b, sq, skv, hq, hkv, d, causal = shape
+    q, k, v = flash_inputs(shape, torch.bfloat16, seed=3)
+    o, lse = fa_ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = torch.randn(o.shape, device="cuda").to(torch.bfloat16)
+    fn = lambda: fa_ops.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, lse, do, causal)
+    plain = lambda: fa_ref.flash_attention_bwd_ref(  # noqa: E731
+        q, k, v, o, lse, do, causal)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        ot, (qt, kt, vt), dot, retain_graph=True)
+    ms = time_ms(fn)
+    nbytes = 2 * (4 * b * sq * hq * d + 4 * b * skv * hkv * d) \
+        + 4 * b * hq * sq
+    t_bytes = nbytes / HBM_BW
+    t_ops = 2.5 * flash_flops(shape) / PEAK_FLOPS["bfloat16"]
+    entry = {"name": f"flash_attention_bwd[train B={b} Sq={sq} Skv={skv} "
+                     f"Hq={hq} Hkv={hkv} D={d}{' causal' if causal else ''}]",
+             "route": "cuda", "source": FA_BWD_SOURCE,
+             "replaces": FA_REPLACES, "launches": launches,
+             "max_abs_err": errs[(shape, "bfloat16")][3], "ms": ms,
+             "plain_ms": time_ms(plain),
+             "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": time_ms(lib),
+             "design": "delta pass, then dK/dV (one block per 64 keys x K/V "
+                       "head, the group's query heads in order) and dQ (one "
+                       "block per 64 queries x head); mma.sync m16n8k16, "
+                       "4 warps, cp.async double buffer, no atomics",
+             "tflops": 2.5 * flash_flops(shape) / (ms * 1e-3) / 1e12,
+             "shape": list(shape)}
+    del q, k, v, o, lse, do, qt, kt, vt, ot, dot
+    return entry
 
 
 # -- RWKV6-7B ----------------------------------------------------------------
@@ -1624,8 +2108,10 @@ def ptxas_summary(report: str) -> dict:
         hit = re.search(r"Function properties for _Z(\d+)(\w+)", line)
         if hit:   # the mangled name: its length, then the name
             size, rest = int(hit[1]), hit[2]
-            arg = re.match(r"ILi(\d+)E", rest[size:])
-            name = rest[:size] + (f"<{arg[1]}>" if arg else "")
+            arg = re.match(r"I((?:Li\d+E)+)E", rest[size:])
+            name = rest[:size] + (
+                f"<{', '.join(re.findall(r'Li(\d+)E', arg[1]))}>"
+                if arg else "")
             out[name] = {}
             continue
         if name is None:
@@ -1966,6 +2452,36 @@ def qwen_phases() -> list:
     for line in decode_paths(model, cfg):
         emit(line)
 
+    # -- 9c. training at full width ----------------------------------------
+    # what serving left on the card goes first: the engine's pools, the
+    # graphs and programs, the compute-dtype copy of the weights
+    del eng, prof
+    tapir.clear_cache()
+    model.release_compute()
+    torch.cuda.empty_cache()
+    train, fm_tr, bwd_tr, fa_tr, fab_tr = train_phase(model, cfg)
+    emit(train)
+    fm_paths.update(fm_tr)
+    for s_ in fm_tr:
+        phase_of.setdefault(s_, "train")
+    flash_paths += [("train", s_[:6] + (s_[7],), c) for s_, c in fa_tr.items()]
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    gb_line, gb_errs = gemm_bwd_vs_plain(bwd_tr, fm_tr, gen)
+    emit(gb_line)
+    fab_shapes = [s_[:6] + (s_[7],) for s_ in fab_tr]
+    fb_line, fb_errs = flash_bwd_vs_plain(fab_shapes)
+    emit(fb_line)
+    tpar = small_train_parity()
+    emit(tpar)
+    if not tpar["ok"]:
+        raise SystemExit(f"small train parity: {tpar}")
+    shapes = sorted(fm_paths, key=lambda s: (s[0], s[1], s[2]))
+    for s_ in fm_tr:
+        if s_ not in errs:   # a forward shape only the train phase made
+            errs.update(gemm_vs_plain([s_], gen, lambda x_: f"train {x_}"))
+
     # -- 10. times at the path shapes -------------------------------------
     entries = gemm_times(
         shapes, fm_paths, errs, gen,
@@ -2000,7 +2516,23 @@ def qwen_phases() -> list:
           "flash_tflops": {e["name"]: e["tflops"] for e in fa_entries},
           "flash_design": {e["name"]: e["design"] for e in fa_entries}})
 
-    return entries + fa_entries
+    bwd_entries = gemm_bwd_entries(bwd_tr, gb_errs, gen, cfg)
+    bwd_entries += [flash_bwd_entry(s_[:6] + (s_[7],), c, fb_errs)
+                    for s_, c in fab_tr.items()]
+    emit({"phase": "train_times",
+          "step_gemm_dx_ms": sum(e["ms"] * e["launches"] for e in bwd_entries
+                                 if e["name"].startswith("fused_matmul_dx")),
+          "step_gemm_dw_ms": sum(e["ms"] * e["launches"] for e in bwd_entries
+                                 if e["name"].startswith("fused_matmul_dw")),
+          "step_flash_bwd_ms": sum(
+              e["ms"] * e["launches"] for e in bwd_entries
+              if e["name"].startswith("flash_attention_bwd")),
+          "step_bwd_bound_ms": sum(e["bound_ms"] * e["launches"]
+                                   for e in bwd_entries),
+          "step_bwd_library_ms": sum(e["library_ms"] * e["launches"]
+                                     for e in bwd_entries),
+          "bwd_tflops": {e["name"]: e["tflops"] for e in bwd_entries}})
+    return entries + fa_entries + bwd_entries
 
 
 def gemm_times_again(out_path: str, plan) -> int:
@@ -2194,12 +2726,14 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     # one nvcc per source, all started together; ptxas reports on stderr
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(lambda mod: mod.build(verbose=True),
-                             (kernel, fa_kernel, ls_kernel)))
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda build: build(verbose=True),
+                             (kernel.build, fa_kernel.build,
+                              ls_kernel.build, fa_kernel.build_bwd)))
     gemm_ptxas = ptxas_summary(REPORTS["fused_matmul"])
     flash_ptxas = ptxas_summary(REPORTS["flash_attention"])
     scan_ptxas = ptxas_summary(REPORTS["linear_scan"])
+    flash_bwd_ptxas = ptxas_summary(REPORTS["flash_attention_bwd"])
     scan_mma = sass_count(libs[2], "scan_bf16_kernel", "HMMA")
     emit({"phase": "build", "card": card,
           "kind": torch.cuda.get_device_name(0),
@@ -2207,13 +2741,17 @@ def main() -> int:
           "libraries": [lib.name for lib in libs],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "gemm_ptxas": gemm_ptxas, "flash_ptxas": flash_ptxas,
-          "scan_ptxas": scan_ptxas, "scan_bf16_hmma_instructions": scan_mma})
+          "scan_ptxas": scan_ptxas, "flash_bwd_ptxas": flash_bwd_ptxas,
+          "scan_bf16_hmma_instructions": scan_mma})
     if not scan_mma:
         raise SystemExit("build: the bf16 scan kernel has no tensor-core "
                          f"(HMMA) instruction, or no cuobjdump: {scan_mma}")
     for what, report, prefix in (("GEMM", gemm_ptxas, "gemm_bf16"),
                                  ("flash", flash_ptxas, "flash_bf16"),
-                                 ("scan", scan_ptxas, "scan_bf16")):
+                                 ("scan", scan_ptxas, "scan_bf16"),
+                                 ("flash dK/dV", flash_bwd_ptxas,
+                                  "dkdv_bf16"),
+                                 ("flash dQ", flash_bwd_ptxas, "dq_bf16")):
         spills = {k: v for k, v in report.items()
                   if k.startswith(prefix) and v.get("spill_stores", 0)}
         if spills or not any(k.startswith(prefix) for k in report):

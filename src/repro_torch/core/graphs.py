@@ -41,6 +41,10 @@ Each replay adds to the kernel wrappers' launch counts what the capture's
 Python added to them, so the counts stay true; the replay right after a
 capture adds nothing, since the capture itself counted.
 
+Under grad mode a program whose inputs require grad always runs eagerly:
+autograd records the eager run, and a replay would record nothing (the
+training step never replays a graph).
+
 A capture or a replay that fails raises: nothing falls back to the eager
 walk.  The capture and replay themselves live behind a small backend
 (:class:`CudaGraphs`) so the policy can be tested on the CPU with a fake.
@@ -221,6 +225,9 @@ class GraphCache:
         names = list(inputs)
         vals = [inputs[n] for n in names]
         if not (capture and written) or not self.backend.accepts(vals):
+            return fn(inputs)
+        if torch.is_grad_enabled() and any(v.requires_grad for v in vals):
+            # autograd records the eager run; a replay would record nothing
             return fn(inputs)
         for mask, table in list(self._graphs.get(key, {}).items()):
             g = table.get(tuple(_view(vals[j]) for j in mask))

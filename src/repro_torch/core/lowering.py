@@ -40,7 +40,9 @@ cache slab keeps its storage (and ``data_ptr``) across steps.  The
 anti edges run every earlier reader of the buffer (``Node.anti``) before
 the write; a write still goes to a copy where one of those readers
 returned a view of the buffer (its value would change under it), or
-where the buffer is not a region input.
+where the buffer is not a region input.  Under grad mode a donated write
+whose buffer or update requires grad raises: autograd keeps the values a
+program read, and an in-place write would change them.
 """
 from __future__ import annotations
 
@@ -308,6 +310,13 @@ def _donated_in_place(node: Node, nodes: dict, env: dict) -> bool:
     change under its consumers.  A host-side check, no sync."""
     if not _donates_input(node, nodes):
         return False
+    if torch.is_grad_enabled() and any(
+            isinstance(env.get(i), torch.Tensor) and env[i].requires_grad
+            for i in (node.donates, *node.inputs)):
+        raise RuntimeError(
+            "a region program that requires grad cannot write its input in "
+            "place (autograd keeps the value it read): run the cache "
+            "writes under torch.no_grad()")
     store = env[node.donates].untyped_storage().data_ptr()
     return not any(isinstance(v, torch.Tensor)
                    and v.untyped_storage().data_ptr() == store

@@ -25,9 +25,15 @@ writes an input in place replays on CUDA inputs as one CUDA graph
 (``core.graphs``), the counterpart of the reference's one ``jax.jit`` per
 region; the per-op control (``mode="opaque"``) always runs eagerly.
 
+Training: the region programs run eagerly under autograd (a program whose
+inputs require grad is never replayed as a CUDA graph and never writes an
+input in place), and ``scan_layers`` takes the config's ``remat``:
+``"full"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+
 Not ported yet (see ROADMAP): the on-disk program cache, ``expert_mlp``,
-``lstm_step``, ``conv2d``, ``invalidate_mesh`` and ``scan_layers``' remat
-policies (they wait for training).
+``lstm_step``, ``conv2d``, ``invalidate_mesh`` and the ``"dots"`` remat
+policy (it waits for ``pick_remat``).
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import graphs
 from .dtypes import dtype_name, to_torch_dtype
@@ -64,6 +71,15 @@ class TapirConfig:
     #: region capture; False runs every op in the per-op regime (the A/B
     #: control)
     regions: bool = True
+    #: ``scan_layers``' remat policy under grad: "none" keeps every layer's
+    #: activations, "full" recomputes each layer in the backward; "dots"
+    #: (keep the products) waits for ``pick_remat``
+    remat: str = "none"
+
+    def __post_init__(self):
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                             f"{self.remat!r}")
 
     def resolved_cost_model(self) -> CostModel:
         if self.cost_model is not None:
@@ -1054,18 +1070,50 @@ def wkv_scan(q, k, v, w, u=None):
 # ---------------------------------------------------------------------------
 
 
+def _run_under(cfg: TapirConfig, body: Callable, *args):
+    with use(cfg):
+        return body(*args)
+
+
 def scan_layers(body: Callable, stacked_params, x):
     """Run ``x = body(params_i, x)`` over a stacked layer tree (every leaf
     ``[L, ...]``), layer by layer in order.
 
-    One Python loop serves both regimes: eagerly each ``a[i]`` is a view
-    of the stacked tensor, and under region capture it is an ``index``
-    node, so the stack unrolls into the region graph and the passes see
-    across layers.  The reference's ``lax.scan`` / unroll choice has no
-    counterpart here (PyTorch runs eagerly)."""
+    One Python loop serves both regimes.  Eagerly the per-layer params are
+    the views ``unbind(0)`` makes of each stacked leaf, once: the same
+    storage (and ``data_ptr``) as ``a[i]``, but under autograd one
+    ``UnbindBackward`` stacks the L gradients once, where L ``a[i]`` would
+    each zero-fill a whole stacked gradient.  Under region capture ``a[i]``
+    is an ``index`` node, so the stack unrolls into the region graph and
+    the passes see across layers.  The reference's ``lax.scan`` / unroll
+    choice has no counterpart here (PyTorch runs eagerly).
+
+    The config's ``remat`` wraps each layer as the reference's
+    ``jax.checkpoint`` does: under ``"full"``, when grad is enabled, a
+    layer keeps only its inputs and is recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` raises until
+    ``pick_remat`` is ported."""
+    cfg = get_config()
+    if cfg.remat == "dots":
+        raise NotImplementedError("remat='dots' waits for pick_remat (the "
+                                  "captured training step)")
     leaves, spec = _flatten(stacked_params)
-    for i in range(int(leaves[0].shape[0])):
-        x = body(_unflatten(spec, [a[i] for a in leaves]), x)
+    n = int(leaves[0].shape[0])
+    if any(isinstance(a, TracedTensor) for a in leaves):
+        layers = [[a[i] for a in leaves] for i in range(n)]
+    else:
+        per_leaf = [a.unbind(0) for a in leaves]
+        layers = [[u[i] for u in per_leaf] for i in range(n)]
+    fn = body
+    if (cfg.remat == "full" and torch.is_grad_enabled()
+            and not isinstance(x, TracedTensor)):
+        # the recompute may run on autograd's device thread: it takes this
+        # thread's config along
+        def fn(p, h):
+            return torch.utils.checkpoint.checkpoint(
+                _run_under, cfg, body, p, h, use_reentrant=False)
+    for p_i in layers:
+        x = fn(_unflatten(spec, p_i), x)
     return x
 
 

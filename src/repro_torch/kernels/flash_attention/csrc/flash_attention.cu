@@ -67,6 +67,12 @@
 //    bitwise unchanged.  Rows past Sq compute on TMA's zero rows and are
 //    not stored.
 //
+// The backward (flash_attention_bwd.cu) needs each query row's natural
+// log-sum-exp of its scaled scores: given an `lse` pointer, both routes
+// write it, fp32 [B, Hq, Sq], from the m and l they already hold (the bf16
+// route's m is in base 2: lse = (m + log2 l) ln 2).  The forward, serving
+// and prefill paths pass null, and then nothing else changes.
+//
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): flash_attention_launch returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for arguments the kernel does not take;
@@ -103,6 +109,7 @@ __host__ __device__ constexpr int bf16_smem(int dp) {
 
 struct Bf16Params {
   void* o;
+  float* lse;   // [B, Hq, Sq] or null
   int B, Sq, Skv, Hq, Hkv, D;
   int causal, q_offset, n_qt;
   float scale;
@@ -507,6 +514,15 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                      : "memory");
       }
     }
+    if (p.lse != nullptr && lane % 4 == 0) {   // a row's 4 threads agree
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 16 * warp + lane / 4 + 8 * r;
+        if (row < p.Sq)
+          p.lse[((int64_t)b * p.Hq + h) * p.Sq + row] =
+              (m[r] + log2f(l[r])) * 0.6931471805599453f;
+      }
+    }
     asm volatile("bar.sync %0, 128;" :: "r"(3 + wg) : "memory");
     __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(p.o);
 #pragma unroll
@@ -538,6 +554,7 @@ constexpr int S_LD = FBKV + 4;   // fp32 score tile stride
 
 struct F32Params {
   const float* q; const float* k; const float* v; float* o;
+  float* lse;   // [B, Hq, Sq] or null
   int B, Sq, Skv, Hq, Hkv, D;
   int64_t qb, qs, qh, kb, ks, kh, vb, vs, vh;   // strides, in elements
   int causal, q_offset, vec;
@@ -711,6 +728,8 @@ __global__ void __launch_bounds__(FTHREADS) flash_f32_kernel(F32Params p) {
 
   const int row = q0 + r;
   if (row < p.Sq) {
+    if (p.lse != nullptr && half == 0)
+      p.lse[((int64_t)b * p.Hq + h) * p.Sq + row] = m + logf(l);
     const float denom = l == 0.0f ? 1.0f : l;
     float* out = p.o + (((int64_t)b * p.Sq + row) * p.Hq + h) * p.D;
 #pragma unroll
@@ -768,7 +787,7 @@ static bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
 
 template <int DP>
 static int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                        const long long* s, int causal, float scale,
                        cudaStream_t st) {
   CUtensorMap mq, mk, mv;
@@ -787,6 +806,7 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
   }
   Bf16Params p;
   p.o = o;
+  p.lse = lse;
   p.B = B; p.Sq = Sq; p.Skv = Skv; p.Hq = Hq; p.Hkv = Hkv; p.D = D;
   p.causal = causal;
   p.q_offset = causal ? Skv - Sq : 0;
@@ -836,11 +856,14 @@ extern "C" int flash_attention_tiles(int dtype, int D, int* out) {
 
 // strides: q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h in elements (the
 // head dim is contiguous); o is written contiguous [B, Sq, Hq, D]; scores
-// are scaled by `scale` (1 / sqrt of the true head dim: D may be padded).
+// are scaled by `scale` (1 / sqrt of the true head dim: D may be padded,
+// and the bf16 route folds log2 e in); lse, when not null, gets each
+// row's natural log-sum-exp, fp32 [B, Hq, Sq].
 // bf16 takes TMA-addressable layouts only: D % 8 == 0, 16-byte aligned
 // bases and strides.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
+                                      const void* v, void* o, float* lse,
+                                      int dtype,
                                       int B, int Sq, int Skv, int Hq,
                                       int Hkv, int D,
                                       const long long* strides, int causal,
@@ -856,9 +879,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (!aligned16(q, k, v)) tma = false;
     if (!tma) return (int)cudaErrorInvalidValue;
     if (bf16_head_pad(D) == 64)
-      return launch_bf16<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, strides,
+      return launch_bf16<64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, strides,
                              causal, scale, st);
-    return launch_bf16<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, strides,
+    return launch_bf16<128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, strides,
                             causal, scale, st);
   }
   if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
@@ -867,6 +890,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.k = reinterpret_cast<const float*>(k);
   p.v = reinterpret_cast<const float*>(v);
   p.o = reinterpret_cast<float*>(o);
+  p.lse = lse;
   p.B = B; p.Sq = Sq; p.Skv = Skv; p.Hq = Hq; p.Hkv = Hkv; p.D = D;
   p.qb = strides[0]; p.qs = strides[1]; p.qh = strides[2];
   p.kb = strides[3]; p.ks = strides[4]; p.kh = strides[5];

@@ -26,6 +26,8 @@ MAX_HEAD_DIM = 128
 ALIGN = 8
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+#: the backward's kernels (delta, dK/dV, dQ), a library of their own
+SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
 
 
 class Plan(NamedTuple):
@@ -69,16 +71,19 @@ def score_scale(dtype, d: int) -> float:
 
 
 def tma_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t [B, S, H, D]`` (head dim contiguous) as the bf16 route reads it:
-    itself when TMA can address it (D and every stride of a dim longer than
-    1 a multiple of ``ALIGN`` elements, the base 16-byte aligned), else a
-    contiguous copy whose head dim is zero-padded to the next multiple of
-    ``ALIGN`` (a zero column adds nothing to a score, and the output's
-    padded columns are dropped).  A function of D and alignment alone."""
+    """``t [B, S, H, D]`` with rows of whole 16-byte pieces, as the bf16
+    route's TMA boxes and the backward's ``cp.async`` copies read it:
+    itself when it is so (the head dim contiguous, D and every stride of a
+    dim longer than 1 a multiple of 16 bytes, the base 16-byte aligned),
+    else a contiguous copy whose head dim is zero-padded to the next
+    multiple of 16 bytes (a zero column adds nothing to a score or a
+    delta, and the padded output columns are dropped).  A function of D,
+    the dtype and alignment alone."""
+    per = 16 // t.element_size()
     d = t.shape[-1]
-    dp = -(-d // ALIGN) * ALIGN
-    strides_ok = all(s % ALIGN == 0 for s in strides(t))
-    if dp == d and strides_ok and t.data_ptr() % 16 == 0:
+    dp = -(-d // per) * per
+    if (dp == d and t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % per == 0 for s in strides(t))):
         return t
     out = t.new_zeros(t.shape[:-1] + (dp,))
     out[..., :d] = t
@@ -96,12 +101,18 @@ def strides(t: torch.Tensor) -> tuple:
 
 _lock = threading.Lock()
 _lib = None
+_lib_bwd = None
 
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library (once per source digest) and return its
     path; ``verbose`` prints nvcc's ptxas report to stderr."""
     return build_library(SOURCE, verbose)
+
+
+def build_bwd(verbose: bool = False) -> Path:
+    """Compile the backward's library (once per source digest)."""
+    return build_library(SOURCE_BWD, verbose)
 
 
 def library() -> ctypes.CDLL:
@@ -111,7 +122,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.flash_attention_launch
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                            + [ctypes.POINTER(ctypes.c_longlong),
                               ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -121,6 +132,21 @@ def library() -> ctypes.CDLL:
             tiles.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def library_bwd() -> ctypes.CDLL:
+    """The loaded backward library (built on first call)."""
+    global _lib_bwd
+    with _lock:
+        if _lib_bwd is None:
+            lib = ctypes.CDLL(str(build_bwd()))
+            fn = lib.flash_attention_bwd_launch
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                           + [ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _lib_bwd = lib
+    return _lib_bwd
 
 
 def kernel_tiles(dtype, d: int) -> Plan:
@@ -136,19 +162,45 @@ def kernel_tiles(dtype, d: int) -> Plan:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           o: torch.Tensor, causal: bool, scale: float) -> None:
+           o: torch.Tensor, causal: bool, scale: float,
+           lse: torch.Tensor = None) -> None:
     """Launch on the current stream: ``o = attention(q, k, v)`` with q
     ``[B,Sq,Hq,D]`` and k/v ``[B,Skv,Hkv,D]`` read through their strides
     (the head dim contiguous), scores scaled by ``scale``, and ``o``
-    contiguous ``[B,Sq,Hq,D]``.  The caller has checked devices, dtypes and
-    shapes, and made bf16 operands TMA-addressable."""
+    contiguous ``[B,Sq,Hq,D]``; with ``lse`` (fp32 ``[B, Hq, Sq]``) also
+    each row's natural log-sum-exp.  The caller has checked devices,
+    dtypes and shapes, and made bf16 operands TMA-addressable."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     strd = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
                                      for s in strides(t)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), DT[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), DT[q.dtype],
         b, sq, skv, hq, hkv, d, strd, int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+
+
+def launch_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, causal: bool,
+               scale: float) -> None:
+    """Launch the backward on the current stream: ``delta`` (fp32 ``[B, Hq,
+    Sq]`` scratch) = rowsum(do * o), then dk, dv and dq (contiguous, in the
+    operands' dtype) from q, k, v, o, do (``[B, S, H, D]`` through their
+    strides, rows of 16-byte pieces: ``tma_operand``) and the forward's
+    ``lse``; scores scaled by ``scale`` = 1 / sqrt(D).  The caller has
+    checked devices, dtypes and shapes."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    strd = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
+                                      for s in strides(t)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = library_bwd().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), DT[q.dtype], b, sq, skv, hq, hkv, d, strd,
+        int(causal), scale, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")

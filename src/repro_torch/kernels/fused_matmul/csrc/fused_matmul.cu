@@ -404,11 +404,13 @@ __device__ __forceinline__ void wgmma_wait() {
 #define F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
               "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d += A[64 x 16] (K-major) * B[16 x N] (MN-major: imm-trans-b = 1), fp32
-// accumulate (the scale-d predicate is true).
-template <int N> struct Wgmma;
+// d += A[64 x 16] * B[16 x N], fp32 accumulate (the scale-d predicate is
+// true).  TA / TB are wgmma's transpose bits: TA = 1 reads A MN-major (the
+// backward's x^T), TB = 1 reads B MN-major (the forward's w [k, n]); 0 reads
+// the operand K-major.
+template <int N, int TA, int TB> struct Wgmma;
 
-template <> struct Wgmma<64> {
+template <int TA, int TB> struct Wgmma<64, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -418,13 +420,13 @@ template <> struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 1;\n}"
+        "%32, %33, p, 1, 1, %35, %36;\n}"
         : F8(0), F8(8), F8(16), F8(24)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
-template <> struct Wgmma<128> {
+template <int TA, int TB> struct Wgmma<128, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -438,13 +440,13 @@ template <> struct Wgmma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n}"
+        "%64, %65, p, 1, 1, %67, %68;\n}"
         : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
-template <> struct Wgmma<256> {
+template <int TA, int TB> struct Wgmma<256, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[128], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -466,10 +468,10 @@ template <> struct Wgmma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, 1;\n}"
+        "%128, %129, p, 1, 1, %131, %132;\n}"
         : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56),
           F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
@@ -479,13 +481,24 @@ template <> struct Wgmma<256> {
 // [rank * tiles_per_split, +tiles_per_split) of its cluster's rank.
 // Shared memory: `stages` ring slots of {x: 128 rows x 64 k, w: 64 k x BN
 // as BN/64 sub-tiles of 64 columns}, each 128-byte swizzled by TMA, then
-// the full/empty barriers.  After the main loop the ring holds the
+// the full/empty barriers.
+//
+// Operand layouts (the backward's products read their operands in place):
+//  * TA = 0: x is [m, k] row-major, the K-major A operand (rows of 64 k,
+//    128 bytes); TA = 1: x is stored [k, m] (the product takes x^T, the
+//    weight gradient's X^T dY), the MN-major A operand, as two sub-tiles
+//    of 64 m columns x 64 k rows, one per consumer warpgroup.
+//  * TB = 1: w is [k, n] row-major, the MN-major B operand (the forward);
+//    TB = 0: w is stored [n, k] (the product takes w^T, the input
+//    gradient's dY W^T), the K-major B operand, BN rows of 64 k.
+//  Each layout is one TMA box shape and one wgmma transpose bit: no
+//  operand is copied or transposed in memory.  After the main loop the ring holds the
 // accumulators in fragment order (part_bytes) where the epilogue or a
 // split reads them back.
 //
 // wgmma accumulator layout (m64nN, f32): thread t of a warpgroup holds
 // d[4j + 2h + b] = D[16 (t / 32) + (t % 32) / 4 + 8h][8j + 2 (t % 4) + b].
-template <int BN>
+template <int BN, int TA, int TB>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_w,
@@ -530,11 +543,21 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
         uint8_t* slot = smem + st * STAGE;
         mbar_expect_tx(&full[st], STAGE);
         const int kc = (kt0 + i) * BK;
-        tma_load_2d(slot, &map_x, &full[st], kc, row0);
+        if (TA == 0) {
+          tma_load_2d(slot, &map_x, &full[st], kc, row0);
+        } else {
+          tma_load_2d(slot, &map_x, &full[st], row0, kc);
+          tma_load_2d(slot + B_SUB, &map_x, &full[st], row0 + 64, kc);
+        }
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(slot + A_TILE + j * B_SUB, &map_w, &full[st],
-                      col0 + 64 * j, kc);
+        for (int j = 0; j < BN / 64; ++j) {
+          if (TB == 1)
+            tma_load_2d(slot + A_TILE + j * B_SUB, &map_w, &full[st],
+                        col0 + 64 * j, kc);
+          else
+            tma_load_2d(slot + A_TILE + j * B_SUB, &map_w, &full[st], kc,
+                        col0 + 64 * j);
+        }
         if (i == min(stages, nk) - 1)   // the ring is full: meanwhile
           prefetch_operands(e, row0, m, col0 + rank * (BN / split),
                             BN / split, n);
@@ -559,14 +582,20 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
       mbar_wait(&full[st], ph);
       const uint32_t a = base + st * STAGE + wg * (64 * BK * 2);
       const uint32_t b = base + st * STAGE + A_TILE;
-      // A: K-major, 8-row groups 1024 B apart.  B: MN-major, 8-k-row
-      // groups 1024 B apart, 64-column sub-tiles B_SUB apart.
-      const uint64_t da = smem_desc(a, 16, 1024);
-      const uint64_t db = smem_desc(b, B_SUB, 1024);
+      // K-major: 8-row groups 1024 B apart, a k step +32 B.  MN-major:
+      // 8-k-row groups 1024 B apart, 64-column sub-tiles B_SUB apart, a k
+      // step +16 rows (2 KB).  A warpgroup's 64 rows of A are 8 KB
+      // (= B_SUB) into the slot in either layout.
+      const uint64_t da = TA ? smem_desc(a, B_SUB, 1024)
+                             : smem_desc(a, 16, 1024);
+      const uint64_t db = TB ? smem_desc(b, B_SUB, 1024)
+                             : smem_desc(b, 16, 1024);
+      constexpr uint64_t step_a = TA ? (16 * 128 >> 4) : 2;
+      constexpr uint64_t step_b = TB ? (16 * 128 >> 4) : 2;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)   // +32 B of A, +16 rows of B
-        Wgmma<BN>::run(d, da + 2 * kk, db + (16 * 128 >> 4) * kk);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<BN, TA, TB>::run(d, da + step_a * kk, db + step_b * kk);
       wgmma_commit();
       wgmma_wait<1>();   // the previous k tile's group has finished
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -635,10 +664,15 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
 
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 
+// x element (r, c) of the [m, k] operand sits at x[r ldx + c], or at
+// x[c ldx + r] with ta (x stored [k, m]); w element (r, c) of [k, n] at
+// w[r ldw + c], or at w[c ldw + r] with tb (w stored [n, k]).  Each tile
+// load walks the stored rows, so neighbouring threads read neighbouring
+// addresses in every layout.
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                void* __restrict__ y, int m, int n, int k, int out_dt,
-                Epilogue e) {
+                void* __restrict__ y, int m, int n, int k, int64_t ldx,
+                int64_t ldw, int ta, int tb, int out_dt, Epilogue e) {
   __shared__ float As[FBK][FBM + 1];
   __shared__ float Bs[FBK][FBN];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -648,14 +682,16 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   for (int k0 = 0; k0 < k; k0 += FBK) {
     for (int v = threadIdx.x; v < FBM * FBK; v += 256) {
-      int r = v / FBK, c = v % FBK;
+      int r = ta ? v % FBM : v / FBK, c = ta ? v / FBM : v % FBK;
       int64_t gr = row0 + r, gc = k0 + c;
-      As[c][r] = (gr < m && gc < k) ? x[gr * k + gc] : 0.0f;
+      As[c][r] = (gr < m && gc < k) ? x[ta ? gc * ldx + gr : gr * ldx + gc]
+                                    : 0.0f;
     }
     for (int v = threadIdx.x; v < FBK * FBN; v += 256) {
-      int r = v / FBN, c = v % FBN;
+      int r = tb ? v % FBK : v / FBN, c = tb ? v / FBK : v % FBN;
       int64_t gr = k0 + r, gc = col0 + c;
-      Bs[r][c] = (gr < k && gc < n) ? w[gr * n + gc] : 0.0f;
+      Bs[r][c] = (gr < k && gc < n) ? w[tb ? gc * ldw + gr : gr * ldw + gc]
+                                    : 0.0f;
     }
     __syncthreads();
     for (int kk = 0; kk < FBK; ++kk) {
@@ -719,7 +755,7 @@ static bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+template <int BN, int TA, int TB>
 static int launch_bf16(const void* x, const void* w, void* y, int m, int n,
                        int k, int ldx, int ldw, int split, int stages,
                        int out_dt, const Epilogue& e, cudaStream_t st) {
@@ -728,13 +764,16 @@ static int launch_bf16(const void* x, const void* w, void* y, int m, int n,
   if (smem > SMEM_MAX || ring < part_bytes(BN) || (BN / 8) % split != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_x, map_w;
-  if (!make_map(&map_x, x, k, m, ldx, CTA_M)
-      || !make_map(&map_w, w, n, k, ldw, BK))
-    return (int)cudaErrorInvalidValue;
+  const bool ok_x = TA ? make_map(&map_x, x, m, k, ldx, BK)
+                       : make_map(&map_x, x, k, m, ldx, CTA_M);
+  const bool ok_w = TB ? make_map(&map_w, w, n, k, ldw, BK)
+                       : make_map(&map_w, w, k, n, ldw, 64);
+  if (!ok_x || !ok_w) return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        gemm_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_bf16_kernel<BN, TA, TB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     configured = true;
@@ -753,18 +792,40 @@ static int launch_bf16(const void* x, const void* w, void* y, int m, int n,
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;   // a split's blocks form one cluster
-  cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<BN>, map_x,
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<BN, TA, TB>,
+                                       map_x,
                                        map_w, y, m, n, k_tiles, per, split,
                                        stages, out_dt, e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <int TA, int TB>
+static int launch_bn(int bn, const void* x, const void* w, void* y, int m,
+                     int n, int k, int ldx, int ldw, int split, int stages,
+                     int out_dt, const Epilogue& e, cudaStream_t st) {
+  if (bn == 64)
+    return launch_bf16<64, TA, TB>(x, w, y, m, n, k, ldx, ldw, split, stages,
+                                   out_dt, e, st);
+  if (bn == 128)
+    return launch_bf16<128, TA, TB>(x, w, y, m, n, k, ldx, ldw, split,
+                                    stages, out_dt, e, st);
+  if (bn == 256)
+    return launch_bf16<256, TA, TB>(x, w, y, m, n, k, ldx, ldw, split,
+                                    stages, out_dt, e, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // codes: 5 * MAX_STAGES ints laid out fn[], kind[], head[], cast[], opdt[].
-// x is [m, k] with rows of ldx elements, w [k, n] with rows of ldw; bn,
-// split and stages are the bf16 route's plan (kernel.py::plan).
+// y [m, n] = chain(A @ B): A is x [m, k] with rows of ldx elements, or with
+// ta x stored [k, m] (A = x^T); B is w [k, n] with rows of ldw, or with tb
+// w stored [n, k] (B = w^T).  bn, split and stages are the bf16 route's
+// plan (kernel.py::plan).  The three layouts the port launches: the
+// forward (ta = tb = 0), the input gradient dY W^T (tb) and the weight
+// gradient X^T dY (ta).
 extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
                                    int m, int n, int k, int ldx, int ldw,
+                                   int ta, int tb,
                                    int in_dt, int out_dt, int bn, int split,
                                    int stages, int n_stages,
                                    const int* codes,
@@ -783,28 +844,30 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
     e.op[s] = operands[s];
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if ((ta != 0 && ta != 1) || (tb != 0 && tb != 1) || (ta && tb))
+    return (int)cudaErrorInvalidValue;
+  // the stored rows' lengths: x's are k long (m with ta), w's n (k with tb)
+  const int rx = ta ? m : k, rw = tb ? k : n;
   if (in_dt != DT_BF16) {
-    if (ldx != k || ldw != n) return (int)cudaErrorInvalidValue;
+    if (ldx < rx || ldw < rw) return (int)cudaErrorInvalidValue;
     dim3 grid((n + FBN - 1) / FBN, (m + FBM - 1) / FBM);
     gemm_f32_kernel<<<grid, 256, 0, st>>>(
         reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(w),
-        y, m, n, k, out_dt, e);
+        y, m, n, k, ldx, ldw, ta, tb, out_dt, e);
     return (int)cudaGetLastError();
   }
   // TMA: 16-byte-aligned bases and row strides, no empty box
-  if (k == 0 || ldx < k || ldw < n || ldx % 8 != 0 || ldw % 8 != 0
+  if (k == 0 || ldx < rx || ldw < rw || ldx % 8 != 0 || ldw % 8 != 0
       || reinterpret_cast<uintptr_t>(x) % 16 != 0
       || reinterpret_cast<uintptr_t>(w) % 16 != 0
       || split < 1 || split > 8 || stages < 2 || stages > 8)
     return (int)cudaErrorInvalidValue;
-  if (bn == 64)
-    return launch_bf16<64>(x, w, y, m, n, k, ldx, ldw, split, stages, out_dt,
-                           e, st);
-  if (bn == 128)
-    return launch_bf16<128>(x, w, y, m, n, k, ldx, ldw, split, stages,
-                            out_dt, e, st);
-  if (bn == 256)
-    return launch_bf16<256>(x, w, y, m, n, k, ldx, ldw, split, stages,
-                            out_dt, e, st);
-  return (int)cudaErrorInvalidValue;
+  if (ta)
+    return launch_bn<1, 1>(bn, x, w, y, m, n, k, ldx, ldw, split, stages,
+                           out_dt, e, st);
+  if (tb)
+    return launch_bn<0, 0>(bn, x, w, y, m, n, k, ldx, ldw, split, stages,
+                           out_dt, e, st);
+  return launch_bn<0, 1>(bn, x, w, y, m, n, k, ldx, ldw, split, stages,
+                         out_dt, e, st);
 }

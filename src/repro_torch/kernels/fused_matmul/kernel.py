@@ -130,6 +130,7 @@ def library() -> ctypes.CDLL:
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
@@ -138,18 +139,21 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, n: int,
-           k: int, p: Plan, spec: tuple, operands: list) -> None:
-    """Launch the GEMM on the current stream: ``y[m,n] = chain(x[:, :k] @
-    w[:k, :n])``.  x and w are row-major buffers whose rows may be longer
-    than k and n (``pad_cols``); ``p`` is ``plan(n, k, dtype)``.  ``spec``
-    is the static chain ``((fn, kind, head_pos, dtype), ...)`` and
-    ``operands`` the row/full operand tensors in spec order; the caller
-    has checked devices, dtypes, shapes and contiguity."""
+def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, m: int,
+           n: int, k: int, p: Plan, spec: tuple, operands: list,
+           ta: bool = False, tb: bool = False) -> None:
+    """Launch the GEMM on the current stream: ``y[m,n] = chain(A @ B)``
+    with A = ``x[:m, :k]`` (with ``ta``: x stored ``[k, m]``, A =
+    ``x[:k, :m]^T``) and B = ``w[:k, :n]`` (with ``tb``: w stored ``[n,
+    k]``, B = ``w[:n, :k]^T``).  x and w are row-major buffers whose rows
+    may be longer than the stored width (``pad_cols``); ``p`` is ``plan(n,
+    k, dtype)``.  ``spec`` is the static chain ``((fn, kind, head_pos,
+    dtype), ...)`` and ``operands`` the row/full operand tensors in spec
+    order; the caller has checked devices, dtypes, shapes and
+    contiguity."""
     if len(spec) > MAX_STAGES:
         raise ValueError(f"epilogue has {len(spec)} stages; the kernel takes "
                          f"at most {MAX_STAGES}")
-    m = x.shape[0]
     codes = (ctypes.c_int * (5 * MAX_STAGES))()
     ptrs = (ctypes.c_void_p * MAX_STAGES)()
     it = iter(operands)
@@ -165,7 +169,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, n: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = library().fused_matmul_launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, x.shape[1],
-        w.shape[1], DT[x.dtype], DT[y.dtype], p.bn, p.split, p.stages,
+        w.shape[1], int(ta), int(tb), DT[x.dtype], DT[y.dtype], p.bn,
+        p.split, p.stages,
         len(spec), codes, ptrs, stream)
     if err != 0:
         raise RuntimeError(f"fused_matmul launch failed: CUDA error {err}")

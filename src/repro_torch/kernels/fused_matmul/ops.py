@@ -11,6 +11,35 @@ chain the kernel takes and its operand tensors (``_classify``), and then:
 ``launches`` counts kernel launches (incremented where the kernel launches
 and nowhere else); ``launches_by_shape`` splits it by ``(m, n, k, x dtype,
 chain)``.
+
+Gradients.  Under grad mode, when an input requires grad, ``fused_matmul``
+goes through ``FusedMatmulFn`` (an ``autograd.Function``) on every device:
+its forward is the same wrapper, its backward the reference's
+``fused_matmul_vjp`` (``kernels/fused_matmul/ops.py`` of the JAX package):
+
+* the epilogue chain's VJP gives dY0, the gradient of the pre-epilogue
+  fp32 product, and each operand's gradient, every stage's cast kept
+  (``epilogue_vjp``).  A chain of adds needs no values and is walked
+  backwards directly; any other chain first recomputes the product with
+  one launch that has no epilogue and an fp32 output, then differentiates
+  the plain ``apply_epilogue`` on it;
+* dX = dY0 W^T and dW = X^T dY0 are launches of the same kernel on the
+  operands in place (``matmul_dx``, ``matmul_dw``: TMA reads w^T and
+  x^T, and wgmma's transpose bits take them; nothing is transposed in
+  memory), fp32 accumulation, each rounded once to its input's dtype (as
+  the reference's VJP returns them; autograd would round a wider result
+  to that dtype anyway).  dY0 enters them in x's dtype: in bf16 it is
+  rounded once, as a TPU's default-precision fp32 product rounds it.  The
+  plan is a function of (output columns, contraction) alone, so dX's rows
+  are M-stable and dW's split-K sums in a fixed order: the backward is
+  deterministic.
+
+On a CPU tensor the same backward runs the plain versions
+(``ref.matmul_dx_ref``, ``ref.matmul_dw_ref``).  ``bwd_launches`` counts
+the backward routes' launches by route (``"dx"``, ``"dw"``) and
+``bwd_launches_by_shape`` by ``(route, m, n, k, dtype)`` of the launched
+product; ``function_calls`` counts ``FusedMatmulFn``'s forward and
+backward on any device.
 """
 from __future__ import annotations
 
@@ -24,12 +53,17 @@ from . import kernel, ref
 
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
+bwd_launches: collections.Counter = collections.Counter()
+bwd_launches_by_shape: collections.Counter = collections.Counter()
+function_calls: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
     global launches
     launches = 0
-    launches_by_shape.clear()
+    for c in (launches_by_shape, bwd_launches, bwd_launches_by_shape,
+              function_calls):
+        c.clear()
 
 
 def _classify(epilogue, m: int, n: int):
@@ -54,14 +88,31 @@ def _classify(epilogue, m: int, n: int):
     return tuple(spec), operands
 
 
+def _requires_grad(x, w, epilogue) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in (x, w, *(v for _, vals, _ in epilogue or [] for v in vals)))
+
+
 def fused_matmul(x, w, epilogue=None, tile=None, out_dtype=None):
     """y = epilogue(x @ w);  x: [..., k], w: [k, n].
 
     ``tile`` is the schedule's tile choice, accepted for the reference's
     contract and not read: the Hopper kernel's plan (``kernel.plan``) is a
     function of ``(n, k, dtype)`` alone, so the order in which a row's
-    k-sum is taken never depends on how many rows run."""
+    k-sum is taken never depends on how many rows run.  Under grad mode,
+    with an input that requires grad, the call goes through
+    ``FusedMatmulFn``."""
     out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    if _requires_grad(x, w, epilogue):
+        chain = tuple((fn, len(vals), at) for fn, vals, at in epilogue or [])
+        vals = [v for _, vs, _ in epilogue or [] for v in vs]
+        return FusedMatmulFn.apply(x, w, chain, out_dt, *vals)
+    return _fused_matmul(x, w, epilogue, out_dt)
+
+
+def _fused_matmul(x, w, epilogue, out_dt):
+    """The forward product on the device ``x`` lies on (no autograd)."""
     if x.device.type == "cpu":
         return ref.fused_matmul_ref(x, w, epilogue=epilogue, out_dtype=out_dt)
     if x.device.type != "cuda":
@@ -92,11 +143,160 @@ def fused_matmul(x, w, epilogue=None, tile=None, out_dtype=None):
     y = torch.empty((m, n), dtype=out_dt, device=x.device)
     global launches
     if m > 0 and n > 0:
-        kernel.launch(x2, w2, y, n, kk, kernel.plan(n, kk, x.dtype), spec,
+        kernel.launch(x2, w2, y, m, n, kk, kernel.plan(n, kk, x.dtype), spec,
                       operands)
         launches += 1
         launches_by_shape[(m, n, k, str(x.dtype), spec)] += 1
     return y.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# The backward routes: dX = dY W^T and dW = X^T dY on the same kernel
+# ---------------------------------------------------------------------------
+
+
+def _check_pair(a, b, what: str) -> None:
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"{what}: 2-D operands expected, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if a.device != b.device or a.dtype != b.dtype:
+        raise ValueError(f"{what}: {a.dtype}@{a.device} and {b.dtype}@"
+                         f"{b.device} must share device and dtype")
+    if a.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, got {a.device}")
+    if a.dtype not in kernel.DT:
+        raise ValueError(f"{what} kernel takes float32/bfloat16, got "
+                         f"{a.dtype}")
+
+
+def _launch_bwd(route, a, b, m, n, k, out_dt, ta, tb):
+    """One launch of the kernel for a backward product ``y [m, n]`` over a
+    contraction of ``k`` (``a``, ``b`` stored as ``kernel.launch`` takes
+    them with ``ta`` / ``tb``)."""
+    if out_dt not in kernel.DT:
+        raise ValueError(f"{route}: output dtype {out_dt} not supported")
+    y = torch.empty((m, n), dtype=out_dt, device=a.device)
+    if m == 0 or n == 0:
+        return y
+    if k == 0:
+        return y.zero_()
+    a, b = a.contiguous(), b.contiguous()
+    if a.dtype == torch.bfloat16:   # TMA rows: copies where widths need it
+        a, b = kernel.pad_cols(a), kernel.pad_cols(b)
+    kernel.launch(a, b, y, m, n, k, kernel.plan(n, k, a.dtype), (), [],
+                  ta=ta, tb=tb)
+    bwd_launches[route] += 1
+    bwd_launches_by_shape[(route, m, n, k, str(a.dtype))] += 1
+    return y
+
+
+def matmul_dx(dy, w, out_dtype=None):
+    """The input gradient's product ``dy [m, n] @ w [k, n]^T -> [m, k]``,
+    fp32 accumulation, in ``out_dtype`` (default ``dy``'s).  A CPU tensor
+    runs ``ref.matmul_dx_ref``; a CUDA tensor launches the kernel with w
+    read as the K-major B operand (``tb``), or raises."""
+    out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else dy.dtype
+    if dy.device.type == "cpu":
+        return ref.matmul_dx_ref(dy, w, out_dt)
+    _check_pair(dy, w, "matmul_dx")
+    if dy.shape[1] != w.shape[1]:
+        raise ValueError(f"matmul_dx: dy {tuple(dy.shape)} and w "
+                         f"{tuple(w.shape)} do not share n")
+    m, n = dy.shape
+    return _launch_bwd("dx", dy, w, m, w.shape[0], n, out_dt, False, True)
+
+
+def matmul_dw(x, dy, out_dtype=None):
+    """The weight gradient's product ``x [m, k]^T @ dy [m, n] -> [k, n]``,
+    fp32 accumulation over the m rows (a fixed-order split where the plan
+    splits), in ``out_dtype`` (default ``x``'s).  A CPU tensor runs
+    ``ref.matmul_dw_ref``; a CUDA tensor launches the kernel with x read
+    as the MN-major A operand (``ta``), or raises."""
+    out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    if x.device.type == "cpu":
+        return ref.matmul_dw_ref(x, dy, out_dt)
+    _check_pair(x, dy, "matmul_dw")
+    if x.shape[0] != dy.shape[0]:
+        raise ValueError(f"matmul_dw: x {tuple(x.shape)} and dy "
+                         f"{tuple(dy.shape)} do not share m")
+    m, k = x.shape
+    return _launch_bwd("dw", x, dy, k, dy.shape[1], m, out_dt, True, False)
+
+
+def epilogue_vjp(x2, w, chain, vals, out_dt, dy2):
+    """(dY0, operand gradients) of ``y = apply_epilogue(x2 @ w, chain,
+    vals).to(out_dt)`` at the cotangent ``dy2 [m, n]``.  dY0 comes in the
+    dtype of the chain's last stage (fp32 where it has none): its values
+    are the fp32 dY0's, exactly.  An operand gradient is None where its
+    operand needs none."""
+    n = w.shape[-1]
+    if all(fn == "add" for fn, _, _ in chain):
+        # an add's gradient needs no values: walk the chain backwards
+        run = [torch.float32]            # running dtype before each stage
+        for _, _, at in chain:
+            edt = at.get("dtype")
+            run.append(to_torch_dtype(edt) if edt is not None else run[-1])
+        g = dy2.to(run[-1])
+        grads = [None] * len(vals)
+        it = len(vals)
+        for s in range(len(chain) - 1, -1, -1):
+            _, nv, _ = chain[s]
+            for j in range(it - nv, it):
+                v = vals[j]
+                if v.requires_grad:
+                    gv = g if v.numel() == g.numel() else \
+                        g.reshape(-1, n).sum(0)
+                    grads[j] = gv.reshape(v.shape).to(v.dtype)
+            it -= nv
+            g = g.to(run[s])
+        return g, grads
+    y0 = _fused_matmul(x2, w, None, torch.float32)   # the recompute launch
+    with torch.enable_grad():
+        y0 = y0.requires_grad_()
+        leaves = [v.detach().requires_grad_(v.requires_grad) for v in vals]
+        it = iter(leaves)
+        epi = [(fn, [next(it).reshape(-1, n) for _ in range(nv)], at)
+               for fn, nv, at in chain]
+        y = ref.apply_epilogue(y0, epi).to(out_dt)
+        want = [y0] + [t for t in leaves if t.requires_grad]
+        got = list(torch.autograd.grad(y, want, dy2))
+    dy0 = got.pop(0)
+    return dy0, [got.pop(0) if t.requires_grad else None for t in leaves]
+
+
+class FusedMatmulFn(torch.autograd.Function):
+    """``fused_matmul`` with the reference's ``fused_matmul_vjp`` as its
+    backward (see the module docstring).  Device-agnostic: the kernel's
+    routes on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w, chain, out_dt, *vals):
+        function_calls["forward"] += 1
+        it = iter(vals)
+        epi = [(fn, [next(it) for _ in range(nv)], at)
+               for fn, nv, at in chain]
+        y = _fused_matmul(x, w, epi, out_dt)
+        ctx.chain, ctx.out_dt = chain, out_dt
+        ctx.save_for_backward(x, w, *vals)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        function_calls["backward"] += 1
+        x, w, *vals = ctx.saved_tensors
+        k, n = x.shape[-1], w.shape[-1]
+        x2 = x.reshape(-1, k)
+        dy2 = dy.reshape(-1, n)
+        vals = [v.detach().requires_grad_(need)
+                for v, need in zip(vals, ctx.needs_input_grad[4:])]
+        dy0, dvals = epilogue_vjp(x2, w, ctx.chain, vals, ctx.out_dt, dy2)
+        dy0 = dy0.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = matmul_dx(dy0, w, x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = matmul_dw(x2, dy0, w.dtype)
+        return (dx, dw, None, None, *dvals)
 
 
 # ---------------------------------------------------------------------------

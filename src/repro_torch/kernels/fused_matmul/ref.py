@@ -42,3 +42,19 @@ def fused_matmul_ref(x, w, epilogue=None, out_dtype=None):
     y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     y = apply_epilogue(y, epilogue)
     return y.to(out_dtype)
+
+
+def matmul_dx_ref(dy, w, out_dtype=None):
+    """The input gradient's product ``dy [m, n] @ w [k, n]^T`` with fp32
+    accumulation, in ``out_dtype`` (default ``dy``'s)."""
+    out_dtype = to_torch_dtype(out_dtype) if out_dtype is not None else dy.dtype
+    return torch.matmul(dy.to(torch.float32),
+                        w.to(torch.float32).T).to(out_dtype)
+
+
+def matmul_dw_ref(x, dy, out_dtype=None):
+    """The weight gradient's product ``x [m, k]^T @ dy [m, n]`` with fp32
+    accumulation, in ``out_dtype`` (default ``x``'s)."""
+    out_dtype = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    return torch.matmul(x.to(torch.float32).T,
+                        dy.to(torch.float32)).to(out_dtype)

@@ -10,8 +10,11 @@ the carry and ``return_state`` also returns the final carry in fp32.
   same chunk, with the same state arguments;
 * a meta tensor (the region tracer's shape inference) gets outputs of
   the right shape and dtype and computes nothing;
-* a CUDA tensor launches the hand-written kernel, or raises.  There is no
-  fallback: q/k/v in another dtype than bf16/fp32 (or not all one dtype),
+* a CUDA tensor launches the hand-written kernel, or raises.  The scan
+  has no backward kernel yet (it comes with RWKV6 training, the next
+  slice), so under grad mode an operand that requires grad raises
+  ``NotImplementedError``: the kernel's output would carry no gradient.
+  There is no fallback: q/k/v in another dtype than bf16/fp32 (or not all one dtype),
   ``w``, ``u`` or ``init_state`` not in fp32, or a ``Dk`` past the
   kernel's raise.  Mixed dtypes are the normal case: the RWKV6 forward
   passes bf16 r/k/v beside fp32 w and u.
@@ -75,6 +78,13 @@ def linear_scan(q, k, v, w, u=None, chunk: int = SAFE_CHUNK,
                               device="meta")
     if q.device.type != "cuda":
         raise ValueError(f"linear_scan runs on cpu or cuda, got {q.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, w, u, init_state)):
+        raise NotImplementedError(
+            "linear_scan has no backward on the card yet: the chunked scan "
+            "backward kernel comes with RWKV6 training (the next slice); "
+            "run under torch.no_grad() or on the CPU")
     if any(t.device != q.device for t in (k, v, w)) or any(
             t is not None and t.device != q.device for t in (u, init_state)):
         raise ValueError("linear_scan: every operand must share a device")

@@ -1,0 +1,103 @@
+"""Training CLI: the per-op training step of the port on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_3b \
+        --device cuda --steps 3 --batch 2 --seq 2048
+
+The port of the JAX package's ``launch/train.py`` on its path without a
+mesh: model (random weights from ``--seed``) -> ``TokenPipeline`` (the
+synthetic source, the same bytes as the reference's) -> ``make_train_step``
+-> a loop over the steps.  Runs on the card unless ``--device cpu``; the
+default remat is ``full``, since at 2 x 2048 tokens of qwen2.5-3b nothing
+else fits one 80 GB card.  Prints one JSON line: ``steps``, ``tok_per_s``
+(after the first step, which builds the kernels and traces the regions),
+``first_loss``, ``last_loss`` and ``losses``.
+
+Not ported: ``--capture-step`` (the captured step), ``--resume`` and
+``--ckpt-dir`` (checkpoints) raise ``NotImplementedError``; the
+fault-tolerant loop waits for ``dist/fault.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.data import DataConfig, TokenPipeline, to_device
+from repro_torch.models.base import get_model, resolve_device
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import TrainConfig, init_state, make_train_step
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2_5_3b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mode", default="tapir", choices=["tapir", "opaque"])
+    ap.add_argument("--target", default=None, choices=["cpu", "gpu"],
+                    help="the schedule's cost profile (default: the "
+                         "device's)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="full",
+                    choices=["none", "dots", "full"])
+    ap.add_argument("--capture-step", action="store_true",
+                    help="the region-captured training step (not ported)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (not ported)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint (not ported)")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.capture_step:
+        raise NotImplementedError("--capture-step: the captured training "
+                                  "step is not ported (ROADMAP queue 1)")
+    if args.resume or args.ckpt_dir is not None:
+        raise NotImplementedError("--resume / --ckpt-dir: checkpoints are "
+                                  "not ported (ROADMAP queue 1)")
+    if args.remat == "dots":
+        raise NotImplementedError("--remat dots waits for pick_remat")
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = get_model(cfg, device=dev, generator=gen)
+
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
+                          warmup_steps=max(args.steps // 10, 1))
+    tcfg = TrainConfig(mode=args.mode, remat=args.remat,
+                       microbatches=args.microbatches, target=args.target)
+    step_fn = make_train_step(model, opt_cfg, tcfg)
+    state = init_state(model, opt_cfg)
+    pipe = TokenPipeline(DataConfig(seq_len=args.seq,
+                                    global_batch=args.batch,
+                                    vocab=cfg.vocab, seed=args.seed))
+
+    losses, t_start = [], None
+    for s in range(args.steps):
+        if s == 1:
+            t_start = time.perf_counter()
+        state, m = step_fn(state, to_device(pipe.batch_at(s), dev))
+        losses.append(float(m["loss"]))   # a synchronise
+    timed = args.steps - 1
+    dt = time.perf_counter() - t_start if timed > 0 else float("nan")
+    tok_s = timed * args.batch * args.seq / dt if timed > 0 else None
+    print(json.dumps({"steps": args.steps, "tok_per_s": tok_s,
+                      "first_loss": losses[0] if losses else None,
+                      "last_loss": losses[-1] if losses else None,
+                      "losses": losses}))
+    return state, losses
+
+
+if __name__ == "__main__":
+    main()

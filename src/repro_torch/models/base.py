@@ -2,6 +2,7 @@
 the family registry — the port of the JAX package's ``models/base.py``."""
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -15,7 +16,10 @@ from ..core.dtypes import to_torch_dtype
 
 def embed_lookup(embed, tokens, cdt: str):
     """Rows of ``embed`` at ``tokens`` in the compute dtype ``cdt`` —
-    module-level so a region captures it as one ``pyfunc`` node."""
+    module-level so a region captures it as one ``pyfunc`` node.  Its
+    gradient (autograd's ``index_put_(accumulate=True)`` into zeros) sorts
+    the token ids and sums each row's duplicates in order, on the card
+    too: two runs give the same bits."""
     return embed[tokens.to(torch.int64)].to(to_torch_dtype(cdt))
 
 
@@ -160,6 +164,38 @@ class BaseModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def param_tree(self) -> dict:
+        """The parameters as the reference's tree (``embed``, ``blocks``,
+        ``ln_f``, ``lm_head`` when untied): the model's own tensors, so an
+        update of a leaf in place updates the model."""
+        tree = {"embed": self.embed, "blocks": dict(self.blocks),
+                "ln_f": self.ln_f}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return tree
+
+    @contextlib.contextmanager
+    def trainable(self):
+        """Inside, every parameter is a leaf that requires grad (the
+        per-layer casts of the forward stay inside autograd, so each fp32
+        master weight gets an fp32 gradient, as JAX's ``astype`` transpose
+        gives it); outside, they are frozen again."""
+        params = list(self.parameters())
+        for p in params:
+            p.requires_grad_(True)
+        try:
+            yield self
+        finally:
+            for p in params:
+                p.requires_grad_(False)
+
+    def release_compute(self) -> None:
+        """Drop the compute-dtype copy of the weights that
+        ``compute_params`` keeps (6.8 GB for qwen2.5-3b): training never
+        reads it, and the next serving call makes it anew from the updated
+        weights."""
+        self._compute = None
 
     def _embed(self, embed, tokens):
         return tapir.lift(embed_lookup, embed, tokens,
