@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times OUT [--src DIR] [--plan BN,SPLIT,STAGES]
     python3 chip_smoke.py --flash-times OUT [--src DIR]
+    python3 chip_smoke.py --flash-bwd-times OUT [--src DIR]
     python3 chip_smoke.py --scan-times OUT [--src DIR]
     python3 chip_smoke.py --decode-times [--src DIR]
 
@@ -12,8 +13,10 @@ The second form times the GEMM again at the path shapes that a full run
 another checkout's wrapper (its ``src``), so two trees compare under one
 timing method in one call; ``--plan`` launches one plan at every shape.
 The third does the same for flash attention, at the path shapes of OUT
-and at ``FA_EXTRA``; the fourth for the linear scan, at OUT's scan path
-shapes.  The fifth times the three decode steps at full width (the
+and at ``FA_EXTRA``; the fourth for the flash backward, at OUT's train
+shapes and at ``FA_BWD_EXTRA`` (beside SDPA's backward, with each call's
+device time by kernel); the fifth for the linear scan, at OUT's scan path
+shapes.  The sixth times the three decode steps at full width (the
 ``decode_steps`` phase without its checks) and the serve phase's time to
 first token, cold and warm, with ``--src``'s tree where given: parent and
 change in one call.
@@ -26,11 +29,13 @@ reads them just after:
    kernel libraries (fused_matmul, flash_attention, linear_scan and the
    flash backward) built by nvcc from the checkout's CUDA sources, in
    parallel; the ptxas reports (registers, stack, spills per kernel; a
-   spill in any of the bf16 kernels fails the run) and the bf16 scan kernel's tensor-core
-   (HMMA) instruction count in its SASS (none fails the run); flash
-   attention's tiles
-   as the built kernel states them, at every head dim in both dtypes,
-   against ``kernel.plan`` (whose tile the plain version steps over);
+   spill in any of the bf16 kernels or the backward's dK/dV sum fails the
+   run), the bf16 scan kernel's tensor-core (HMMA) and the bf16 flash
+   backward kernels' wgmma (HGMMA) instruction counts in their SASS (none
+   fails the run); flash attention's tiles as the built kernel states
+   them, at every head dim in both dtypes, against ``kernel.plan`` (whose
+   tile the plain version steps over), and the backward's against
+   ``kernel.plan_bwd`` (from which the wrapper sizes its scratch);
 2. serve — qwen2.5-3b at full width (all 36 layers, random weights from a
    seed) through ``ServingEngine.run``: 4 slots, max_len 512, 6 requests of
    48-200 prompt tokens (3 sharing a 128-token prefix), 16 new tokens each;
@@ -81,7 +86,8 @@ reads them just after:
    flash_bwd_vs_plain — the flash backward against
    ``flash_attention_bwd_ref`` and ``FlashAttentionFn`` against autograd
    through ``attention_ref``, the forward's lse against the plain
-   version's, at the step's shape and FA_BWD_EXTRA;
+   version's, at the step's shape and FA_BWD_EXTRA (ragged lengths off
+   every tile and unit edge, GQA groups 1, 3 and 8), two calls bitwise;
    small_train_parity — SMOKE fp32, the first gradients and 3 steps on the
    card against the CPU;
 10. times — per path shape: each kernel, its plain version, the library
@@ -93,7 +99,8 @@ reads them just after:
    and tiles (``kernel.plan(dtype, D)``) and its achieved TFLOP/s; the
    backward routes of the train phase (dX and dW beside ``torch.matmul`` on
    the same transposed operands, the flash backward beside SDPA's backward
-   through autograd) the same way (``train_times``).
+   through autograd, with its device time by kernel) the same way
+   (``train_times``).
 
 The qwen model is then released, and RWKV6-7B at full width (32 layers,
 d_model 4096; random weights from seed 0) takes its place:
@@ -1022,10 +1029,17 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 3   # 1 warm-up step, then these
 BWD_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: flash backward shapes beyond the train phase's (B, Sq, Skv, Hq, Hkv, D,
 #: causal): SMOKE, groups 1 and 8, ragged lengths off every tile, Skv > Sq
-#: (causal queries at the end of the keys), head dims 24, 64, 128
+#: (causal queries at the end of the keys), head dims 24, 64, 128; then the
+#: bf16 route's edges: 129 and 257 keys and rows (one past a 128-key dK/dV
+#: unit, a 128-row dQ unit and a 64-row or 64-key step), causal Skv > Sq
+#: off every edge, group 8 at D 24, and group 3 (its last split holds one
+#: head of the two a dK/dV unit takes)
 FA_BWD_EXTRA = [(2, 28, 28, 4, 2, 24, True), (1, 77, 150, 8, 1, 32, False),
                 (2, 100, 300, 16, 2, 128, True), (1, 130, 130, 2, 2, 64, True),
-                (1, 200, 200, 8, 8, 128, False)]
+                (1, 200, 200, 8, 8, 128, False),
+                (1, 129, 129, 16, 2, 128, True), (2, 64, 257, 8, 1, 64, True),
+                (1, 257, 257, 4, 2, 128, False), (2, 100, 129, 8, 1, 24, True),
+                (1, 300, 300, 3, 1, 128, True)]
 #: a library product or attention kernel in a profile: cuBLAS / cuBLASLt
 #: (xmma, nvjet, cutlass, gemv, any other "gemm"), SDPA's flash and
 #: memory-efficient kernels, cuDNN.  The port's own kernels are excluded
@@ -1034,7 +1048,7 @@ LIBRARY_KERNEL = re.compile(
     r"gemm|gemv|xmma|nvjet|cutlass|cublas|flash_fwd|flash_bwd|fmha|"
     r"efficient_attention|mem_eff|cudnn|sdpa", re.IGNORECASE)
 PORT_ANY = re.compile(r"(?<![A-Za-z_])((flash|gemm|scan|dkdv|dq)_(bf16|f32)"
-                      r"_kernel|delta_kernel)")
+                      r"_kernel|dkdv_sum_kernel|delta_kernel)")
 #: the GEMM's three layouts as its template arguments <BN, TA, TB> show
 #: them in a profile: the forward, dX = dY W^T and dW = X^T dY
 GEMM_ROUTE = {("0", "1"): "forward", ("0", "0"): "dx", ("1", "1"): "dw"}
@@ -1405,13 +1419,60 @@ def gemm_bwd_entries(bwd_shapes, errs, gen, cfg) -> list:
     return out
 
 
-def flash_bwd_entry(shape, launches: int, errs) -> dict:
-    """The flash backward at one train shape, bf16: the kernels (delta,
-    dK/dV, dQ), the plain version and SDPA's backward through autograd
-    (the yardstick, timed alone over a kept graph; never called by the
-    port), each timed alone with L2 flushed; the bound: q, k, v, o, dO and
-    lse read once, dq, dk, dv written once, and the 5 products of a
-    backward (S, dP, dV, dK, dQ: 2.5 forwards) at the bf16 peak."""
+def flash_bwd_design(shape):
+    """(design, plan) of the bf16 backward at ``shape``
+    (``kernel.plan_bwd``, with the dK/dV and dQ units ``kernel.bwd_units``
+    counts); (None, None) for an older checkout, timed through ``--src``,
+    whose wrapper has no plan_bwd."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    if not hasattr(fa_kernel, "plan_bwd"):
+        return None, None
+    b, sq, skv, hq, hkv, d, causal = shape
+    p = fa_kernel.plan_bwd(torch.bfloat16, d)
+    dkdv, dq = fa_kernel.bwd_units(torch.bfloat16, d, b, sq, skv, hq, hkv,
+                                   causal)
+    plan = {**p._asdict(), "units": {"dkdv": len(dkdv), "dq": len(dq)}}
+    return (f"delta pass; dQ: units of {p.dq_block_q} query rows x head over "
+            f"{p.dq_block_kv}-key steps (S, dP SS m64n{p.dq_block_kv}k16, dQ "
+            f"RS m64n{p.head_pad}k16); dK/dV: units of {p.block_kv} keys x "
+            f"{p.heads} query heads over {p.block_q}-row steps (S^T, dP^T "
+            f"SS, dV, dK RS), fp32 partials summed over the group in order "
+            f"by a last pass; TMA rings, wgmma, ping-pong warpgroups, "
+            f"longest units first, no atomics"), plan
+
+
+def kernel_ms(fn, calls: int = 5) -> dict:
+    """Device ms per launch by kernel over ``calls`` calls of ``fn`` (after
+    a warm-up call, L2 warm) under ``torch.profiler``, the kernel's
+    argument list cut off.  Per launch the profiler saw, not per call: in
+    a long process it can drop events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |\(.*$", "", ev.key):
+            ev.self_device_time_total / ev.count / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count}
+
+
+def flash_bwd_entry(shape, launches: int, err=None,
+                    plain: bool = True) -> dict:
+    """The flash backward at one shape, bf16: the kernels (delta, dQ,
+    dK/dV, the sum of dK/dV's partials), (``plain``) the plain version and
+    SDPA's backward through autograd (the yardstick, timed alone over a
+    kept graph; never called by the port), each timed alone with L2
+    flushed; each of its kernels' device time a launch, from 5 profiled
+    calls (``kernel_ms``); the
+    bound: q, k, v, o, dO and lse read once, dq, dk, dv written once, and
+    the 5 products of a backward (S, dP, dV, dK, dQ: 2.5 forwards) at the
+    bf16 peak.  ``err``: max |kernel - plain| where the caller has it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1422,8 +1483,11 @@ def flash_bwd_entry(shape, launches: int, errs) -> dict:
     do = torch.randn(o.shape, device="cuda").to(torch.bfloat16)
     fn = lambda: fa_ops.flash_attention_bwd(  # noqa: E731
         q, k, v, o, lse, do, causal)
-    plain = lambda: fa_ref.flash_attention_bwd_ref(  # noqa: E731
+    ref_fn = lambda: fa_ref.flash_attention_bwd_ref(  # noqa: E731
         q, k, v, o, lse, do, causal)
+    if err is None:
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(fn(), ref_fn()))
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -1436,21 +1500,20 @@ def flash_bwd_entry(shape, launches: int, errs) -> dict:
         + 4 * b * hq * sq
     t_bytes = nbytes / HBM_BW
     t_ops = 2.5 * flash_flops(shape) / PEAK_FLOPS["bfloat16"]
+    design, plan = flash_bwd_design(shape)
     entry = {"name": f"flash_attention_bwd[train B={b} Sq={sq} Skv={skv} "
                      f"Hq={hq} Hkv={hkv} D={d}{' causal' if causal else ''}]",
              "route": "cuda", "source": FA_BWD_SOURCE,
              "replaces": FA_REPLACES, "launches": launches,
-             "max_abs_err": errs[(shape, "bfloat16")][3], "ms": ms,
-             "plain_ms": time_ms(plain),
-             "bound_ms": max(t_bytes, t_ops) * 1e3,
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": time_ms(lib),
-             "design": "delta pass, then dK/dV (one block per 64 keys x K/V "
-                       "head, the group's query heads in order) and dQ (one "
-                       "block per 64 queries x head); mma.sync m16n8k16, "
-                       "4 warps, cp.async double buffer, no atomics",
-             "tflops": 2.5 * flash_flops(shape) / (ms * 1e-3) / 1e12,
-             "shape": list(shape)}
+             "max_abs_err": err, "ms": ms}
+    if plain:
+        entry["plain_ms"] = time_ms(ref_fn)
+    entry.update({"bound_ms": max(t_bytes, t_ops) * 1e3,
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                  "library_ms": time_ms(lib), "design": design, "plan": plan,
+                  "kernel_ms": kernel_ms(fn),
+                  "tflops": 2.5 * flash_flops(shape) / (ms * 1e-3) / 1e12,
+                  "shape": list(shape)})
     del q, k, v, o, lse, do, qt, kt, vt, ot, dot
     return entry
 
@@ -2517,8 +2580,9 @@ def qwen_phases() -> list:
           "flash_design": {e["name"]: e["design"] for e in fa_entries}})
 
     bwd_entries = gemm_bwd_entries(bwd_tr, gb_errs, gen, cfg)
-    bwd_entries += [flash_bwd_entry(s_[:6] + (s_[7],), c, fb_errs)
-                    for s_, c in fab_tr.items()]
+    bwd_entries += [flash_bwd_entry(
+        s_[:6] + (s_[7],), c, fb_errs[(s_[:6] + (s_[7],), "bfloat16")][3])
+        for s_, c in fab_tr.items()]
     emit({"phase": "train_times",
           "step_gemm_dx_ms": sum(e["ms"] * e["launches"] for e in bwd_entries
                                  if e["name"].startswith("fused_matmul_dx")),
@@ -2601,6 +2665,27 @@ def flash_times_again(out_path: str) -> int:
     return 0
 
 
+def flash_bwd_times_again(out_path: str) -> int:
+    """The ``--flash-bwd-times`` mode: ``flash_bwd_entry`` without the
+    plain version's time, one JSON line each, at every flash backward shape
+    that a full run counted (the ``shape`` of each backward entry of the
+    kernels line in its output ``out_path``) and at ``FA_BWD_EXTRA``,
+    without building a model; then the card line."""
+    with open(out_path) as f:
+        entries = next(json.loads(line)["kernels"] for line in f
+                       if line.startswith('{"kernels"'))
+    paths = [(tuple(e["shape"]), e["launches"]) for e in entries
+             if e["name"].startswith("flash_attention_bwd[")]
+    paths += [(s_, 0) for s_ in FA_BWD_EXTRA]
+    for shape, launches in paths:
+        e = flash_bwd_entry(shape, launches, plain=False)
+        if not launches:
+            e["name"] = e["name"].replace("[train ", "[extra ")
+        emit(e)
+    print(card_line(), flush=True)
+    return 0
+
+
 def scan_times_again(out_path: str) -> int:
     """The ``--scan-times`` mode: ``scan_entry`` without the plain
     version's time, one JSON line each, at every scan path shape that a
@@ -2679,6 +2764,10 @@ def main() -> int:
                     help="time flash attention again at the path shapes "
                          "of the full run whose output is OUT and at "
                          "FA_EXTRA, and stop")
+    ap.add_argument("--flash-bwd-times", metavar="OUT",
+                    help="time the flash backward again at the train shapes "
+                         "of the full run whose output is OUT and at "
+                         "FA_BWD_EXTRA, and stop")
     ap.add_argument("--scan-times", metavar="OUT",
                     help="time the linear scan again at the path shapes "
                          "of the full run whose output is OUT, and stop")
@@ -2686,7 +2775,8 @@ def main() -> int:
                     help="time the three decode steps and the serve "
                          "phase's time to first token, and stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
-                                  "--scan-times or --decode-times: another "
+                                  "--flash-bwd-times, --scan-times or "
+                                  "--decode-times: another "
                                   "checkout's src directory, whose code is "
                                   "timed")
     ap.add_argument("--plan", metavar="BN,SPLIT,STAGES",
@@ -2703,6 +2793,8 @@ def main() -> int:
         return decode_times()
     if args.flash_times:
         return flash_times_again(args.flash_times)
+    if args.flash_bwd_times:
+        return flash_bwd_times_again(args.flash_bwd_times)
     if args.scan_times:
         return scan_times_again(args.scan_times)
     if args.gemm_times:
@@ -2735,6 +2827,8 @@ def main() -> int:
     scan_ptxas = ptxas_summary(REPORTS["linear_scan"])
     flash_bwd_ptxas = ptxas_summary(REPORTS["flash_attention_bwd"])
     scan_mma = sass_count(libs[2], "scan_bf16_kernel", "HMMA")
+    bwd_hgmma = {name: sass_count(libs[3], name, "HGMMA")
+                 for name in ("dkdv_bf16_kernel", "dq_bf16_kernel")}
     emit({"phase": "build", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0,
@@ -2742,16 +2836,22 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "gemm_ptxas": gemm_ptxas, "flash_ptxas": flash_ptxas,
           "scan_ptxas": scan_ptxas, "flash_bwd_ptxas": flash_bwd_ptxas,
-          "scan_bf16_hmma_instructions": scan_mma})
+          "scan_bf16_hmma_instructions": scan_mma,
+          "flash_bwd_bf16_hgmma_instructions": bwd_hgmma})
     if not scan_mma:
         raise SystemExit("build: the bf16 scan kernel has no tensor-core "
                          f"(HMMA) instruction, or no cuobjdump: {scan_mma}")
+    if not all(bwd_hgmma.values()):
+        raise SystemExit("build: a bf16 flash backward kernel has no wgmma "
+                         f"(HGMMA) instruction, or no cuobjdump: {bwd_hgmma}")
     for what, report, prefix in (("GEMM", gemm_ptxas, "gemm_bf16"),
                                  ("flash", flash_ptxas, "flash_bf16"),
                                  ("scan", scan_ptxas, "scan_bf16"),
                                  ("flash dK/dV", flash_bwd_ptxas,
                                   "dkdv_bf16"),
-                                 ("flash dQ", flash_bwd_ptxas, "dq_bf16")):
+                                 ("flash dQ", flash_bwd_ptxas, "dq_bf16"),
+                                 ("flash dK/dV sum", flash_bwd_ptxas,
+                                  "dkdv_sum")):
         spills = {k: v for k, v in report.items()
                   if k.startswith(prefix) and v.get("spill_stores", 0)}
         if spills or not any(k.startswith(prefix) for k in report):
@@ -2765,6 +2865,12 @@ def main() -> int:
                 raise SystemExit(f"build: flash tiles at {dt} D={d}: kernel "
                                  f"{fa_kernel.kernel_tiles(dt, d)}, plan "
                                  f"{fa_kernel.plan(dt, d)}")
+            # the wrapper sizes the backward's scratch from plan_bwd
+            if fa_kernel.kernel_tiles_bwd(dt, d) != fa_kernel.plan_bwd(dt, d):
+                raise SystemExit(f"build: flash backward tiles at {dt} "
+                                 f"D={d}: kernel "
+                                 f"{fa_kernel.kernel_tiles_bwd(dt, d)}, plan "
+                                 f"{fa_kernel.plan_bwd(dt, d)}")
 
     # -- 2-10. qwen2.5-3b ----------------------------------------------------
     entries = qwen_phases()

@@ -30,10 +30,14 @@ def _nvcc() -> str:
 
 
 def build_library(source: Path, verbose: bool = False) -> Path:
-    """Compile ``source`` (once per source digest) and return the library's
-    path.  ``verbose`` rebuilds with ``-Xptxas -v`` and prints nvcc's report
+    """Compile ``source`` (once per digest of it and the ``*.cuh`` headers
+    beside it, which it may include) and return the library's path.
+    ``verbose`` rebuilds with ``-Xptxas -v`` and prints nvcc's report
     (registers, shared memory, spills per kernel) to stderr."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     if out.exists() and not verbose:
         return out

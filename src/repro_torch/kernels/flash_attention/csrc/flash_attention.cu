@@ -79,9 +79,7 @@
 // flash_attention_tiles gives each route's tiles, which kernel.plan (and
 // through it the plain version) must equal.
 
-#include <cuda.h>   // CUtensorMap and its enums; the driver call is looked up
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "tma_wgmma.cuh"   // mbarriers, TMA, wgmma, tensor maps
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
@@ -114,165 +112,6 @@ struct Bf16Params {
   int causal, q_offset, n_qt;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t b) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(b) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase with parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  }
-}
-
-// One box of a [B, S, H, D] tensor map: coordinates (d, h, s, b).
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int d, int h,
-                                            int s, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(d), "r"(h), "r"(s), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];"
-               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | static_cast<uint64_t>(lbo >> 4) << 16
-       | static_cast<uint64_t>(sbo >> 4) << 32
-       | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// Named barriers 1 and 2: warpgroup w waits for its turn (its 128 threads
-// and the other warpgroup's 128 arrivals), or gives warpgroup w its turn.
-__device__ __forceinline__ void turn_sync(int w) {
-  asm volatile("bar.sync %0, 256;" :: "r"(1 + w) : "memory");
-}
-__device__ __forceinline__ void turn_arrive(int w) {
-  asm volatile("bar.arrive %0, 256;" :: "r"(1 + w) : "memory");
-}
-
-// Pin registers written by an asynchronous wgmma: the compiler may not move
-// their reads above the preceding wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-#define F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-              "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define R32 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
-            "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "  \
-            "%26, %27, %28, %29, %30, %31"
-#define R64 R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
-            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "  \
-            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
-
-// S (+)= A[64 x 16] B[16 x 128], both from shared memory, both K-major;
-// `acc` 0 overwrites d (the first k step of a tile).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d += A[64 x 16] (registers: four bf16 pairs) B[16 x N] (shared memory,
-// MN-major: the transpose bit).
-template <int N> struct WgmmaRS;
-
-template <> struct WgmmaRS<64> {
-  __device__ __forceinline__ static void run(float (&d)[32], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32 "}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-        : F8(0), F8(8), F8(16), F8(24)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-  }
-};
-
-template <> struct WgmmaRS<128> {
-  __device__ __forceinline__ static void run(float (&d)[64], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64 "}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-        : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-  }
-};
-
-#undef F8
-#undef R32
-#undef R64
-
-// 2^x in one MUFU op (flushes results below 2^-126 to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // Shared memory: Q (DP/64 boxes of 128 rows), then STAGES ring slots of
 // {K: DP/64 boxes of 128 keys, V: the same}, then the barriers.
@@ -744,46 +583,6 @@ __global__ void __launch_bounds__(FTHREADS) flash_f32_kernel(F32Params p) {
 // host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
-// link against libcuda).
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess
-        && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D bf16 tensor map over a [B, S, H, D] view with element strides
-// (sb, ss, sh, 1): boxes of 64 head-dim columns (128 bytes, swizzled) x 1
-// head x 128 positions x 1 batch entry, out-of-bounds elements read as 0.
-static bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                     int D, int64_t sb, int64_t ss, int64_t sh) {
-  EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                           (cuuint64_t)sb * 2};
-  cuuint32_t box[4] = {BOX, 1, TQ, 1};
-  cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(ptr), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int DP>
 static int launch_bf16(const void* q, const void* k, const void* v, void* o,
@@ -791,9 +590,9 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
                        const long long* s, int causal, float scale,
                        cudaStream_t st) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, Sq, Hq, D, s[0], s[1], s[2])
-      || !make_map(&mk, k, B, Skv, Hkv, D, s[3], s[4], s[5])
-      || !make_map(&mv, v, B, Skv, Hkv, D, s[6], s[7], s[8]))
+  if (!make_map(&mq, q, B, Sq, Hq, D, s[0], s[1], s[2], TQ)
+      || !make_map(&mk, k, B, Skv, Hkv, D, s[3], s[4], s[5], TKV)
+      || !make_map(&mv, v, B, Skv, Hkv, D, s[6], s[7], s[8], TKV))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = bf16_smem(DP);
   static bool configured = false;

@@ -63,6 +63,86 @@ def plan(dtype, d: int) -> Plan:
                 False)
 
 
+class PlanBwd(NamedTuple):
+    """The backward's route and tiles.  ``route``: ``"wgmma"`` (the TMA +
+    wgmma kernels) or ``"fma"`` (plain fp32 FMAs); the dK/dV kernel's unit
+    holds ``block_kv`` keys and steps over ``block_q`` query rows at a
+    time, for ``heads`` query heads of one K/V group (0: the whole group);
+    the dQ kernel's unit holds ``dq_block_q`` query rows and steps over
+    ``dq_block_kv`` keys at a time; ``head_pad`` the head dim a tile holds.
+    The plain version (``ref.flash_attention_bwd_ref``) reads none of it."""
+    route: str
+    block_kv: int
+    block_q: int
+    dq_block_q: int
+    dq_block_kv: int
+    heads: int
+    head_pad: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bwd(dtype, d: int) -> PlanBwd:
+    """The route and tiles of a backward call with head dim ``d``, never of
+    B, Sq or Skv.  bf16: dK/dV units of 128 keys x 2 query heads stepping
+    over 64 query rows, dQ units of 128 query rows stepping over 64 keys.
+    fp32: 64-key dK/dV blocks over the whole group, 64-row dQ blocks.  The
+    kernels state the same tiles (:func:`kernel_tiles_bwd`)."""
+    pad = 64 if d <= 64 else 128
+    if dtype == torch.bfloat16:
+        return PlanBwd("wgmma", 128, 64, 128, 64, 2, pad)
+    return PlanBwd("fma", 64, 64, 64, 64, 0, pad)
+
+
+def bwd_splits(p: PlanBwd, hq: int, hkv: int) -> int:
+    """The dK/dV units a K/V tile and head has: its group's query heads in
+    runs of ``p.heads``."""
+    grp = hq // hkv
+    return -(-grp // p.heads) if p.heads else 1
+
+
+def bwd_scratch(dtype, d: int, b: int, skv: int, hq: int, hkv: int):
+    """The shape of the fp32 scratch the backward's dK/dV units write their
+    partial sums into, ``(2, splits, B, Skv, Hkv, d)`` (dK's, then dV's;
+    ``d`` as the kernels read it), which the wrapper allocates; None for a
+    route that needs none."""
+    p = plan_bwd(dtype, d)
+    if p.route != "wgmma":
+        return None
+    return (2, bwd_splits(p, hq, hkv), b, skv, hkv, d)
+
+
+def bwd_units(dtype, d: int, b: int, sq: int, skv: int, hq: int, hkv: int,
+              causal: bool) -> tuple:
+    """The bf16 backward's units in the order its kernels number their
+    blocks (the block scheduler hands them out in that order), each with
+    the steps it runs: ``(dkdv, dq)``, ``dkdv`` a list of ``(key tile,
+    split, K/V head, batch, steps)`` by key tile ascending (under causal a
+    key tile sees the query rows from its own position on: the longest
+    first, unless the group is odd, when a tile's last split holds one
+    head and may be shorter than the next tile's units), ``dq`` a list of
+    ``(query tile, head, batch, steps)`` from the last query tile down."""
+    p = plan_bwd(dtype, d)
+    grp = hq // hkv
+    q_off = skv - sq if causal else 0
+    n_q = -(-sq // p.block_q)
+    dkdv = []
+    for kt in range(-(-skv // p.block_kv)):
+        qt0 = max(0, kt * p.block_kv - q_off) // p.block_q if causal else 0
+        for split in range(bwd_splits(p, hq, hkv)):
+            heads = min(p.heads, grp - split * p.heads)
+            for hk in range(hkv):
+                for bi in range(b):
+                    dkdv.append((kt, split, hk, bi, heads * (n_q - qt0)))
+    dq = []
+    n_dq = -(-sq // p.dq_block_q)
+    for qt in range(n_dq - 1, -1, -1):
+        last = min((qt + 1) * p.dq_block_q, sq) - 1
+        end = min(skv, q_off + last + 1) if causal else skv
+        for bh in range(hq * b):
+            dq.append((qt, bh % hq, bh // hq, -(-end // p.dq_block_kv)))
+    return dkdv, dq
+
+
 def score_scale(dtype, d: int) -> float:
     """The factor the route multiplies ``q . k`` by (see ``Plan.base2``);
     the plain version multiplies by the same."""
@@ -141,10 +221,14 @@ def library_bwd() -> ctypes.CDLL:
         if _lib_bwd is None:
             lib = ctypes.CDLL(str(build_bwd()))
             fn = lib.flash_attention_bwd_launch
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                            + [ctypes.POINTER(ctypes.c_longlong),
                               ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            tiles = lib.flash_attention_bwd_tiles
+            tiles.argtypes = [ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int)]
+            tiles.restype = ctypes.c_int
             _lib_bwd = lib
     return _lib_bwd
 
@@ -159,6 +243,16 @@ def kernel_tiles(dtype, d: int) -> Plan:
         raise ValueError(f"flash_attention_tiles: CUDA error {err}")
     return Plan("wgmma" if dtype == torch.bfloat16 else "fma", out[0],
                 out[1], out[2], bool(out[3]))
+
+
+def kernel_tiles_bwd(dtype, d: int) -> PlanBwd:
+    """The route and tiles the built backward launches at head dim ``d``
+    (``flash_attention_bwd_tiles``), to hold against :func:`plan_bwd`."""
+    out = (ctypes.c_int * 6)()
+    err = library_bwd().flash_attention_bwd_tiles(DT[dtype], d, out)
+    if err != 0:
+        raise ValueError(f"flash_attention_bwd_tiles: CUDA error {err}")
+    return PlanBwd("wgmma" if dtype == torch.bfloat16 else "fma", *out)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,14 +277,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
 
 
-def launch_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, causal: bool,
-               scale: float) -> None:
+def launch_bwd(q, k, v, o, do, lse, delta, dkv_acc, dq, dk, dv,
+               causal: bool, scale: float) -> None:
     """Launch the backward on the current stream: ``delta`` (fp32 ``[B, Hq,
     Sq]`` scratch) = rowsum(do * o), then dk, dv and dq (contiguous, in the
     operands' dtype) from q, k, v, o, do (``[B, S, H, D]`` through their
     strides, rows of 16-byte pieces: ``tma_operand``) and the forward's
-    ``lse``; scores scaled by ``scale`` = 1 / sqrt(D).  The caller has
-    checked devices, dtypes and shapes."""
+    ``lse``; scores scaled by ``scale`` = 1 / sqrt(D).  ``dkv_acc`` is the
+    fp32 scratch of :func:`bwd_scratch` (None where the route needs none).
+    The caller has checked devices, dtypes and shapes."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     strd = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
@@ -198,9 +293,10 @@ def launch_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, causal: bool,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = library_bwd().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), DT[q.dtype], b, sq, skv, hq, hkv, d, strd,
-        int(causal), scale, stream)
+        lse.data_ptr(), delta.data_ptr(),
+        None if dkv_acc is None else dkv_acc.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), DT[q.dtype], b, sq, skv, hq, hkv, d,
+        strd, int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")

@@ -23,11 +23,13 @@ device: its forward is this wrapper asked for the rows' log-sum-exp
 (``return_lse``: the kernel writes it from the m and l it holds), its
 backward ``flash_attention_bwd``: on a CUDA tensor the hand-written
 backward kernels (``csrc/flash_attention_bwd.cu``: delta, then dK/dV and
-dQ, deterministic, no atomics), on a CPU tensor the plain
+dQ, and in bf16 the sum of the dK/dV partials of the group's head splits,
+fp32 scratch this wrapper allocates (``kernel.bwd_scratch``);
+deterministic, no atomics), on a CPU tensor the plain
 ``ref.flash_attention_bwd_ref``.  The reference's ``flash_attention_vjp``
 takes the VJP of its materialising oracle; the values agree.
 ``bwd_launches`` / ``bwd_launches_by_shape`` count the backward's launches
-(one a call: its three kernels go out together); ``function_calls``
+(one a call, however many kernels it launches); ``function_calls``
 counts ``FlashAttentionFn``'s forward and backward on any device.
 """
 from __future__ import annotations
@@ -165,8 +167,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
     if dp != d:
         dq, dk, dv = (t.new_empty(t.shape[:-1] + (dp,)) for t in (dq, dk, dv))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    kernel.launch_bwd(q, k, v, o, do, lse.contiguous(), delta, dq, dk, dv,
-                      causal, 1.0 / math.sqrt(d))
+    scratch = kernel.bwd_scratch(q.dtype, dp, b, skv, hq, hkv)
+    acc = None if scratch is None else torch.empty(   # dK/dV's partials
+        scratch, dtype=torch.float32, device=q.device)
+    kernel.launch_bwd(q, k, v, o, do, lse.contiguous(), delta, acc, dq, dk,
+                      dv, causal, 1.0 / math.sqrt(d))
     global bwd_launches
     bwd_launches += 1
     bwd_launches_by_shape[(b, sq, skv, hq, hkv, d, str(q.dtype),
