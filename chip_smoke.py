@@ -136,6 +136,28 @@ d_model 4096; random weights from seed 0) takes its place:
    RWKV forward and decode GEMM shapes as in phase 10 (plan, TFLOP/s,
    the wrapper's host time at the 4096² and wA decode shapes).
 
+The RWKV6 model is then released, and the paper's four networks (fp32,
+every product on the GEMM's FMA route) follow:
+
+18. paper_nets — CNN, LSTM1, LSTM2 and NCF at the reference test's
+   batches (16; 8 x 20; 4 x 12; 64): one training step on the card
+   against the same step on the CPU (loss within 2e-4, every gradient
+   within 1e-4 of its parameter's largest), 3 SGD steps in tapir mode
+   twice (bitwise equal) and in opaque mode (within 2e-3 / 2e-4 of
+   tapir), every step held to the GEMM forward / dX / dW launches the
+   code implies (``paper_launches``: 1 GEMM per ``lstm_step`` in tapir
+   mode, 8 in opaque mode), and a profiled step per mode with no cuDNN
+   or cuBLAS kernel in it;
+19. fig3 — ``launch/fig3.py``'s protocol at batch 64 (NCF 512): per net
+   opaque, tapir and tapir with ``ablate_serialization``, step p50 over
+   5 steps after 2 warm-up steps, then a counted and a profiled step
+   (device ms, busy share, launches, no library kernel), for the LSTMs
+   the host µs per ``lstm_step`` call and the W bytes copied a step; the
+   ratios opaque / tapir and their geomean; then the GEMM's fp32 route
+   (forward with epilogue, dX, dW) at every shape the counted steps
+   launched: kernel vs plain, its time beside the bound, the plain
+   version, the library call and ``torch.matmul`` (TF32 off).
+
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
 repository is not beside this file.
@@ -2599,6 +2621,410 @@ def qwen_phases() -> list:
     return entries + fa_entries + bwd_entries
 
 
+# ---------------------------------------------------------------------------
+# The paper's four networks (phases 18-19)
+# ---------------------------------------------------------------------------
+
+PAPER_NETS = ("cnn", "lstm1", "lstm2", "ncf")
+#: the reference test's batches (``tests/test_paper_nets.py::_batches``)
+PAPER_TEST_SIZES = {"cnn": (16,), "lstm1": (8, 20), "lstm2": (4, 12),
+                    "ncf": (64,)}
+#: one step on the card against the CPU: the loss's relative error, and
+#: each gradient's largest error over that parameter's largest gradient
+PAPER_TOL = {"loss_rtol": 2e-4, "grad_rel": 1e-4}
+PAPER_MODE_TOL = {"rtol": 2e-3, "atol": 2e-4}   # tapir vs opaque, 3 steps
+FIG3_BATCH, FIG3_ITERS, FIG3_SEED = 64, 5, 42
+
+
+def paper_batch(name: str, device) -> dict:
+    """The reference test's batch shapes, from numpy seed 1."""
+    import numpy as np
+    import torch
+    from repro_torch.models.paper_nets import LSTM1, LSTM2
+    rng = np.random.default_rng(1)
+    size = PAPER_TEST_SIZES[name]
+    if name == "cnn":
+        b = {"x": rng.standard_normal(size + (28, 28, 1), np.float32),
+             "y": rng.integers(0, 10, size)}
+    elif name == "ncf":
+        b = {"users": rng.integers(0, 6040, size),
+             "items": rng.integers(0, 3706, size),
+             "y": rng.integers(0, 2, size)}
+    else:
+        cfg = LSTM1 if name == "lstm1" else LSTM2
+        b = {"x": rng.standard_normal(size + (cfg.input_dim,), np.float32),
+             "y": rng.integers(0, cfg.n_classes,
+                               size if cfg.per_step_output else size[:1])}
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def paper_params(name: str, device):
+    """Seed-0 weights drawn on the CPU, the same values on ``device``."""
+    import torch
+    from repro_torch.models.paper_nets import get_paper_net
+    from repro_torch.optim.adamw import tree_map
+    cpu = get_paper_net(name).init(torch.Generator().manual_seed(0), "cpu")
+    return tree_map(lambda t: t.to(device).requires_grad_(True), cpu)
+
+
+def paper_launches(name: str, mode: str, steps: int = 0) -> dict:
+    """The GEMM launches one training step makes, from the code.  LSTMs
+    (L layers over ``steps`` time steps): a cell step is 1 GEMM over
+    concat(x, h) in tapir mode, 8 in opaque mode, plus the head; every
+    forward GEMM has a dW; dX wherever its input requires grad (not the
+    first layer's data, not the zero initial h).  The CNN's and NCF's
+    tapir forwards count one more launch per GEMM whose fused chain is not
+    all adds (conv + bias + relu, fc1 + gelu, the relu layers): the
+    backward recomputes its product (``epilogue_vjp``)."""
+    from repro_torch.models.paper_nets import LSTM1, LSTM2
+    if name == "cnn":
+        return {"gemm_forward": 7 if mode == "tapir" else 4,
+                "gemm_dx": 3, "gemm_dw": 4}
+    if name == "ncf":
+        return {"gemm_forward": 9 if mode == "tapir" else 5,
+                "gemm_dx": 5, "gemm_dw": 5}
+    n_l, t = (LSTM1 if name == "lstm1" else LSTM2).n_layers, steps
+    if mode == "tapir":
+        return {"gemm_forward": n_l * t + 1, "gemm_dx": n_l * t,
+                "gemm_dw": n_l * t + 1}
+    return {"gemm_forward": 8 * n_l * t + 1,
+            "gemm_dx": 4 * (n_l - 1) * t + 4 * n_l * (t - 1) + 1,
+            "gemm_dw": 8 * n_l * t + 1}
+
+
+def gemm_counts() -> dict:
+    fm_ops = kernel_ops()[0]
+    return {"gemm_forward": fm_ops.launches,
+            "gemm_dx": fm_ops.bwd_launches["dx"],
+            "gemm_dw": fm_ops.bwd_launches["dw"]}
+
+
+def counted_step(tag: str, step, want: dict, prof=None):
+    """One training step of a main path with every count zeroed just
+    before it and read just after; fails unless the GEMM launched as
+    ``want`` says and flash and the scan not at all.  With ``prof`` the
+    step runs under that (started) profiler.  Returns (loss, the counts,
+    the forward and backward launches by shape)."""
+    import torch
+    fm_ops, fa_ops, ls_ops = kernel_ops()
+    torch.cuda.synchronize()
+    reset_counts()
+    loss = step()
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.stop()
+    got = gemm_counts()
+    if got != want or fa_ops.launches or ls_ops.launches:
+        raise SystemExit(f"{tag}: launches {got} (flash "
+                         f"{fa_ops.launches}, scan {ls_ops.launches}), "
+                         f"expected {want}")
+    return (float(loss), got, collections.Counter(fm_ops.launches_by_shape),
+            collections.Counter(fm_ops.bwd_launches_by_shape))
+
+
+def device_profiler():
+    """A started ``torch.profiler`` of device activity only (an LSTM step
+    launches tens of thousands of kernels; recording every host op beside
+    them costs seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    return prof
+
+
+def profiled_step(step) -> dict:
+    """Device ms by kernel of one step under ``device_profiler``."""
+    import torch
+    torch.cuda.synchronize()
+    prof = device_profiler()
+    step()
+    torch.cuda.synchronize()
+    prof.stop()
+    return device_time_by_kernel(prof, 1)
+
+
+def library_kernels(by_name: dict) -> list:
+    return sorted(k[:80] for k in by_name
+                  if LIBRARY_KERNEL.search(k) and not PORT_ANY.search(k))
+
+
+def paper_nets_phase():
+    """Phase 18: each net at the reference test's batch.  One step on the
+    card against the CPU (loss and every gradient, PAPER_TOL); 3 SGD steps
+    (lr 1e-2) in tapir mode twice (bitwise equal) and in opaque mode
+    (PAPER_MODE_TOL), each step held to ``paper_launches``; one profiled
+    step per mode with no library kernel in it.  Returns its line."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.launch import fig3
+    from repro_torch.models.paper_nets import get_paper_net
+    from repro_torch.optim import tree_leaves
+    out = {}
+    t0 = time.perf_counter()
+    for name in PAPER_NETS:
+        model = get_paper_net(name)
+        t = PAPER_TEST_SIZES[name][-1]
+        cfg = {m: fig3.tapir_config(m, "cuda") for m in ("tapir", "opaque")}
+        got = fig3.value_and_grad(model, paper_params(name, "cuda"),
+                                  paper_batch(name, "cuda"), cfg["tapir"])
+        want = fig3.value_and_grad(model, paper_params(name, "cpu"),
+                                   paper_batch(name, "cpu"),
+                                   fig3.tapir_config("tapir", "cpu"))
+        loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        grad_err = max(float((g.cpu() - w).abs().max())
+                       / float(w.abs().max()) for g, w in zip(*[
+                           x[1] for x in (got, want)]))
+        if not (loss_err <= PAPER_TOL["loss_rtol"]
+                and grad_err <= PAPER_TOL["grad_rel"]):
+            raise SystemExit(f"paper_nets {name}: card vs CPU loss "
+                             f"{loss_err}, gradients {grad_err}")
+        runs, launches, library, dev_ms = {}, {}, {}, {}
+        for tag, mode in (("tapir", "tapir"), ("tapir_again", "tapir"),
+                          ("opaque", "opaque")):
+            tapir.clear_cache()
+            params = paper_params(name, "cuda")
+            step = fig3.make_step(model, params, paper_batch(name, "cuda"),
+                                  cfg[mode], lr=1e-2)
+            losses = []
+            for s_ in range(3):
+                loss, launches[mode], _, _ = counted_step(
+                    f"paper_nets {name} {tag} step {s_}", step,
+                    paper_launches(name, mode, t))
+                losses.append(loss)
+            by_name = profiled_step(step)
+            library[mode] = library_kernels(by_name)
+            dev_ms[mode] = sum(ms for ms, _ in by_name.values())
+            runs[tag] = (losses, [p.detach().clone()
+                                  for p in tree_leaves(params)])
+        bitwise = runs["tapir"][0] == runs["tapir_again"][0] and all(
+            torch.equal(a, b) for a, b in zip(runs["tapir"][1],
+                                              runs["tapir_again"][1]))
+        lt, lo = runs["tapir"][0], runs["opaque"][0]
+        mode_err = max(abs(a - b) - PAPER_MODE_TOL["rtol"] * abs(b)
+                       for a, b in zip(lt, lo))
+        out[name] = {"batch": list(PAPER_TEST_SIZES[name]),
+                     "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                     "losses_tapir": lt, "losses_opaque": lo,
+                     "tapir_vs_opaque_excess": mode_err,
+                     "bitwise_repeat": bitwise,
+                     "launches_per_step": launches,
+                     "profiled_device_ms": dev_ms,
+                     "library_kernels": library}
+        if mode_err > PAPER_MODE_TOL["atol"] or not bitwise or any(
+                library.values()):
+            raise SystemExit(f"paper_nets {name}: {out[name]}")
+    return {"phase": "paper_nets", "tolerance": PAPER_TOL,
+            "mode_tolerance": PAPER_MODE_TOL, "nets": out,
+            "phase_s": time.perf_counter() - t0}
+
+
+def weight_copy_share(mode: str) -> float:
+    """W's bytes copied per ``lstm_step`` call, over W's bytes, from the
+    cached cell program: tapir mode's concatenations of W's slices (the
+    fused weight, rebuilt each call: 2.0); opaque mode's column slices
+    that reach a GEMM (the wrapper copies each strided slice to a
+    contiguous one: 1.0; its dX launch copies it again in the
+    backward)."""
+    from repro_torch.core import tapir
+    for key, g in tapir.cached_graphs().items():
+        if key[0][0] != "lstm_step" or key[-3] != mode:
+            continue
+
+        def of_w(nid):
+            n = g.nodes[nid]
+            if n.op == "input":
+                return n.attrs["name"] == "W"
+            return n.op in ("slice", "concat") and all(
+                of_w(i) for i in n.inputs)
+        (w_in,) = [n for n in g.nodes.values()
+                   if n.op == "input" and n.attrs["name"] == "W"]
+        if mode == "tapir":
+            copied = sum(n.ttype.bytesize for n in g.nodes.values()
+                         if n.op == "concat" and of_w(n.nid))
+        else:
+            copied = sum(g.nodes[n.inputs[1]].ttype.bytesize
+                         for n in g.nodes.values() if n.op == "matmul"
+                         and g.nodes[n.inputs[1]].op == "slice")
+        return copied / w_in.ttype.bytesize
+    raise SystemExit(f"no cached lstm_step program in {mode} mode")
+
+
+def lstm_host_us(model, params, batch, cfg, calls: int) -> float:
+    """Host µs per ``lstm_step`` call: a forward under grad issued with no
+    synchronisation, over its cell steps; the less of two forwards (the
+    host's time moves between calls)."""
+    import torch
+    from repro_torch.core import tapir
+    best = math.inf
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tapir.use(cfg):
+            out = model.forward(params, batch["x"])
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        del out
+    return best / calls * 1e6
+
+
+def fig3_phase():
+    """Phase 19: ``launch/fig3.py``'s protocol at batch 64 (opaque, tapir,
+    and tapir with ``ablate_serialization``, per net): step p50 over
+    FIG3_ITERS steps after ``fig3.WARMUP`` (``fig3.bench_network``), then on
+    fresh weights one counted step (held to ``paper_launches``) under the
+    profiler (device ms, busy share, no library kernel); for the
+    LSTMs the host µs per ``lstm_step`` call and the W bytes copied per
+    step.  Returns (line, forward and backward GEMM launches by shape,
+    the net and mode that first launched each)."""
+    import torch
+    from repro_torch.launch import fig3
+    from repro_torch.models.paper_nets import LSTM1, LSTM2
+    fwd, bwd, first = (collections.Counter(), collections.Counter(), {})
+    rows, ratios, ablated = [], {}, {}
+    t0 = time.perf_counter()
+    for label, name, model, batch in fig3.make_benches(
+            FIG3_BATCH, FIG3_SEED, "cuda"):
+        lstm = {"lstm1": LSTM1, "lstm2": LSTM2}.get(name)
+        t = lstm.seq_len if lstm else 0
+        p50 = {}
+        for mode, ablate in (("opaque", False), ("tapir", False),
+                             ("tapir", True)):
+            t_row = time.perf_counter()
+            r = fig3.bench_network(label, model, batch, mode, ablate,
+                                   FIG3_ITERS, FIG3_SEED, "cuda")
+            cfg = fig3.tapir_config(mode, "cuda", ablate)
+            params = fig3.init_params(model, FIG3_SEED, "cuda")
+            step = fig3.make_step(model, params, batch, cfg)
+            prof = device_profiler()
+            loss, counts, f_, b_ = counted_step(
+                f"fig3 {label} {mode}", step, paper_launches(name, mode, t),
+                prof)
+            for s_ in list(f_) + [("bwd",) + s_ for s_ in b_]:
+                first.setdefault(s_, f"{label} {mode}")
+            if not ablate:
+                fwd.update(f_)
+                bwd.update(b_)
+            by_name = device_time_by_kernel(prof, 1)
+            library = library_kernels(by_name)
+            if library:
+                raise SystemExit(f"fig3 {label} {mode}: library kernels "
+                                 f"{library}")
+            dev = sum(ms for ms, _ in by_name.values())
+            r.update(launches_per_step=counts, device_ms=dev,
+                     device_busy_share=dev / (r["t_step_s"] * 1e3),
+                     gemm_device_ms=sum(ms for k, (ms, _) in by_name.items()
+                                        if "gemm_f32_kernel" in k),
+                     kernels_per_step=sum(c for _, c in by_name.values()),
+                     top=top_kernels(by_name, 6))
+            if lstm:
+                calls = lstm.n_layers * t
+                r["host_us_per_lstm_step"] = lstm_host_us(model, params,
+                                                          batch, cfg, calls)
+                share = weight_copy_share(mode)
+                r["w_copied_per_cell_step"] = share
+                r["w_copy_mb_per_step"] = share * t * sum(
+                    4 * p["W"].numel() for p in params["layers"]) / 1e6
+            if not math.isfinite(r["loss"]):
+                raise SystemExit(f"fig3 {label} {mode}: loss {r['loss']}")
+            p50[(mode, ablate)] = r["t_step_s"]
+            r["row_s"] = time.perf_counter() - t_row
+            rows.append(r)
+            del params, step
+        ratios[label] = p50[("opaque", False)] / p50[("tapir", False)]
+        ablated[label] = p50[("opaque", False)] / p50[("tapir", True)]
+    return ({"phase": "fig3", "batch": FIG3_BATCH, "iters": FIG3_ITERS,
+             "warmup": fig3.WARMUP, "seed": FIG3_SEED, "rows": rows,
+             "ratio": ratios, "geomean_ratio": fig3.geomean(ratios.values()),
+             "ratio_ablate_serialization": ablated,
+             "geomean_ratio_ablate_serialization":
+                 fig3.geomean(ablated.values()),
+             "phase_s": time.perf_counter() - t0},
+            fwd, bwd, first)
+
+
+def fp32_gemm_entries(fwd, bwd, first, gen) -> list:
+    """The GEMM's fp32 route at every shape the nets' counted steps
+    launched (forward with its epilogue, dX, dW): kernel vs plain (TOL),
+    the kernel, its plain version, the library call computing the same
+    function (``torch.matmul`` / ``torch.addmm``; none for a chain with
+    an activation) and ``torch.matmul`` of the bare product (TF32 off),
+    each timed alone with L2 flushed; bound: operands and output moved
+    once, 2mnk over 67 TFLOP/s."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    dt = torch.float32
+    out = []
+
+    def entry(name, launches, err, fn, plain, lib, mm, nbytes, flops,
+              shape):
+        if not err <= TOL["float32"]:
+            raise SystemExit(f"fp32 GEMM vs plain: {name}: max err {err}")
+        t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS["float32"]
+        ms = time_ms(fn)
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": time_ms(plain),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lib) if lib is not None else None,
+            "matmul_ms": time_ms(mm),
+            "design": "fp32 FMA, 64x64 tile, 256 threads of 4x4, k steps "
+                      "of 16 through shared memory, no split-K",
+            "tflops": flops / (ms * 1e-3) / 1e12, "shape": shape})
+
+    for s_ in sorted(fwd, key=lambda s_: s_[:3]):
+        m, n, k, _, spec = s_
+        x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+        y = ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt)
+        err = float((y - ref.fused_matmul_ref(x, w, epilogue=epi,
+                                              out_dtype=dt)).abs().max())
+        nbytes = 4 * (x.numel() + w.numel() + m * n) + sum(
+            4 * v.numel() for _, vals, _ in epi for v in vals)
+        entry(f"fused_matmul_fp32[{first[s_]} m={m} n={n} k={k} "
+              f"{'+'.join(f for f, *_ in spec) or 'no epilogue'}]",
+              fwd[s_], err,
+              lambda: ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt),
+              lambda: ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt),
+              library_fn(x, w, epi, spec) or (
+                  (lambda: torch.addmm(epi[0][1][0], x, w))
+                  if [(f, kd) for f, kd, *_ in spec] == [("add", "row")]
+                  else None),
+              lambda: torch.matmul(x, w), nbytes, 2.0 * m * n * k,
+              [m, n, k, spec])
+        del x, w, epi, y
+    for s_ in sorted(bwd):
+        route, m, n, k, _ = s_
+        a, b = gemm_bwd_inputs(route, m, n, k, dt, gen)
+        fn, plain, lib = gemm_bwd_call(route, a, b)
+        err = float((fn() - plain()).abs().max())
+        entry(f"fused_matmul_fp32_{route}[{first[('bwd',) + s_]} m={m} "
+              f"n={n} k={k}]", bwd[s_], err, fn, plain, lib, lib,
+              4 * (a.numel() + b.numel() + m * n), 2.0 * m * n * k,
+              [route, m, n, k])
+        del a, b
+    return out
+
+
+def paper_phases() -> list:
+    """Phases 18-19 and the fp32 GEMM entries of the kernels line."""
+    import torch
+    emit(paper_nets_phase())
+    line, fwd, bwd, first = fig3_phase()
+    emit(line)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    entries = fp32_gemm_entries(fwd, bwd, first, gen)
+    fwd_e = [e for e in entries if e["shape"][0] not in ("dx", "dw")]
+    emit({"phase": "fp32_gemm_times", "shapes": len(entries),
+          "launches_per_fig3_run": sum(fwd.values()) + sum(bwd.values()),
+          "kernel_ms_over_matmul_ms": {
+              e["name"]: e["ms"] / e["matmul_ms"] for e in entries},
+          "forward_tflops": {e["name"]: e["tflops"] for e in fwd_e},
+          "phase_s": time.perf_counter() - t0})
+    return entries
+
+
 def gemm_times_again(out_path: str, plan) -> int:
     """The ``--gemm-times`` mode: time the GEMM again at every bf16 path
     shape that a full run counted (the ``shape`` of each GEMM entry of
@@ -2883,6 +3309,14 @@ def main() -> int:
 
     # -- 11-17. RWKV6-7B ---------------------------------------------------
     entries += rwkv_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+
+    # -- 18-19. the paper's four networks, fp32 ------------------------------
+    t0 = time.perf_counter()
+    entries += paper_phases()
+    emit({"phase": "paper_done", "paper_s": time.perf_counter() - t0,
+          "elapsed_s": time.perf_counter() - t_start})
 
     emit({"kernels": entries})
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

@@ -21,7 +21,14 @@ as the roofline argmin; no route is chosen by the device a tensor is on:
   scan, at the scheduled chunk (``SAFE_CHUNK`` where none was set: never a
   chunk past it, where the factored form stops being exact), with any
   fused epilogue applied after it; ``chunked`` and ``ref`` lower to the
-  plain versions on a CPU tensor and raise on a CUDA one.
+  plain versions on a CPU tensor and raise on a CUDA one;
+* a conv2d node, ``im2col_gemm`` or ``"opaque"``, builds the patch matrix
+  of the padded NHWC input (``im2col``: kh*kw shifted, strided slices
+  concatenated on the channel axis in HWIO order) and calls
+  ``fused_matmul`` against the kernel reshaped to ``[kh*kw*cin, co]``
+  with the node's epilogue: no library convolution runs.  Autograd
+  through the slices and the concatenation gives the input's gradient;
+  the GEMM's backward routes give the kernel's.
 
 A lifted composite that returns a tuple is one ``pyfunc`` node per output;
 a program runs the function once and hands each node its element.
@@ -131,6 +138,53 @@ def _lower_linear_scan(node: Node, env: dict) -> Any:
     else:
         raise NotImplementedError(f"linear_scan impl {impl!r} is not ported")
     return _apply_epilogue(y, node, env).to(to_torch_dtype(node.ttype.dtype))
+
+
+def conv2d_out_hw(h: int, w: int, kh: int, kw: int, strides: tuple,
+                  padding: str) -> tuple[int, int]:
+    """The output's spatial size, as XLA computes it for SAME / VALID."""
+    if padding == "SAME":
+        return -(-h // strides[0]), -(-w // strides[1])
+    if padding == "VALID":
+        return (h - kh) // strides[0] + 1, (w - kw) // strides[1] + 1
+    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, strides: tuple,
+           padding: str) -> torch.Tensor:
+    """The patch matrix ``[B*Ho*Wo, kh*kw*C]`` of an NHWC ``x``: row
+    ``(b, i, j)`` holds the window at output pixel ``(i, j)``, taps in
+    (row, column, channel) order, the order of an HWIO kernel's rows.
+    "SAME" pads as XLA does: ``total = max((Ho-1)*s + k - H, 0)``, half
+    (rounded down) before, the rest after."""
+    B, H, W, C = x.shape
+    sh, sw = strides
+    ho, wo = conv2d_out_hw(H, W, kh, kw, strides, padding)
+    if padding == "SAME":
+        ph = max((ho - 1) * sh + kh - H, 0)
+        pw = max((wo - 1) * sw + kw - W, 0)
+        x = torch.nn.functional.pad(
+            x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+    taps = [x[:, i:i + (ho - 1) * sh + 1:sh, j:j + (wo - 1) * sw + 1:sw, :]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(taps, dim=-1).reshape(B * ho * wo, kh * kw * C)
+
+
+def _lower_conv2d(node: Node, env: dict) -> Any:
+    """im2col, then the GEMM kernel's wrapper with the node's epilogue
+    (``im2col_gemm``; a sealed ``opaque`` node has none)."""
+    impl = node.schedule.impl
+    if impl not in ("im2col_gemm", "opaque"):
+        raise NotImplementedError(f"conv2d impl {impl!r} is not ported")
+    x, kern = env[node.inputs[0]], env[node.inputs[1]]
+    kh, kw, cin, co = kern.shape
+    cols = im2col(x, kh, kw, node.attrs["strides"], node.attrs["padding"])
+    epi = [(fn, [env[e] for e in extras], at)
+           for fn, extras, at in node.epilogue]
+    y = fm_ops.fused_matmul(cols, kern.reshape(kh * kw * cin, co),
+                            epilogue=epi,
+                            out_dtype=to_torch_dtype(node.ttype.dtype))
+    return y.reshape(node.ttype.shape)
 
 
 # -- indexing with the reference's semantics ---------------------------------
@@ -398,6 +452,8 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
         return _lower_attention(node, env)
     if op == "linear_scan":
         return _lower_linear_scan(node, env)
+    if op == "conv2d":
+        return _lower_conv2d(node, env)
     raise NotImplementedError(f"lowering of {op!r} is not ported yet")
 
 

@@ -14,6 +14,8 @@ pass ever sees a model axis.
 """
 from __future__ import annotations
 
+import dataclasses
+
 from ..ir import TaskGraph
 from ..schedule import CostModel, assign_early_heuristics, assign_schedules
 from .cse import cse
@@ -37,7 +39,12 @@ def optimize_graph(g: TaskGraph) -> TaskGraph:
     return g
 
 
-def run_pipeline(g: TaskGraph, mode: str, cm: CostModel) -> TaskGraph:
+def run_pipeline(g: TaskGraph, mode: str, cm: CostModel,
+                 ablate_serialization: bool = False) -> TaskGraph:
+    """Optimize and schedule ``g`` in place for ``mode``.  With
+    ``ablate_serialization`` tapir mode schedules under a grain of 0 FLOPs
+    (no small-task serialization; a cost model of its own name); opaque
+    mode ignores it."""
     if mode == "opaque":
         seal_libraries(g)
         assign_early_heuristics(g, cm)
@@ -47,5 +54,8 @@ def run_pipeline(g: TaskGraph, mode: str, cm: CostModel) -> TaskGraph:
         raise ValueError(f"mode must be 'tapir' or 'opaque', got {mode!r}")
     optimize_graph(g)
     g.prune()
+    if ablate_serialization:
+        cm = dataclasses.replace(cm, name=cm.name + "+noserial",
+                                 grain_flops=0.0)
     assign_schedules(g, cm)
     return g

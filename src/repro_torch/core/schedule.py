@@ -73,9 +73,10 @@ H100_COST_MODEL = CostModel(name="h100_sxm", peak_flops=989e12,
                             spawn_s=5e-6, score_passes_fused=4.0,
                             dispatch_s=9e-6)
 
-#: library op -> the impl name of its hand-written Hopper kernel
+#: library op -> the impl name of its lowering onto a hand-written Hopper
+#: kernel (a convolution's is im2col and the GEMM kernel)
 PORTED_KERNELS = {"matmul": "fused_kernel", "attention": "flash_kernel",
-                  "linear_scan": "kernel"}
+                  "linear_scan": "kernel", "conv2d": "im2col_gemm"}
 
 
 def _align(x: int, m: int) -> int:
@@ -268,12 +269,32 @@ def linear_scan_candidates(g: TaskGraph, node: Node, cm: CostModel
             ImplCandidate("ref", roof("ref"))]
 
 
+def conv2d_candidates(g: TaskGraph, node: Node, cm: CostModel
+                      ) -> list[ImplCandidate]:
+    """``im2col_gemm``, the one lowering: the ``[B*Ho*Wo, kh*kw*cin]``
+    patch matrix built from the padded input (the input read once, the
+    patches written and read once), then one launch of the GEMM kernel
+    against the reshaped kernel with the node's epilogue.  The reference
+    registers its one lowering (XLA's convolution) the same way."""
+    x_t, k_t = (g.nodes[i].ttype for i in node.inputs[:2])
+    kh, kw, cin, co = k_t.shape
+    b, ho, wo, _ = node.ttype.shape
+    m, k = b * ho * wo, kh * kw * cin
+    eb = dtype_bytes(node.ttype.dtype)
+    c = matmul_cost(m, co, k, eb)
+    io = c["io_bytes"] + eb * (x_t.size + m * k)   # + input, patches
+    return [_not_ported("conv2d", "im2col_gemm")
+            or ImplCandidate("im2col_gemm", c["flops"] / cm.peak_flops
+                             + io / cm.hbm_bw)]
+
+
 # Candidate order is the tie-break: the argmin takes a strict ``<``, so on an
 # exact tie the EARLIER candidate wins (kernel over plain).
 IMPL_REGISTRY: dict[str, Callable] = {
     "matmul": matmul_candidates,
     "attention": attention_candidates,
     "linear_scan": linear_scan_candidates,
+    "conv2d": conv2d_candidates,
 }
 
 

@@ -31,9 +31,14 @@ input in place), and ``scan_layers`` takes the config's ``remat``:
 ``"full"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 
+The paper's ops: ``lstm_step`` builds the cell the way stock XLA emitted
+it (eight slice-fed GEMMs), which tapir mode's fusions collapse into one;
+``conv2d`` is an NHWC / HWIO library op with an open epilogue, lowered to
+im2col and the GEMM kernel; ``elemwise`` is one unary ``ew`` node.
+
 Not ported yet (see ROADMAP): the on-disk program cache, ``expert_mlp``,
-``lstm_step``, ``conv2d``, ``invalidate_mesh`` and the ``"dots"`` remat
-policy (it waits for ``pick_remat``).
+``invalidate_mesh`` and the ``"dots"`` remat policy (it waits for
+``pick_remat``).
 """
 from __future__ import annotations
 
@@ -51,7 +56,7 @@ import torch.utils.checkpoint
 from . import graphs
 from .dtypes import dtype_name, to_torch_dtype
 from .ir import TaskGraph, TensorType
-from .lowering import (_EW, dynamic_slice_clamped,
+from .lowering import (_EW, conv2d_out_hw, dynamic_slice_clamped,
                        dynamic_update_slice_clamped, emit, gather_clamped,
                        scatter_drop, written_inputs)
 from .passes import MESH_FINGERPRINT, run_pipeline
@@ -75,6 +80,9 @@ class TapirConfig:
     #: activations, "full" recomputes each layer in the backward; "dots"
     #: (keep the products) waits for ``pick_remat``
     remat: str = "none"
+    #: tapir mode schedules with no small-task serialization (grain 0):
+    #: the paper's ablation of that pass
+    ablate_serialization: bool = False
 
     def __post_init__(self):
         if self.remat not in ("none", "full", "dots"):
@@ -138,14 +146,18 @@ def _tt(x) -> TensorType:
 
 
 def _cfg_key(cfg: TapirConfig) -> tuple:
-    return (cfg.mode, cfg.resolved_cost_model().name, MESH_FINGERPRINT)
+    # the last three stay (mode, cost model, mesh): introspection reads
+    # them from the end of a key
+    return (cfg.ablate_serialization, cfg.mode,
+            cfg.resolved_cost_model().name, MESH_FINGERPRINT)
 
 
 def _compile(g: TaskGraph, cfg: TapirConfig, key: tuple,
              region: bool = False) -> _Program:
     """Pipeline + emit with cache bookkeeping (shared by per-op + region)."""
     t0 = time.perf_counter()
-    g = run_pipeline(g, cfg.mode, cfg.resolved_cost_model())
+    g = run_pipeline(g, cfg.mode, cfg.resolved_cost_model(),
+                     ablate_serialization=cfg.ablate_serialization)
     prog = _Program(emit(g))
     if region:
         _CACHE_STATS["compiled_programs"] += 1
@@ -925,6 +937,68 @@ def _build_wkv_scan(g: TaskGraph, qi: int, ki: int, vi: int, wi: int,
                  variant="rwkv6" if ui is not None else "gla")
 
 
+def _build_lstm_step(g: TaskGraph, xi: int, hi: int, ci: int, Wi: int,
+                     bi: int) -> tuple[int, int]:
+    """The cell as stock XLA emitted it: per gate (i, f, g, o) two GEMMs on
+    slices of W (the x rows and the h rows), their sum plus the gate's
+    bias slice; then the sigmoids, the tanh and the state update."""
+    x_t, h_t = g.nodes[xi].ttype, g.nodes[hi].ttype
+    W_t, b_t0 = g.nodes[Wi].ttype, g.nodes[bi].ttype
+    xd, hd = x_t.shape[-1], h_t.shape[-1]
+    B = x_t.shape[0]
+    gate_t = TensorType((B, hd), x_t.dtype)
+    Wx_t = TensorType((xd, hd), W_t.dtype)
+    Wh_t = TensorType((hd, hd), W_t.dtype)
+    bg_t = TensorType((hd,), b_t0.dtype)
+    gates = []
+    for gi in range(4):
+        wx = g.add("slice", (Wi,), TensorType((xd, 4 * hd), W_t.dtype),
+                   pdims=(0, 1), axis=0, start=0, limit=xd)
+        wx = g.add("slice", (wx,), Wx_t, pdims=(0, 1), axis=1,
+                   start=gi * hd, limit=(gi + 1) * hd)
+        wh = g.add("slice", (Wi,), TensorType((hd, 4 * hd), W_t.dtype),
+                   pdims=(0, 1), axis=0, start=xd, limit=xd + hd)
+        wh = g.add("slice", (wh,), Wh_t, pdims=(0, 1), axis=1,
+                   start=gi * hd, limit=(gi + 1) * hd)
+        bg = g.add("slice", (bi,), bg_t, pdims=(0,), axis=0,
+                   start=gi * hd, limit=(gi + 1) * hd)
+        mx = g.add("matmul", (xi, wx), gate_t, pdims=(0, 1),
+                   rdims=(("k", xd),), k=xd)
+        mh = g.add("matmul", (hi, wh), gate_t, pdims=(0, 1),
+                   rdims=(("k", hd),), k=hd)
+        s = g.add("ew", (mx, mh), gate_t, pdims=(0, 1), fn="add")
+        s = g.add("ew", (s, bg), gate_t, pdims=(0, 1), fn="add")
+        gates.append(s)
+    i_g = g.add("ew", (gates[0],), gate_t, pdims=(0, 1), fn="sigmoid")
+    f_g = g.add("ew", (gates[1],), gate_t, pdims=(0, 1), fn="sigmoid")
+    g_g = g.add("ew", (gates[2],), gate_t, pdims=(0, 1), fn="tanh")
+    o_g = g.add("ew", (gates[3],), gate_t, pdims=(0, 1), fn="sigmoid")
+    fc = g.add("ew", (f_g, ci), gate_t, pdims=(0, 1), fn="mul")
+    ig = g.add("ew", (i_g, g_g), gate_t, pdims=(0, 1), fn="mul")
+    c2 = g.add("ew", (fc, ig), gate_t, pdims=(0, 1), fn="add")
+    tc = g.add("ew", (c2,), gate_t, pdims=(0, 1), fn="tanh")
+    h2 = g.add("ew", (o_g, tc), gate_t, pdims=(0, 1), fn="mul")
+    return h2, c2
+
+
+def _build_conv2d(g: TaskGraph, xi: int, ki: int, bi: Optional[int],
+                  strides: tuple, padding: str,
+                  activation: Optional[str]) -> int:
+    x_t, k_t = g.nodes[xi].ttype, g.nodes[ki].ttype
+    B, H, Wd, _ = x_t.shape
+    kh, kw, cin, co = k_t.shape
+    ho, wo = conv2d_out_hw(H, Wd, kh, kw, strides, padding)
+    out_t = TensorType((B, ho, wo, co), x_t.dtype)
+    head = g.add("conv2d", (xi, ki), out_t, pdims=(0, 1, 2, 3),
+                 rdims=(("k", kh * kw * cin),),
+                 strides=strides, padding=padding, k_elems=kh * kw * cin)
+    if bi is not None:
+        head = g.add("ew", (head, bi), out_t, pdims=(0, 1, 2, 3), fn="add")
+    if activation:
+        head = g.add("ew", (head,), out_t, pdims=(0, 1, 2, 3), fn=activation)
+    return head
+
+
 # ---------------------------------------------------------------------------
 # Ops
 # ---------------------------------------------------------------------------
@@ -1061,6 +1135,73 @@ def wkv_scan(q, k, v, w, u=None):
                (("q", q), ("k", k), ("v", v), ("w", w))]
         ui = g.add_input("u", _tt(u)) if u is not None else None
         g.set_outputs([_build_wkv_scan(g, *ins, ui)])
+
+    return _execute(sig, build, inputs)[0]
+
+
+def elemwise(x, fn: str):
+    """Unary elementwise op by registry name ("silu", "tanh", ...): one
+    ``ew`` node on a traced tensor (fusable into an epilogue), eager
+    otherwise."""
+    if not isinstance(x, TracedTensor):
+        return _EW[fn](x)
+    reg = x._region
+    if reg.closed:
+        return _EW[fn](x.materialize())
+    nid = reg.g.add("ew", (reg.nid_of(x),), x.ttype,
+                    pdims=tuple(range(x.ndim)), fn=fn)
+    return reg.handle(nid)
+
+
+def lstm_step(x, h, c, W, b):
+    """One LSTM cell step.  x: [B, xd], h / c: [B, hd], W: [xd+hd, 4*hd]
+    (gates i, f, g, o), b: [4*hd].  Returns (h', c').
+
+    The graph is the one stock XLA emitted, EIGHT GEMMs on slices of W plus
+    adds, so it exposes all the logical parallelism.  In tapir mode CSE,
+    the added-GEMM fusion and the shared-input fusion collapse them into ONE
+    GEMM over ``concat(x, h)``; in opaque mode they stay eight sealed
+    library calls."""
+    reg = _active_region()
+    if reg is not None:
+        h2, c2 = _build_lstm_step(reg.g, reg.nid_of(x), reg.nid_of(h),
+                                  reg.nid_of(c), reg.nid_of(W), reg.nid_of(b))
+        return reg.handle(h2), reg.handle(c2)
+    sig = ("lstm_step", _sig(x), _sig(h), _sig(c), _sig(W), _sig(b))
+    inputs = {"x": x, "h": h, "c": c, "W": W, "b": b}
+
+    def build(g: TaskGraph):
+        ins = [g.add_input(n, _tt(inputs[n])) for n in ("x", "h", "c", "W",
+                                                        "b")]
+        g.set_outputs(list(_build_lstm_step(g, *ins)))
+
+    return tuple(_execute(sig, build, inputs))
+
+
+def conv2d(x, kern, b=None, strides=(1, 1), padding="SAME",
+           activation: Optional[str] = None):
+    """NHWC convolution with an HWIO kernel: the library op with an open
+    epilogue (``b`` [co], ``activation``).  ``padding``: "SAME" (XLA's
+    split, the odd pixel at the bottom / right) or "VALID"."""
+    strides = tuple(int(s) for s in strides)
+    reg = _active_region()
+    if reg is not None:
+        out = _build_conv2d(reg.g, reg.nid_of(x), reg.nid_of(kern),
+                            None if b is None else reg.nid_of(b),
+                            strides, padding, activation)
+        return reg.handle(out)
+    sig = ("conv2d", _sig(x), _sig(kern), None if b is None else _sig(b),
+           strides, padding, activation)
+    inputs = {"x": x, "k": kern}
+    if b is not None:
+        inputs["b"] = b
+
+    def build(g: TaskGraph):
+        xi = g.add_input("x", _tt(x))
+        ki = g.add_input("k", _tt(kern))
+        bi = g.add_input("b", _tt(b)) if b is not None else None
+        g.set_outputs([_build_conv2d(g, xi, ki, bi, strides, padding,
+                                     activation)])
 
     return _execute(sig, build, inputs)[0]
 

@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package: its parameter tree, as
 numpy arrays, becomes the config's family (``DenseLM``, ``RWKV6``) on
 ``device``.  bf16 leaves arrive as float32 (exact) and are stored in the
-config's ``param_dtype``."""
+config's ``param_dtype``.  ``paper_params_from_numpy`` does the same for
+the paper's four networks, whose parameters are a plain tree."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,3 +25,30 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     params = {k: conv(v) for k, v in tree.items() if k != "blocks"}
     params["blocks"] = {k: conv(v) for k, v in tree["blocks"].items()}
     return get_model(cfg, device=dev, params=params)
+
+
+def paper_params_from_numpy(name: str, tree, device="cuda"):
+    """The parameter tree of the paper net ``name`` ("cnn", "lstm1",
+    "lstm2", "ncf") from the reference's (nested dicts and lists of numpy
+    arrays), as fp32 tensors on ``device``.  The tree must have the net's
+    structure and shapes (``param_spec``): every layout is the
+    reference's (NHWC activations, HWIO kernels, ``[in, out]`` weights),
+    so no leaf is permuted."""
+    from .paper_nets import get_paper_net
+    dev = resolve_device(device)
+
+    def conv(t, spec, path):
+        if isinstance(spec, (list, dict)):
+            if type(t) is not type(spec) or len(t) != len(spec) or (
+                    isinstance(spec, dict) and set(t) != set(spec)):
+                raise ValueError(f"{name}{path}: expected {spec!r}")
+            keys = spec if isinstance(spec, dict) else range(len(spec))
+            out = {k: conv(t[k], spec[k], f"{path}[{k!r}]") for k in keys}
+            return out if isinstance(spec, dict) else list(out.values())
+        a = np.asarray(t, np.float32)
+        if a.shape != tuple(spec[0]):
+            raise ValueError(f"{name}{path}: shape {a.shape}, expected "
+                             f"{tuple(spec[0])}")
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return conv(tree, get_paper_net(name).param_spec(), "")

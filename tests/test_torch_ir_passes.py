@@ -19,7 +19,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.core import tapir
 from repro_torch.core.ir import TaskGraph, TensorType
 from repro_torch.core.passes import run_pipeline
-from repro_torch.core.schedule import CPU_COST_MODEL, H100_COST_MODEL
+from repro_torch.core.schedule import (CPU_COST_MODEL, H100_COST_MODEL,
+                                      PORTED_KERNELS)
 from repro_torch.models.base import get_model
 
 SLOTS, MAX_LEN = 3, 32
@@ -165,7 +166,7 @@ def test_every_matmul_binds_the_hopper_kernel_under_both_profiles(models):
         assert impls == ["fused_kernel"] * 4, (cm.name, impls)
 
 
-def test_unported_impls_say_so(models):
+def test_unported_impls_say_so(models, monkeypatch):
     g = TaskGraph("attn")
     q = g.add_input("q", TensorType((1, 4, 4, 8), "float32"))
     k = g.add_input("k", g.nodes[q].ttype)
@@ -192,15 +193,23 @@ def test_unported_impls_say_so(models):
     assert gb.nodes[ab].schedule.impl_costs["flash_kernel"] == \
         "n/a (kernel has no bias operand)"
     assert gb.nodes[ab].schedule.impl in ("materialized_grouped", "ref")
-    # a library op none of whose impls is ported refuses at schedule time
-    g2 = TaskGraph("conv")
-    x = g2.add_input("x", TensorType((1, 8, 8, 4), "float32"))
-    kw = g2.add_input("kw", TensorType((3, 3, 4, 4), "float32"))
-    c = g2.add("conv2d", (x, kw), TensorType((1, 8, 8, 4), "float32"),
-               pdims=(0, 1, 2, 3), k_elems=36)
-    g2.set_outputs([c])
-    with pytest.raises(NotImplementedError, match="is ported yet"):
-        run_pipeline(g2, "tapir", H100_COST_MODEL)
+    # conv2d binds its one lowering, im2col onto the GEMM kernel; a
+    # library op none of whose impls is ported refuses at schedule time
+    def conv_graph():
+        g2 = TaskGraph("conv")
+        x = g2.add_input("x", TensorType((1, 8, 8, 4), "float32"))
+        kw = g2.add_input("kw", TensorType((3, 3, 4, 4), "float32"))
+        c = g2.add("conv2d", (x, kw), TensorType((1, 8, 8, 4), "float32"),
+                   pdims=(0, 1, 2, 3), k_elems=36, strides=(1, 1),
+                   padding="SAME")
+        g2.set_outputs([c])
+        return g2, c
+    g2, c = conv_graph()
+    run_pipeline(g2, "tapir", H100_COST_MODEL)
+    assert g2.nodes[c].schedule.impl == "im2col_gemm"
+    monkeypatch.delitem(PORTED_KERNELS, "conv2d")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        run_pipeline(conv_graph()[0], "tapir", H100_COST_MODEL)
     # the linear scan's kernel is ported: a scan node binds it, and the
     # plain composites keep their costs
     g3 = TaskGraph("scan")
