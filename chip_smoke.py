@@ -2,16 +2,19 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --gemm-times OUT [--src DIR] [--plan BN,SPLIT,STAGES]
+    python3 chip_smoke.py --gemm-times OUT [--src DIR] [--plan PLAN ...]
     python3 chip_smoke.py --flash-times OUT [--src DIR]
     python3 chip_smoke.py --flash-bwd-times OUT [--src DIR]
     python3 chip_smoke.py --scan-times OUT [--src DIR]
     python3 chip_smoke.py --decode-times [--src DIR]
+    python3 chip_smoke.py --fig3-times [--src DIR]
 
 The second form times the GEMM again at the path shapes that a full run
-(its output in OUT) counted, and does nothing else: ``--src`` times
-another checkout's wrapper (its ``src``), so two trees compare under one
-timing method in one call; ``--plan`` launches one plan at every shape.
+(its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
+nothing else: ``--src`` times another checkout's wrapper (its ``src``),
+so two trees compare under one timing method in one call; each ``--plan``
+(``BN,SPLIT,STAGES`` for bf16, ``f32:SPLIT[,TILE]`` for fp32) launches one
+plan at every shape of its dtype, in turn (a plan sweep).
 The third does the same for flash attention, at the path shapes of OUT
 and at ``FA_EXTRA``; the fourth for the flash backward, at OUT's train
 shapes and at ``FA_BWD_EXTRA`` (beside SDPA's backward, with each call's
@@ -19,7 +22,8 @@ device time by kernel); the fifth for the linear scan, at OUT's scan path
 shapes.  The sixth times the three decode steps at full width (the
 ``decode_steps`` phase without its checks) and the serve phase's time to
 first token, cold and warm, with ``--src``'s tree where given: parent and
-change in one call.
+change in one call.  The seventh runs phase 19 (``fig3``) alone, for this
+tree or ``--src``'s.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts just before it and
@@ -29,10 +33,12 @@ reads them just after:
    kernel libraries (fused_matmul, flash_attention, linear_scan and the
    flash backward) built by nvcc from the checkout's CUDA sources, in
    parallel; the ptxas reports (registers, stack, spills per kernel; a
-   spill in any of the bf16 kernels or the backward's dK/dV sum fails the
-   run), the bf16 scan kernel's tensor-core (HMMA) and the bf16 flash
-   backward kernels' wgmma (HGMMA) instruction counts in their SASS (none
-   fails the run); flash attention's tiles as the built kernel states
+   spill in any of the bf16 kernels, the fp32 GEMM or the backward's dK/dV
+   sum fails the run), the bf16 scan kernel's tensor-core (HMMA) and the
+   bf16 flash backward kernels' wgmma (HGMMA) instruction counts in their
+   SASS (none fails the run); the fp32 GEMM's tiles as the library states
+   them against ``kernel.F32_TILES``; flash attention's tiles as the built
+   kernel states
    them, at every head dim in both dtypes, against ``kernel.plan`` (whose
    tile the plain version steps over), and the backward's against
    ``kernel.plan_bwd`` (from which the wrapper sizes its scratch);
@@ -155,8 +161,9 @@ every product on the GEMM's FMA route) follow:
    the host µs per ``lstm_step`` call and the W bytes copied a step; the
    ratios opaque / tapir and their geomean; then the GEMM's fp32 route
    (forward with epilogue, dX, dW) at every shape the counted steps
-   launched: kernel vs plain, its time beside the bound, the plain
-   version, the library call and ``torch.matmul`` (TF32 off).
+   launched: kernel vs plain, its plan (tile, ranks over k), its time
+   beside the bound, the plain version, the library call and
+   ``torch.matmul`` (TF32 off).
 
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
@@ -2959,6 +2966,8 @@ def fp32_gemm_entries(fwd, bwd, first, gen) -> list:
               shape):
         if not err <= TOL["float32"]:
             raise SystemExit(f"fp32 GEMM vs plain: {name}: max err {err}")
+        plan = f32_plan_of(*(shape[1:] if shape[0] in ("dx", "dw")
+                             else shape[:3]))
         t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS["float32"]
         ms = time_ms(fn)
         out.append({
@@ -2969,8 +2978,13 @@ def fp32_gemm_entries(fwd, bwd, first, gen) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib) if lib is not None else None,
             "matmul_ms": time_ms(mm),
-            "design": "fp32 FMA, 64x64 tile, 256 threads of 4x4, k steps "
-                      "of 16 through shared memory, no split-K",
+            "design": f"fp32 FMA, {plan['tile'][0]}x{plan['tile'][1]} tile, "
+                      f"{plan['thread_tile'][0]}x{plan['thread_tile'][1]} "
+                      f"a thread, {plan['stages']}-stage cp.async ring of "
+                      f"{plan['k_step']}-deep k steps, "
+                      + (f"{plan['split']} ranks over k (fixed-order sum)"
+                         if plan["split"] > 1 else "no split"),
+            "plan": plan,
             "tflops": flops / (ms * 1e-3) / 1e12, "shape": shape})
 
     for s_ in sorted(fwd, key=lambda s_: s_[:3]):
@@ -3025,50 +3039,132 @@ def paper_phases() -> list:
     return entries
 
 
-def gemm_times_again(out_path: str, plan) -> int:
-    """The ``--gemm-times`` mode: time the GEMM again at every bf16 path
-    shape that a full run counted (the ``shape`` of each GEMM entry of
-    the kernels line in its output ``out_path``), without building a
-    model.  One JSON line per shape: the device time (``ms``), the time
-    with the host's issue time inside (``ms_with_issue``), the library
-    yardstick, max |kernel - plain|; then the card line.  ``plan``
-    (``Plan``) replaces ``kernel.plan`` at every shape (a plan sweep;
-    only ``ms`` and the error are measured then)."""
+def f32_plan_of(m: int, n: int, k: int) -> dict:
+    """The fp32 route's plan at one launch shape, as the timed tree states
+    it: the tile (``kernel.f32_tile``), the split and the k of a rank; a
+    tree without ``f32_tile`` (the 64x64 FMA kernel) gives its Plan."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel
+    p = kernel.plan(n, k, torch.float32)
+    if not hasattr(kernel, "f32_tile"):
+        return p._asdict()
+    bm, bn, bk, tm, tn = kernel.F32_TILES[kernel.f32_tile(m, n, p.split)]
+    return {"tile": [bm, bn], "k_step": bk, "thread_tile": [tm, tn],
+            "split": p.split, "k_per_rank": kernel.k_per_rank(k, p.split),
+            "stages": p.stages}
+
+
+def fp32_gemm_calls(e, gen) -> tuple:
+    """(kernel call, plain call, library call, torch.matmul call, operands)
+    of the fp32 entry ``e`` of a kernels line, on fresh operands."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    dt = torch.float32
+    if e["shape"][0] in ("dx", "dw"):
+        route, m, n, k = e["shape"]
+        a, b = gemm_bwd_inputs(route, m, n, k, dt, gen)
+        fn, plain, lib = gemm_bwd_call(route, a, b)
+        return fn, plain, lib, lib, (a, b)
+    m, n, k, spec = e["shape"]
+    spec = tuple(tuple(st) for st in spec)
+    x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+    lib = library_fn(x, w, epi, spec) or (
+        (lambda: torch.addmm(epi[0][1][0], x, w))
+        if [(f, kd) for f, kd, *_ in spec] == [("add", "row")] else None)
+    return (lambda: ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt),
+            lambda: ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt),
+            lib, lambda: torch.matmul(x, w), (x, w, epi))
+
+
+def force_plans(bf16_plan, f32_plan) -> None:
+    """Replace ``kernel.plan`` (and, for fp32 with a tile, ``f32_tile``)
+    by one plan at every shape: ``bf16_plan`` a ``Plan``; ``f32_plan``
+    (split, tile or None), the split cut to the ranges k allows."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel
+    base = kernel.plan
+
+    def plan(n, k, dtype):
+        if dtype == torch.float32 and f32_plan is not None:
+            return kernel.Plan(0, len(kernel.k_ranges(k, f32_plan[0])),
+                               kernel.F32_STAGES)
+        if dtype == torch.bfloat16 and bf16_plan is not None:
+            return bf16_plan
+        return base(n, k, dtype)
+    kernel.plan = plan
+    if f32_plan is not None and f32_plan[1] is not None:
+        kernel.f32_tile = lambda m, n, split: f32_plan[1]
+
+
+def gemm_times_again(out_path: str, plans: list) -> int:
+    """The ``--gemm-times`` mode: time the GEMM again at every path shape
+    that a full run counted (the ``shape`` of each GEMM entry of the
+    kernels line in its output ``out_path``: the bf16 forward and backward
+    rows and the fp32 forward, dX and dW rows), without building a model.
+    One JSON line per shape: the device time (``ms``), the time with the
+    host's issue time inside (``ms_with_issue``), the library yardstick
+    (and for fp32 ``torch.matmul``, TF32 off), max |kernel - plain|, the
+    plan; then the card line.  Each of ``plans`` (``("bf16", Plan)`` or
+    ``("fp32", (split, tile or None))``) replaces the plan of its dtype at
+    every shape in turn (a plan sweep: only that dtype's rows, and only
+    ``ms`` and the error, are measured then)."""
     import torch
     from repro_torch.kernels.fused_matmul import kernel, ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
     with open(out_path) as f:
         entries = next(json.loads(line)["kernels"] for line in f
                        if line.startswith('{"kernels"'))
-    if plan is not None:
-        kernel.plan = lambda n, k, dtype: plan
-    dt = torch.bfloat16
+    entries = [e for e in entries if "shape" in e
+               and re.match(r"fused_matmul(_fp32)?(_d[xw])?\[", e["name"])]
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for e in entries:
-        if "shape" not in e:
-            continue
-        m, n, k, spec = e["shape"]
-        spec = tuple(tuple(st) for st in spec)
-        x, w, epi = make_inputs(m, n, k, spec, dt, gen)
-        fn = lambda: ops.fused_matmul(x, w, epilogue=epi,  # noqa: E731
-                                      out_dtype=dt)
-        row = {"name": e["name"], "launches": e["launches"],
-               "bound_ms": e["bound_ms"],
-               "plan": getattr(kernel, "plan", lambda *a: None)(n, k, dt)}
-        try:
-            want = ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt)
-            row["max_abs_err"] = float((fn().float() - want.float())
-                                       .abs().max())
-        except RuntimeError as exc:   # a plan the kernel refuses
-            emit({**row, "error": str(exc)})
-            continue
-        row["ms"] = time_ms(fn)
-        if plan is None:
-            row["ms_with_issue"] = time_ms(fn, hold=False)
-            lib_fn = library_fn(x, w, epi, spec)
-            row["library_ms"] = time_ms(lib_fn) if lib_fn else None
-        row["tflops"] = 2.0 * m * n * k / (row["ms"] * 1e-3) / 1e12
-        emit(row)
-        del x, w, epi, want
+    original = (kernel.plan, getattr(kernel, "f32_tile", None))
+    for forced in plans or [None]:
+        if forced is not None:
+            force_plans(*((forced[1], None) if forced[0] == "bf16"
+                          else (None, forced[1])))
+        for e in entries:
+            fp32 = e["name"].startswith("fused_matmul_fp32")
+            if forced is not None and (forced[0] == "fp32") != fp32:
+                continue
+            bwd = e["shape"][0] in ("dx", "dw")
+            m, n, k = e["shape"][1:] if bwd else e["shape"][:3]
+            row = {"name": e["name"], "launches": e["launches"],
+                   "bound_ms": e["bound_ms"]}
+            if fp32:
+                fn, plain, lib, mm, keep = fp32_gemm_calls(e, gen)
+                row["plan"] = f32_plan_of(m, n, k)
+            elif bwd:
+                a, b = gemm_bwd_inputs(*e["shape"], torch.bfloat16, gen)
+                fn, plain, lib = gemm_bwd_call(e["shape"][0], a, b)
+                mm, keep = None, (a, b)
+                row["plan"] = kernel.plan(n, k, torch.bfloat16)
+            else:
+                spec = tuple(tuple(st) for st in e["shape"][3])
+                x, w, epi = make_inputs(m, n, k, spec, torch.bfloat16, gen)
+                fn = lambda: ops.fused_matmul(  # noqa: E731
+                    x, w, epilogue=epi, out_dtype=torch.bfloat16)
+                plain = lambda: ref.fused_matmul_ref(  # noqa: E731
+                    x, w, epilogue=epi, out_dtype=torch.bfloat16)
+                lib, mm, keep = library_fn(x, w, epi, spec), None, (x, w, epi)
+                row["plan"] = kernel.plan(n, k, torch.bfloat16)
+            try:
+                row["max_abs_err"] = float((fn().float() - plain().float())
+                                           .abs().max())
+            except RuntimeError as exc:   # a plan the kernel refuses
+                emit({**row, "error": str(exc)})
+                continue
+            row["ms"] = time_ms(fn)
+            if forced is None:
+                row["ms_with_issue"] = time_ms(fn, hold=False)
+                row["library_ms"] = time_ms(lib) if lib else None
+                if mm is not None:
+                    row["matmul_ms"] = time_ms(mm)
+            row["tflops"] = 2.0 * m * n * k / (row["ms"] * 1e-3) / 1e12
+            emit(row)
+            del fn, plain, lib, mm, keep
+        kernel.plan = original[0]
+        if original[1] is not None:
+            kernel.f32_tile = original[1]
     print(card_line(), flush=True)
     return 0
 
@@ -3126,6 +3222,27 @@ def scan_times_again(out_path: str) -> int:
             continue
         emit(scan_entry(e["name"], tuple(e["shape"]), e["launches"],
                         plain=False))
+    print(card_line(), flush=True)
+    return 0
+
+
+def fig3_times() -> int:
+    """The ``--fig3-times`` mode: phase 19's ``fig3`` line alone (per net
+    and mode: step p50, device ms and busy share of a profiled step, GEMM
+    launches; the opaque / tapir ratios) with the tree on ``sys.path``
+    (``--src``: another checkout's), for a parent/change A/B in one call;
+    the GEMM library is built first, outside every timing.  Then the card
+    line."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels.fused_matmul import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernel.build()
+    line = fig3_phase()[0]
+    line["tree"] = os.path.relpath(os.path.dirname(repro_torch.__file__),
+                                   HERE)
+    emit(line)
     print(card_line(), flush=True)
     return 0
 
@@ -3200,14 +3317,20 @@ def main() -> int:
     ap.add_argument("--decode-times", action="store_true",
                     help="time the three decode steps and the serve "
                          "phase's time to first token, and stop")
+    ap.add_argument("--fig3-times", action="store_true",
+                    help="run the fig3 phase (the paper nets' steps, "
+                         "device time, ratios) alone, and stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
-                                  "--flash-bwd-times, --scan-times or "
-                                  "--decode-times: another "
+                                  "--flash-bwd-times, --scan-times, "
+                                  "--decode-times or --fig3-times: another "
                                   "checkout's src directory, whose code is "
                                   "timed")
-    ap.add_argument("--plan", metavar="BN,SPLIT,STAGES",
+    ap.add_argument("--plan", action="append",
+                    metavar="BN,SPLIT,STAGES | f32:SPLIT[,TILE]",
                     help="with --gemm-times: launch this plan at every "
-                         "shape in place of kernel.plan")
+                         "shape of its dtype in place of kernel.plan (fp32: "
+                         "the split, cut to the ranges k allows, and an "
+                         "index into kernel.F32_TILES); repeat to sweep")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3217,6 +3340,8 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(args.src))
     if args.decode_times:
         return decode_times()
+    if args.fig3_times:
+        return fig3_times()
     if args.flash_times:
         return flash_times_again(args.flash_times)
     if args.flash_bwd_times:
@@ -3224,11 +3349,16 @@ def main() -> int:
     if args.scan_times:
         return scan_times_again(args.scan_times)
     if args.gemm_times:
-        plan = None
-        if args.plan:
-            from repro_torch.kernels.fused_matmul.kernel import Plan
-            plan = Plan(*(int(v) for v in args.plan.split(",")))
-        return gemm_times_again(args.gemm_times, plan)
+        from repro_torch.kernels.fused_matmul.kernel import Plan
+        plans = []
+        for text in args.plan or []:
+            if text.startswith("f32:"):
+                split, *tile = (int(v) for v in text[4:].split(","))
+                plans.append(("fp32", (split, tile[0] if tile else None)))
+            else:
+                plans.append(("bf16", Plan(*(int(v)
+                                             for v in text.split(",")))))
+        return gemm_times_again(args.gemm_times, plans)
     from repro_torch.core import tapir
     from repro_torch.kernels.build import REPORTS
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -3271,6 +3401,7 @@ def main() -> int:
         raise SystemExit("build: a bf16 flash backward kernel has no wgmma "
                          f"(HGMMA) instruction, or no cuobjdump: {bwd_hgmma}")
     for what, report, prefix in (("GEMM", gemm_ptxas, "gemm_bf16"),
+                                 ("GEMM fp32", gemm_ptxas, "gemm_f32"),
                                  ("flash", flash_ptxas, "flash_bf16"),
                                  ("scan", scan_ptxas, "scan_bf16"),
                                  ("flash dK/dV", flash_bwd_ptxas,
@@ -3281,8 +3412,12 @@ def main() -> int:
         spills = {k: v for k, v in report.items()
                   if k.startswith(prefix) and v.get("spill_stores", 0)}
         if spills or not any(k.startswith(prefix) for k in report):
-            raise SystemExit(f"build: the bf16 {what} kernel spills or is "
+            raise SystemExit(f"build: the {what} kernel spills or is "
                              f"missing: {report}")
+    # f32_tile indexes the library's fp32 tiles by position
+    if kernel.kernel_f32_tiles() != kernel.F32_TILES:
+        raise SystemExit(f"build: fp32 GEMM tiles {kernel.kernel_f32_tiles()}"
+                         f", kernel.F32_TILES {kernel.F32_TILES}")
     # the plain version steps over kernel.plan's tile: it must be the
     # built kernel's own
     for dt in (torch.bfloat16, torch.float32):

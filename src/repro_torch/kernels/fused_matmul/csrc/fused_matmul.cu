@@ -49,8 +49,32 @@
 //    and an empty k as one 8-wide slice of zeros.
 //    Rows past m and columns past k or n arrive as zeros from TMA's
 //    out-of-bounds fill; outputs past m or n are masked here.
-//  * fp32 products run on plain FMAs in full fp32 (64x64 tile, fixed
-//    16-wide k steps), not on TF32 tensor cores.
+//
+// The fp32 route (gemm_f32_kernel; every product of the paper's four
+// networks) runs on fp32 FMAs, not on TF32 tensor cores (TF32 keeps about
+// three decimal digits).  At the nets' shapes the 67 TFLOP/s FMA rate is
+// 0.6-9 us of work: what bounds it is how many SMs have work and how long
+// each waits on its loads.  So:
+//  * Register tiles (4x4 outputs a thread, 64x64 or 32x32 a block, chosen
+//    from m, n and the split by kernel.py::f32_tile) over a 2-stage
+//    cp.async ring of 32-deep k steps, small enough for several blocks an
+//    SM, each operand copied along its stored rows (16-byte copies where
+//    the rows allow, 4-byte ones at ragged strides) into a padded layout
+//    whose float4 reads are free of bank conflicts.
+//  * k is cut into S contiguous ranges of whole 64-steps (kernel.py::plan,
+//    a function of (n, k) alone) where one 64-row output would leave SMs
+//    idle: conv1's dW, a 9 x 32 output over 50176 rows, is 88 ranks.
+//    Each rank writes its partial tile to an fp32 workspace [S, m, n4];
+//    the tile's last block to arrive (an atomic ticket on a per-tile
+//    counter, which it resets) adds the S partials in rank order and runs
+//    the epilogue once on the sum.  The ticket decides who adds, never
+//    the order: no atomics touch a value, no host sync, no allocation.
+//  * The order rule: each output element is one ascending fmaf chain
+//    within each k range, the ranges' partials added in rank order 0, 1,
+//    ..., S-1, then the epilogue.  S and the ranges follow (n, k) alone,
+//    and no tile changes an element's order (zero-filled k past a range
+//    adds exact zeros), so a row's result is the same bits at every m and
+//    on every call; with S = 1 it is one chain over all of k.
 //
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): fused_matmul_launch returns cudaGetLastError() after the launch,
@@ -106,8 +130,11 @@ __device__ __forceinline__ float apply_fn(int fn, float a, float b) {
     case FN_SIGMOID: return 1.0f / (1.0f + expf(-a));
     case FN_RELU: return fmaxf(a, 0.0f);
     case FN_GELU: {  // tanh approximation (jax.nn.gelu's default)
+      // written as PyTorch's CUDA gelu(approximate="tanh") writes it, so
+      // the fused epilogue gives the unfused op's bits
       const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * a * (1.0f + tanhf(c * (a + 0.044715f * a * a * a)));
+      const float cube = a * a * a;
+      return 0.5f * a * (1.0f + tanhf(c * (a + 0.044715f * cube)));
     }
     case FN_SILU: return a / (1.0f + expf(-a));
   }
@@ -659,57 +686,351 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: plain FMAs, 64x64 tile, 256 threads of 4x4 outputs each
+// fp32: FMA register tiles over a cp.async ring, fixed-order split over k
 // ---------------------------------------------------------------------------
 
-constexpr int FBM = 64, FBN = 64, FBK = 16;
+constexpr int F32_STAGES = 2;           // cp.async ring depth
+constexpr int F32_TICKETS = 1 << 20;    // split tiles one launch may have
 
-// x element (r, c) of the [m, k] operand sits at x[r ldx + c], or at
-// x[c ldx + r] with ta (x stored [k, m]); w element (r, c) of [k, n] at
-// w[r ldw + c], or at w[c ldw + r] with tb (w stored [n, k]).  Each tile
-// load walks the stored rows, so neighbouring threads read neighbouring
-// addresses in every layout.
-__global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                void* __restrict__ y, int m, int n, int k, int64_t ldx,
-                int64_t ldw, int ta, int tb, int out_dt, Epilogue e) {
-  __shared__ float As[FBK][FBM + 1];
-  __shared__ float Bs[FBK][FBN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t row0 = (int64_t)blockIdx.y * FBM;
-  const int64_t col0 = (int64_t)blockIdx.x * FBN;
-  float acc[4][4] = {};
+// One counter per output tile of a split launch: zero when the library is
+// loaded, and set back to zero by the tile's last block, so every launch
+// finds them zero (launches that share them run in stream order).
+__device__ unsigned int f32_tickets[F32_TICKETS];
 
-  for (int k0 = 0; k0 < k; k0 += FBK) {
-    for (int v = threadIdx.x; v < FBM * FBK; v += 256) {
-      int r = ta ? v % FBM : v / FBK, c = ta ? v / FBM : v % FBK;
-      int64_t gr = row0 + r, gc = k0 + c;
-      As[c][r] = (gr < m && gc < k) ? x[ta ? gc * ldx + gr : gr * ldx + gc]
-                                    : 0.0f;
+// Blocks an SM should hold at once, by threads a block: the register
+// budget the compiler keeps to (256 threads: 85 registers a thread), so
+// tall outputs run in few waves.
+#define F32_MIN_BLOCKS(nt) ((nt) >= 256 ? 3 : (nt) >= 128 ? 2 : 8)
+// The buffer a split's last block adds its partials in: 64 KB, or all a
+// block may take where the launch has no more blocks than the card SMs.
+constexpr int F32_FOLD_BYTES = 64 * 1024;
+constexpr int F32_FOLD_BYTES_ALONE = 200 * 1024;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Copy the ROWS x COLS window at (r0, c0) of a row-major operand g (rows
+// of ld floats) into shared memory s (rows of PITCH floats).  Elements at
+// or past (rmax, cmax) arrive as zeros (cp.async's src-size fill).  KROWS:
+// k runs along the window's rows (else along its columns); elements whose
+// k offset in the window is klim or more are not copied (the FMA loop
+// never reads them).  vec: ld and g allow 16-byte copies (c0 is then a
+// multiple of 4), else one 4-byte copy an element.
+template <int ROWS, int COLS, int PITCH, int NT, bool KROWS>
+__device__ __forceinline__ void copy_tile(float* s, const float* g,
+                                          int64_t ld, int r0, int rmax,
+                                          int c0, int cmax, int klim,
+                                          bool vec, int tid) {
+  if (vec) {
+    constexpr int CH = COLS / 4;
+#pragma unroll
+    for (int v = tid; v < ROWS * CH; v += NT) {
+      const int r = v / CH, c = 4 * (v % CH);
+      if ((KROWS ? r : c) >= klim) continue;
+      const int gr = r0 + r, gc = c0 + c;
+      const int bytes = gr < rmax ? 4 * max(0, min(4, cmax - gc)) : 0;
+      cp_async16(s + r * PITCH + c, bytes ? g + gr * ld + gc : g, bytes);
     }
-    for (int v = threadIdx.x; v < FBK * FBN; v += 256) {
-      int r = tb ? v % FBK : v / FBN, c = tb ? v / FBK : v % FBN;
-      int64_t gr = k0 + r, gc = col0 + c;
-      Bs[r][c] = (gr < k && gc < n) ? w[tb ? gc * ldw + gr : gr * ldw + gc]
-                                    : 0.0f;
+  } else {
+#pragma unroll 4
+    for (int v = tid; v < ROWS * COLS; v += NT) {
+      const int r = v / COLS, c = v % COLS;
+      if ((KROWS ? r : c) >= klim) continue;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < rmax && gc < cmax;
+      cp_async4(s + r * PITCH + c, ok ? g + gr * ld + gc : g, ok ? 4 : 0);
     }
-    __syncthreads();
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[4], b[4];
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) {
-      int64_t gr = row0 + ty + 16 * i, gc = col0 + tx + 16 * j;
-      if (gr < m && gc < n)
-        store_out(y, out_dt, gr * n + gc,
-                  run_epilogue(e, acc[i][j], gr, gc, n));
+}
+
+// One block: output rows [BM bx, +BM), columns [BN by, +BN), k range
+// [kper bz, min(k, kper (bz + 1))) of rank bz of gridDim.z.  Each thread
+// owns TM x TN outputs and keeps each one's sum as one fmaf chain in
+// ascending k.  Shared memory: F32_STAGES ring slots of {A tile, B tile},
+// each laid out as the operand is stored, so every cp.async walks the
+// stored rows:
+//  * TA = 0: x [m, k], A as BM rows of BK k (+4: a row is an odd number of
+//    16-byte units, so 8 adjacent rows' float4 reads hit 8 bank groups);
+//    TA = 1: x stored [k, m] (the weight gradient's X^T), A as BK rows of
+//    BM.  Likewise B: TB = 0, w [k, n], BK rows of BN; TB = 1, w stored
+//    [n, k] (the input gradient's W^T), BN rows of BK (+4).
+//  * A thread's rows are 4-row groups BM/(TM/4) apart where A runs along m
+//    in shared memory (its float4 reads take 4 rows, and a quarter warp's
+//    reads 128 adjacent bytes), else rows ty + (BM/TM) i (its float4 reads
+//    take 4 k); B's columns likewise.
+// A split (gridDim.z > 1) writes its partial tile to ws [S, m, n4] (n4: n
+// rounded up to 4), and the tile's last block to arrive, elected by an
+// atomic ticket, adds the S partials in rank order 0, 1, ..., S-1 and runs
+// the epilogue.  The ticket picks who adds, never the order: no atomics
+// touch a value.
+template <int BM, int BN, int BK, int TM, int TN, int TA, int TB>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN),
+                                  F32_MIN_BLOCKS((BM / TM) * (BN / TN)))
+gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                void* __restrict__ y, float* __restrict__ ws, int m, int n,
+                int k, int64_t ldx, int64_t ldw, int kper, int vx, int vw,
+                int smem4, int out_dt, Epilogue e) {
+  constexpr int NT = (BM / TM) * (BN / TN);
+  constexpr int TX = BN / TN;           // threads along n
+  constexpr int KP = BK + 4;            // shared rows that run along k
+  constexpr int A_FL = TA ? BK * BM : BM * KP;
+  constexpr int B_FL = TB ? BN * KP : BK * BN;
+  constexpr int SLOT = A_FL + B_FL;
+  extern __shared__ float4 f32_smem4[];
+  float* sm = reinterpret_cast<float*>(f32_smem4);
+  __shared__ int last;
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int rank = blockIdx.z, split = gridDim.z;
+  const int kbeg = rank * kper, kend = min(k, kbeg + kper);
+  const int steps = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  // rows of A and columns of B this thread owns
+  auto arow = [&](int i) {
+    return TA ? (i / 4) * (BM / (TM / 4)) + 4 * ty + i % 4 : ty + (BM / TM) * i;
+  };
+  auto bcol = [&](int j) {
+    return TB ? tx + TX * j : (j / 4) * (BN / (TN / 4)) + 4 * tx + j % 4;
+  };
+  // k of a step past the range's end, rounded up to the FMA loop's groups
+  // of 4, is never read: neither copied nor multiplied
+  auto klim_of = [&](int k0) { return min(BK, (kend - k0 + 3) & ~3); };
+  auto load = [&](int slot, int k0) {
+    float* as = sm + slot * SLOT;
+    float* bs = as + A_FL;
+    const int kl = klim_of(k0);
+    if (TA)
+      copy_tile<BK, BM, BM, NT, true>(as, x, ldx, k0, kend, row0, m, kl,
+                                      vx, tid);
+    else
+      copy_tile<BM, BK, KP, NT, false>(as, x, ldx, row0, m, k0, kend, kl,
+                                       vx, tid);
+    if (TB)
+      copy_tile<BN, BK, KP, NT, false>(bs, w, ldw, col0, n, k0, kend, kl,
+                                       vw, tid);
+    else
+      copy_tile<BK, BN, BN, NT, true>(bs, w, ldw, k0, kend, col0, n, kl,
+                                      vw, tid);
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < steps) load(s, kbeg + s * BK);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<F32_STAGES - 2>();   // step it has landed
+    __syncthreads();                   // for every thread; slot it-1 free
+    const int nxt = it + F32_STAGES - 1;
+    if (nxt < steps) load(nxt % F32_STAGES, kbeg + nxt * BK);
+    cp_async_commit();
+    const float* as = sm + (it % F32_STAGES) * SLOT;
+    const float* bs = as + A_FL;
+    const int kl = klim_of(kbeg + it * BK);
+    // not unrolled: the loop body is the kernel's largest code, and a
+    // launch that finds it out of L2 fetches every line of it from DRAM
+#pragma unroll 1
+    for (int kq = 0; kq < kl; kq += 4) {
+      float a[TM][4], b[TN][4];
+      if (TA) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int i = 0; i < TM; i += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                &as[(kq + q) * BM + arow(i)]);
+            a[i][q] = v.x; a[i + 1][q] = v.y; a[i + 2][q] = v.z;
+            a[i + 3][q] = v.w;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &as[arow(i) * KP + kq]);
+          a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+        }
+      }
+      if (TB) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &bs[bcol(j) * KP + kq]);
+          b[j][0] = v.x; b[j][1] = v.y; b[j][2] = v.z; b[j][3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int j = 0; j < TN; j += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                &bs[(kq + q) * BN + bcol(j)]);
+            b[j][q] = v.x; b[j + 1][q] = v.y; b[j + 2][q] = v.z;
+            b[j + 3][q] = v.w;
+          }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i][q], b[j][q], acc[i][j]);
     }
+  }
+  cp_async_wait<0>();
+  if (split == 1 && e.n == 0 && out_dt == DT_F32) {   // the bare product
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int gr = row0 + arow(i);
+      if (gr >= m) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int gc = col0 + bcol(j);
+        if (gc < n)
+          reinterpret_cast<float*>(y)[(int64_t)gr * n + gc] = acc[i][j];
+      }
+    }
+    return;
+  }
+  __syncthreads();   // every thread is done with the ring
+
+  // The finished tile goes through shared memory as float4 chunks: rows
+  // [0, vr) of the tile's valid rows, vc chunks of 4 columns each.
+  const int vr = min(BM, m - row0);
+  const int vc = (min(BN, n - col0) + 3) / 4;
+  const int chunks = vr * vc;
+  if (split == 1) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = arow(i);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = bcol(j);
+        if (r < vr && c < 4 * vc) sm[r * 4 * vc + c] = acc[i][j];
+      }
+    }
+  } else {
+    // ---- split: this rank's partial tile, then the last block's sum ----
+    const int n4 = (n + 3) & ~3;
+    const int64_t plane = (int64_t)m * n4;
+    float* part = ws + rank * plane;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int gr = row0 + arow(i);
+      if (gr >= m) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int gc = col0 + bcol(j);
+        if (gc < n) __stcg(part + (int64_t)gr * n4 + gc, acc[i][j]);
+      }
+    }
+    __threadfence();   // the partial is visible before the ticket is drawn
+    __syncthreads();
+    if (tid == 0) {
+      unsigned int* t = &f32_tickets[blockIdx.y * gridDim.x + blockIdx.x];
+      last = atomicAdd(t, 1u) == static_cast<unsigned int>(split - 1);
+      if (last) atomicExch(t, 0u);   // every rank has drawn
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+
+    // Each thread copies in the partials of the chunks it owns (chunk c
+    // = tid + u NT), as many ranks a round as shared memory holds (smem4
+    // float4s; cp.async reads L2, where the partials are, all of a
+    // round's ranks in flight together), and adds them in rank order.
+    // No thread reads another's chunks, so the rounds need no barrier.
+    constexpr int MAXC = BM * BN / 4 / NT;   // chunks a thread owns
+    const int per_round = max(1, smem4 / chunks);
+    int64_t off[MAXC];                       // a chunk's place in a plane
+    float4 sum[MAXC];
+#pragma unroll
+    for (int u = 0; u < MAXC; ++u) {
+      const int c = tid + u * NT;
+      off[u] = c < chunks
+          ? (int64_t)(row0 + c / vc) * n4 + col0 + 4 * (c % vc) : 0;
+    }
+#pragma unroll 1
+    for (int q0 = 0; q0 < split; q0 += per_round) {
+      const int qn = min(per_round, split - q0);
+#pragma unroll 1
+      for (int q = 0; q < qn; ++q) {
+        const float* plane_q = ws + (q0 + q) * plane;
+#pragma unroll
+        for (int u = 0; u < MAXC; ++u) {
+          const int c = tid + u * NT;
+          if (c < chunks)
+            cp_async16(f32_smem4 + q * chunks + c, plane_q + off[u], 16);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+#pragma unroll
+      for (int u = 0; u < MAXC; ++u) {
+        const int c = tid + u * NT;
+        if (c >= chunks) break;
+#pragma unroll 1
+        for (int q = 0; q < qn; ++q) {
+          const float4 t = f32_smem4[q * chunks + c];
+          if (q0 + q == 0) {
+            sum[u] = t;
+          } else {
+            sum[u].x += t.x; sum[u].y += t.y; sum[u].z += t.z;
+            sum[u].w += t.w;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < MAXC; ++u) {
+      const int c = tid + u * NT;
+      if (c >= chunks) break;
+      f32_smem4[c] = sum[u];
+    }
+  }
+  __syncthreads();
+
+  // The epilogue, once per element, 4 columns of one row a thread and
+  // step (a warp's stores cover whole rows).
+#pragma unroll 1
+  for (int c = tid; c < chunks; c += NT) {
+    const int gr = row0 + c / vc, gc = col0 + 4 * (c % vc);
+    float* v = sm + 4 * c;
+#pragma unroll 1
+    for (int q = 0; q < 4 && gc + q < n; ++q)
+      v[q] = run_epilogue(e, v[q], gr, gc + q, n);
+    if (out_dt == DT_F32 && n % 4 == 0) {
+      *reinterpret_cast<float4*>(reinterpret_cast<float*>(y)
+                                 + (int64_t)gr * n + gc) = f32_smem4[c];
+    } else {
+#pragma unroll 1
+      for (int q = 0; q < 4 && gc + q < n; ++q)
+        store_out(y, out_dt, (int64_t)gr * n + gc + q, v[q]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -816,18 +1137,105 @@ static int launch_bn(int bn, const void* x, const void* w, void* y, int m,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int BM, int BN, int BK, int TM, int TN, int TA, int TB>
+static int launch_f32(const float* x, const float* w, void* y, float* ws,
+                      int m, int n, int k, int ldx, int ldw, int split,
+                      int kper, int out_dt, const Epilogue& e,
+                      cudaStream_t st) {
+  constexpr int NT = (BM / TM) * (BN / TN);
+  constexpr int SLOT = (TA ? BK * BM : BM * (BK + 4))
+                     + (TB ? BN * (BK + 4) : BK * BN);
+  // the ring, and after the main loop the finished tile; a split's last
+  // block takes up to F32_FOLD_BYTES (F32_FOLD_BYTES_ALONE) for the
+  // partials of its rounds
+  constexpr int SMEM = 4 * (F32_STAGES * SLOT > BM * BN ? F32_STAGES * SLOT
+                                                        : BM * BN);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          gemm_f32_kernel<BM, BN, BK, TM, TN, TA, TB>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, F32_FOLD_BYTES_ALONE);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return (int)err;
+    }
+  }
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, split);
+  int smem = SMEM;
+  if (split > 1) {
+    const int64_t fold = (int64_t)split * (m < BM ? m : BM)
+                         * (((n < BN ? n : BN) + 3) / 4) * 16;
+    const int cap = (int64_t)grid.x * grid.y * grid.z <= sms
+        ? F32_FOLD_BYTES_ALONE : F32_FOLD_BYTES;
+    if (fold > smem)   // more room for the rounds, never less than SMEM
+      smem = fold < cap ? (int)fold : (cap > smem ? cap : smem);
+  }
+  if (grid.y > 65535 || (split > 1 && (int64_t)grid.x * grid.y > F32_TICKETS))
+    return (int)cudaErrorInvalidValue;
+  // 16-byte copies where the stored rows and the base allow them
+  const int vx = ldx % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vw = ldw % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  gemm_f32_kernel<BM, BN, BK, TM, TN, TA, TB><<<grid, NT, smem, st>>>(
+      x, w, y, ws, m, n, k, ldx, ldw, kper, vx, vw, smem / 16, out_dt, e);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 tiles by index (kernel.py::F32_TILES): BM x BN outputs a block,
+// BK the k depth of a ring stage, TM x TN outputs a thread.
+#define F32_TILE_LIST(X) X(64, 64, 32, 4, 4) X(32, 32, 32, 4, 4)
+
+template <int TA, int TB>
+static int launch_tile(int tile, const float* x, const float* w, void* y,
+                       float* ws, int m, int n, int k, int ldx, int ldw,
+                       int split, int kper, int out_dt, const Epilogue& e,
+                       cudaStream_t st) {
+  int i = 0;
+#define F32_CASE(BM, BN, BK, TM, TN)                                       \
+  if (tile == i++)                                                         \
+    return launch_f32<BM, BN, BK, TM, TN, TA, TB>(x, w, y, ws, m, n, k,    \
+                                                  ldx, ldw, split, kper,   \
+                                                  out_dt, e, st);
+  F32_TILE_LIST(F32_CASE)
+#undef F32_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fp32 tiles as the library builds them: (BM, BN, BK, TM, TN) for each
+// index into out[5 * i ...]; returns how many there are (at most max_tiles
+// written).
+extern "C" int fused_matmul_f32_tiles(int* out, int max_tiles) {
+  int i = 0;
+#define F32_STATE(BM, BN, BK, TM, TN)                                      \
+  if (i < max_tiles) {                                                     \
+    out[5 * i] = BM; out[5 * i + 1] = BN; out[5 * i + 2] = BK;             \
+    out[5 * i + 3] = TM; out[5 * i + 4] = TN;                              \
+  }                                                                        \
+  ++i;
+  F32_TILE_LIST(F32_STATE)
+#undef F32_STATE
+  return i;
+}
+
 // codes: 5 * MAX_STAGES ints laid out fn[], kind[], head[], cast[], opdt[].
 // y [m, n] = chain(A @ B): A is x [m, k] with rows of ldx elements, or with
 // ta x stored [k, m] (A = x^T); B is w [k, n] with rows of ldw, or with tb
 // w stored [n, k] (B = w^T).  bn, split and stages are the bf16 route's
-// plan (kernel.py::plan).  The three layouts the port launches: the
-// forward (ta = tb = 0), the input gradient dY W^T (tb) and the weight
-// gradient X^T dY (ta).
+// plan (kernel.py::plan); the fp32 route takes its tile index, its split
+// and the k of each rank (kper), and with split > 1 a workspace ws of
+// split * m * n4 floats (n4: n rounded up to 4).  The three layouts the
+// port launches: the forward (ta = tb = 0), the input gradient dY W^T (tb)
+// and the weight gradient X^T dY (ta).
 extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
-                                   int m, int n, int k, int ldx, int ldw,
-                                   int ta, int tb,
+                                   void* ws, int m, int n, int k, int ldx,
+                                   int ldw, int ta, int tb,
                                    int in_dt, int out_dt, int bn, int split,
-                                   int stages, int n_stages,
+                                   int stages, int tile, int kper,
+                                   int n_stages,
                                    const int* codes,
                                    const void* const* operands,
                                    void* stream) {
@@ -849,12 +1257,25 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
   // the stored rows' lengths: x's are k long (m with ta), w's n (k with tb)
   const int rx = ta ? m : k, rw = tb ? k : n;
   if (in_dt != DT_BF16) {
-    if (ldx < rx || ldw < rw) return (int)cudaErrorInvalidValue;
-    dim3 grid((n + FBN - 1) / FBN, (m + FBM - 1) / FBM);
-    gemm_f32_kernel<<<grid, 256, 0, st>>>(
-        reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(w),
-        y, m, n, k, ldx, ldw, ta, tb, out_dt, e);
-    return (int)cudaGetLastError();
+    // the ranks' k ranges: multiples of 4 long (16-byte copies stay
+    // aligned), together [0, k), the last one not empty; a split has its
+    // workspace
+    if (ldx < rx || ldw < rw || split < 1 || kper < 4 || kper % 4 != 0
+        || (int64_t)(split - 1) * kper >= (k > 0 ? k : 1)
+        || (int64_t)split * kper < k
+        || (split > 1 && ws == nullptr))
+      return (int)cudaErrorInvalidValue;
+    const float* xf = reinterpret_cast<const float*>(x);
+    const float* wf = reinterpret_cast<const float*>(w);
+    float* wsf = reinterpret_cast<float*>(ws);
+    if (ta)
+      return launch_tile<1, 0>(tile, xf, wf, y, wsf, m, n, k, ldx, ldw,
+                               split, kper, out_dt, e, st);
+    if (tb)
+      return launch_tile<0, 1>(tile, xf, wf, y, wsf, m, n, k, ldx, ldw,
+                               split, kper, out_dt, e, st);
+    return launch_tile<0, 0>(tile, xf, wf, y, wsf, m, n, k, ldx, ldw, split,
+                             kper, out_dt, e, st);
   }
   // TMA: 16-byte-aligned bases and row strides, no empty box
   if (k == 0 || ldx < rx || ldw < rw || ldx % 8 != 0 || ldw % 8 != 0

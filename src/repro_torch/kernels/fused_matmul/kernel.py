@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from pathlib import Path
 from typing import NamedTuple
@@ -33,12 +34,22 @@ SMS = 132      #: streaming multiprocessors of an H100 SXM
 MAX_SPLIT = 8  #: blocks in a cluster (the portable limit)
 ALIGN = 8      #: TMA rows: a multiple of 16 bytes, 8 bf16 elements
 
+#: the fp32 route's tiles (``csrc/fused_matmul.cu``'s F32_TILE_LIST, in
+#: order): (BM, BN) outputs a block, BK the k depth of one ring stage, TM x
+#: TN outputs a thread
+F32_TILES = ((64, 64, 32, 4, 4), (32, 32, 32, 4, 4))
+F32_STAGES = 2     #: the fp32 route's cp.async ring depth (double buffering)
+F32_STEP = 64      #: a rank's k range is whole steps of this (every BK)
+F32_MIN_K = 32     #: k each rank of an fp32 split keeps, the last included
+F32_MAX_SPLIT = 128  #: ranks at most (bounds the workspace)
+
 
 class Plan(NamedTuple):
-    """One launch's tile plan.  ``bn``: output columns per block;
-    ``split``: blocks of one cluster that share the k range, their partial
-    sums added in rank order; ``stages``: TMA ring depth (0: the fp32 FMA
-    kernel, which has no ring)."""
+    """One launch's tile plan.  bf16: ``bn`` output columns per block;
+    ``split`` blocks of one cluster that share the k range, their partial
+    sums added in rank order; ``stages`` the TMA ring depth.  fp32: ``bn``
+    is 0 (the tile follows m and n: :func:`f32_tile`), ``split`` the ranks
+    over k (:func:`k_ranges`), ``stages`` the cp.async ring depth."""
     bn: int
     split: int
     stages: int
@@ -59,10 +70,25 @@ def plan(n: int, k: int, dtype) -> Plan:
     k (qwen wd, RWKV wcv) or the output is a single tile (RWKV wA): on the
     other shapes a split costs the m = 4096 forward more than it gains at
     decode.  Each rank of a split keeps at least 16 whole k tiles (64 where
-    there are several output tiles).  fp32: the FMA kernel's fixed 64x64
-    tile."""
+    there are several output tiles).
+
+    fp32 (the FMA route, every product of the paper's nets): what bounds
+    it at the nets' shapes is how many SMs have work and how long each
+    waits on its loads, not the FMA rate (67 TFLOP/s is 0.6-9 µs of their
+    work).  So k is cut into ``split`` contiguous ranges of whole
+    ``F32_STEP`` steps (:func:`k_ranges`): enough ranks to bring ``ceil(n
+    / 64)`` column tiles of a 64-row output to ``SMS`` blocks, but no more
+    than about sqrt(k) * 0.4 (a sweep of splits at the nets' 65 shapes on
+    the H100, ``chip_smoke.py --gemm-times ... --plan f32:S,T``: more ranks
+    shorten each rank's walk over k but add partials for the tile's last
+    block to add), each rank, the last included, keeping at least
+    ``F32_MIN_K`` of k; k <= 64 never splits.  Each output element is one
+    ascending fmaf chain within each range, the ranges' partials added in
+    rank order, then the epilogue: a function of (n, k) alone, so M-stable
+    and the same bits on every call; with one range, one chain over all of
+    k."""
     if dtype == torch.float32:
-        return Plan(64, 1, 0)
+        return Plan(0, _f32_split(n, k), F32_STAGES)
     if dtype != torch.bfloat16:
         raise ValueError(f"fused_matmul kernel takes float32/bfloat16, "
                          f"got {dtype}")
@@ -80,6 +106,55 @@ def plan(n: int, k: int, dtype) -> Plan:
            and k_tiles >= 2 * split * min_tiles):
         split *= 2
     return Plan(bn, split, 4 if bn == 256 else 6)
+
+
+def k_per_rank(k: int, split: int) -> int:
+    """The k of each rank of an fp32 launch cut into ``split`` ranges:
+    whole ``F32_STEP`` steps (the last rank takes what is left)."""
+    per = -(-k // max(split, 1))
+    return max(F32_STEP, -(-per // F32_STEP) * F32_STEP)
+
+
+def k_ranges(k: int, split: int) -> list:
+    """The ``[lo, hi)`` k ranges of an fp32 launch's ranks, in rank order:
+    together ``[0, k)`` (one empty range where k = 0)."""
+    per = k_per_rank(k, split)
+    return [(lo, min(k, lo + per)) for lo in range(0, max(k, 1), per)]
+
+
+def _f32_split(n: int, k: int) -> int:
+    want = -(-SMS // -(-n // 64))     # ranks that bring 64-wide tiles to SMS
+    split = max(1, min(want, round(math.isqrt(k) * 0.4), F32_MAX_SPLIT))
+    while split > 1:
+        r = k_ranges(k, split)
+        if r[-1][1] - r[-1][0] >= F32_MIN_K:
+            return len(r)
+        split -= 1
+    return 1
+
+
+def f32_tile(m: int, n: int, split: int) -> int:
+    """Index into ``F32_TILES`` of an fp32 launch: 64 x 64, or 32 x 32 for
+    a split of more than 32 columns whose 64 x 64 tiles leave a tenth of
+    the SMs or more idle and whose 32 x 32 tiles give more blocks (the
+    LSTM cells and the CNN head at m = 64; a sweep on the H100, as for the
+    split).  Every tile gives the same bits (the order of each element's
+    sum is the plan's), so the tile follows m freely."""
+    def blocks(bm, bn):
+        return -(-m // bm) * -(-n // bn) * split
+    wide, small = blocks(*F32_TILES[0][:2]), blocks(*F32_TILES[1][:2])
+    return 1 if (split > 1 and n > 32 and 10 * wide < 9 * SMS
+                 and small > wide) else 0
+
+
+def workspace(m: int, n: int, p: Plan, device) -> torch.Tensor | None:
+    """The fp32 partial tiles of a split launch, ``[split, m, n4]`` (n4: n
+    rounded up to 4, so the last block reads each partial row in 16-byte
+    pieces); None without a split."""
+    if p.bn != 0 or p.split == 1:
+        return None
+    return torch.empty((p.split, m, -(-n // 4) * 4), dtype=torch.float32,
+                       device=device)
 
 
 def pad_cols(t: torch.Tensor) -> torch.Tensor:
@@ -126,34 +201,46 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.fused_matmul_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                           ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+            i, p = ctypes.c_int, ctypes.c_void_p
+            fn.argtypes = [p, p, p, p,        # x, w, y, ws
+                           i, i, i, i, i,     # m, n, k, ldx, ldw
+                           i, i, i, i,        # ta, tb, in_dt, out_dt
+                           i, i, i, i, i,     # bn, split, stages, tile, kper
+                           i, ctypes.POINTER(i), ctypes.POINTER(p), p]
             fn.restype = ctypes.c_int
+            lib.fused_matmul_f32_tiles.argtypes = [ctypes.POINTER(i), i]
+            lib.fused_matmul_f32_tiles.restype = i
             _lib = lib
     return _lib
 
 
+def kernel_f32_tiles() -> tuple:
+    """The fp32 tiles as the built library states them, in the order of
+    ``F32_TILES`` (which ``f32_tile`` indexes and must equal)."""
+    out = (ctypes.c_int * (5 * 16))()
+    count = library().fused_matmul_f32_tiles(out, 16)
+    return tuple(tuple(out[5 * t:5 * t + 5]) for t in range(count))
+
+
 def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, m: int,
            n: int, k: int, p: Plan, spec: tuple, operands: list,
-           ta: bool = False, tb: bool = False) -> None:
+           ta: bool = False, tb: bool = False,
+           ws: torch.Tensor | None = None) -> None:
     """Launch the GEMM on the current stream: ``y[m,n] = chain(A @ B)``
     with A = ``x[:m, :k]`` (with ``ta``: x stored ``[k, m]``, A =
     ``x[:k, :m]^T``) and B = ``w[:k, :n]`` (with ``tb``: w stored ``[n,
     k]``, B = ``w[:n, :k]^T``).  x and w are row-major buffers whose rows
     may be longer than the stored width (``pad_cols``); ``p`` is ``plan(n,
-    k, dtype)``.  ``spec`` is the static chain ``((fn, kind, head_pos,
-    dtype), ...)`` and ``operands`` the row/full operand tensors in spec
-    order; the caller has checked devices, dtypes, shapes and
-    contiguity."""
+    k, dtype)``, and ``ws`` the fp32 route's ``workspace(m, n, p)``.
+    ``spec`` is the static chain ``((fn, kind, head_pos, dtype), ...)``
+    and ``operands`` the row/full operand tensors in spec order; the
+    caller has checked devices, dtypes, shapes and contiguity."""
     if len(spec) > MAX_STAGES:
         raise ValueError(f"epilogue has {len(spec)} stages; the kernel takes "
                          f"at most {MAX_STAGES}")
+    if (ws is None) != (x.dtype != torch.float32 or p.split == 1):
+        raise ValueError(f"fused_matmul: an fp32 split of {p.split} takes a "
+                         f"workspace, and nothing else does")
     codes = (ctypes.c_int * (5 * MAX_STAGES))()
     ptrs = (ctypes.c_void_p * MAX_STAGES)()
     it = iter(operands)
@@ -166,11 +253,14 @@ def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, m: int,
             op = next(it)
             codes[4 * MAX_STAGES + s] = DT[op.dtype]
             ptrs[s] = op.data_ptr()
+    tile = kper = 0
+    if x.dtype == torch.float32:
+        tile, kper = f32_tile(m, n, p.split), k_per_rank(k, p.split)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = library().fused_matmul_launch(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, x.shape[1],
+        x.data_ptr(), w.data_ptr(), y.data_ptr(),
+        ws.data_ptr() if ws is not None else None, m, n, k, x.shape[1],
         w.shape[1], int(ta), int(tb), DT[x.dtype], DT[y.dtype], p.bn,
-        p.split, p.stages,
-        len(spec), codes, ptrs, stream)
+        p.split, p.stages, tile, kper, len(spec), codes, ptrs, stream)
     if err != 0:
         raise RuntimeError(f"fused_matmul launch failed: CUDA error {err}")

@@ -143,8 +143,9 @@ def _fused_matmul(x, w, epilogue, out_dt):
     y = torch.empty((m, n), dtype=out_dt, device=x.device)
     global launches
     if m > 0 and n > 0:
-        kernel.launch(x2, w2, y, m, n, kk, kernel.plan(n, kk, x.dtype), spec,
-                      operands)
+        p = kernel.plan(n, kk, x.dtype)
+        kernel.launch(x2, w2, y, m, n, kk, p, spec, operands,
+                      ws=kernel.workspace(m, n, p, x.device))
         launches += 1
         launches_by_shape[(m, n, k, str(x.dtype), spec)] += 1
     return y.reshape(*lead, n)
@@ -183,8 +184,9 @@ def _launch_bwd(route, a, b, m, n, k, out_dt, ta, tb):
     a, b = a.contiguous(), b.contiguous()
     if a.dtype == torch.bfloat16:   # TMA rows: copies where widths need it
         a, b = kernel.pad_cols(a), kernel.pad_cols(b)
-    kernel.launch(a, b, y, m, n, k, kernel.plan(n, k, a.dtype), (), [],
-                  ta=ta, tb=tb)
+    p = kernel.plan(n, k, a.dtype)
+    kernel.launch(a, b, y, m, n, k, p, (), [], ta=ta, tb=tb,
+                  ws=kernel.workspace(m, n, p, a.device))
     bwd_launches[route] += 1
     bwd_launches_by_shape[(route, m, n, k, str(a.dtype))] += 1
     return y

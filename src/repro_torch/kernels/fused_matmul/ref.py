@@ -10,12 +10,20 @@ from ...core.dtypes import to_torch_dtype
 _EW = {
     "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
     "maximum": torch.maximum, "minimum": torch.minimum, "neg": torch.neg,
-    "exp": torch.exp, "square": torch.square, "tanh": torch.tanh,
+    "exp": torch.exp, "log": torch.log, "rsqrt": torch.rsqrt,
+    "square": torch.square, "tanh": torch.tanh,
     "sigmoid": torch.sigmoid, "relu": torch.relu,
     # jax.nn.gelu's default is the tanh approximation; torch's is not
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "silu": F.silu,
+    "abs": lambda x: _abs(x), "sqrt": torch.sqrt,
 }
+
+
+def _abs(x):
+    """|x| with jnp.abs's gradient at 0, +1 (torch.abs's is 0); the
+    ``+ 0.0`` turns the -0.0 that -0.0 >= 0 keeps into jnp.abs's +0.0."""
+    return torch.where(x >= 0, x, -x) + 0.0
 
 
 def apply_epilogue(y, epilogue):

@@ -240,8 +240,12 @@ class PaperNCF(_PaperNet):
     def loss(self, params, batch):
         logit = self.forward(params, batch["users"], batch["items"])
         y = batch["y"].to(torch.float32)
-        return torch.mean(logit.clamp_min(0) - logit * y
-                          + torch.log1p(torch.exp(-logit.abs())))
+        # the reference's jnp.maximum / jnp.abs gradients at a logit of
+        # exactly 0: the max's tie splits 0.5 / 0.5, |x|'s slope is +1
+        return torch.mean(torch.maximum(logit, torch.zeros_like(logit))
+                          - logit * y
+                          + torch.log1p(torch.exp(
+                              -torch.where(logit >= 0, logit, -logit))))
 
 
 @tapir.parallel_region

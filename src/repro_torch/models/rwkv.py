@@ -55,7 +55,10 @@ LORA_RANK = 64
 
 def _decay_from_lora(lora, w0):
     logw = w0.to(torch.float32) + lora.to(torch.float32)
-    return torch.exp(-torch.exp(torch.clamp(logw, -8.0, 2.0)))
+    # jnp.clip is max then min: slope 0.5 at either bound (torch.clamp's
+    # is 1)
+    lo, hi = logw.new_full((), -8.0), logw.new_full((), 2.0)
+    return torch.exp(-torch.exp(torch.minimum(torch.maximum(logw, lo), hi)))
 
 
 def _wkv_step(r, k, v, w, u, state):

@@ -120,12 +120,17 @@ def test_chain_with_stage_casts_and_mixed_operands(cuda):
 
 
 #: (dtype, k, n): unsplit (256- and 128-column tiles), split (n = 64 and
-#: n = 2048), padded unsplit, padded in n and k and split, and the fp32
-#: FMA kernel
+#: n = 2048), padded unsplit, padded in n and k and split; fp32 split over
+#: k (the LSTM cell, conv1's, conv2's and the LSTM2 head's dW, the CNN
+#: head) and not (ragged k = 295; k = 64 across all three column tiles):
+#: the fp32 tile follows m, so the rows cross its row-tile choices
 M_STABLE = [(torch.bfloat16, 1024, 16384), (torch.bfloat16, 2048, 2560),
             (torch.bfloat16, 4096, 64), (torch.bfloat16, 11008, 2048),
             (torch.bfloat16, 1000, 1003), (torch.bfloat16, 8193, 1003),
-            (torch.float32, 2048, 512)]
+            (torch.float32, 2048, 512), (torch.float32, 1024, 2048),
+            (torch.float32, 50176, 32), (torch.float32, 12544, 64),
+            (torch.float32, 9600, 61), (torch.float32, 3136, 128),
+            (torch.float32, 295, 1024), (torch.float32, 64, 300)]
 
 
 @pytest.mark.cuda
@@ -163,6 +168,82 @@ def test_split_k_result_repeats(cuda, m, k, n):
     want = ref.fused_matmul_ref(x, w, epilogue=epi)
     torch.testing.assert_close(first.float(), want.float(), atol=0.125,
                                rtol=2e-2)
+
+
+#: fp32 (m, n, k) that split over k: the nets' single-tile long
+#: contractions, the LSTM cells, and m past one row tile
+F32_SPLIT = [(9, 32, 50176), (288, 64, 12544), (512, 61, 9600),
+             (64, 128, 3136), (64, 2048, 1024), (64, 512, 512),
+             (1000, 300, 2000)]
+
+
+def _f32_operands(cuda, m, n, k, seed):
+    """(generator, x [m, k], w [k, n], and the same product x @ w in the
+    three layouts: the forward, dX (w stored [n, k]) and dW (x stored
+    [k, m]))."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    w = torch.randn(k, n, generator=g, device=cuda) / k ** 0.5
+    xt, wt = x.T.contiguous(), w.T.contiguous()
+    layouts = [(lambda epi=None: ops.fused_matmul(x, w, epilogue=epi)),
+               (lambda: ops.matmul_dx(x, wt)),
+               (lambda: ops.matmul_dw(xt, w))]
+    return g, x, w, layouts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", F32_SPLIT)
+def test_fp32_split_result_repeats(cuda, m, n, k):
+    """The fp32 route's partials are added in rank order by whichever
+    block arrives last: the forward with an epilogue, dX and dW give the
+    same bits on two calls, and match their plain versions."""
+    assert kernel.plan(n, k, torch.float32).split > 1
+    g, x, w, (fwd, dx, dw) = _f32_operands(cuda, m, n, k, m + n + k)
+    row = torch.randn(n, generator=g, device=cuda)
+    epi = [("add", [row], {"dtype": "float32"}), ("silu", [], {})]
+    bare = ref.fused_matmul_ref(x, w)
+    calls = [(lambda: fwd(epi), ref.fused_matmul_ref(x, w, epilogue=epi)),
+             (dx, bare), (dw, bare)]
+    for fn, want in calls:
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+        atol, rtol = _tol(torch.float32)
+        torch.testing.assert_close(first, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(64, 128, 3136), (9, 32, 50176),
+                                   (300, 200, 1000)])
+def test_fp32_fused_epilogue_equals_unfused_at_a_split(cuda, m, n, k):
+    """bias + gelu fused onto the summed partials equals the bare product
+    with the same chain applied after it (``apply_epilogue``) bitwise: the
+    epilogue runs once, on the rank-ordered sum."""
+    assert kernel.plan(n, k, torch.float32).split > 1
+    g, x, w, _ = _f32_operands(cuda, m, n, k, 3 * k + n)
+    bias = torch.randn(n, generator=g, device=cuda)
+    epi = [("add", [bias], {"dtype": "float32"}), ("gelu", [], {})]
+    fused = ops.fused_matmul(x, w, epilogue=epi)
+    unfused = ref.apply_epilogue(ops.fused_matmul(x, w), epi)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, unfused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(64, 2048, 1024), (9, 32, 50176),
+                                   (300, 200, 1000), (512, 64, 64),
+                                   (50, 70, 295)])
+def test_fp32_every_tile_gives_the_same_bits(cuda, m, n, k, monkeypatch):
+    """The tile decides which thread computes an element, never the order
+    of its sum: every tile the library has gives the plan's bits, in all
+    three layouts."""
+    assert kernel.kernel_f32_tiles() == kernel.F32_TILES
+    _, _, _, calls = _f32_operands(cuda, m, n, k, m * n + k)
+    want = [fn() for fn in calls]
+    for tile in range(len(kernel.F32_TILES)):
+        monkeypatch.setattr(kernel, "f32_tile", lambda m, n, s: tile)
+        for fn, ref_bits in zip(calls, want):
+            assert torch.equal(fn(), ref_bits), tile
 
 
 @pytest.mark.cuda

@@ -111,9 +111,12 @@ def test_two_runs_are_bitwise_equal(cuda, name):
 
 #: the fp32 route's odd shapes on the nets' paths: NCF's n = 1 output, the
 #: heads' n = 10, conv1's k = 9 at m = 50176, LSTM1's k = 295, conv2's
-#: k = 288
+#: k = 288; conv1's dW shape as a forward (9 x 32 over 50176, split over
+#: k) and the LSTM2 head (9600 x 61 over 512, whose dW is 512 x 61 over
+#: 9600)
 ODD = [(512, 1, 24), (64, 10, 128), (50176, 32, 9), (64, 1024, 295),
-       (12544, 64, 288), (64, 2048, 635), (64, 128, 3136)]
+       (12544, 64, 288), (64, 2048, 635), (64, 128, 3136), (9, 32, 50176),
+       (9600, 61, 512)]
 
 
 @pytest.mark.parametrize("m,n,k", ODD)

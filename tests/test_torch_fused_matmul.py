@@ -185,10 +185,81 @@ def test_other_path_shapes_are_not_split(n, k):
     assert kernel.plan(n, k, torch.bfloat16).split == 1
 
 
-def test_fp32_plan_is_the_fma_kernel():
-    assert kernel.plan(4096, 4096, torch.float32) == kernel.Plan(64, 1, 0)
+#: fp32 (n, k): the paper nets' single-tile long contractions (conv1's,
+#: conv2's and the LSTM2 head's dW, the CNN head's forward)
+F32_SPLIT = [(32, 50176), (64, 12544), (61, 9600), (128, 3136)]
+#: fp32 (n, k) across the nets' forward, dX and dW launches, ragged k, and
+#: an empty k
+F32_SHAPES = F32_SPLIT + [
+    (10, 128), (10, 256), (256, 39), (256, 256), (512, 123), (512, 512),
+    (1024, 295), (1024, 512), (2048, 635), (2048, 1024), (1, 24), (8, 16),
+    (16, 32), (32, 64), (64, 64), (61, 512), (64, 288), (32, 9), (295, 1024),
+    (635, 2048), (3136, 128), (512, 61), (24, 1), (1003, 8193), (300, 0)]
+
+
+@pytest.mark.parametrize("n,k", F32_SHAPES)
+def test_fp32_k_ranges_tile_k_in_whole_steps(n, k):
+    """The ranks' ranges, in rank order, are ``[0, k)`` cut at whole
+    ``F32_STEP`` steps, which every tile's k depth divides."""
+    p = kernel.plan(n, k, torch.float32)
+    assert p.bn == 0 and p.stages == kernel.F32_STAGES
+    r = kernel.k_ranges(k, p.split)
+    assert len(r) == p.split
+    assert r[0][0] == 0 and r[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(r, r[1:]))
+    per = kernel.k_per_rank(k, p.split)
+    assert per % kernel.F32_STEP == 0
+    assert all(hi - lo == per for lo, hi in r[:-1])
+    assert all(kernel.F32_STEP % bk == 0 for _, _, bk, _, _ in
+               kernel.F32_TILES)
+
+
+@pytest.mark.parametrize("n,k", F32_SHAPES)
+def test_fp32_every_rank_keeps_the_minimum_k(n, k):
+    p = kernel.plan(n, k, torch.float32)
+    if p.split > 1:
+        assert all(hi - lo >= kernel.F32_MIN_K
+                   for lo, hi in kernel.k_ranges(k, p.split))
+
+
+@pytest.mark.parametrize("n,k", F32_SPLIT)
+def test_fp32_single_tile_long_contractions_are_split(n, k):
+    assert kernel.plan(n, k, torch.float32).split > 1
+
+
+@pytest.mark.parametrize("n,k", [(n, k) for n, k in F32_SHAPES if k <= 64])
+def test_fp32_shallow_k_is_not_split(n, k):
+    assert kernel.plan(n, k, torch.float32).split == 1
+
+
+def test_plan_refuses_float16():
     with pytest.raises(ValueError):
         kernel.plan(64, 64, torch.float16)
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 2048, 1024), (9, 32, 50176),
+                                   (50176, 32, 9), (9600, 512, 61),
+                                   (512, 1, 24), (64, 128, 3136),
+                                   (1, 300, 4096)])
+def test_fp32_tile_and_workspace(m, n, k):
+    """An unsplit launch takes the 64 x 64 tile; the 32 x 32 one only where
+    it gives a split of more than 32 columns more blocks than 64 x 64
+    tiles, which leave a tenth of the SMs or more idle.
+    A split's workspace holds one [m, n4] partial per rank (n4: n rounded
+    up to 4)."""
+    p = kernel.plan(n, k, torch.float32)
+    tile = kernel.f32_tile(m, n, p.split)
+    blocks = [-(-m // bm) * -(-n // bn) * p.split
+              for bm, bn, *_ in kernel.F32_TILES]
+    assert tile == (1 if p.split > 1 and n > 32
+                    and blocks[0] < 0.9 * kernel.SMS
+                    and blocks[1] > blocks[0] else 0)
+    ws = kernel.workspace(m, n, p, "cpu")
+    if p.split == 1:
+        assert ws is None
+    else:
+        assert ws.shape == (p.split, m, -(-n // 4) * 4)
+        assert ws.dtype == torch.float32
 
 
 @pytest.mark.parametrize("shape", [(3, 1003), (5, 100), (1, 7)])
