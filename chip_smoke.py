@@ -19,20 +19,20 @@ The third does the same for flash attention, at the path shapes of OUT
 and at ``FA_EXTRA``; the fourth for the flash backward, at OUT's train
 shapes and at ``FA_BWD_EXTRA`` (beside SDPA's backward, with each call's
 device time by kernel); the fifth for the linear scan, at OUT's scan path
-shapes.  The sixth times the three decode steps at full width (the
+shapes, its backward at OUT's train shape too.  The sixth times the three decode steps at full width (the
 ``decode_steps`` phase without its checks) and the serve phase's time to
 first token, cold and warm, with ``--src``'s tree where given: parent and
 change in one call.  The seventh runs phase 19 (``fig3``) alone, for this
 tree or ``--src``'s.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
-main-path run zeroes the three kernels' launch counts just before it and
-reads them just after:
+main-path run zeroes the three kernels' launch counts (forward and
+backward) just before it and reads them just after:
 
-1. device and build — the card's name and power limit, then the four
+1. device and build — the card's name and power limit, then the five
    kernel libraries (fused_matmul, flash_attention, linear_scan and the
-   flash backward) built by nvcc from the checkout's CUDA sources, in
-   parallel; the ptxas reports (registers, stack, spills per kernel; a
+   flash and scan backwards) built by nvcc from the checkout's CUDA
+   sources, in parallel; the ptxas reports (registers, stack, spills per kernel; a
    spill in any of the bf16 kernels, the fp32 GEMM or the backward's dK/dV
    sum fails the run), the bf16 scan kernel's tensor-core (HMMA) and the
    bf16 flash backward kernels' wgmma (HGMMA) instruction counts in their
@@ -141,6 +141,36 @@ d_model 4096; random weights from seed 0) takes its place:
    computes the scan: no library time), and the
    RWKV forward and decode GEMM shapes as in phase 10 (plan, TFLOP/s,
    the wrapper's host time at the 4096² and wA decode shapes).
+
+The 32-layer model is then released, and RWKV6-7B trains at full width
+and 12 of its 32 layers (``RW_TRAIN_LAYERS``: at full depth the fp32
+parameters, gradients and AdamW moments alone exceed the card):
+
+17b. rwkv_train — ``make_train_step`` on 2 x 2048 tokens of
+   ``TokenPipeline``, remat full, fp32 AdamW, seed 0: one warm-up step and
+   3 timed steps, each held to ``rwkv_train_launches`` (GEMM forward
+   25 n_l + 1 = 10 a layer, recomputed, plus the 5 epilogue recomputes a
+   layer and the head; dX and dW 10 n_l + 1 each; scan forward 2 n_l,
+   scan backward n_l), step p50, tokens/s, MFU, peak memory, the loss
+   finite and falling; one profiled step (device ms by kernel, no library
+   GEMM in it); then a second fresh model from seed 0 whose first 2
+   steps' losses and a strided sample of every parameter leaf equal the
+   first run's, bitwise;
+17c. scan_bwd_vs_plain — the scan backward's six gradients against
+   ``linear_scan_bwd_ref`` (LS_RTOL of each one's largest), two calls
+   bitwise, and ``LinearScanFn`` against autograd through
+   ``linear_scan_chunked`` (LS_BWD_AUTOGRAD_RTOL), bf16 and fp32, both
+   variants: the train step's shape, SMOKE, ragged S (37, 1000), the decay
+   clip (S = 37, 2048) and the stateful prefill's shape with an initial
+   carry and the final carry's cotangent; the batch-row independence
+   (bitwise, du excepted) and a backward split on a chunk boundary
+   through the carry against one call (the first call's rows and dS0
+   bitwise); then small_rwkv_train_parity — SMOKE fp32, the first
+   gradients and 3 steps on the card against the CPU, and remat full =
+   none bitwise on the card;
+17d. scan_bwd_times — the scan backward at the train step's shape: its
+   device time, its kernels' (carries, chunks, du), the plain version's and
+   the bound (and the design's byte floor with its two workspaces).
 
 The RWKV6 model is then released, and the paper's four networks (fp32,
 every product on the GEMM's FMA route) follow:
@@ -1104,27 +1134,74 @@ def train_counts() -> dict:
             "flash_backward": fa_ops.bwd_launches}
 
 
-def train_phase(model, cfg):
-    """``make_train_step`` at full width on TRAIN_B x TRAIN_S tokens of
-    ``TokenPipeline`` (remat full, fp32 AdamW): one warm-up step, then
-    TRAIN_STEPS timed steps, each with the counts zeroed just before it
-    and held to ``train_launches`` just after, then one profiled step: no
-    library GEMM or attention kernel may appear in it.  The loss must be
-    finite and fall.  Returns (line, forward GEMM launches by shape, the
-    backward routes' by shape, flash launches by shape) of the last timed
-    step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.data import DataConfig, TokenPipeline, to_device
+def rwkv_train_launches(n_l: int) -> dict:
+    """The launches one RWKV6 train step makes, from the code: the
+    forward's 10 GEMMs a layer and the head, remat's recompute of each
+    layer's 10, and the product recomputed once in the backward of each
+    layer's 5 chains that are not adds alone (wA tanh, wg silu * gate, wck
+    relu, wcr sigmoid, wcv * rgate + residual: ``epilogue_vjp``; the head's
+    chain is empty); dX and dW of each of the forward's GEMMs; the scan
+    once a layer forward, once more in the recompute, one backward a
+    layer (``tests/test_torch_rwkv_train.py`` holds the same counts on
+    the CPU)."""
+    return {"gemm_forward": 25 * n_l + 1, "gemm_dx": 10 * n_l + 1,
+            "gemm_dw": 10 * n_l + 1, "scan_forward": 2 * n_l,
+            "scan_backward": n_l}
+
+
+def rwkv_train_counts() -> dict:
+    fm_ops, _, ls_ops = kernel_ops()
+    return {"gemm_forward": fm_ops.launches,
+            "gemm_dx": fm_ops.bwd_launches["dx"],
+            "gemm_dw": fm_ops.bwd_launches["dw"],
+            "scan_forward": ls_ops.launches,
+            "scan_backward": ls_ops.bwd_launches}
+
+
+def leaf_sample(model) -> list:
+    """Up to 4096 evenly strided entries of every parameter leaf, on the
+    host: what two train runs are held to, bitwise."""
+    from repro_torch.optim import tree_leaves
+    out = []
+    for t in tree_leaves(model.param_tree()):
+        flat = t.detach().reshape(-1)
+        out.append(flat[::max(1, flat.numel() // 4096)][:4096].cpu())
+    return out
+
+
+def train_setup(model, cfg):
+    """(step, optimizer config, pipeline) of the train phases: remat full,
+    fp32 AdamW, TRAIN_B x TRAIN_S tokens of ``TokenPipeline``."""
+    from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train import TrainConfig, init_state, make_train_step
-    fm_ops, fa_ops, _ = kernel_ops()
-    want = train_launches(cfg.n_layers)
+    from repro_torch.train import TrainConfig, make_train_step
     opt = AdamWConfig(total_steps=TRAIN_STEPS + 2, warmup_steps=1)
     step = make_train_step(model, opt, TrainConfig(remat="full",
                                                    target="gpu"))
     pipe = TokenPipeline(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
                                     vocab=cfg.vocab))
+    return step, opt, pipe
+
+
+def train_phase(model, cfg, want=None, counts=train_counts,
+                phase: str = "train"):
+    """``make_train_step`` at full width on TRAIN_B x TRAIN_S tokens of
+    ``TokenPipeline`` (remat full, fp32 AdamW): one warm-up step, then
+    TRAIN_STEPS timed steps, each with the counts zeroed just before it
+    and held to ``want`` (default ``train_launches``) just after, then one
+    profiled step: no library GEMM or attention kernel may appear in it.
+    The loss must be finite and fall.  Returns (line, the last timed
+    step's launches by shape: ``fm`` / ``bwd`` (the GEMM's forward and
+    backward routes), ``fa`` / ``fab`` (flash), ``ls`` / ``lsb`` (the
+    scan), and ``sample``: ``leaf_sample`` after the second step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import to_device
+    from repro_torch.train import init_state
+    fm_ops, fa_ops, ls_ops = kernel_ops()
+    if want is None:
+        want = train_launches(cfg.n_layers)
+    step, opt, pipe = train_setup(model, cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1141,14 +1218,19 @@ def train_phase(model, cfg):
         walls.append(time.perf_counter() - t0)
         norms.append(float(met["grad_norm"]))
         lrs.append(float(met["lr"]))
-        got = train_counts()
+        got = counts()
         if got != want:
-            raise SystemExit(f"train step {s_}: launches {got}, expected "
+            raise SystemExit(f"{phase} step {s_}: launches {got}, expected "
                              f"{want}")
-        fm = collections.Counter(fm_ops.launches_by_shape)
-        bwd = collections.Counter(fm_ops.bwd_launches_by_shape)
-        fa = collections.Counter(fa_ops.launches_by_shape)
-        fab = collections.Counter(fa_ops.bwd_launches_by_shape)
+        if s_ == 1:
+            sample = leaf_sample(model)
+        snap = {"fm": fm_ops.launches_by_shape,
+                "bwd": fm_ops.bwd_launches_by_shape,
+                "fa": fa_ops.launches_by_shape,
+                "fab": fa_ops.bwd_launches_by_shape,
+                "ls": ls_ops.launches_by_shape,
+                "lsb": ls_ops.bwd_launches_by_shape}
+        snap = {k: collections.Counter(v) for k, v in snap.items()}
     peak = torch.cuda.max_memory_allocated()
     batch = to_device(pipe.batch_at(1 + TRAIN_STEPS), "cuda")
     with profile(activities=[ProfilerActivity.CPU,
@@ -1172,7 +1254,7 @@ def train_phase(model, cfg):
     n_params = sum(p.numel() for p in model.parameters())
     dense = n_params - cfg.vocab * cfg.d_model   # the embedding is a lookup
     tokens = TRAIN_B * TRAIN_S
-    line = {"phase": "train", "batch": TRAIN_B, "seq": TRAIN_S,
+    line = {"phase": phase, "batch": TRAIN_B, "seq": TRAIN_S,
             "layers": cfg.n_layers, "params": n_params, "remat": "full",
             "optimizer": "AdamW fp32 (mu, nu fp32)",
             "losses": losses, "grad_norms": norms, "lrs": lrs,
@@ -1184,21 +1266,33 @@ def train_phase(model, cfg):
             "state_gb": (torch.cuda.memory_allocated() - base) / 1e9,
             "launches_per_step": got, "expected_launches": want,
             "device_ms": busy, "device_busy_share": busy / (p50 * 1e3),
-            "gemm_device_ms": dict(gemm_ms),
+            "gemm_device_ms": dict(gemm_ms)}
+    if "flash_forward" in want:
+        line.update({
             "flash_forward_device_ms": sum(
                 ms for k, (ms, _) in by_name.items() if "flash_" in k),
             "flash_backward_device_ms": sum(
                 ms for k, (ms, _) in by_name.items()
-                if re.search(r"dkdv_|dq_|delta_kernel", k)),
-            "library_kernels": library, "top": top_kernels(by_name, 12)}
+                if re.search(r"dkdv_|dq_|delta_kernel", k))})
+    if "scan_forward" in want:
+        line.update({
+            "scan_forward_device_ms": sum(
+                ms for k, (ms, _) in by_name.items()
+                if re.search(r"scan_(bf16|f32)_kernel", k)),
+            "scan_backward_device_ms": sum(
+                ms for k, (ms, _) in by_name.items() if "scan_bwd_" in k)})
+    line.update({"library_kernels": library,
+                 "top": top_kernels(by_name, 12)})
     finite = all(math.isfinite(v) for v in losses + norms)
     if not finite or not losses[-1] < losses[0]:
-        raise SystemExit(f"train: loss not finite or not falling: {line}")
+        raise SystemExit(f"{phase}: loss not finite or not falling: {line}")
     if library:
-        raise SystemExit(f"train: library kernels in the profile: {library}")
+        raise SystemExit(f"{phase}: library kernels in the profile: "
+                         f"{library}")
     del state, met, batch, prof
     model.release_compute()
-    return line, fm, bwd, fa, fab
+    snap["sample"] = sample
+    return line, snap
 
 
 def gemm_bwd_inputs(route, m, n, k, dt, gen):
@@ -1351,12 +1445,17 @@ TRAIN_PAR_TOL = {"grad": 2e-4, "loss": 1e-5, "lr": 1e-6,
                  "grad_norm": (1e-4, 1e-3)}
 
 
-def small_train_parity() -> dict:
-    """SMOKE in fp32 on the same weights, the card against the CPU (the
-    kernels' plain versions, which the CPU tests hold against the JAX
-    package): the first batch's gradient of every leaf (max |diff| / max
-    |grad| per leaf), then TRAIN_STEPS steps of ``make_train_step`` (loss,
-    lr and grad norm each step); ``ok`` against TRAIN_PAR_TOL."""
+def small_train_parity(arch: str = "qwen2_5_3b",
+                       phase: str = "small_train_parity",
+                       cpu_target: str = "cpu",
+                       remat_check: bool = False) -> dict:
+    """SMOKE of ``arch`` in fp32 on the same weights, the card against the
+    CPU (the kernels' plain versions, which the CPU tests hold against the
+    JAX package; the CPU's schedule at ``cpu_target``'s cost profile): the
+    first batch's gradient of every leaf (max |diff| / max |grad| per
+    leaf), then TRAIN_STEPS steps of ``make_train_step`` (loss, lr and grad
+    norm each step); ``ok`` against TRAIN_PAR_TOL.  With ``remat_check``
+    the card's first gradients under remat full and none, bitwise."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke
@@ -1365,7 +1464,7 @@ def small_train_parity() -> dict:
     from repro_torch.models.base import get_model
     from repro_torch.optim import AdamWConfig, tree_leaves
     from repro_torch.train import TrainConfig, init_state, make_train_step
-    cfg = dataclasses.replace(get_smoke("qwen2_5_3b"), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     cpu = get_model(cfg, device="cpu",
                     generator=torch.Generator().manual_seed(0))
     card = get_model(cfg, device="cuda", params={
@@ -1375,13 +1474,24 @@ def small_train_parity() -> dict:
     pipe = TokenPipeline(DataConfig(seq_len=32, global_batch=2,
                                     vocab=cfg.vocab))
     opt = AdamWConfig(lr=1e-3, total_steps=TRAIN_STEPS, warmup_steps=1)
-    grads, mets = {}, {}
-    for dev, model in (("cpu", cpu), ("cuda", card)):
-        tcfg = TrainConfig(target="cpu" if dev == "cpu" else "gpu")
+
+    def first_grads(model, dev, tcfg):
         with tapir.use(tcfg.tapir_config()), model.trainable():
             loss = model.loss(to_device(pipe.batch_at(0), dev))
-            grads[dev] = [g.cpu() for g in torch.autograd.grad(
+            return [loss.detach().cpu()] + [g.cpu() for g in
+                                            torch.autograd.grad(
                 loss, tree_leaves(model.param_tree()))]
+
+    grads, mets, remat = {}, {}, None
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        tcfg = TrainConfig(target=cpu_target if dev == "cpu" else "gpu")
+        grads[dev] = first_grads(model, dev, tcfg)[1:]
+        if remat_check and dev == "cuda":
+            none = first_grads(model, dev, TrainConfig(target="gpu",
+                                                       remat="none"))
+            full = first_grads(model, dev, TrainConfig(target="gpu",
+                                                       remat="full"))
+            remat = all(torch.equal(a, b) for a, b in zip(none, full))
         step = make_train_step(model, opt, tcfg)
         state = init_state(model, opt)
         mets[dev] = []
@@ -1397,7 +1507,7 @@ def small_train_parity() -> dict:
         r[0] <= tol["loss"] and r[1] <= tol["lr"]
         and r[2] <= tol["grad_norm"][min(s_, 1)] for s_, r in enumerate(rel))
     finite = all(math.isfinite(v) for r in mets["cuda"] for v in r)
-    return {"phase": "small_train_parity", "config": cfg.name,
+    line = {"phase": phase, "config": cfg.name,
             "compute_dtype": "float32", "steps": TRAIN_STEPS,
             "grad_rel_err": grad_err,
             "step_rel_err": {"loss": [r[0] for r in rel],
@@ -1405,6 +1515,10 @@ def small_train_parity() -> dict:
                              "grad_norm": [r[2] for r in rel]},
             "cuda": mets["cuda"], "cpu": mets["cpu"], "tolerance": tol,
             "finite": finite, "ok": ok and finite}
+    if remat_check:
+        line.update(remat_full_equals_none_bitwise=remat,
+                    ok=line["ok"] and remat)
+    return line
 
 
 def gemm_bwd_entries(bwd_shapes, errs, gen, cfg) -> list:
@@ -2241,9 +2355,332 @@ def sass_count(lib, kernel: str, opcode: str):
     return n
 
 
+# -- RWKV6 training (phases 17b-17d) -------------------------------------------
+
+LS_BWD_SOURCE = "src/repro_torch/kernels/linear_scan/csrc/linear_scan_bwd.cu"
+#: ``LinearScanFn``'s gradients against autograd through
+#: ``linear_scan_chunked`` (the kernels against ``linear_scan_bwd_ref`` are
+#: held to LS_RTOL): LS_RTOL, but dw in fp32 1e-3.  Autograd's VJP of the
+#: factored form reaches log w through differences of neighbouring rows'
+#: terms that cancel (at the decay clip to ~1 part in 1e3), so its own dw
+#: carries fp32 rounding that large; the port's backward cancels nothing
+#: (within 5e-6 of an fp64 recurrence: tests/test_torch_scan_bwd.py)
+LS_BWD_AUTOGRAD_RTOL = {"bfloat16": 2e-2, "float32": 1e-3}
+#: RWKV6-7B's layers in the train phase: at full depth the fp32 params,
+#: gradients and AdamW moments alone (120 GB) exceed one 80 GB card
+RW_TRAIN_LAYERS = 12
+BWD_NAMES = ("dq", "dk", "dv", "dw", "du", "dS0")
+
+
+def rwkv_train_phase():
+    """Phase 17b: RWKV6-7B at full width and RW_TRAIN_LAYERS layers
+    (random weights from seed 0) through ``train_phase`` with
+    ``rwkv_train_launches``; then a second fresh model from seed 0 takes
+    two steps, whose losses and ``leaf_sample`` must equal the first run's
+    after its second step, bitwise.  Returns (line, launches by shape)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.data import to_device
+    from repro_torch.models.base import get_model
+    from repro_torch.train import init_state
+    cfg = dataclasses.replace(get_config("rwkv6_7b"),
+                              n_layers=RW_TRAIN_LAYERS)
+
+    def fresh():
+        return get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+
+    model = fresh()
+    line, snap = train_phase(model, cfg, rwkv_train_launches(cfg.n_layers),
+                             rwkv_train_counts, "rwkv_train")
+    sample = snap.pop("sample")
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    model = fresh()
+    step, opt, pipe = train_setup(model, cfg)
+    state = init_state(model, opt)
+    losses = []
+    for s_ in range(2):
+        state, met = step(state, to_device(pipe.batch_at(s_), "cuda"))
+        losses.append(float(met["loss"]))
+    again = leaf_sample(model)
+    bitwise = losses == line["losses"][:2] and all(
+        torch.equal(a, b) for a, b in zip(sample, again))
+    line.update({"depth": f"{RW_TRAIN_LAYERS} of 32 layers (memory: "
+                          f"PERF.md section 4)",
+                 "rerun_losses": losses, "rerun_leaves": len(again),
+                 "rerun_bitwise": bitwise})
+    del model, state, met
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    if not bitwise:
+        raise SystemExit(f"rwkv_train: two fresh runs differ: {line}")
+    return line, snap
+
+
+def scan_bwd_inputs(shape, variant, dt, seed: int):
+    """``scan_inputs`` plus the cotangent ``do`` (in ``dt``) and, for a
+    ``+state`` variant, an initial carry and the final carry's cotangent
+    (fp32); u is None for GLA."""
+    import torch
+    q, k, v, w, u = scan_inputs(shape, dt, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(v.shape, generator=gen, device="cuda").to(dt)
+    s0 = ds = None
+    if variant.endswith("+state"):
+        b, _, h, dk, dv, _ = shape
+        s0, ds = (torch.randn(b, h, dk, dv, generator=gen, device="cuda")
+                  for _ in range(2))
+    return q, k, v, w, (u if variant.startswith("rwkv6") else None), do, \
+        s0, ds
+
+
+def scan_fn_grads(fn, q, k, v, w, u, do, s0, ds):
+    """Gradients of every operand of ``fn`` (``ops.linear_scan`` or
+    ``ref.linear_scan_chunked``) at SAFE_CHUNK under autograd, with the
+    carried state's where ``s0`` is given."""
+    import torch
+    leaves = [t.detach().requires_grad_(True)
+              for t in (q, k, v, w, u, s0) if t is not None]
+    it = iter(leaves)
+    a = [next(it) for _ in range(4)]
+    uu = next(it) if u is not None else None
+    if s0 is None:
+        return torch.autograd.grad(fn(*a, u=uu), leaves, do)
+    o, st = fn(*a, u=uu, init_state=next(it), return_state=True)
+    return torch.autograd.grad((o, st), leaves, (do, ds))
+
+
+def scan_bwd_vs_plain(train_shapes, smoke_shape) -> tuple:
+    """Phase 17c: the scan's backward (``ops.linear_scan_bwd``) against
+    ``linear_scan_bwd_ref`` (all six gradients, each over its own largest
+    magnitude, LS_RTOL), two calls bitwise, and ``LinearScanFn`` against
+    autograd through ``linear_scan_chunked`` (LS_BWD_AUTOGRAD_RTOL), in
+    bf16 and fp32, both variants: the train phase's shapes, SMOKE, ragged S
+    (37, 1000), the decay clip in every position (S = 37, 2048), and the
+    stateful prefill's shape with an initial carry and the final carry's
+    cotangent (``+state``).  Then, per dtype at the stateful shape, the
+    batch-row independence (bitwise, du excepted) and two calls chained
+    through the carry, split on a chunk boundary, against one call (the
+    first call's rows and dS0 bitwise, the rest within LS_RTOL).  Returns
+    (line, {(shape, variant, dtype): max abs err over the six})."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    shapes = list(train_shapes) + [
+        smoke_shape, (2, 37, 64, 64, 64, "model"),
+        (2, 1000, 64, 64, 64, "model"), (2, 37, 64, 64, 64, "clip"),
+        (2, 2048, 64, 64, 64, "clip")]
+    cases = [(sh, var) for sh in shapes for var in ("rwkv6", "gla")]
+    cases += [((PF_B, PF_S, 64, 64, 64, dec), var + "+state")
+              for dec in ("model", "clip") for var in ("rwkv6", "gla")]
+    rel_err, fn_err, abs_err, repeat = {}, {}, {}, True
+    for i, (shape, variant) in enumerate(cases):
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            args = scan_bwd_inputs(shape, variant, dt, seed=60 + i)
+            q, k, v, w, u, do, s0, ds = args
+            got = ls_ops.linear_scan_bwd(q, k, v, w, u, do,
+                                         init_state=s0, d_state=ds)
+            again = ls_ops.linear_scan_bwd(q, k, v, w, u, do,
+                                           init_state=s0, d_state=ds)
+            want = ls_ref.linear_scan_bwd_ref(q, k, v, w, u, do,
+                                              init_state=s0, d_state=ds)
+            rels, absd, finite = {}, 0.0, True
+            for name, g, wt, a in zip(BWD_NAMES, got, want, again):
+                if wt is None:
+                    continue
+                d_ = (g.float() - wt.float()).abs().max()
+                rels[name] = float(d_) / max(float(wt.float().abs().max()),
+                                             1e-30)
+                absd = max(absd, float(d_))
+                finite &= bool(torch.isfinite(g).all())
+                repeat &= bool(torch.equal(g, a))
+            del got, again, want
+            fgot = scan_fn_grads(ls_ops.linear_scan, *args)
+            fwant = scan_fn_grads(ls_ref.linear_scan_chunked, *args)
+            names = [n for n, t in zip(BWD_NAMES, (q, k, v, w, u, s0))
+                     if t is not None]
+            frels = {n: float((g.float() - wt.float()).abs().max())
+                     / max(float(wt.float().abs().max()), 1e-30)
+                     for n, g, wt in zip(names, fgot, fwant)}
+            key = f"{shape}/{variant}/{dname}"
+            rel_err[key], fn_err[key] = rels, frels
+            abs_err[(shape, variant, dname)] = absd
+            ok = finite and all(e <= LS_RTOL[dname] for e in rels.values()) \
+                and all(e <= (LS_BWD_AUTOGRAD_RTOL[dname] if n == "dw"
+                              else LS_RTOL[dname]) for n, e in frels.items())
+            if not ok:
+                raise SystemExit(f"scan_bwd vs plain: {key}: kernel {rels}, "
+                                 f"LinearScanFn vs autograd {frels}, finite "
+                                 f"{finite}")
+            del args, q, k, v, w, u, do, s0, ds, fgot, fwant
+    if not repeat:
+        raise SystemExit("scan_bwd: two calls differ")
+    return {"phase": "scan_bwd_vs_plain", "cases": len(rel_err),
+            "rel_tolerance": LS_RTOL,
+            "function_rel_tolerance": {"dw": LS_BWD_AUTOGRAD_RTOL,
+                                       "others": LS_RTOL},
+            "rel_err": rel_err, "function_vs_autograd_rel_err": fn_err,
+            "bitwise_repeat": repeat,
+            "state_checks": scan_bwd_state_checks()}, abs_err
+
+
+def scan_bwd_state_checks() -> dict:
+    """The backward's batch-row independence and its chaining through the
+    carry at the stateful prefill's shape (see ``scan_bwd_vs_plain``)."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    out = {}
+    half = PF_S // 2
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        q, k, v, w, u, do, s0, ds = scan_bwd_inputs(
+            (PF_B, PF_S, 64, 64, 64, "model"), "rwkv6+state", dt, seed=90)
+        full = ls_ops.linear_scan_bwd(q, k, v, w, u, do, init_state=s0,
+                                      d_state=ds)
+        one = ls_ops.linear_scan_bwd(*(t[2:3] for t in (q, k, v, w)), u,
+                                     do[2:3], init_state=s0[2:3],
+                                     d_state=ds[2:3])
+        rows = all(torch.equal(a[2:3], b) for n, a, b in
+                   zip(BWD_NAMES, full, one) if n != "du")
+
+        def leaves():
+            return [t.detach().requires_grad_(True)
+                    for t in (q, k, v, w, u, s0)]
+        a1 = leaves()
+        o, st = ls_ops.linear_scan(*a1[:4], u=a1[4], init_state=a1[5],
+                                   return_state=True)
+        want = torch.autograd.grad((o, st), a1, (do, ds))
+        a2 = leaves()
+        o1, s1 = ls_ops.linear_scan(*(t[:, :half] for t in a2[:4]),
+                                    u=a2[4], init_state=a2[5],
+                                    return_state=True)
+        o2, s2 = ls_ops.linear_scan(*(t[:, half:] for t in a2[:4]),
+                                    u=a2[4], init_state=s1,
+                                    return_state=True)
+        got = torch.autograd.grad((torch.cat([o1, o2], 1), s2), a2,
+                                  (do, ds))
+        rel = {n: float((g - wt).float().abs().max())
+               / max(float(wt.float().abs().max()), 1e-30)
+               for n, g, wt in zip(BWD_NAMES, got, want)}
+        first = all(torch.equal(g[:, :half], wt[:, :half]) for n, g, wt in
+                    zip(BWD_NAMES, got, want) if n in ("dq", "dk", "dv",
+                                                       "dw")) \
+            and torch.equal(got[5], want[5])
+        row = {"batch_independent_bitwise": rows,
+               "split_first_call_and_ds0_bitwise": first,
+               "split_bitwise": all(torch.equal(g, wt)
+                                    for g, wt in zip(got, want)),
+               "split_rel_err": rel}
+        if not (rows and first and all(e <= LS_RTOL[dname]
+                                       for e in rel.values())):
+            raise SystemExit(f"scan_bwd state checks {dname}: {row}")
+        out[dname] = row
+    return out
+
+
+def scan_bwd_bound(key) -> tuple:
+    """(bound ms, what bounds it, the design's byte floor ms) of one scan
+    backward call at ``key`` (a launches_by_shape key): q, k, v and do in,
+    dq, dk, dv out in their dtype, w in and dw out in fp32 (u and du, the
+    carry and its cotangents where the call has them), each moved once,
+    over the memory rate; the chunked backward's products over the route's
+    peak (bf16: the tensor cores).  The design's floor adds the two fp32
+    workspaces of chunk-start carries and their gradients, each written
+    once and read once."""
+    b, s, h, dk, dv, dname, variant, chunk = key
+    eb = 2 if "bfloat16" in dname else 4
+    c = min(chunk, s)
+    n = -(-s // c)
+    nbytes = eb * b * s * h * (4 * dk + 3 * dv) + 2 * 4 * b * s * h * dk
+    if variant.startswith("rwkv6"):
+        nbytes += 2 * 4 * h * dk
+    if variant.endswith("+state"):
+        nbytes += 3 * 4 * b * h * dk * dv
+    # per chunk: the two carries, do S^T, v dS^T and kE dS ([C, Dk] x
+    # [Dk, Dv] each); A, dqt, dkt and the pairs' dlog w ([C, C] over Dk);
+    # dA and A^T do ([C, C] over Dv)
+    flops = 2.0 * b * h * n * c * (5 * dk * dv + c * (4 * dk + 2 * dv))
+    peak = PEAK_FLOPS["bfloat16" if eb == 2 else "float32"]
+    t_bytes, t_ops = nbytes / HBM_BW, flops / peak
+    ws = 2 * 2 * 4 * b * h * n * dk * dv
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            (nbytes + ws) / HBM_BW * 1e3)
+
+
+def scan_bwd_entry(name: str, key, launches: int, err, plain: bool = True):
+    """The scan backward at ``key`` on bf16 inputs as the train step runs
+    it: its device time and (``plain``) its plain version's, one call timed
+    alone with L2 flushed, median of 10; each of its kernels' device ms a
+    launch (``kernel_ms``); the bound (``scan_bwd_bound``).  No single
+    PyTorch call computes this function: ``library_ms`` is None.  ``err``:
+    max |kernel - plain| from phase 17c (None: measured here)."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    b, s, h, dk, dv, _, variant, chunk = key
+    q, k, v, w, u, do, s0, ds = scan_bwd_inputs(
+        (b, s, h, dk, dv, "model"), variant, torch.bfloat16, seed=1)
+    fn = lambda: ls_ops.linear_scan_bwd(  # noqa: E731
+        q, k, v, w, u, do, chunk, init_state=s0, d_state=ds)
+    ref_fn = lambda: ls_ref.linear_scan_bwd_ref(  # noqa: E731
+        q, k, v, w, u, do, chunk, init_state=s0, d_state=ds)
+    if err is None:
+        err = max(float((g.float() - wt.float()).abs().max())
+                  for g, wt in zip(fn(), ref_fn()) if wt is not None)
+    ms = time_ms(fn)
+    bound, by, floor = scan_bwd_bound(key)
+    return {"name": name, "route": "cuda", "source": LS_BWD_SOURCE,
+            "replaces": LS_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(ref_fn) if plain else None,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "design_floor_ms": floor, "kernel_ms": kernel_ms(fn),
+            "shape": list(key)}
+
+
+def rwkv_train_phases(smoke) -> list:
+    """Phases 17b-17d; returns the scan backward's entries of the kernels
+    line."""
+    # -- 17b. training at full width, RW_TRAIN_LAYERS layers -----------------
+    line, snap = rwkv_train_phase()
+    emit(line)
+    # -- 17c. the scan's backward against its plain version ----------------
+    train_shapes = sorted({(k[0], k[1], k[2], k[3], k[4], "model")
+                           for k in snap["lsb"]})
+    sb_line, sb_errs = scan_bwd_vs_plain(
+        train_shapes, (2, 28, smoke.n_heads, smoke.hd, smoke.hd, "model"))
+    emit(sb_line)
+    par = small_train_parity("rwkv6_7b", "small_rwkv_train_parity",
+                             cpu_target="gpu", remat_check=True)
+    emit(par)
+    if not par["ok"]:
+        raise SystemExit(f"small rwkv train parity: {par}")
+    # -- 17d. the backward's time at the train step's shape -----------------
+    entries = []
+    for key, launches in sorted(snap["lsb"].items()):
+        b, s, h, dk, dv, dname, variant, chunk = key
+        entries.append(scan_bwd_entry(
+            f"linear_scan_bwd[train B={b} S={s} H={h} Dk={dk} Dv={dv} "
+            f"{variant} chunk={chunk}]", key, launches,
+            sb_errs.get(((b, s, h, dk, dv, "model"), variant, "bfloat16"))))
+    emit({"phase": "scan_bwd_times",
+          "launches_per_train_step": sum(snap["lsb"].values()),
+          "step_scan_bwd_ms": sum(e["ms"] * e["launches"] for e in entries),
+          "step_scan_bwd_bound_ms": sum(e["bound_ms"] * e["launches"]
+                                        for e in entries),
+          "kernel_ms": {e["name"]: e["kernel_ms"] for e in entries}})
+    return entries
+
+
 def rwkv_phases() -> list:
     """Phases 11-17 on RWKV6-7B at full width (all 32 layers, random
-    weights from seed 0); returns their entries of the kernels line."""
+    weights from seed 0), then 17b-17d (training at RW_TRAIN_LAYERS
+    layers); returns their entries of the kernels line."""
     import torch
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.models.base import get_model
@@ -2347,7 +2784,10 @@ def rwkv_phases() -> list:
           "gemm_tflops": gemm_tflops(gemm_entries),
           "wrapper_host_us": wrapper_host_us(
               [(4, cfg.d_model, cfg.d_model), (4, 64, cfg.d_model)], gen)})
-    return gemm_entries + ls_entries
+    from repro_torch.core import tapir
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return gemm_entries + ls_entries + rwkv_train_phases(smoke)
 
 
 def qwen_phases() -> list:
@@ -2551,7 +2991,9 @@ def qwen_phases() -> list:
     tapir.clear_cache()
     model.release_compute()
     torch.cuda.empty_cache()
-    train, fm_tr, bwd_tr, fa_tr, fab_tr = train_phase(model, cfg)
+    train, snap = train_phase(model, cfg)
+    fm_tr, bwd_tr, fa_tr, fab_tr = (snap[k] for k in ("fm", "bwd", "fa",
+                                                      "fab"))
     emit(train)
     fm_paths.update(fm_tr)
     for s_ in fm_tr:
@@ -3209,19 +3651,23 @@ def flash_bwd_times_again(out_path: str) -> int:
 
 
 def scan_times_again(out_path: str) -> int:
-    """The ``--scan-times`` mode: ``scan_entry`` without the plain
-    version's time, one JSON line each, at every scan path shape that a
-    full run counted (the ``shape`` of each scan entry of the kernels line
-    in its output ``out_path``), without building a model; then the card
-    line."""
+    """The ``--scan-times`` mode: ``scan_entry`` and ``scan_bwd_entry``
+    without the plain version's time, one JSON line each, at every scan
+    path shape and backward shape that a full run counted (the ``shape``
+    of each scan entry of the kernels line in its output ``out_path``),
+    without building a model; then the card line."""
     with open(out_path) as f:
         entries = next(json.loads(line)["kernels"] for line in f
                        if line.startswith('{"kernels"'))
     for e in entries:
-        if not e["name"].startswith("linear_scan[") or "shape" not in e:
+        if "shape" not in e:
             continue
-        emit(scan_entry(e["name"], tuple(e["shape"]), e["launches"],
-                        plain=False))
+        if e["name"].startswith("linear_scan["):
+            emit(scan_entry(e["name"], tuple(e["shape"]), e["launches"],
+                            plain=False))
+        elif e["name"].startswith("linear_scan_bwd["):
+            emit(scan_bwd_entry(e["name"], tuple(e["shape"]), e["launches"],
+                                None, plain=False))
     print(card_line(), flush=True)
     return 0
 
@@ -3374,14 +3820,16 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     # one nvcc per source, all started together; ptxas reports on stderr
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         libs = list(pool.map(lambda build: build(verbose=True),
                              (kernel.build, fa_kernel.build,
-                              ls_kernel.build, fa_kernel.build_bwd)))
+                              ls_kernel.build, fa_kernel.build_bwd,
+                              ls_kernel.build_bwd)))
     gemm_ptxas = ptxas_summary(REPORTS["fused_matmul"])
     flash_ptxas = ptxas_summary(REPORTS["flash_attention"])
     scan_ptxas = ptxas_summary(REPORTS["linear_scan"])
     flash_bwd_ptxas = ptxas_summary(REPORTS["flash_attention_bwd"])
+    scan_bwd_ptxas = ptxas_summary(REPORTS["linear_scan_bwd"])
     scan_mma = sass_count(libs[2], "scan_bf16_kernel", "HMMA")
     bwd_hgmma = {name: sass_count(libs[3], name, "HGMMA")
                  for name in ("dkdv_bf16_kernel", "dq_bf16_kernel")}
@@ -3392,6 +3840,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "gemm_ptxas": gemm_ptxas, "flash_ptxas": flash_ptxas,
           "scan_ptxas": scan_ptxas, "flash_bwd_ptxas": flash_bwd_ptxas,
+          "scan_bwd_ptxas": scan_bwd_ptxas,
           "scan_bf16_hmma_instructions": scan_mma,
           "flash_bwd_bf16_hgmma_instructions": bwd_hgmma})
     if not scan_mma:

@@ -20,8 +20,10 @@ as the roofline argmin; no route is chosen by the device a tensor is on:
   ``kernels.linear_scan.ops.linear_scan``, the hand-written Hopper chunked
   scan, at the scheduled chunk (``SAFE_CHUNK`` where none was set: never a
   chunk past it, where the factored form stops being exact), with any
-  fused epilogue applied after it; ``chunked`` and ``ref`` lower to the
-  plain versions on a CPU tensor and raise on a CUDA one;
+  fused epilogue applied after it (under grad the wrapper's
+  ``LinearScanFn``, whose backward on the card is the hand-written
+  backward kernel); ``chunked`` and ``ref`` lower to the plain versions
+  on a CPU tensor and raise on a CUDA one, with or without grad;
 * a conv2d node, ``im2col_gemm`` or ``"opaque"``, builds the patch matrix
   of the padded NHWC input (``im2col``: kh*kw shifted, strided slices
   concatenated on the channel axis in HWIO order) and calls

@@ -21,6 +21,9 @@ Everything accumulates in fp32; the output is in ``v.dtype``.
   sum ``lb`` of ``log w``, the mid-chunk normalizer ``lb[C // 2]``, both
   factor exponents clamped at 80, the inclusive triangle (GLA) or the
   strict one plus the bonus (RWKV6); the carry ``dC S0 + kE^T v``.
+* ``linear_scan_bwd_ref`` is the chunked form's gradient written out by
+  hand, the arithmetic of the Hopper backward (``csrc/linear_scan_bwd.cu``):
+  the backward a CPU tensor runs and the kernel's yardstick on the card.
 """
 from __future__ import annotations
 
@@ -99,3 +102,143 @@ def linear_scan_chunked(q, k, v, w, u=None, chunk: int = SAFE_CHUNK,
         outs.append(o)
     o = torch.stack(outs, dim=1).reshape(B, N * C, H, Dv)[:, :S].to(v.dtype)
     return (o, S0) if return_state else o
+
+
+def _rev_cumsum(x, dim: int):
+    """Inclusive sums from the end along ``dim``."""
+    return torch.flip(torch.cumsum(torch.flip(x, (dim,)), dim), (dim,))
+
+
+def linear_scan_bwd_ref(q, k, v, w, u, do, chunk: int = SAFE_CHUNK,
+                        init_state=None, d_state=None):
+    """The gradients of ``linear_scan_chunked(q, k, v, w, u, chunk,
+    init_state, return_state)`` at the cotangents ``do`` (of the output)
+    and ``d_state`` (of the final carry, or None), written out by hand in
+    the arithmetic the Hopper backward follows (``csrc/linear_scan_bwd.cu``):
+    the same chunk, padding, normalizer, clamp and triangle, all in fp32.
+
+    (a) the chunk-start carries ``S_0 .. S_N`` (the forward's carry
+    recurrence); (b) their gradients ``dS_N = d_state`` (or 0) ``..
+    dS_0`` by ``dS_n = exp(lbc) dS_{n+1} + (q exp(lbq))^T do``; (c) per
+    chunk, from its own rows, ``S_n``, ``S_{n+1}`` and ``dS_{n+1}``::
+
+        dA  = mask(do v^T)                       dqt = dA kt,  dkt = dA^T qt
+        dv  = A^T do (+ bonus do) + kE dS_{n+1}
+        dq  = dqt fq + (do S_n^T) exp(lbq)       (+ (do.v) u k)
+        dk  = dkt fk + (v dS_{n+1}^T) exp(lbc - lb)  (+ (do.v) u q)
+
+    and the decay's, through log w only (``dw = dlog w / w``): each term
+    of the chunk reaches ``dlog w_s`` through the exponent it carries --
+    a pair ``(t, j)`` of the triangle, ``M = dA qt kt``, for ``j < s < t``
+    (GLA ``j < s <= t``); the carry read, ``(q exp(lbq)) (do S_n^T)``, for
+    ``t > s`` (GLA ``t >= s``); the carry written, ``(k exp(lbc - lb))
+    (v dS_{n+1}^T)``, for ``j < s``; the chunk's decay ``exp(lbc)
+    sum_e dS_{n+1} S_n`` for every ``s``.  This is the global identity
+    ``dL_s = q dq - k dk`` with each pair's two halves taken together:
+    written as that difference, the leading terms of neighbouring rows
+    cancel (at the decay clip, to 1 part in 1e3) and fp32 loses three
+    digits of ``dw``.  The normalizer's gradient is zero (the factors'
+    products do not depend on it) and is not formed.  Masked score
+    entries are selected away, never multiplied, as in the forward.
+
+    Returns ``(dq, dk, dv, dw, du, dS0)``: dq/dk/dv in q/k/v's dtypes, dw
+    in fp32, du fp32 ``[H, Dk]`` (None without ``u``), dS0 fp32 ``[B, H,
+    Dk, Dv]`` (None without ``init_state``)."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    C = max(1, min(int(chunk), S))
+    N = -(-S // C)
+    pad = N * C - S
+    f32 = torch.float32
+    rwkv = u is not None
+    qf, kf, vf, wf, dof = (t.to(f32) for t in (q, k, v, w, do))
+    if pad:
+        qf, kf, vf, dof = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for t in (qf, kf, vf, dof))
+        wf = F.pad(wf, (0, 0, 0, 0, 0, pad), value=1.0)
+    qc, kc, wc = (t.reshape(B, N, C, H, Dk) for t in (qf, kf, wf))
+    vc, doc = (t.reshape(B, N, C, H, Dv) for t in (vf, dof))
+    lw = torch.log(wc)
+    lb = torch.cumsum(lw, dim=2)                      # inclusive
+    lbq = lb - lw if rwkv else lb
+    mid = lb[:, :, C // 2][:, :, None]
+    lbc = lb[:, :, -1]                                # [B,N,H,Dk]
+    fq = torch.exp(torch.clamp(lbq - mid, max=80.0))
+    fk = torch.exp(torch.clamp(mid - lb, max=80.0))
+    qt, kt = qc * fq, kc * fk
+    eq = torch.exp(lbq)
+    ek = torch.exp(lbc[:, :, None] - lb)
+    dC = torch.exp(lbc)
+    kE, qi = kc * ek, qc * eq
+
+    # (a) the chunk-start carries, (b) their gradients
+    st = [torch.zeros((B, H, Dk, Dv), dtype=f32, device=q.device)
+          if init_state is None else init_state.to(f32)]
+    for n in range(N):
+        st.append(dC[:, n, :, :, None] * st[-1]
+                  + torch.einsum("bchd,bche->bhde", kE[:, n], vc[:, n]))
+    dst = [torch.zeros((B, H, Dk, Dv), dtype=f32, device=q.device)
+           if d_state is None else d_state.to(f32)]
+    for n in range(N - 1, -1, -1):
+        dst.append(dC[:, n, :, :, None] * dst[-1]
+                   + torch.einsum("bchd,bche->bhde", qi[:, n], doc[:, n]))
+    dst.reverse()                                     # dst[n] = dS_n
+    Sn = torch.stack(st[:-1], dim=1)                  # [B,N,H,Dk,Dv]
+    S1 = torch.stack(st[1:], dim=1)
+    dS1 = torch.stack(dst[1:], dim=1)
+
+    # (c) every chunk from its own rows and carries
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=q.device),
+                     diagonal=-1 if rwkv else 0)
+    zero = torch.zeros((), dtype=f32, device=q.device)
+    A = torch.where(tri, torch.einsum("bnchd,bnjhd->bnhcj", qt, kt), zero)
+    dA_full = torch.einsum("bnche,bnjhe->bnhcj", doc, vc)
+    dA = torch.where(tri, dA_full, zero)
+    dbon = torch.diagonal(dA_full, dim1=-2, dim2=-1)  # [B,N,H,C]: do.v
+    dbon = dbon.permute(0, 1, 3, 2)                   # [B,N,C,H]
+    dv = torch.einsum("bnhcj,bnche->bnjhe", A, doc)
+    if rwkv:
+        uf = u.to(f32)
+        bonus = torch.einsum("bnchd,hd,bnchd->bnch", qc, uf, kc)
+        dv = dv + bonus[..., None] * doc
+    dv = dv + torch.einsum("bnjhd,bnhde->bnjhe", kE, dS1)
+    dqt = torch.einsum("bnhcj,bnjhd->bnchd", dA, kt)
+    dkt = torch.einsum("bnhcj,bnchd->bnjhd", dA, qt)
+    gq = torch.einsum("bnche,bnhde->bnchd", doc, Sn)   # do S_n^T
+    gk = torch.einsum("bnche,bnhde->bnchd", vc, dS1)   # v dS_{n+1}^T
+    dq = dqt * fq + gq * eq
+    dk = dkt * fk + gk * ek
+    # dlog w_s, each term through the exponent it carries, none cancelling
+    # another: a pair (t, j) of the triangle through lbq_t - lb_j (s in
+    # (j, t), or (j, t] for GLA); the carry read through lbq_t (t > s, or
+    # t >= s); the carry written through lbc - lb_j (j < s); the chunk's
+    # decay through lbc (every s)
+    qtp, ktp = qt.transpose(2, 3), kt.transpose(2, 3)  # [B,N,H,C,Dk]
+    M = torch.where(tri[..., None],
+                    dA[..., None] * qtp[:, :, :, :, None] * ktp[:, :, :, None],
+                    zero)                              # [B,N,H,t,j,Dk]
+    R = F.pad(torch.cumsum(M, dim=4)[:, :, :, :, :-1],
+              (0, 0, 1, 0))                            # sum over j < s
+    X = torch.where(tri[..., None], R, zero).sum(3)    # over t: [B,N,H,s,Dk]
+    gqi = qi * gq
+    rq = _rev_cumsum(gqi, 2)
+    if rwkv:   # exclusive: t > s
+        rq = F.pad(rq[:, :, 1:], (0, 0, 0, 0, 0, 1))
+    gke = kE * gk
+    pk = F.pad(torch.cumsum(gke, dim=2)[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    gdc = (dC * (dS1 * Sn).sum(-1))[:, :, None]        # [B,N,1,H,Dk]
+    dlw = X.transpose(2, 3) + rq + pk + gdc
+    du = None
+    if rwkv:
+        g = dbon[..., None] * uf
+        dq = dq + g * kc
+        dk = dk + g * qc
+        du = torch.einsum("bnch,bnchd,bnchd->hd", dbon, qc, kc)
+    dw = dlw / wc
+
+    def out(t, d, dt):
+        return t.reshape(B, N * C, H, d)[:, :S].to(dt)
+
+    return (out(dq, Dk, q.dtype), out(dk, Dk, k.dtype), out(dv, Dv, v.dtype),
+            out(dw, Dk, f32), du,
+            dst[0] if init_state is not None else None)

@@ -8,7 +8,13 @@ mesh: model (random weights from ``--seed``) -> ``TokenPipeline`` (the
 synthetic source, the same bytes as the reference's) -> ``make_train_step``
 -> a loop over the steps.  Runs on the card unless ``--device cpu``; the
 default remat is ``full``, since at 2 x 2048 tokens of qwen2.5-3b nothing
-else fits one 80 GB card.  Prints one JSON line: ``steps``, ``tok_per_s``
+else fits one 80 GB card.  ``--arch rwkv6_7b`` trains RWKV6 the same way
+(its scans' backward is the hand-written backward kernel on the card),
+at the config's full 32 layers: its fp32 parameters, gradients and AdamW
+moments alone (120 GB) exceed one 80 GB card, so on one card it runs out
+of memory; ``chip_smoke.py``'s ``rwkv_train`` phase trains it at full
+width and 12 layers.  The reference's launcher has no depth option, and
+neither has this one.  Prints one JSON line: ``steps``, ``tok_per_s``
 (after the first step, which builds the kernels and traces the regions),
 ``first_loss``, ``last_loss`` and ``losses``.
 

@@ -17,7 +17,13 @@ layer by layer, as there.
 
 Forward: embed, then ``scan_layers`` over ``rwkv_block`` regions (each
 block ONE region program: ten GEMMs, the scan node and the lifted
-composites), then the head.  ``loss`` adds the cross-entropy.
+composites), then the head.  ``loss`` adds the cross-entropy.  Both
+train as they are (``train/step.py``): under grad every GEMM goes through
+``FusedMatmulFn`` and every scan through ``LinearScanFn`` (the
+hand-written scan backward on the card); the lifted decay, the token
+shift, the groupnorm and the squared ReLU are torch composites autograd
+differentiates; under remat full ``scan_layers`` reruns each block, its
+scan included, in the backward.
 
 Stateful serving (``init_cache`` / ``prefill`` / ``decode_step``): no KV
 cache, O(1) state per token — per layer the time-mix and channel-mix

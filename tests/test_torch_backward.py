@@ -227,18 +227,59 @@ def test_no_grad_and_frozen_inputs_skip_the_functions():
     assert not fm_ops.function_calls and not fa_ops.function_calls
 
 
-def test_scan_refuses_grad_on_a_cuda_tensor_only(monkeypatch):
-    """The scan has no backward on the card yet: under grad a CUDA operand
-    that requires grad raises (checked with a stand-in device), while a CPU
-    tensor differentiates the plain version."""
-    q = torch.randn(1, 4, 2, 8, requires_grad=True)
-    w = torch.full((1, 4, 2, 8), 0.9)
-    y = ls_ops.linear_scan(q, q, q, w, chunk=4)
-    assert y.grad_fn is not None
+def test_scan_grad_reaches_the_backward_kernel_on_a_cuda_tensor(monkeypatch):
+    """Under grad a scan on a CUDA tensor (a stand-in device) goes through
+    ``LinearScanFn`` to one ``kernel.launch_bwd`` with no refusal, and its
+    gradients are what that launch writes; a CPU tensor runs
+    ``linear_scan_bwd_ref`` instead and launches nothing."""
+    from repro_torch.kernels.linear_scan import kernel as ls_kernel
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    g = torch.Generator().manual_seed(0)
+    q, k = (torch.randn(1, 6, 2, 8, generator=g) for _ in range(2))
+    v, do = (torch.randn(1, 6, 2, 4, generator=g) for _ in range(2))
+    w = torch.rand(1, 6, 2, 8, generator=g) * 0.5 + 0.4
+    u = torch.randn(2, 8, generator=g)
+    want = ls_ref.linear_scan_bwd_ref(q, k, v, w, u, do, chunk=4)
+    o_want = ls_ref.linear_scan_chunked(q, k, v, w, u=u, chunk=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, w, u)]
+
+    cpu_calls = []
+    real = ls_ref.linear_scan_bwd_ref
+    monkeypatch.setattr(ls_ref, "linear_scan_bwd_ref", lambda *a, **kw: (
+        cpu_calls.append(1), real(*a, **kw))[1])
+    ls_ops.reset_counts()
+    y = ls_ops.linear_scan(*leaves[:4], u=leaves[4], chunk=4)
+    got = torch.autograd.grad(y, leaves, do)
+    assert cpu_calls == [1] and ls_ops.bwd_launches == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    launched = []
+
+    def launch(q_, k_, v_, w_, u_, o, c, s0=None, s1=None):
+        o.copy_(o_want)
+
+    def launch_bwd(q_, k_, v_, w_, u_, do_, c, s0, ds1, ws, dup, *outs):
+        launched.append((c, tuple(ws.shape), tuple(dup.shape)))
+        for out, val in zip(outs, want):
+            if out is not None:
+                out.copy_(val)
 
     class FakeDevice:
         type = "cuda"
-    monkeypatch.setattr(torch.Tensor, "device", property(
-        lambda self: FakeDevice()))
-    with pytest.raises(NotImplementedError, match="scan backward|backward"):
-        ls_ops.linear_scan(q, q, q, w, chunk=4)
+    fake = FakeDevice()
+    monkeypatch.setattr(ls_kernel, "launch", launch)
+    monkeypatch.setattr(ls_kernel, "launch_bwd", launch_bwd)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: fake))
+    ls_ops.reset_counts()
+    y = ls_ops.linear_scan(*leaves[:4], u=leaves[4], chunk=4)
+    got = torch.autograd.grad(y, leaves, do)
+    monkeypatch.undo()
+    assert launched == [(4, (2, 1, 2, 2, 8, 4), (1, 2, 2, 8))]
+    assert ls_ops.launches == 1 and ls_ops.bwd_launches == 1
+    assert ls_ops.bwd_launches_by_shape == {
+        (1, 6, 2, 8, 4, "torch.float32", "rwkv6", 4): 1}
+    assert ls_ops.function_calls == {"forward": 1, "backward": 1}
+    assert cpu_calls == [1]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -1,11 +1,13 @@
 """Training on the card: the per-op step's gradients reach every
-parameter (no kernel output loses its ``grad_fn``), two runs give the
-same bits (the embedding's scatter-add included), and the linear scan
-refuses a gradient it cannot give.
+parameter (no kernel output loses its ``grad_fn``), qwen2.5-3b's and
+RWKV6-7B's (through the scan's backward kernel), and two runs give the
+same bits (the embedding's scatter-add included).
 
-The model is qwen2.5-3b's full width cut to 2 layers (d_model 2048, 16 / 2
-heads of 128, d_ff 11008, vocab 151936), bf16 compute over fp32 master
-weights, random weights from seed 0, 2 x 512 tokens of ``TokenPipeline``.
+The models are qwen2.5-3b's and RWKV6-7B's full widths cut to 2 layers
+(d_model 2048, 16 / 2 heads of 128, d_ff 11008, vocab 151936; d_model
+4096, 64 heads of 64, d_ff 14336, vocab 65536), bf16 compute over fp32
+master weights, random weights from seed 0, 2 x 512 tokens of
+``TokenPipeline``.
 Needs an NVIDIA card; run with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_train.py``.
 """
@@ -37,8 +39,8 @@ def cuda():
     tapir.clear_cache()
 
 
-def _model():
-    cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_layers=2)
+def _model(arch: str = "qwen2_5_3b"):
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     return get_model(cfg, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(0))
 
@@ -98,10 +100,22 @@ def test_two_runs_of_two_steps_are_bitwise_equal(cuda):
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
 
 
-def test_scan_refuses_grad_on_the_card(cuda):
-    q = torch.randn(1, 32, 2, 64, device="cuda", requires_grad=True)
-    w = torch.full((1, 32, 2, 64), 0.9, device="cuda")
-    with pytest.raises(NotImplementedError, match="backward"):
-        ls_ops.linear_scan(q, q, q, w, chunk=16)
-    with torch.no_grad():
-        assert ls_ops.linear_scan(q, q, q, w, chunk=16).shape == (1, 32, 2, 64)
+def test_rwkv_every_parameter_gets_a_finite_gradient(cuda):
+    """RWKV6's loss under grad on the card: one scan backward launch a
+    layer (and two forward), one dX and one dW launch a GEMM, and every leaf (the decay's
+    LoRA and the bonus u through the scan's backward among them) a finite,
+    non-zero gradient."""
+    model = _model("rwkv6_7b")
+    fm_ops.reset_counts()
+    ls_ops.reset_counts()
+    with tapir.use(GPU.tapir_config()), model.trainable():
+        loss = model.loss(_batch(0, model.cfg.vocab))
+        grads = torch.autograd.grad(loss, tree_leaves(model.param_tree()))
+    for g in grads:
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert float(g.abs().max()) > 0
+    n_l = model.cfg.n_layers
+    assert fm_ops.bwd_launches["dx"] == fm_ops.bwd_launches["dw"] == \
+        10 * n_l + 1
+    # remat full: each layer's scan runs forward again in the backward
+    assert (ls_ops.launches, ls_ops.bwd_launches) == (2 * n_l, n_l)
