@@ -6,6 +6,7 @@
     python3 chip_smoke.py --flash-times OUT [--src DIR]
     python3 chip_smoke.py --flash-bwd-times OUT [--src DIR]
     python3 chip_smoke.py --scan-times OUT [--src DIR]
+    python3 chip_smoke.py --scan-bwd-phases
     python3 chip_smoke.py --decode-times [--src DIR]
     python3 chip_smoke.py --fig3-times [--src DIR]
 
@@ -19,11 +20,13 @@ The third does the same for flash attention, at the path shapes of OUT
 and at ``FA_EXTRA``; the fourth for the flash backward, at OUT's train
 shapes and at ``FA_BWD_EXTRA`` (beside SDPA's backward, with each call's
 device time by kernel); the fifth for the linear scan, at OUT's scan path
-shapes, its backward at OUT's train shape too.  The sixth times the three decode steps at full width (the
-``decode_steps`` phase without its checks) and the serve phase's time to
-first token, cold and warm, with ``--src``'s tree where given: parent and
-change in one call.  The seventh runs phase 19 (``fig3``) alone, for this
-tree or ``--src``'s.
+shapes, its backward at OUT's train shape too.  The sixth splits the bf16
+scan backward's chunk kernel at RWKV6-7B's train shape into its phases
+(clock64 in a measurement build).  The seventh times the three decode
+steps at full width (the ``decode_steps`` phase without its checks) and
+the serve phase's time to first token, cold and warm, with ``--src``'s
+tree where given: parent and change in one call.  The eighth runs phase
+19 (``fig3``) alone, for this tree or ``--src``'s.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts (forward and
@@ -34,7 +37,8 @@ backward) just before it and reads them just after:
    flash and scan backwards) built by nvcc from the checkout's CUDA
    sources, in parallel; the ptxas reports (registers, stack, spills per kernel; a
    spill in any of the bf16 kernels, the fp32 GEMM or the backward's dK/dV
-   sum fails the run), the bf16 scan kernel's tensor-core (HMMA) and the
+   sum fails the run), the bf16 scan kernels' tensor-core (HMMA: the
+   forward, the backward's chains and chunks) and the
    bf16 flash backward kernels' wgmma (HGMMA) instruction counts in their
    SASS (none fails the run); the fp32 GEMM's tiles as the library states
    them against ``kernel.F32_TILES``; flash attention's tiles as the built
@@ -169,8 +173,9 @@ parameters, gradients and AdamW moments alone exceed the card):
    gradients and 3 steps on the card against the CPU, and remat full =
    none bitwise on the card;
 17d. scan_bwd_times — the scan backward at the train step's shape: its
-   device time, its kernels' (carries, chunks, du), the plain version's and
-   the bound (and the design's byte floor with its two workspaces).
+   device time, its kernels' (chains, chunks, du), the plain version's and
+   the bound (and the design's byte floor with its two workspaces of
+   checkpoints, one every ``kernel.plan_bwd(dtype).group`` chunks).
 
 The RWKV6 model is then released, and the paper's four networks (fp32,
 every product on the GEMM's FMA route) follow:
@@ -2370,6 +2375,13 @@ LS_BWD_AUTOGRAD_RTOL = {"bfloat16": 2e-2, "float32": 1e-3}
 #: gradients and AdamW moments alone (120 GB) exceed one 80 GB card
 RW_TRAIN_LAYERS = 12
 BWD_NAMES = ("dq", "dk", "dv", "dw", "du", "dS0")
+#: scan backward shapes ``--scan-times`` times beside OUT's train shape
+#: (launches_by_shape keys): GLA at the train shape, ragged S (63 chunks,
+#: no multiple of the checkpoint interval), the stateful prefill's shape
+#: with a carry in and out
+LS_BWD_EXTRA = [(2, 2048, 64, 64, 64, "torch.bfloat16", "gla", 16),
+                (2, 1000, 64, 64, 64, "torch.bfloat16", "rwkv6", 16),
+                (4, 512, 64, 64, 64, "torch.bfloat16", "rwkv6+state", 16)]
 
 
 def rwkv_train_phase():
@@ -2590,7 +2602,7 @@ def scan_bwd_bound(key) -> tuple:
     over the memory rate; the chunked backward's products over the route's
     peak (bf16: the tensor cores).  The design's floor adds the two fp32
     workspaces of chunk-start carries and their gradients, each written
-    once and read once."""
+    once and read once, a checkpoint every ``scan_bwd_group`` chunks."""
     b, s, h, dk, dv, dname, variant, chunk = key
     eb = 2 if "bfloat16" in dname else 4
     c = min(chunk, s)
@@ -2606,17 +2618,28 @@ def scan_bwd_bound(key) -> tuple:
     flops = 2.0 * b * h * n * c * (5 * dk * dv + c * (4 * dk + 2 * dv))
     peak = PEAK_FLOPS["bfloat16" if eb == 2 else "float32"]
     t_bytes, t_ops = nbytes / HBM_BW, flops / peak
-    ws = 2 * 2 * 4 * b * h * n * dk * dv
+    ws = 2 * 2 * 4 * b * h * -(-n // scan_bwd_group(dname)) * dk * dv
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
             (nbytes + ws) / HBM_BW * 1e3)
+
+
+def scan_bwd_group(dname: str) -> int:
+    """The tree's checkpoint interval for a backward in ``dname``
+    (``kernel.plan_bwd``); 1 for a tree that stores every chunk's carries
+    (one without a plan, timed through ``--src``)."""
+    import torch
+    from repro_torch.kernels.linear_scan import kernel as ls_kernel
+    plan = getattr(ls_kernel, "plan_bwd", None)
+    return plan(getattr(torch, dname.split(".")[-1])).group if plan else 1
 
 
 def scan_bwd_entry(name: str, key, launches: int, err, plain: bool = True):
     """The scan backward at ``key`` on bf16 inputs as the train step runs
     it: its device time and (``plain``) its plain version's, one call timed
     alone with L2 flushed, median of 10; each of its kernels' device ms a
-    launch (``kernel_ms``); the bound (``scan_bwd_bound``).  No single
+    launch (``kernel_ms``: the chains, the chunks, du); the bound and
+    the design's byte floor (``scan_bwd_bound``).  No single
     PyTorch call computes this function: ``library_ms`` is None.  ``err``:
     max |kernel - plain| from phase 17c (None: measured here)."""
     import torch
@@ -2639,8 +2662,9 @@ def scan_bwd_entry(name: str, key, launches: int, err, plain: bool = True):
             "max_abs_err": err, "ms": ms,
             "plain_ms": time_ms(ref_fn) if plain else None,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "design_floor_ms": floor, "kernel_ms": kernel_ms(fn),
-            "shape": list(key)}
+            "design_floor_ms": floor,
+            "checkpoint_every": scan_bwd_group("torch.bfloat16"),
+            "kernel_ms": kernel_ms(fn), "shape": list(key)}
 
 
 def rwkv_train_phases(smoke) -> list:
@@ -3654,8 +3678,8 @@ def scan_times_again(out_path: str) -> int:
     """The ``--scan-times`` mode: ``scan_entry`` and ``scan_bwd_entry``
     without the plain version's time, one JSON line each, at every scan
     path shape and backward shape that a full run counted (the ``shape``
-    of each scan entry of the kernels line in its output ``out_path``),
-    without building a model; then the card line."""
+    of each scan entry of the kernels line in its output ``out_path``) and
+    at ``LS_BWD_EXTRA``, without building a model; then the card line."""
     with open(out_path) as f:
         entries = next(json.loads(line)["kernels"] for line in f
                        if line.startswith('{"kernels"'))
@@ -3668,6 +3692,63 @@ def scan_times_again(out_path: str) -> int:
         elif e["name"].startswith("linear_scan_bwd["):
             emit(scan_bwd_entry(e["name"], tuple(e["shape"]), e["launches"],
                                 None, plain=False))
+    for key in LS_BWD_EXTRA:
+        b, s, h, dk, dv, _, variant, chunk = key
+        emit(scan_bwd_entry(f"linear_scan_bwd[extra B={b} S={s} H={h} "
+                            f"Dk={dk} Dv={dv} {variant} chunk={chunk}]", key,
+                            0, None, plain=False))
+    print(card_line(), flush=True)
+    return 0
+
+
+#: the chunk kernel's phases, by the marker that ends each
+#: (``csrc/linear_scan_bwd.cu``, PHASE(1) .. PHASE(8))
+SCAN_BWD_PHASES = ("rows land", "chain operands prepped",
+                   "carries stepped and staged", "products and dv",
+                   "dA kt and dA^T qt", "dq and dk", "pair sums", "dw")
+
+
+def scan_bwd_phases() -> int:
+    """The ``--scan-bwd-phases`` mode: the bf16 scan backward at RWKV6-7B's
+    train shape through a build of ``csrc/linear_scan_bwd.cu`` with
+    ``-DSCAN_BWD_PHASES`` (thread 0 of every chunk block records clock64 at
+    its phase boundaries): a warm-up call, then the device ms a call and
+    its kernels' (``kernel_ms``), then one recorded call; per phase the
+    mean and p90 cycles over the blocks and its share of a block's span.
+    Then the card line."""
+    import ctypes
+    import numpy as np
+    import torch
+    from repro_torch.kernels.linear_scan import kernel as ls_kernel
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    lib = ls_kernel.library_bwd(defines=("SCAN_BWD_PHASES",))
+    lib.linear_scan_bwd_phases.argtypes = [ctypes.c_void_p,
+                                           ctypes.c_longlong]
+    b, s, h, dk, dv, chunk = 2, 2048, 64, 64, 64, 16
+    q, k, v, w, u, do, _, _ = scan_bwd_inputs(
+        (b, s, h, dk, dv, "model"), "rwkv6", torch.bfloat16, seed=1)
+    fn = lambda: ls_ops.linear_scan_bwd(  # noqa: E731
+        q, k, v, w, u, do, chunk)
+    fn()
+    ms, by_kernel = time_ms(fn), kernel_ms(fn)
+    fn()
+    torch.cuda.synchronize()
+    blocks = -(-s // chunk) * h * b
+    slots = len(SCAN_BWD_PHASES) + 2
+    buf = np.zeros(blocks * slots, dtype=np.int64)
+    if lib.linear_scan_bwd_phases(buf.ctypes.data, buf.size) != 0:
+        raise SystemExit("scan_bwd_phases: reading the phases failed")
+    t = buf.reshape(blocks, slots)[:, :len(SCAN_BWD_PHASES) + 1]
+    d = np.diff(t, axis=1).astype(np.float64)
+    span = (t[:, -1] - t[:, 0]).astype(np.float64)
+    emit({"phase": "scan_bwd_phases", "shape": [b, s, h, dk, dv, chunk],
+          "checkpoint_every": scan_bwd_group("torch.bfloat16"),
+          "blocks": blocks, "ms": ms, "kernel_ms": by_kernel,
+          "span_cycles_mean": float(span.mean()),
+          "phases": [{"phase": name, "cycles_mean": float(d[:, i].mean()),
+                      "cycles_p90": float(np.percentile(d[:, i], 90)),
+                      "share": float(d[:, i].sum() / span.sum())}
+                     for i, name in enumerate(SCAN_BWD_PHASES)]})
     print(card_line(), flush=True)
     return 0
 
@@ -3760,6 +3841,9 @@ def main() -> int:
     ap.add_argument("--scan-times", metavar="OUT",
                     help="time the linear scan again at the path shapes "
                          "of the full run whose output is OUT, and stop")
+    ap.add_argument("--scan-bwd-phases", action="store_true",
+                    help="time the bf16 scan backward's chunk kernel by "
+                         "phase (clock64 in a measurement build), and stop")
     ap.add_argument("--decode-times", action="store_true",
                     help="time the three decode steps and the serve "
                          "phase's time to first token, and stop")
@@ -3786,6 +3870,8 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(args.src))
     if args.decode_times:
         return decode_times()
+    if args.scan_bwd_phases:
+        return scan_bwd_phases()
     if args.fig3_times:
         return fig3_times()
     if args.flash_times:
@@ -3831,6 +3917,9 @@ def main() -> int:
     flash_bwd_ptxas = ptxas_summary(REPORTS["flash_attention_bwd"])
     scan_bwd_ptxas = ptxas_summary(REPORTS["linear_scan_bwd"])
     scan_mma = sass_count(libs[2], "scan_bf16_kernel", "HMMA")
+    scan_bwd_mma = {name: sass_count(libs[4], name, "HMMA")
+                    for name in ("scan_bwd_chain_bf16_kernel",
+                                 "scan_bwd_chunk_bf16_kernel")}
     bwd_hgmma = {name: sass_count(libs[3], name, "HGMMA")
                  for name in ("dkdv_bf16_kernel", "dq_bf16_kernel")}
     emit({"phase": "build", "card": card,
@@ -3842,10 +3931,15 @@ def main() -> int:
           "scan_ptxas": scan_ptxas, "flash_bwd_ptxas": flash_bwd_ptxas,
           "scan_bwd_ptxas": scan_bwd_ptxas,
           "scan_bf16_hmma_instructions": scan_mma,
+          "scan_bwd_bf16_hmma_instructions": scan_bwd_mma,
           "flash_bwd_bf16_hgmma_instructions": bwd_hgmma})
     if not scan_mma:
         raise SystemExit("build: the bf16 scan kernel has no tensor-core "
                          f"(HMMA) instruction, or no cuobjdump: {scan_mma}")
+    if not all(scan_bwd_mma.values()):
+        raise SystemExit("build: a bf16 scan backward kernel has no "
+                         "tensor-core (HMMA) instruction, or no cuobjdump: "
+                         f"{scan_bwd_mma}")
     if not all(bwd_hgmma.values()):
         raise SystemExit("build: a bf16 flash backward kernel has no wgmma "
                          f"(HGMMA) instruction, or no cuobjdump: {bwd_hgmma}")
@@ -3857,7 +3951,11 @@ def main() -> int:
                                   "dkdv_bf16"),
                                  ("flash dQ", flash_bwd_ptxas, "dq_bf16"),
                                  ("flash dK/dV sum", flash_bwd_ptxas,
-                                  "dkdv_sum")):
+                                  "dkdv_sum"),
+                                 ("scan backward chains", scan_bwd_ptxas,
+                                  "scan_bwd_chain_bf16"),
+                                 ("scan backward chunks", scan_bwd_ptxas,
+                                  "scan_bwd_chunk_bf16")):
         spills = {k: v for k, v in report.items()
                   if k.startswith(prefix) and v.get("spill_stores", 0)}
         if spills or not any(k.startswith(prefix) for k in report):

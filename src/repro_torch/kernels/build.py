@@ -29,14 +29,18 @@ def _nvcc() -> str:
                        "their CUDA sources at first use on a CUDA machine")
 
 
-def build_library(source: Path, verbose: bool = False) -> Path:
-    """Compile ``source`` (once per digest of it and the ``*.cuh`` headers
-    beside it, which it may include) and return the library's path.
-    ``verbose`` rebuilds with ``-Xptxas -v`` and prints nvcc's report
-    (registers, shared memory, spills per kernel) to stderr."""
+def build_library(source: Path, verbose: bool = False,
+                  defines: tuple = ()) -> Path:
+    """Compile ``source`` (once per digest of it, the ``*.cuh`` headers
+    beside it, which it may include, and ``defines``, each passed as
+    ``-D``) and return the library's path.  ``verbose`` rebuilds with
+    ``-Xptxas -v`` and prints nvcc's report (registers, shared memory,
+    spills per kernel) to stderr."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.read_bytes())
+    for name in defines:
+        h.update(f"-D{name}".encode())
     digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     if out.exists() and not verbose:
@@ -45,7 +49,7 @@ def build_library(source: Path, verbose: bool = False) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           str(source)]
+           str(source)] + [f"-D{name}" for name in defines]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     res = subprocess.run(cmd, capture_output=True, text=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +22,11 @@ DT = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest key dim the kernel was built for (bf16 pads Dk to 64, fp32
 #: to 16, 32 or 64)
 MAX_DK = 64
+
+#: the bf16 backward's checkpoint interval: its chains store the carry
+#: every BWD_GROUP chunks, and each chunk block recomputes the carries of
+#: its group from there (the kernel takes 1 .. 4: room for 3 neighbours)
+BWD_GROUP = 4
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_scan.cu"
 SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "linear_scan_bwd.cu"
@@ -56,14 +62,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def library_bwd() -> ctypes.CDLL:
-    """The loaded backward library (built on first call)."""
+def library_bwd(defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded backward library (built on first call).  ``defines``
+    builds a variant (``-D`` each, e.g. ``SCAN_BWD_PHASES``, a measurement
+    build) and loads it in the library's place."""
     global _lib_bwd
     with _lock:
-        if _lib_bwd is None:
-            lib = ctypes.CDLL(str(build_bwd()))
+        if _lib_bwd is None or defines:
+            lib = ctypes.CDLL(str(build_library(SOURCE_BWD,
+                                                defines=tuple(defines))))
             fn = lib.linear_scan_bwd_launch
-            fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
                            + [ctypes.POINTER(ctypes.c_longlong),
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -96,21 +105,52 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"linear_scan launch failed: CUDA error {err}")
 
 
+class PlanBwd(NamedTuple):
+    """The backward's route and checkpoint interval: its chains store the
+    carry and its gradient every ``group`` chunks."""
+    route: str    # "mma" (bf16: tensor cores) or "fma" (fp32 FMAs)
+    group: int
+
+
+def plan_bwd(dtype) -> PlanBwd:
+    """bf16: the tensor-core kernels, a checkpoint every BWD_GROUP chunks;
+    fp32: the FMA kernels, which keep every chunk's carries (group 1).  A
+    function of the dtype alone, so a row's sums never depend on B or S."""
+    if dtype == torch.bfloat16:
+        return PlanBwd("mma", BWD_GROUP)
+    return PlanBwd("fma", 1)
+
+
+def bwd_scratch(dtype, b: int, s: int, h: int, dk: int, dv: int,
+                chunk: int) -> tuple:
+    """The shape of the fp32 workspace the wrapper allocates for a backward
+    call, ``(2, B, H, NG, Dk, Dv)``: for each of the ``NG = ceil(N /
+    group)`` groups of ``chunk``-row chunks (``chunk`` at most S) the carry
+    entering its first chunk, then the gradient of the one leaving its
+    last."""
+    n = -(-s // min(chunk, s))
+    return (2, b, h, -(-n // plan_bwd(dtype).group), dk, dv)
+
+
 def launch_bwd(q, k, v, w, u, do, chunk: int, s0, ds1, ws, dup, dq, dk, dv,
                dw, du, ds0) -> None:
     """Launch the backward on the current stream.  q/k/w ``[B,S,H,Dk]``,
     v and ``do`` ``[B,S,H,Dv]`` are read through their strides (the last
     dim contiguous); u ``[H, Dk]``, ``s0`` (the initial carry) and ``ds1``
     (the final carry's cotangent) fp32 contiguous or None; ``ws`` fp32
-    contiguous ``[2, B, H, N, Dk, Dv]`` scratch (each chunk's starting
-    carry, then the gradient of its final one; N chunks of ``chunk``
-    rows), ``dup``
-    fp32 ``[B, H, N, Dk]`` scratch for du's partials (None without u);
-    dq/dk/dv contiguous in q/k/v's dtype, dw contiguous fp32, du ``[H,
-    Dk]`` and ds0 ``[B,H,Dk,Dv]`` fp32 or None, all written.  The caller
-    has checked devices, dtypes and shapes."""
+    contiguous scratch of :func:`bwd_scratch`'s shape (the checkpoints of
+    :func:`plan_bwd`'s group), ``dup`` fp32 ``[B, H, N, Dk]`` scratch for
+    du's partials (None without u; N chunks of ``chunk`` rows); dq/dk/dv
+    contiguous in q/k/v's dtype, dw contiguous fp32, du ``[H, Dk]`` and ds0
+    ``[B,H,Dk,Dv]`` fp32 or None, all written.  The caller has checked
+    devices, dtypes and shapes."""
     b, s, h, dk_ = q.shape
     dv_ = v.shape[-1]
+    group = plan_bwd(v.dtype).group
+    want = bwd_scratch(v.dtype, b, s, h, dk_, dv_, chunk)
+    if tuple(ws.shape) != want or not ws.is_contiguous():
+        raise ValueError(f"linear_scan_bwd: scratch {tuple(ws.shape)}, the "
+                         f"plan wants {want} contiguous")
     strides = (ctypes.c_longlong * 15)(*(
         st for t in (q, k, v, w, do) for st in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -122,7 +162,7 @@ def launch_bwd(q, k, v, w, u, do, chunk: int, s0, ds1, ws, dup, dq, dk, dv,
         do.data_ptr(), ptr(s0), ptr(ds1), ws[0].data_ptr(),
         ws[1].data_ptr(), ptr(dup), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dw.data_ptr(), ptr(du), ptr(ds0), DT[v.dtype],
-        b, s, h, dk_, dv_, chunk, int(u is not None), strides, stream)
+        b, s, h, dk_, dv_, chunk, int(u is not None), group, strides, stream)
     if err != 0:
         raise RuntimeError(f"linear_scan backward launch failed: CUDA "
                            f"error {err}")

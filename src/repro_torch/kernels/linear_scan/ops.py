@@ -27,8 +27,10 @@ device: its forward is this wrapper, its backward ``linear_scan_bwd``
 (the gradients of q, k, v, w, u and ``init_state`` at the cotangents of
 the output and of the returned carry): on a CUDA tensor the hand-written
 backward (``csrc/linear_scan_bwd.cu``: the chunk-start carries and their
-gradients by two serial passes into fp32 workspaces this wrapper
-allocates, then every chunk's gradients from its own rows, then ``du``'s
+gradients by two serial passes, stored every ``kernel.plan_bwd(dtype)
+.group`` chunks into fp32 workspaces this wrapper allocates
+(``kernel.bwd_scratch``), then every chunk's gradients from its own rows
+and the carries recomputed from its group's checkpoint, then ``du``'s
 per-chunk partials summed in a fixed order; deterministic, no atomics),
 on a CPU tensor the plain ``ref.linear_scan_bwd_ref``.  The reference's
 ``linear_scan_vjp`` differentiates its sequential oracle; the values
@@ -220,8 +222,9 @@ def linear_scan_bwd(q, k, v, w, u, do, chunk: int = SAFE_CHUNK,
         return dq, dk_, dv_, dw, du, ds0
     c = min(chunk, s)
     n = -(-s // c)
-    # the chunk-start carries and their gradients, and du's partials
-    ws = q.new_empty((2, b, h, n, dk, dv), dtype=f32)
+    # the checkpointed carries and their gradients, and du's partials
+    ws = q.new_empty(kernel.bwd_scratch(v.dtype, b, s, h, dk, dv, c),
+                     dtype=f32)
     dup = None if u is None else q.new_empty((b, h, n, dk), dtype=f32)
     kernel.launch_bwd(q, k, v, w, u, do, c, init_state, d_state, ws, dup,
                       dq, dk_, dv_, dw, du, ds0)

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.ir import TaskGraph, TensorType
 from repro_torch.core.lowering import emit
-from repro_torch.kernels.linear_scan import ops, ref
+from repro_torch.kernels.linear_scan import kernel, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -29,13 +29,16 @@ DW_AUTOGRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 CLIP_W = math.exp(-math.exp(2.0))
 #: (B, S, H, Dk, Dv, chunk, decay): RWKV6's widths at 256 rows, SMOKE,
 #: ragged S (37, 1000), S below the chunk, chunks of 1 and 4, Dk != Dv,
-#: Dv past one 64-column tile and off every 32-column slice, and the decay
-#: clip in every position
+#: Dv past one 64-column tile and off every 32-column slice, the decay
+#: clip in every position, and a chunk count that is no multiple of the
+#: bf16 route's checkpoint interval (16 G 3 + 16 + 5 rows: 14 chunks, the
+#: last group of 2)
 SHAPES = [(2, 256, 8, 64, 64, 16, "model"), (2, 28, 4, 16, 16, 16, "model"),
           (2, 37, 4, 64, 64, 16, "model"), (1, 1000, 2, 64, 64, 16, "model"),
           (2, 5, 3, 8, 12, 16, "model"), (2, 40, 3, 8, 12, 1, "model"),
           (2, 50, 3, 32, 100, 4, "model"), (1, 300, 2, 24, 40, 16, "clip"),
-          (2, 256, 4, 64, 64, 16, "clip")]
+          (2, 256, 4, 64, 64, 16, "clip"),
+          (2, 16 * kernel.BWD_GROUP * 3 + 16 + 5, 4, 64, 64, 16, "model")]
 NAMES = ("dq", "dk", "dv", "dw", "du", "dS0")
 
 
@@ -146,15 +149,10 @@ def test_scan_bwd_rows_do_not_depend_on_the_batch(cuda, dt):
             assert torch.equal(a[2:3], b), name
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
-def test_split_on_a_chunk_boundary_matches_one_call(cuda, dt):
-    """Two calls chained through the carry, split on a chunk boundary,
-    against one call through ``LinearScanFn``.  The first call's rows and
-    the initial carry's gradient come out bitwise: the second call's dS0
-    is the one call's dS at the boundary, by the same arithmetic.  The
-    second call's rows and du within RTOL: that call starts from the
-    forward kernel's final carry, where the one call recomputes it in the
-    backward's own arithmetic."""
+def _split_matches_one_call(cuda, dt, split):
+    """Two calls chained through the carry, split at row ``split`` (a chunk
+    boundary), against one call of 96 rows through ``LinearScanFn``: the
+    first call's rows and dS0 bitwise, everything within RTOL."""
     shape = (2, 96, 4, 64, 64, 16, "model")
     q, k, v, w, u, do, s0, ds = _inputs(cuda, shape, dt, True, True, seed=4)
 
@@ -165,17 +163,76 @@ def test_split_on_a_chunk_boundary_matches_one_call(cuda, dt):
                             return_state=True)
     want = torch.autograd.grad((o, st), one, (do, ds))
     two = leaves()
-    o1, s1 = ops.linear_scan(*(t[:, :48] for t in two[:4]), u=two[4],
+    o1, s1 = ops.linear_scan(*(t[:, :split] for t in two[:4]), u=two[4],
                              init_state=two[5], return_state=True)
-    o2, s2 = ops.linear_scan(*(t[:, 48:] for t in two[:4]), u=two[4],
+    o2, s2 = ops.linear_scan(*(t[:, split:] for t in two[:4]), u=two[4],
                              init_state=s1, return_state=True)
     got = torch.autograd.grad((torch.cat([o1, o2], 1), s2), two, (do, ds))
     for name, a, b in zip(NAMES, got, want):
         if name in ("dq", "dk", "dv", "dw"):
-            assert torch.equal(a[:, :48], b[:, :48]), name
+            assert torch.equal(a[:, :split], b[:, :split]), name
         if name == "dS0":
             assert torch.equal(a, b), name
         assert _rel(a, b) <= RTOL[dt], (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_split_on_a_chunk_boundary_matches_one_call(cuda, dt):
+    """Two calls chained through the carry, split on a chunk boundary (48
+    rows: 3 chunks, inside the one call's first checkpoint group), against
+    one call through ``LinearScanFn``.  The first call's rows and the
+    initial carry's gradient come out bitwise: the second call's dS0 is
+    the one call's dS at the boundary, by the same arithmetic.  The second
+    call's rows and du within RTOL: that call starts from the forward
+    kernel's final carry, where the one call recomputes it in the
+    backward's own arithmetic."""
+    _split_matches_one_call(cuda, dt, 48)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_split_inside_a_later_group_matches_one_call(cuda, dt):
+    """The same at 80 rows: 5 chunks, one past the one call's first
+    checkpoint group, so the first call ends inside the one call's second
+    group (its last group holds 1 chunk where the one call's holds 2)."""
+    _split_matches_one_call(cuda, dt, 80)
+
+
+@pytest.mark.parametrize("rwkv", [False, True])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_clip_decay_dw_at_the_train_width(cuda, dt, rwkv):
+    """dw alone at the decay clip at RWKV6-7B's head widths (64 heads of
+    64): within RTOL of the plain version's largest, finite."""
+    shape = (1, 512, 64, 64, 64, 16, "clip")
+    q, k, v, w, u, do, _, _ = _inputs(cuda, shape, dt, rwkv, False, seed=5)
+    got = ops.linear_scan_bwd(q, k, v, w, u, do, 16)[3]
+    want = ref.linear_scan_bwd_ref(q, k, v, w, u, do, 16)[3]
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= RTOL[dt], _rel(got, want)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_launch_gets_the_planned_workspace(cuda, dt, monkeypatch):
+    """The wrapper hands ``kernel.launch_bwd`` the workspace of
+    ``kernel.bwd_scratch``'s shape (one checkpoint per ``plan_bwd`` group)
+    and the launch fills the gradients."""
+    shape = (2, 213, 4, 64, 64, 16, "model")
+    q, k, v, w, u, do, s0, ds = _inputs(cuda, shape, dt, True, True, seed=6)
+    seen = []
+    real = kernel.launch_bwd
+
+    def spy(*args):
+        seen.append(tuple(args[9].shape))
+        real(*args)
+    monkeypatch.setattr(kernel, "launch_bwd", spy)
+    got = ops.linear_scan_bwd(q, k, v, w, u, do, 16, init_state=s0,
+                              d_state=ds)
+    want = ref.linear_scan_bwd_ref(q, k, v, w, u, do, 16, init_state=s0,
+                                   d_state=ds)
+    group = kernel.plan_bwd(dt).group
+    assert seen == [(2, 2, 4, -(-14 // group), 64, 64)]
+    assert seen[0] == kernel.bwd_scratch(dt, 2, 213, 4, 64, 64, 16)
+    for name, g, wt in zip(NAMES, got, want):
+        assert _rel(g, wt) <= RTOL[dt], (name, _rel(g, wt))
 
 
 @pytest.mark.parametrize("impl", ["kernel", "opaque", "chunked", "ref"])
