@@ -9,6 +9,7 @@
     python3 chip_smoke.py --scan-bwd-phases
     python3 chip_smoke.py --decode-times [--src DIR]
     python3 chip_smoke.py --fig3-times [--src DIR]
+    python3 chip_smoke.py --capture-depths N,N,...
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -26,7 +27,10 @@ scan backward's chunk kernel at RWKV6-7B's train shape into its phases
 steps at full width (the ``decode_steps`` phase without its checks) and
 the serve phase's time to first token, cold and warm, with ``--src``'s
 tree where given: parent and change in one call.  The eighth runs phase
-19 (``fig3``) alone, for this tree or ``--src``'s.
+19 (``fig3``) alone, for this tree or ``--src``'s.  The ninth runs
+qwen2.5-3b's captured training step at full width at each depth given
+(2 steps) and prints its peak memory or the OOM: how Q_CAPTURE_LAYERS
+was chosen.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts (forward and
@@ -112,8 +116,33 @@ backward) just before it and reads them just after:
    through autograd, with its device time by kernel) the same way
    (``train_times``).
 
-The qwen model is then released, and RWKV6-7B at full width (32 layers,
-d_model 4096; random weights from seed 0) takes its place:
+The qwen model is then released, and the captured training step
+(``train/region_step.py``: the whole update one region program, its
+backward derived by ``core/autodiff.py``, the state donated) runs:
+
+10c. captured_train — qwen2.5-3b at full width cut to Q_CAPTURE_LAYERS
+   (28) layers, 2 x 2048 tokens, seed 0: the per-op step (remat full)
+   through the train phase's measurement (``captured_train_per_op``),
+   then, that model released, the captured step (policy auto) on the
+   same weights through it: p50, device ms, busy share, kernels by name,
+   peak memory, MFU, each step's launches held to what the joint graph
+   implies (GEMM forward 4 n_l + 1 plus one per recomputed product, dX
+   and dW as the per-op step's, flash backward one a layer), the state
+   in its buffers and no compile after the first step, ``pipeline_s``,
+   ``grad_meta``, the ``replay_rules()`` verdict; the first step's loss
+   equal to the per-op step's bitwise, the leaf sample after 3 steps
+   within 2e-3; no library kernel in the profiled step;
+10d. small_captured_parity — qwen2.5-3b and RWKV6-7B at full width cut
+   to 2 layers, 2 x 256 tokens: in fp32 captured = per-op bitwise over 3
+   steps (losses, params, AdamW state), the buffers kept, the launches
+   the joint graph implies, under policy ``none`` no forward replayed
+   (qwen: 9 GEMM forward launches), no library kernel in a profiled
+   step, in bf16 the loss bitwise and the params within 2e-3; then SMOKE
+   fp32, where the step replays as a CUDA graph: graphed = eager bitwise
+   over 3 steps, and the card against the CPU.
+
+The captured step's models are then released, and RWKV6-7B at full width
+(32 layers, d_model 4096; random weights from seed 0) takes its place:
 
 11. rwkv_forward — ``forward`` and ``loss`` on 2 x 2048 tokens: 32
    ``linear_scan`` and 321 ``fused_matmul`` launches per call, every scan
@@ -207,6 +236,7 @@ repository is not beside this file.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -1174,31 +1204,40 @@ def leaf_sample(model) -> list:
     return out
 
 
-def train_setup(model, cfg):
-    """(step, optimizer config, pipeline) of the train phases: remat full,
-    fp32 AdamW, TRAIN_B x TRAIN_S tokens of ``TokenPipeline``."""
+def train_setup(model, cfg, make_step=None):
+    """(step, optimizer config, pipeline) of the train phases: remat full
+    (or ``make_step(model, opt)``'s step), fp32 AdamW, TRAIN_B x TRAIN_S
+    tokens of ``TokenPipeline``."""
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, make_train_step
     opt = AdamWConfig(total_steps=TRAIN_STEPS + 2, warmup_steps=1)
-    step = make_train_step(model, opt, TrainConfig(remat="full",
-                                                   target="gpu"))
+    if make_step is not None:
+        step = make_step(model, opt)
+    else:
+        step = make_train_step(model, opt, TrainConfig(remat="full",
+                                                       target="gpu"))
     pipe = TokenPipeline(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
                                     vocab=cfg.vocab))
     return step, opt, pipe
 
 
 def train_phase(model, cfg, want=None, counts=train_counts,
-                phase: str = "train"):
+                phase: str = "train", make_step=None, remat: str = "full",
+                check=None):
     """``make_train_step`` at full width on TRAIN_B x TRAIN_S tokens of
-    ``TokenPipeline`` (remat full, fp32 AdamW): one warm-up step, then
+    ``TokenPipeline`` (remat full, fp32 AdamW; or ``make_step``'s step,
+    labelled ``remat``): one warm-up step, then
     TRAIN_STEPS timed steps, each with the counts zeroed just before it
-    and held to ``want`` (default ``train_launches``) just after, then one
+    and held to ``want`` (default ``train_launches``; a callable is asked
+    after the first step) just after, then one
     profiled step: no library GEMM or attention kernel may appear in it.
+    ``check(step index, state)`` runs after each step.
     The loss must be finite and fall.  Returns (line, the last timed
     step's launches by shape: ``fm`` / ``bwd`` (the GEMM's forward and
     backward routes), ``fa`` / ``fab`` (flash), ``ls`` / ``lsb`` (the
-    scan), and ``sample``: ``leaf_sample`` after the second step)."""
+    scan), and ``sample`` / ``sample3``: ``leaf_sample`` after the second
+    and the third step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import to_device
@@ -1206,7 +1245,7 @@ def train_phase(model, cfg, want=None, counts=train_counts,
     fm_ops, fa_ops, ls_ops = kernel_ops()
     if want is None:
         want = train_launches(cfg.n_layers)
-    step, opt, pipe = train_setup(model, cfg)
+    step, opt, pipe = train_setup(model, cfg, make_step)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1223,12 +1262,18 @@ def train_phase(model, cfg, want=None, counts=train_counts,
         walls.append(time.perf_counter() - t0)
         norms.append(float(met["grad_norm"]))
         lrs.append(float(met["lr"]))
+        if callable(want):
+            want = want()
+        if check is not None:
+            check(s_, state)
         got = counts()
         if got != want:
             raise SystemExit(f"{phase} step {s_}: launches {got}, expected "
                              f"{want}")
         if s_ == 1:
             sample = leaf_sample(model)
+        if s_ == 2:
+            sample3 = leaf_sample(model)
         snap = {"fm": fm_ops.launches_by_shape,
                 "bwd": fm_ops.bwd_launches_by_shape,
                 "fa": fa_ops.launches_by_shape,
@@ -1260,7 +1305,7 @@ def train_phase(model, cfg, want=None, counts=train_counts,
     dense = n_params - cfg.vocab * cfg.d_model   # the embedding is a lookup
     tokens = TRAIN_B * TRAIN_S
     line = {"phase": phase, "batch": TRAIN_B, "seq": TRAIN_S,
-            "layers": cfg.n_layers, "params": n_params, "remat": "full",
+            "layers": cfg.n_layers, "params": n_params, "remat": remat,
             "optimizer": "AdamW fp32 (mu, nu fp32)",
             "losses": losses, "grad_norms": norms, "lrs": lrs,
             "first_step_s": walls[0], "step_s": walls[1:],
@@ -1296,7 +1341,7 @@ def train_phase(model, cfg, want=None, counts=train_counts,
                          f"{library}")
     del state, met, batch, prof
     model.release_compute()
-    snap["sample"] = sample
+    snap["sample"], snap["sample3"] = sample, sample3
     return line, snap
 
 
@@ -3098,6 +3143,457 @@ def qwen_phases() -> list:
 # The paper's four networks (phases 18-19)
 # ---------------------------------------------------------------------------
 
+# -- the captured training step (train/region_step.py) ----------------------
+
+#: captured_train's depth: qwen2.5-3b at full width, cut to the most layers
+#: whose captured step's measured peak stays under CAPTURE_PEAK_GB
+#: (``--capture-depths``); the per-op step runs at the same depth
+Q_CAPTURE_LAYERS = 28
+CAPTURE_PEAK_GB = 74.0
+#: the leaf sample after 3 steps, captured against per-op (bf16 compute):
+#: the JAX package's bound for its bf16 captured step
+CAPTURE_SAMPLE_ATOL = 2e-3
+LAUNCH_KEYS = ("gemm_forward", "gemm_dx", "gemm_dw", "flash_forward",
+               "flash_backward", "scan_forward", "scan_backward")
+
+
+def grad_graph():
+    """The captured step's joint graph (the one with ``grad_meta``)."""
+    from repro_torch.core import tapir
+    return next(g for g in tapir.cached_graphs().values()
+                if getattr(g, "grad_meta", None))
+
+
+def joint_graph_launches(g, keys=LAUNCH_KEYS) -> dict:
+    """The launches a captured step makes, from its joint graph: each
+    library node once forward and once more where its VJP replays it
+    (remat ``recompute``); each GEMM's dX and dW once, and its product once
+    more where its epilogue chain is not adds alone (``epilogue_vjp``)."""
+    out = dict.fromkeys(LAUNCH_KEYS, 0)
+    kind = {"matmul": "gemm", "attention": "flash", "linear_scan": "scan"}
+    for n in g.nodes.values():
+        if n.op not in kind:
+            continue
+        k = kind[n.op]
+        out[f"{k}_forward"] += 1 + (n.schedule.remat == "recompute")
+        if k == "gemm":
+            out["gemm_dx"] += 1
+            out["gemm_dw"] += 1
+            out["gemm_forward"] += any(fn != "add" for fn, _, _ in n.epilogue)
+        else:
+            out[f"{k}_backward"] += 1
+    return {k: out[k] for k in keys}
+
+
+def all_counts() -> dict:
+    fm_ops, fa_ops, ls_ops = kernel_ops()
+    return {"gemm_forward": fm_ops.launches,
+            "gemm_dx": fm_ops.bwd_launches["dx"],
+            "gemm_dw": fm_ops.bwd_launches["dw"],
+            "flash_forward": fa_ops.launches,
+            "flash_backward": fa_ops.bwd_launches,
+            "scan_forward": ls_ops.launches,
+            "scan_backward": ls_ops.bwd_launches}
+
+
+def state_leaves(state) -> list:
+    from repro_torch.optim import tree_leaves
+    return tree_leaves(state["params"]) + tree_leaves(state["opt"])
+
+
+def capture_checker(seen: dict):
+    """A ``train_phase`` check: from the first step on the state keeps its
+    buffers and no program is compiled again."""
+    from repro_torch.core import tapir
+
+    def check(s_, state):
+        ptrs = [t.data_ptr() for t in state_leaves(state)]
+        stats = tapir.cache_stats()
+        if s_ == 0:
+            seen.update(ptrs=ptrs, compiled=stats["compiled_programs"],
+                        pipeline_s=stats["pipeline_s"])
+        elif ptrs != seen["ptrs"] or \
+                stats["compiled_programs"] != seen["compiled"]:
+            raise SystemExit(f"captured step {s_}: the state moved to new "
+                             f"buffers or a program was compiled again "
+                             f"({stats})")
+    return check
+
+
+def captured_train_phase() -> dict:
+    """Phase 10c: qwen2.5-3b at full width and Q_CAPTURE_LAYERS layers,
+    TRAIN_B x TRAIN_S tokens, random weights from seed 0: the per-op step
+    (remat full) through ``train_phase``; then, with that model released,
+    the same weights in ``make_region_train_step`` (policy auto) through
+    ``train_phase``: per step, the launches the joint graph implies, the
+    state in its buffers and no compile after the first.  The first
+    step's loss must equal the per-op step's bitwise, the leaf sample
+    after 3 steps be within CAPTURE_SAMPLE_ATOL, GEMM dX / dW equal the
+    per-op step's, flash backward one a layer, and GEMM forward 4 n_l + 1
+    plus one per recomputed product."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    from repro_torch.train import TrainConfig, make_region_train_step
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"),
+                              n_layers=Q_CAPTURE_LAYERS)
+    n_l = cfg.n_layers
+
+    def build():
+        return get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+
+    model = build()
+    per_op, snap_op = train_phase(model, cfg, phase="captured_train_per_op")
+    emit(per_op)
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+
+    model = build()
+    seen: dict = {}
+    line, snap = train_phase(
+        model, cfg, phase="captured_train", remat="auto",
+        want=lambda: joint_graph_launches(grad_graph(), tuple(
+            train_launches(n_l))),
+        make_step=lambda m, opt: make_region_train_step(
+            m, opt, TrainConfig(remat="auto", target="gpu")),
+        check=capture_checker(seen))
+    g = grad_graph()
+    rec = collections.Counter(n.op for n in g.nodes.values()
+                              if n.schedule.remat == "recompute")
+    got = line["launches_per_step"]
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(snap_op["sample3"], snap["sample3"])]
+    line.update({
+        "pipeline_s": seen["pipeline_s"],
+        "graph_nodes": len(g.nodes), "grad_meta": g.grad_meta,
+        "recomputed_by_op": dict(rec),
+        "gemm_forward_expected": 4 * n_l + 1 + rec["matmul"],
+        "graphed": sorted(tapir.replay_rules().get("train_step", ())),
+        "per_op": {k: per_op[k] for k in (
+            "step_p50_s", "device_ms", "device_busy_share", "peak_mem_gb",
+            "mfu", "launches_per_step", "gemm_device_ms",
+            "flash_forward_device_ms", "flash_backward_device_ms")},
+        "step1_loss": {"per_op": per_op["losses"][0],
+                       "captured": line["losses"][0],
+                       "bitwise": per_op["losses"][0] == line["losses"][0]},
+        "sample3_max_abs_diff": max(diffs),
+        "sample3_bitwise": all(torch.equal(a, b) for a, b in
+                               zip(snap_op["sample3"], snap["sample3"])),
+        "sample_atol": CAPTURE_SAMPLE_ATOL,
+        "device_ms_ratio": line["device_ms"] / per_op["device_ms"],
+        "p50_ratio": line["step_p50_s"] / per_op["step_p50_s"]})
+    want_op = per_op["launches_per_step"]
+    bad = []
+    if not line["step1_loss"]["bitwise"]:
+        bad.append("step-1 loss differs from the per-op step's")
+    if not max(diffs) <= CAPTURE_SAMPLE_ATOL:
+        bad.append(f"leaf sample after 3 steps off by {max(diffs)}")
+    if (got["gemm_dx"], got["gemm_dw"]) != (want_op["gemm_dx"],
+                                            want_op["gemm_dw"]):
+        bad.append("GEMM dX / dW launches differ from the per-op step's")
+    if got["flash_backward"] != n_l:
+        bad.append("flash backward launches != layers")
+    if got["gemm_forward"] != line["gemm_forward_expected"]:
+        bad.append("GEMM forward launches != 4 n_l + 1 + recomputed")
+    if bad:
+        raise SystemExit(f"captured_train: {bad}: {line}")
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return line
+
+
+def captured_pair(arch: str, dtype: str, steps: int) -> dict:
+    """``arch``'s full width at 2 layers, 2 x 256 tokens, ``dtype``
+    compute, seed 0: ``steps`` per-op steps (remat full), then the
+    captured step (policy auto) on the same weights, with the launches of
+    each captured step, the state's buffers and the compile count; the
+    per-op step's model stays alive for the comparison."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    from repro_torch.models.base import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_state,
+                                   make_region_train_step, make_train_step)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                              compute_dtype=dtype)
+    pipe = TokenPipeline(DataConfig(seq_len=256, global_batch=2,
+                                    vocab=cfg.vocab))
+    batches = [to_device(pipe.batch_at(s_), "cuda") for s_ in range(steps)]
+    opt = AdamWConfig(lr=1e-3, total_steps=steps, warmup_steps=1)
+    out = {}
+    for kind in ("per_op", "captured"):
+        model = get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        if kind == "per_op":
+            step = make_train_step(model, opt, TrainConfig(target="gpu"))
+        else:
+            step = make_region_train_step(model, opt, TrainConfig(
+                target="gpu", remat="auto"))
+        state = init_state(model, opt)
+        losses, counts, ptrs, compiled = [], [], [], []
+        for b in batches:
+            reset_counts()
+            state, m = step(state, b)
+            losses.append(m["loss"].clone())
+            counts.append(all_counts())
+            ptrs.append([t.data_ptr() for t in state_leaves(state)])
+            compiled.append(tapir.cache_stats()["compiled_programs"])
+        out[kind] = {"state": state, "losses": losses, "counts": counts,
+                     "stable": all(p == ptrs[0] for p in ptrs)
+                     and len(set(compiled)) == 1}
+    g = grad_graph()
+    out["want"] = joint_graph_launches(g)
+    out["graph"] = g
+    out["graphed"] = sorted(tapir.replay_rules().get("train_step", ()))
+    return out
+
+
+def small_captured_parity() -> dict:
+    """Phase 10d: ``tests/test_torch_cuda_region_step.py``'s checks at
+    qwen2.5-3b's and RWKV6-7B's widths cut to 2 layers (2 x 256 tokens,
+    3 steps): in fp32 the captured step equals the per-op step bitwise
+    (every loss, the params and the AdamW state), keeps its buffers,
+    replays, and launches what its joint graph implies; under policy
+    ``none`` no forward GEMM is replayed (qwen: exactly 4 n_l + 1 = 9); no
+    library kernel in a profiled step; in bf16 the loss bitwise and the
+    params within CAPTURE_SAMPLE_ATOL.  Then SMOKE in fp32, where the
+    step is dispatch-bound and replays as a CUDA graph: graphed against
+    the eager walk (``graphs_off``) bitwise over 3 steps, the launches a
+    step through the replays, and the card against the CPU
+    (TRAIN_PAR_TOL on each step's loss, lr and grad norm)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.core import tapir
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    from repro_torch.models.base import get_model
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.train import (TrainConfig, init_state,
+                                   make_region_train_step)
+    line = {"phase": "small_captured_parity", "layers": 2, "batch": 2,
+            "seq": 256, "steps": TRAIN_STEPS}
+    ok = True
+    for arch in ("qwen2_5_3b", "rwkv6_7b"):
+        r = {}
+        pair = captured_pair(arch, "float32", TRAIN_STEPS)
+        po, cap = pair["per_op"], pair["captured"]
+        r["fp32_loss_bitwise"] = all(torch.equal(a, b) for a, b in
+                                     zip(po["losses"], cap["losses"]))
+        r["fp32_state_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(state_leaves(po["state"]),
+                                              state_leaves(cap["state"])))
+        r["buffers_kept_and_replayed"] = cap["stable"]
+        r["launches_per_step"] = cap["counts"][-1]
+        r["launches_expected"] = pair["want"]
+        r["launches_ok"] = cap["counts"] == [pair["want"]] * TRAIN_STEPS
+        r["per_op_launches"] = po["counts"][-1]
+        r["graphed"] = pair["graphed"]
+        r["grad_meta"] = pair["graph"].grad_meta
+        del pair, po, cap
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        # policy none: no forward replayed; a profiled step: no library
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  compute_dtype="float32")
+        model = get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        opt = AdamWConfig(lr=1e-3, total_steps=2, warmup_steps=1)
+        step = make_region_train_step(model, opt, TrainConfig(
+            target="gpu", remat="none"))
+        state = init_state(model, opt)
+        pipe = TokenPipeline(DataConfig(seq_len=256, global_batch=2,
+                                        vocab=cfg.vocab))
+        reset_counts()
+        state, _ = step(state, to_device(pipe.batch_at(0), "cuda"))
+        none = all_counts()
+        g = grad_graph()
+        prods = sum(1 for n in g.nodes.values() if n.op == "matmul")
+        epi = sum(1 for n in g.nodes.values() if n.op == "matmul"
+                  and any(fn != "add" for fn, _, _ in n.epilogue))
+        r["none_launches"] = none
+        r["none_no_replay"] = none["gemm_forward"] == prods + epi and (
+            arch != "qwen2_5_3b" or none["gemm_forward"] == 9)
+        by_name = profiled_step(lambda: step(
+            state, to_device(pipe.batch_at(1), "cuda")))
+        r["library_kernels"] = library_kernels(by_name)
+        del model, state, step
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        # bf16: the loss bitwise, the params within the bound
+        pair = captured_pair(arch, "bfloat16", 1)
+        po, cap = pair["per_op"], pair["captured"]
+        d = max(float((a.double() - b.double()).abs().max()) for a, b in
+                zip(tree_leaves(po["state"]["params"]),
+                    tree_leaves(cap["state"]["params"])))
+        r["bf16_loss_bitwise"] = torch.equal(po["losses"][0],
+                                             cap["losses"][0])
+        r["bf16_params_max_abs_diff"] = d
+        r["bf16_params_bitwise"] = d == 0.0
+        r["bf16_launches_per_step"] = cap["counts"][0]
+        r["bf16_graphed"] = pair["graphed"]
+        del pair, po, cap
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        r["ok"] = (r["fp32_loss_bitwise"] and r["fp32_state_bitwise"]
+                   and r["buffers_kept_and_replayed"] and r["launches_ok"]
+                   and r["none_no_replay"] and not r["library_kernels"]
+                   and r["bf16_loss_bitwise"]
+                   and d <= CAPTURE_SAMPLE_ATOL)
+        ok = ok and r["ok"]
+        line[arch] = r
+    # SMOKE: dispatch-bound, so graphed on the card: graphed against the
+    # eager walk (graphs off) bitwise, and the card against the CPU
+    smoke = {}
+    for arch in ("qwen2_5_3b", "rwkv6_7b"):
+        cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+        weights = get_model(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+        params = {"embed": weights.embed.data, "ln_f": weights.ln_f.data,
+                  "blocks": {k: v.data for k, v in weights.blocks.items()}}
+        if weights.lm_head is not None:
+            params["lm_head"] = weights.lm_head.data
+        pipe = TokenPipeline(DataConfig(seq_len=32, global_batch=2,
+                                        vocab=cfg.vocab))
+        opt = AdamWConfig(lr=1e-3, total_steps=TRAIN_STEPS, warmup_steps=1)
+        mets, states, counts, verdict = {}, {}, {}, {}
+        for run in ("cpu", "graphed", "eager"):
+            dev = "cpu" if run == "cpu" else "cuda"
+            tapir.clear_cache()
+            model = get_model(cfg, device=dev, params={
+                k: ({b: t.clone() for b, t in v.items()}
+                    if isinstance(v, dict) else v.clone())
+                for k, v in params.items()})
+            step = make_region_train_step(model, opt, TrainConfig(
+                target="gpu", remat="auto"))
+            state = init_state(model, opt)
+            mets[run], counts[run] = [], []
+            with graphs_off(run == "eager"):
+                for s_ in range(TRAIN_STEPS):
+                    reset_counts()
+                    state, m = step(state, to_device(pipe.batch_at(s_), dev))
+                    counts[run].append(all_counts())
+                    mets[run].append([float(m[k]) for k in (
+                        "loss", "lr", "grad_norm")])
+            states[run] = state
+            verdict[run] = {
+                "graphed": sorted(tapir.replay_rules().get("train_step", ())),
+                "graph_replays": tapir.cache_stats()["graph_replays"]}
+            if dev == "cuda":     # the CPU runs the plain versions
+                verdict[run]["launches_ok"] = counts[run] == [
+                    joint_graph_launches(grad_graph())] * TRAIN_STEPS
+        rel = [[abs(a - b) / max(abs(b), 1e-30) for a, b in zip(ra, rb)]
+               for ra, rb in zip(mets["graphed"], mets["cpu"])]
+        tol = TRAIN_PAR_TOL
+        s_ok = all(r_[0] <= tol["loss"] and r_[1] <= tol["lr"]
+                   and r_[2] <= tol["grad_norm"][min(i, 1)]
+                   for i, r_ in enumerate(rel))
+        g_eq_e = verdict["graphed"]["graph_replays"] >= 1 and \
+            verdict["eager"]["graph_replays"] == 0 and \
+            mets["graphed"] == mets["eager"] and all(
+            torch.equal(a, b) for a, b in zip(state_leaves(states["graphed"]),
+                                              state_leaves(states["eager"])))
+        smoke[arch] = {"rel_err": rel, "cuda": mets["graphed"],
+                       "cpu": mets["cpu"], "card_vs_cpu_ok": s_ok,
+                       "graphed_eq_eager_bitwise": g_eq_e,
+                       "runs": verdict}
+        ok = ok and s_ok and g_eq_e and verdict["graphed"]["launches_ok"] \
+            and verdict["eager"]["launches_ok"]
+        del states
+        tapir.clear_cache()
+    line.update(smoke_card_vs_cpu=smoke, tolerance=TRAIN_PAR_TOL, ok=ok)
+    torch.cuda.empty_cache()
+    return line
+
+
+@contextlib.contextmanager
+def graphs_off(off: bool = True):
+    """Inside, no region program is replayed as a CUDA graph (the eager
+    walk a graphed step is held to)."""
+    from repro_torch.core import graphs
+    backend = graphs.CACHE.backend
+    if off:
+        graphs.CACHE.backend = _NoGraphs()
+    try:
+        yield
+    finally:
+        graphs.CACHE.backend = backend
+
+
+class _NoGraphs:
+    pool_bytes = 0
+
+    @staticmethod
+    def accepts(vals) -> bool:
+        return False
+
+
+def captured_phases() -> None:
+    """Phases 10c-10d (qwen's serving and per-op models released)."""
+    t0 = time.perf_counter()
+    emit(captured_train_phase())
+    par = small_captured_parity()
+    par["phase_s"] = time.perf_counter() - t0
+    emit(par)
+    if not par["ok"]:
+        raise SystemExit(f"small_captured_parity failed: {par}")
+
+
+def capture_depths(depths: list) -> int:
+    """qwen2.5-3b at full width, 2 x 2048 tokens, the captured step
+    (policy auto) at each depth in turn: 2 steps, the peak device memory
+    and the first step's pipeline seconds, or the OOM; then stop."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    from repro_torch.train import TrainConfig, make_region_train_step
+    print(card_line(), flush=True)
+    for n_l in depths:
+        cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_layers=n_l)
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        model = get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        out = {"phase": "capture_depth", "layers": n_l}
+        try:
+            step, opt, pipe = train_setup(
+                model, cfg, lambda m, o: make_region_train_step(
+                    m, o, TrainConfig(remat="auto", target="gpu")))
+            from repro_torch.data import to_device
+            from repro_torch.train import init_state
+            state = init_state(model, opt)
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for s_ in range(2):
+                t0 = time.perf_counter()
+                state, m = step(state, to_device(pipe.batch_at(s_), "cuda"))
+                float(m["loss"])
+                walls.append(time.perf_counter() - t0)
+            g = grad_graph()
+            out.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       step_s=walls, loss=float(m["loss"]),
+                       pipeline_s=tapir.cache_stats()["pipeline_s"],
+                       graph_nodes=len(g.nodes), grad_meta=g.grad_meta)
+            del state, m, step
+        except torch.cuda.OutOfMemoryError as e:
+            out.update(oom=str(e).splitlines()[0][:200],
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit(out)
+        del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return 0
+
+
 PAPER_NETS = ("cnn", "lstm1", "lstm2", "ncf")
 #: the reference test's batches (``tests/test_paper_nets.py::_batches``)
 PAPER_TEST_SIZES = {"cnn": (16,), "lstm1": (8, 20), "lstm2": (4, 12),
@@ -3850,6 +4346,9 @@ def main() -> int:
     ap.add_argument("--fig3-times", action="store_true",
                     help="run the fig3 phase (the paper nets' steps, "
                          "device time, ratios) alone, and stop")
+    ap.add_argument("--capture-depths", metavar="N,N,...",
+                    help="the captured step of qwen2.5-3b at full width at "
+                         "each depth: peak memory or OOM, and stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -3868,6 +4367,9 @@ def main() -> int:
         return 2
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
+    if args.capture_depths:
+        return capture_depths([int(v) for v in
+                               args.capture_depths.split(",")])
     if args.decode_times:
         return decode_times()
     if args.scan_bwd_phases:
@@ -3988,6 +4490,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "release", "elapsed_s": time.perf_counter() - t_start,
           "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+
+    # -- 10c-10d. the captured training step ---------------------------------
+    captured_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "captured_done",
+          "elapsed_s": time.perf_counter() - t_start})
 
     # -- 11-17. RWKV6-7B ---------------------------------------------------
     entries += rwkv_phases()

@@ -64,6 +64,29 @@ from ..kernels.linear_scan import ops as ls_ops
 
 #: the kernel wrappers whose launch counts a replay advances
 KERNEL_COUNTERS = (fm_ops, fa_ops, ls_ops)
+#: the counts a wrapper may keep (an int or a Counter each): its forward
+#: launches, its backward's (a captured training step replays those too)
+#: and its autograd Function's calls
+COUNTS = ("launches", "launches_by_shape", "bwd_launches",
+          "bwd_launches_by_shape", "function_calls")
+
+
+def _snapshot(m) -> dict:
+    out = {}
+    for a in COUNTS:
+        v = getattr(m, a, None)
+        if v is not None:
+            out[a] = collections.Counter(v) \
+                if isinstance(v, collections.Counter) else v
+    return out
+
+
+def _advance(m, delta: dict) -> None:
+    for a, d in delta.items():
+        if isinstance(d, collections.Counter):
+            getattr(m, a).update(d)
+        else:
+            setattr(m, a, getattr(m, a) + d)
 
 #: earlier sightings kept per program key (enough for every layer of a
 #: model that shares one block program, and then some)
@@ -112,7 +135,7 @@ class _Graph:
         self.handle = handle
         self.static = static          # per input: buffer, or None if persistent
         self.outs = outs              # per output: ("in", j) or ("pool", tensor)
-        self.counts = counts          # per counter: (launches, by_shape)
+        self.counts = counts          # per counter: what the capture added
         self.refs: list = []          # weakrefs (with eviction callbacks)
 
 
@@ -256,12 +279,11 @@ class GraphCache:
         static = [None if j in keep else v.clone()
                   for j, v in enumerate(vals)]
         args = [v if s is None else s for v, s in zip(vals, static)]
-        before = [(m.launches, collections.Counter(m.launches_by_shape))
-                  for m in self.counters]
+        before = [_snapshot(m) for m in self.counters]
         handle, outs = self.backend.capture(fn, dict(zip(names, args)),
                                             vals[0].device)
-        counts = [(m.launches - n, collections.Counter(m.launches_by_shape)
-                   - by) for m, (n, by) in zip(self.counters, before)]
+        counts = [{a: _snapshot(m)[a] - v for a, v in b.items()}
+                  for m, b in zip(self.counters, before)]
         where = []
         for o in outs:
             j = next((j for j, a in enumerate(args) if o is a), None)
@@ -280,10 +302,8 @@ class GraphCache:
                 s.copy_(v)
         self.backend.replay(g.handle)
         if count:
-            for m, (n, by) in zip(self.counters, g.counts):
-                if n:
-                    m.launches += n
-                    m.launches_by_shape.update(by)
+            for m, delta in zip(self.counters, g.counts):
+                _advance(m, delta)
         self.stats["replays"] += 1
         return tuple(vals[x] if kind == "in" else x.clone()
                      for kind, x in g.outs)

@@ -43,6 +43,18 @@ once and then CLAMP each start to ``[0, dim - window]``.  All are computed with 
 synchronization; an unchecked out-of-range index would raise on the CPU
 and device-assert on the card.
 
+Liveness: ``emit`` drops each value after its last consumer (its last
+reader, an anti edge included), so a program holds only the values still
+to be read; program inputs and outputs are never dropped.
+
+Training (``core.autodiff``): a VJP node is a ``pyfunc`` over the
+node's cotangent.  Under remat ``recompute`` it replays the forward node
+(``node_callable``) under grad and differentiates it; under ``store`` the
+forward node itself runs under grad on detached operands
+(``_lower_stored``) and keeps its own autograd graph, which its VJP node
+(``attrs["saved"]``) differentiates.  The value that flows on is
+detached, so no autograd chain spans two nodes.
+
 Donation: a scatter or window write that donates a region INPUT writes
 that tensor in place (``index_put_``) and returns it, so a KV pool or
 cache slab keeps its storage (and ``data_ptr``) across steps.  The
@@ -51,7 +63,10 @@ the write; a write still goes to a copy where one of those readers
 returned a view of the buffer (its value would change under it), or
 where the buffer is not a region input.  Under grad mode a donated write
 whose buffer or update requires grad raises: autograd keeps the values a
-program read, and an in-place write would change them.
+program read, and an in-place write would change them.  A ``pyfunc`` that
+donates an input leaves its value in that input: its function either wrote
+the input in place and returned it (AdamW's ``leaf_update``), or returned
+a new value, which is copied over the input.
 """
 from __future__ import annotations
 
@@ -396,6 +411,12 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
         return _EW[node.attrs["fn"]](*[env[i] for i in node.inputs])
     if op == "reshape":
         return env[node.inputs[0]].reshape(node.ttype.shape)
+    if op == "transpose":
+        return env[node.inputs[0]].permute(node.attrs["perm"])
+    if op == "broadcast":
+        # a new tensor, not a stride-0 view: a consumer may write it
+        return torch.broadcast_to(env[node.inputs[0]],
+                                  node.ttype.shape).contiguous()
     if op == "slice":
         x = env[node.inputs[0]]
         ax = node.attrs["axis"] % x.ndim
@@ -406,19 +427,13 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
     if op == "convert":
         return env[node.inputs[0]].to(to_torch_dtype(node.ttype.dtype))
     if op == "pyfunc":
-        out_i = node.attrs.get("out")
-        if out_i is None:
-            return node.attrs["fn"](*[env[i] for i in node.inputs],
-                                    **dict(node.attrs.get("static", ())))
-        # one call per tuple: the nodes of its other outputs share it
-        key = ("pyfunc", node.attrs["fn"], node.attrs.get("static", ()),
-               node.inputs)
-        res = env.get(key)
-        if res is None:
-            res = env[key] = node.attrs["fn"](
-                *[env[i] for i in node.inputs],
-                **dict(node.attrs.get("static", ())))
-        return res[out_i]
+        val = _lower_pyfunc(node, env)
+        if _donates_input(node, nodes):
+            buf = env[node.donates]
+            if val is not buf:
+                buf.copy_(val)
+            return buf
+        return val
     if op == "index":
         return env[node.inputs[0]][_decode_index(node.attrs["idx"])]
     if op == "dynamic_slice":
@@ -438,9 +453,7 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
         buf = env[node.inputs[0]]
         mode = node.attrs.get("mode", "set")
         lead = tuple(buf.shape[:n_idx])
-        # the K and V writes of a block go through the same index nodes:
-        # they share one preparation
-        pkey = ("scatter_prep", node.inputs[1:1 + n_idx], lead, mode)
+        pkey = _shared_key(node)
         prep = env.get(pkey)
         if prep is None:
             prep = env[pkey] = scatter_prep(
@@ -459,6 +472,99 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
     raise NotImplementedError(f"lowering of {op!r} is not ported yet")
 
 
+def _pyfunc_args(node: Node, env: dict) -> list:
+    args = [env[i] for i in node.inputs]
+    if node.attrs.get("saved"):
+        # a stored node's VJP: its forward's autograd record, not its value
+        args[1] = env[("saved", node.inputs[1])]
+    return args
+
+
+def _shared_key(node: Node):
+    """The env key of a value several nodes share: the result tuple of a
+    tuple-returning ``pyfunc`` (one call, one node per element) and a
+    scatter's index preparation (the K and V writes of a block go through
+    the same index nodes)."""
+    if node.op == "pyfunc" and node.attrs.get("out") is not None:
+        return ("pyfunc", node.attrs["fn"], node.attrs.get("static", ()),
+                node.inputs)
+    if node.op == "scatter":
+        n_idx = node.attrs["n_idx"]
+        return ("scatter_prep", node.inputs[1:1 + n_idx],
+                tuple(node.ttype.shape[:n_idx]), node.attrs.get("mode", "set"))
+    return None
+
+
+def _lower_pyfunc(node: Node, env: dict) -> Any:
+    static = dict(node.attrs.get("static", ()))
+    out_i = node.attrs.get("out")
+    if out_i is None:
+        return node.attrs["fn"](*_pyfunc_args(node, env), **static)
+    key = _shared_key(node)
+    res = env.get(key)
+    if res is None:
+        res = env[key] = node.attrs["fn"](*_pyfunc_args(node, env), **static)
+    return res[out_i]
+
+
+def node_operands(node: Node) -> tuple[int, ...]:
+    """A node's data operands in lowering order: ``inputs``, then every
+    epilogue extra in epilogue order (duplicates kept)."""
+    return tuple(node.inputs) + tuple(
+        e for _, extras, _ in node.epilogue for e in extras)
+
+
+def node_callable(node: Node) -> Callable:
+    """A callable computing ``node``'s value from its operands, positional
+    in ``node_operands`` order: the node's own lowering (same impl, tile and
+    epilogue chain as ``emit`` runs), on a copy of the node with dense
+    operand ids, so it never reads the graph.  ``core.autodiff``
+    differentiates it; ``.operands`` carries the operand nids."""
+    k = len(node.inputs)
+    repl = Node(nid=-1, op=node.op, inputs=tuple(range(k)),
+                ttype=node.ttype, attrs=dict(node.attrs), pdims=node.pdims,
+                rdims=node.rdims)
+    repl.schedule.impl = node.schedule.impl
+    repl.schedule.tile = dict(node.schedule.tile)
+    pos = k
+    for fn, extras, at in node.epilogue:
+        ids = tuple(range(pos, pos + len(extras)))
+        pos += len(extras)
+        repl.epilogue.append((fn, ids, dict(at)))
+    arity = pos
+
+    def call(*vals):
+        if len(vals) != arity:
+            raise TypeError(f"{node.op}: {arity} operands, got {len(vals)}")
+        return _lower_node(repl, dict(enumerate(vals)), {}, {})
+
+    call.operands = node_operands(node)
+    return call
+
+
+class Saved:
+    """A stored node's autograd record: its output under grad, the leaves
+    its VJP differentiates, and how many VJP calls still read it (the last
+    one frees the graph)."""
+
+    __slots__ = ("y", "leaves", "calls_left")
+
+    def __init__(self, y, leaves, calls: int):
+        self.y, self.leaves, self.calls_left = y, leaves, calls
+
+
+def _lower_stored(call: Callable, vals: list, diff: tuple,
+                  calls: int) -> tuple:
+    """(value, record) of a forward node marked ``store``: its lowering
+    run under grad on detached operands, the ``diff`` ones requiring grad.
+    The value that flows on is detached."""
+    with torch.enable_grad():
+        leaves = [v.detach().requires_grad_() if i in diff else v
+                  for i, v in enumerate(vals)]
+        y = call(*leaves)
+    return y.detach(), Saved(y, [leaves[i] for i in diff], calls)
+
+
 def _const(node: Node) -> torch.Tensor:
     """A const node's tensor, on the device the tracer recorded for it."""
     return torch.as_tensor(np.asarray(node.attrs["value"]),
@@ -467,26 +573,68 @@ def _const(node: Node) -> torch.Tensor:
 
 
 def emit(g: TaskGraph) -> Callable[[dict], tuple]:
-    """Compile the scheduled graph into ``run(inputs dict) -> outputs``."""
+    """Compile the scheduled graph into ``run(inputs dict) -> outputs``.
+
+    Each value is dropped from the program's environment after its last
+    reader, so a program holds O(live values), not O(nodes); inputs and
+    outputs stay.  Nodes whose VJP is stored (``attrs["saved"]`` on a
+    ``pyfunc`` reading them) run through ``_lower_stored``."""
     order = g.topo_order()
     nodes = [g.nodes[nid] for nid in order]
     by_id = dict(g.nodes)
     outputs = list(g.outputs)
+
+    # stored forward nodes: the union of their VJPs' operand positions, and
+    # the number of VJP calls that read the record
+    diffs: dict[int, set] = {}
+    vjp_calls: dict[int, set] = {}
+    for node in nodes:
+        if node.op == "pyfunc" and node.attrs.get("saved"):
+            fwd = node.inputs[1]
+            diffs.setdefault(fwd, set()).update(
+                dict(node.attrs["static"])["diff"])
+            vjp_calls.setdefault(fwd, set()).add(_shared_key(node))
+    stored = {nid: (node_callable(by_id[nid]), tuple(sorted(d)),
+                    len(vjp_calls[nid])) for nid, d in diffs.items()}
+
+    # liveness: the position of each value's last reader
+    keep = set(outputs) | {nid for _, nid in g.inputs}
+    last: dict = {}
+    for pos, node in enumerate(nodes):
+        last[node.nid] = pos
+        for d in g._deps(node):
+            last[d] = pos
+        key = _shared_key(node)
+        if key is not None:
+            last[key] = pos
+        if node.op == "pyfunc" and node.attrs.get("saved"):
+            last[("saved", node.inputs[1])] = pos
+    drops: list[list] = [[] for _ in nodes]
+    for k, pos in last.items():
+        if k not in keep:
+            drops[pos].append(k)
 
     # consts are built once per program, not per call: a host->device copy
     # inside the decode loop would stall the host on the stream
     consts: dict[int, torch.Tensor] = {}
 
     def run(inputs: dict) -> tuple:
-        env: dict[int, Any] = {}
-        for node in nodes:
+        env: dict[Any, Any] = {}
+        for node, drop in zip(nodes, drops):
+            nid = node.nid
             if node.op == "const":
-                val = consts.get(node.nid)
+                val = consts.get(nid)
                 if val is None:
-                    val = consts[node.nid] = _const(node)
-                env[node.nid] = val
+                    val = consts[nid] = _const(node)
+                env[nid] = val
+            elif nid in stored:
+                call, diff, calls = stored[nid]
+                env[nid], env[("saved", nid)] = _lower_stored(
+                    call, [env[o] for o in call.operands], diff, calls)
             else:
-                env[node.nid] = _lower_node(node, env, inputs, by_id)
+                env[nid] = _lower_node(node, env, inputs, by_id)
+            for k in drop:
+                env.pop(k, None)
         return tuple(env[o] for o in outputs)
 
     return run

@@ -48,10 +48,12 @@ def _is_plain_gemm(g: TaskGraph, nid: int) -> bool:
             and len(g.nodes[n.inputs[1]].ttype.shape) == 2)
 
 
-def fuse_added_gemms(g: TaskGraph, max_iters: int = 8) -> int:
-    """add(matmul(x,W1), matmul(h,W2)) -> matmul(concat(x,h), concat(W1;W2))."""
+def fuse_added_gemms(g: TaskGraph) -> int:
+    """add(matmul(x,W1), matmul(h,W2)) -> matmul(concat(x,h), concat(W1;W2)),
+    rewriting until no target is left (a stack unrolled into one region,
+    as the captured training step's is, has one in every layer)."""
     fused = 0
-    for _ in range(max_iters):
+    while True:
         cons = g.consumers()
         target = None
         for nid in g.topo_order():
@@ -94,10 +96,9 @@ def fuse_added_gemms(g: TaskGraph, max_iters: int = 8) -> int:
         g.replace_uses(nid, mm)
         g.prune()
         fused += 1
-    return fused
 
 
-def fuse_shared_input(g: TaskGraph, max_iters: int = 8) -> int:
+def fuse_shared_input(g: TaskGraph) -> int:
     """k exposed GEMMs on the same input -> ONE fused GEMM (QKV fusion):
     the weights column-concat to one wide 2-D ``[k, sum_w]`` GEMM, whose
     output is sliced back into the members' values.
@@ -105,7 +106,7 @@ def fuse_shared_input(g: TaskGraph, max_iters: int = 8) -> int:
     Fixpoint iteration: groups are recomputed after every rewrite so nids
     never go stale."""
     fused = 0
-    for _ in range(max_iters):
+    while True:
         groups: dict[tuple, list[int]] = {}
         for nid in g.topo_order():
             n = g.nodes[nid]
@@ -136,7 +137,6 @@ def fuse_shared_input(g: TaskGraph, max_iters: int = 8) -> int:
             off += w
         g.prune()
         fused += 1
-    return fused
 
 
 def fuse_epilogues(g: TaskGraph) -> int:

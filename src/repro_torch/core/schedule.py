@@ -51,6 +51,14 @@ class CostModel:
     # round-trips over the fp32 score matrix of impls that materialize it
     score_passes_materialized: float = 4.0
     score_passes_fused: float = 1.0
+    # --- remat arm (the training step's forward/backward boundary) -------
+    # storing a value across the boundary costs one write at the end of the
+    # forward and one read in the backward (2 round trips); recomputing it
+    # costs the node's operations plus re-reading its inputs, scaled by
+    # ``remat_bias`` (> 1 biases toward storing: a recompute serializes
+    # the backward, which a pure roofline undercounts)
+    remat_store_roundtrips: float = 2.0
+    remat_bias: float = 1.0
 
 
 CPU_COST_MODEL = CostModel(name="cpu_host", peak_flops=5e10, hbm_bw=2e10,
@@ -318,9 +326,47 @@ def pick_impl(g: TaskGraph, node: Node, cm: CostModel) -> None:
             f"{node.schedule.impl_costs}")
     node.schedule.impl = best.name
     n_avail = sum(1 for c in cands if c.cost_s is not None)
+    note = (f"impl: {best.name} ({_fmt_s(best.cost_s)} roofline, argmin of "
+            f"{n_avail}/{len(cands)} candidates)")
+    if note not in node.schedule.notes:   # bound again on a joint graph
+        node.schedule.notes.append(note)
+
+
+def pick_remat(g: TaskGraph, node: Node, cm: CostModel,
+               policy: str = "auto") -> str:
+    """Recompute-vs-store for a forward node whose VJP the backward runs —
+    the remat arm of the cost model.  ``policy`` is ``TrainConfig.remat``:
+
+    * ``"auto"``: the roofline.  Storing costs ``remat_store_roundtrips``
+      passes over the node's output bytes; recomputing costs its
+      operations at peak plus re-reading its input bytes, times
+      ``remat_bias``.  Elementwise composites (norms, RoPE, residual adds)
+      recompute nearly for free; GEMM and attention outputs are cheaper
+      to store.  The decision and both costs go in ``schedule.notes``;
+    * ``"none"``: store everything; ``"full"``: recompute everything;
+    * ``"dots"``: store library-op (GEMM-shaped) outputs only.
+
+    Either choice gives the same bits (both run the same kernels); the
+    decision moves memory and time, never numerics."""
+    if policy == "none":
+        return "store"
+    if policy == "full":
+        return "recompute"
+    if policy == "dots":
+        return "store" if node.op in LIBRARY_OPS else "recompute"
+    if policy != "auto":
+        raise ValueError(f"remat policy must be 'auto', 'none', 'full' or "
+                         f"'dots', got {policy!r}")
+    store_s = cm.remat_store_roundtrips * node.ttype.bytesize / cm.hbm_bw
+    in_bytes = sum(g.nodes[i].ttype.bytesize for i in node.inputs
+                   if i in g.nodes)
+    recompute_s = cm.remat_bias * (node.flops() / cm.peak_flops
+                                   + in_bytes / cm.hbm_bw)
+    choice = "recompute" if recompute_s < store_s else "store"
     node.schedule.notes.append(
-        f"impl: {best.name} ({_fmt_s(best.cost_s)} roofline, argmin of "
-        f"{n_avail}/{len(cands)} candidates)")
+        f"remat: {choice} (store {store_s*1e6:.1f}us vs recompute "
+        f"{recompute_s*1e6:.1f}us)")
+    return choice
 
 
 # ---------------------------------------------------------------------------

@@ -25,20 +25,24 @@ writes an input in place replays on CUDA inputs as one CUDA graph
 (``core.graphs``), the counterpart of the reference's one ``jax.jit`` per
 region; the per-op control (``mode="opaque"``) always runs eagerly.
 
-Training: the region programs run eagerly under autograd (a program whose
-inputs require grad is never replayed as a CUDA graph and never writes an
-input in place), and ``scan_layers`` takes the config's ``remat``:
-``"full"`` recomputes each layer in the backward
+Training, per op: the region programs run eagerly under autograd (a
+program whose inputs require grad is never replayed as a CUDA graph and
+never writes an input in place), and ``scan_layers`` takes the config's
+``remat``: ``"full"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+Training, captured (``train/region_step.py``): the whole step is one
+region; ``core.autodiff`` derives the backward as nodes of it, and the
+remat policy (``"auto"``, ``"none"``, ``"full"``, ``"dots"``) becomes a
+per-node schedule decision (``core.schedule.pick_remat``), reported by
+``explain()``'s "== gradient programs ==" section.
 
 The paper's ops: ``lstm_step`` builds the cell the way stock XLA emitted
 it (eight slice-fed GEMMs), which tapir mode's fusions collapse into one;
 ``conv2d`` is an NHWC / HWIO library op with an open epilogue, lowered to
 im2col and the GEMM kernel; ``elemwise`` is one unary ``ew`` node.
 
-Not ported yet (see ROADMAP): the on-disk program cache, ``expert_mlp``,
-``invalidate_mesh`` and the ``"dots"`` remat policy (it waits for
-``pick_remat``).
+Not ported yet (see ROADMAP): the on-disk program cache, ``expert_mlp``
+and ``invalidate_mesh``.
 """
 from __future__ import annotations
 
@@ -76,18 +80,19 @@ class TapirConfig:
     #: region capture; False runs every op in the per-op regime (the A/B
     #: control)
     regions: bool = True
-    #: ``scan_layers``' remat policy under grad: "none" keeps every layer's
-    #: activations, "full" recomputes each layer in the backward; "dots"
-    #: (keep the products) waits for ``pick_remat``
+    #: the remat policy: eagerly under grad ``scan_layers`` keeps every
+    #: layer's activations ("none") or recomputes each layer in the
+    #: backward ("full"); "auto" and "dots" are policies of the captured
+    #: step's ``pick_remat`` only
     remat: str = "none"
     #: tapir mode schedules with no small-task serialization (grain 0):
     #: the paper's ablation of that pass
     ablate_serialization: bool = False
 
     def __post_init__(self):
-        if self.remat not in ("none", "full", "dots"):
-            raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
-                             f"{self.remat!r}")
+        if self.remat not in ("none", "full", "dots", "auto"):
+            raise ValueError(f"remat must be 'none', 'full', 'dots' or "
+                             f"'auto', got {self.remat!r}")
 
     def resolved_cost_model(self) -> CostModel:
         if self.cost_model is not None:
@@ -342,6 +347,23 @@ class TracedTensor:
                         pdims=tuple(range(self.ndim)))
         return reg.handle(nid)
 
+    @property
+    def T(self):
+        return self.permute(*reversed(range(self.ndim)))
+
+    def permute(self, *perm):
+        if len(perm) == 1 and isinstance(perm[0], (tuple, list)):
+            perm = tuple(perm[0])
+        perm = tuple(int(p) % max(self.ndim, 1) for p in perm)
+        reg = self._region
+        if reg.closed:
+            return self.materialize().permute(perm)
+        shape = tuple(self.shape[p] for p in perm)
+        nid = reg.g.add("transpose", (reg.nid_of(self),),
+                        TensorType(shape, self.ttype.dtype),
+                        pdims=tuple(range(len(shape))), perm=perm)
+        return reg.handle(nid)
+
     def __getitem__(self, item):
         """Integer-array indexing stays lazy as a ``gather`` node; basic
         static indexing (ints/slices/Ellipsis/None) as an ``index`` node."""
@@ -435,6 +457,7 @@ class _Region:
         self.device: Optional[str] = None
         self.g = TaskGraph(name)
         self._inp_by_id: dict[int, int] = {}
+        self._inp_name: dict[int, str] = {}
         self._inp_vals: list[Any] = []
         self._handles: list[weakref.ref] = []
 
@@ -443,6 +466,11 @@ class _Region:
             if x._concrete is not None:
                 x = x._concrete
             elif x._region is self:
+                if x.nid is None:
+                    raise RuntimeError(
+                        "TracedTensor retired: the in-place optimization "
+                        "of autodiff.grad removed its node (pass it in "
+                        "keep= to carry it through)")
                 return x.nid
             else:
                 raise ValueError(
@@ -451,13 +479,27 @@ class _Region:
             raise TypeError(f"region input must be a tensor, got {type(x)}")
         key = id(x)
         nid = self._inp_by_id.get(key)
-        if nid is None:
+        if nid is None or nid not in self.g.nodes:
+            # new, or pruned by an in-place optimization: (re)bind it
             if self.device is None:
                 self.device = str(x.device)
-            nid = self.g.add_input(f"a{len(self._inp_vals)}", _tt(x))
+            name = self._inp_name.get(key)
+            if name is None:
+                name = self._inp_name[key] = f"a{len(self._inp_vals)}"
+                self._inp_vals.append(x)     # also pins id(x)
+            nid = self.g.add_input(name, _tt(x))
             self._inp_by_id[key] = nid
-            self._inp_vals.append(x)     # also pins id(x)
         return nid
+
+    def retire_stale_handles(self) -> None:
+        """After an in-place optimization: a pending handle whose node was
+        removed can no longer be used (``nid_of`` raises on it) and is not
+        an output."""
+        for r in self._handles:
+            h = r()
+            if h is not None and h.nid is not None \
+                    and h.nid not in self.g.nodes:
+                h.nid = None
 
     def const(self, value, dtype: str) -> int:
         value = np.asarray(value)
@@ -512,6 +554,7 @@ class _Region:
         self.segments += 1
         self.g = TaskGraph(f"{self.name}#{self.segments}")
         self._inp_by_id = {}
+        self._inp_name = {}
         self._inp_vals = []
 
     def abandon(self) -> None:
@@ -1232,13 +1275,21 @@ def scan_layers(body: Callable, stacked_params, x):
     The config's ``remat`` wraps each layer as the reference's
     ``jax.checkpoint`` does: under ``"full"``, when grad is enabled, a
     layer keeps only its inputs and is recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` raises until
-    ``pick_remat`` is ported."""
+    (``torch.utils.checkpoint``, non-reentrant).  ``"dots"`` and
+    ``"auto"`` are per-node decisions of the captured step (the stack
+    unrolls into its region and ``pick_remat`` decides); eagerly they
+    raise: ``torch.utils.checkpoint`` has no policy that keeps only the
+    outputs of the GEMM's custom ``Function``."""
     cfg = get_config()
-    if cfg.remat == "dots":
-        raise NotImplementedError("remat='dots' waits for pick_remat (the "
-                                  "captured training step)")
     leaves, spec = _flatten(stacked_params)
+    traced = any(isinstance(a, TracedTensor) for a in leaves) \
+        or isinstance(x, TracedTensor)
+    if cfg.remat in ("dots", "auto") and not traced:
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is a policy of the captured training step "
+            f"(--capture-step): torch.utils.checkpoint has no policy that "
+            f"keeps only the outputs of the GEMM's custom autograd Function, "
+            f"so eagerly only 'none' and 'full' exist")
     n = int(leaves[0].shape[0])
     if any(isinstance(a, TracedTensor) for a in leaves):
         layers = [[a[i] for a in leaves] for i in range(n)]
@@ -1294,7 +1345,26 @@ def explain(g: Optional[TaskGraph] = None) -> str:
         return g.dump_schedule()
     if not _GRAPHS:
         return "(no compiled graphs yet — run something under tapir first)"
-    return "\n".join(gr.dump_schedule() for gr in _GRAPHS.values())
+    parts = [gr.dump_schedule() for gr in _GRAPHS.values()]
+    grad_graphs = [gr for gr in _GRAPHS.values()
+                   if getattr(gr, "grad_meta", None)]
+    if grad_graphs:
+        lines = ["== gradient programs =="]
+        for gr in grad_graphs:
+            m = gr.grad_meta
+            lines.append(
+                f"  {gr.name}: {m['n_fwd']} fwd nodes, {m['n_bwd']} bwd "
+                f"nodes; remat {m['remat']['store']} stored / "
+                f"{m['remat']['recompute']} recomputed "
+                f"({m['bytes_stored']} B stored vs "
+                f"{m['bytes_recomputed']} B recomputed)")
+            for nid in sorted(gr.nodes):
+                node = gr.nodes[nid]
+                if node.schedule.remat:
+                    lines.append(f"    %{nid} {node.op}: "
+                                 f"{node.schedule.remat}")
+        parts.append("\n".join(lines))
+    return "\n".join(parts)
 
 
 def clear_cache() -> None:

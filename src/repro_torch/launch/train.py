@@ -18,9 +18,15 @@ neither has this one.  Prints one JSON line: ``steps``, ``tok_per_s``
 (after the first step, which builds the kernels and traces the regions),
 ``first_loss``, ``last_loss`` and ``losses``.
 
-Not ported: ``--capture-step`` (the captured step), ``--resume`` and
-``--ckpt-dir`` (checkpoints) raise ``NotImplementedError``; the
-fault-tolerant loop waits for ``dist/fault.py``.
+``--capture-step`` trains with the captured step
+(``train/region_step.py``: the whole update one region program, the
+backward derived by ``core/autodiff.py``, the state donated); its default
+remat is ``auto`` (the roofline per node), as in the reference, and the
+JSON line adds ``grad_meta``'s counts (``n_fwd``, ``n_bwd``, ``remat``).
+
+Not ported: ``--resume`` and ``--ckpt-dir`` (checkpoints) raise
+``NotImplementedError``; the fault-tolerant loop waits for
+``dist/fault.py``.
 """
 from __future__ import annotations
 
@@ -34,7 +40,9 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.data import DataConfig, TokenPipeline, to_device
 from repro_torch.models.base import get_model, resolve_device
 from repro_torch.optim import AdamWConfig
-from repro_torch.train import TrainConfig, init_state, make_train_step
+from repro_torch.core import tapir
+from repro_torch.train import (TrainConfig, init_state,
+                               make_region_train_step, make_train_step)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,10 +61,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the schedule's cost profile (default: the "
                          "device's)")
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--remat", default="full",
-                    choices=["none", "dots", "full"])
+    ap.add_argument("--remat", default=None,
+                    choices=["none", "dots", "full", "auto"],
+                    help="default: full per op, auto with --capture-step")
     ap.add_argument("--capture-step", action="store_true",
-                    help="the region-captured training step (not ported)")
+                    help="the region-captured training step")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (not ported)")
     ap.add_argument("--resume", action="store_true",
@@ -66,14 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.capture_step:
-        raise NotImplementedError("--capture-step: the captured training "
-                                  "step is not ported (ROADMAP queue 1)")
     if args.resume or args.ckpt_dir is not None:
         raise NotImplementedError("--resume / --ckpt-dir: checkpoints are "
                                   "not ported (ROADMAP queue 1)")
-    if args.remat == "dots":
-        raise NotImplementedError("--remat dots waits for pick_remat")
+    remat = args.remat or ("auto" if args.capture_step else "full")
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -81,9 +86,11 @@ def main(argv=None):
 
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 10, 1))
-    tcfg = TrainConfig(mode=args.mode, remat=args.remat,
+    tcfg = TrainConfig(mode=args.mode, remat=remat,
                        microbatches=args.microbatches, target=args.target)
-    step_fn = make_train_step(model, opt_cfg, tcfg)
+    make_step = make_region_train_step if args.capture_step \
+        else make_train_step
+    step_fn = make_step(model, opt_cfg, tcfg)
     state = init_state(model, opt_cfg)
     pipe = TokenPipeline(DataConfig(seq_len=args.seq,
                                     global_batch=args.batch,
@@ -98,10 +105,16 @@ def main(argv=None):
     timed = args.steps - 1
     dt = time.perf_counter() - t_start if timed > 0 else float("nan")
     tok_s = timed * args.batch * args.seq / dt if timed > 0 else None
-    print(json.dumps({"steps": args.steps, "tok_per_s": tok_s,
-                      "first_loss": losses[0] if losses else None,
-                      "last_loss": losses[-1] if losses else None,
-                      "losses": losses}))
+    line = {"steps": args.steps, "tok_per_s": tok_s,
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None, "losses": losses}
+    if args.capture_step:
+        metas = [g.grad_meta for g in tapir.cached_graphs().values()
+                 if getattr(g, "grad_meta", None)]
+        if metas:
+            line["grad_meta"] = {k: metas[-1][k]
+                                 for k in ("n_fwd", "n_bwd", "remat")}
+    print(json.dumps(line))
     return state, losses
 
 

@@ -226,16 +226,18 @@ class BaseModel(nn.Module):
                 "embed": self.embed.data}
         return self._compute[1]
 
-    def forward(self, batch: dict) -> torch.Tensor:
-        """Returns logits [B, S, vocab]."""
+    def forward(self, batch: dict, params: Optional[dict] = None):
+        """Returns logits [B, S, vocab].  Every weight is read from
+        ``params`` (a tree like ``param_tree()``; default: the model's
+        own), so a captured step can pass its parameter handles in."""
         raise NotImplementedError
 
-    def loss(self, batch: dict) -> torch.Tensor:
-        """Mean cross-entropy of ``forward`` against ``batch["labels"]``
-        (over ``batch["mask"]`` when given), a scalar fp32 tensor.  Through
-        ``lift``, so a region capture keeps it as one node; outside a region
-        it is a direct call."""
-        logits = self.forward(batch)
+    def loss(self, batch: dict, params: Optional[dict] = None):
+        """Mean cross-entropy of ``forward(batch, params)`` against
+        ``batch["labels"]`` (over ``batch["mask"]`` when given), a scalar
+        fp32 tensor.  Through ``lift``, so a region capture keeps it as
+        one node; outside a region it is a direct call."""
+        logits = self.forward(batch, params)
         labels = batch["labels"]
         mask = batch.get("mask")
         if mask is None:

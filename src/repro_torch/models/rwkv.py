@@ -134,9 +134,9 @@ class RWKV6(BaseModel):
         self.cfg = cfg
         self._set_params(abstract_params(cfg), device, params, generator)
 
-    def _head(self, x):
-        x = L.rmsnorm(x, self.ln_f)
-        return tapir.linear(x, self.lm_head.to(x.dtype))
+    def _head(self, x, params: dict):
+        x = L.rmsnorm(x, params["ln_f"])
+        return tapir.linear(x, params["lm_head"].to(x.dtype))
 
     def _stateful_head_body(self, hp, x):
         """The last position's logits from the params cast once."""
@@ -220,17 +220,20 @@ class RWKV6(BaseModel):
                 tapir.cache_write(wkv, new_wkv, (0, 0, 0, 0)))
 
     # -- forward ----------------------------------------------------------
-    def forward(self, batch: dict):
-        """Logits ``[B, S, vocab]`` of ``batch["tokens"] [B, S]``."""
-        h = self._embed(self.embed, batch["tokens"])
+    def forward(self, batch: dict, params: Optional[dict] = None):
+        """Logits ``[B, S, vocab]`` of ``batch["tokens"] [B, S]``, every
+        weight read from ``params`` (default: ``param_tree()``)."""
+        if params is None:
+            params = self.param_tree()
+        h = self._embed(params["embed"], batch["tokens"])
         cdt = h.dtype
 
         def body(p, x):
             p = {k: v.to(cdt) for k, v in p.items()}
             return self._block(p, x)
 
-        h = tapir.scan_layers(body, dict(self.blocks), h)
-        return self._head(h)
+        h = tapir.scan_layers(body, params["blocks"], h)
+        return self._head(h, params)
 
     # -- stateful serving (no KV cache, O(1) state per token) -------------
     def init_cache(self, batch: int, max_len: int) -> dict:

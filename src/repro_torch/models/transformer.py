@@ -163,8 +163,9 @@ class DenseLM(BaseModel):
         return blk(p, x, cos, sin)
 
     # -- forward ----------------------------------------------------------
-    def backbone(self, h):
-        """The block stack over ``h [B, S, d]`` at positions ``arange(S)``."""
+    def backbone(self, h, blocks: Optional[dict] = None):
+        """The block stack over ``h [B, S, d]`` at positions ``arange(S)``,
+        with the stacked ``blocks`` (default: the model's own)."""
         cos, sin = L.arange_rope_table(int(h.shape[1]), self.cfg.hd,
                                        fraction=self._rope_frac(),
                                        device=self.device)
@@ -174,7 +175,9 @@ class DenseLM(BaseModel):
             p = {k: v.to(cdt) for k, v in p.items()}
             return self._block(p, x, cos, sin)
 
-        return tapir.scan_layers(body, dict(self.blocks), h)
+        if blocks is None:
+            blocks = dict(self.blocks)
+        return tapir.scan_layers(body, blocks, h)
 
     def capture_aux(self, batch: dict) -> tuple:
         # the same memoized tensors ``backbone`` binds
@@ -182,15 +185,20 @@ class DenseLM(BaseModel):
                                    self.cfg.hd, fraction=self._rope_frac(),
                                    device=self.device)
 
-    def _head(self, x):
-        x = self._norm(x, self.ln_f)
-        w = self.lm_head if self.lm_head is not None else self.embed.T
+    def _head(self, x, params: dict):
+        x = self._norm(x, params["ln_f"])
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].T
         return tapir.linear(x, w.to(x.dtype))
 
-    def forward(self, batch: dict):
-        """Logits ``[B, S, vocab]`` of ``batch["tokens"] [B, S]``."""
-        h = self._embed(self.embed, batch["tokens"])
-        return self._head(self.backbone(h))
+    def forward(self, batch: dict, params: Optional[dict] = None):
+        """Logits ``[B, S, vocab]`` of ``batch["tokens"] [B, S]``, every
+        weight read from ``params`` (default: ``param_tree()``)."""
+        if params is None:
+            params = self.param_tree()
+        h = self._embed(params["embed"], batch["tokens"])
+        return self._head(self.backbone(h, params["blocks"]), params)
 
     # -- padded-cache serving ----------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:

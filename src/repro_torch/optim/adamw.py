@@ -72,6 +72,9 @@ def tree_map(fn, tree, *rest):
 
 
 def _f32(x, device=None) -> torch.Tensor:
+    if device is not None and not isinstance(x, torch.Tensor):
+        # a fill on the device, not a host copy: a CUDA graph can hold it
+        return torch.full((), x, dtype=F32, device=device)
     return torch.as_tensor(x, dtype=F32, device=device)
 
 

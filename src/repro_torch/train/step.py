@@ -21,9 +21,11 @@ the batch splits into k slices along its rows; their gradients are summed
 in fp32 in microbatch order and the loss and gradients divided by k, as the
 reference's ``lax.scan`` accumulation does.
 
-Not ported (each raises ``NotImplementedError``; ROADMAP names the item
-that brings it): ``strategy`` (a mesh), ``compress_pod_grads``,
-``bf16_partials`` and ``bf16_params_in_loss``.
+``TrainConfig.remat`` ``"auto"`` and ``"dots"`` and ``compress_pod_grads``
+are the captured step's (``train/region_step.py``, ``--capture-step``):
+``make_train_step`` raises on them.  Not ported (each raises
+``NotImplementedError``; ROADMAP names the item that brings it):
+``strategy`` (a mesh), ``bf16_partials`` and ``bf16_params_in_loss``.
 """
 from __future__ import annotations
 
@@ -40,26 +42,31 @@ from ..optim import AdamWConfig, adamw_init, adamw_update, tree_leaves
 @dataclass(frozen=True)
 class TrainConfig:
     mode: str = "tapir"               # tapir | opaque  (the paper's A/B)
-    remat: str = "full"               # none | full  ("dots" waits)
+    #: none | full (both steps); auto | dots (the captured step's
+    #: per-node ``pick_remat`` policies)
+    remat: str = "full"
     microbatches: int = 1             # grad-accumulation factor
     #: the hardware the schedule's costs describe: "gpu" (the H100
     #: profile), "cpu", or None for the device the step runs on
     target: Optional[str] = None
     strategy: Optional[str] = None    # a mesh strategy: not ported
-    compress_pod_grads: bool = False  # int8+EF on a pod axis: not ported
+    #: int8 + error feedback on the gradients: the captured step's
+    compress_pod_grads: bool = False
     bf16_partials: bool = False       # bf16 TP all-reduce: not ported
     bf16_params_in_loss: bool = False  # not ported
 
     def __post_init__(self):
-        for name in ("compress_pod_grads", "bf16_partials",
-                     "bf16_params_in_loss"):
+        for name in ("bf16_partials", "bf16_params_in_loss"):
             if getattr(self, name):
                 raise NotImplementedError(
-                    f"TrainConfig.{name} is not ported (ROADMAP queue 1: "
-                    f"the captured step and the mesh port)")
+                    f"TrainConfig.{name} is not ported (ROADMAP queue 1, "
+                    f"item 8: the mesh port)")
         if self.strategy is not None:
             raise NotImplementedError("TrainConfig.strategy needs a mesh, "
                                       "which is not ported (ROADMAP queue 1)")
+        if self.remat not in ("none", "full", "auto", "dots"):
+            raise ValueError(f"remat must be 'none', 'full', 'auto' or "
+                             f"'dots', got {self.remat!r}")
         if self.mode not in ("tapir", "opaque"):
             raise ValueError(f"mode must be 'tapir' or 'opaque', got "
                              f"{self.mode!r}")
@@ -100,7 +107,18 @@ def make_train_step(model, opt_cfg: AdamWConfig,
     """``step(state, batch) -> (state, metrics)`` on the device the model
     lives on.  ``batch`` is ``{"tokens", "labels"[, "mask"]}`` of tensors
     on that device; ``metrics`` holds ``loss``, ``lr`` and ``grad_norm``
-    as fp32 0-dim tensors."""
+    as fp32 0-dim tensors.  Remat ``auto`` / ``dots`` and
+    ``compress_pod_grads`` raise: they are the captured step's."""
+    if cfg.remat in ("auto", "dots"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is a per-node policy of the captured step "
+            f"(make_region_train_step, --capture-step); the per-op step "
+            f"takes 'none' or 'full'")
+    if cfg.compress_pod_grads:
+        raise NotImplementedError(
+            "compress_pod_grads: the per-op step has no pod axis to reduce "
+            "over (the mesh port, ROADMAP queue 1 item 8); the captured "
+            "step (--capture-step) folds int8 + error feedback in")
     tap = cfg.tapir_config()
 
     def grads_of(params, mb):

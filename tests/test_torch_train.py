@@ -249,7 +249,8 @@ def test_stacked_weights_are_unbound_once(reference):
         assert {type(v.grad_fn).__name__ for v in seen} == {
             "UnbindBackward0"}
         y.backward()
-    with pytest.raises(NotImplementedError, match="pick_remat"):
+    # eagerly "dots" has no checkpoint policy: it is the captured step's
+    with pytest.raises(NotImplementedError, match="capture-step"):
         with tapir.use(tapir.TapirConfig(remat="dots")):
             tapir.scan_layers(body, dict(tm.blocks), torch.zeros(()))
 
@@ -307,9 +308,12 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert line["last_loss"] < line["first_loss"]
 
 
-@pytest.mark.parametrize("flag", [["--capture-step"], ["--resume"],
+@pytest.mark.parametrize("flag", [["--remat", "dots"], ["--resume"],
                                   ["--ckpt-dir", "x"]])
 def test_launcher_refuses_what_is_not_ported(flag):
+    """``--remat dots`` without ``--capture-step``: the per-op step has no
+    such policy (the captured step is tested in
+    ``test_torch_region_step.py``)."""
     with pytest.raises(NotImplementedError):
         launch_train.main(["--device", "cpu", "--smoke", "--steps", "1"]
                           + flag)
@@ -320,5 +324,7 @@ def test_launcher_refuses_what_is_not_ported(flag):
                                 {"bf16_params_in_loss": True},
                                 {"strategy": "fsdp_tp"}])
 def test_train_config_refuses_what_is_not_ported(kw):
+    """The per-op step refuses each; ``compress_pod_grads`` is the
+    captured step's (no pod axis per op)."""
     with pytest.raises(NotImplementedError):
-        TrainConfig(**kw)
+        make_train_step(None, optim.AdamWConfig(**OPT), TrainConfig(**kw))
