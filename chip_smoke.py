@@ -10,6 +10,7 @@
     python3 chip_smoke.py --decode-times [--src DIR]
     python3 chip_smoke.py --fig3-times [--src DIR]
     python3 chip_smoke.py --capture-depths N,N,...
+    python3 chip_smoke.py --profile-windows N
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -30,7 +31,10 @@ tree where given: parent and change in one call.  The eighth runs phase
 19 (``fig3``) alone, for this tree or ``--src``'s.  The ninth runs
 qwen2.5-3b's captured training step at full width at each depth given
 (2 steps) and prints its peak memory or the OOM: how Q_CAPTURE_LAYERS
-was chosen.
+was chosen.  The tenth profiles N windows shaped like a decode window
+(plain torch kernels and a CUDA graph, no port kernel) with and without
+PROF_PAD_S of idle card at each end, and counts the kernels each keeps:
+why the decode windows are padded.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts (forward and
@@ -84,7 +88,9 @@ backward) just before it and reads them just after:
    and runs eagerly), captures inside the timed window (any fails the
    run), the graphs and their pools' bytes; the graphed steps against the
    eager walk (``regions=False``) bitwise; the per-op control
-   (``mode="opaque"``, no graphs) timed the same way;
+   (``mode="opaque"``, no graphs) timed the same way; for the graphed
+   path also the host's issue time of a step and its host ms by region
+   (``region_host_ms``);
 9c. train — ``make_train_step`` (``launch/train.py``'s step) at full
    width on 2 x 2048 tokens of ``TokenPipeline``, remat full, fp32 AdamW:
    one warm-up step and 3 timed steps, each held to the launches the code
@@ -147,7 +153,9 @@ The captured step's models are then released, and RWKV6-7B at full width
 11. rwkv_forward — ``forward`` and ``loss`` on 2 x 2048 tokens: 32
    ``linear_scan`` and 321 ``fused_matmul`` launches per call, every scan
    node bound to ``kernel`` and every matmul to ``fused_kernel``, finite
-   logits and loss, wall time, peak memory, device time by kernel;
+   logits and loss, wall time, peak memory, device time by kernel, no
+   library kernel (phases 11-13 and 20-22 are the same functions,
+   ``stateful_*``, given each family's ``Family``);
 12. rwkv_guarantees — region forward = per-op forward bitwise; the per-op
    control's largest difference; the stateful prefill of 4 x 512 tokens
    and 16 greedy decode steps (state written in place; 32 carried-state
@@ -206,7 +214,48 @@ parameters, gradients and AdamW moments alone exceed the card):
    the bound (and the design's byte floor with its two workspaces of
    checkpoints, one every ``kernel.plan_bwd(dtype).group`` chunks).
 
-The RWKV6 model is then released, and the paper's four networks (fp32,
+The RWKV6 model is then released, and Zamba2-7B at full width and depth
+(81 Mamba2 layers, d_model 3584, 112 SSD heads of 64 x 64 state, the
+shared attention + MLP block of 32 heads of 112 applied 13 times, vocab
+32000, the head tied to the embedding; random weights from seed 0)
+takes its place:
+
+20. zamba2_forward — ``forward`` and ``loss`` on 2 x 2048 tokens: 81
+   ``linear_scan`` launches (the GLA form), 13 ``flash_attention`` and
+   215 ``fused_matmul`` (``zamba2_gemms``) per call, every scan node bound
+   to ``kernel``, every attention node to ``flash_kernel``, every matmul
+   to ``fused_kernel``, finite logits and loss, wall time, peak memory,
+   device time by kernel, no library GEMM or attention kernel;
+21. zamba2_guarantees — region forward = per-op forward bitwise; the
+   per-op control's largest difference (254 GEMMs); the stateful prefill
+   of 4 x 512 tokens (max_len 1024) and 16 greedy decode steps (81
+   carried-state scans each, 13 flash launches per prefill and none per
+   decode step), every state tensor written in place, the prefill's last
+   logits against the forward's at position 511 within Z_PF_TOL;
+22. zamba2_serve — ``ServingEngine.run`` by padded waves (the serve
+   phase's requests), launches held per call, ``run`` = ``run_wave``;
+23. decode_steps — the stateful decode step (4 rows) as in 9b: every
+   Mamba2 block replays a graph, the shared block too where the schedule
+   finds it dispatch-bound;
+24. zamba2_gemm_vs_plain — ``fused_matmul`` at every Zamba2 path shape,
+   the tied head through ``embed.T`` read in place;
+25. zamba2_kernels_vs_plain — flash at head dim 112 at the forward's and
+   prefill's shapes; the GLA scan on ``_ssd_gates``-like operands at
+   every path shape (LS_RTOL), at the forward's shape under the model's
+   decays (A_log = 0, the init) and at Mamba2's decay bound (A_log = 4)
+   (Z_BOUND_TOL of the output's largest; both it and the plain version
+   also against the sequential oracle, reported with the share of rows
+   off it by more than LS_RTOL) and a carried state split on a chunk
+   boundary (bitwise);
+26. small_zamba2_parity — SMOKE fp32 on the card against the CPU;
+27. zamba2_times — the GEMM at the forward and decode shapes, flash at
+   the forward and prefill shapes, the GLA scan at every path shape and
+   at the decay bound: kernel, plain version, library call, bound (the
+   scan's counts C once for all heads and the decay once a head, what
+   the function needs); zamba2_scan_w_copy — the scan wrapper's copy of
+   the stride-0 decay, timed alone beside its bound.
+
+The Zamba2 model is then released, and the paper's four networks (fp32,
 every product on the GEMM's FMA route) follow:
 
 18. paper_nets — CNN, LSTM1, LSTM2 and NCF at the reference test's
@@ -283,6 +332,8 @@ DEC_WARM, DEC_TIMED, DEC_PROF, DEC_CHECK = 3, 20, 5, 6
 #: profiled windows a graphed decode path may take to read every kernel
 #: (see ``decode_harness``)
 PROF_WINDOWS = 3
+#: host seconds the card idles at each end of a profiled decode window
+PROF_PAD_S = 0.2
 
 
 def emit(obj) -> None:
@@ -322,13 +373,20 @@ def label(n: int, k: int, cfg) -> str:
     return names.get((n, k), f"n{n}_k{k}")
 
 
-def make_inputs(m, n, k, spec, dt, gen):
+def make_inputs(m, n, k, spec, dt, gen, tied: bool = False):
     """Random operands for one launch shape of the serve phase, in ``dt``.
     A stage that cast to the compute dtype casts to ``dt`` here, as the
-    same chain does when the model computes in ``dt``."""
+    same chain does when the model computes in ``dt``.  ``tied``: w is
+    the transpose of a contiguous ``[n, k]`` tensor, as a tied head's
+    ``embed.T`` is."""
     import torch
     x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
-    w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5).to(dt)
+    if tied:
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             / k ** 0.5).to(dt).T
+    else:
+        w = (torch.randn(k, n, generator=gen, device="cuda")
+             / k ** 0.5).to(dt)
     epi = []
     for fn, kind, hp, edt in spec:
         at = {"head_pos": hp,
@@ -729,16 +787,16 @@ def flash_inputs(shape, dt, seed: int):
                            (b, skv, hkv, d)))
 
 
-def flash_vs_plain(path_shapes) -> tuple:
+def flash_vs_plain(path_shapes, extra=tuple(FA_EXTRA)) -> tuple:
     """``flash_attention`` against ``flash_attention_ref`` in bf16 and fp32
-    at every path shape and at ``FA_EXTRA``.  Returns max |kernel - plain|
-    and its largest row-relative size (see FA_RTOL), each by (shape,
-    dtype)."""
+    at every path shape and at ``extra`` (``FA_EXTRA``).  Returns max
+    |kernel - plain| and its largest row-relative size (see FA_RTOL), each
+    by (shape, dtype)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     errs, rels = {}, {}
-    for i, shape in enumerate(sorted(set(path_shapes) | set(FA_EXTRA))):
+    for i, shape in enumerate(sorted(set(path_shapes) | set(extra))):
         for dname, dt in (("bfloat16", torch.bfloat16),
                           ("float32", torch.float32)):
             q, k, v = flash_inputs(shape, dt, seed=10 + i)
@@ -882,6 +940,27 @@ def profile_decode(model, eng, steps: int = 3) -> dict:
             "top": top_kernels(by_name, 10)}
 
 
+def profile_window(step, ready, pad: float) -> None:
+    """One step of profiler warm-up, then DEC_PROF active steps, each
+    synchronised before the profiler moves on; ``ready(prof)`` reads the
+    active steps' events when their cycle ends.  The card idles ``pad``
+    host seconds at each end of the active window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=DEC_PROF),
+                 on_trace_ready=ready) as prof:
+        for i in range(1 + DEC_PROF):
+            if i == 1:
+                time.sleep(pad)
+            step()
+            torch.cuda.synchronize()
+            if i == DEC_PROF:
+                time.sleep(pad)
+            prof.step()
+
+
 def decode_harness(step, per_step: tuple) -> dict:
     """One decode path, timed: DEC_WARM steps, then DEC_TIMED steps each
     ended by a synchronise (host wall p50 / p95), with the kernels' launch
@@ -894,7 +973,6 @@ def decode_harness(step, per_step: tuple) -> dict:
     point."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import tapir
     fm_ops, fa_ops, ls_ops = kernel_ops()
     torch.cuda.synchronize()
@@ -917,9 +995,11 @@ def decode_harness(step, per_step: tuple) -> dict:
         raise SystemExit(f"decode steps: {got} flash, GEMM and scan "
                          f"launches over {DEC_TIMED} steps (expected "
                          f"{want})")
-    # one step of profiler warm-up, whose events are dropped; each step is
-    # synchronised before the profiler moves on, so none of its kernels is
-    # cut off.  The active steps' events are read when their cycle ends.
+    # The profiler keeps only the kernels whose device timestamps, mapped
+    # to the host's clock, fall inside the window it opened and closed on
+    # the host; the card idles PROF_PAD_S at each end of the window, so a
+    # skew between the two clocks cannot push the first or last kernels of
+    # the window out of it (``--profile-windows``).
     # On a graphed path the counts above are bookkeeping (a replay adds
     # what its capture counted): there the profile's reading of the
     # kernels the device ran must equal them.  An eager path's counts are
@@ -940,14 +1020,7 @@ def decode_harness(step, per_step: tuple) -> dict:
             seen["ran"] = profiled_launches(prof)
             seen["by_name"] = device_time_by_kernel(prof, DEC_PROF)
 
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                      active=DEC_PROF),
-                     on_trace_ready=ready) as prof:
-            for _ in range(1 + DEC_PROF):
-                step()
-                torch.cuda.synchronize()
-                prof.step()
+        profile_window(step, ready, PROF_PAD_S)
         ran = seen.get("ran")
         windows.append(ran)
         if not replays or ran == expect:
@@ -975,6 +1048,101 @@ def decode_harness(step, per_step: tuple) -> dict:
             "graph_pool_bytes": st1.get("graph_pool_bytes"),
             "reserved_delta_bytes": torch.cuda.memory_reserved() - reserved0,
             "top": top_kernels(by_name, 6)}
+
+
+def profile_window_probe(windows: int) -> int:
+    """``--profile-windows N``: whether the profiler keeps every kernel of
+    a window shaped like ``decode_harness``'s (one warm-up step, DEC_PROF
+    active steps, each synchronised), with and without PROF_PAD_S of idle
+    card at each end.  A step is 6 x (10 eager kernels + the replay of a
+    CUDA graph of 150); each setting takes N windows, twice, interleaved.
+    Prints one line per setting: the windows that read short and by how
+    many kernels."""
+    import torch
+    x = torch.zeros(1 << 16, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(450):
+            x.add_(1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(150):
+            x.add_(1)
+
+    def step():
+        for _ in range(6):
+            for _ in range(10):
+                x.mul_(1.0)
+            graph.replay()
+
+    want = DEC_PROF * 6 * (10 + 150)
+
+    def window(pad):
+        seen = {}
+
+        def ready(prof):
+            seen["n"] = sum(ev.count for ev in prof.key_averages()
+                            if ev.device_type
+                            == torch.autograd.DeviceType.CUDA
+                            and "elementwise" in ev.key)
+
+        profile_window(step, ready, pad)
+        return seen["n"]
+
+    read = collections.defaultdict(list)
+    for pad in (0.0, PROF_PAD_S, 0.0, PROF_PAD_S):
+        read[pad] += [window(pad) for _ in range(windows)]
+    for pad, got in read.items():
+        short = [want - n for n in got if n != want]
+        emit({"phase": "profile_windows", "pad_s": pad,
+              "kernels_per_window": want, "windows": len(got),
+              "windows_short": len(short), "kernels_missing": short,
+              "min": min(got), "max": max(got)})
+    print(card_line(), flush=True)
+    return 0
+
+
+def region_host_ms(step, steps: int = DEC_PROF) -> dict:
+    """Where a decode step's host time goes: ``steps`` steps, each alone
+    (synchronised before it), the host ms from the step's start to its
+    return (its issue time: a graphed step whose issue time is its wall
+    time is host-bound), and the host ms each region's program run takes
+    (a graph replay with its bookkeeping, or an eager walk), by region
+    name, from ``tapir._run_program`` timed for the window."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tapir
+    run = tapir._run_program
+    acc = collections.Counter()
+    calls = collections.Counter()
+
+    def timed(key, prog, inputs):
+        t0 = time.perf_counter()
+        try:
+            return run(key, prog, inputs)
+        finally:
+            name = key[1][0] if key[0] == "region" else "other"
+            acc[name] += time.perf_counter() - t0
+            calls[name] += 1
+
+    issue = []
+    tapir._run_program = timed
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            issue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+    finally:
+        tapir._run_program = run
+    return {"host_issue_ms_p50": float(np.median(issue)) * 1e3,
+            "host_ms_per_step_by_region": {k: v / steps * 1e3
+                                           for k, v in acc.items()},
+            "region_calls_per_step": {k: v / steps
+                                      for k, v in calls.items()}}
 
 
 def decode_attention_ms(cfg, slot: bool) -> float:
@@ -1036,8 +1204,12 @@ def decode_paths(model, cfg, check: bool = True) -> list:
     from repro_torch.serve import ServeConfig
     n_l = cfg.n_layers
     rwkv = cfg.family == "ssm"
+    hybrid = cfg.family == "hybrid"
     if rwkv:
         paths = [("rwkv stateful", PF_B, 10 * n_l + 1, 10 * n_l + 1, n_l)]
+    elif hybrid:
+        paths = [("zamba2 stateful", PF_B, zamba2_gemms(cfg),
+                  zamba2_gemms(cfg, opaque=True), n_l)]
     else:
         paths = [("qwen slot", SLOTS, 4 * n_l + 1, 7 * n_l + 1, 0),
                  ("qwen padded", PF_B, 4 * n_l + 1, 7 * n_l + 1, 0)]
@@ -1078,7 +1250,10 @@ def decode_paths(model, cfg, check: bool = True) -> list:
                  (0, gemm_opaque, scan))):
             with tapir.use(scfg.tapir_config()):
                 sp = slot_params(model) if slot else None
-                line[tag] = decode_harness(stepper(fresh(), sp), want)
+                step = stepper(fresh(), sp)
+                line[tag] = decode_harness(step, want)
+                if tag == "region":
+                    line[tag].update(region_host_ms(step))
         if check and not rwkv:
             line["decode_attention_ms"] = decode_attention_ms(cfg, slot)
         if check:
@@ -1094,17 +1269,27 @@ def decode_paths(model, cfg, check: bool = True) -> list:
                 torch.equal(a, b)
                 for a, b in zip(logits["graphed"], logits["eager"]))
             rules = {k: sorted(v) for k, v in tapir.replay_rules().items()}
-            block = ("rwkv_stateful_block" if rwkv else "slot_dense_block"
-                     if slot else "dense_cached_block")
-            head = "rwkv_stateful_head" if rwkv else "slot_head"
+            block = ("rwkv_stateful_block" if rwkv else "mamba_stateful_block"
+                     if hybrid else "slot_dense_block" if slot
+                     else "dense_cached_block")
+            head = ("rwkv_stateful_head" if rwkv else "zamba_stateful_head"
+                    if hybrid else "slot_head")
             line["replay_rules"] = {block: rules.get(block),
                                     head: rules.get(head)}
-            line["expected_replays_per_step"] = n_l
+            expect = n_l
+            if hybrid:
+                # the shared block replays where the schedule finds it
+                # dispatch-bound, once per application
+                shared = "zamba_shared_cached_block"
+                line["replay_rules"][shared] = rules.get(shared)
+                if True in rules.get(shared, []):
+                    expect += model.n_groups
+            line["expected_replays_per_step"] = expect
             reg = line["region"]
             if not (line["graphed_eq_eager"]
                     and True in rules.get(block, [])
                     and reg["graph_captures_in_window"] == 0
-                    and reg["graph_replays_per_step"] == n_l
+                    and reg["graph_replays_per_step"] == expect
                     and line["per_op"]["graph_replays_per_step"] == 0):
                 raise SystemExit(f"decode steps: {line}")
         lines.append(line)
@@ -1740,116 +1925,180 @@ def rwkv_label(n: int, k: int, spec, cfg) -> str:
     return name + "".join(f"+{fn}" for fn, *_ in spec)
 
 
-def rwkv_forward_phase(model, cfg):
-    """``forward`` and ``loss`` of RWKV6-7B at full width on FWD_B x FWD_S
-    tokens: a first call, a timed call, the loss and one profiled forward,
-    each with the counts checked: one scan per layer, ten GEMMs per layer
-    (wr, wk, wv, wg, wA, wB, wo, wck, wcr, wcv: every one reads its own
-    input, so no fusion merges two) plus the head, no flash."""
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """The per-family parts of the phases that a stateful family (RWKV6,
+    Zamba2) shares: its forward, its guarantees and its padded-wave
+    serving.  ``tag`` names the phases (``{tag}_forward``, ...);
+    ``seeds``: the forward batch's and the prompts'; ``gemms(cfg,
+    opaque)``: GEMM launches of one forward, prefill or decode step;
+    ``flash(model)``: flash launches of one forward or prefill (decode
+    attends over the cache with the masked composite); ``cache_keys``:
+    the state written in place; ``variant``: the scan's form;
+    ``pf_rule``: how the prefill's last logits are held to the
+    forward's, ``("row", rtol)`` per row over its max |logit|, or
+    ``("close", tol)`` elementwise rtol = atol = tol."""
+    tag: str
+    seeds: tuple
+    gemms: object
+    flash: object
+    cache_keys: tuple
+    variant: str
+    pf_rule: tuple
+
+
+RWKV = Family(tag="rwkv", seeds=(5, 6),
+              gemms=lambda cfg, opaque=False: 10 * cfg.n_layers + 1,
+              flash=lambda model: 0,
+              cache_keys=("tm_shift", "cm_shift", "wkv"), variant="rwkv6",
+              pf_rule=("row", RW_PF_RTOL))
+
+
+def stateful_forward_phase(fam: Family, model, cfg):
+    """``forward`` and ``loss`` of a stateful family at full width on
+    FWD_B x FWD_S tokens: a first call, a timed call, the loss and one
+    profiled forward, each held to the launches the code implies (one
+    scan a layer, ``fam.gemms``, ``fam.flash``; RWKV6: wr, wk, wv, wg,
+    wA, wB, wo, wck, wcr, wcv each read their own input, so no fusion
+    merges two); every scan node bound to ``kernel`` in ``fam.variant``'s
+    form, every attention node to ``flash_kernel``, every matmul to
+    ``fused_kernel``; no library GEMM or attention kernel in the
+    profile."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import tapir
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.serve import ServeConfig
-    rng = np.random.default_rng(5)
+    tag = fam.tag
+    rng = np.random.default_rng(fam.seeds[0])
     batch = {name: torch.as_tensor(rng.integers(lo, cfg.vocab,
                                                 (FWD_B, FWD_S)),
                                    dtype=torch.int32, device="cuda")
              for name, lo in (("tokens", 1), ("labels", 0))}
-    n_l = cfg.n_layers
-    gemm = 10 * n_l + 1
+    n_l, n_fa, gemm = cfg.n_layers, fam.flash(model), fam.gemms(cfg)
     torch.cuda.reset_peak_memory_stats()
     with tapir.use(ServeConfig(target="gpu").tapir_config()):
-        _, cold_s, *_ = counted("rwkv forward (first call)",
-                                lambda: model.forward(batch), 0, gemm, n_l)
-        logits, wall_s, fm, _, ls = counted(
-            "rwkv forward", lambda: model.forward(batch), 0, gemm, n_l)
+        _, cold_s, *_ = counted(f"{tag} forward (first call)",
+                                lambda: model.forward(batch), n_fa, gemm,
+                                n_l)
+        logits, wall_s, fm, fa, ls = counted(
+            f"{tag} forward", lambda: model.forward(batch), n_fa, gemm, n_l)
         peak = torch.cuda.max_memory_allocated()
-        loss, loss_s, *_ = counted("rwkv loss", lambda: model.loss(batch),
-                                   0, gemm, n_l)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.forward(batch)
-            torch.cuda.synchronize()
-            prof_s = time.perf_counter() - t0
-    scan_impls = bound_impls("linear_scan", "tapir")
-    mm_impls = bound_impls("matmul", "tapir")
+        loss, loss_s, *_ = counted(f"{tag} loss", lambda: model.loss(batch),
+                                   n_fa, gemm, n_l)
+        # flash copies the layouts TMA cannot address (``tma_operand``);
+        # count the copies and their bytes
+        copies = []
+        tma_operand = fa_kernel.tma_operand
+
+        def spy(t):
+            out = tma_operand(t)
+            if out is not t:
+                copies.append(out.numel() * out.element_size())
+            return out
+
+        fa_kernel.tma_operand = spy
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.forward(batch)
+                torch.cuda.synchronize()
+                prof_s = time.perf_counter() - t0
+        finally:
+            fa_kernel.tma_operand = tma_operand
+    impls = {op: bound_impls(op, "tapir")
+             for op in ("linear_scan", "attention", "matmul")}
     finite = bool(torch.isfinite(logits).all()) and bool(
         torch.isfinite(loss))
     by_name = device_time_by_kernel(prof, 1)
     busy = sum(ms for ms, _ in by_name.values())
-    line = {"phase": "rwkv_forward", "batch": FWD_B, "seq": FWD_S,
-            "layers": n_l, "d_model": cfg.d_model,
-            "logits_shape": list(logits.shape), "finite": finite,
-            "loss": float(loss), "scan_impls": sorted(scan_impls),
-            "matmul_impls": sorted(mm_impls),
+
+    def ms_of(pat):
+        return sum(ms for k, (ms, _) in by_name.items() if re.search(pat, k))
+
+    line = {"phase": f"{tag}_forward", "batch": FWD_B, "seq": FWD_S,
+            "layers": n_l, "flash_per_forward": n_fa,
+            "d_model": cfg.d_model, "logits_shape": list(logits.shape),
+            "finite": finite, "loss": float(loss),
+            "impls": {k: sorted(v) for k, v in impls.items()},
             "scan_launches_per_forward": sum(ls.values()),
+            "flash_launches_per_forward": sum(fa.values()),
             "gemm_launches_per_forward": sum(fm.values()),
+            "scan_variants": sorted({k[6] for k in ls}),
             "first_call_s": cold_s, "wall_s": wall_s, "loss_wall_s": loss_s,
             "tok_per_s": FWD_B * FWD_S / wall_s,
             "peak_mem_gb": peak / 1e9,
             "profiled_wall_s": prof_s, "device_ms": busy,
             "device_busy_share": busy / (wall_s * 1e3),
-            "scan_device_ms": sum(ms for k, (ms, _) in by_name.items()
-                                  if "scan_bf16_kernel" in k
-                                  or "scan_f32_kernel" in k),
-            "gemm_device_ms": sum(ms for k, (ms, _) in by_name.items()
-                                  if "gemm" in k),
-            "top": top_kernels(by_name)}
-    if scan_impls != {"kernel"} or mm_impls != {"fused_kernel"}:
-        raise SystemExit(f"rwkv forward: impls {scan_impls}, {mm_impls}")
-    if not finite or tuple(logits.shape) != (FWD_B, FWD_S, cfg.vocab):
-        raise SystemExit(f"rwkv forward: {line}")
-    return line, batch, logits, fm, ls
+            "gemm_device_ms": ms_of(r"gemm_(bf16|f32)_kernel"),
+            "flash_device_ms": ms_of(r"flash_(bf16|f32)_kernel"),
+            "scan_device_ms": ms_of(r"scan_(bf16|f32)_kernel"),
+            "copy_device_ms": ms_of(r"(?i)memcpy|copy"),
+            "flash_operand_copies": len(copies),
+            "flash_operand_copy_bytes": sum(copies),
+            "library_kernels": library_kernels(by_name),
+            "top": top_kernels(by_name, 10)}
+    if (impls["linear_scan"] != {"kernel"}
+            or impls["attention"] != ({"flash_kernel"} if n_fa else set())
+            or impls["matmul"] != {"fused_kernel"}
+            or line["scan_variants"] != [fam.variant]):
+        raise SystemExit(f"{tag} forward: impls {line}")
+    if not finite or tuple(logits.shape) != (FWD_B, FWD_S, cfg.vocab) \
+            or line["library_kernels"]:
+        raise SystemExit(f"{tag} forward: {line}")
+    return line, batch, logits, fm, fa, ls
 
 
-def rwkv_guarantees(model, cfg, batch, logits):
-    """Region forward = per-op forward bitwise; the per-op control's
-    largest difference; the stateful prefill of PF_B x PF_S tokens then
-    PF_NEW greedy decode steps (one carried-state scan launch per layer
-    each), its state written in place, its last logits against the
-    forward's at position PF_S - 1."""
+def stateful_guarantees(fam: Family, model, cfg, batch, logits):
+    """Region forward = per-op forward bitwise; the opaque control's
+    largest difference; the stateful prefill of PF_B x PF_S tokens (max
+    PF_MAX) then PF_NEW greedy decode steps: a carried-state scan per
+    layer each, flash ``fam.flash`` times per prefill and never in a
+    decode step, every tensor of ``fam.cache_keys`` written in place, the
+    prefill's last logits against the forward's at position PF_S - 1 by
+    ``fam.pf_rule``."""
     import numpy as np
     import torch
     from repro_torch.core import tapir
     from repro_torch.serve import ServeConfig, make_decode_step, \
         make_prefill_step
-    n_l = cfg.n_layers
-    gemm = 10 * n_l + 1
+    tag = fam.tag
+    n_l, n_fa, gemm = cfg.n_layers, fam.flash(model), fam.gemms(cfg)
     torch.cuda.reset_peak_memory_stats()
     with tapir.use(ServeConfig(target="gpu", regions=False).tapir_config()):
         per_op, per_op_s, *_ = counted(
-            "rwkv forward per-op", lambda: model.forward(batch), 0, gemm, n_l)
+            f"{tag} forward per-op", lambda: model.forward(batch), n_fa,
+            gemm, n_l)
     bitwise = torch.equal(per_op, logits)
     del per_op
     with tapir.use(ServeConfig(target="gpu", mode="opaque").tapir_config()):
         opaque, opaque_s, *_ = counted(
-            "rwkv forward opaque", lambda: model.forward(batch), 0, gemm,
-            n_l)
+            f"{tag} forward opaque", lambda: model.forward(batch), n_fa,
+            fam.gemms(cfg, opaque=True), n_l)
     err = float((opaque.float() - logits.float()).abs().max())
     del opaque
     opaque_impls = bound_impls("linear_scan", "opaque")
 
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(fam.seeds[1])
     prompts = rng.integers(1, cfg.vocab, (PF_B, PF_S)).astype(np.int32)
     scfg = ServeConfig(target="gpu")
     prefill = make_prefill_step(model, cfg=scfg)
     decode = make_decode_step(model, cfg=scfg)
-    keys = ("tm_shift", "cm_shift", "wkv")
     walls = []
-    for tag in ("rwkv prefill (first call)", "rwkv prefill"):
+    for what in (f"{tag} prefill (first call)", f"{tag} prefill"):
         cache = model.init_cache(PF_B, PF_MAX)
-        ptrs = [cache[k].data_ptr() for k in keys]
-        (lg, cache), wall, fm_pf, _, ls_pf = counted(
-            tag, lambda: prefill(prompts, cache), 0, gemm, n_l)
+        ptrs = [cache[k].data_ptr() for k in fam.cache_keys]
+        (lg, cache), wall, fm_pf, fa_pf, ls_pf = counted(
+            what, lambda: prefill(prompts, cache), n_fa, gemm, n_l)
         walls.append(wall)
     tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
     fm_dec, ls_dec = collections.Counter(), collections.Counter()
     steps, out = [], []
     for i in range(PF_NEW):
         (nxt, cache), wall, fm, _, ls = counted(
-            f"rwkv decode step {i}", lambda: decode(tok, cache), 0, gemm,
+            f"{tag} decode step {i}", lambda: decode(tok, cache), 0, gemm,
             n_l)
         fm_dec += fm
         ls_dec += ls
@@ -1857,21 +2106,27 @@ def rwkv_guarantees(model, cfg, batch, logits):
         tok = nxt[:, None]
         out.append(nxt)
     toks = torch.stack(out, dim=1).cpu().numpy()
-    in_place = [cache[k].data_ptr() for k in keys] == ptrs
+    in_place = [cache[k].data_ptr() for k in fam.cache_keys] == ptrs
     with tapir.use(scfg.tapir_config()):
         full = model.forward({"tokens": torch.as_tensor(prompts,
                                                         device="cuda")})
     last = full[:, -1].float()
     diff = (lg.float() - last).abs()
     rel = float((diff.amax(-1) / last.abs().amax(-1)).max())
+    rule, tol = fam.pf_rule
+    within = (rel <= tol if rule == "row"
+              else bool((diff <= tol + tol * last.abs()).all()))
     steps.sort()
-    line = {"phase": "rwkv_guarantees", "region_eq_per_op": bitwise,
+    line = {"phase": f"{tag}_guarantees", "region_eq_per_op": bitwise,
             "per_op_wall_s": per_op_s, "opaque_max_abs_diff": err,
             "opaque_wall_s": opaque_s,
             "opaque_scan_impls": sorted(opaque_impls),
-            "batch": PF_B, "prompt": PF_S, "decode_steps": PF_NEW,
+            "batch": PF_B, "prompt": PF_S, "max_len": PF_MAX,
+            "decode_steps": PF_NEW,
             "gemm_launches_per_prefill": sum(fm_pf.values()),
             "gemm_launches_per_decode_step": sum(fm_dec.values()) // PF_NEW,
+            "flash_launches_per_prefill": sum(fa_pf.values()),
+            "flash_shapes_prefill": sorted(str(k) for k in fa_pf),
             "scan_launches_per_prefill": sum(ls_pf.values()),
             "scan_launches_per_decode_step": sum(ls_dec.values()) // PF_NEW,
             "scan_variants": sorted({k[6] for k in ls_pf + ls_dec}),
@@ -1881,39 +2136,42 @@ def rwkv_guarantees(model, cfg, batch, logits):
             "pos": int(cache["pos"]), "state_in_place": in_place,
             "prefill_vs_forward_max_abs_diff": float(diff.max()),
             "prefill_vs_forward_row_rel": rel,
-            "prefill_vs_forward_row_rtol": RW_PF_RTOL,
+            "prefill_vs_forward_bitwise": bool(torch.equal(lg, full[:, -1])),
+            "prefill_vs_forward_rule": [rule, tol],
             "prefill_vs_forward_same_argmax": bool(torch.equal(
                 torch.argmax(lg, -1), torch.argmax(full[:, -1], -1))),
             "finite": bool(torch.isfinite(lg).all()),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "sample_out": toks[0, :8].tolist()}
     if not (bitwise and opaque_impls == {"opaque"} and in_place
-            and line["finite"] and rel <= RW_PF_RTOL
-            and all("+state" in k[6] for k in ls_pf + ls_dec)
+            and line["finite"] and within
+            and all(k[6] == fam.variant + "+state" for k in ls_pf + ls_dec)
             and line["pos"] == PF_S + PF_NEW
             and ((toks >= 0) & (toks < cfg.vocab)).all()):
-        raise SystemExit(f"rwkv guarantees: {line}")
-    return line, fm_pf, fm_dec, ls_pf, ls_dec
+        raise SystemExit(f"{tag} guarantees: {line}")
+    return line, fm_pf, fm_dec, fa_pf, ls_pf, ls_dec
 
 
-def rwkv_serve(model, cfg):
+def stateful_serve(fam: Family, model, cfg):
     """``ServingEngine.run`` on a family without slots: the padded-wave
     loop, SLOTS rows, the serve phase's 6 requests (48-200 prompt tokens),
-    MAX_NEW new tokens each.  Every prefill and decode step runs 10 GEMMs
-    per layer plus the head and one carried-state scan per layer.  ``run``
-    equals ``run_wave`` token for token."""
+    MAX_NEW new tokens each.  Every prefill and decode step runs
+    ``fam.gemms`` GEMMs and one carried-state scan per layer, every
+    prefill flash ``fam.flash`` times.  ``run`` equals ``run_wave`` token
+    for token."""
     import numpy as np
     import torch
     from repro_torch.serve import Request, ServeConfig, ServingEngine
+    tag = fam.tag
     fm_ops, fa_ops, ls_ops = kernel_ops()
     eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
                         cfg=ServeConfig(target="gpu"), device="cuda")
     reqs = requests(cfg.vocab, seed=0)
-    per_call = 10 * cfg.n_layers + 1
+    per_call, n_fa = fam.gemms(cfg), fam.flash(model)
     waves = -(-len(reqs) // SLOTS)
     torch.cuda.reset_peak_memory_stats()
     runs, stats = {}, {}
-    fm, ls = collections.Counter(), collections.Counter()
+    fm, fa, ls = (collections.Counter() for _ in range(3))
     for name in ("run", "run_wave"):
         fresh = [Request(rid=r.rid, prompt=r.prompt.copy(),
                          max_new=r.max_new) for r in reqs]
@@ -1923,25 +2181,26 @@ def rwkv_serve(model, cfg):
         torch.cuda.synchronize()
         st = dict(eng.last_stats)
         calls = waves + st["decode_steps"]
-        want = (calls * per_call, 0, calls * cfg.n_layers)
+        want = (calls * per_call, waves * n_fa, calls * cfg.n_layers)
         if (fm_ops.launches, fa_ops.launches, ls_ops.launches) != want:
             raise SystemExit(
-                f"rwkv {name}: {fm_ops.launches} fused_matmul, "
+                f"{tag} {name}: {fm_ops.launches} fused_matmul, "
                 f"{fa_ops.launches} flash and {ls_ops.launches} scan "
-                f"launches (expected {want[0]}, 0 and {want[2]})")
+                f"launches (expected {want})")
         if not all(r.done and len(r.out) == MAX_NEW for r in out):
-            raise SystemExit(f"rwkv {name}: not every request finished")
+            raise SystemExit(f"{tag} {name}: not every request finished")
         for r in out:
             toks = np.asarray(r.out)
             if not ((toks >= 0) & (toks < cfg.vocab)).all():
-                raise SystemExit(f"rwkv {name}: request {r.rid} emitted "
+                raise SystemExit(f"{tag} {name}: request {r.rid} emitted "
                                  f"{r.out}")
         fm.update(fm_ops.launches_by_shape)
+        fa.update(fa_ops.launches_by_shape)
         ls.update(ls_ops.launches_by_shape)
         runs[name], stats[name] = out, st
     same = [r.out for r in runs["run"]] == [r.out for r in runs["run_wave"]]
     st = stats["run"]
-    line = {"phase": "rwkv_serve", "slots": SLOTS, "requests": len(reqs),
+    line = {"phase": f"{tag}_serve", "slots": SLOTS, "requests": len(reqs),
             "waves": waves, "tokens": st["tokens"],
             "decode_steps": st["decode_steps"], "wall_s": st["wall_s"],
             "tok_per_s": st["tok_per_s"],
@@ -1950,12 +2209,17 @@ def rwkv_serve(model, cfg):
             "ttft_p50_ms": st["ttft_p50"] * 1e3,
             "warm_ttft_p50_ms": stats["run_wave"]["ttft_p50"] * 1e3,
             "gemm_launches_per_call": per_call,
-            "scan_launches_per_call": cfg.n_layers, "run_eq_run_wave": same,
+            "scan_launches_per_call": cfg.n_layers,
+            "flash_launches_per_wave": n_fa,
+            "run_eq_run_wave": same,
+            "run_eq_run_wave_per_request": [
+                a.out == b.out for a, b in zip(runs["run"],
+                                               runs["run_wave"])],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "sample_out": runs["run"][0].out[:8]}
     if not same:
-        raise SystemExit(f"rwkv serve: {line}")
-    return line, fm, ls
+        raise SystemExit(f"{tag} serve: {line}")
+    return line, fm, fa, ls
 
 
 def scan_inputs(shape, dt, seed: int):
@@ -2008,6 +2272,19 @@ def scan_errors(q, k, v, w, u, s0=None) -> tuple:
     return float(diff.max()), rel, st_rel, finite
 
 
+def scan_case(label: str, dname: str, q, k, v, w, u, s0) -> tuple:
+    """``scan_errors`` on one case, held to LS_RTOL[dname] (the output's
+    rows and, with ``s0``, the carry's): (max abs err, row-relative err,
+    carry row-relative err or None); stops the run on a miss."""
+    err, rel, st_rel, finite = scan_errors(q, k, v, w, u, s0)
+    if not (finite and rel <= LS_RTOL[dname]
+            and (st_rel is None or st_rel <= LS_RTOL[dname])):
+        raise SystemExit(
+            f"{label} {dname}: max err {err}, row-relative {rel}, carry "
+            f"{st_rel} (<= {LS_RTOL[dname]}), finite {finite}")
+    return err, rel, st_rel
+
+
 def scan_vs_plain(path_shapes, smoke_shape, state_shapes) -> tuple:
     """``linear_scan`` against ``linear_scan_chunked`` at the same chunk
     (SAFE_CHUNK), in bf16 and fp32, both variants: the forward's path
@@ -2041,14 +2318,9 @@ def scan_vs_plain(path_shapes, smoke_shape, state_shapes) -> tuple:
                 gen = torch.Generator(device="cuda").manual_seed(i)
                 b, _, h, dk, dv, _ = shape
                 s0 = torch.randn(b, h, dk, dv, generator=gen, device="cuda")
-            err, rel, st_rel, finite = scan_errors(q, k, v, w, u, s0)
-            if not (finite and rel <= LS_RTOL[dname]
-                    and (st_rel is None or st_rel <= LS_RTOL[dname])):
-                raise SystemExit(
-                    f"scan vs plain: {shape} {variant} {dname}: max err "
-                    f"{err}, row-relative {rel}, carry {st_rel} (<= "
-                    f"{LS_RTOL[dname]}), finite {finite}")
-            out[(shape, variant, dname)] = (err, rel, st_rel)
+            out[(shape, variant, dname)] = scan_case(
+                f"scan vs plain: {shape} {variant}", dname, q, k, v, w, u,
+                s0)
             del q, k, v, w, u, s0
     return out, scan_state_checks()
 
@@ -2118,10 +2390,12 @@ def scan_state_checks() -> dict:
     return out
 
 
-def gemm_vs_plain(shapes, gen, name_of) -> dict:
+def gemm_vs_plain(shapes, gen, name_of, tied=frozenset()) -> dict:
     """``fused_matmul`` against ``fused_matmul_ref`` at every (m, n, k,
     x dtype, epilogue) of ``shapes`` in bf16 and fp32 (TOL); max err by
-    (m, n, k, epilogue, dtype).  ``name_of(shape)`` labels a miss."""
+    (m, n, k, epilogue, dtype).  ``name_of(shape)`` labels a miss; a
+    shape whose (n, k) is in ``tied`` takes w as a tied head does
+    (``make_inputs``)."""
     import torch
     from repro_torch.kernels.fused_matmul import ops, ref
     errs = {}
@@ -2129,7 +2403,8 @@ def gemm_vs_plain(shapes, gen, name_of) -> dict:
         m, n, k, _, spec = shape
         for dname, dt in (("bfloat16", torch.bfloat16),
                           ("float32", torch.float32)):
-            x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+            x, w, epi = make_inputs(m, n, k, spec, dt, gen,
+                                    tied=(n, k) in tied)
             y = ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt)
             want = ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt)
             err = float((y.float() - want.float()).abs().max())
@@ -2141,24 +2416,25 @@ def gemm_vs_plain(shapes, gen, name_of) -> dict:
     return errs
 
 
-def small_rwkv_parity() -> dict:
-    """RWKV6 SMOKE in fp32 on the same weights: the forward and the
-    stateful prefill + 4 decode steps on the card against the same code on
-    the CPU (the kernels' plain versions, which the CPU tests hold against
-    the JAX package).  Forward within 1e-4; the steps against the
-    full-sequence forward within 3e-3, the reference's serving tolerance."""
+def small_stateful_parity(arch: str, phase: str) -> dict:
+    """``arch``'s SMOKE config (RWKV6, Zamba2) in fp32 on the same weights:
+    the forward and the stateful prefill + 4 decode steps on the card
+    against the same code on the CPU (the kernels' plain versions, which
+    the CPU tests hold against the JAX package).  Forward within 1e-4; the
+    steps against the full-sequence forward within 3e-3, the reference's
+    serving tolerance."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke
     from repro_torch.core import tapir
     from repro_torch.models.base import get_model
     from repro_torch.serve import ServeConfig
-    cfg = dataclasses.replace(get_smoke("rwkv6_7b"), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     cpu = get_model(cfg, device="cpu",
                     generator=torch.Generator().manual_seed(0))
-    params = {"embed": cpu.embed.data, "ln_f": cpu.ln_f.data,
-              "lm_head": cpu.lm_head.data,
-              "blocks": {k: v.data for k, v in cpu.blocks.items()}}
+    params = {k: ({kk: vv.data for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.data)
+              for k, v in cpu.param_tree().items()}
     s, new = 24, 4
     toks = np.random.default_rng(7).integers(1, cfg.vocab, (2, s + new))
     toks = toks.astype(np.int32)
@@ -2180,7 +2456,7 @@ def small_rwkv_parity() -> dict:
                 outs.append(lg)
         res[dev] = (full.float().cpu(), [o.float().cpu() for o in outs])
     (f_cpu, o_cpu), (f_gpu, o_gpu) = res["cpu"], res["cuda"]
-    return {"phase": "small_rwkv_parity", "config": cfg.name,
+    return {"phase": phase, "config": cfg.name,
             "compute_dtype": cfg.compute_dtype,
             "forward_max_abs_err": float((f_cpu - f_gpu).abs().max()),
             "forward_tolerance": 1e-4,
@@ -2193,16 +2469,19 @@ def small_rwkv_parity() -> dict:
             "finite": bool(torch.isfinite(f_gpu).all())}
 
 
-def scan_bound(key) -> tuple:
+def scan_bound(key, shared_q: bool = False,
+               head_decay: bool = False) -> tuple:
     """(bound ms, what bounds it) of one scan launch: q/k/v/o in their
     dtype, w in fp32 and, for the carried-state variant, the fp32 carry in
     and out, each moved once, over the memory rate; the chunked FLOPs of
     ``scan_cost`` over the peak rate of the route (bf16: the tensor cores;
-    fp32: FMAs)."""
+    fp32: FMAs).  Mamba2's SSD needs less: ``shared_q``, one q row for all
+    heads (C); ``head_decay``, one decay a head (a scalar, not a row)."""
     from repro_torch.kernels.costs import scan_cost
     b, s, h, dk, dv, dname, variant, chunk = key
     eb = 2 if "bfloat16" in dname else 4
-    nbytes = eb * b * s * h * (2 * dk + 2 * dv) + 4 * b * s * h * dk
+    nbytes = (eb * b * s * ((1 if shared_q else h) * dk + h * (dk + 2 * dv))
+              + 4 * b * s * h * (1 if head_decay else dk))
     if variant.endswith("+state"):
         nbytes += 2 * 4 * b * h * dk * dv
     flops = scan_cost(b, s, h, dk, dv, eb, "kernel", chunk=chunk)["flops"]
@@ -2212,22 +2491,27 @@ def scan_bound(key) -> tuple:
                                        else "operations")
 
 
-def scan_entry(name: str, key, launches: int, plain: bool = True):
+def scan_entry(name: str, key, launches: int, plain: bool = True,
+               inputs=None, **bound_kw):
     """One scan entry of the kernels line at ``key`` (a launches_by_shape
-    key), on bf16 inputs as the paths run it: the kernel's device time and
+    key), on bf16 inputs as the paths run it (``scan_inputs``, or the
+    ``(q, k, v, w)`` of ``inputs``, GLA): the kernel's device time and
     its plain version's, each one launch timed alone with L2 flushed,
     median of 10, max |kernel - plain| of the output on the same inputs,
     and the roofline bound.  No single PyTorch call computes
     this function (no library op runs a gated linear-attention scan), so
     ``library_ms`` is None.  ``plain=False`` skips the plain version's
-    time."""
+    time; ``bound_kw`` goes to ``scan_bound``."""
     import torch
     from repro_torch.kernels.linear_scan import ops as ls_ops
     from repro_torch.kernels.linear_scan import ref as ls_ref
     b, s, h, dk, dv, _, variant, chunk = key
-    q, k, v, w, u = scan_inputs((b, s, h, dk, dv, "model"), torch.bfloat16,
-                                seed=1)
-    u = u if variant.startswith("rwkv6") else None
+    if inputs is None:
+        q, k, v, w, u = scan_inputs((b, s, h, dk, dv, "model"),
+                                    torch.bfloat16, seed=1)
+        u = u if variant.startswith("rwkv6") else None
+    else:
+        (q, k, v, w), u = inputs, None
     kw = {}
     if variant.endswith("+state"):
         gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2245,7 +2529,7 @@ def scan_entry(name: str, key, launches: int, plain: bool = True):
     del got, want
     ms = time_ms(fn)
     plain_ms = time_ms(ref_fn) if plain else None
-    bound, by = scan_bound(key)
+    bound, by = scan_bound(key, **bound_kw)
     return {"name": name, "route": "cuda", "source": LS_SOURCE,
             "replaces": LS_REPLACES, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2280,12 +2564,15 @@ def library_fn(x, w, epi, spec):
     return None
 
 
-def gemm_times(shapes, launches, errs, gen, name_of) -> list:
+def gemm_times(shapes, launches, errs, gen, name_of,
+               tied=frozenset()) -> list:
     """Per GEMM path shape, bf16: the kernel, its plain version and the
     library yardstick (``torch.matmul`` for a bare product, ``torch.addmm``
     for one added full operand, else none; never called by the port), each
     timed alone with L2 flushed, and the roofline bound: x, w, the output
-    and the epilogue operands moved once, 2mnk bf16 FLOPs."""
+    and the epilogue operands moved once, 2mnk bf16 FLOPs.  A shape whose
+    (n, k) is in ``tied`` takes w as a tied head does, ``embed.T``, which
+    the kernel reads K-major in place."""
     import torch
     from repro_torch.kernels.fused_matmul import kernel, ops, ref
     out = []
@@ -2293,7 +2580,8 @@ def gemm_times(shapes, launches, errs, gen, name_of) -> list:
         m, n, k, _, spec = shape
         dt = torch.bfloat16
         p = kernel.plan(n, k, dt)
-        x, w, epi = make_inputs(m, n, k, spec, dt, gen)
+        x, w, epi = make_inputs(m, n, k, spec, dt, gen,
+                                tied=(n, k) in tied)
         ms = time_ms(lambda: ops.fused_matmul(x, w, epilogue=epi,
                                               out_dtype=dt))
         plain = time_ms(lambda: ref.fused_matmul_ref(x, w, epilogue=epi,
@@ -2763,16 +3051,17 @@ def rwkv_phases() -> list:
     n_params = sum(p.numel() for p in model.parameters())
 
     # -- 11. forward and loss ----------------------------------------------
-    fwd, batch, logits, fm_fwd, ls_fwd = rwkv_forward_phase(model, cfg)
+    fwd, batch, logits, fm_fwd, _, ls_fwd = stateful_forward_phase(
+        RWKV, model, cfg)
     fwd.update(init_s=init_s, params=n_params)
     emit(fwd)
     # -- 12. guarantees: region = per-op, stateful prefill / decode ---------
-    gua, fm_pf, fm_dec, ls_pf, ls_dec = rwkv_guarantees(model, cfg, batch,
-                                                        logits)
+    gua, fm_pf, fm_dec, _, ls_pf, ls_dec = stateful_guarantees(
+        RWKV, model, cfg, batch, logits)
     emit(gua)
     del batch, logits
     # -- 13. padded-wave serving --------------------------------------------
-    srv, fm_srv, ls_srv = rwkv_serve(model, cfg)
+    srv, fm_srv, _, ls_srv = stateful_serve(RWKV, model, cfg)
     emit(srv)
     # -- 13b. the stateful decode step, graphed and per-op -----------------
     for line in decode_paths(model, cfg):
@@ -2823,7 +3112,7 @@ def rwkv_phases() -> list:
                               if k[-1] == "float32")})
 
     # -- 16. SMOKE on the card against the CPU ------------------------------
-    par = small_rwkv_parity()
+    par = small_stateful_parity("rwkv6_7b", "small_rwkv_parity")
     emit(par)
     if not (par["finite"]
             and par["forward_max_abs_err"] <= par["forward_tolerance"]
@@ -2857,6 +3146,357 @@ def rwkv_phases() -> list:
     tapir.clear_cache()
     torch.cuda.empty_cache()
     return gemm_entries + ls_entries + rwkv_train_phases(smoke)
+
+
+# -- Zamba2-7B -----------------------------------------------------------------
+
+#: the stateful prefill's last logits against the forward's at the same
+#: position: the CPU test's serving tolerance (rtol / atol; the two walk
+#: the same chunks of the same rows, so they come out bitwise unless a
+#: program rounds differently)
+Z_PF_TOL = 3e-3
+#: the GLA scan at Mamba2's decay bound, max |kernel - plain| over the
+#: output's max |plain| (a row-relative scale breaks down there: the
+#: factored chunk drops a row's diagonal term, so its magnitude scan may
+#: be 0): one bf16 rounding of the output, or fp32 sums in another order
+Z_BOUND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def zamba2_gemms(cfg, opaque: bool = False) -> int:
+    """GEMM launches of one forward, prefill or decode step: w_in and w_out
+    per Mamba2 layer; per shared application the fused QKV, wo, the fused
+    gate|up and wd (opaque: q, k, v, wo, wg, wu, wd apart); the tied head."""
+    from repro_torch.models.mamba import _n_groups
+    per_app = 7 if opaque else 4
+    return 2 * cfg.n_layers + per_app * _n_groups(cfg) + 1
+
+
+ZAMBA2 = Family(tag="zamba2", seeds=(8, 9), gemms=zamba2_gemms,
+                flash=lambda model: model.n_groups,
+                cache_keys=("conv", "ssm", "shared_k", "shared_v", "pos"),
+                variant="gla", pf_rule=("close", Z_PF_TOL))
+
+
+def zamba2_label(n: int, k: int, spec, cfg) -> str:
+    from repro_torch.models.mamba import _mamba_dims
+    d, ff = cfg.d_model, cfg.d_ff
+    din, H, _, N = _mamba_dims(cfg)
+    hd = cfg.hd
+    names = {(2 * din + 2 * N + H, d): "w_in", (d, din): "w_out",
+             ((cfg.n_heads + 2 * cfg.n_kv_heads) * hd, d): "shared qkv",
+             (d, cfg.n_heads * hd): "shared wo",
+             (2 * ff, d): "shared gate|up", (d, ff): "shared wd",
+             (cfg.vocab, d): "tied head"}
+    name = names.get((n, k), f"n{n}_k{k}")
+    return name + "".join(f"+{fn}" for fn, *_ in spec)
+
+
+def zamba2_scan_inputs(shape, dt, seed: int, decay: str = "model"):
+    """The GLA scan's operands as ``_ssd_gates`` gives them to the scan:
+    q = C in ``dt``, a stride-0 view over the heads (read in place), k =
+    dt B, v the x heads, w = a, an fp32 stride-0 view over the state dim
+    (the wrapper copies it), a = exp(-exp(A_log) softplus(dt)).  decay
+    ``model``: A_log = 0 (the init) and dt ~ N(0, 6.6^2), the spread the
+    81-layer init gives at d_model 3584; ``bound``: A_log = 4, the clip's
+    end, and softplus(dt) uniform in 0.1-1 (log a down to -54.6 a step)."""
+    import torch
+    import torch.nn.functional as F
+    b, s, h, dk, dv = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.randn(b, s, dk, generator=gen, device="cuda").to(dt)
+    q = c[:, :, None].expand(b, s, h, dk)
+    k = torch.randn(b, s, h, dk, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, s, h, dv, generator=gen, device="cuda").to(dt)
+    if decay == "bound":
+        sp = 0.1 + 0.9 * torch.rand(b, s, h, generator=gen, device="cuda")
+        la = 4.0
+    else:
+        sp = F.softplus(6.6 * torch.randn(b, s, h, generator=gen,
+                                          device="cuda"))
+        la = 0.0
+    w = torch.exp(-math.exp(la) * sp)[..., None].expand(b, s, h, dk)
+    return q, k, v, w
+
+
+#: the decays ``zamba2_scan_inputs`` draws, as the kernels line names them
+Z_DECAYS = {"model": "A_log = 0, dt ~ N(0, 6.6^2) (the init)",
+            "bound": "A_log = 4, softplus(dt) in 0.1-1"}
+
+
+def zamba2_scan_vs_plain(path_keys) -> tuple:
+    """The GLA scan against ``linear_scan_chunked`` at SAFE_CHUNK, bf16 and
+    fp32, on ``zamba2_scan_inputs``: at every path shape (``scan_case``;
+    the carried-state ones with a random carry in and the carry out), and
+    at the forward's shape under both decays of Z_DECAYS (Z_BOUND_TOL of
+    the output's largest), where both are also held against the
+    sequential oracle ``linear_scan_ref`` (reported, not gated: the
+    factored form's own error, shared with the reference; beside it the
+    share of rows off the oracle by more than LS_RTOL of its largest
+    output); then a carried-state call split on a chunk boundary against
+    one call (bitwise, or the run fails).  Returns ({case: errors},
+    {decay: {dtype: oracle line}}, the split check)."""
+    import torch
+    from repro_torch.kernels.costs import SAFE_CHUNK
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    out = {}
+    shapes = sorted({(k[0], k[1], k[2], k[3], k[4], "+state" in k[6])
+                     for k in path_keys})
+    for i, (b, s, h, dk, dv, st) in enumerate(shapes):
+        label = f"{b}/{s}/{h}/{dk}/{dv}{'+state' if st else ''}"
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            q, k, v, w = zamba2_scan_inputs((b, s, h, dk, dv), dt, 40 + i)
+            s0 = None
+            if st:
+                gen = torch.Generator(device="cuda").manual_seed(i)
+                s0 = torch.randn(b, h, dk, dv, generator=gen, device="cuda")
+            out[f"{label}/{dname}"] = scan_case(
+                f"zamba2 scan vs plain: {label}", dname, q, k, v, w, None,
+                s0)
+            del q, k, v, w, s0
+    oracle = {}
+    for decay in Z_DECAYS:
+        oracle[decay] = {}
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            q, k, v, w = zamba2_scan_inputs((FWD_B, FWD_S, 112, 64, 64), dt,
+                                            7, decay=decay)
+            got = ls_ops.linear_scan(q, k, v, w, chunk=SAFE_CHUNK).float()
+            want = ls_ref.linear_scan_chunked(q, k, v, w,
+                                              chunk=SAFE_CHUNK).float()
+            exact = ls_ref.linear_scan_ref(q, k, v, w).float()
+            top, o_top = float(want.abs().max()), float(exact.abs().max())
+            off = (got - exact).abs().amax(-1)
+            row = {"kernel_vs_plain_max_abs_err": float(
+                       (got - want).abs().max()),
+                   "plain_max_abs": top,
+                   "kernel_vs_oracle_max_abs_err": float(off.max()),
+                   "plain_vs_oracle_max_abs_err": float(
+                       (want - exact).abs().max()),
+                   "oracle_max_abs": o_top,
+                   "rows_past_tolerance_share": float(
+                       (off > LS_RTOL[dname] * o_top).float().mean()),
+                   "finite": bool(got.isfinite().all())}
+            row["kernel_vs_plain_rel"] = (
+                row["kernel_vs_plain_max_abs_err"] / top)
+            row["kernel_vs_oracle_rel"] = (
+                row["kernel_vs_oracle_max_abs_err"] / o_top)
+            if not (row["finite"]
+                    and row["kernel_vs_plain_rel"] <= Z_BOUND_TOL[dname]):
+                raise SystemExit(f"zamba2 scan at the {decay} decay "
+                                 f"{dname}: {row}")
+            oracle[decay][dname] = row
+            del q, k, v, w, got, want, exact, off
+    split = {}
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        q, k, v, w = zamba2_scan_inputs((PF_B, PF_S + PF_NEW, 112, 64, 64),
+                                        dt, 9)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        s0 = torch.randn(PF_B, 112, 64, 64, generator=gen, device="cuda")
+        whole, st = ls_ops.linear_scan(q, k, v, w, init_state=s0,
+                                       return_state=True)
+        cut = PF_S // 2                        # a multiple of SAFE_CHUNK
+        o1, st1 = ls_ops.linear_scan(q[:, :cut], k[:, :cut], v[:, :cut],
+                                     w[:, :cut], init_state=s0,
+                                     return_state=True)
+        o2, st2 = ls_ops.linear_scan(q[:, cut:], k[:, cut:], v[:, cut:],
+                                     w[:, cut:], init_state=st1,
+                                     return_state=True)
+        split[dname] = bool(torch.equal(torch.cat([o1, o2], 1), whole)
+                            and torch.equal(st2, st))
+        if not split[dname]:
+            raise SystemExit(f"zamba2 scan split on a chunk boundary "
+                             f"{dname}: not one call's bits")
+        del q, k, v, w, s0, whole, st, o1, o2, st1, st2
+    return out, oracle, split
+
+
+def zamba2_scan_entry(name: str, key, launches: int, decay: str = "model",
+                      oracle_row=None, plain: bool = True):
+    """``scan_entry`` at ``key`` on bf16 ``zamba2_scan_inputs`` (``ms``:
+    the wrapper as the path calls it, w's copy included), with the bound
+    of what the function needs (``scan_bound``: C once, not once a head;
+    the decay once a head, not once a state column); beside it the
+    kernel's time on a w already contiguous and the wrapper's copy of w
+    timed alone, with its own bound (``w_copy``).  ``oracle_row`` adds
+    the errors against the sequential oracle at ``decay``."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    b, s, h, dk, dv = key[:5]
+    q, k, v, w = zamba2_scan_inputs((b, s, h, dk, dv), torch.bfloat16, 1,
+                                    decay=decay)
+    entry = scan_entry(name, key, launches, plain=plain,
+                       inputs=(q, k, v, w), shared_q=True, head_decay=True)
+    kw = {}
+    if key[6].endswith("+state"):
+        kw = {"init_state": torch.zeros(b, h, dk, dv, device="cuda"),
+              "return_state": True}
+    wc = w.contiguous()
+    nbytes = 4 * b * s * h * (1 + dk)          # a read once, w written
+    entry.update(
+        decay=Z_DECAYS[decay],
+        ms_w_contiguous=time_ms(lambda: ls_ops.linear_scan(q, k, v, wc,
+                                                           **kw)),
+        w_copy={"ms": time_ms(lambda: w.contiguous()), "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BW * 1e3})
+    if oracle_row is not None:
+        entry.update(oracle_max_abs_err=oracle_row[
+                         "kernel_vs_oracle_max_abs_err"],
+                     plain_oracle_max_abs_err=oracle_row[
+                         "plain_vs_oracle_max_abs_err"],
+                     oracle_max_abs=oracle_row["oracle_max_abs"],
+                     oracle_rows_past_tolerance_share=oracle_row[
+                         "rows_past_tolerance_share"])
+    del q, k, v, w, wc
+    return entry
+
+
+def zamba2_phases() -> list:
+    """Phases 20-27 on Zamba2-7B at full width and depth (81 layers, the
+    shared block 13 times, random weights from seed 0); returns their
+    entries of the kernels line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    cfg = get_config("zamba2_7b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # -- 20. forward and loss ----------------------------------------------
+    fwd, batch, logits, fm_fwd, fa_fwd, ls_fwd = stateful_forward_phase(
+        ZAMBA2, model, cfg)
+    fwd.update(init_s=init_s, params=n_params,
+               n_params_formula=cfg.n_params(),
+               shared_applications=model.n_groups)
+    emit(fwd)
+    # -- 21. guarantees: region = per-op, stateful prefill / decode ---------
+    gua, fm_pf, fm_dec, fa_pf, ls_pf, ls_dec = stateful_guarantees(
+        ZAMBA2, model, cfg, batch, logits)
+    emit(gua)
+    del batch, logits
+    # -- 22. padded-wave serving --------------------------------------------
+    srv, fm_srv, fa_srv, ls_srv = stateful_serve(ZAMBA2, model, cfg)
+    emit(srv)
+    # -- 23. the stateful decode step, graphed and per-op -----------------
+    for line in decode_paths(model, cfg):
+        emit(line)
+
+    # -- 24. the GEMM at every Zamba2 path shape ----------------------------
+    # a shape is named by the first path that launched it: decode before
+    # prefill, so the head at m = PF_B (both run it) is timed as decode's
+    launches, phase_of = collections.Counter(), {}
+    for tag, cnt in (("forward", fm_fwd), ("decode", fm_dec),
+                     ("prefill", fm_pf), ("serve", fm_srv)):
+        launches.update(cnt)
+        for s_ in cnt:
+            phase_of.setdefault(s_, tag)
+    shapes = sorted(launches, key=lambda s_: (s_[0], s_[1], s_[2]))
+    tied = frozenset({(cfg.vocab, cfg.d_model)})
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def name_of(s_):
+        return (f"fused_matmul[zamba2 {phase_of[s_]} "
+                f"{zamba2_label(s_[1], s_[2], s_[4], cfg)} "
+                f"m={s_[0]} n={s_[1]} k={s_[2]}]")
+
+    gemm_errs = gemm_vs_plain(shapes, gen, name_of, tied=tied)
+    emit({"phase": "zamba2_gemm_vs_plain", "shapes": len(shapes),
+          "tolerance": TOL,
+          "max_err_bf16": max(v for k, v in gemm_errs.items()
+                              if k[-1] == "bfloat16"),
+          "max_err_fp32": max(v for k, v in gemm_errs.items()
+                              if k[-1] == "float32")})
+
+    # -- 25. flash at head dim 112, the GLA scan ---------------------------
+    # launches_by_shape keys carry the dtype at 6: a path shape drops it
+    fa_paths = [(ph, s_[:6] + (s_[7],), n)
+                for ph, cnt in (("forward", fa_fwd), ("prefill", fa_pf))
+                for s_, n in cnt.items()]
+    fa_shapes = sorted({s_[:6] + (s_[7],) for s_ in list(fa_fwd)
+                        + list(fa_pf) + list(fa_srv)})
+    fa_errs, fa_rels = flash_vs_plain(fa_shapes, extra=())
+    ls_errs, ls_oracle, ls_split = zamba2_scan_vs_plain(
+        list(ls_fwd) + list(ls_pf) + list(ls_dec) + list(ls_srv))
+    emit({"phase": "zamba2_kernels_vs_plain",
+          "flash_max_abs_err": {f"{k[0]}/{k[1]}": e
+                                for k, e in fa_errs.items()},
+          "flash_row_relative_err": {f"{k[0]}/{k[1]}": e
+                                     for k, e in fa_rels.items()},
+          "flash_tolerance": FA_TOL, "flash_row_tolerance": FA_RTOL,
+          "scan_cases": ls_errs, "scan_row_relative_tolerance": LS_RTOL,
+          "scan_vs_oracle": ls_oracle,
+          "scan_vs_oracle_decays": Z_DECAYS,
+          "scan_kernel_vs_plain_tolerance": Z_BOUND_TOL,
+          "scan_oracle_row_tolerance": LS_RTOL,
+          "scan_chunk_split_bitwise": ls_split})
+
+    # -- 26. SMOKE on the card against the CPU ------------------------------
+    par = small_stateful_parity("zamba2_7b", "small_zamba2_parity")
+    emit(par)
+    if not (par["finite"]
+            and par["forward_max_abs_err"] <= par["forward_tolerance"]
+            and par["serve_vs_forward_max_abs_err"] <= par["serve_tolerance"]):
+        raise SystemExit(f"small zamba2 parity: {par}")
+
+    # -- 27. times at the path shapes ----------------------------------------
+    n_groups = model.n_groups
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    timed = [s_ for s_ in shapes if phase_of[s_] in ("forward", "decode")]
+    gemm_entries = gemm_times(timed, launches, gemm_errs, gen, name_of,
+                              tied=tied)
+    fa_entries = flash_times(fa_paths)
+    ls_entries = []
+    for phase, counts in (("forward", ls_fwd), ("prefill", ls_pf),
+                          ("decode", ls_dec), ("serve", ls_srv)):
+        for key, n in sorted(counts.items()):
+            b, s, h, dk, dv, _, variant, chunk = key
+            ls_entries.append(zamba2_scan_entry(
+                f"linear_scan[zamba2 {phase} B={b} S={s} H={h} Dk={dk} "
+                f"Dv={dv} {variant} chunk={chunk}]", key, n,
+                oracle_row=(ls_oracle["model"]["bfloat16"]
+                            if phase == "forward" else None)))
+    key = (FWD_B, FWD_S, 112, 64, 64, "torch.bfloat16", "gla", 16)
+    ls_entries.append(zamba2_scan_entry(
+        f"linear_scan[zamba2 decay bound B={FWD_B} S={FWD_S} H=112 Dk=64 "
+        f"Dv=64 gla chunk=16]", key, 0, decay="bound",
+        oracle_row=ls_oracle["bound"]["bfloat16"]))
+    emit({"phase": "zamba2_scan_w_copy",
+          "what": "the scan wrapper's copy of the stride-0 w (an fp32 "
+                  "decay a head, broadcast over the state dim) to a "
+                  "contiguous [B, S, H, Dk]; inside each entry's ms",
+          "copies": {e["name"]: e["w_copy"] for e in ls_entries}})
+    fwd_gemm = [e for e in gemm_entries if "zamba2 forward" in e["name"]]
+    emit({"phase": "zamba2_times",
+          "forward_gemm_ms": sum(e["ms"] * e["launches"] for e in fwd_gemm),
+          "forward_gemm_bound_ms": sum(e["bound_ms"] * e["launches"]
+                                       for e in fwd_gemm),
+          "forward_gemm_tflops": forward_tflops(fwd_gemm),
+          "forward_flash_ms": sum(e["ms"] * e["launches"]
+                                  for e in fa_entries
+                                  if "[forward " in e["name"]),
+          "forward_scan_ms": sum(e["ms"] * e["launches"] for e in ls_entries
+                                 if "zamba2 forward" in e["name"]),
+          "forward_scan_w_copy_ms": sum(
+              e["w_copy"]["ms"] * e["launches"] for e in ls_entries
+              if "zamba2 forward" in e["name"]),
+          "forward_scan_bound_ms": sum(
+              e["bound_ms"] * e["launches"] for e in ls_entries
+              if "zamba2 forward" in e["name"]),
+          "shared_applications": n_groups,
+          "gemm_tflops": gemm_tflops(gemm_entries)})
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return gemm_entries + fa_entries + ls_entries
 
 
 def qwen_phases() -> list:
@@ -4182,7 +4822,11 @@ def scan_times_again(out_path: str) -> int:
     for e in entries:
         if "shape" not in e:
             continue
-        if e["name"].startswith("linear_scan["):
+        if e["name"].startswith("linear_scan[zamba2 "):
+            emit(zamba2_scan_entry(
+                e["name"], tuple(e["shape"]), e["launches"], plain=False,
+                decay="bound" if "decay bound" in e["name"] else "model"))
+        elif e["name"].startswith("linear_scan["):
             emit(scan_entry(e["name"], tuple(e["shape"]), e["launches"],
                             plain=False))
         elif e["name"].startswith("linear_scan_bwd["):
@@ -4346,6 +4990,10 @@ def main() -> int:
     ap.add_argument("--fig3-times", action="store_true",
                     help="run the fig3 phase (the paper nets' steps, "
                          "device time, ratios) alone, and stop")
+    ap.add_argument("--profile-windows", metavar="N", type=int,
+                    help="profile N decode-shaped windows with and without "
+                         "idle padding at their ends, count the kernels "
+                         "each keeps, and stop")
     ap.add_argument("--capture-depths", metavar="N,N,...",
                     help="the captured step of qwen2.5-3b at full width at "
                          "each depth: peak memory or OOM, and stop")
@@ -4367,6 +5015,8 @@ def main() -> int:
         return 2
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
+    if args.profile_windows:
+        return profile_window_probe(args.profile_windows)
     if args.capture_depths:
         return capture_depths([int(v) for v in
                                args.capture_depths.split(",")])
@@ -4502,6 +5152,13 @@ def main() -> int:
     entries += rwkv_phases()
     tapir.clear_cache()
     torch.cuda.empty_cache()
+
+    # -- 20-27. Zamba2-7B --------------------------------------------------
+    t0 = time.perf_counter()
+    entries += zamba2_phases()
+    emit({"phase": "zamba2_done", "zamba2_s": time.perf_counter() - t0,
+          "elapsed_s": time.perf_counter() - t_start,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
 
     # -- 18-19. the paper's four networks, fp32 ------------------------------
     t0 = time.perf_counter()

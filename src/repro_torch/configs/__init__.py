@@ -1,11 +1,12 @@
-"""Architecture registry of the port (the dense and ssm families so far)."""
+"""Architecture registry of the port (the dense, ssm and hybrid families
+so far)."""
 from __future__ import annotations
 
 import importlib
 
 from ..models.base import ModelConfig
 
-ARCH_IDS = ["qwen2_5_3b", "rwkv6_7b"]
+ARCH_IDS = ["qwen2_5_3b", "rwkv6_7b", "zamba2_7b"]
 
 
 def get_config(arch_id: str) -> ModelConfig:

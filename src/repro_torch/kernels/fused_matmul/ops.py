@@ -6,7 +6,11 @@ chain the kernel takes and its operand tensors (``_classify``), and then:
 
 * a CPU tensor runs the plain version (``ref.fused_matmul_ref``);
 * a CUDA tensor launches the hand-written kernel, or raises.  There is no
-  fallback: a launch that fails is an error.
+  fallback: a launch that fails is an error.  A ``w`` that is the
+  transpose of a contiguous ``[n, k]`` tensor (a tied head's
+  ``embed.T``) is read in place as the kernel's K-major B operand, the
+  dX route's layout, with the same plan and the same sums as its
+  contiguous copy would take; any other strided ``w`` is copied.
 
 ``launches`` counts kernel launches (incremented where the kernel launches
 and nowhere else); ``launches_by_shape`` splits it by ``(m, n, k, x dtype,
@@ -136,19 +140,34 @@ def _fused_matmul(x, w, epilogue, out_dt):
             raise ValueError(f"fused_matmul: epilogue operand {op.dtype}@"
                              f"{op.device} not supported")
     x2 = x.reshape(m, k).contiguous()
-    w2 = w.contiguous()
+    w2, tb = weight_operand(w)
     kk = k
     if x.dtype == torch.bfloat16:   # TMA rows: copies where (n, k) need it
-        x2, w2, kk = kernel.tma_operands(x2, w2)
+        if tb:
+            x2, w2 = kernel.pad_cols(x2), kernel.pad_cols(w2)
+        else:
+            x2, w2, kk = kernel.tma_operands(x2, w2)
     y = torch.empty((m, n), dtype=out_dt, device=x.device)
     global launches
     if m > 0 and n > 0:
         p = kernel.plan(n, kk, x.dtype)
-        kernel.launch(x2, w2, y, m, n, kk, p, spec, operands,
+        kernel.launch(x2, w2, y, m, n, kk, p, spec, operands, tb=tb,
                       ws=kernel.workspace(m, n, p, x.device))
         launches += 1
         launches_by_shape[(m, n, k, str(x.dtype), spec)] += 1
     return y.reshape(*lead, n)
+
+
+def weight_operand(w):
+    """``(b, tb)``: the buffer the kernel reads for ``w [k, n]`` and
+    whether it is stored ``[n, k]`` (the K-major B operand, the dX route's
+    layout).  ``w = v.T`` of a contiguous ``v [n, k]`` (a tied head's
+    ``embed.T``) gives ``(v, True)``: read in place, where a copy would
+    move all of ``w`` on every call; any other ``w`` its contiguous
+    self."""
+    if w.shape[0] > 0 and not w.is_contiguous() and w.T.is_contiguous():
+        return w.T, True
+    return w.contiguous(), False
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,11 @@ class ModelConfig:
     gated_mlp: bool = True
     tie_embeddings: bool = False
     max_seq: int = 8192
+    # --- ssm / hybrid ---
+    ssm_state: int = 64
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    shared_attn_every: int = 0     # zamba2: shared block period
     # params live in param_dtype; the slot path computes in compute_dtype
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -69,14 +74,22 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def n_params(self) -> float:
-        """Approximate parameter count (dense family)."""
+        """Approximate parameter count (dense and hybrid families), the
+        reference's formula: its hybrid branch counts ``2 * n_heads *
+        ssm_state`` where ``w_in`` holds ``2 * ssm_state`` columns, so a
+        rate over the real tree counts the tree's own leaves."""
         d, L, ff, V = self.d_model, self.n_layers, self.d_ff, self.vocab
         hd = self.hd
         attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads \
             + hd * self.n_heads * d
         mlp = (3 if self.gated_mlp else 2) * d * ff
         emb = V * d * (1 if self.tie_embeddings else 2)
-        return L * (attn + mlp) + emb
+        body = L * (attn + mlp)
+        if self.family == "hybrid":
+            din = self.ssm_expand * d
+            mamba = d * (2 * din + 2 * self.n_heads * self.ssm_state) + din * d
+            body = L * mamba + (attn + mlp)  # one shared block
+        return body + emb
 
 
 @dataclass(frozen=True)
@@ -105,6 +118,22 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
     return x.mul_(std).to(dt)
 
 
+def keep_in_place(slabs, new, regions: bool, where: str) -> None:
+    """A stateful region's new state goes to its own slabs (a cache's K/V,
+    an SSM carry): under region capture the program wrote the donated
+    slabs in place and returned them, and a copy would cost a slab clone
+    a call (and a CUDA graph its stable addresses), so it raises; the
+    per-op write is functional, so its value is copied into the slab."""
+    for slab, val in zip(slabs, new):
+        if regions:
+            if val is not slab:
+                raise RuntimeError(f"{where}: the region returned a copy of "
+                                   f"its state slab instead of writing it "
+                                   f"in place")
+        else:
+            slab.copy_(val)
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``cuda`` (the default of every
     entry point) raises when no card is present: the port never runs on
@@ -125,7 +154,9 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 class BaseModel(nn.Module):
     """The train/serve entry points every family implements, and the
     weights they share: ``embed``, ``blocks`` (stacked ``[L, ...]``),
-    ``ln_f`` and ``lm_head`` under the reference tree's names."""
+    ``ln_f``, ``lm_head`` and ``shared`` (a block's un-stacked weights,
+    where the family applies one block at several depths) under the
+    reference tree's names."""
 
     cfg: "ModelConfig"
 
@@ -149,16 +180,27 @@ class BaseModel(nn.Module):
             if "lm_head" in specs:
                 params["lm_head"] = materialize(specs["lm_head"], generator,
                                                 dev)
-        for k, s in specs["blocks"].items():
-            got = tuple(params["blocks"][k].shape)
-            if got != s.shape:
-                raise ValueError(f"blocks.{k}: expected {s.shape}, got {got}")
+            if "shared" in specs:
+                params["shared"] = {
+                    k: materialize(specs["shared"][k], generator, dev)
+                    for k in sorted(specs["shared"])}
+        for sub in ("blocks", "shared"):
+            for k, s in specs.get(sub, {}).items():
+                got = tuple(params[sub][k].shape)
+                if got != s.shape:
+                    raise ValueError(f"{sub}.{k}: expected {s.shape}, got "
+                                     f"{got}")
         self.embed = _frozen(params["embed"].to(dev))
         self.blocks = nn.ParameterDict(
             {k: _frozen(v.to(dev)) for k, v in params["blocks"].items()})
         self.ln_f = _frozen(params["ln_f"].to(dev))
         self.lm_head = _frozen(params["lm_head"].to(dev)) \
             if "lm_head" in params else None
+        # the un-stacked sub-tree of a block applied at several depths
+        # (Zamba2's shared attention + MLP block); None elsewhere
+        self.shared = nn.ParameterDict(
+            {k: _frozen(v.to(dev)) for k, v in params["shared"].items()}) \
+            if "shared" in specs else None
         self._compute = None
 
     @property
@@ -167,12 +209,15 @@ class BaseModel(nn.Module):
 
     def param_tree(self) -> dict:
         """The parameters as the reference's tree (``embed``, ``blocks``,
-        ``ln_f``, ``lm_head`` when untied): the model's own tensors, so an
-        update of a leaf in place updates the model."""
+        ``ln_f``, ``lm_head`` when untied, ``shared`` where the family has
+        it): the model's own tensors, so an update of a leaf in place
+        updates the model."""
         tree = {"embed": self.embed, "blocks": dict(self.blocks),
                 "ln_f": self.ln_f}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
+        if self.shared is not None:
+            tree["shared"] = dict(self.shared)
         return tree
 
     @contextlib.contextmanager
@@ -214,16 +259,22 @@ class BaseModel(nn.Module):
         ``embed`` stays in the param dtype (``embed_lookup`` casts the rows
         it reads)."""
         w = self.lm_head if self.lm_head is not None else self.embed
+        shared = dict(self.shared) if self.shared is not None else {}
         stamp = tuple((t._version, t.data_ptr())
-                      for t in (*self.blocks.values(), self.ln_f, w))
+                      for t in (*self.blocks.values(), *shared.values(),
+                                self.ln_f, w))
         if self._compute is None or self._compute[0] != stamp:
             cdt = to_torch_dtype(self.cfg.compute_dtype)
+            # a tied head is ``embed.T`` cast with its strides kept: the
+            # GEMM reads it K-major in place (``fused_matmul``'s tb route)
             w = self.lm_head if self.lm_head is not None else self.embed.T
-            self._compute = stamp, {
-                "layers": [{k: v[i].to(cdt) for k, v in self.blocks.items()}
-                           for i in range(self.cfg.n_layers)],
-                "head": {"ln_f": self.ln_f.data, "w": w.data.to(cdt)},
-                "embed": self.embed.data}
+            cp = {"layers": [{k: v[i].to(cdt) for k, v in self.blocks.items()}
+                             for i in range(self.cfg.n_layers)],
+                  "head": {"ln_f": self.ln_f.data, "w": w.data.to(cdt)},
+                  "embed": self.embed.data}
+            if self.shared is not None:
+                cp["shared"] = {k: v.data.to(cdt) for k, v in shared.items()}
+            self._compute = stamp, cp
         return self._compute[1]
 
     def forward(self, batch: dict, params: Optional[dict] = None):
@@ -266,7 +317,8 @@ def register_family(name: str):
 def get_model(cfg: ModelConfig, **kwargs):
     """Build the registered family's model (``kwargs``: device, params,
     generator)."""
-    from . import rwkv, transformer  # noqa: F401  (register "ssm", "dense")
+    # register "ssm", "dense" and "hybrid"
+    from . import mamba, rwkv, transformer  # noqa: F401
     if cfg.family not in _REGISTRY:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return _REGISTRY[cfg.family](cfg, **kwargs)

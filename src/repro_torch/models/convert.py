@@ -1,8 +1,9 @@
 """Weights carried across from the JAX package: its parameter tree, as
-numpy arrays, becomes the config's family (``DenseLM``, ``RWKV6``) on
-``device``.  bf16 leaves arrive as float32 (exact) and are stored in the
-config's ``param_dtype``.  ``paper_params_from_numpy`` does the same for
-the paper's four networks, whose parameters are a plain tree."""
+numpy arrays, becomes the config's family (``DenseLM``, ``RWKV6``,
+``Zamba2``) on ``device``.  bf16 leaves arrive as float32 (exact) and are
+stored in the config's ``param_dtype``.  ``paper_params_from_numpy`` does
+the same for the paper's four networks, whose parameters are a plain
+tree."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,15 +16,19 @@ from .base import BaseModel, ModelConfig, get_model, resolve_device
 def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device="cuda") -> BaseModel:
     """``tree``: ``{"embed", "blocks": {...}, "ln_f", "lm_head"}`` of numpy
-    arrays (the reference's ``init_params`` output, leaf by leaf)."""
+    arrays (the reference's ``init_params`` output, leaf by leaf); a tied
+    family has no ``lm_head``, and Zamba2's tree also holds ``shared``,
+    its shared block's un-stacked leaves.  A sub-tree (``blocks``,
+    ``shared``) is a flat dict of leaves."""
     dev = resolve_device(device)
     pdt = to_torch_dtype(cfg.param_dtype)
 
     def conv(a):
         return torch.from_numpy(np.array(a, np.float32)).to(pdt).to(dev)
 
-    params = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    params["blocks"] = {k: conv(v) for k, v in tree["blocks"].items()}
+    params = {k: ({kk: conv(vv) for kk, vv in v.items()}
+                  if isinstance(v, dict) else conv(v))
+              for k, v in tree.items()}
     return get_model(cfg, device=dev, params=params)
 
 

@@ -1,5 +1,6 @@
-"""Shared layer primitives (norms, RoPE, the RWKV token shift) — plain
-torch; the GEMM-heavy paths live behind ``repro_torch.core.tapir`` ops.
+"""Shared layer primitives (norms, RoPE, the RWKV token shift, Mamba2's
+causal conv) — plain torch; the GEMM-heavy paths live behind
+``repro_torch.core.tapir`` ops.
 
 Inside an open region these entry points dispatch through
 ``tapir.lift``: the same torch function becomes ONE node of the region
@@ -173,3 +174,45 @@ def token_shift(x, state=None):
     if state is None:
         return _token_shift_zero(x), x[:, -1:]
     return _token_shift_shifted(x, state), x[:, -1:]
+
+
+def _causal_conv_y(x, state, w):
+    K = w.shape[0]
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K))
+    return y.to(x.dtype)
+
+
+def _causal_conv_state(x, state):
+    xp = torch.cat([state, x], dim=1)
+    return xp[:, x.shape[1]:] if state.shape[1] else state
+
+
+def _causal_conv_y_zero(x, w):
+    # the zero state is made INSIDE the lifted fn (keeps program replay
+    # alive, as ``_token_shift_zero`` does)
+    K = w.shape[0]
+    zero = x.new_zeros((x.shape[0], K - 1, x.shape[-1]))
+    return _causal_conv_y(x, zero, w)
+
+
+def _causal_conv_state_zero(x, w):
+    K = w.shape[0]
+    zero = x.new_zeros((x.shape[0], K - 1, x.shape[-1]))
+    return _causal_conv_state(x, zero)
+
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv (Mamba2's).  x: [B,S,D], w: [K,D]; ``state``:
+    the [B,K-1,D] carry of the previous tokens (zeros when None).  Returns
+    (y, new_state [B,K-1,D]).  The taps sum in the reference's order (one
+    product per tap, added left to right in x's dtype)."""
+    if any(tapir.is_traced(t) for t in (x, state, w)):
+        if state is None:
+            return (tapir.lift(_causal_conv_y_zero, x, w),
+                    tapir.lift(_causal_conv_state_zero, x, w))
+        return (tapir.lift(_causal_conv_y, x, state, w),
+                tapir.lift(_causal_conv_state, x, state))
+    if state is None:
+        return _causal_conv_y_zero(x, w), _causal_conv_state_zero(x, w)
+    return _causal_conv_y(x, state, w), _causal_conv_state(x, state)

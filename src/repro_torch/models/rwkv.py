@@ -54,7 +54,8 @@ from ..core import tapir
 from ..core.dtypes import to_torch_dtype
 from ..kernels.linear_scan import ops as ls_ops
 from . import layers as L
-from .base import BaseModel, ModelConfig, ParamSpec, register_family
+from .base import (BaseModel, ModelConfig, ParamSpec, keep_in_place,
+                   register_family)
 
 LORA_RANK = 64
 
@@ -262,16 +263,7 @@ class RWKV6(BaseModel):
             slabs = (cache["tm_shift"][i], cache["cm_shift"][i],
                      cache["wkv"][i])
             h, *new = blk(cp["layers"][i], h, *slabs)
-            for slab, val in zip(slabs, new):
-                if regions:
-                    # the region program wrote the donated slab in place
-                    if val is not slab:
-                        raise RuntimeError(
-                            f"layer {i}: the region returned a copy of its "
-                            f"state slab instead of writing it in place")
-                else:
-                    # the per-op write is functional: copy it into the slab
-                    slab.copy_(val)
+            keep_in_place(slabs, new, regions, f"layer {i}")
         head = tapir.parallel_region(self._stateful_head_body,
                                      name="rwkv_stateful_head")
         logits = head(cp["head"], h[:, -1:])

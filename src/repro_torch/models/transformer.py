@@ -45,7 +45,8 @@ from ..core import tapir
 from ..core.dtypes import to_torch_dtype
 from ..serve.pages import identity_row, page_geometry
 from . import layers as L
-from .base import BaseModel, ModelConfig, ParamSpec, register_family
+from .base import (BaseModel, ModelConfig, ParamSpec, keep_in_place,
+                   register_family)
 
 
 def _block_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -85,25 +86,13 @@ def abstract_params(cfg: ModelConfig) -> dict:
     return p
 
 
-@register_family("dense")
-class DenseLM(BaseModel):
-    """Dense GQA transformer.  ``params`` (a tree like ``abstract_params``
-    of tensors) supplies the weights; otherwise they are drawn from
-    ``generator`` (default: seed 0 on ``device``) by the reference's init
-    rule.  ``device`` defaults to ``cuda`` and raises without a card."""
-
-    def __init__(self, cfg: ModelConfig, device="cuda",
-                 params: Optional[dict] = None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        if cfg.family != "dense" or not cfg.gated_mlp:
-            raise NotImplementedError("only the gated dense family is ported")
-        self.cfg = cfg
-        self._set_params(abstract_params(cfg), device, params, generator)
-        self._rope_bufs: dict = {}      # decode RoPE rows (``_rope_rows``)
-
-    def supports_slots(self) -> bool:
-        return True
+class DenseBlocks:
+    """The dense block's math over ``self.cfg`` and nothing else: norms,
+    the attention sub-block (forward and padded cache), the gated MLP, the
+    block bodies and the decode RoPE rows.  ``DenseLM`` is one; Zamba2's
+    shared attention + MLP block applies another (``models/mamba.py``),
+    as the reference's ``Zamba2`` borrows a ``DenseLM`` helper.  A subclass
+    sets ``cfg`` and ``_rope_bufs`` (a dict)."""
 
     def _rope_frac(self) -> float:
         return 0.5 if self.cfg.rope == "half" else 1.0
@@ -115,7 +104,6 @@ class DenseLM(BaseModel):
     def _mlp(self, p, x):
         return tapir.gated_mlp(x, p["wg"], p["wu"], p["wd"], self.cfg.act)
 
-    # -- attention block (forward and padded cache) ----------------------
     def _attn(self, p, x, cos, sin, causal=True, kv_cache=None):
         cfg = self.cfg
         B, S, _ = x.shape
@@ -161,6 +149,64 @@ class DenseLM(BaseModel):
         op by op, bitwise-equal."""
         blk = tapir.parallel_region(self._block_body, name="dense_block")
         return blk(p, x, cos, sin)
+
+    def _cached_attn_body(self, p, x, cos, sin, ck, cv, pos0,
+                          is_prefill: bool):
+        """Attention sub-block against its KV-cache slab (stateful)."""
+        a, (ck, cv) = self._attn(p, self._norm(x, p["ln1"]), cos, sin,
+                                 kv_cache=(ck, cv, pos0, is_prefill))
+        return x + a, ck, cv
+
+    def _cached_block_body(self, p, x, cos, sin, ck, cv, pos0,
+                           is_prefill: bool):
+        """One block against its cache slab; under region capture the cache
+        writes donate the slab, which the program updates in place."""
+        x, ck, cv = self._cached_attn_body(p, x, cos, sin, ck, cv, pos0,
+                                           is_prefill)
+        x = x + self._mlp(p, self._norm(x, p["ln2"]))
+        return x, ck, cv
+
+    def _rope_rows(self, pos, n: int, max_len: int) -> tuple:
+        """cos / sin rows of the ``n`` positions from ``pos`` on, gathered
+        (clamped) from the memoized full table into buffers kept per
+        ``n``: the decode step's regions bind the same two tensors at
+        every step.  The rows equal ``rope_table`` of those positions (the
+        table is elementwise in the position)."""
+        cos_t, sin_t = L.full_rope_table(max_len, self.cfg.hd,
+                                         fraction=self._rope_frac(),
+                                         device=pos.device)
+        key = (n, cos_t.shape, str(pos.device))
+        bufs = self._rope_bufs.get(key)
+        if bufs is None:
+            bufs = self._rope_bufs[key] = tuple(
+                torch.empty((n, cos_t.shape[-1]), dtype=cos_t.dtype,
+                            device=pos.device) for _ in range(2))
+        rows = (pos + torch.arange(n, dtype=pos.dtype, device=pos.device)
+                ).clamp(0, cos_t.shape[0] - 1)
+        for tab, buf in zip((cos_t, sin_t), bufs):
+            torch.index_select(tab, 0, rows, out=buf)
+        return bufs
+
+
+@register_family("dense")
+class DenseLM(DenseBlocks, BaseModel):
+    """Dense GQA transformer.  ``params`` (a tree like ``abstract_params``
+    of tensors) supplies the weights; otherwise they are drawn from
+    ``generator`` (default: seed 0 on ``device``) by the reference's init
+    rule.  ``device`` defaults to ``cuda`` and raises without a card."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 params: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "dense" or not cfg.gated_mlp:
+            raise NotImplementedError("only the gated dense family is ported")
+        self.cfg = cfg
+        self._set_params(abstract_params(cfg), device, params, generator)
+        self._rope_bufs: dict = {}      # decode RoPE rows (``_rope_rows``)
+
+    def supports_slots(self) -> bool:
+        return True
 
     # -- forward ----------------------------------------------------------
     def backbone(self, h, blocks: Optional[dict] = None):
@@ -212,22 +258,6 @@ class DenseLM(BaseModel):
                 "v": torch.zeros(shape, dtype=kv, device=dev),
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def _cached_attn_body(self, p, x, cos, sin, ck, cv, pos0,
-                          is_prefill: bool):
-        """Attention sub-block against its KV-cache slab (stateful)."""
-        a, (ck, cv) = self._attn(p, self._norm(x, p["ln1"]), cos, sin,
-                                 kv_cache=(ck, cv, pos0, is_prefill))
-        return x + a, ck, cv
-
-    def _cached_block_body(self, p, x, cos, sin, ck, cv, pos0,
-                           is_prefill: bool):
-        """One block against its cache slab; under region capture the cache
-        writes donate the slab, which the program updates in place."""
-        x, ck, cv = self._cached_attn_body(p, x, cos, sin, ck, cv, pos0,
-                                           is_prefill)
-        x = x + self._mlp(p, self._norm(x, p["ln2"]))
-        return x, ck, cv
-
     def _run_with_cache(self, tokens, cache, is_prefill: bool):
         """Logits ``[B, vocab]`` of the last position; ``cache["pos"]``
         advances in place."""
@@ -250,43 +280,13 @@ class DenseLM(BaseModel):
             slab_k, slab_v = cache["k"][i], cache["v"][i]
             h, ck, cv = blk(cp["layers"][i], h, cos, sin, slab_k,
                             slab_v, pos0, is_prefill)
-            if regions:
-                # the region program writes the donated slab in place and
-                # returns it; a copy would cost a slab clone per layer
-                if ck is not slab_k or cv is not slab_v:
-                    raise RuntimeError(
-                        f"layer {i}: the region returned a copy of its "
-                        f"cache slab instead of writing it in place")
-            else:
-                # the per-op write is functional: copy it into the slab
-                slab_k.copy_(ck)
-                slab_v.copy_(cv)
+            keep_in_place((slab_k, slab_v), (ck, cv), regions,
+                          f"layer {i}")
         head = tapir.parallel_region(self._slot_head_body, name="slot_head")
         # only the last position's logits are served
         logits = head(cp["head"], h[:, -1:])
         pos0.add_(tokens.shape[1])
         return logits, cache
-
-    def _rope_rows(self, pos, n: int, max_len: int) -> tuple:
-        """cos / sin rows of the ``n`` positions from ``pos`` on, gathered
-        (clamped) from the memoized full table into buffers kept per
-        ``n``: the decode step's regions bind the same two tensors at
-        every step.  The rows equal ``rope_table`` of those positions (the
-        table is elementwise in the position)."""
-        cos_t, sin_t = L.full_rope_table(max_len, self.cfg.hd,
-                                         fraction=self._rope_frac(),
-                                         device=pos.device)
-        key = (n, cos_t.shape, str(pos.device))
-        bufs = self._rope_bufs.get(key)
-        if bufs is None:
-            bufs = self._rope_bufs[key] = tuple(
-                torch.empty((n, cos_t.shape[-1]), dtype=cos_t.dtype,
-                            device=pos.device) for _ in range(2))
-        rows = (pos + torch.arange(n, dtype=pos.dtype, device=pos.device)
-                ).clamp(0, cos_t.shape[0] - 1)
-        for tab, buf in zip((cos_t, sin_t), bufs):
-            torch.index_select(tab, 0, rows, out=buf)
-        return bufs
 
     def prefill(self, tokens, cache):
         """Prompts ``tokens [B, S]`` into an empty ``cache``; returns

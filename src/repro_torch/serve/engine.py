@@ -24,9 +24,9 @@ The host reads each step's argmax tokens (the reference's behaviour); the
 loop adds no other device synchronization.
 
 ``make_prefill_step`` / ``make_decode_step`` drive the padded cache of
-``model.init_cache``.  A family without slots (RWKV6) is served by the
-reference's padded-wave loop over them (``_run_padded_waves``): ``run``
-and ``run_wave`` both take it.
+``model.init_cache``.  A family without slots (RWKV6, Zamba2) is served
+by the reference's padded-wave loop over them (``_run_padded_waves``):
+``run`` and ``run_wave`` both take it.
 
 The step-time statistics (``last_stats``' ``step_p50`` / ``step_p95``,
 the SLO shed's estimate, ``preempt_cost``'s step time) come from the
@@ -251,7 +251,7 @@ class ServingEngine:
         """Continuous batching: requests admit into free slots mid-decode,
         finished slots free immediately.  ``max_steps`` caps each request's
         decode-step budget (exhausted: freed with ``done=False``).  A
-        family without slots (RWKV6) is served by padded waves."""
+        family without slots (RWKV6, Zamba2) is served by padded waves."""
         if not self.model.supports_slots():
             return self._run_padded_waves(requests, max_steps)
         return self._run_slots(requests, max_steps, continuous=True)
