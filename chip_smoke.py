@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fig3-times [--src DIR]
     python3 chip_smoke.py --capture-depths N,N,...
     python3 chip_smoke.py --profile-windows N
+    python3 chip_smoke.py --zamba2-depths N,N,...
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -34,7 +35,9 @@ qwen2.5-3b's captured training step at full width at each depth given
 was chosen.  The tenth profiles N windows shaped like a decode window
 (plain torch kernels and a CUDA graph, no port kernel) with and without
 PROF_PAD_S of idle card at each end, and counts the kernels each keeps:
-why the decode windows are padded.
+why the decode windows are padded.  The eleventh does what the ninth does
+for Zamba2-7B, per op and captured: how Z_TRAIN_LAYERS and
+Z_CAPTURE_LAYERS were chosen.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts (forward and
@@ -255,8 +258,38 @@ takes its place:
    the function needs); zamba2_scan_w_copy — the scan wrapper's copy of
    the stride-0 decay, timed alone beside its bound.
 
-The Zamba2 model is then released, and the paper's four networks (fp32,
-every product on the GEMM's FMA route) follow:
+The 81-layer model is then released, and Zamba2-7B trains at full
+width and a cut depth (``zamba2_cut``: a multiple of the shared block's
+period, drawn with the 81-layer init's statistics, seed 0):
+
+28. zamba2_train — ``make_train_step`` at Z_TRAIN_LAYERS on 2 x 2048
+   tokens, remat full, fp32 AdamW: one warm-up step and 3 timed steps,
+   each held to ``zamba2_train_launches`` (GEMM forward 4 n_l + 4 G + 1,
+   dX and dW 2 n_l + 4 G + 1, flash forward and backward G, scan forward
+   2 n_l and backward n_l, for G applications of the shared block), step
+   p50, tokens/s, MFU (and ``mfu_applied``: the shared block counted
+   once an application and the tied head), peak memory, device ms by
+   kernel and the busy share, no library kernel in a profiled step;
+29. zamba2_captured_train — 10c's measurement at Z_CAPTURE_LAYERS: the
+   per-op step, then the captured step (policy auto) on the same weights;
+30. zamba2_captured_parity — ``captured_pair`` at 2 layers (the shared
+   block after both), fp32: captured = per-op bitwise over 2 steps in
+   every loss, the params and the AdamW state;
+31. zamba2_train_kernels_vs_plain — flash's backward at head dim 112 at
+   the train shape (and FA_BWD_EXTRA), the GLA scan's backward on
+   Mamba2's operands (q a stride-0 view over the heads, one decay a head)
+   at the model's decays, and the tied head's dX (``embed`` read in
+   place) and dW, each against its plain version;
+32. zamba2_checkpoint — 2 layers: 2 steps, an async save, a third step
+   during the write, a restore into the same state and the third step
+   again: loss and every leaf bitwise, the buffers kept; the bytes
+   written and the seconds of the host copy, the write and the restore;
+   then zamba2_train_times — the kernels line's entries for the three new
+   cases (time, plain, bound, SDPA's backward or ``torch.matmul``), the
+   scan backward's w copy and autograd's reductions beside it.
+
+The Zamba2 models are then released, and the paper's four networks
+(fp32, every product on the GEMM's FMA route) follow:
 
 18. paper_nets — CNN, LSTM1, LSTM2 and NCF at the reference test's
    batches (16; 8 x 20; 4 x 12; 64): one training step on the card
@@ -3499,6 +3532,435 @@ def zamba2_phases() -> list:
     return gemm_entries + fa_entries + ls_entries
 
 
+# -- Zamba2-7B training ------------------------------------------------------
+
+#: Zamba2-7B's depth in the per-op train phase (full width, 2 x 2048
+#: tokens, remat full, fp32 AdamW) and in the captured step's phase
+#: (policy auto), multiples of shared_attn_every (6) so that no plain tail
+#: is left, chosen by ``--zamba2-depths``' peak probe (PERF.md section 4):
+#: at all 81 layers the fp32 params, gradients and moments alone take
+#: 106 GB
+Z_TRAIN_LAYERS = 36
+Z_CAPTURE_LAYERS = 18
+#: the depth whose init statistics a cut model keeps
+Z_FULL_LAYERS = 81
+
+
+def zamba2_cut(n_layers: int, every: int = 6, dtype: str = "bfloat16"):
+    """(cfg, model): Zamba2-7B at full width cut to ``n_layers`` Mamba2
+    layers, the shared block after every ``every``, weights from seed 0
+    drawn as the 81-layer model draws them: the reference's init divides
+    a stacked leaf's normal draw by the square root of its layer count,
+    so drawn at the cut's own count dt's spread grows by sqrt(81 /
+    n_layers), and toward few layers decays underflow to 0, where the
+    factored scan is NaN (ROADMAP queue 3)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba as M
+    from repro_torch.models.base import get_model, materialize
+    cfg = dataclasses.replace(get_config("zamba2_7b"), n_layers=n_layers,
+                              shared_attn_every=every, compute_dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    specs = M.abstract_params(cfg)
+    f = math.sqrt(n_layers / Z_FULL_LAYERS)
+    blocks = {}
+    for k in sorted(specs["blocks"]):
+        s = specs["blocks"][k]
+        if s.init not in ("zeros", "ones"):
+            s = dataclasses.replace(s, scale=s.scale * f)
+        blocks[k] = materialize(s, gen, "cuda")
+    params = {"embed": materialize(specs["embed"], gen, "cuda"),
+              "blocks": blocks,
+              "ln_f": materialize(specs["ln_f"], gen, "cuda"),
+              "shared": {k: materialize(specs["shared"][k], gen, "cuda")
+                         for k in sorted(specs["shared"])}}
+    return cfg, get_model(cfg, device="cuda", params=params)
+
+
+def zamba2_train_launches(n_l: int, groups: int) -> dict:
+    """The launches one per-op Zamba2 train step makes (remat full), from
+    the code: each Mamba2 layer's 2 GEMMs (w_in, w_out + residual), scan
+    and their recompute, the shared block's 4 GEMMs (fused QKV, wo +
+    residual, fused gate|up, wd + residual) and its attention once an
+    application (it runs outside the remat'd stack), the tied head; dX and
+    dW of every forward GEMM; no epilogue recompute (every chain is adds
+    alone); one scan and one flash backward a layer and an application
+    (``tests/test_torch_zamba2_train.py`` holds the same counts on the
+    CPU)."""
+    return {"gemm_forward": 4 * n_l + 4 * groups + 1,
+            "gemm_dx": 2 * n_l + 4 * groups + 1,
+            "gemm_dw": 2 * n_l + 4 * groups + 1,
+            "flash_forward": groups, "flash_backward": groups,
+            "scan_forward": 2 * n_l, "scan_backward": n_l}
+
+
+def zamba2_mfu_flop(model, tokens: int) -> float:
+    """6 x tokens x the parameters a token's forward multiplies: every
+    Mamba2 layer's, the shared block's once an application, the tied
+    head's (the embedding as the head), not the lookup."""
+    n_blocks = sum(p.numel() for p in model.blocks.values())
+    n_shared = sum(p.numel() for p in model.shared.values())
+    return 6.0 * tokens * (n_blocks + n_shared * model.n_groups
+                           + model.embed.numel() + model.ln_f.numel())
+
+
+def zamba2_scan_bwd_inputs(key, dt, seed: int):
+    """``zamba2_scan_inputs`` (q a stride-0 view over the heads, w one
+    decay a head over the state dim, the model's decays) and a cotangent
+    ``do``."""
+    import torch
+    b, s, h, dk, dv = key[:5]
+    q, k, v, w = zamba2_scan_inputs((b, s, h, dk, dv), dt, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(v.shape, generator=gen, device="cuda").to(dt)
+    return q, k, v, w, do
+
+
+def zamba2_scan_bwd_vs_plain(keys) -> tuple:
+    """The GLA scan's backward on Mamba2's operands at every train shape,
+    bf16 and fp32: the four gradients against ``linear_scan_bwd_ref`` on
+    the same views (LS_RTOL of each one's largest), two calls bitwise,
+    and through ``LinearScanFn`` the gradients autograd reduces to C's
+    and the decay's own shapes against the plain version's, reduced the
+    same way (LS_RTOL).  Returns ({case: errors}, {(key, dtype): max abs
+    err})."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    out, abs_err = {}, {}
+    for i, key in enumerate(sorted(keys)):
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            q, k, v, w, do = zamba2_scan_bwd_inputs(key, dt, 70 + i)
+            got = ls_ops.linear_scan_bwd(q, k, v, w, None, do, key[7])
+            again = ls_ops.linear_scan_bwd(q, k, v, w, None, do, key[7])
+            want = ls_ref.linear_scan_bwd_ref(q, k, v, w, None, do, key[7])
+            rels = {n: float((g.float() - wt.float()).abs().max())
+                    / max(float(wt.float().abs().max()), 1e-30)
+                    for n, g, wt in zip(BWD_NAMES, got[:4], want[:4])}
+            repeat = all(torch.equal(a, b_) for a, b_ in zip(got[:4],
+                                                             again[:4]))
+            finite = all(bool(torch.isfinite(g).all()) for g in got[:4])
+            b, s, h, dk, _ = key[:5]
+            c = q[:, :, 0].detach().clone().requires_grad_(True)
+            a = w[..., 0].detach().clone().requires_grad_(True)
+            kk, vv = (t.detach().requires_grad_(True) for t in (k, v))
+            o = ls_ops.linear_scan(c[:, :, None].expand(b, s, h, dk), kk, vv,
+                                   a[..., None].expand(b, s, h, dk))
+            red = torch.autograd.grad(o, (c, kk, vv, a), do)
+            red_want = (want[0].float().sum(2), want[1], want[2],
+                        want[3].sum(3))
+            frels = {n: float((g.float() - wt.float()).abs().max())
+                     / max(float(wt.float().abs().max()), 1e-30)
+                     for n, g, wt in zip(("dC", "dk", "dv", "da"), red,
+                                         red_want)}
+            name = f"{list(key)}/{dname}"
+            out[name] = {"kernel_vs_plain_rel": rels, "repeat": repeat,
+                         "function_reduced_rel": frels}
+            abs_err[(key, dname)] = max(
+                float((g.float() - wt.float()).abs().max())
+                for g, wt in zip(got[:4], want[:4]))
+            if not (finite and repeat
+                    and all(e <= LS_RTOL[dname] for e in rels.values())
+                    and all(e <= LS_RTOL[dname] for e in frels.values())):
+                raise SystemExit(f"zamba2 scan backward vs plain: {name}: "
+                                 f"{out[name]}, finite {finite}")
+            del q, k, v, w, do, got, again, want, c, a, kk, vv, o, red
+    return out, abs_err
+
+
+def zamba2_scan_bwd_entry(key, launches: int, err) -> dict:
+    """The GLA scan's backward at a train shape on bf16 Mamba2 operands
+    (``linear_scan_bwd`` as ``LinearScanFn`` calls it: q read in place, w
+    copied contiguous by the wrapper), its plain version, each timed alone
+    with L2 flushed; its kernels' device ms a launch; beside it the
+    wrapper's copy of w (``w_copy``) and autograd's reductions of dq over
+    the heads and dw over the state dim (``reduce``), timed alone, and
+    ``path_ms``: ``ms`` (the wrapper, its copy of w included) and the
+    reductions.  One bound serves the kernel and the
+    path, since both compute the same function, Mamba2's gradients: C
+    once for all heads and the decay once a head, k, v and do read once;
+    dC once for all heads and the decay's gradient once a head, dk and dv
+    written once; the chunked backward's products at the bf16 peak.  No
+    single PyTorch call computes this function: ``library_ms`` is
+    None."""
+    import torch
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.kernels.linear_scan import ref as ls_ref
+    b, s, h, dk, dv, _, variant, chunk = key
+    q, k, v, w, do = zamba2_scan_bwd_inputs(key, torch.bfloat16, 2)
+    fn = lambda: ls_ops.linear_scan_bwd(  # noqa: E731
+        q, k, v, w, None, do, chunk)
+    ref_fn = lambda: ls_ref.linear_scan_bwd_ref(  # noqa: E731
+        q, k, v, w, None, do, chunk)
+    ms = time_ms(fn)
+    c_ = min(chunk, s)
+    n = -(-s // c_)
+    ins = 2 * (b * s * dk + b * s * h * dk + 2 * b * s * h * dv) \
+        + 4 * b * s * h
+    outs = 2 * (b * s * dk + b * s * h * dk + b * s * h * dv) + 4 * b * s * h
+    flops = 2.0 * b * h * n * c_ * (5 * dk * dv + c_ * (4 * dk + 2 * dv))
+    t_bytes, t_ops = (ins + outs) / HBM_BW, flops / PEAK_FLOPS["bfloat16"]
+    dq, _, _, dw = fn()[:4]
+    reduce_ms = time_ms(lambda: (dq.sum(2), dw.sum(3)))
+    copy_bytes = 4 * b * s * h * (1 + dk)
+    red_bytes = 2 * b * s * h * dk + 2 * b * s * dk \
+        + 4 * b * s * h * dk + 4 * b * s * h
+    entry = {"name": f"linear_scan_bwd[zamba2 train B={b} S={s} H={h} "
+                     f"Dk={dk} Dv={dv} {variant} chunk={chunk}]",
+             "route": "cuda", "source": LS_BWD_SOURCE,
+             "replaces": LS_REPLACES, "launches": launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": time_ms(ref_fn),
+             "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None, "decay": Z_DECAYS["model"],
+             "q_stride_0_read_in_place": q.stride(2) == 0,
+             "checkpoint_every": scan_bwd_group("torch.bfloat16"),
+             "kernel_ms": kernel_ms(fn),
+             "w_copy": {"ms": time_ms(lambda: w.contiguous()),
+                        "bytes": copy_bytes,
+                        "bound_ms": copy_bytes / HBM_BW * 1e3},
+             "reduce": {"ms": reduce_ms, "bytes": red_bytes,
+                        "bound_ms": red_bytes / HBM_BW * 1e3},
+             "path_ms": ms + reduce_ms, "shape": list(key)}
+    del q, k, v, w, do, dq, dw
+    return entry
+
+
+def tied_head_bwd_entries(m: int, cfg, launches: dict, gen) -> tuple:
+    """The tied head's two gradient products at ``m`` rows, bf16, as
+    ``FusedMatmulFn``'s backward runs them for ``w = embed.T``: dX = dY
+    embed (``matmul_dx`` reads ``embed`` in place, the forward's layout)
+    and dW = X^T dY ``[d_model, vocab]``.  Each against its plain version
+    (the largest error within LS_RTOL of the plain result's largest: the
+    outputs' spread is a few hundredths for dX, so an absolute TOL would
+    pass a product that dropped part of its contraction), two calls
+    bitwise, its time, the plain version's and ``torch.matmul``'s on the
+    same operands (the yardstick), the bound (the operands read once, the
+    output written once, 2mnk bf16 FLOPs); for dX also the route it
+    replaced, ``embed.T`` copied contiguous first (``ms_copied_operand``,
+    the copy included), which must give the same bits.  Returns
+    (entries, line)."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel
+    from repro_torch.kernels.fused_matmul import ops, ref
+    dt = torch.bfloat16
+    d, vocab = cfg.d_model, cfg.vocab
+    e = (torch.randn(vocab, d, generator=gen, device="cuda") / 60).to(dt)
+    x = torch.randn(m, d, generator=gen, device="cuda").to(dt)
+    dy = (torch.randn(m, vocab, generator=gen, device="cuda")
+          / 100).to(dt)
+    calls = {
+        "dx": (lambda: ops.matmul_dx(dy, e.T, dt),
+               lambda: ref.matmul_dx_ref(dy, e.T, dt),
+               lambda: torch.matmul(dy, e), (m, d, vocab)),
+        "dw": (lambda: ops.matmul_dw(x, dy, dt),
+               lambda: ref.matmul_dw_ref(x, dy, dt),
+               lambda: torch.matmul(x.T, dy), (d, vocab, m))}
+    entries, line = [], {"phase": "zamba2_tied_head_bwd", "m": m}
+    for route, (fn, plain, lib, (mm, nn, kk)) in calls.items():
+        got, want = fn(), plain().float()
+        err = float((got.float() - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        if not (rel <= LS_RTOL["bfloat16"] and torch.isfinite(got).all()
+                and torch.equal(got, fn())):
+            raise SystemExit(f"tied head {route}: max err {err} ({rel} of "
+                             f"the plain result's largest, <= "
+                             f"{LS_RTOL['bfloat16']}), or not finite, or two "
+                             f"calls differ")
+        del want
+        ms = time_ms(fn)
+        nbytes = 2 * (mm * kk + kk * nn + mm * nn)
+        t_bytes = nbytes / HBM_BW
+        t_ops = 2.0 * mm * nn * kk / PEAK_FLOPS["bfloat16"]
+        p = kernel.plan(nn, kk, dt)
+        key = (route, mm, nn, kk, str(dt))
+        entry = {"name": f"fused_matmul_{route}[zamba2 train tied head "
+                         f"m={mm} n={nn} k={kk}]",
+                 "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+                 "launches": launches.get(key, 0), "max_abs_err": err,
+                 "rel_err": rel, "ms": ms, "plain_ms": time_ms(plain),
+                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": time_ms(lib), "plan": p._asdict(),
+                 "tflops": 2.0 * mm * nn * kk / (ms * 1e-3) / 1e12,
+                 "shape": [route, mm, nn, kk]}
+        if route == "dx":
+            copied = lambda: ops.matmul_dx(  # noqa: E731
+                dy, e.T.contiguous(), dt)
+            if not torch.equal(got, copied()):
+                raise SystemExit("tied head dx: embed read in place and "
+                                 "embed.T copied contiguous give other bits")
+            entry.update(
+                design="embed read in place as the B operand [vocab, "
+                       "d_model] in the forward's layout (no copy)",
+                ms_copied_operand=time_ms(copied),
+                bitwise_vs_copied_operand=True)
+            line["dx_bitwise_vs_copied_operand"] = True
+        line[f"{route}_max_abs_err"] = err
+        line[f"{route}_rel_err"] = rel
+        entries.append(entry)
+        del got
+    del e, x, dy
+    return entries, line
+
+
+def zamba2_checkpoint_phase() -> dict:
+    """Zamba2-7B at full width cut to 2 layers (``shared_attn_every`` 2,
+    the 81-layer statistics), the per-op step on TRAIN_B x TRAIN_S tokens:
+    2 steps, then an async save (``CheckpointManager``: the leaves copied
+    to host memory before it returns), a third step while the files are
+    written, the wait; the third step's loss and every leaf kept; the
+    checkpoint restored into the same state (in place), and the third
+    step again: its loss and every leaf must equal the uninterrupted
+    step's, bit for bit, and every buffer keep its address.  Prints the
+    bytes written and the seconds of the host copy, the write and the
+    restore.  The directory is a temporary one under the working
+    directory, removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.core import tapir
+    from repro_torch.data import to_device
+    from repro_torch.train import init_state
+    cfg, model = zamba2_cut(2, every=2)
+    step, opt, pipe = train_setup(model, cfg)
+    state = init_state(model, opt)
+    ptrs = [t.data_ptr() for t in state_leaves(state)]
+    for s_ in range(2):
+        state, met = step(state, to_device(pipe.batch_at(s_), "cuda"))
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.getcwd())
+    try:
+        mgr = CheckpointManager(d, keep_n=3, every=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.maybe_save(2, state)
+        host_s = time.perf_counter() - t0
+        batch3 = to_device(pipe.batch_at(2), "cuda")
+        state, met = step(state, batch3)     # in place, during the write
+        loss3 = met["loss"].clone()
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        want = [t.clone() for t in state_leaves(state)]
+        nbytes = sum(os.path.getsize(os.path.join(r, f_))
+                     for r, _, fs in os.walk(d) for f_ in fs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, at, manifest = restore_checkpoint(d, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        state, met = step(state, batch3)
+        again = met["loss"].clone()
+        bitwise = torch.equal(loss3, again) and all(
+            torch.equal(a, b) for a, b in zip(want, state_leaves(state)))
+        kept = ptrs == [t.data_ptr() for t in state_leaves(state)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    line = {"phase": "zamba2_checkpoint", "layers": cfg.n_layers,
+            "shared_attn_every": cfg.shared_attn_every,
+            "restored_step": at, "leaves": len(manifest["leaves"]),
+            "bytes_written": nbytes, "save_host_copy_s": host_s,
+            "save_write_wait_s": wait_s, "restore_s": restore_s,
+            "loss_step3": float(loss3), "loss_step3_again": float(again),
+            "bitwise": bitwise, "buffers_kept": kept,
+            "dir_removed": not os.path.exists(d)}
+    del model, state, want, met
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    if not (bitwise and kept and at == 2 and line["dir_removed"]):
+        raise SystemExit(f"zamba2_checkpoint: {line}")
+    return line
+
+
+def zamba2_train_phases() -> list:
+    """Phases 28-32: Zamba2-7B trains at full width (the 81-layer model
+    released); returns their entries of the kernels line."""
+    import torch
+    from repro_torch.core import tapir
+    # -- 28. the per-op step at Z_TRAIN_LAYERS ------------------------------
+    cfg, model = zamba2_cut(Z_TRAIN_LAYERS)
+    groups = model.n_groups
+    line, snap = train_phase(model, cfg,
+                             zamba2_train_launches(cfg.n_layers, groups),
+                             all_counts, "zamba2_train")
+    p50 = line["step_p50_s"]
+    flop = zamba2_mfu_flop(model, TRAIN_B * TRAIN_S)
+    line.update(depth=f"{Z_TRAIN_LAYERS} of {Z_FULL_LAYERS} layers "
+                      f"(memory: PERF.md section 4)",
+                shared_applications=groups,
+                mfu_applied=flop / p50 / PEAK_FLOPS["bfloat16"],
+                mfu_applied_what="6 x tokens x (Mamba2 layers + the shared "
+                                 "block once an application + the tied "
+                                 "head)")
+    emit(line)
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    # -- 29. the captured step at Z_CAPTURE_LAYERS beside the per-op --------
+    emit(captured_train_phase(
+        lambda: zamba2_cut(Z_CAPTURE_LAYERS)[1], "zamba2_captured_train",
+        lambda cfg, m: zamba2_train_launches(cfg.n_layers, m.n_groups),
+        all_counts))
+    # -- 30. captured = per-op at 2 layers, fp32 ----------------------------
+    pair = captured_pair("zamba2_7b", "float32", 2)
+    po, cap = pair["per_op"], pair["captured"]
+    par = {"phase": "zamba2_captured_parity", "layers": 2,
+           "shared_attn_every": 2, "steps": 2,
+           "loss_bitwise": all(torch.equal(a, b) for a, b in
+                               zip(po["losses"], cap["losses"])),
+           "state_bitwise": all(torch.equal(a, b) for a, b in zip(
+               state_leaves(po["state"]), state_leaves(cap["state"]))),
+           "losses": [float(x) for x in cap["losses"]],
+           "buffers_kept_and_replayed": cap["stable"],
+           "launches_per_step": cap["counts"][-1],
+           "launches_expected": pair["want"],
+           "per_op_launches": po["counts"][-1]}
+    par["ok"] = (par["loss_bitwise"] and par["state_bitwise"]
+                 and par["buffers_kept_and_replayed"]
+                 and cap["counts"] == [pair["want"]] * 2
+                 and all(math.isfinite(x) for x in par["losses"]))
+    emit(par)
+    del pair, po, cap
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    if not par["ok"]:
+        raise SystemExit(f"zamba2 captured parity: {par}")
+    # -- 31. the new kernel cases against their plain versions --------------
+    fab = {s_[:6] + (s_[7],): n for s_, n in snap["fab"].items()}
+    fb_line, fb_out = flash_bwd_vs_plain(list(fab))
+    sb_cases, sb_errs = zamba2_scan_bwd_vs_plain(list(snap["lsb"]))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    head, head_line = tied_head_bwd_entries(TRAIN_B * TRAIN_S, cfg,
+                                            snap["bwd"], gen)
+    emit({"phase": "zamba2_train_kernels_vs_plain",
+          "flash_bwd": {k: v for k, v in fb_line.items() if k != "phase"},
+          "scan_bwd_cases": sb_cases, "scan_bwd_rel_tolerance": LS_RTOL,
+          "tied_head": head_line, "gemm_tolerance": TOL})
+    # -- 32. checkpoints: save, step, restore, the same step ---------------
+    emit(zamba2_checkpoint_phase())
+    # -- the kernels line's entries at the train step's shapes -------------
+    entries = []
+    for shape, n in sorted(fab.items()):
+        entries.append(flash_bwd_entry(shape, n, fb_out[(shape,
+                                                          "bfloat16")][3]))
+    for key, n in sorted(snap["lsb"].items()):
+        entries.append(zamba2_scan_bwd_entry(key, n,
+                                             sb_errs[(key, "bfloat16")]))
+    entries += head
+    emit({"phase": "zamba2_train_times",
+          "step_flash_bwd_ms": sum(e["ms"] * e["launches"]
+                                   for e in entries[:len(fab)]),
+          "step_scan_bwd_ms": sum(e["ms"] * e["launches"] for e in entries
+                                  if e["name"].startswith("linear_scan")),
+          "step_scan_bwd_bound_ms": sum(
+              e["bound_ms"] * e["launches"] for e in entries
+              if e["name"].startswith("linear_scan")),
+          "kernel_ms": {e["name"]: e.get("kernel_ms") for e in entries}})
+    return entries
+
+
 def qwen_phases() -> list:
     """Phases 2-10 on qwen2.5-3b; returns their entries of the kernels
     line.  Everything they allocate is local, so it is freed on return."""
@@ -3860,33 +4322,42 @@ def capture_checker(seen: dict):
     return check
 
 
-def captured_train_phase() -> dict:
-    """Phase 10c: qwen2.5-3b at full width and Q_CAPTURE_LAYERS layers,
-    TRAIN_B x TRAIN_S tokens, random weights from seed 0: the per-op step
-    (remat full) through ``train_phase``; then, with that model released,
-    the same weights in ``make_region_train_step`` (policy auto) through
+def qwen_capture_model():
+    """qwen2.5-3b at full width cut to Q_CAPTURE_LAYERS, seed 0."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import get_model
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"),
+                              n_layers=Q_CAPTURE_LAYERS)
+    return get_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+
+
+def captured_train_phase(build=qwen_capture_model, tag="captured_train",
+                         launches=lambda cfg, m: train_launches(
+                             cfg.n_layers),
+                         counts=train_counts) -> dict:
+    """Phase 10c (29 for Zamba2): ``build()``'s model (qwen2.5-3b at full
+    width and Q_CAPTURE_LAYERS layers, seed 0), TRAIN_B x TRAIN_S tokens:
+    the per-op step (remat full) through ``train_phase``, held to
+    ``launches(cfg, model)``; then, with that model released, the same
+    weights in ``make_region_train_step`` (policy auto) through
     ``train_phase``: per step, the launches the joint graph implies, the
     state in its buffers and no compile after the first.  The first
     step's loss must equal the per-op step's bitwise, the leaf sample
-    after 3 steps be within CAPTURE_SAMPLE_ATOL, GEMM dX / dW equal the
-    per-op step's, flash backward one a layer, and GEMM forward 4 n_l + 1
-    plus one per recomputed product."""
-    import dataclasses
+    after 3 steps be within CAPTURE_SAMPLE_ATOL, GEMM dX / dW and the
+    flash and scan backwards equal the per-op step's, and GEMM forward be
+    one a product (the per-op step's dX count) plus one per recomputed
+    product."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import tapir
-    from repro_torch.models.base import get_model
     from repro_torch.train import TrainConfig, make_region_train_step
-    cfg = dataclasses.replace(get_config("qwen2_5_3b"),
-                              n_layers=Q_CAPTURE_LAYERS)
-    n_l = cfg.n_layers
-
-    def build():
-        return get_model(cfg, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(0))
 
     model = build()
-    per_op, snap_op = train_phase(model, cfg, phase="captured_train_per_op")
+    cfg = model.cfg
+    want = launches(cfg, model)
+    per_op, snap_op = train_phase(model, cfg, want, counts,
+                                  phase=f"{tag}_per_op")
     emit(per_op)
     del model
     tapir.clear_cache()
@@ -3895,9 +4366,8 @@ def captured_train_phase() -> dict:
     model = build()
     seen: dict = {}
     line, snap = train_phase(
-        model, cfg, phase="captured_train", remat="auto",
-        want=lambda: joint_graph_launches(grad_graph(), tuple(
-            train_launches(n_l))),
+        model, cfg, phase=tag, remat="auto", counts=counts,
+        want=lambda: joint_graph_launches(grad_graph(), tuple(want)),
         make_step=lambda m, opt: make_region_train_step(
             m, opt, TrainConfig(remat="auto", target="gpu")),
         check=capture_checker(seen))
@@ -3905,18 +4375,21 @@ def captured_train_phase() -> dict:
     rec = collections.Counter(n.op for n in g.nodes.values()
                               if n.schedule.remat == "recompute")
     got = line["launches_per_step"]
+    want_op = per_op["launches_per_step"]
     diffs = [float((a - b).abs().max())
              for a, b in zip(snap_op["sample3"], snap["sample3"])]
     line.update({
         "pipeline_s": seen["pipeline_s"],
         "graph_nodes": len(g.nodes), "grad_meta": g.grad_meta,
         "recomputed_by_op": dict(rec),
-        "gemm_forward_expected": 4 * n_l + 1 + rec["matmul"],
+        "gemm_forward_expected": want_op["gemm_dx"] + rec["matmul"],
         "graphed": sorted(tapir.replay_rules().get("train_step", ())),
         "per_op": {k: per_op[k] for k in (
             "step_p50_s", "device_ms", "device_busy_share", "peak_mem_gb",
             "mfu", "launches_per_step", "gemm_device_ms",
-            "flash_forward_device_ms", "flash_backward_device_ms")},
+            "flash_forward_device_ms", "flash_backward_device_ms",
+            "scan_forward_device_ms", "scan_backward_device_ms")
+            if k in per_op},
         "step1_loss": {"per_op": per_op["losses"][0],
                        "captured": line["losses"][0],
                        "bitwise": per_op["losses"][0] == line["losses"][0]},
@@ -3926,21 +4399,18 @@ def captured_train_phase() -> dict:
         "sample_atol": CAPTURE_SAMPLE_ATOL,
         "device_ms_ratio": line["device_ms"] / per_op["device_ms"],
         "p50_ratio": line["step_p50_s"] / per_op["step_p50_s"]})
-    want_op = per_op["launches_per_step"]
     bad = []
     if not line["step1_loss"]["bitwise"]:
         bad.append("step-1 loss differs from the per-op step's")
     if not max(diffs) <= CAPTURE_SAMPLE_ATOL:
         bad.append(f"leaf sample after 3 steps off by {max(diffs)}")
-    if (got["gemm_dx"], got["gemm_dw"]) != (want_op["gemm_dx"],
-                                            want_op["gemm_dw"]):
-        bad.append("GEMM dX / dW launches differ from the per-op step's")
-    if got["flash_backward"] != n_l:
-        bad.append("flash backward launches != layers")
+    for k in ("gemm_dx", "gemm_dw", "flash_backward", "scan_backward"):
+        if got.get(k) != want_op.get(k):
+            bad.append(f"{k} launches differ from the per-op step's")
     if got["gemm_forward"] != line["gemm_forward_expected"]:
-        bad.append("GEMM forward launches != 4 n_l + 1 + recomputed")
+        bad.append("GEMM forward launches != products + recomputed")
     if bad:
-        raise SystemExit(f"captured_train: {bad}: {line}")
+        raise SystemExit(f"{tag}: {bad}: {line}")
     del model
     tapir.clear_cache()
     torch.cuda.empty_cache()
@@ -3952,7 +4422,9 @@ def captured_pair(arch: str, dtype: str, steps: int) -> dict:
     compute, seed 0: ``steps`` per-op steps (remat full), then the
     captured step (policy auto) on the same weights, with the launches of
     each captured step, the state's buffers and the compile count; the
-    per-op step's model stays alive for the comparison."""
+    per-op step's model stays alive for the comparison.  Zamba2-7B: the
+    shared block after both layers, drawn with the 81-layer statistics
+    (``zamba2_cut``)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3970,8 +4442,11 @@ def captured_pair(arch: str, dtype: str, steps: int) -> dict:
     opt = AdamWConfig(lr=1e-3, total_steps=steps, warmup_steps=1)
     out = {}
     for kind in ("per_op", "captured"):
-        model = get_model(cfg, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(0))
+        if arch == "zamba2_7b":
+            cfg, model = zamba2_cut(2, every=2, dtype=dtype)
+        else:
+            model = get_model(cfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(0))
         if kind == "per_op":
             step = make_train_step(model, opt, TrainConfig(target="gpu"))
         else:
@@ -4186,49 +4661,65 @@ def captured_phases() -> None:
         raise SystemExit(f"small_captured_parity failed: {par}")
 
 
-def capture_depths(depths: list) -> int:
-    """qwen2.5-3b at full width, 2 x 2048 tokens, the captured step
-    (policy auto) at each depth in turn: 2 steps, the peak device memory
-    and the first step's pipeline seconds, or the OOM; then stop."""
+def capture_depths(depths: list, arch: str = "qwen2_5_3b") -> int:
+    """One model at full width, 2 x 2048 tokens, at each depth in turn:
+    qwen2.5-3b's captured step (policy auto), or Zamba2-7B's per-op step
+    (remat full) and then its captured step on a cut drawn by
+    ``zamba2_cut``; 2 steps each: the peak device memory, the step
+    seconds and the captured step's pipeline seconds, or the OOM; then
+    stop."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import tapir
+    from repro_torch.data import to_device
     from repro_torch.models.base import get_model
-    from repro_torch.train import TrainConfig, make_region_train_step
+    from repro_torch.train import (TrainConfig, init_state,
+                                   make_region_train_step)
+    kinds = ("per_op", "captured") if arch == "zamba2_7b" else ("captured",)
     print(card_line(), flush=True)
     for n_l in depths:
-        cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_layers=n_l)
-        tapir.clear_cache()
-        torch.cuda.empty_cache()
-        model = get_model(cfg, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(0))
-        out = {"phase": "capture_depth", "layers": n_l}
-        try:
-            step, opt, pipe = train_setup(
-                model, cfg, lambda m, o: make_region_train_step(
-                    m, o, TrainConfig(remat="auto", target="gpu")))
-            from repro_torch.data import to_device
-            from repro_torch.train import init_state
-            state = init_state(model, opt)
-            torch.cuda.reset_peak_memory_stats()
-            walls = []
-            for s_ in range(2):
-                t0 = time.perf_counter()
-                state, m = step(state, to_device(pipe.batch_at(s_), "cuda"))
-                float(m["loss"])
-                walls.append(time.perf_counter() - t0)
-            g = grad_graph()
-            out.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                       step_s=walls, loss=float(m["loss"]),
-                       pipeline_s=tapir.cache_stats()["pipeline_s"],
-                       graph_nodes=len(g.nodes), grad_meta=g.grad_meta)
-            del state, m, step
-        except torch.cuda.OutOfMemoryError as e:
-            out.update(oom=str(e).splitlines()[0][:200],
-                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        emit(out)
-        del model
+        for kind in kinds:
+            tapir.clear_cache()
+            torch.cuda.empty_cache()
+            out = {"phase": "capture_depth", "arch": arch, "layers": n_l,
+                   "step": kind}
+            model = None
+            try:
+                if arch == "zamba2_7b":
+                    cfg, model = zamba2_cut(n_l)
+                else:
+                    cfg = dataclasses.replace(get_config(arch), n_layers=n_l)
+                    model = get_model(cfg, device="cuda",
+                                      generator=torch.Generator(
+                                          device="cuda").manual_seed(0))
+                make = None if kind == "per_op" else (
+                    lambda m, o: make_region_train_step(
+                        m, o, TrainConfig(remat="auto", target="gpu")))
+                step, opt, pipe = train_setup(model, cfg, make)
+                state = init_state(model, opt)
+                torch.cuda.reset_peak_memory_stats()
+                walls = []
+                for s_ in range(2):
+                    t0 = time.perf_counter()
+                    state, m = step(state, to_device(pipe.batch_at(s_),
+                                                     "cuda"))
+                    float(m["loss"])
+                    walls.append(time.perf_counter() - t0)
+                out.update(peak_mem_gb=torch.cuda.max_memory_allocated()
+                           / 1e9, step_s=walls, loss=float(m["loss"]))
+                if kind == "captured":
+                    g = grad_graph()
+                    out.update(pipeline_s=tapir.cache_stats()["pipeline_s"],
+                               graph_nodes=len(g.nodes),
+                               grad_meta=g.grad_meta)
+                del state, m, step
+            except torch.cuda.OutOfMemoryError as e:
+                out.update(oom=str(e).splitlines()[0][:200],
+                           peak_mem_gb=torch.cuda.max_memory_allocated()
+                           / 1e9)
+            emit(out)
+            del model
     tapir.clear_cache()
     torch.cuda.empty_cache()
     return 0
@@ -4997,6 +5488,10 @@ def main() -> int:
     ap.add_argument("--capture-depths", metavar="N,N,...",
                     help="the captured step of qwen2.5-3b at full width at "
                          "each depth: peak memory or OOM, and stop")
+    ap.add_argument("--zamba2-depths", metavar="N,N,...",
+                    help="Zamba2-7B at full width at each depth: the "
+                         "per-op and the captured train step's peak memory "
+                         "or OOM, and stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -5020,6 +5515,9 @@ def main() -> int:
     if args.capture_depths:
         return capture_depths([int(v) for v in
                                args.capture_depths.split(",")])
+    if args.zamba2_depths:
+        return capture_depths([int(v) for v in
+                               args.zamba2_depths.split(",")], "zamba2_7b")
     if args.decode_times:
         return decode_times()
     if args.scan_bwd_phases:
@@ -5159,6 +5657,15 @@ def main() -> int:
     emit({"phase": "zamba2_done", "zamba2_s": time.perf_counter() - t0,
           "elapsed_s": time.perf_counter() - t_start,
           "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+
+    # -- 28-32. Zamba2-7B training, checkpoints ------------------------------
+    t0 = time.perf_counter()
+    entries += zamba2_train_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "zamba2_train_done",
+          "zamba2_train_s": time.perf_counter() - t0,
+          "elapsed_s": time.perf_counter() - t_start})
 
     # -- 18-19. the paper's four networks, fp32 ------------------------------
     t0 = time.perf_counter()

@@ -28,7 +28,14 @@ Bitwise contract with the per-op step (``train/step.py``, which runs
   mean and its scale) adds each use to the sum of the later consumers',
   not one pre-summed contribution.  So a VJP node takes the operand's
   running cotangent and seeds its autograd call with it (``_Seed``, run
-  first), and returns the new running sum.
+  first), and returns the new running sum;
+* a tuple-returning composite (``tapir.lift`` records one node per
+  element of ONE call) gets ONE VJP, over every element's cotangent at
+  once, as autograd differentiates the call's graph once: a value inside
+  the call read by two elements (Mamba2's ``dtv`` feeds both the decay
+  and the scaled B) sums its cotangents before the ops that made it.
+  A VJP per element would run those ops once per element and add the
+  results after them, a different rounding.
 
 Remat: under ``store`` the forward node runs under grad and keeps its own
 autograd graph, which its VJP node differentiates (``retain_graph`` only
@@ -52,7 +59,7 @@ from typing import Callable
 import torch
 
 from .ir import LIBRARY_OPS, Node, TaskGraph, TensorType, _freeze
-from .lowering import node_callable, node_operands
+from .lowering import _shared_key, node_callable, node_operands
 from .passes import optimize_graph
 from .schedule import (pick_attention_tiles, pick_gqa_impl, pick_impl,
                        pick_matmul_tiles, pick_remat, pick_scan_chunk)
@@ -81,15 +88,16 @@ class _Seed(torch.autograd.Function):
         return (None, *ctx.prevs, *(None,) * len(ctx.prevs))
 
 
-def _autograd(y, leaves, ct, prevs: tuple, seeded: tuple,
+def _autograd(ys, leaves, cts_in, prevs: tuple, seeded: tuple,
               retain: bool) -> tuple:
-    """The gradients of ``y`` (cotangent ``ct``) with respect to
+    """The gradients of ``ys`` (cotangents ``cts_in``) with respect to
     ``leaves``, ``leaves[seeded[i]]``'s added onto ``prevs[i]`` inside
     autograd's own buffer."""
     outs, cts = [], []
-    if y.requires_grad:
-        outs.append(y)
-        cts.append(ct)
+    for y, ct in zip(ys, cts_in):
+        if y.requires_grad:
+            outs.append(y)
+            cts.append(ct)
     if seeded:
         outs.append(_Seed.apply(len(seeded), *(leaves[j] for j in seeded),
                                 *prevs))
@@ -112,44 +120,57 @@ def _autograd(y, leaves, ct, prevs: tuple, seeded: tuple,
 _VJP_FNS: dict[tuple, Callable] = {}
 
 
+def _outputs(y, outs) -> list:
+    """The differentiated outputs of a node's value: ``y`` itself, or the
+    elements ``outs`` of a tuple-returning call's result."""
+    return [y] if outs is None else [y[i] for i in outs]
+
+
 def _make_vjp_fn(call: Callable, diff: tuple[int, ...]) -> Callable:
     n = len(call.operands)
 
-    def _node_vjp(ct, *vals, seeded, **_static):
+    def _node_vjp(*vals, seeded, outs, **_static):
         # recompute: replay the forward under grad, then differentiate it;
-        # ``vals`` is the operands, then the running cotangents to seed
+        # ``vals`` is the cotangents, the operands, then the running
+        # cotangents to seed
+        m = 1 if outs is None else len(outs)
         with torch.enable_grad():
             leaves = [v.detach().requires_grad_() if i in diff else v
-                      for i, v in enumerate(vals[:n])]
+                      for i, v in enumerate(vals[m:m + n])]
             y = call(*leaves)
-            return _autograd(y, [leaves[i] for i in diff], ct, vals[n:],
-                             seeded, False)
+            return _autograd(_outputs(y, outs), [leaves[i] for i in diff],
+                             vals[:m], vals[m + n:], seeded, False)
 
     return _node_vjp
 
 
-def _stored_vjp(ct, saved, *prevs, seeded, **_static):
+def _stored_vjp(saved, *vals, seeded, outs, **_static):
     """A stored node's VJP: its forward's own autograd graph
-    (``lowering.Saved``), freed by the last VJP call that reads it."""
+    (``lowering.Saved``), freed by the last VJP call that reads it;
+    ``vals`` is the cotangents, then the running cotangents to seed."""
+    m = 1 if outs is None else len(outs)
     saved.calls_left -= 1
     retain = saved.calls_left > 0
     with torch.enable_grad():
-        grads = _autograd(saved.y, saved.leaves, ct, prevs, seeded, retain)
+        grads = _autograd(_outputs(saved.y, outs), saved.leaves, vals[:m],
+                          vals[m:], seeded, retain)
     if not retain:
         saved.y = saved.leaves = None
     return grads
 
 
-def _vjp_fn_for(g: TaskGraph, node: Node, diff: tuple[int, ...]) -> Callable:
+def _vjp_fn_for(g: TaskGraph, node: Node, diff: tuple[int, ...],
+                whole: bool) -> Callable:
     frozen_attrs = tuple(sorted((k, _freeze(v)) for k, v in node.attrs.items()))
     key = (node.op, node.ttype, frozen_attrs, node.pdims, node.rdims,
            tuple((fn, len(extras), _freeze(at))
                  for fn, extras, at in node.epilogue),
            node.schedule.impl, tuple(sorted(node.schedule.tile.items())),
-           tuple(g.nodes[o].ttype for o in node_operands(node)), diff)
+           tuple(g.nodes[o].ttype for o in node_operands(node)), diff, whole)
     fn = _VJP_FNS.get(key)
     if fn is None:
-        fn = _VJP_FNS[key] = _make_vjp_fn(node_callable(node), diff)
+        fn = _VJP_FNS[key] = _make_vjp_fn(node_callable(node, whole=whole),
+                                          diff)
     return fn
 
 
@@ -298,6 +319,14 @@ def grad(loss, wrt, policy: str = "auto", keep=()):
             ct[operand] = g.add("ew", (prev, contrib), t, fn="add",
                                 pdims=_pd(t))
 
+    # the elements of each tuple-returning call in topological order: the
+    # call's one VJP is derived at its first element, after the consumers
+    # of every element
+    elems: dict = {}
+    for nid in order:
+        if g.nodes[nid].op == "pyfunc" and "out" in g.nodes[nid].attrs:
+            elems.setdefault(_shared_key(g.nodes[nid]), []).append(nid)
+
     def _flush_slabs(src: int) -> None:
         got = slabs.pop(src)
         present = tuple(sorted(got))
@@ -312,9 +341,17 @@ def grad(loss, wrt, policy: str = "auto", keep=()):
         if nid in slabs:
             _flush_slabs(nid)
         node = g.nodes[nid]
-        c = ct.get(nid)
-        if c is None or node.op in ("input", "const"):
+        outs, group = None, (nid,)
+        if node.op == "pyfunc" and "out" in node.attrs:
+            group = elems[_shared_key(node)]
+            if nid != group[0]:
+                continue
+            group = tuple(e for e in group if e in ct)
+            outs = tuple(g.nodes[e].attrs["out"] for e in group)
+        if not group or group[0] not in ct or node.op in ("input", "const"):
             continue
+        cs = tuple(ct[e] for e in group)
+        c = cs[0]
         operands = node_operands(node)
         if node.op in _STRUCTURAL and not node.epilogue:
             src = operands[0]
@@ -368,7 +405,8 @@ def grad(loss, wrt, policy: str = "auto", keep=()):
                                                      policy=policy)
             meta["remat"][remat] += 1
             meta["bytes_stored" if remat == "store"
-                 else "bytes_recomputed"] += int(node.ttype.bytesize)
+                 else "bytes_recomputed"] += sum(
+                int(g.nodes[e].ttype.bytesize) for e in group)
         # an operand's running cotangent seeds the first position it holds
         seeds, firsts = [], set()
         for j, i in enumerate(diff):
@@ -377,12 +415,13 @@ def grad(loss, wrt, policy: str = "auto", keep=()):
                 seeds.append((j, ct[o]))
             firsts.add(o)
         seeded = tuple(j for j, _ in seeds)
-        static = (("diff", diff), ("grad_of", node.op), ("remat", remat),
-                  ("seeded", seeded))
+        static = (("diff", diff), ("grad_of", node.op), ("outs", outs),
+                  ("remat", remat), ("seeded", seeded))
         if remat == "store":
-            ins, fn, extra = (c, nid), _stored_vjp, {"saved": True}
+            ins, fn, extra = (nid,) + cs, _stored_vjp, {"saved": True}
         else:
-            ins, fn, extra = (c,) + operands, _vjp_fn_for(g, node, diff), {}
+            ins, fn, extra = cs + operands, _vjp_fn_for(
+                g, node, diff, whole=outs is not None), {}
         ins += tuple(p for _, p in seeds)
         for j, i in enumerate(diff):
             o = operands[i]

@@ -476,7 +476,7 @@ def _pyfunc_args(node: Node, env: dict) -> list:
     args = [env[i] for i in node.inputs]
     if node.attrs.get("saved"):
         # a stored node's VJP: its forward's autograd record, not its value
-        args[1] = env[("saved", node.inputs[1])]
+        args[0] = env[("saved", node.inputs[0])]
     return args
 
 
@@ -514,15 +514,19 @@ def node_operands(node: Node) -> tuple[int, ...]:
         e for _, extras, _ in node.epilogue for e in extras)
 
 
-def node_callable(node: Node) -> Callable:
+def node_callable(node: Node, whole: bool = False) -> Callable:
     """A callable computing ``node``'s value from its operands, positional
     in ``node_operands`` order: the node's own lowering (same impl, tile and
     epilogue chain as ``emit`` runs), on a copy of the node with dense
     operand ids, so it never reads the graph.  ``core.autodiff``
-    differentiates it; ``.operands`` carries the operand nids."""
+    differentiates it; ``.operands`` carries the operand nids.  ``whole``:
+    an element of a tuple-returning ``pyfunc`` gives the call's tuple."""
     k = len(node.inputs)
+    attrs = dict(node.attrs)
+    if whole:
+        del attrs["out"]
     repl = Node(nid=-1, op=node.op, inputs=tuple(range(k)),
-                ttype=node.ttype, attrs=dict(node.attrs), pdims=node.pdims,
+                ttype=node.ttype, attrs=attrs, pdims=node.pdims,
                 rdims=node.rdims)
     repl.schedule.impl = node.schedule.impl
     repl.schedule.tile = dict(node.schedule.tile)
@@ -557,12 +561,14 @@ def _lower_stored(call: Callable, vals: list, diff: tuple,
                   calls: int) -> tuple:
     """(value, record) of a forward node marked ``store``: its lowering
     run under grad on detached operands, the ``diff`` ones requiring grad.
-    The value that flows on is detached."""
+    The value that flows on is detached (a tuple's elements each)."""
     with torch.enable_grad():
         leaves = [v.detach().requires_grad_() if i in diff else v
                   for i, v in enumerate(vals)]
         y = call(*leaves)
-    return y.detach(), Saved(y, [leaves[i] for i in diff], calls)
+    val = y.detach() if isinstance(y, torch.Tensor) else tuple(
+        t.detach() for t in y)
+    return val, Saved(y, [leaves[i] for i in diff], calls)
 
 
 def _const(node: Node) -> torch.Tensor:
@@ -590,12 +596,15 @@ def emit(g: TaskGraph) -> Callable[[dict], tuple]:
     vjp_calls: dict[int, set] = {}
     for node in nodes:
         if node.op == "pyfunc" and node.attrs.get("saved"):
-            fwd = node.inputs[1]
+            fwd = node.inputs[0]
             diffs.setdefault(fwd, set()).update(
                 dict(node.attrs["static"])["diff"])
             vjp_calls.setdefault(fwd, set()).add(_shared_key(node))
-    stored = {nid: (node_callable(by_id[nid]), tuple(sorted(d)),
-                    len(vjp_calls[nid])) for nid, d in diffs.items()}
+    # an element of a tuple-returning call keeps the whole call's record
+    stored = {nid: (node_callable(by_id[nid],
+                                  whole="out" in by_id[nid].attrs),
+                    tuple(sorted(d)), len(vjp_calls[nid]))
+              for nid, d in diffs.items()}
 
     # liveness: the position of each value's last reader
     keep = set(outputs) | {nid for _, nid in g.inputs}
@@ -608,7 +617,7 @@ def emit(g: TaskGraph) -> Callable[[dict], tuple]:
         if key is not None:
             last[key] = pos
         if node.op == "pyfunc" and node.attrs.get("saved"):
-            last[("saved", node.inputs[1])] = pos
+            last[("saved", node.inputs[0])] = pos
     drops: list[list] = [[] for _ in nodes]
     for k, pos in last.items():
         if k not in keep:
@@ -629,8 +638,13 @@ def emit(g: TaskGraph) -> Callable[[dict], tuple]:
                 env[nid] = val
             elif nid in stored:
                 call, diff, calls = stored[nid]
-                env[nid], env[("saved", nid)] = _lower_stored(
+                val, env[("saved", nid)] = _lower_stored(
                     call, [env[o] for o in call.operands], diff, calls)
+                if "out" in node.attrs:
+                    # the call's other elements read its result
+                    env.setdefault(_shared_key(node), val)
+                    val = val[node.attrs["out"]]
+                env[nid] = val
             else:
                 env[nid] = _lower_node(node, env, inputs, by_id)
             for k in drop:

@@ -215,7 +215,10 @@ def matmul_dx(dy, w, out_dtype=None):
     """The input gradient's product ``dy [m, n] @ w [k, n]^T -> [m, k]``,
     fp32 accumulation, in ``out_dtype`` (default ``dy``'s).  A CPU tensor
     runs ``ref.matmul_dx_ref``; a CUDA tensor launches the kernel with w
-    read as the K-major B operand (``tb``), or raises."""
+    read as the K-major B operand (``tb``), or raises.  A ``w`` that is
+    ``v.T`` of a contiguous ``v [n, k]`` (a tied head's ``embed.T``) is
+    ``dy @ v``, the forward's layout: ``v`` is read in place, where a
+    contiguous copy of ``w`` would move all of it on every call."""
     out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else dy.dtype
     if dy.device.type == "cpu":
         return ref.matmul_dx_ref(dy, w, out_dt)
@@ -224,7 +227,9 @@ def matmul_dx(dy, w, out_dtype=None):
         raise ValueError(f"matmul_dx: dy {tuple(dy.shape)} and w "
                          f"{tuple(w.shape)} do not share n")
     m, n = dy.shape
-    return _launch_bwd("dx", dy, w, m, w.shape[0], n, out_dt, False, True)
+    b, transposed = weight_operand(w)
+    return _launch_bwd("dx", dy, b, m, w.shape[0], n, out_dt, False,
+                       not transposed)
 
 
 def matmul_dw(x, dy, out_dtype=None):

@@ -18,24 +18,42 @@ neither has this one.  Prints one JSON line: ``steps``, ``tok_per_s``
 (after the first step, which builds the kernels and traces the regions),
 ``first_loss``, ``last_loss`` and ``losses``.
 
+``--arch zamba2_7b`` trains Zamba2 (the GLA scan's backward, flash's at
+head dim 112, the tied head's two gradients); at the full 81 layers its
+fp32 state (106 GB) does not fit one card either, and ``chip_smoke.py``'s
+Zamba2 train phase trains it at a probed depth.
+
 ``--capture-step`` trains with the captured step
 (``train/region_step.py``: the whole update one region program, the
 backward derived by ``core/autodiff.py``, the state donated); its default
 remat is ``auto`` (the roofline per node), as in the reference, and the
 JSON line adds ``grad_meta``'s counts (``n_fwd``, ``n_bwd``, ``remat``).
 
-Not ported: ``--resume`` and ``--ckpt-dir`` (checkpoints) raise
-``NotImplementedError``; the fault-tolerant loop waits for
-``dist/fault.py``.
+Checkpoints (``checkpoint/ckpt.py``, the reference's format), with the
+reference's flags and defaults: after each step the state is saved when
+the count of steps done is a multiple of ``--ckpt-every`` (25), keeping the
+newest 3, asynchronously (the leaves are copied to host memory first), and
+the loop waits for the last write at the end.  ``--ckpt-dir`` defaults to
+``repro_ckpt`` under the temp directory (the reference's
+``/tmp/repro_ckpt``).  ``--resume`` restores the latest checkpoint into
+the freshly built state in place, or cold-starts with the reference's log
+line, then runs from that step to ``--steps``; the JSON line's ``steps``
+counts the steps run and ``start_step`` where they began.  The
+fault-tolerant loop around the steps waits for ``dist/fault.py`` (ROADMAP
+queue 1, item 7).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
+import tempfile
 import time
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.data import DataConfig, TokenPipeline, to_device
 from repro_torch.models.base import get_model, resolve_device
@@ -43,6 +61,8 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.core import tapir
 from repro_torch.train import (TrainConfig, init_state,
                                make_region_train_step, make_train_step)
+
+log = logging.getLogger("repro_torch.train")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,17 +87,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--capture-step", action="store_true",
                     help="the region-captured training step")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory (not ported)")
+                    help="checkpoint directory (default: repro_ckpt under "
+                         "the temp directory)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true",
-                    help="restore the latest checkpoint (not ported)")
+                    help="restore the latest checkpoint, then run on to "
+                         "--steps")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.resume or args.ckpt_dir is not None:
-        raise NotImplementedError("--resume / --ckpt-dir: checkpoints are "
-                                  "not ported (ROADMAP queue 1)")
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
     remat = args.remat or ("auto" if args.capture_step else "full")
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -96,16 +118,30 @@ def main(argv=None):
                                     global_batch=args.batch,
                                     vocab=cfg.vocab, seed=args.seed))
 
+    ckpt = CheckpointManager(
+        args.ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_ckpt"),
+        keep_n=3, every=args.ckpt_every)
+    start_step = 0
+    if args.resume:
+        try:
+            state, start_step, _ = ckpt.restore_latest(state)
+            log.info("resumed from step %d", start_step)
+        except FileNotFoundError:
+            log.info("no checkpoint found; cold start")
+
     losses, t_start = [], None
-    for s in range(args.steps):
-        if s == 1:
+    for s in range(start_step, args.steps):
+        if s == start_step + 1:
             t_start = time.perf_counter()
         state, m = step_fn(state, to_device(pipe.batch_at(s), dev))
         losses.append(float(m["loss"]))   # a synchronise
-    timed = args.steps - 1
+        ckpt.maybe_save(s + 1, state)     # the count of steps done
+    ckpt.wait()
+    timed = len(losses) - 1
     dt = time.perf_counter() - t_start if timed > 0 else float("nan")
     tok_s = timed * args.batch * args.seq / dt if timed > 0 else None
-    line = {"steps": args.steps, "tok_per_s": tok_s,
+    line = {"steps": len(losses), "start_step": start_step,
+            "tok_per_s": tok_s,
             "first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None, "losses": losses}
     if args.capture_step:

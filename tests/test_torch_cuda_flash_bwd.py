@@ -21,12 +21,16 @@ RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 #: ragged lengths one past every tile and unit edge (129 and 257 rows and
 #: keys), causal Skv > Sq off every edge, GQA groups 1, 3 and 8, D = 24,
 #: 64 and 128, and a single query row over 70 keys (with one key, dQ and
-#: dK would be zero but for rounding: nothing to hold them to)
+#: dK would be zero but for rounding: nothing to hold them to); then
+#: Zamba2-7B's shared block, head dim 112 (held in a 128-column tile) at
+#: Hq = Hkv = 32: its train shape and the 4 x 512 prefill shape
 SHAPES = [(2, 2048, 2048, 16, 2, 128, True), (2, 28, 28, 4, 2, 24, True),
           (1, 129, 129, 16, 2, 128, True), (2, 64, 257, 8, 1, 64, True),
           (1, 257, 257, 4, 2, 128, False), (2, 100, 129, 8, 1, 24, True),
           (1, 300, 300, 3, 1, 128, True), (1, 77, 150, 8, 1, 32, False),
-          (1, 200, 200, 8, 8, 128, False), (2, 1, 70, 4, 2, 64, True)]
+          (1, 200, 200, 8, 8, 128, False), (2, 1, 70, 4, 2, 64, True),
+          (2, 2048, 2048, 32, 32, 112, True),
+          (4, 512, 512, 32, 32, 112, True)]
 
 
 @pytest.fixture

@@ -5,7 +5,9 @@ vocab 32000, the head tied to the embedding): the card against the CPU,
 prefill and decode against the forward, the graphed decode step against
 the eager walk, the state written in place, the padded-wave engine's
 guarantees; the GLA scan's carried state split on a chunk boundary; the
-tied head read in place.
+tied head read in place, in the forward and in its two gradient
+products; a train step, the captured one against the per-op one and
+remat none against full, bitwise.
 
 The 2 layers are drawn as the 81-layer model draws its layers: the
 reference's init divides a stacked leaf's normal draw by the square root
@@ -35,6 +37,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import tapir
 from repro_torch.kernels.fused_matmul import kernel as fm_kernel
 from repro_torch.kernels.fused_matmul import ops as fm_ops
+from repro_torch.kernels.fused_matmul import ref as fm_ref
 from repro_torch.kernels.linear_scan import ops as ls_ops
 from repro_torch.models import mamba as M
 from repro_torch.models.base import get_model, materialize
@@ -43,6 +46,11 @@ from repro_torch.serve import Request, ServeConfig, ServingEngine
 pytestmark = pytest.mark.cuda
 
 GPU = ServeConfig(target="gpu")
+#: the tied head's gradients: the largest error over the plain result's
+#: largest (``chip_smoke.py``'s LS_RTOL); dX's entries spread by a few
+#: hundredths, so an absolute 0.1 would pass a product short of a quarter
+#: of its contraction
+GEMM_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 STEPS = 20
 PROMPT = 48
 
@@ -268,3 +276,97 @@ def test_tied_head_reads_embed_transposed_in_place(cuda, dt, m, chain,
     want = fm_ops.fused_matmul(x, e.T.contiguous(), epilogue=epi)
     assert seen[0] == (e.data_ptr(), True) and seen[1][1] is False
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [4, 4096])
+def test_tied_head_gradients_match_plain(cuda, dt, m, monkeypatch):
+    """The tied head's two gradient products, as ``FusedMatmulFn``'s
+    backward runs them for ``w = embed.T``: dX = dY embed reads ``embed``
+    in place in the forward's layout (no copy of the vocabulary matrix),
+    with the bits of the product on ``embed.T`` copied contiguous; dW =
+    X^T dY ``[3584, 32000]``.  Each against its plain version within
+    GEMM_RTOL of the plain result's largest, finite."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    e = (torch.randn(32000, 3584, generator=g, device="cuda") / 60).to(dt)
+    x = torch.randn(m, 3584, generator=g, device="cuda").to(dt)
+    dy = (torch.randn(m, 32000, generator=g, device="cuda") / 100).to(dt)
+    seen = []
+    launch = fm_kernel.launch
+
+    def spy(a, b, *args, **kw):
+        seen.append((b.data_ptr(), kw.get("ta", False), kw.get("tb", False)))
+        return launch(a, b, *args, **kw)
+
+    monkeypatch.setattr(fm_kernel, "launch", spy)
+    dx = fm_ops.matmul_dx(dy, e.T)
+    assert seen[-1] == (e.data_ptr(), False, False)
+    dx_copy = fm_ops.matmul_dx(dy, e.T.contiguous())
+    assert seen[-1][2] is True
+    dw = fm_ops.matmul_dw(x, dy)
+    assert dx.shape == (m, 3584) and dw.shape == (3584, 32000)
+    for got, want in ((dx, fm_ref.matmul_dx_ref(dy, e.T)),
+                      (dw, fm_ref.matmul_dw_ref(x, dy))):
+        assert bool(torch.isfinite(got).all())
+        err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        assert err <= GEMM_RTOL[dt] * top, (err, top)
+    assert torch.equal(dx, dx_copy)
+
+
+def _train(kind: str, dtype: str, steps: int, remat: str = "full"):
+    """``steps`` train steps of the 2-layer model on 2 x 256 tokens of
+    ``TokenPipeline``: the per-op step (``make_train_step``, ``remat``) or
+    the captured one (``make_region_train_step``, policy auto).  Returns
+    (losses, state)."""
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_state,
+                                   make_region_train_step, make_train_step)
+    tapir.clear_cache()
+    model = _model(dtype)
+    opt = AdamWConfig(lr=1e-3, total_steps=steps, warmup_steps=1)
+    if kind == "per_op":
+        step = make_train_step(model, opt, TrainConfig(target="gpu",
+                                                       remat=remat))
+    else:
+        step = make_region_train_step(model, opt, TrainConfig(
+            target="gpu", remat="auto"))
+    pipe = TokenPipeline(DataConfig(seq_len=256, global_batch=2,
+                                    vocab=model.cfg.vocab))
+    state = init_state(model, opt)
+    losses = []
+    for s in range(steps):
+        state, m = step(state, to_device(pipe.batch_at(s), "cuda"))
+        losses.append(m["loss"].clone())
+    return losses, state
+
+
+def _state_leaves(state):
+    from repro_torch.optim import tree_leaves
+    return tree_leaves(state["params"]) + tree_leaves(state["opt"])
+
+
+def test_captured_train_step_equals_per_op_bitwise(cuda):
+    """fp32 compute: the captured step gives the per-op step's loss at
+    every step and its params, moments and step counter after 2 steps,
+    bit for bit (the GLA scan's backward, flash's at head dim 112, the
+    tied head's two gradients and the shared block's two gradient sums
+    on the card)."""
+    lo, so = _train("per_op", "float32", 2)
+    lc, sc = _train("captured", "float32", 2)
+    assert all(torch.equal(a, b) for a, b in zip(lo, lc))
+    assert all(torch.isfinite(x).all() for x in lo)
+    assert all(torch.equal(a, b) for a, b in zip(_state_leaves(so),
+                                                 _state_leaves(sc)))
+
+
+def test_train_remat_none_equals_full_bitwise(cuda):
+    """bf16 compute, the per-op step: remat none and full give the same
+    losses and state after 2 steps, bit for bit (the recomputed layers'
+    casts, convs and scans included)."""
+    ln, sn = _train("per_op", "bfloat16", 2, remat="none")
+    lf, sf = _train("per_op", "bfloat16", 2, remat="full")
+    assert all(torch.equal(a, b) for a, b in zip(ln, lf))
+    assert all(torch.equal(a, b) for a, b in zip(_state_leaves(sn),
+                                                 _state_leaves(sf)))

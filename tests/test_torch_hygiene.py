@@ -45,6 +45,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, "\n".join(bad)
 
 
+def test_the_import_walk_covers_every_package():
+    """Every package of the port is walked, the checkpoint package
+    among them."""
+    pkgs = {p.parent.name for p in PORT_FILES}
+    want = {d.name for d in (ROOT / "src" / "repro_torch").iterdir()
+            if (d / "__init__.py").exists()}
+    assert "checkpoint" in want and want <= pkgs
+
+
 def test_the_import_walk_catches_what_it_must(tmp_path):
     src = ("import jax.numpy as jnp\nfrom repro.core import ir\n"
            "def f():\n    import jaxlib\n    __import__('repro.serve')\n"

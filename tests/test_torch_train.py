@@ -308,12 +308,14 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert line["last_loss"] < line["first_loss"]
 
 
-@pytest.mark.parametrize("flag", [["--remat", "dots"], ["--resume"],
-                                  ["--ckpt-dir", "x"]])
+@pytest.mark.parametrize("flag", [["--remat", "dots"], ["--remat", "auto"],
+                                  ["--remat", "dots", "--resume"]])
 def test_launcher_refuses_what_is_not_ported(flag):
-    """``--remat dots`` without ``--capture-step``: the per-op step has no
-    such policy (the captured step is tested in
-    ``test_torch_region_step.py``)."""
+    """``--remat dots`` or ``auto`` without ``--capture-step``: the per-op
+    step has no such policy (the captured step is tested in
+    ``test_torch_region_step.py``), and ``--resume`` does not get past
+    it.  ``--resume`` and ``--ckpt-dir`` themselves work since checkpoints
+    were ported (``test_torch_checkpoint.py``)."""
     with pytest.raises(NotImplementedError):
         launch_train.main(["--device", "cpu", "--smoke", "--steps", "1"]
                           + flag)
