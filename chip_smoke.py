@@ -12,6 +12,7 @@
     python3 chip_smoke.py --capture-depths N,N,...
     python3 chip_smoke.py --profile-windows N
     python3 chip_smoke.py --zamba2-depths N,N,...
+    python3 chip_smoke.py --dense
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -37,7 +38,8 @@ was chosen.  The tenth profiles N windows shaped like a decode window
 PROF_PAD_S of idle card at each end, and counts the kernels each keeps:
 why the decode windows are padded.  The eleventh does what the ninth does
 for Zamba2-7B, per op and captured: how Z_TRAIN_LAYERS and
-Z_CAPTURE_LAYERS were chosen.
+Z_CAPTURE_LAYERS were chosen.  The twelfth runs the build phase and
+phases 33-37 alone (the program cache and the three dense configs).
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts (forward and
@@ -310,6 +312,44 @@ The Zamba2 models are then released, and the paper's four networks
    launched: kernel vs plain, its plan (tile, ranks over k), its time
    beside the bound, the plain version, the library call and
    ``torch.matmul`` (TF32 off).
+
+The paper nets' state is then released, and the program cache and the
+three remaining dense configs follow (fp32 master weights, bf16
+compute, random weights from seed 0):
+
+33. program_cache — ``launch/serve.py --arch chatglm3_6b`` (ChatGLM3-6B
+   at full width and all 28 layers) in two processes one after the other
+   on one store in a temporary directory under ``build/`` (removed
+   afterwards), each serving the serve phase's traffic as the launcher's
+   flags give it (4 slots, max_len 512, 6 requests of a shared 128-token
+   prefix and 32 tokens of their own, 16 new tokens) twice on one engine:
+   the first compiles N > 0 region programs and writes N entries, the
+   second compiles none, hits N, quarantines none, captures as many CUDA
+   graphs and serves every request's tokens bitwise as the first; each
+   one's TTFT p50, wall time, and a run's seconds in tracing, building
+   programs (pipeline + emit, or the store's load), the store's share,
+   CUDA-graph capture and the rest, first run against second;
+34. chatglm_serve — ChatGLM3-6B in this process: ``ServingEngine.run``
+   on the serve phase's requests, launches held per decode step;
+35. chatglm_forward (``forward_phase`` on 1 x 2048: 28 flash and 113
+   GEMM launches), chatglm_forward_guarantees (phase 4's: region =
+   per-op bitwise) and chatglm_guarantees (phase 8's: run = run_wave,
+   prefix sharing on = off, rerun = first and the per-op control, whose
+   K and V projections (n = 256) run unfused, = the fused path, bitwise;
+   and ``gemm_column_stability``: the fused QKV's K and V columns are
+   bitwise the unfused products');
+36. chatglm_kernels_vs_plain — every GEMM shape of those paths (fused QKV
+   n = 4608 with its bias, gate|up n = 27392, down k = 13696, the head
+   n = 65024, at every m the paths launched) against its plain version
+   in bf16 and fp32, and every flash shape (32 / 2 heads of 128), each
+   timed beside its bound and ``torch.matmul`` / SDPA;
+37. Command R+ 104B and Qwen1.5-110B at full width cut to
+   BIG_DENSE_LAYERS (2) layers, one after the other (the full models,
+   ~208 / ~220 GB in bf16, do not fit one card): ``forward_phase`` on
+   1 x 2048 and ``forward_guarantees``, then every GEMM shape of the
+   forward (the 256000-vocab head, gate|up n = 67584 and 98304, down
+   k = 33792 and 49152) and its flash shape against the plain version
+   and timed as in 36.
 
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
@@ -602,8 +642,8 @@ def top_kernels(by_name: dict, n: int = 8) -> list:
             for k, (ms, c) in top]
 
 
-def forward_phase(model, cfg):
-    """``forward`` and ``loss`` at full width on FWD_B x FWD_S tokens: a
+def forward_phase(model, cfg, b: int = FWD_B):
+    """``forward`` and ``loss`` at full width on b x FWD_S tokens: a
     first call (region programs built), a timed call, the loss, and one
     profiled forward.  Each zeroes and checks the counts: one flash launch
     per layer, 4 GEMMs per layer (QKV, wo, gate|up, wd) plus the head."""
@@ -614,7 +654,7 @@ def forward_phase(model, cfg):
     from repro_torch.serve import ServeConfig
     rng = np.random.default_rng(2)
     batch = {name: torch.as_tensor(rng.integers(lo, cfg.vocab,
-                                                (FWD_B, FWD_S)),
+                                                (b, FWD_S)),
                                    dtype=torch.int32, device="cuda")
              for name, lo in (("tokens", 1), ("labels", 0))}
     n_l = cfg.n_layers
@@ -641,14 +681,14 @@ def forward_phase(model, cfg):
     busy = sum(ms for ms, _ in by_name.values())
     flash_ms = sum(ms for k, (ms, _) in by_name.items() if "flash" in k)
     gemm_ms = sum(ms for k, (ms, _) in by_name.items() if "gemm" in k)
-    line = {"phase": "forward", "batch": FWD_B, "seq": FWD_S,
+    line = {"phase": "forward", "batch": b, "seq": FWD_S,
             "layers": n_l, "logits_shape": list(logits.shape),
             "finite": finite, "loss": float(loss),
             "attention_impls": sorted(impls),
             "flash_launches_per_forward": sum(fa.values()),
             "gemm_launches_per_forward": sum(fm.values()),
             "first_call_s": cold_s, "wall_s": wall_s, "loss_wall_s": loss_s,
-            "tok_per_s": FWD_B * FWD_S / wall_s,
+            "tok_per_s": b * FWD_S / wall_s,
             "peak_mem_gb": peak / 1e9,
             "profiled_wall_s": prof_s, "device_ms": busy,
             "device_busy_share": busy / (wall_s * 1e3),
@@ -656,7 +696,7 @@ def forward_phase(model, cfg):
             "top": top_kernels(by_name)}
     if impls != {"flash_kernel"}:
         raise SystemExit(f"forward: attention nodes bound to {impls}")
-    if not finite or tuple(logits.shape) != (FWD_B, FWD_S, cfg.vocab):
+    if not finite or tuple(logits.shape) != (b, FWD_S, cfg.vocab):
         raise SystemExit(f"forward: {line}")
     return line, batch, logits, fm, fa
 
@@ -3961,6 +4001,121 @@ def zamba2_train_phases() -> list:
     return entries
 
 
+def check_serve_launches(tag: str, cfg, run_out, st: dict,
+                         mode: str = "tapir"):
+    """Launch counts of the serving run just made (the counts were zeroed
+    just before it): every decode step launched the kernel once per GEMM
+    of the step, and every matmul node of ``mode``'s programs is bound to
+    the kernel's impl.  A decode step runs every slot (m = SLOTS); a
+    prefill runs a bucket of at least 8 rows and its head one row, so
+    m = SLOTS marks decode.  The per-op control does not fuse: QKV and
+    gate|up are 3 and 2 launches there."""
+    from repro_torch.core import tapir
+    from repro_torch.kernels.fused_matmul import ops
+    if not all(r.done and len(r.out) == MAX_NEW for r in run_out):
+        raise SystemExit(f"{tag}: not every request finished")
+    by_shape = dict(ops.launches_by_shape)
+    per_step = (4 if mode == "tapir" else 7) * cfg.n_layers + 1
+    decode = sum(c for s, c in by_shape.items() if s[0] == SLOTS)
+    if decode != per_step * st["decode_steps"]:
+        raise SystemExit(f"{tag}: {decode} decode kernel launches for "
+                         f"{st['decode_steps']} decode steps (expected "
+                         f"{per_step} per step)")
+    impls = {n.schedule.impl for key, g in tapir.cached_graphs().items()
+             if key[-3] == mode
+             for n in g.nodes.values() if n.op == "matmul"}
+    want = {"fused_kernel" if mode == "tapir" else "opaque"}
+    if impls != want:
+        raise SystemExit(f"{tag}: matmul nodes bound to {impls}")
+    return by_shape, decode, per_step, impls
+
+
+def serve_guarantees(model, cfg, reqs, eng, first_out, phase: str) -> dict:
+    """The port-internal serving guarantees on the card (phase 8): a rerun
+    of ``eng`` equals its first run (``first_out``), ``run`` equals
+    ``run_wave``, prefix sharing on equals off (a suffix prefill equals the
+    full prefill) and the per-op control (``mode="opaque"``, unfused)
+    equals the fused path, per request, token for token, each run with
+    its launches checked (``check_serve_launches``)."""
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    def fresh():
+        return [Request(rid=r.rid, prompt=r.prompt.copy(), max_new=r.max_new)
+                for r in reqs]
+
+    def counted_run(tag: str, engine, wave: bool = False,
+                    mode: str = "tapir"):
+        reset_counts()
+        res = engine.run_wave(fresh()) if wave else engine.run(fresh())
+        st_ = dict(engine.last_stats)
+        _, decode, per, _ = check_serve_launches(f"{phase} {tag}", cfg, res,
+                                                 st_, mode)
+        return res, st_, {"decode_steps": st_["decode_steps"],
+                          "decode_launches": decode,
+                          "launches_per_decode_step": per,
+                          "step_p50_ms": st_["step_p50"] * 1e3}
+
+    def engine(**kw):
+        return ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
+                             cfg=ServeConfig(target="gpu", **kw),
+                             device="cuda")
+
+    cont, warm, cont_n = counted_run("rerun", eng)
+    wave, _, wave_n = counted_run("run_wave", eng, wave=True)
+    noprefix, _, noprefix_n = counted_run(
+        "no_prefix", engine(prefix_sharing=False))
+    opaque, _, opaque_n = counted_run("opaque", engine(mode="opaque"),
+                                      mode="opaque")
+    same_wave = [a.out for a in cont] == [b.out for b in wave]
+    same_prefix = [a.out for a in cont] == [b.out for b in noprefix]
+    same_opaque = [a.out for a in cont] == [b.out for b in opaque]
+    same_first = [a.out for a in cont] == [b.out for b in first_out]
+    line = {"phase": phase, "run_eq_run_wave": same_wave,
+            "prefix_eq_no_prefix": same_prefix,
+            "opaque_eq_tapir": same_opaque, "rerun_eq_first": same_first,
+            "launches": {"rerun": cont_n, "run_wave": wave_n,
+                         "no_prefix": noprefix_n, "opaque": opaque_n},
+            "warm_tok_per_s": warm["tok_per_s"],
+            "warm_step_p50_ms": warm["step_p50"] * 1e3,
+            "warm_step_p95_ms": warm["step_p95"] * 1e3,
+            "warm_ttft_p50_ms": warm["ttft_p50"] * 1e3,
+            "warm_prefix_hits": warm["prefix_hits"]}
+    if not (same_wave and same_prefix and same_first and same_opaque):
+        raise SystemExit(f"{phase}: outputs differ: {line}")
+    return line
+
+
+def gemm_column_stability(cfg, m: int = SLOTS) -> dict:
+    """Whether the fused QKV product's K and V columns are bitwise the
+    unfused K and V projections' at ``m`` rows, bf16, and the two
+    products' plans (``kernel.plan``: the split is a function of k alone,
+    so a narrow unfused projection sums k as the fused one does).  Fails
+    the phase if they differ."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel, ops
+    d, hd = cfg.d_model, cfg.hd
+    nq, nk = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, nq + 2 * nk, generator=gen, device="cuda")
+         / d ** 0.5).bfloat16()
+    fused = ops.fused_matmul(x, w, out_dtype=torch.bfloat16)
+    line = {"m": m, "k": d,
+            "fused_plan": kernel.plan(nq + 2 * nk, d,
+                                      torch.bfloat16)._asdict(),
+            "unfused_kv_plan": kernel.plan(nk, d, torch.bfloat16)._asdict()}
+    for tag, lo in (("k", nq), ("v", nq + nk)):
+        alone = ops.fused_matmul(x, w[:, lo:lo + nk].contiguous(),
+                                 out_dtype=torch.bfloat16)
+        line[f"{tag}_columns_bitwise"] = bool(torch.equal(
+            fused[:, lo:lo + nk], alone))
+        line[f"{tag}_columns_max_abs_diff"] = float(
+            (fused[:, lo:lo + nk].float() - alone.float()).abs().max())
+    if not (line["k_columns_bitwise"] and line["v_columns_bitwise"]):
+        raise SystemExit(f"gemm_column_stability: {line}")
+    return line
+
+
 def qwen_phases() -> list:
     """Phases 2-10 on qwen2.5-3b; returns their entries of the kernels
     line.  Everything they allocate is local, so it is freed on return."""
@@ -3970,7 +4125,7 @@ def qwen_phases() -> list:
     from repro_torch.core import tapir
     from repro_torch.kernels.fused_matmul import ops, ref
     from repro_torch.models.base import get_model
-    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.serve import ServeConfig, ServingEngine
 
     # -- 2. serve at full width ------------------------------------------
     cfg = get_config("qwen2_5_3b")
@@ -3983,37 +4138,12 @@ def qwen_phases() -> list:
                         cfg=ServeConfig(target="gpu"), device="cuda")
     reqs = requests(cfg.vocab, seed=0)
 
-    def check_launches(tag: str, run_out, st: dict, mode: str = "tapir"):
-        """Launch counts of the run just made (the counts were zeroed just
-        before it): every decode step launched the kernel once per GEMM of
-        the step, and every matmul node of ``mode``'s programs is bound to
-        the kernel's impl.  A decode step runs every slot (m = SLOTS); a
-        prefill runs a bucket of at least 8 rows and its head one row, so
-        m = SLOTS marks decode.  The per-op control does not fuse: QKV and
-        gate|up are 3 and 2 launches there."""
-        if not all(r.done and len(r.out) == MAX_NEW for r in run_out):
-            raise SystemExit(f"{tag}: not every request finished")
-        by_shape = dict(ops.launches_by_shape)
-        per_step = (4 if mode == "tapir" else 7) * cfg.n_layers + 1
-        decode = sum(c for s, c in by_shape.items() if s[0] == SLOTS)
-        if decode != per_step * st["decode_steps"]:
-            raise SystemExit(f"{tag}: {decode} decode kernel launches for "
-                             f"{st['decode_steps']} decode steps (expected "
-                             f"{per_step} per step)")
-        impls = {n.schedule.impl for key, g in tapir.cached_graphs().items()
-                 if key[-3] == mode
-                 for n in g.nodes.values() if n.op == "matmul"}
-        want = {"fused_kernel" if mode == "tapir" else "opaque"}
-        if impls != want:
-            raise SystemExit(f"{tag}: matmul nodes bound to {impls}")
-        return by_shape, decode, per_step, impls
-
     reset_counts()
     out = eng.run(reqs)
     launches = ops.launches
     st = dict(eng.last_stats)
-    by_shape, decode_launches, per_step, impls = check_launches(
-        "serve", out, st)
+    by_shape, decode_launches, per_step, impls = check_serve_launches(
+        "serve", cfg, out, st)
     for r in out:
         toks = np.asarray(r.out)
         if not ((toks >= 0) & (toks < cfg.vocab)).all():
@@ -4103,48 +4233,7 @@ def qwen_phases() -> list:
         raise SystemExit(f"small forward parity: {fpar}")
 
     # -- 8. port-internal guarantees on the card --------------------------
-    def fresh():
-        return [Request(rid=r.rid, prompt=r.prompt.copy(), max_new=r.max_new)
-                for r in reqs]
-
-    def counted_run(tag: str, engine, wave: bool = False,
-                    mode: str = "tapir"):
-        reset_counts()
-        res = engine.run_wave(fresh()) if wave else engine.run(fresh())
-        st_ = dict(engine.last_stats)
-        _, decode, per, _ = check_launches(tag, res, st_, mode)
-        return res, st_, {"decode_steps": st_["decode_steps"],
-                          "decode_launches": decode,
-                          "launches_per_decode_step": per,
-                          "step_p50_ms": st_["step_p50"] * 1e3}
-
-    def engine(**kw):
-        return ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
-                             cfg=ServeConfig(target="gpu", **kw),
-                             device="cuda")
-
-    cont, warm, cont_n = counted_run("rerun", eng)
-    wave, _, wave_n = counted_run("run_wave", eng, wave=True)
-    noprefix, _, noprefix_n = counted_run(
-        "no_prefix", engine(prefix_sharing=False))
-    opaque, _, opaque_n = counted_run("opaque", engine(mode="opaque"),
-                                      mode="opaque")
-    same_wave = [a.out for a in cont] == [b.out for b in wave]
-    same_prefix = [a.out for a in cont] == [b.out for b in noprefix]
-    same_opaque = [a.out for a in cont] == [b.out for b in opaque]
-    same_first = [a.out for a in cont] == [b.out for b in out]
-    emit({"phase": "guarantees", "run_eq_run_wave": same_wave,
-          "prefix_eq_no_prefix": same_prefix,
-          "opaque_eq_tapir": same_opaque, "rerun_eq_first": same_first,
-          "launches": {"rerun": cont_n, "run_wave": wave_n,
-                       "no_prefix": noprefix_n, "opaque": opaque_n},
-          "warm_tok_per_s": warm["tok_per_s"],
-          "warm_step_p50_ms": warm["step_p50"] * 1e3,
-          "warm_step_p95_ms": warm["step_p95"] * 1e3,
-          "warm_ttft_p50_ms": warm["ttft_p50"] * 1e3,
-          "warm_prefix_hits": warm["prefix_hits"]})
-    if not (same_wave and same_prefix and same_opaque and same_first):
-        raise SystemExit("guarantees: outputs differ")
+    emit(serve_guarantees(model, cfg, reqs, eng, out, "guarantees"))
 
     # -- 9. where a slot decode step's time goes ---------------------------
     prof = profile_decode(model, eng)
@@ -5113,6 +5202,276 @@ def fp32_gemm_entries(fwd, bwd, first, gen) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The remaining dense configs and the program cache (phases 33-37)
+# ---------------------------------------------------------------------------
+
+#: the dense configs that do not fit one card at full depth: full width,
+#: BIG_DENSE_LAYERS layers
+BIG_DENSE = ("command_r_plus_104b", "qwen1_5_110b")
+BIG_DENSE_LAYERS = 2
+#: the serve phase's traffic as ``launch/serve.py``'s flags express it: 6
+#: requests of a shared 128-token prefix and 32 tokens of their own
+CACHE_PROMPT, CACHE_PREFIX, CACHE_REQUESTS = 160, 128, 6
+
+
+def program_cache_phase(arch: str = "chatglm3_6b",
+                        probe_import: bool = False) -> dict:
+    """33. ``launch/serve.py --arch ARCH`` at full width and depth in two
+    processes, one after the other, on one program store in a temporary
+    directory under ``build/`` (removed afterwards), each serving the
+    requests twice on one engine (``--runs 2``).  The first process starts
+    cold: it compiles N > 0 region programs and writes N entries.  The
+    second starts warm: it compiles none, hits N, quarantines none,
+    captures as many CUDA graphs as the first and serves every request's
+    tokens bitwise as the first did.  Each reports its TTFT p50, its wall
+    time and where a run's host seconds went (tracing, building programs
+    or loading them, the store's share, CUDA-graph capture, the rest),
+    for the first run against the second; the process's own wall time is
+    taken here, from its start to its exit.  With ``probe_import`` (the
+    ``--dense`` mode) also the seconds a fresh process takes to import
+    ``torch._dynamo``, which the first lifted composite's shape inference
+    on meta tensors sets off and no store skips."""
+    import shutil
+    import torch
+    from repro_torch.cache import ProgramDiskCache
+    store = os.path.join(HERE, "build", f"program_cache_{os.getpid()}")
+    shutil.rmtree(store, ignore_errors=True)
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+            "--device", "cuda", "--batch", str(SLOTS),
+            "--max-len", str(MAX_LEN), "--requests", str(CACHE_REQUESTS),
+            "--prompt-len", str(CACHE_PROMPT),
+            "--prefix-len", str(CACHE_PREFIX), "--max-new", str(MAX_NEW),
+            "--runs", "2", "--program-cache-dir", store]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    torch.cuda.empty_cache()
+    reports = []
+    try:
+        for tag in ("cold", "warm"):
+            t0 = time.perf_counter()
+            res = subprocess.run(argv, cwd=HERE, env=env, capture_output=True,
+                                 text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise SystemExit(f"program_cache {tag}: exit {res.returncode}"
+                                 f"\n{res.stderr[-4000:]}")
+            rep = json.loads(res.stdout.strip().splitlines()[-1])
+            rep["process_wall_s"] = wall
+            reports.append(rep)
+        entries = len(ProgramDiskCache(store, "read").entries())
+        dynamo_s = None
+        if probe_import:
+            res = subprocess.run(
+                [sys.executable, "-c", "import time, torch; t = time."
+                 "perf_counter(); import torch._dynamo; "
+                 "print(time.perf_counter() - t)"],
+                cwd=HERE, env=env, capture_output=True, text=True,
+                timeout=300)
+            if res.returncode == 0:
+                dynamo_s = float(res.stdout.strip())
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+    def brief(rep: dict) -> dict:
+        return {"process_wall_s": rep["process_wall_s"],
+                "process_s": rep["process_s"], "init_s": rep["init_s"],
+                "cache": rep["cache"],
+                "runs": [{k: r[k] for k in ("ttft_p50_ms", "wall_s", "cold",
+                                            "out_sha256")}
+                         for r in rep["runs"]]}
+
+    a, b = reports
+    n = a["cache"]["compiled_programs"]
+    caps = [[r["cold"]["graph_captures"] for r in rep["runs"]]
+            for rep in reports]
+    shas = {r["out_sha256"] for rep in reports for r in rep["runs"]}
+    line = {"phase": "program_cache", "arch": arch, "entries": entries,
+            "cold_process": brief(a), "warm_process": brief(b),
+            "cold_ttft_p50_ms": a["ttft_p50_ms"],
+            "warm_ttft_p50_ms": b["ttft_p50_ms"],
+            "second_run_ttft_p50_ms": [rep["runs"][1]["ttft_p50_ms"]
+                                       for rep in reports],
+            "graph_captures": caps, "tokens_equal": len(shas) == 1,
+            "sample_out": a["sample_out"]}
+    if probe_import:
+        line["torch_dynamo_import_s"] = dynamo_s
+    ok = (n > 0 and a["cache"]["l2_writes"] == n and entries == n
+          and b["cache"]["compiled_programs"] == 0
+          and b["cache"]["l2_hits"] == n
+          and b["cache"]["l2_quarantined"] == 0
+          and b["cache"]["l2_fallbacks"] == 0
+          and caps[0] == caps[1] and len(shas) == 1
+          and a["new_tokens"] == b["new_tokens"]
+          == CACHE_REQUESTS * MAX_NEW)
+    if not ok:
+        raise SystemExit(f"program_cache: {line}")
+    return line
+
+
+def dense_label(cfg):
+    """Names of a dense config's GEMM shapes for the kernels line."""
+    tag = cfg.name.split("-")[0]
+    return lambda s_, phase: (f"fused_matmul[{tag} {phase} "
+                              f"{label(s_[1], s_[2], cfg)} m={s_[0]} "
+                              f"n={s_[1]} k={s_[2]}]")
+
+
+def dense_kernel_entries(cfg, fm_paths, phase_of, fa_paths, gen) -> list:
+    """Every GEMM shape of a dense config's paths against its plain
+    version (bf16 and fp32) and timed beside its bound and
+    ``torch.matmul``; every flash shape against its plain version and
+    timed beside its bound and SDPA; the kernels line's entries."""
+    name = dense_label(cfg)
+    shapes = sorted(fm_paths, key=lambda s_: (s_[0], s_[1], s_[2]))
+    errs = gemm_vs_plain(shapes, gen, lambda s_: name(s_, phase_of[s_]))
+    entries = gemm_times(shapes, fm_paths, errs, gen,
+                         lambda s_: name(s_, phase_of[s_]))
+    fa_errs, fa_rels = flash_vs_plain([s_ for _, s_, _ in fa_paths],
+                                      extra=())
+    fa_entries = flash_times([(f"{cfg.name.split('-')[0]} {ph}", s_, c)
+                              for ph, s_, c in fa_paths])
+    emit({"phase": f"{cfg.name.split('-')[0]}_kernels_vs_plain",
+          "gemm_shapes": len(shapes), "tolerance": TOL,
+          "gemm_max_err": {d: max(e for k_, e in errs.items()
+                                  if k_[-1] == d)
+                           for d in ("bfloat16", "float32")},
+          "flash_max_err": {f"{s_}/{d}": e for (s_, d), e in fa_errs.items()},
+          "flash_row_relative_err": {f"{s_}/{d}": e
+                                     for (s_, d), e in fa_rels.items()},
+          "gemm_ms_over_matmul_ms": {
+              e["name"]: e["ms"] / e["library_ms"] for e in entries
+              if e["library_ms"]},
+          "gemm_tflops": gemm_tflops(entries),
+          "flash_tflops": {e["name"]: e["tflops"] for e in fa_entries}})
+    return entries + fa_entries
+
+
+def flash_paths_of(phase: str, fa) -> list:
+    return [(phase, s_[:6] + (s_[7],), c) for s_, c in fa.items()]
+
+
+def chatglm_phases() -> list:
+    """34-36 on ChatGLM3-6B at full width and depth (28 layers, half RoPE,
+    QKV bias, 32 / 2 heads of 128; random weights from seed 0): 34
+    chatglm_serve — ``ServingEngine.run`` with the serve phase's requests,
+    launches held per decode step; 35 chatglm_guarantees — phase 8's
+    (``serve_guarantees``) and phase 4's (``forward_guarantees``) bitwise
+    guarantees, after chatglm_forward (``forward_phase`` on 1 x 2048); 36
+    chatglm_kernels_vs_plain — every GEMM and flash shape of those paths
+    against its plain version, and its kernels-line entry."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.kernels.fused_matmul import ops
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config("chatglm3_6b")
+    t0 = time.perf_counter()
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
+                        cfg=ServeConfig(target="gpu"), device="cuda")
+    reqs = requests(cfg.vocab, seed=0)
+    reset_counts()
+    out = eng.run(reqs)
+    st = dict(eng.last_stats)
+    by_shape, decode_launches, per_step, impls = check_serve_launches(
+        "chatglm_serve", cfg, out, st)
+    emit({"phase": "chatglm_serve", "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "init_s": init_s, "tokens": st["tokens"],
+          "decode_steps": st["decode_steps"], "tok_per_s": st["tok_per_s"],
+          "step_p50_ms": st["step_p50"] * 1e3,
+          "step_p95_ms": st["step_p95"] * 1e3,
+          "ttft_p50_ms": st["ttft_p50"] * 1e3, "wall_s": st["wall_s"],
+          "prefix_hits": st["prefix_hits"],
+          "kernel_launches": ops.launches,
+          "decode_kernel_launches": decode_launches,
+          "launches_per_decode_step": per_step,
+          "matmul_impls": sorted(impls),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "sample_out": out[0].out[:8]})
+    fm_paths = collections.Counter(by_shape)
+    phase_of = {s_: "decode" if s_[0] == SLOTS else "prefill"
+                for s_ in by_shape}
+    fwd, batch, logits, fm_fwd, fa_fwd = forward_phase(model, cfg, b=1)
+    fwd["phase"] = "chatglm_forward"
+    emit(fwd)
+    emit(dict(forward_guarantees(model, cfg, batch, logits),
+              phase="chatglm_forward_guarantees"))
+    del logits, batch
+    emit(dict(serve_guarantees(model, cfg, reqs, eng, out,
+                               "chatglm_guarantees"),
+              gemm_column_stability=gemm_column_stability(cfg)))
+    fm_paths.update(fm_fwd)
+    for s_ in fm_fwd:
+        phase_of.setdefault(s_, "forward")
+    del eng, model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return dense_kernel_entries(cfg, fm_paths, phase_of,
+                                flash_paths_of("forward", fa_fwd), gen)
+
+
+def big_dense_phases() -> list:
+    """37. Command R+ 104B and Qwen1.5-110B at full width, cut to
+    BIG_DENSE_LAYERS layers (fp32 master weights from seed 0): each one's
+    ``forward_phase`` on 1 x 2048 (launches, finite logits and loss, the
+    profile) and ``forward_guarantees``, then (the model released) every
+    GEMM and flash shape of its forward against its plain version, and
+    its kernels-line entries."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    entries = []
+    for arch in BIG_DENSE:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=BIG_DENSE_LAYERS)
+        t0 = time.perf_counter()
+        model = get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        fwd, batch, logits, fm, fa = forward_phase(model, cfg, b=1)
+        tag = cfg.name.split("-")[0]
+        emit(dict(fwd, phase=f"{tag}_forward", arch=arch, init_s=init_s,
+                  params_gb=sum(p.numel() * p.element_size()
+                                for p in model.parameters()) / 1e9))
+        emit(dict(forward_guarantees(model, cfg, batch, logits),
+                  phase=f"{tag}_forward_guarantees"))
+        del logits, batch, model
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        entries += dense_kernel_entries(cfg, collections.Counter(fm),
+                                        {s_: "forward" for s_ in fm},
+                                        flash_paths_of("forward", fa), gen)
+        torch.cuda.empty_cache()
+    return entries
+
+
+def dense_phases(probe_import: bool = False) -> list:
+    """Phases 33-37 (program_cache, ChatGLM3-6B, the two cut configs)."""
+    import torch
+    from repro_torch.core import tapir
+    t0 = time.perf_counter()
+    emit(program_cache_phase(probe_import=probe_import))
+    entries = chatglm_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    entries += big_dense_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "dense_done", "dense_s": time.perf_counter() - t0,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    return entries
+
+
 def paper_phases() -> list:
     """Phases 18-19 and the fp32 GEMM entries of the kernels line."""
     import torch
@@ -5492,6 +5851,12 @@ def main() -> int:
                     help="Zamba2-7B at full width at each depth: the "
                          "per-op and the captured train step's peak memory "
                          "or OOM, and stop")
+    ap.add_argument("--dense", action="store_true",
+                    help="run the build phase and phases 33-37 (the program "
+                         "cache, ChatGLM3-6B, the cut 104B / 110B configs) "
+                         "alone, with the program cache phase's import "
+                         "probe (a fresh process's torch._dynamo import "
+                         "time), and stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -5630,6 +5995,13 @@ def main() -> int:
                                  f"{fa_kernel.kernel_tiles_bwd(dt, d)}, plan "
                                  f"{fa_kernel.plan_bwd(dt, d)}")
 
+    if args.dense:
+        entries = dense_phases(probe_import=True)
+        emit({"kernels": entries})
+        emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
+        print(card, flush=True)
+        return 0
+
     # -- 2-10. qwen2.5-3b ----------------------------------------------------
     entries = qwen_phases()
     # the region programs hold their models (bound methods): drop them
@@ -5672,6 +6044,11 @@ def main() -> int:
     entries += paper_phases()
     emit({"phase": "paper_done", "paper_s": time.perf_counter() - t0,
           "elapsed_s": time.perf_counter() - t_start})
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+
+    # -- 33-37. the program cache, ChatGLM3-6B, the cut 104B / 110B -------
+    entries += dense_phases()
 
     emit({"kernels": entries})
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

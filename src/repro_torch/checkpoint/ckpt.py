@@ -45,34 +45,16 @@ import re
 import shutil
 import threading
 import time
-import uuid
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..cache.disk import atomic_write_json
+
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "CheckpointManager",
            "all_steps", "latest_step", "flatten", "atomic_write_json"]
-
-def atomic_write_json(path: str, obj: Any) -> None:
-    """Stage-and-rename JSON write (``indent=1``, sorted keys, numpy
-    scalars as numbers): readers see the old file or the new one."""
-    def default(o):
-        if isinstance(o, np.integer):
-            return int(o)
-        if isinstance(o, np.floating):
-            return float(o)
-        if isinstance(o, np.ndarray):
-            return o.tolist()
-        return str(o)
-    data = json.dumps(obj, indent=1, sort_keys=True, default=default)
-    tmp = f"{path}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
-    with open(tmp, "wb") as f:
-        f.write(data.encode())
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 def flatten(tree, prefix: str = "") -> dict:

@@ -6,7 +6,8 @@ import importlib
 
 from ..models.base import ModelConfig
 
-ARCH_IDS = ["qwen2_5_3b", "rwkv6_7b", "zamba2_7b"]
+ARCH_IDS = ["qwen1_5_110b", "command_r_plus_104b", "qwen2_5_3b",
+            "chatglm3_6b", "rwkv6_7b", "zamba2_7b"]
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import time
 import weakref
 from typing import Any, Callable, Optional, Sequence
 
@@ -280,8 +281,10 @@ class GraphCache:
                   for j, v in enumerate(vals)]
         args = [v if s is None else s for v, s in zip(vals, static)]
         before = [_snapshot(m) for m in self.counters]
+        t0 = time.perf_counter()
         handle, outs = self.backend.capture(fn, dict(zip(names, args)),
                                             vals[0].device)
+        self.stats["capture_s"] += time.perf_counter() - t0
         counts = [{a: _snapshot(m)[a] - v for a, v in b.items()}
                   for m, b in zip(self.counters, before)]
         where = []
@@ -326,7 +329,8 @@ class GraphCache:
                 "graph_pool_bytes": self.backend.pool_bytes,
                 "graph_captures": self.stats["captures"],
                 "graph_replays": self.stats["replays"],
-                "graph_evictions": self.stats["evictions"]}
+                "graph_evictions": self.stats["evictions"],
+                "graph_capture_s": float(self.stats["capture_s"])}
 
     def clear(self) -> None:
         for g in self.graphs():

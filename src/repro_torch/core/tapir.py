@@ -41,8 +41,17 @@ it (eight slice-fed GEMMs), which tapir mode's fusions collapse into one;
 ``conv2d`` is an NHWC / HWIO library op with an open epilogue, lowered to
 im2col and the GEMM kernel; ``elemwise`` is one unary ``ew`` node.
 
-Not ported yet (see ROADMAP): the on-disk program cache, ``expert_mlp``
-and ``invalidate_mesh``.
+The on-disk program cache (L2, ``repro_torch.cache``): with
+``TapirConfig.program_cache_dir`` set, a region program that misses the
+in-memory cache probes the store before the pass pipeline runs.  A
+verified hit rebuilds the stored optimized graph, its callables rebound to
+the live traced graph's, and emits from it: the pipeline is skipped, and
+the program, its CUDA-graph verdict and its in-place writes are those a
+compile gives.  A miss compiles and publishes.  A store fault costs a
+compile, never an answer: it is quarantined and counted
+(``l2_quarantined``, ``l2_fallbacks``).
+
+Not ported yet (see ROADMAP): ``expert_mlp`` and ``invalidate_mesh``.
 """
 from __future__ import annotations
 
@@ -57,6 +66,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from ..cache.disk import check_cache_mode
 from . import graphs
 from .dtypes import dtype_name, to_torch_dtype
 from .ir import TaskGraph, TensorType
@@ -88,11 +98,17 @@ class TapirConfig:
     #: tapir mode schedules with no small-task serialization (grain 0):
     #: the paper's ablation of that pass
     ablate_serialization: bool = False
+    #: on-disk program store (L2, ``repro_torch.cache``); None keeps
+    #: programs in memory only (every process compiles its own)
+    program_cache_dir: Optional[str] = None
+    #: "off" | "read" (probe, never publish nor quarantine) | "readwrite"
+    cache_mode: str = "readwrite"
 
     def __post_init__(self):
         if self.remat not in ("none", "full", "dots", "auto"):
             raise ValueError(f"remat must be 'none', 'full', 'dots' or "
                              f"'auto', got {self.remat!r}")
+        check_cache_mode(self.cache_mode)
 
     def resolved_cost_model(self) -> CostModel:
         if self.cost_model is not None:
@@ -140,10 +156,26 @@ class _Program(NamedTuple):
 
 
 _CACHE: dict[tuple, _Program] = {}
-_CACHE_STATS = {"hits": 0, "misses": 0, "pipeline_s": 0.0,
-                "compiled_programs": 0}
+_CACHE_STATS = {
+    "hits": 0, "misses": 0, "compiled_programs": 0,
+    # seconds: tracing region bodies; building programs (the pipeline and
+    # emit, or an L2 load); of those, the L2 tier's own (probe, rebuild,
+    # emit on a hit; encode and publish after a compile)
+    "trace_s": 0.0, "pipeline_s": 0.0, "l2_s": 0.0,
+    # L2 (on-disk) tier outcomes, summed over every active store
+    "l2_hits": 0, "l2_misses": 0, "l2_quarantined": 0, "l2_writes": 0,
+    # programs loaded from L2 whose emit or first call raised and that were
+    # replaced by a fresh compile (a store fault cost a compile, not an
+    # answer)
+    "l2_fallbacks": 0,
+}
 #: optimized graphs by cache key — introspection for tests and explain()
 _GRAPHS: dict[tuple, TaskGraph] = {}
+#: where each L1 entry came from (compiled, published, or the disk), keyed
+#: like ``_CACHE`` — surfaced by ``explain``
+_PROVENANCE: dict[tuple, dict] = {}
+#: ProgramDiskCache instances by (dir, mode), shared so stats accumulate
+_L2_INSTANCES: dict[tuple, Any] = {}
 
 
 def _tt(x) -> TensorType:
@@ -157,23 +189,209 @@ def _cfg_key(cfg: TapirConfig) -> tuple:
             cfg.resolved_cost_model().name, MESH_FINGERPRINT)
 
 
-def _compile(g: TaskGraph, cfg: TapirConfig, key: tuple,
-             region: bool = False) -> _Program:
-    """Pipeline + emit with cache bookkeeping (shared by per-op + region)."""
-    t0 = time.perf_counter()
+def _graphed(g: TaskGraph, cfg: TapirConfig) -> bool:
+    """A region program's CUDA-graph verdict (``core.graphs``)."""
+    return cfg.mode == "tapir" and dispatch_bound(g, cfg.resolved_cost_model())
+
+
+def _build(g: TaskGraph, cfg: TapirConfig, key: tuple,
+           region: bool) -> _Program:
+    """Run the pipeline on ``g`` (in place) and emit it."""
     g = run_pipeline(g, cfg.mode, cfg.resolved_cost_model(),
                      ablate_serialization=cfg.ablate_serialization)
     prog = _Program(emit(g))
     if region:
         _CACHE_STATS["compiled_programs"] += 1
-        prog = prog._replace(
-            graphed=cfg.mode == "tapir" and dispatch_bound(
-                g, cfg.resolved_cost_model()),
-            written=written_inputs(g))
-    _CACHE_STATS["pipeline_s"] += time.perf_counter() - t0
+        prog = prog._replace(graphed=_graphed(g, cfg),
+                             written=written_inputs(g))
     _GRAPHS[key] = g
+    return prog
+
+
+def _compile(g: TaskGraph, cfg: TapirConfig, key: tuple,
+             region: bool = False) -> _Program:
+    """Pipeline + emit with cache bookkeeping (shared by per-op + region).
+
+    For a region program this is also the L2 integration point: with a
+    store configured, probe it BEFORE the pipeline runs (a verified hit
+    skips the pipeline), and publish a fresh compile."""
+    t0 = time.perf_counter()
+    l2 = _l2_for(cfg) if region else None
+    if l2 is not None:
+        digest = _l2_digest(key, cfg)
+        prog = _l2_load(l2, digest, g, cfg, key)
+        if prog is not None:
+            _CACHE_STATS["pipeline_s"] += time.perf_counter() - t0
+            _CACHE_STATS["l2_s"] += time.perf_counter() - t0
+            _CACHE[key] = prog
+            return prog
+        # the pipeline rewrites g in place: take its objects first
+        from ..cache.disk import object_refs
+        refs = object_refs(g)
+        _CACHE_STATS["l2_s"] += time.perf_counter() - t0
+    prog = _build(g, cfg, key, region)
+    if l2 is not None:
+        t_l2 = time.perf_counter()
+        published = _l2_publish(l2, digest, _GRAPHS[key], refs, prog)
+        _PROVENANCE[key] = {
+            "name": _GRAPHS[key].name, "digest": digest,
+            "source": "compiled+published" if published else "compiled"}
+        _CACHE_STATS["l2_s"] += time.perf_counter() - t_l2
+    _CACHE_STATS["pipeline_s"] += time.perf_counter() - t0
     _CACHE[key] = prog
     return prog
+
+
+# ---------------------------------------------------------------------------
+# The on-disk tier (L2)
+# ---------------------------------------------------------------------------
+
+
+def _l2_for(cfg: TapirConfig):
+    """The active on-disk store for ``cfg``, or None when disabled."""
+    if not cfg.program_cache_dir or cfg.cache_mode == "off":
+        return None
+    from ..cache import ProgramDiskCache
+    k = (cfg.program_cache_dir, cfg.cache_mode)
+    l2 = _L2_INSTANCES.get(k)
+    if l2 is None:
+        l2 = _L2_INSTANCES[k] = ProgramDiskCache(cfg.program_cache_dir,
+                                                 cfg.cache_mode)
+    return l2
+
+
+def _l2_digest(key: tuple, cfg: TapirConfig) -> str:
+    """Cross-process content digest of an L1 key: the canonical graph
+    signature and config the key carries, the cost model's every field,
+    salted with torch, CUDA, the device kind, the kernels' sources, the
+    pipeline salt and the format (``cache.disk._versions``): a graph
+    optimized by another compiler, for another device or other kernels
+    must never hit."""
+    from ..cache import FORMAT_VERSION, PIPELINE_VERSION, stable_digest
+    from ..cache.disk import _versions
+    return stable_digest(("tapir-program", FORMAT_VERSION, PIPELINE_VERSION,
+                          _versions(), cfg.resolved_cost_model(), key))
+
+
+def _quarantine(l2, digest: str, reason: str) -> None:
+    q0 = l2.stats["quarantined"]
+    l2.quarantine(digest, reason)       # a no-op in read mode
+    _CACHE_STATS["l2_quarantined"] += l2.stats["quarantined"] - q0
+
+
+def _l2_load(l2, digest: str, g: TaskGraph, cfg: TapirConfig,
+             key: tuple) -> Optional[_Program]:
+    """Verified L2 probe: rebuild the stored graph against the objects of
+    the raw graph ``g`` (untouched: the pipeline has not run on it), check
+    its signature and verdicts against the sidecar and this process's own
+    reading of them, and emit it.  A graph that fails is quarantined (in
+    readwrite mode) and None returned: the caller compiles."""
+    from ..cache import stable_digest
+    from ..cache.disk import object_refs, rebuild_graph
+    q0 = l2.stats["quarantined"]
+    got = l2.get(digest)
+    _CACHE_STATS["l2_quarantined"] += l2.stats["quarantined"] - q0
+    if got is None:
+        _CACHE_STATS["l2_misses"] += 1
+        return None
+    payload, meta = got
+    try:
+        lg, graphed, written = rebuild_graph(payload, object_refs(g))
+        if (stable_digest(lg.signature()) != meta.get("graph_signature")
+                or written != written_inputs(lg)
+                or graphed != _graphed(lg, cfg)):
+            raise ValueError("the stored graph does not match its sidecar")
+    except Exception:
+        _quarantine(l2, digest, "graph-mismatch")
+        _CACHE_STATS["l2_misses"] += 1
+        return None
+    try:
+        fn = emit(lg)
+    except Exception:
+        _quarantine(l2, digest, "emit-failed")
+        _CACHE_STATS["l2_fallbacks"] += 1
+        return None
+    _CACHE_STATS["l2_hits"] += 1
+    _GRAPHS[key] = lg
+    _PROVENANCE[key] = {"name": lg.name, "digest": digest, "source": "disk"}
+    return _Program(_guarded(fn, l2, digest, g, cfg, key, written),
+                    graphed, written)
+
+
+def _version_of(t) -> Optional[int]:
+    try:
+        return t._version
+    except (AttributeError, RuntimeError):
+        return None
+
+
+def _guarded(fn: Callable, l2, digest: str, raw: TaskGraph,
+             cfg: TapirConfig, key: tuple, written: frozenset) -> Callable:
+    """A loaded program with a one-shot degrade path: if its first call
+    raises before writing any input in place, the raw graph is compiled
+    afresh and run in its place (for every later call too).  If the fresh
+    program succeeds the entry was at fault: it is quarantined and counted
+    (``l2_fallbacks``); if it raises too, the error is the caller's and
+    propagates."""
+    cell: dict[str, Any] = {"raw": raw}
+
+    def call(inputs: dict):
+        f = cell.get("fn")
+        if f is not None:
+            return f(inputs)
+        before = {n: _version_of(inputs[n]) for n in written if n in inputs}
+        try:
+            out = fn(inputs)
+        except Exception:
+            if any(v is None or _version_of(inputs[n]) != v
+                   for n, v in before.items()):
+                raise           # an input was written: no safe retry
+            fresh = _build(cell.pop("raw"), cfg, key, region=True)
+            cell["fn"] = fresh.fn
+            out = fresh.fn(inputs)
+            _quarantine(l2, digest, "call-failed")
+            _CACHE_STATS["l2_fallbacks"] += 1
+            _PROVENANCE[key] = dict(_PROVENANCE.get(key, {}),
+                                    source="disk, recompiled")
+            return out
+        cell["fn"] = fn
+        cell.pop("raw", None)
+        return out
+
+    return call
+
+
+def _l2_publish(l2, digest: str, g: TaskGraph, refs: list,
+                prog: _Program) -> bool:
+    """Encode and publish a fresh compile with its provenance sidecar,
+    after checking that the entry loads back to the same graph (a graph
+    that cannot would poison every later process).  Publish failures are
+    not fatal: the process serves uncached."""
+    from ..cache import stable_digest
+    from ..cache.disk import (decode_program_payload, encode_program_payload,
+                              rebuild_graph)
+    try:
+        raw = encode_program_payload(g, refs, prog.graphed, prog.written)
+        sig = stable_digest(g.signature())
+        back, graphed, written = rebuild_graph(decode_program_payload(raw),
+                                               refs)
+        if (stable_digest(back.signature()) != sig
+                or (graphed, written) != (prog.graphed, prog.written)):
+            return False
+        meta = {"graph_name": g.name,
+                "mesh_fingerprint": [list(p) for p in MESH_FINGERPRINT],
+                "input_names": [n for n, _ in g.inputs],
+                "graph_signature": sig, "graphed": prog.graphed,
+                "written": sorted(prog.written), "n_nodes": len(g.nodes),
+                "impls": sorted({n.schedule.impl for n in g.nodes.values()
+                                 if n.schedule.impl}),
+                "created_at": time.time()}
+        ok = l2.put(digest, raw, meta)
+    except Exception:
+        return False
+    if ok:
+        _CACHE_STATS["l2_writes"] += 1
+    return ok
 
 
 def _execute(op_key: tuple, build: Callable[[TaskGraph], None],
@@ -460,6 +678,9 @@ class _Region:
         self._inp_name: dict[int, str] = {}
         self._inp_vals: list[Any] = []
         self._handles: list[weakref.ref] = []
+        #: seconds this region spent building and running programs (a
+        #: flush inside the traced body is not tracing)
+        self.run_s = 0.0
 
     def nid_of(self, x) -> int:
         if isinstance(x, TracedTensor):
@@ -533,6 +754,7 @@ class _Region:
         return out
 
     def _run(self, outs: list[TracedTensor]) -> None:
+        t0 = time.perf_counter()
         self.g.set_outputs([h.nid for h in outs])
         key = ("region", self.g.signature()) + _cfg_key(self.cfg)
         inputs = {f"a{i}": v for i, v in enumerate(self._inp_vals)}
@@ -545,6 +767,7 @@ class _Region:
         self._last_prog, self._last_key = prog, key
         for h, r in zip(outs, _run_program(key, prog, inputs)):
             h._concrete = r
+        self.run_s += time.perf_counter() - t0
 
     def flush(self) -> None:
         """Materialize the current segment; capture continues afresh."""
@@ -635,6 +858,7 @@ def parallel_region(fn=None, *, name: Optional[str] = None):
             targs, tkwargs = _unflatten(spec, handles)
             stack = _region_stack()
             stack.append(r)
+            t0 = time.perf_counter()
             try:
                 out = f(*targs, **tkwargs)
             except BaseException:
@@ -642,6 +866,7 @@ def parallel_region(fn=None, *, name: Optional[str] = None):
                 raise
             finally:
                 stack.pop()
+                _CACHE_STATS["trace_s"] += time.perf_counter() - t0 - r.run_s
             out_leaves, out_spec = _flatten(out)
             pending = r._pending()
             if pending:
@@ -1315,9 +1540,10 @@ def scan_layers(body: Callable, stacked_params, x):
 
 
 def cache_stats() -> dict:
-    """Program-cache counters, and the graph cache's: ``graphs`` live,
-    ``graph_pool_bytes`` their pools hold, ``graph_captures`` and
-    ``graph_replays`` so far."""
+    """Program-cache counters (the L2 tier's among them), and the graph
+    cache's: ``graphs`` live, ``graph_pool_bytes`` their pools hold,
+    ``graph_captures``, ``graph_replays`` and ``graph_capture_s`` so
+    far."""
     return dict(_CACHE_STATS, size=len(_CACHE), programs=len(_PROGRAMS),
                 **graphs.CACHE.summary())
 
@@ -1364,13 +1590,31 @@ def explain(g: Optional[TaskGraph] = None) -> str:
                     lines.append(f"    %{nid} {node.op}: "
                                  f"{node.schedule.remat}")
         parts.append("\n".join(lines))
+    if _PROVENANCE:
+        lines = ["== program cache provenance =="]
+        for info in _PROVENANCE.values():
+            lines.append(f"  {info['name']}: {info['source']} "
+                         f"digest={info['digest'][:12]}")
+        parts.append("\n".join(lines))
     return "\n".join(parts)
 
 
+def program_cache(cfg: Optional[TapirConfig] = None):
+    """The active on-disk ``ProgramDiskCache`` for ``cfg`` (default: the
+    current config), or None when disabled.  Its ``clear()`` and
+    ``invalidate(fingerprint)`` are the store-wide maintenance that the
+    in-memory ``clear_cache()`` deliberately does not do."""
+    return _l2_for(cfg or get_config())
+
+
 def clear_cache() -> None:
-    """Drop every in-memory program, graph, replay entry and CUDA graph."""
+    """Drop the in-memory (L1) tier only: every program, graph, replay
+    entry and CUDA graph.  The on-disk store is untouched (use
+    ``program_cache().clear()``)."""
     _CACHE.clear()
     _GRAPHS.clear()
     _PROGRAMS.clear()
+    _PROVENANCE.clear()
     graphs.CACHE.clear()
-    _CACHE_STATS.update(hits=0, misses=0, pipeline_s=0.0, compiled_programs=0)
+    _CACHE_STATS.update({k: 0.0 if k.endswith("_s") else 0
+                         for k in _CACHE_STATS})

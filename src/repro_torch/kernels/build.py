@@ -7,6 +7,7 @@ this module needs no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import shutil
@@ -16,6 +17,9 @@ from pathlib import Path
 
 #: <checkout>/build — three levels up from src/repro_torch/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+
+#: the kernels' package: each kernel's sources are ``<kernel>/csrc/*.cu*``
+KERNELS_DIR = Path(__file__).resolve().parent
 
 #: nvcc's ``-Xptxas -v`` report of the last verbose build, by source stem
 REPORTS: dict = {}
@@ -61,3 +65,19 @@ def build_library(source: Path, verbose: bool = False,
         print(res.stderr, end="", file=sys.stderr)
     os.replace(tmp, out)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def source_digest(root: Path = KERNELS_DIR) -> str:
+    """sha256 over every ``.cu`` / ``.cuh`` under ``root/*/csrc`` (path
+    relative to ``root``, then bytes, in sorted order): the kernels' source
+    identity, part of every on-disk program cache key, so an entry written
+    before a kernel edit misses after it.  Computed once a process."""
+    h = hashlib.sha256()
+    for path in sorted(p for p in root.glob("*/csrc/*")
+                       if p.suffix in (".cu", ".cuh")):
+        rel = path.relative_to(root).as_posix().encode()
+        data = path.read_bytes()
+        h.update(f"{len(rel)}:".encode() + rel + f"{len(data)}:".encode())
+        h.update(data)
+    return h.hexdigest()

@@ -10,8 +10,8 @@
 //    once for a handful of rows: the bytes of W over HBM (3.35 TB/s) bound
 //    it.  One producer thread keeps a ring of 4-6 TMA stages (144-192 KB
 //    of x and W tiles) in flight on each SM; for the deep weights (k > 8192)
-//    and the single-tile ones (n <= 64) the k range is also split between
-//    the blocks of a thread-block cluster, so more SMs stream W.
+//    the k range is also split in two between the blocks of a
+//    thread-block cluster, so more SMs stream W.
 //  * At m = 4096 the 2mnk tensor FLOPs bound it (989 TFLOP/s in bf16).
 //    Only wgmma reaches that rate: two consumer warpgroups each own 64
 //    rows of a 128 x BN tile (BN = 256 for the large weights: the widest
@@ -29,7 +29,8 @@
 // Design rules that the serving path relies on:
 //  * The k-reduction order of one output element never depends on m.  The
 //    tile plan (BN, the split s, the ring depth) is a function of (n, k,
-//    dtype) alone (kernel.py::plan): m decides only how many 128-row
+//    dtype) alone, the bf16 split of k alone (kernel.py::plan, so a fused
+//    product's columns are its parts' bits): m decides only how many 128-row
 //    blocks run, and every block runs the same instruction sequence.  A
 //    split sums its fp32 partial tiles through distributed shared memory
 //    in rank order 0, 1, ..., s-1 (no atomics, no global workspace): rank

@@ -32,6 +32,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_matmul.cu"
 BK = 64        #: the bf16 route's k tile (one 128-byte swizzle row)
 SMS = 132      #: streaming multiprocessors of an H100 SXM
 MAX_SPLIT = 8  #: blocks in a cluster (the portable limit)
+SPLIT_K_TILES = 128  #: k tiles a bf16 block walks at most before k splits
 ALIGN = 8      #: TMA rows: a multiple of 16 bytes, 8 bf16 elements
 
 #: the fp32 route's tiles (``csrc/fused_matmul.cu``'s F32_TILE_LIST, in
@@ -65,12 +66,19 @@ def plan(n: int, k: int, dtype) -> Plan:
     bf16, chosen from a sweep of plans at the full-width paths' shapes on
     the H100 (``chip_smoke.py --gemm-times ... --plan``): 256-column tiles
     where the weight is 4096 or more on a side, 128 for the 2048-wide
-    projections and shallow k, 64 for n <= 64.  k is split between the
-    blocks of a cluster only where one block would walk more than 8192 of
-    k (qwen wd, RWKV wcv) or the output is a single tile (RWKV wA): on the
-    other shapes a split costs the m = 4096 forward more than it gains at
-    decode.  Each rank of a split keeps at least 16 whole k tiles (64 where
-    there are several output tiles).
+    projections and shallow k, 64 for n <= 64.  The split is a function of
+    k alone: k is cut in two between the blocks of a cluster where one
+    block would walk more than ``SPLIT_K_TILES`` k tiles (8192 of k: qwen
+    wd, RWKV wcv, ChatGLM3 wd, the 104B / 110B down projections).  An
+    output column's k ranges, and so its bits, then do not depend on how
+    many columns the product has: a fused QKV or gate|up product gives the
+    bits of its unfused parts, so the fusion pass is bitwise invisible.  A
+    split by the output's tile count would feed more SMs at decode on
+    narrow products (RWKV's wA, m = 4: 12.2 µs split four ways, 20.1-20.8
+    unsplit) but sums a narrow unfused projection's columns in another
+    order than the fused product's; more than two ranks cost the m = 2048
+    forward more than they gain (Command R+ wd, k = 33792: 2.43 ms in two,
+    3.93-3.96 in eight; ``chip_smoke.py --gemm-times`` on the H100).
 
     fp32 (the FMA route, every product of the paper's nets): what bounds
     it at the nets' shapes is how many SMs have work and how long each
@@ -98,13 +106,7 @@ def plan(n: int, k: int, dtype) -> Plan:
         bn = 256
     else:
         bn = 128
-    n_tiles = -(-n // bn)
-    k_tiles = -(-k // BK)
-    min_tiles = 16 if n_tiles == 1 else 64   # k tiles each rank keeps
-    split = 1
-    while (split < MAX_SPLIT and n_tiles * split * 2 <= SMS
-           and k_tiles >= 2 * split * min_tiles):
-        split *= 2
+    split = 2 if -(-k // BK) > SPLIT_K_TILES else 1
     return Plan(bn, split, 4 if bn == 256 else 6)
 
 

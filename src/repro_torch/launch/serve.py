@@ -5,22 +5,46 @@
 
 Runs on the card unless ``--device cpu``; weights are random, drawn from
 ``--seed``.  Prints one JSON report line.
+
+``--program-cache-dir DIR`` keeps the region programs in an on-disk store
+(``repro_torch.cache``; ``--cache-mode read`` probes it without writing):
+a second process on a warm store compiles none (the report's ``cache``
+block).  ``--runs N``, for measurement, serves the same requests N times
+on one engine; the report's ``runs`` gives each run's time to first
+token, wall time and where its host seconds went (``cold``: tracing,
+building programs, the store's share of that, CUDA-graph capture, and
+the rest), so the first run's cold start stands beside a warm run of the
+same process.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.cache.disk import CACHE_MODES
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.models.base import get_model, resolve_device
 from repro_torch.serve import Request, ServeConfig, ServingEngine
+from repro_torch.serve.engine import CACHE_KEYS
+
+
+def _costs(st: dict) -> dict:
+    """Where a run's wall seconds went outside its kernels' own time."""
+    out = {k: st.get(k, 0.0) for k in ("trace_s", "pipeline_s", "l2_s",
+                                       "graph_capture_s")}
+    out["graph_captures"] = st.get("graph_captures", 0)
+    out["rest_s"] = st["wall_s"] - (out["trace_s"] + out["pipeline_s"]
+                                    + out["graph_capture_s"])
+    return out
 
 
 def main(argv=None):
+    t_main = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2_5_3b")
     ap.add_argument("--smoke", action="store_true")
@@ -45,12 +69,26 @@ def main(argv=None):
                          "implies --admit-policy slo")
     ap.add_argument("--admit-policy", default=None,
                     choices=["strict", "reject", "slo"])
+    ap.add_argument("--program-cache-dir", default=None,
+                    help="persistent program store (L2); a warm dir makes "
+                         "restarts compile zero region programs")
+    ap.add_argument("--cache-mode", default="readwrite", choices=CACHE_MODES)
+    ap.add_argument("--runs", type=int, default=1,
+                    help="for measurement: serve the requests this many "
+                         "times on one engine, so that the first run's cold "
+                         "start stands beside a warm run of the same "
+                         "process (the report's first fields are the first "
+                         "run's)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
     model = get_model(cfg, device=dev, generator=gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
 
     rng = np.random.default_rng(args.seed)
     prios = ([int(p) for p in args.priorities.split(",")]
@@ -73,12 +111,24 @@ def main(argv=None):
                                         target="gpu" if dev.type == "cuda"
                                         else "cpu",
                                         admit_policy=admit,
-                                        prefix_sharing=not args.no_prefix_sharing))
-    t0 = time.time()
-    out = eng.run(reqs)
-    dt = time.time() - t0
+                                        prefix_sharing=not args.no_prefix_sharing,
+                                        program_cache_dir=args.program_cache_dir,
+                                        cache_mode=args.cache_mode))
+    runs = []
+    for i in range(max(1, args.runs)):
+        batch = reqs if i == 0 else [
+            Request(rid=r.rid, prompt=r.prompt.copy(), max_new=r.max_new,
+                    priority=r.priority, deadline_s=r.deadline_s)
+            for r in reqs]
+        t0 = time.time()
+        res = eng.run(batch)
+        dt_i = time.time() - t0
+        st_i = dict(eng.last_stats)
+        outs = [list(map(int, r.out)) for r in res]
+        runs.append((res, dt_i, st_i, hashlib.sha256(
+            json.dumps(outs).encode()).hexdigest()))
+    out, dt, st, out_sha = runs[0]
     total_new = sum(len(r.out) for r in out)
-    st = eng.last_stats
     report = {
         "device": (torch.cuda.get_device_name(0) if dev.type == "cuda"
                    else "cpu"),
@@ -96,7 +146,20 @@ def main(argv=None):
         "prefix_tokens_saved": st.get("prefix_tokens_saved", 0),
         "preemptions": st.get("preemptions", 0),
         "rejected": st.get("rejected", 0),
+        "out_sha256": out_sha,
+        "init_s": init_s,
+        "wall_s": st["wall_s"],
+        "cold": _costs(st),
     }
+    if args.program_cache_dir:
+        report["cache"] = {k: st.get(k, 0) for k in CACHE_KEYS}
+    if len(runs) > 1:
+        report["runs"] = [
+            {"ttft_p50_ms": round(s_.get("ttft_p50", 0.0) * 1e3, 3),
+             "wall_s": s_["wall_s"], "out_sha256": h, "cold": _costs(s_),
+             **{k: s_.get(k, 0) for k in CACHE_KEYS}}
+            for _, _, s_, h in runs]
+    report["process_s"] = time.perf_counter() - t_main
     print(json.dumps(report))
     return out
 

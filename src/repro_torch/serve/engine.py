@@ -33,9 +33,15 @@ the SLO shed's estimate, ``preempt_cost``'s step time) come from the
 decode steps' rolling window of the last 256 (``StepWindow``), as the
 reference takes them from its straggler watchdog's.
 
+``ServeConfig.program_cache_dir`` points the engine's region programs at
+the on-disk program store (``repro_torch.cache``): a warm replica compiles
+none of them, and ``last_stats`` carries each run's cache counters
+(``compiled_programs``, ``l2_hits``, ...) and where its cold-start seconds
+went (tracing, building programs, the store, CUDA-graph capture).
+
 Not ported yet: fault injection, checkpoints, the straggler watchdog's
-flagging (shed and escalate), meshes and the persistent program cache.
-Asking for one raises ``NotImplementedError``.
+flagging (shed and escalate) and meshes.  Asking for one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..cache.disk import check_cache_mode
 from ..core.schedule import CPU_COST_MODEL, H100_COST_MODEL
 from ..core.tapir import TapirConfig, cache_stats, use
 from ..models.base import resolve_device
@@ -74,17 +81,24 @@ class ServeConfig:
     shared_pages: Optional[int] = None
     #: eviction arm for priority preemption: "auto" | "park" | "replay"
     preempt_mode: str = "auto"
-    #: not ported yet; setting any of them raises NotImplementedError
+    #: not ported yet; setting either raises NotImplementedError
     fault_injector: Any = None
     ckpt_dir: Optional[str] = None
+    # -- persistent program cache (L2; see ``repro_torch.cache``) ---------
+    #: on-disk program store; None serves memory-only (every process
+    #: compiles its own region programs)
     program_cache_dir: Optional[str] = None
+    #: "off" | "read" (probe, never publish — replicas behind a shared
+    #: read-only store) | "readwrite"
+    cache_mode: str = "readwrite"
 
     def __post_init__(self):
-        for name in ("fault_injector", "ckpt_dir", "program_cache_dir"):
+        for name in ("fault_injector", "ckpt_dir"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"ServeConfig.{name} is not ported to the torch engine "
                     f"yet")
+        check_cache_mode(self.cache_mode)
         if self.target not in ("gpu", "cpu"):
             raise ValueError(f"target must be 'gpu' or 'cpu', got "
                              f"{self.target!r}")
@@ -108,7 +122,9 @@ class ServeConfig:
 
     def tapir_config(self) -> TapirConfig:
         return TapirConfig(mode=self.mode, cost_model=self.cost_model(),
-                           regions=self.regions)
+                           regions=self.regions,
+                           program_cache_dir=self.program_cache_dir,
+                           cache_mode=self.cache_mode)
 
 
 def make_prefill_step(model, mesh=None, cfg: ServeConfig = ServeConfig()):
@@ -225,6 +241,28 @@ def _pct(xs, q) -> float:
     return float(np.percentile(xs, q)) if xs else 0.0
 
 
+#: cache counters surfaced per run as deltas in ``last_stats`` (the
+#: reference's ``_CACHE_KEYS``): a warm replica shows
+#: ``compiled_programs=0, l2_hits>0``
+CACHE_KEYS = ("compiled_programs", "l2_hits", "l2_misses", "l2_quarantined",
+              "l2_writes", "l2_fallbacks")
+#: and where a run's host seconds outside its kernels went: tracing region
+#: bodies, building programs (pipeline + emit, or an L2 load), of which
+#: the store's own share, and capturing CUDA graphs
+COST_KEYS = ("graph_captures", "trace_s", "pipeline_s", "l2_s",
+             "graph_capture_s")
+
+
+def _cache_snap() -> dict:
+    st = cache_stats()
+    return {k: st[k] for k in CACHE_KEYS + COST_KEYS}
+
+
+def _cache_deltas(snap: dict) -> dict:
+    now = _cache_snap()
+    return {k: now[k] - snap[k] for k in snap}
+
+
 class ServingEngine:
     """Host-side serving loop: a slot allocator over a paged KV cache
     (continuous batching, greedy sampling)."""
@@ -280,7 +318,7 @@ class ServingEngine:
               "decode_steps": 0}
         occ_sum = 0.0
         ttft = []
-        compiled0 = cache_stats()["compiled_programs"]
+        snap = _cache_snap()
         t0 = time.perf_counter()
         for wave_start in range(0, len(requests), self.batch):
             wave = requests[wave_start: wave_start + self.batch]
@@ -315,8 +353,7 @@ class ServingEngine:
                   tok_per_s=st["tokens"] / wall if wall > 0 else 0.0,
                   mean_occupancy=(occ_sum / st["decode_steps"]
                                   if st["decode_steps"] else 0.0),
-                  compiled_programs=cache_stats()["compiled_programs"]
-                  - compiled0)
+                  **_cache_deltas(snap))
         self.last_stats = st
         return requests
 
@@ -346,7 +383,7 @@ class ServingEngine:
                 "replayed": 0, "slo_shed": 0})
 
     def _run_slots(self, requests, max_steps: int, continuous: bool):
-        compiled0 = cache_stats()["compiled_programs"]
+        snap = _cache_snap()
         t0 = time.perf_counter()
         with use(self.cfg.tapir_config()):
             self._sp = self.model.compute_params()
@@ -362,8 +399,7 @@ class ServingEngine:
                   tok_per_s=st["tokens"] / wall if wall > 0 else 0.0,
                   mean_occupancy=(rs.occ_sum / st["decode_steps"]
                                   if st["decode_steps"] else 0.0),
-                  compiled_programs=cache_stats()["compiled_programs"]
-                  - compiled0)
+                  **_cache_deltas(snap))
         self.last_stats = st
         return requests
 

@@ -120,12 +120,12 @@ def test_chain_with_stage_casts_and_mixed_operands(cuda):
 
 
 #: (dtype, k, n): unsplit (256- and 128-column tiles), split (n = 64 and
-#: n = 2048), padded unsplit, padded in n and k and split; fp32 split over
+#: n = 2048, deep k), padded unsplit, padded in n and k and split; fp32 split over
 #: k (the LSTM cell, conv1's, conv2's and the LSTM2 head's dW, the CNN
 #: head) and not (ragged k = 295; k = 64 across all three column tiles):
 #: the fp32 tile follows m, so the rows cross its row-tile choices
 M_STABLE = [(torch.bfloat16, 1024, 16384), (torch.bfloat16, 2048, 2560),
-            (torch.bfloat16, 4096, 64), (torch.bfloat16, 11008, 2048),
+            (torch.bfloat16, 16384, 64), (torch.bfloat16, 11008, 2048),
             (torch.bfloat16, 1000, 1003), (torch.bfloat16, 8193, 1003),
             (torch.float32, 2048, 512), (torch.float32, 1024, 2048),
             (torch.float32, 50176, 32), (torch.float32, 12544, 64),
@@ -149,9 +149,37 @@ def test_row_result_does_not_depend_on_m(cuda, dt, k, n):
                                                                    m)
 
 
+#: (k, n) of a fused bf16 product and the column slices [lo, hi) run
+#: alone: ChatGLM3-6B's QKV and its K / V (256- beside 256-column tiles),
+#: qwen2.5-3b's QKV and its K (128 beside 128), a 64-column slice (64
+#: beside 256), and a deep k that splits
+N_STABLE = [(4096, 4608, ((4096, 4352), (4352, 4608), (0, 64))),
+            (2048, 2560, ((2048, 2304), (0, 2048))),
+            (11008, 4096, ((0, 64), (1024, 1280)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 2048])
+@pytest.mark.parametrize("k,n,cols", N_STABLE)
+def test_column_result_does_not_depend_on_n(cuda, m, k, n, cols):
+    """The bf16 split is a function of k alone (``kernel.plan``) and each
+    column's sum does not depend on the tile width: a slice of the weight's
+    columns run alone, with its bias, gives bitwise the fused product's
+    columns, so the per-op control equals the fused path."""
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(k, n, generator=g, device=cuda) / k ** 0.5).bfloat16()
+    bias = torch.randn(n, generator=g, device=cuda).bfloat16()
+    fused = ops.fused_matmul(x, w, epilogue=[("add", [bias], {})])
+    for lo, hi in cols:
+        alone = ops.fused_matmul(x, w[:, lo:hi].contiguous(),
+                                 epilogue=[("add", [bias[lo:hi]], {})])
+        assert torch.equal(alone, fused[:, lo:hi]), (k, n, lo, hi)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [4, 4096])
-@pytest.mark.parametrize("k,n", [(4096, 64), (11008, 2048), (8193, 1003)])
+@pytest.mark.parametrize("k,n", [(16384, 64), (11008, 2048), (8193, 1003)])
 def test_split_k_result_repeats(cuda, m, k, n):
     """A split sums through distributed shared memory in a fixed order, no
     atomics: the same call twice gives the same bits."""

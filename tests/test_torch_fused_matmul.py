@@ -140,13 +140,18 @@ def test_gelu_is_the_tanh_approximation():
 
 from repro_torch.kernels.fused_matmul import kernel  # noqa: E402
 
-#: (n, k) of the full-width paths' GEMMs that split k: qwen2.5-3b wd,
-#: RWKV6-7B wcv (deep k) and wA (one output tile)
-SPLIT = [(2048, 11008), (4096, 14336), (64, 4096)]
-#: the others: qwen qkv, wo, gate|up, head; RWKV's 4096² weights, wck, wB,
-#: head
+#: (n, k) of the full-width paths' GEMMs that split k (k > 8192):
+#: qwen2.5-3b wd, RWKV6-7B wcv, ChatGLM3-6B wd, Command R+ wd, gate|up and
+#: head, Qwen1.5-110B wd; and one output tile over a deep k
+SPLIT = [(2048, 11008), (4096, 14336), (4096, 13696), (12288, 33792),
+         (67584, 12288), (256000, 12288), (8192, 49152), (64, 16384)]
+#: the others: qwen qkv, wo, gate|up, head; RWKV's 4096² weights, wck, wA,
+#: wB, head; ChatGLM3's fused QKV and unfused K / V; Qwen1.5-110B's
+#: gate|up and head (k = 8192)
 UNSPLIT = [(2560, 2048), (2048, 2048), (22016, 2048), (151936, 2048),
-           (4096, 4096), (14336, 4096), (4096, 64), (65536, 4096)]
+           (4096, 4096), (14336, 4096), (64, 4096), (4096, 64),
+           (65536, 4096), (4608, 4096), (256, 4096), (98304, 8192),
+           (152064, 8192)]
 
 
 def test_plan_takes_no_m():
@@ -173,11 +178,23 @@ def test_split_cuts_k_into_whole_k_tiles(n, k):
 
 @pytest.mark.parametrize("n,k", SPLIT)
 def test_deep_and_single_tile_path_shapes_are_split(n, k):
-    """Few output tiles over a long k: the k range is split, and the split
-    blocks still fit on the card at once at decode."""
-    p = kernel.plan(n, k, torch.bfloat16)
-    assert p.split > 1
-    assert -(-n // p.bn) * p.split <= kernel.SMS
+    """A k of more than ``SPLIT_K_TILES`` k tiles, over many output tiles
+    or one: the k range is split in two."""
+    assert -(-k // kernel.BK) > kernel.SPLIT_K_TILES
+    assert kernel.plan(n, k, torch.bfloat16).split == 2
+
+
+@pytest.mark.parametrize("k", [64, 2048, 4096, 8192, 8193, 11008, 13696,
+                               33792, 49152])
+def test_split_is_a_function_of_k_alone(k):
+    """Every output width at one k gets one split, so the columns of a
+    fused product (ChatGLM3's QKV, n = 4608) sum their k ranges as its
+    unfused parts (K, V: n = 256) do: the fusion pass is bitwise
+    invisible."""
+    splits = {kernel.plan(n, k, torch.bfloat16).split
+              for n in (1, 8, 64, 65, 256, 2048, 2560, 4096, 4608, 27392,
+                        65024, 256000)}
+    assert len(splits) == 1, splits
 
 
 @pytest.mark.parametrize("n,k", UNSPLIT)

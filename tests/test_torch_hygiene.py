@@ -46,12 +46,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_the_import_walk_covers_every_package():
-    """Every package of the port is walked, the checkpoint package
-    among them."""
+    """Every package of the port is walked, the checkpoint and program
+    cache packages among them."""
     pkgs = {p.parent.name for p in PORT_FILES}
     want = {d.name for d in (ROOT / "src" / "repro_torch").iterdir()
             if (d / "__init__.py").exists()}
-    assert "checkpoint" in want and want <= pkgs
+    assert {"checkpoint", "cache"} <= want and want <= pkgs
 
 
 def test_the_import_walk_catches_what_it_must(tmp_path):

@@ -284,10 +284,14 @@ def test_pools_update_in_place_and_programs_replay(bf16_model):
 
 
 def test_unported_serving_features_raise(bf16_model):
-    for kw in ({"fault_injector": object()}, {"ckpt_dir": "ck"},
-               {"program_cache_dir": "pc"}):
+    for kw in ({"fault_injector": object()}, {"ckpt_dir": "ck"}):
         with pytest.raises(NotImplementedError):
             ServeConfig(**kw)
+    # the program cache is ported: it reaches the engine's tapir config
+    tap = ServeConfig(program_cache_dir="pc", cache_mode="read").tapir_config()
+    assert (tap.program_cache_dir, tap.cache_mode) == ("pc", "read")
+    with pytest.raises(ValueError, match="cache_mode"):
+        ServeConfig(cache_mode="sometimes")
     with pytest.raises(NotImplementedError):
         ServingEngine(bf16_model, batch=2, max_len=32, device="cpu",
                       mesh=object())
