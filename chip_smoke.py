@@ -13,6 +13,8 @@
     python3 chip_smoke.py --profile-windows N
     python3 chip_smoke.py --zamba2-depths N,N,...
     python3 chip_smoke.py --dense
+    python3 chip_smoke.py --moe
+    python3 chip_smoke.py --moe-depths N,N,...
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -39,7 +41,11 @@ PROF_PAD_S of idle card at each end, and counts the kernels each keeps:
 why the decode windows are padded.  The eleventh does what the ninth does
 for Zamba2-7B, per op and captured: how Z_TRAIN_LAYERS and
 Z_CAPTURE_LAYERS were chosen.  The twelfth runs the build phase and
-phases 33-37 alone (the program cache and the three dense configs).
+phases 33-37 alone (the program cache and the three dense configs), the
+thirteenth the build phase and phases 38-43 alone (the MoE family).  The
+fourteenth builds Moonlight-16B-A3B at full width at each depth given and
+prints each one's peak memory of slot serving and the forward, or the
+OOM: how M_LAYERS was chosen.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts (forward and
@@ -349,7 +355,34 @@ compute, random weights from seed 0):
    1 x 2048 and ``forward_guarantees``, then every GEMM shape of the
    forward (the 256000-vocab head, gate|up n = 67584 and 98304, down
    k = 33792 and 49152) and its flash shape against the plain version
-   and timed as in 36.
+   and timed as in 36;
+38. the MoE family (``models/moe.py``), Granite-3.0-1B-A400M at full
+   width and depth (24 layers, 32 experts top-8): small_moe_parity
+   (Moonlight's SMOKE config in fp32, forward logits and served tokens on
+   the card against the CPU), granite_serve (``ServingEngine.run`` with
+   the serve phase's traffic, 6 GEMM launches a MoE layer a decode step:
+   QKV, wo, the router's fp32 product, the expert FFN's 3 grouped
+   launches) and the same traffic through ``launch/serve.py --arch
+   granite_moe_1b_a400m`` in its own process;
+39. granite_forward on 2 x 2048 (MFU on ``n_active_params``) and its
+   guarantees (region = per-op bitwise; the opaque control, 3 x 32
+   per-expert launches a layer);
+40. granite_padded: the padded cache's prefill (4 x 512, capacity drops
+   at S > 1 as in the reference) and 16 decode steps;
+41. granite_guarantees: ``serve_guarantees`` (rerun, run_wave, prefix
+   sharing off = a suffix prefill equals a full one, opaque = tapir);
+42. decode_steps for the MoE slot and padded steps (graphed and per op,
+   graphed = eager), then every launch shape against its plain version:
+   the 2-D GEMMs (QKV, wo, the 49155-column head), the router's fp32
+   product, each grouped launch (bf16 and fp32 against
+   ``grouped_matmul_ref``, bitwise against the E per-expert 2-D launches,
+   a row's bits at C = 1 against C; timed beside its bound and
+   ``torch.bmm``) and flash at D = 64 with GQA 16 / 8;
+43. Moonlight-16B-A3B at full width cut to M_LAYERS (the dense first
+   layer and MoE layers; 64 experts top-6): slot serving, the forward on
+   1 x 2048 and its guarantees, then its launch shapes as in 42 (the
+   163840-column head, the grouped launches of d_ff 1408, flash at
+   D = 128 with 16 / 16 heads).
 
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
@@ -442,7 +475,8 @@ def label(n: int, k: int, cfg) -> str:
     d, hd = cfg.d_model, cfg.hd
     names = {((cfg.n_heads + 2 * cfg.n_kv_heads) * hd, d): "qkv",
              (d, cfg.n_heads * hd): "wo", (2 * cfg.d_ff, d): "gate_up",
-             (d, cfg.d_ff): "wd", (cfg.vocab, d): "head"}
+             (d, cfg.d_ff): "wd", (cfg.vocab, d): "head",
+             (cfg.n_experts, d): "router"}
     return names.get((n, k), f"n{n}_k{k}")
 
 
@@ -642,11 +676,31 @@ def top_kernels(by_name: dict, n: int = 8) -> list:
             for k, (ms, c) in top]
 
 
+def gemms_of(cfg, mode: str = "tapir") -> int:
+    """``fused_matmul`` launches of one forward, prefill or decode step of
+    a dense or MoE config: a dense layer's 4 (fused QKV, wo, gate|up, wd;
+    7 unfused, ``mode="opaque"``), a MoE layer's 6 (fused QKV, wo, the
+    router's fp32 product, the expert FFN's 3 grouped launches; opaque 4 +
+    1 + 3 E, one launch per expert and product), plus the head."""
+    dense = cfg.first_dense_layers if cfg.family == "moe" else cfg.n_layers
+    moe = cfg.n_layers - dense
+    if mode == "tapir":
+        return 4 * dense + 6 * moe + 1
+    return 7 * dense + (5 + 3 * cfg.n_experts) * moe + 1
+
+
+def launch_rows(shape) -> int:
+    """The rows of a ``launches_by_shape`` key: m, or a grouped launch's
+    rows per expert (its capacity C)."""
+    return shape[2] if shape[0] == "grouped" else shape[0]
+
+
 def forward_phase(model, cfg, b: int = FWD_B):
     """``forward`` and ``loss`` at full width on b x FWD_S tokens: a
     first call (region programs built), a timed call, the loss, and one
     profiled forward.  Each zeroes and checks the counts: one flash launch
-    per layer, 4 GEMMs per layer (QKV, wo, gate|up, wd) plus the head."""
+    per layer, ``gemms_of(cfg)`` GEMMs (a dense layer's 4: QKV, wo,
+    gate|up, wd; a MoE layer's 6) plus the head."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -657,17 +711,16 @@ def forward_phase(model, cfg, b: int = FWD_B):
                                                 (b, FWD_S)),
                                    dtype=torch.int32, device="cuda")
              for name, lo in (("tokens", 1), ("labels", 0))}
-    n_l = cfg.n_layers
+    n_l, n_g = cfg.n_layers, gemms_of(cfg)
     torch.cuda.reset_peak_memory_stats()
     with tapir.use(ServeConfig(target="gpu").tapir_config()):
         _, cold_s, *_ = counted("forward (first call)",
-                                  lambda: model.forward(batch), n_l,
-                                  4 * n_l + 1)
+                                  lambda: model.forward(batch), n_l, n_g)
         logits, wall_s, fm, fa, _ = counted(
-            "forward", lambda: model.forward(batch), n_l, 4 * n_l + 1)
+            "forward", lambda: model.forward(batch), n_l, n_g)
         peak = torch.cuda.max_memory_allocated()
         loss, loss_s, *_ = counted("loss", lambda: model.loss(batch), n_l,
-                                     4 * n_l + 1)
+                                     n_g)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -711,12 +764,14 @@ def forward_guarantees(model, cfg, batch, logits) -> dict:
     n_l = cfg.n_layers
     with tapir.use(ServeConfig(target="gpu", regions=False).tapir_config()):
         per_op, per_op_s, *_ = counted(
-            "forward per-op", lambda: model.forward(batch), n_l, 4 * n_l + 1)
+            "forward per-op", lambda: model.forward(batch), n_l,
+            gemms_of(cfg))
     bitwise = torch.equal(per_op, logits)
     del per_op
     with tapir.use(ServeConfig(target="gpu", mode="opaque").tapir_config()):
         opaque, opaque_s, *_ = counted(
-            "forward opaque", lambda: model.forward(batch), n_l, 7 * n_l + 1)
+            "forward opaque", lambda: model.forward(batch), n_l,
+            gemms_of(cfg, "opaque"))
     err = float((opaque.float() - logits.float()).abs().max())
     impls = bound_impls("attention", "opaque")
     line = {"phase": "forward_guarantees", "region_eq_per_op": bitwise,
@@ -749,13 +804,13 @@ def padded_phase(model, cfg):
         raise SystemExit("padded serve: the steps must run under regions")
     prefill = make_prefill_step(model, cfg=scfg)
     decode = make_decode_step(model, cfg=scfg)
-    n_l = cfg.n_layers
+    n_l, n_g = cfg.n_layers, gemms_of(cfg)
     walls = []
     for tag in ("prefill (first call)", "prefill"):
         cache = model.init_cache(PF_B, PF_MAX)
         ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
         (logits, cache), wall, fm_pf, fa_pf, _ = counted(
-            tag, lambda: prefill(prompts, cache), n_l, 4 * n_l + 1)
+            tag, lambda: prefill(prompts, cache), n_l, n_g)
         walls.append(wall)
         if (cache["k"].data_ptr(), cache["v"].data_ptr()) != ptrs:
             raise SystemExit(f"{tag}: the K/V caches were not written in "
@@ -765,7 +820,7 @@ def padded_phase(model, cfg):
     steps, out = [], []
     for i in range(PF_NEW):
         (nxt, cache), wall, fm, *_ = counted(
-            f"decode step {i}", lambda: decode(tok, cache), 0, 4 * n_l + 1)
+            f"decode step {i}", lambda: decode(tok, cache), 0, n_g)
         fm_dec += fm
         steps.append(wall)
         tok = nxt[:, None]
@@ -1284,14 +1339,15 @@ def decode_paths(model, cfg, check: bool = True) -> list:
         paths = [("zamba2 stateful", PF_B, zamba2_gemms(cfg),
                   zamba2_gemms(cfg, opaque=True), n_l)]
     else:
-        paths = [("qwen slot", SLOTS, 4 * n_l + 1, 7 * n_l + 1, 0),
-                 ("qwen padded", PF_B, 4 * n_l + 1, 7 * n_l + 1, 0)]
+        tag = "moe" if cfg.family == "moe" else "qwen"
+        paths = [(f"{tag} {p}", rows, gemms_of(cfg), gemms_of(cfg, "opaque"),
+                  0) for p, rows in (("slot", SLOTS), ("padded", PF_B))]
     # the cost model's ``dispatch_s``: one small torch op from Python
     a = torch.ones((SLOTS, cfg.d_model), dtype=torch.bfloat16, device="cuda")
     dispatch_us = host_us(lambda: torch.add(a, a))
     lines = []
     for name, rows, gemm, gemm_opaque, scan in paths:
-        slot = name == "qwen slot"
+        slot = name.endswith(" slot")
         tok = torch.ones((rows, 1), dtype=torch.int32, device="cuda")
 
         def fresh():
@@ -1342,9 +1398,10 @@ def decode_paths(model, cfg, check: bool = True) -> list:
                 torch.equal(a, b)
                 for a, b in zip(logits["graphed"], logits["eager"]))
             rules = {k: sorted(v) for k, v in tapir.replay_rules().items()}
+            kind = "moe" if cfg.family == "moe" else "dense"
             block = ("rwkv_stateful_block" if rwkv else "mamba_stateful_block"
-                     if hybrid else "slot_dense_block" if slot
-                     else "dense_cached_block")
+                     if hybrid else f"slot_{kind}_block" if slot
+                     else f"{kind}_cached_block")
             head = ("rwkv_stateful_head" if rwkv else "zamba_stateful_head"
                     if hybrid else "slot_head")
             line["replay_rules"] = {block: rules.get(block),
@@ -4008,15 +4065,17 @@ def check_serve_launches(tag: str, cfg, run_out, st: dict,
     of the step, and every matmul node of ``mode``'s programs is bound to
     the kernel's impl.  A decode step runs every slot (m = SLOTS); a
     prefill runs a bucket of at least 8 rows and its head one row, so
-    m = SLOTS marks decode.  The per-op control does not fuse: QKV and
-    gate|up are 3 and 2 launches there."""
+    m = SLOTS marks decode (a grouped launch's rows per expert: dropless
+    decode's capacity is the SLOTS rows).  The per-op control does not
+    fuse: QKV and gate|up are 3 and 2 launches there, and an expert GEMM
+    one launch per expert (``gemms_of``)."""
     from repro_torch.core import tapir
     from repro_torch.kernels.fused_matmul import ops
     if not all(r.done and len(r.out) == MAX_NEW for r in run_out):
         raise SystemExit(f"{tag}: not every request finished")
     by_shape = dict(ops.launches_by_shape)
-    per_step = (4 if mode == "tapir" else 7) * cfg.n_layers + 1
-    decode = sum(c for s, c in by_shape.items() if s[0] == SLOTS)
+    per_step = gemms_of(cfg, mode)
+    decode = sum(c for s, c in by_shape.items() if launch_rows(s) == SLOTS)
     if decode != per_step * st["decode_steps"]:
         raise SystemExit(f"{tag}: {decode} decode kernel launches for "
                          f"{st['decode_steps']} decode steps (expected "
@@ -5472,6 +5531,501 @@ def dense_phases(probe_import: bool = False) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The MoE family (phases 38-43): Granite-3.0-1B-A400M, Moonlight-16B-A3B
+# ---------------------------------------------------------------------------
+
+#: the grouped route replaces no Pallas kernel: the reference computes the
+#: expert FFN's 3-D products in jnp.einsum inside its lowering, outside any
+#: kernel; its 2-D counterpart is the GEMM kernel
+MOE_REPLACES = "src/repro/core/lowering.py:124 (einsum, no Pallas kernel)"
+#: Moonlight-16B-A3B's depth on one card (its first dense layer and the MoE
+#: layers after it): the deepest of ``--moe-depths 20,16,12`` whose forward
+#: and slot serving peak left MOE_HEADROOM of the card free
+M_LAYERS = 20
+MOE_HEADROOM = 0.10
+
+
+def moe_model(arch: str, layers: int = 0):
+    """(cfg, model) at full width, ``layers`` deep (0: the config's
+    depth), fp32 master weights from seed 0, bf16 compute."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import get_model
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    return cfg, model
+
+
+def moe_mfu(cfg, tokens: int, seconds: float) -> float:
+    """Model FLOPs utilisation of a forward over ``tokens`` tokens: 2 FLOPs
+    per active parameter (``n_active_params``: top_k experts' FFNs) and
+    token, over ``seconds``, against the bf16 peak."""
+    return 2.0 * cfg.n_active_params() * tokens / seconds \
+        / PEAK_FLOPS["bfloat16"]
+
+
+def moe_serve(tag: str, model, cfg) -> tuple:
+    """``ServingEngine.run`` with the serve phase's traffic, launches held
+    per decode step (``check_serve_launches``), and its line."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops
+    from repro_torch.serve import ServeConfig, ServingEngine
+    eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
+                        cfg=ServeConfig(target="gpu"), device="cuda")
+    reqs = requests(cfg.vocab, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = eng.run(reqs)
+    st = dict(eng.last_stats)
+    by_shape, decode_launches, per_step, impls = check_serve_launches(
+        tag, cfg, out, st)
+    line = {"phase": tag, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "tokens": st["tokens"], "decode_steps": st["decode_steps"],
+            "tok_per_s": st["tok_per_s"],
+            "step_p50_ms": st["step_p50"] * 1e3,
+            "step_p95_ms": st["step_p95"] * 1e3,
+            "ttft_p50_ms": st["ttft_p50"] * 1e3, "wall_s": st["wall_s"],
+            "decode_mfu": moe_mfu(cfg, SLOTS, st["step_p50"]),
+            "prefix_hits": st["prefix_hits"],
+            "kernel_launches": ops.launches,
+            "decode_kernel_launches": decode_launches,
+            "launches_per_decode_step": per_step,
+            "grouped_launches_per_decode_step": sum(
+                c for s_, c in by_shape.items()
+                if s_[0] == "grouped" and s_[2] == SLOTS)
+            // st["decode_steps"],
+            "matmul_impls": sorted(impls),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sample_out": out[0].out[:8]}
+    return line, eng, reqs, out, by_shape
+
+
+def moe_launch_serve(arch: str, layers: int = 0) -> dict:
+    """``launch/serve.py --arch ARCH --device cuda`` in its own process
+    with the serve phase's traffic as its flags express it (6 requests of
+    a 128-token shared prefix and 32 of their own, 16 new tokens each):
+    the user's entry point, at full width and depth."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+            "--device", "cuda", "--batch", str(SLOTS),
+            "--max-len", str(MAX_LEN), "--requests", str(CACHE_REQUESTS),
+            "--prompt-len", str(CACHE_PROMPT),
+            "--prefix-len", str(CACHE_PREFIX), "--max-new", str(MAX_NEW)]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise SystemExit(f"{arch} launch/serve.py: exit {res.returncode}\n"
+                         f"{res.stderr[-4000:]}")
+    rep = json.loads(res.stdout.strip().splitlines()[-1])
+    import torch
+    line = {"phase": f"{arch}_launch_serve", "process_wall_s": wall,
+            "device": torch.cuda.get_device_name(0),
+            **{k: rep[k] for k in ("requests", "new_tokens",
+                                   "tok_per_s", "ttft_p50_ms",
+                                   "step_p50_ms", "step_p95_ms",
+                                   "prefix_hits", "init_s", "wall_s",
+                                   "sample_out")}}
+    if rep["new_tokens"] != CACHE_REQUESTS * MAX_NEW or \
+            rep["device"] != line["device"]:
+        raise SystemExit(f"{arch} launch/serve.py: {line}")
+    return line
+
+
+def grouped_inputs(E, C, n, k, spec, dt, gen):
+    """Random operands of one grouped launch: x [E, C, k], w [E, k, n]
+    (scaled by 1/sqrt(k)), the chain's operands ([E, C, n] full, [n]
+    row)."""
+    import torch
+    x = torch.randn(E, C, k, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(E, k, n, generator=gen, device="cuda")
+         / k ** 0.5).to(dt)
+    epi = []
+    for fn, kind, hp, edt in spec:
+        at = {"head_pos": hp,
+              "dtype": None if edt is None else str(dt).split(".")[-1]}
+        if kind == "none":
+            epi.append((fn, [], at))
+        else:
+            shape = (n,) if kind == "row" else (E, C, n)
+            epi.append((fn, [torch.randn(shape, generator=gen,
+                                         device="cuda").to(dt)], at))
+    return x, w, epi
+
+
+def grouped_vs_plain(shapes, gen) -> dict:
+    """At every grouped launch shape (E, C, n, k, chain) of the paths, bf16
+    and fp32: the one launch against ``grouped_matmul_ref`` (TOL), bitwise
+    against the E per-expert 2-D launches (each with its expert's slice of
+    a full operand), and a row's bits at C = 1 against its bits at C (the
+    last row of every expert's buffer run alone).  Any miss fails."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    errs = {}
+    for E, C, n, k, spec in shapes:
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            x, w, epi = grouped_inputs(E, C, n, k, spec, dt, gen)
+            y = ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt)
+            want = ref.grouped_matmul_ref(x, w, epilogue=epi, out_dtype=dt)
+            err = float((y.float() - want.float()).abs().max())
+            each = torch.stack([ops.fused_matmul(
+                x[e], w[e], out_dtype=dt,
+                epilogue=[(f, [v[e] if v.ndim == 3 else v for v in vs], a)
+                          for f, vs, a in epi]) for e in range(E)])
+            one = ops.fused_matmul(
+                x[:, -1:].contiguous(), w, out_dtype=dt,
+                epilogue=[(f, [v[:, -1:].contiguous() if v.ndim == 3 else v
+                               for v in vs], a) for f, vs, a in epi])
+            per_expert = bool(torch.equal(y, each))
+            row = bool(torch.equal(one[:, 0], y[:, -1]))
+            name = f"grouped E={E} C={C} n={n} k={k} {dname}"
+            if not (err <= TOL[dname] and per_expert and row):
+                raise SystemExit(f"grouped vs plain: {name} max err {err} "
+                                 f"(<= {TOL[dname]}), = per-expert "
+                                 f"{per_expert}, row at C=1 = at C {row}")
+            errs[(E, C, n, k, spec, dname)] = err
+            del x, w, epi, y, want, each, one
+    return errs
+
+
+def grouped_entries(shapes, launches, errs, gen, cfg, phase_of) -> list:
+    """Per grouped launch shape, bf16: the kernel, its plain version and
+    ``torch.bmm`` on the same operands (the yardstick: the products alone,
+    never called by the port), each timed alone with L2 flushed; the
+    bound: x, w, the output and the chain's operands moved once over the
+    memory rate, 2 E C n k bf16 FLOPs over the peak (the whole [E, C]
+    buffer: dropless decode and prefill compute every capacity row)."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel, ops, ref
+    tag = cfg.name.split("-")[0]
+    out = []
+    for s_ in shapes:
+        E, C, n, k, spec = s_
+        dt = torch.bfloat16
+        p = kernel.plan(n, k, dt)
+        x, w, epi = grouped_inputs(E, C, n, k, spec, dt, gen)
+        ms = time_ms(lambda: ops.fused_matmul(x, w, epilogue=epi,
+                                              out_dtype=dt))
+        plain = time_ms(lambda: ref.grouped_matmul_ref(x, w, epilogue=epi,
+                                                       out_dtype=dt))
+        lib = time_ms(lambda: torch.bmm(x, w))
+        nbytes = (x.numel() + w.numel() + E * C * n) * 2 + sum(
+            v.numel() * v.element_size() for _, vals, _ in epi for v in vals)
+        t_bytes = nbytes / HBM_BW
+        t_ops = 2.0 * E * C * n * k / PEAK_FLOPS["bfloat16"]
+        what = ("gate" if spec else "up" if n == cfg.d_ff else "down")
+        out.append({
+            "name": f"fused_matmul_grouped[{tag} {phase_of[s_]} {what} "
+                    f"E={E} C={C} n={n} k={k}]",
+            "route": "cuda", "source": SOURCE, "replaces": MOE_REPLACES,
+            "launches": launches[s_],
+            "max_abs_err": errs[(E, C, n, k, spec, "bfloat16")],
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib,
+            "design": f"one launch, experts on blockIdx.z, rank-3 TMA maps; "
+                      f"each expert the 2-D plan: wgmma m64n{p.bn}k16, "
+                      f"128x{p.bn} tile, "
+                      + (f"{p.split}-way split-K, " if p.split > 1 else "")
+                      + f"{p.stages} stages",
+            "plan": p._asdict(),
+            "tflops": 2.0 * E * C * n * k / (ms * 1e-3) / 1e12,
+            "shape": [E, C, n, k, spec]})
+        del x, w, epi
+    return out
+
+
+def router_entries(shapes, launches, gen, cfg) -> list:
+    """The router's fp32 product at each of its path shapes (m, E, d): the
+    kernel's fp32 route against its plain version, timed beside it, the
+    bound (fp32 FMA peak) and ``torch.matmul`` with TF32 off."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel, ops, ref
+    tag = cfg.name.split("-")[0]
+    out = []
+    for s_ in shapes:
+        m, n, k = s_[:3]
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        err = float((ops.fused_matmul(x, w) - ref.fused_matmul_ref(x, w))
+                    .abs().max())
+        if not err <= TOL["float32"]:
+            raise SystemExit(f"router vs plain: m={m} n={n} k={k} {err}")
+        ms = time_ms(lambda: ops.fused_matmul(x, w))
+        t_bytes = 4 * (m * k + k * n + m * n) / HBM_BW
+        t_ops = 2.0 * m * n * k / PEAK_FLOPS["float32"]
+        out.append({
+            "name": f"fused_matmul[{tag} router fp32 m={m} n={n} k={k}]",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": launches[s_], "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(lambda: ref.fused_matmul_ref(x, w)),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lambda: torch.matmul(x, w)),
+            "plan": kernel.plan(n, k, torch.float32)._asdict(),
+            "shape": [m, n, k]})
+        del x, w
+    return out
+
+
+def router_row_stability(cfg) -> dict:
+    """A row's router logits (``moe.route_logits``: the fp32 route) are
+    the same bits at m = 1, 4, 37 and 2048."""
+    import torch
+    from repro_torch.models.moe import route_logits
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2048, cfg.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    r = torch.randn(cfg.d_model, cfg.n_experts, generator=gen,
+                    device="cuda") / cfg.d_model ** 0.5
+    full = route_logits(x, r)
+    ok = {m: bool(torch.equal(route_logits(x[:m], r), full[:m]))
+          for m in (1, 4, 37)}
+    if not all(ok.values()):
+        raise SystemExit(f"router logits differ by rows: {ok}")
+    return {f"m{m}": v for m, v in ok.items()}
+
+
+def moe_kernel_entries(cfg, fm_paths, phase_of, fa_paths, gen) -> list:
+    """Every launch shape of a MoE config's paths against its plain version
+    and timed (the kernels line's entries): the 2-D bf16 GEMMs (QKV, wo,
+    the dense layer's, the head) as ``dense_kernel_entries`` does, the
+    router's fp32 product, the grouped launches (``grouped_vs_plain``,
+    ``grouped_entries``) and flash."""
+    tag = cfg.name.split("-")[0]
+    grouped = {s_[1:5] + (s_[6],): c for s_, c in fm_paths.items()
+               if s_[0] == "grouped"}
+    g_phase = {s_[1:5] + (s_[6],): ph for s_, ph in phase_of.items()
+               if s_[0] == "grouped"}
+    router = collections.Counter({s_: c for s_, c in fm_paths.items()
+                                  if s_[0] != "grouped"
+                                  and s_[3] == "float32"})
+    flat = collections.Counter({s_: c for s_, c in fm_paths.items()
+                                if s_[0] != "grouped"
+                                and s_[3] != "float32"})
+    entries = dense_kernel_entries(cfg, flat, phase_of, fa_paths, gen)
+    shapes = sorted(grouped, key=lambda s_: (s_[0], s_[1], s_[2], s_[3]))
+    errs = grouped_vs_plain(shapes, gen)
+    g_entries = grouped_entries(shapes, grouped, errs, gen, cfg, g_phase)
+    r_entries = router_entries(sorted(router), router, gen, cfg)
+    emit({"phase": f"{tag}_grouped_vs_plain", "shapes": len(shapes),
+          "tolerance": TOL,
+          "max_err": {d: max(e for k_, e in errs.items() if k_[-1] == d)
+                      for d in ("bfloat16", "float32")},
+          "bitwise_per_expert": True, "row_bits_at_c1": True,
+          "router_rows_bitwise": router_row_stability(cfg),
+          "grouped_ms_over_bmm_ms": {e["name"]: e["ms"] / e["library_ms"]
+                                     for e in g_entries},
+          "grouped_ms_over_bound_ms": {e["name"]: e["ms"] / e["bound_ms"]
+                                       for e in g_entries}})
+    return entries + g_entries + r_entries
+
+
+def small_moe_parity() -> dict:
+    """Moonlight's SMOKE config at fp32 compute (a dense first layer, then
+    MoE layers) on the card against the same code on the CPU (the kernels'
+    plain versions, which the CPU tests hold against the JAX package), on
+    the same weights: the forward's logits (held to 1e-3), and whether the
+    slot engine's tokens for three requests agree (reported: an fp32
+    near-tie in the router or the argmax may differ in the last bit)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_smoke("moonshot_v1_16b_a3b"),
+                              compute_dtype="float32")
+    cpu = get_model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    toks = rng.integers(1, cfg.vocab, (2, 24)).astype(np.int32)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in (9, 14, 5)]
+    logits, served = {}, {}
+    for dev, target in (("cpu", "cpu"), ("cuda", "gpu")):
+        model = cpu if dev == "cpu" else get_model(
+            cfg, device=dev, params=cpu.param_tree())
+        with tapir.use(ServeConfig(target=target).tapir_config()):
+            logits[dev] = model.forward(
+                {"tokens": torch.as_tensor(toks, device=dev)}).cpu()
+        eng = ServingEngine(model, batch=2, max_len=32, device=dev,
+                            cfg=ServeConfig(target=target, page_len=8))
+        served[dev] = [r.out for r in eng.run(
+            [Request(rid=i, prompt=p.copy(), max_new=5)
+             for i, p in enumerate(prompts)])]
+    err = float((logits["cpu"] - logits["cuda"]).abs().max())
+    line = {"phase": "small_moe_parity", "config": cfg.name,
+            "compute_dtype": cfg.compute_dtype, "forward_max_abs_err": err,
+            "tolerance": 1e-3,
+            "finite": bool(torch.isfinite(logits["cuda"]).all()),
+            "served_tokens_equal": served["cpu"] == served["cuda"]}
+    if not (line["finite"] and err <= 1e-3):
+        raise SystemExit(f"small moe parity: {line}")
+    return line
+
+
+def granite_phases() -> list:
+    """38-42 on Granite-3.0-1B-A400M at full width and depth (24 layers,
+    32 experts top-8 of d_ff 512, 16 / 8 heads of 64; fp32 master weights
+    from seed 0, bf16 compute): 38 granite_serve (``moe_serve``) and the
+    same traffic through ``launch/serve.py``; 39 granite_forward
+    (``forward_phase`` on 2 x 2048, MFU on the active parameters) and its
+    guarantees (region = per-op bitwise, the opaque control's per-expert
+    launches); 40 granite_padded (prefill 4 x 512, 16 decode steps);
+    41 granite_guarantees (``serve_guarantees``: rerun, run_wave, prefix
+    sharing off, opaque = tapir, token for token); 42 decode_steps (the
+    slot and padded steps graphed and per op, graphed = eager); then (the
+    model released) every launch shape against its plain version, and its
+    kernels-line entries (``moe_kernel_entries``)."""
+    import torch
+    from repro_torch.core import tapir
+    t0 = time.perf_counter()
+    emit(small_moe_parity())
+    cfg, model = moe_model("granite_moe_1b_a400m")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    line, eng, reqs, out, by_shape = moe_serve("granite_serve", model, cfg)
+    emit(dict(line, init_s=init_s))
+    emit(moe_launch_serve("granite_moe_1b_a400m"))
+    fm_paths = collections.Counter(by_shape)
+    phase_of = {s_: "decode" if launch_rows(s_) == SLOTS else "prefill"
+                for s_ in by_shape}
+    fwd, batch, logits, fm_fwd, fa_fwd = forward_phase(model, cfg)
+    fwd.update(phase="granite_forward",
+               mfu=moe_mfu(cfg, FWD_B * FWD_S, fwd["wall_s"]),
+               n_active_params=cfg.n_active_params())
+    emit(fwd)
+    emit(dict(forward_guarantees(model, cfg, batch, logits),
+              phase="granite_forward_guarantees"))
+    del logits, batch
+    pad, fm_pf, fa_pf, fm_dec = padded_phase(model, cfg)
+    emit(dict(pad, phase="granite_padded"))
+    emit(serve_guarantees(model, cfg, reqs, eng, out, "granite_guarantees"))
+    del eng
+    for line in decode_paths(model, cfg):
+        line["decode_mfu"] = moe_mfu(cfg, line["rows"],
+                                     line["region"]["step_p50_ms"] / 1e3)
+        emit(line)
+    for tag, cnt in (("forward", fm_fwd), ("padded prefill", fm_pf),
+                     ("padded decode", fm_dec)):
+        fm_paths.update(cnt)
+        for s_ in cnt:
+            phase_of.setdefault(s_, tag)
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fa = flash_paths_of("forward", fa_fwd) + flash_paths_of("padded prefill",
+                                                            fa_pf)
+    return moe_kernel_entries(cfg, fm_paths, phase_of, fa, gen)
+
+
+def moonlight_phases(layers: int = M_LAYERS) -> list:
+    """43 on Moonlight-16B-A3B at full width (64 experts top-6 of d_ff
+    1408, 16 / 16 heads of 128, a dense first layer) cut to ``layers``
+    (the full 48, ~110 GB of fp32 weights, do not fit one card): slot
+    serving with the serve phase's traffic (``moe_serve``), then
+    ``forward_phase`` on 1 x 2048 (MFU on the active parameters) and
+    ``forward_guarantees``; then (the model released) every launch shape
+    against its plain version, and its kernels-line entries."""
+    import torch
+    from repro_torch.core import tapir
+    t0 = time.perf_counter()
+    cfg, model = moe_model("moonshot_v1_16b_a3b", layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    line, eng, reqs, out, by_shape = moe_serve("moonlight_serve", model,
+                                               cfg)
+    emit(dict(line, init_s=init_s, params_gb=sum(
+        p.numel() * p.element_size() for p in model.parameters()) / 1e9))
+    del eng
+    fm_paths = collections.Counter(by_shape)
+    phase_of = {s_: "decode" if launch_rows(s_) == SLOTS else "prefill"
+                for s_ in by_shape}
+    fwd, batch, logits, fm_fwd, fa_fwd = forward_phase(model, cfg, b=1)
+    fwd.update(phase="moonlight_forward",
+               mfu=moe_mfu(cfg, FWD_S, fwd["wall_s"]),
+               n_active_params=cfg.n_active_params())
+    emit(fwd)
+    emit(dict(forward_guarantees(model, cfg, batch, logits),
+              phase="moonlight_forward_guarantees"))
+    del logits, batch, model
+    fm_paths.update(fm_fwd)
+    for s_ in fm_fwd:
+        phase_of.setdefault(s_, "forward")
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    return moe_kernel_entries(cfg, fm_paths, phase_of,
+                              flash_paths_of("forward", fa_fwd), gen)
+
+
+def moe_phases() -> list:
+    """Phases 38-43 (Granite-3.0-1B-A400M, then Moonlight-16B-A3B)."""
+    import torch
+    from repro_torch.core import tapir
+    t0 = time.perf_counter()
+    entries = granite_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    entries += moonlight_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_done", "moe_s": time.perf_counter() - t0,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    return entries
+
+
+def moe_depths(depths: list) -> int:
+    """``--moe-depths``: Moonlight-16B-A3B at full width at each depth in
+    turn: slot serving (the serve phase's traffic) and the forward on
+    1 x 2048, the peak device memory and its share of the card, or the
+    OOM; the deepest depth that left MOE_HEADROOM of the card free; then
+    stop."""
+    import torch
+    from repro_torch.core import tapir
+    print(card_line(), flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = []
+    for n_l in depths:
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"phase": "moe_depth", "arch": "moonshot_v1_16b_a3b",
+               "layers": n_l}
+        try:
+            cfg, model = moe_model("moonshot_v1_16b_a3b", n_l)
+            line, eng, *_ = moe_serve("moe_depth_serve", model, cfg)
+            del eng
+            fwd = forward_phase(model, cfg, b=1)[0]
+            peak = torch.cuda.max_memory_allocated()
+            out.update(peak_mem_gb=peak / 1e9, card_gb=total / 1e9,
+                       free_share=1 - peak / total,
+                       serve_step_p50_ms=line["step_p50_ms"],
+                       forward_wall_s=fwd["wall_s"])
+            if 1 - peak / total >= MOE_HEADROOM:
+                fits.append(n_l)
+            del model
+        except torch.cuda.OutOfMemoryError as e:
+            out.update(oom=str(e).splitlines()[0][:200],
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit(out)
+    emit({"phase": "moe_depths", "deepest_with_headroom":
+          max(fits) if fits else None, "headroom": MOE_HEADROOM})
+    return 0
+
+
 def paper_phases() -> list:
     """Phases 18-19 and the fp32 GEMM entries of the kernels line."""
     import torch
@@ -5857,6 +6411,15 @@ def main() -> int:
                          "alone, with the program cache phase's import "
                          "probe (a fresh process's torch._dynamo import "
                          "time), and stop")
+    ap.add_argument("--moe", action="store_true",
+                    help="run the build phase and phases 38-43 (the MoE "
+                         "family: Granite-3.0-1B-A400M, Moonlight-16B-A3B "
+                         "at M_LAYERS) alone, and stop")
+    ap.add_argument("--moe-depths", metavar="N,N,...",
+                    help="Moonlight-16B-A3B at full width at each depth: "
+                         "slot serving and the forward's peak memory or "
+                         "OOM, and the deepest with MOE_HEADROOM free, and "
+                         "stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -5883,6 +6446,8 @@ def main() -> int:
     if args.zamba2_depths:
         return capture_depths([int(v) for v in
                                args.zamba2_depths.split(",")], "zamba2_7b")
+    if args.moe_depths:
+        return moe_depths([int(v) for v in args.moe_depths.split(",")])
     if args.decode_times:
         return decode_times()
     if args.scan_bwd_phases:
@@ -5995,8 +6560,9 @@ def main() -> int:
                                  f"{fa_kernel.kernel_tiles_bwd(dt, d)}, plan "
                                  f"{fa_kernel.plan_bwd(dt, d)}")
 
-    if args.dense:
-        entries = dense_phases(probe_import=True)
+    if args.dense or args.moe:
+        entries = (dense_phases(probe_import=True) if args.dense
+                   else moe_phases())
         emit({"kernels": entries})
         emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
         print(card, flush=True)
@@ -6049,6 +6615,11 @@ def main() -> int:
 
     # -- 33-37. the program cache, ChatGLM3-6B, the cut 104B / 110B -------
     entries += dense_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+
+    # -- 38-43. the MoE family ---------------------------------------------
+    entries += moe_phases()
 
     emit({"kernels": entries})
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

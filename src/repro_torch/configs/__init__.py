@@ -1,5 +1,5 @@
-"""Architecture registry of the port (the dense, ssm and hybrid families
-so far)."""
+"""Architecture registry of the port (the dense, MoE, ssm and hybrid
+families so far)."""
 from __future__ import annotations
 
 import importlib
@@ -7,7 +7,8 @@ import importlib
 from ..models.base import ModelConfig
 
 ARCH_IDS = ["qwen1_5_110b", "command_r_plus_104b", "qwen2_5_3b",
-            "chatglm3_6b", "rwkv6_7b", "zamba2_7b"]
+            "chatglm3_6b", "moonshot_v1_16b_a3b", "granite_moe_1b_a400m",
+            "rwkv6_7b", "zamba2_7b"]
 
 
 def get_config(arch_id: str) -> ModelConfig:

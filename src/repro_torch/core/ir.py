@@ -156,6 +156,7 @@ class Node:
     def flops(self) -> float:
         """Logical work of this node (the cost model's W in work/span terms)."""
         if self.op == "matmul":
+            # leading output dims are a batch (a 3-D weight's E among them)
             m, n = self.ttype.shape[-2], self.ttype.shape[-1]
             k = self.attrs["k"]
             batch = int(np.prod(self.ttype.shape[:-2])) if len(self.ttype.shape) > 2 else 1
@@ -179,7 +180,8 @@ class Node:
 
         ``dynamic_update_slice``/``scatter``: the update's bytes when the
         buffer is donated (in-place write), else update + a full copy of
-        the buffer (the lowering materializes a copy).  ``dynamic_slice``/
+        the buffer (the lowering materializes a copy; a ``zero_init``
+        scatter writes its fresh zeros buffer once, the same bytes).  ``dynamic_slice``/
         ``slice``/``index``/``gather``: the bytes of the window read."""
         if self.op in ("dynamic_update_slice", "scatter"):
             upd = update_ttype.bytesize if update_ttype is not None else 0

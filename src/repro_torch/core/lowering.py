@@ -9,7 +9,10 @@ as the roofline argmin; no route is chosen by the device a tensor is on:
   control), calls ``kernels.fused_matmul.ops.fused_matmul``, the
   hand-written Hopper GEMM with its epilogue chain applied in the kernel
   (its wrapper takes the plain version for a CPU tensor): no GEMM of the
-  port has another route;
+  port has another route.  A matmul with a 3-D weight (the MoE expert
+  FFN) is one launch of the kernel's grouped route under ``fused_kernel``
+  and one 2-D launch per expert under ``opaque`` (the reference's "one
+  isolated library call per expert");
 * an attention node, ``flash_kernel`` or ``"opaque"``, calls
   ``kernels.flash_attention.ops.flash_attention``, the hand-written Hopper
   flash kernel, with any fused epilogue applied after it;
@@ -108,15 +111,23 @@ def _apply_epilogue(y, node: Node, env: dict) -> Any:
 def _lower_matmul(node: Node, env: dict) -> Any:
     """Every GEMM goes through the kernel's wrapper: ``fused_kernel`` with
     the epilogue chain fusion folded in, ``opaque`` (a sealed node, which
-    fusion never touched) with none."""
+    fusion never touched) with none.  A 3-D weight ``[E, k, n]`` is the
+    grouped route's one launch under ``fused_kernel``; under ``opaque`` it
+    is E launches of the 2-D route, one per expert, stacked."""
     impl = node.schedule.impl
     if impl not in ("fused_kernel", "opaque"):
         raise NotImplementedError(f"matmul impl {impl!r} is not ported")
+    x, w = env[node.inputs[0]], env[node.inputs[1]]
+    out_dt = to_torch_dtype(node.ttype.dtype)
     epi = [(fn, [env[e] for e in extras], at)
            for fn, extras, at in node.epilogue]
-    return fm_ops.fused_matmul(env[node.inputs[0]], env[node.inputs[1]],
-                               epilogue=epi, tile=node.schedule.tile,
-                               out_dtype=to_torch_dtype(node.ttype.dtype))
+    if w.ndim == 3 and impl == "opaque":
+        # sealed: fusion never gave it an epilogue
+        return torch.stack([fm_ops.fused_matmul(x[e], w[e],
+                                                out_dtype=out_dt)
+                            for e in range(w.shape[0])])
+    return fm_ops.fused_matmul(x, w, epilogue=epi, tile=node.schedule.tile,
+                               out_dtype=out_dt)
 
 
 def _lower_attention(node: Node, env: dict) -> Any:
@@ -450,17 +461,25 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
                               tuple(env[i] for i in node.inputs[1:]))
     if op == "scatter":
         n_idx = node.attrs["n_idx"]
-        buf = env[node.inputs[0]]
         mode = node.attrs.get("mode", "set")
+        rest = _scatter_operands(node)
+        upd = env[rest[n_idx]]
+        if node.attrs.get("zero_init"):
+            # a fresh zeros buffer, made here and written in place
+            buf = torch.zeros(node.ttype.shape,
+                              dtype=to_torch_dtype(node.ttype.dtype),
+                              device=upd.device)
+            in_place = True
+        else:
+            buf = env[node.inputs[0]]
+            in_place = _donated_in_place(node, nodes, env)
         lead = tuple(buf.shape[:n_idx])
         pkey = _shared_key(node)
         prep = env.get(pkey)
         if prep is None:
             prep = env[pkey] = scatter_prep(
-                tuple(env[i] for i in node.inputs[1:1 + n_idx]), lead, mode,
-                buf.device)
-        return scatter_drop(buf, None, env[node.inputs[1 + n_idx]], mode,
-                            _donated_in_place(node, nodes, env), prep=prep)
+                tuple(env[i] for i in rest[:n_idx]), lead, mode, buf.device)
+        return scatter_drop(buf, None, upd, mode, in_place, prep=prep)
     if op == "matmul":
         return _lower_matmul(node, env)
     if op == "attention":
@@ -480,6 +499,12 @@ def _pyfunc_args(node: Node, env: dict) -> list:
     return args
 
 
+def _scatter_operands(node: Node) -> tuple:
+    """A scatter's index operands then its update: every input but the
+    buffer (a ``zero_init`` scatter has none)."""
+    return node.inputs if node.attrs.get("zero_init") else node.inputs[1:]
+
+
 def _shared_key(node: Node):
     """The env key of a value several nodes share: the result tuple of a
     tuple-returning ``pyfunc`` (one call, one node per element) and a
@@ -490,7 +515,7 @@ def _shared_key(node: Node):
                 node.inputs)
     if node.op == "scatter":
         n_idx = node.attrs["n_idx"]
-        return ("scatter_prep", node.inputs[1:1 + n_idx],
+        return ("scatter_prep", _scatter_operands(node)[:n_idx],
                 tuple(node.ttype.shape[:n_idx]), node.attrs.get("mode", "set"))
     return None
 

@@ -236,12 +236,16 @@ def attention_candidates(g: TaskGraph, node: Node, cm: CostModel
 def matmul_candidates(g: TaskGraph, node: Node, cm: CostModel
                       ) -> list[ImplCandidate]:
     """``fused_kernel``, the hand-written GEMM with the epilogue applied on
-    the resident output tile: the port's one route for a GEMM.  Every
-    matmul the port builds has a 2-D weight, which the kernel takes."""
+    the resident output tile: the port's one route for a GEMM.  A 3-D
+    weight ``[E, k, n]`` (the MoE expert FFN) is costed with E as a batch:
+    E products of ``[m / E, k] @ [k, n]``, each expert's weight read once
+    (the kernel's grouped route)."""
     shape = node.ttype.shape
-    m = int(np.prod(shape[:-1]))
+    w_t = g.nodes[node.inputs[1]].ttype
+    groups = w_t.shape[0] if len(w_t.shape) == 3 else 1
+    m = int(np.prod(shape[:-1])) // groups
     c = matmul_cost(m, shape[-1], node.attrs["k"],
-                    dtype_bytes(node.ttype.dtype))
+                    dtype_bytes(node.ttype.dtype), groups=groups)
     return [_not_ported("matmul", "fused_kernel")
             or ImplCandidate("fused_kernel", c["flops"] / cm.peak_flops
                              + c["io_bytes"] / cm.hbm_bw)]

@@ -51,7 +51,12 @@ compile gives.  A miss compiles and publishes.  A store fault costs a
 compile, never an answer: it is quarantined and counted
 (``l2_quarantined``, ``l2_fallbacks``).
 
-Not ported yet (see ROADMAP): ``expert_mlp`` and ``invalidate_mesh``.
+The MoE ops: ``scatter_new`` is the dispatch (a scatter into a fresh zeros
+buffer, ``zero_init``), ``expert_mlp`` the expert FFN over ``[E, C, d]``
+with 3-D weights, whose GEMMs lower to the kernel's grouped route in tapir
+mode and to one 2-D launch per expert in opaque mode.
+
+Not ported yet (see ROADMAP): ``invalidate_mesh``.
 """
 from __future__ import annotations
 
@@ -1005,6 +1010,32 @@ def scatter(buf, indices, upd, mode: str = "set", donate: bool = True):
     return reg.handle(nid)
 
 
+def scatter_new(shape, dtype, indices, upd, mode: str = "add"):
+    """Scatter into a FRESH zeros buffer of ``shape`` / ``dtype`` (the MoE
+    dispatch: tokens scattered into ``[E, cap, d]``); out-of-range updates
+    are dropped.  Inside a region the zeros are made inside the node
+    (``zero_init``, no buffer input): zeros made in model code would be a
+    fresh region input every call and defeat program replay."""
+    indices = tuple(indices) if isinstance(indices, (tuple, list)) \
+        else (indices,)
+    dt = dtype_name(dtype)
+    reg = _active_region()
+    if reg is None:
+        u = _concrete(upd)
+        buf = torch.zeros(tuple(int(s) for s in shape),
+                          dtype=to_torch_dtype(dt), device=u.device)
+        return scatter_drop(buf, tuple(_concrete(i).to(u.device)
+                                       for i in indices),
+                            u, mode, in_place=True)
+    idx_nids = tuple(_index_operand(reg, i) for i in indices)
+    ui = reg.nid_of(upd)
+    out_t = TensorType(tuple(int(s) for s in shape), dt)
+    nid = reg.g.add("scatter", idx_nids + (ui,), out_t,
+                    pdims=tuple(range(len(out_t.shape))),
+                    n_idx=len(idx_nids), mode=mode, zero_init=True)
+    return reg.handle(nid)
+
+
 # ---------------------------------------------------------------------------
 # Stateful buffer ops (KV cache)
 # ---------------------------------------------------------------------------
@@ -1183,6 +1214,27 @@ def _build_gated_mlp(g: TaskGraph, xi: int, wgi: int, wui: int, wdi: int,
                  rdims=(("k", f),), k=f)
 
 
+def _build_expert_mlp(g: TaskGraph, xi: int, wgi: int, wui: int, wdi: int,
+                      activation: str) -> int:
+    """The expert FFN over ``x [E, C, d]`` with ``w [E, d, f]`` / ``[E, f,
+    d]``: three 3-D matmuls (E a batch of each) and the gate's activation
+    and product, which tapir mode's epilogue fusion folds into the gate
+    GEMM."""
+    E, C, d = g.nodes[xi].ttype.shape
+    dt = g.nodes[xi].ttype.dtype
+    f = g.nodes[wgi].ttype.shape[-1]
+    hid_t = TensorType((E, C, f), dt)
+    mg = g.add("matmul", (xi, wgi), hid_t, pdims=(0, 1, 2),
+               rdims=(("k", d),), k=d)
+    mu = g.add("matmul", (xi, wui), hid_t, pdims=(0, 1, 2),
+               rdims=(("k", d),), k=d)
+    act = g.add("ew", (mg,), hid_t, pdims=(0, 1, 2), fn=activation)
+    prod = g.add("ew", (act, mu), hid_t, pdims=(0, 1, 2), fn="mul")
+    out_t = TensorType((E, C, d), dt)
+    return g.add("matmul", (prod, wdi), out_t, pdims=(0, 1, 2),
+                 rdims=(("k", f),), k=f)
+
+
 def _build_attention(g: TaskGraph, qi: int, ki: int, vi: int,
                      biasi: Optional[int], causal: bool) -> int:
     q_t, k_t = g.nodes[qi].ttype, g.nodes[ki].ttype
@@ -1351,6 +1403,32 @@ def gated_mlp(x, w_gate, w_up, w_down, activation: str = "silu"):
         wu = g.add_input("wu", _tt(w_up))
         wd = g.add_input("wd", _tt(w_down))
         g.set_outputs([_build_gated_mlp(g, xi, wg, wu, wd, activation)])
+
+    return _execute(sig, build, inputs)[0]
+
+
+def expert_mlp(xe, w_gate, w_up, w_down, activation: str = "silu"):
+    """The batched expert FFN: ``xe [E, C, d]``, ``w_gate`` / ``w_up [E, d,
+    f]``, ``w_down [E, f, d]``.  In tapir mode each GEMM is ONE launch of
+    the kernel's grouped route, the gate's with its activation and product
+    fused; in opaque mode each is E isolated 2-D launches, one per
+    expert."""
+    reg = _active_region()
+    if reg is not None:
+        out = _build_expert_mlp(reg.g, reg.nid_of(xe), reg.nid_of(w_gate),
+                                reg.nid_of(w_up), reg.nid_of(w_down),
+                                activation)
+        return reg.handle(out)
+    sig = ("expert_mlp", _sig(xe), _sig(w_gate), _sig(w_up), _sig(w_down),
+           activation)
+    inputs = {"x": xe, "wg": w_gate, "wu": w_up, "wd": w_down}
+
+    def build(g: TaskGraph):
+        xi = g.add_input("x", _tt(xe))
+        wg = g.add_input("wg", _tt(w_gate))
+        wu = g.add_input("wu", _tt(w_up))
+        wd = g.add_input("wd", _tt(w_down))
+        g.set_outputs([_build_expert_mlp(g, xi, wg, wu, wd, activation)])
 
     return _execute(sig, build, inputs)[0]
 

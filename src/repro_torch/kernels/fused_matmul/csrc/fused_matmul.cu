@@ -77,6 +77,22 @@
 //    adds exact zeros), so a row's result is the same bits at every m and
 //    on every call; with S = 1 it is one chain over all of k.
 //
+// The grouped route (fused_matmul_grouped_launch; the MoE expert FFN,
+// whose TPU counterpart is the reference's grouped einsum in
+// core/lowering.py, outside any Pallas kernel): y[E, C, n] =
+// chain(x[E, C, k] @ w[E, k, n]) in ONE launch, the experts on the grid
+// (blockIdx.z = expert * split + rank).  Each expert runs the plan and the
+// instruction sequence of its own 2-D launch (kernel.py::plan(n, k)), so a
+// row's bits do not depend on E, on C, or on where the row sits in its
+// expert's buffer: grouped = per-expert launches, bitwise.  The bf16 route
+// reads x and w through rank-3 tensor maps with the expert as the outer
+// dim, so a tile past C or past k reads TMA's zero fill and never the next
+// expert's rows; stores are masked at C.  An epilogue's [E, C, n] operand
+// is read at the global row e C + i; a row operand is every expert's.  The
+// fp32 route takes the expert's base by plain pointer offsets.  Empty
+// capacity rows are computed like any other (dropless C = T: the reference's
+// semantics).
+//
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): fused_matmul_launch returns cudaGetLastError() after the launch,
 // or cudaErrorInvalidValue for arguments the kernel does not take.
@@ -350,6 +366,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0, c1, c2) of a rank-3 map (the grouped route: c2 is the
+// expert).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n"
                "barrier.cluster.wait.acquire;" ::: "memory");
@@ -388,9 +417,12 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 // output columns [c0, c0 + width): they are read after the main loop, and
 // then hit L2 instead of waiting on device memory.  Rows whose start or
 // length is not a multiple of 16 bytes are left to the epilogue's loads.
+// `rbase`: the global row of the block's row 0 less row0 (the grouped
+// route's e C; 0 elsewhere).
 __device__ __forceinline__ void prefetch_operands(const Epilogue& e,
-                                                  int row0, int m, int c0,
-                                                  int width, int n) {
+                                                  int64_t rbase, int row0,
+                                                  int m, int c0, int width,
+                                                  int n) {
   const int cols = min(width, n - c0);
   if (cols <= 0) return;
   for (int s = 0; s < e.n; ++s) {
@@ -399,7 +431,7 @@ __device__ __forceinline__ void prefetch_operands(const Epilogue& e,
     const uint32_t bytes = cols * eb;
     for (int r = row0; r < min(row0 + CTA_M, m); ++r) {
       const char* p = reinterpret_cast<const char*>(e.op[s])
-          + ((int64_t)r * n + c0) * eb;
+          + ((rbase + r) * n + c0) * eb;
       if (bytes % 16 != 0 || reinterpret_cast<uintptr_t>(p) % 16 != 0)
         break;
       asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
@@ -526,7 +558,11 @@ template <int TA, int TB> struct Wgmma<256, TA, TB> {
 //
 // wgmma accumulator layout (m64nN, f32): thread t of a warpgroup holds
 // d[4j + 2h + b] = D[16 (t / 32) + (t % 32) / 4 + 8h][8j + 2 (t % 4) + b].
-template <int BN, int TA, int TB>
+//
+// G = 1 is the grouped route (TA = 0, TB = 1): the maps are rank 3 with the
+// expert outer, blockIdx.z = expert * split + rank, `m` is each expert's
+// rows (C), and output row i of expert e is global row e m + i.
+template <int BN, int TA, int TB, int G>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_w,
@@ -545,6 +581,8 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int rank = split > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int expert = G ? static_cast<int>(blockIdx.z) / split : 0;
+  const int64_t rbase = static_cast<int64_t>(expert) * m;
   const int kt0 = rank * tiles_per_split;
   const int nk = max(0, min(k_tiles, kt0 + tiles_per_split) - kt0);
   const int row0 = blockIdx.x * CTA_M;
@@ -571,7 +609,9 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
         uint8_t* slot = smem + st * STAGE;
         mbar_expect_tx(&full[st], STAGE);
         const int kc = (kt0 + i) * BK;
-        if (TA == 0) {
+        if (G) {
+          tma_load_3d(slot, &map_x, &full[st], kc, row0, expert);
+        } else if (TA == 0) {
           tma_load_2d(slot, &map_x, &full[st], kc, row0);
         } else {
           tma_load_2d(slot, &map_x, &full[st], row0, kc);
@@ -579,7 +619,10 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
         }
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j) {
-          if (TB == 1)
+          if (G)
+            tma_load_3d(slot + A_TILE + j * B_SUB, &map_w, &full[st],
+                        col0 + 64 * j, kc, expert);
+          else if (TB == 1)
             tma_load_2d(slot + A_TILE + j * B_SUB, &map_w, &full[st],
                         col0 + 64 * j, kc);
           else
@@ -587,7 +630,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
                         col0 + 64 * j);
         }
         if (i == min(stages, nk) - 1)   // the ring is full: meanwhile
-          prefetch_operands(e, row0, m, col0 + rank * (BN / split),
+          prefetch_operands(e, rbase, row0, m, col0 + rank * (BN / split),
                             BN / split, n);
         if (++st == stages) { st = 0; ph ^= 1; }
       }
@@ -678,8 +721,8 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
         v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
         v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
       }
-      run_epilogue8(e, v, row0 + r, col0 + c, n);
-      store8(y, out_dt, row0 + r, col0 + c, n, v);
+      run_epilogue8(e, v, rbase + row0 + r, col0 + c, n);
+      store8(y, out_dt, rbase + row0 + r, col0 + c, n, v);
     }
     if (split > 1)
       cluster_sync();   // no rank leaves while another reads its tile
@@ -779,13 +822,19 @@ __device__ __forceinline__ void copy_tile(float* s, const float* g,
 // atomic ticket, adds the S partials in rank order 0, 1, ..., S-1 and runs
 // the epilogue.  The ticket picks who adds, never the order: no atomics
 // touch a value.
+// Grouped (the MoE route): blockIdx.z = expert * split + rank; the
+// expert's x, w start sx, sw elements on, its output rows (m of them) and
+// its partial planes follow the earlier experts' (global row e m + i,
+// workspace [E split, m, n4]), and its tiles draw their own tickets.  A
+// 2-D launch is one expert (sx = sw = 0).
 template <int BM, int BN, int BK, int TM, int TN, int TA, int TB>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN),
                                   F32_MIN_BLOCKS((BM / TM) * (BN / TN)))
 gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 void* __restrict__ y, float* __restrict__ ws, int m, int n,
-                int k, int64_t ldx, int64_t ldw, int kper, int vx, int vw,
-                int smem4, int out_dt, Epilogue e) {
+                int k, int64_t ldx, int64_t ldw, int kper, int split,
+                int64_t sx, int64_t sw, int vx, int vw, int smem4,
+                int out_dt, Epilogue e) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int TX = BN / TN;           // threads along n
   constexpr int KP = BK + 4;            // shared rows that run along k
@@ -798,7 +847,11 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const int rank = blockIdx.z, split = gridDim.z;
+  const int expert = blockIdx.z / split;
+  const int rank = blockIdx.z - expert * split;
+  const int64_t rbase = static_cast<int64_t>(expert) * m;
+  x += expert * sx;
+  w += expert * sw;
   const int kbeg = rank * kper, kend = min(k, kbeg + kper);
   const int steps = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
@@ -911,7 +964,7 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int j = 0; j < TN; ++j) {
         const int gc = col0 + bcol(j);
         if (gc < n)
-          reinterpret_cast<float*>(y)[(int64_t)gr * n + gc] = acc[i][j];
+          reinterpret_cast<float*>(y)[(rbase + gr) * n + gc] = acc[i][j];
       }
     }
     return;
@@ -937,7 +990,8 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     // ---- split: this rank's partial tile, then the last block's sum ----
     const int n4 = (n + 3) & ~3;
     const int64_t plane = (int64_t)m * n4;
-    float* part = ws + rank * plane;
+    float* const planes = ws + (int64_t)expert * split * plane;
+    float* part = planes + rank * plane;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int gr = row0 + arow(i);
@@ -951,7 +1005,8 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __threadfence();   // the partial is visible before the ticket is drawn
     __syncthreads();
     if (tid == 0) {
-      unsigned int* t = &f32_tickets[blockIdx.y * gridDim.x + blockIdx.x];
+      unsigned int* t = &f32_tickets[(expert * gridDim.y + blockIdx.y)
+                                     * gridDim.x + blockIdx.x];
       last = atomicAdd(t, 1u) == static_cast<unsigned int>(split - 1);
       if (last) atomicExch(t, 0u);   // every rank has drawn
     }
@@ -979,7 +1034,7 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int qn = min(per_round, split - q0);
 #pragma unroll 1
       for (int q = 0; q < qn; ++q) {
-        const float* plane_q = ws + (q0 + q) * plane;
+        const float* plane_q = planes + (q0 + q) * plane;
 #pragma unroll
         for (int u = 0; u < MAXC; ++u) {
           const int c = tid + u * NT;
@@ -1022,14 +1077,14 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float* v = sm + 4 * c;
 #pragma unroll 1
     for (int q = 0; q < 4 && gc + q < n; ++q)
-      v[q] = run_epilogue(e, v[q], gr, gc + q, n);
+      v[q] = run_epilogue(e, v[q], rbase + gr, gc + q, n);
     if (out_dt == DT_F32 && n % 4 == 0) {
       *reinterpret_cast<float4*>(reinterpret_cast<float*>(y)
-                                 + (int64_t)gr * n + gc) = f32_smem4[c];
+                                 + (rbase + gr) * n + gc) = f32_smem4[c];
     } else {
 #pragma unroll 1
       for (int q = 0; q < 4 && gc + q < n; ++q)
-        store_out(y, out_dt, (int64_t)gr * n + gc + q, v[q]);
+        store_out(y, out_dt, (rbase + gr) * n + gc + q, v[q]);
     }
   }
 }
@@ -1077,24 +1132,54 @@ static bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, int TA, int TB>
-static int launch_bf16(const void* x, const void* w, void* y, int m, int n,
-                       int k, int ldx, int ldw, int split, int stages,
-                       int out_dt, const Epilogue& e, cudaStream_t st) {
+// A rank-3 bf16 tensor map of `groups` stacked [outer, inner] matrices
+// (rows of `ld` elements, `outer` rows a matrix): boxes of 64 x
+// `box_outer` x 1, out-of-bounds elements (past inner or outer within a
+// matrix) read as zero.
+static bool make_map3(CUtensorMap* map, const void* ptr, uint64_t inner,
+                      uint64_t outer, uint64_t groups, uint64_t ld,
+                      uint32_t box_outer) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[3] = {inner, outer, groups};
+  cuuint64_t strides[2] = {ld * 2, ld * outer * 2};
+  cuuint32_t box[3] = {64, box_outer, 1};
+  cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `groups` > 1 only with G = 1 (the grouped route: x [groups, m, k], w
+// [groups, k, n], y [groups, m, n]).
+template <int BN, int TA, int TB, int G>
+static int launch_bf16(const void* x, const void* w, void* y, int groups,
+                       int m, int n, int k, int ldx, int ldw, int split,
+                       int stages, int out_dt, const Epilogue& e,
+                       cudaStream_t st) {
   const size_t ring = static_cast<size_t>(stages) * stage_bytes(BN);
   const size_t smem = 1024 + ring + 16 * stages;
-  if (smem > SMEM_MAX || ring < part_bytes(BN) || (BN / 8) % split != 0)
+  if (smem > SMEM_MAX || ring < part_bytes(BN) || (BN / 8) % split != 0
+      || (G == 0 && groups != 1) || (int64_t)groups * split > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_x, map_w;
-  const bool ok_x = TA ? make_map(&map_x, x, m, k, ldx, BK)
-                       : make_map(&map_x, x, k, m, ldx, CTA_M);
-  const bool ok_w = TB ? make_map(&map_w, w, n, k, ldw, BK)
-                       : make_map(&map_w, w, k, n, ldw, 64);
+  bool ok_x, ok_w;
+  if (G) {
+    ok_x = make_map3(&map_x, x, k, m, groups, ldx, CTA_M);
+    ok_w = make_map3(&map_w, w, n, k, groups, ldw, BK);
+  } else {
+    ok_x = TA ? make_map(&map_x, x, m, k, ldx, BK)
+              : make_map(&map_x, x, k, m, ldx, CTA_M);
+    ok_w = TB ? make_map(&map_w, w, n, k, ldw, BK)
+              : make_map(&map_w, w, k, n, ldw, 64);
+  }
   if (!ok_x || !ok_w) return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        gemm_bf16_kernel<BN, TA, TB>,
+        gemm_bf16_kernel<BN, TA, TB, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
@@ -1103,7 +1188,8 @@ static int launch_bf16(const void* x, const void* w, void* y, int m, int n,
   const int k_tiles = (k + BK - 1) / BK;
   const int per = (k_tiles + split - 1) / split;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((m + CTA_M - 1) / CTA_M, (n + BN - 1) / BN, split);
+  cfg.gridDim = dim3((m + CTA_M - 1) / CTA_M, (n + BN - 1) / BN,
+                     groups * split);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -1114,7 +1200,7 @@ static int launch_bf16(const void* x, const void* w, void* y, int m, int n,
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;   // a split's blocks form one cluster
-  cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<BN, TA, TB>,
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<BN, TA, TB, G>,
                                        map_x,
                                        map_w, y, m, n, k_tiles, per, split,
                                        stages, out_dt, e);
@@ -1122,27 +1208,28 @@ static int launch_bf16(const void* x, const void* w, void* y, int m, int n,
   return (int)cudaGetLastError();
 }
 
-template <int TA, int TB>
-static int launch_bn(int bn, const void* x, const void* w, void* y, int m,
-                     int n, int k, int ldx, int ldw, int split, int stages,
-                     int out_dt, const Epilogue& e, cudaStream_t st) {
+template <int TA, int TB, int G>
+static int launch_bn(int bn, const void* x, const void* w, void* y,
+                     int groups, int m, int n, int k, int ldx, int ldw,
+                     int split, int stages, int out_dt, const Epilogue& e,
+                     cudaStream_t st) {
   if (bn == 64)
-    return launch_bf16<64, TA, TB>(x, w, y, m, n, k, ldx, ldw, split, stages,
-                                   out_dt, e, st);
+    return launch_bf16<64, TA, TB, G>(x, w, y, groups, m, n, k, ldx, ldw,
+                                      split, stages, out_dt, e, st);
   if (bn == 128)
-    return launch_bf16<128, TA, TB>(x, w, y, m, n, k, ldx, ldw, split,
-                                    stages, out_dt, e, st);
+    return launch_bf16<128, TA, TB, G>(x, w, y, groups, m, n, k, ldx, ldw,
+                                       split, stages, out_dt, e, st);
   if (bn == 256)
-    return launch_bf16<256, TA, TB>(x, w, y, m, n, k, ldx, ldw, split,
-                                    stages, out_dt, e, st);
+    return launch_bf16<256, TA, TB, G>(x, w, y, groups, m, n, k, ldx, ldw,
+                                       split, stages, out_dt, e, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int BM, int BN, int BK, int TM, int TN, int TA, int TB>
 static int launch_f32(const float* x, const float* w, void* y, float* ws,
-                      int m, int n, int k, int ldx, int ldw, int split,
-                      int kper, int out_dt, const Epilogue& e,
-                      cudaStream_t st) {
+                      int groups, int64_t sx, int64_t sw, int m, int n,
+                      int k, int ldx, int ldw, int split, int kper,
+                      int out_dt, const Epilogue& e, cudaStream_t st) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int SLOT = (TA ? BK * BM : BM * (BK + 4))
                      + (TB ? BN * (BK + 4) : BK * BN);
@@ -1166,7 +1253,8 @@ static int launch_f32(const float* x, const float* w, void* y, float* ws,
       return (int)err;
     }
   }
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, split);
+  if ((int64_t)groups * split > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, groups * split);
   int smem = SMEM;
   if (split > 1) {
     const int64_t fold = (int64_t)split * (m < BM ? m : BM)
@@ -1176,13 +1264,17 @@ static int launch_f32(const float* x, const float* w, void* y, float* ws,
     if (fold > smem)   // more room for the rounds, never less than SMEM
       smem = fold < cap ? (int)fold : (cap > smem ? cap : smem);
   }
-  if (grid.y > 65535 || (split > 1 && (int64_t)grid.x * grid.y > F32_TICKETS))
+  if (grid.y > 65535
+      || (split > 1 && (int64_t)grid.x * grid.y * groups > F32_TICKETS))
     return (int)cudaErrorInvalidValue;
   // 16-byte copies where the stored rows and the base allow them
-  const int vx = ldx % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vw = ldw % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int vx = ldx % 4 == 0 && sx % 4 == 0
+                 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vw = ldw % 4 == 0 && sw % 4 == 0
+                 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   gemm_f32_kernel<BM, BN, BK, TM, TN, TA, TB><<<grid, NT, smem, st>>>(
-      x, w, y, ws, m, n, k, ldx, ldw, kper, vx, vw, smem / 16, out_dt, e);
+      x, w, y, ws, m, n, k, ldx, ldw, kper, split, sx, sw, vx, vw, smem / 16,
+      out_dt, e);
   return (int)cudaGetLastError();
 }
 
@@ -1192,15 +1284,15 @@ static int launch_f32(const float* x, const float* w, void* y, float* ws,
 
 template <int TA, int TB>
 static int launch_tile(int tile, const float* x, const float* w, void* y,
-                       float* ws, int m, int n, int k, int ldx, int ldw,
-                       int split, int kper, int out_dt, const Epilogue& e,
-                       cudaStream_t st) {
+                       float* ws, int groups, int64_t sx, int64_t sw, int m,
+                       int n, int k, int ldx, int ldw, int split, int kper,
+                       int out_dt, const Epilogue& e, cudaStream_t st) {
   int i = 0;
 #define F32_CASE(BM, BN, BK, TM, TN)                                       \
   if (tile == i++)                                                         \
-    return launch_f32<BM, BN, BK, TM, TN, TA, TB>(x, w, y, ws, m, n, k,    \
-                                                  ldx, ldw, split, kper,   \
-                                                  out_dt, e, st);
+    return launch_f32<BM, BN, BK, TM, TN, TA, TB>(                         \
+        x, w, y, ws, groups, sx, sw, m, n, k, ldx, ldw, split, kper,       \
+        out_dt, e, st);
   F32_TILE_LIST(F32_CASE)
 #undef F32_CASE
   return (int)cudaErrorInvalidValue;
@@ -1223,6 +1315,21 @@ extern "C" int fused_matmul_f32_tiles(int* out, int max_tiles) {
 }
 
 // codes: 5 * MAX_STAGES ints laid out fn[], kind[], head[], cast[], opdt[].
+static Epilogue read_chain(int n_stages, const int* codes,
+                           const void* const* operands) {
+  Epilogue e;
+  e.n = n_stages;
+  for (int s = 0; s < MAX_STAGES; ++s) {
+    e.fn[s] = codes[s];
+    e.kind[s] = codes[MAX_STAGES + s];
+    e.head[s] = codes[2 * MAX_STAGES + s];
+    e.cast[s] = codes[3 * MAX_STAGES + s];
+    e.opdt[s] = codes[4 * MAX_STAGES + s];
+    e.op[s] = operands[s];
+  }
+  return e;
+}
+
 // y [m, n] = chain(A @ B): A is x [m, k] with rows of ldx elements, or with
 // ta x stored [k, m] (A = x^T); B is w [k, n] with rows of ldw, or with tb
 // w stored [n, k] (B = w^T).  bn, split and stages are the bf16 route's
@@ -1242,16 +1349,7 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
                                    void* stream) {
   if (n_stages < 0 || n_stages > MAX_STAGES || m <= 0 || n <= 0 || k < 0)
     return (int)cudaErrorInvalidValue;
-  Epilogue e;
-  e.n = n_stages;
-  for (int s = 0; s < MAX_STAGES; ++s) {
-    e.fn[s] = codes[s];
-    e.kind[s] = codes[MAX_STAGES + s];
-    e.head[s] = codes[2 * MAX_STAGES + s];
-    e.cast[s] = codes[3 * MAX_STAGES + s];
-    e.opdt[s] = codes[4 * MAX_STAGES + s];
-    e.op[s] = operands[s];
-  }
+  const Epilogue e = read_chain(n_stages, codes, operands);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if ((ta != 0 && ta != 1) || (tb != 0 && tb != 1) || (ta && tb))
     return (int)cudaErrorInvalidValue;
@@ -1270,13 +1368,13 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
     const float* wf = reinterpret_cast<const float*>(w);
     float* wsf = reinterpret_cast<float*>(ws);
     if (ta)
-      return launch_tile<1, 0>(tile, xf, wf, y, wsf, m, n, k, ldx, ldw,
-                               split, kper, out_dt, e, st);
+      return launch_tile<1, 0>(tile, xf, wf, y, wsf, 1, 0, 0, m, n, k, ldx,
+                               ldw, split, kper, out_dt, e, st);
     if (tb)
-      return launch_tile<0, 1>(tile, xf, wf, y, wsf, m, n, k, ldx, ldw,
-                               split, kper, out_dt, e, st);
-    return launch_tile<0, 0>(tile, xf, wf, y, wsf, m, n, k, ldx, ldw, split,
-                             kper, out_dt, e, st);
+      return launch_tile<0, 1>(tile, xf, wf, y, wsf, 1, 0, 0, m, n, k, ldx,
+                               ldw, split, kper, out_dt, e, st);
+    return launch_tile<0, 0>(tile, xf, wf, y, wsf, 1, 0, 0, m, n, k, ldx,
+                             ldw, split, kper, out_dt, e, st);
   }
   // TMA: 16-byte-aligned bases and row strides, no empty box
   if (k == 0 || ldx < rx || ldw < rw || ldx % 8 != 0 || ldw % 8 != 0
@@ -1285,11 +1383,53 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
       || split < 1 || split > 8 || stages < 2 || stages > 8)
     return (int)cudaErrorInvalidValue;
   if (ta)
-    return launch_bn<1, 1>(bn, x, w, y, m, n, k, ldx, ldw, split, stages,
-                           out_dt, e, st);
+    return launch_bn<1, 1, 0>(bn, x, w, y, 1, m, n, k, ldx, ldw, split,
+                              stages, out_dt, e, st);
   if (tb)
-    return launch_bn<0, 0>(bn, x, w, y, m, n, k, ldx, ldw, split, stages,
-                           out_dt, e, st);
-  return launch_bn<0, 1>(bn, x, w, y, m, n, k, ldx, ldw, split, stages,
-                         out_dt, e, st);
+    return launch_bn<0, 0, 0>(bn, x, w, y, 1, m, n, k, ldx, ldw, split,
+                              stages, out_dt, e, st);
+  return launch_bn<0, 1, 0>(bn, x, w, y, 1, m, n, k, ldx, ldw, split,
+                            stages, out_dt, e, st);
+}
+
+// The grouped route: y [groups, m, n] = chain(x [groups, m, k] @ w [groups,
+// k, n]) in one launch, every group with the plan of its own 2-D launch
+// (bn, split, stages; fp32: tile, split, kper, and with split > 1 a
+// workspace of groups * split * m * n4 floats).  x's rows are ldx
+// elements, w's ldw; each group's x is m rows and its w k rows, stored
+// back to back.  A full epilogue operand is [groups * m, n], a row
+// operand [n].
+extern "C" int fused_matmul_grouped_launch(const void* x, const void* w,
+                                           void* y, void* ws, int groups,
+                                           int m, int n, int k, int ldx,
+                                           int ldw, int in_dt, int out_dt,
+                                           int bn, int split, int stages,
+                                           int tile, int kper, int n_stages,
+                                           const int* codes,
+                                           const void* const* operands,
+                                           void* stream) {
+  if (n_stages < 0 || n_stages > MAX_STAGES || groups <= 0 || m <= 0
+      || n <= 0 || k < 0)
+    return (int)cudaErrorInvalidValue;
+  const Epilogue e = read_chain(n_stages, codes, operands);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (in_dt != DT_BF16) {
+    if (ldx < k || ldw < n || split < 1 || kper < 4 || kper % 4 != 0
+        || (int64_t)(split - 1) * kper >= (k > 0 ? k : 1)
+        || (int64_t)split * kper < k
+        || (split > 1 && ws == nullptr))
+      return (int)cudaErrorInvalidValue;
+    return launch_tile<0, 0>(tile, reinterpret_cast<const float*>(x),
+                             reinterpret_cast<const float*>(w), y,
+                             reinterpret_cast<float*>(ws), groups,
+                             (int64_t)m * ldx, (int64_t)k * ldw, m, n, k,
+                             ldx, ldw, split, kper, out_dt, e, st);
+  }
+  if (k == 0 || ldx < k || ldw < n || ldx % 8 != 0 || ldw % 8 != 0
+      || reinterpret_cast<uintptr_t>(x) % 16 != 0
+      || reinterpret_cast<uintptr_t>(w) % 16 != 0
+      || split < 1 || split > 8 || stages < 2 || stages > 8)
+    return (int)cudaErrorInvalidValue;
+  return launch_bn<0, 1, 1>(bn, x, w, y, groups, m, n, k, ldx, ldw, split,
+                            stages, out_dt, e, st);
 }

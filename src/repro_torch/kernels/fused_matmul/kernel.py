@@ -149,14 +149,16 @@ def f32_tile(m: int, n: int, split: int) -> int:
                  and small > wide) else 0
 
 
-def workspace(m: int, n: int, p: Plan, device) -> torch.Tensor | None:
-    """The fp32 partial tiles of a split launch, ``[split, m, n4]`` (n4: n
-    rounded up to 4, so the last block reads each partial row in 16-byte
-    pieces); None without a split."""
+def workspace(m: int, n: int, p: Plan, device,
+              groups: int = 1) -> torch.Tensor | None:
+    """The fp32 partial tiles of a split launch, ``[groups * split, m,
+    n4]`` (n4: n rounded up to 4, so the last block reads each partial row
+    in 16-byte pieces; ``groups``: the grouped route's experts, each with
+    its own ``split`` planes); None without a split."""
     if p.bn != 0 or p.split == 1:
         return None
-    return torch.empty((p.split, m, -(-n // 4) * 4), dtype=torch.float32,
-                       device=device)
+    return torch.empty((groups * p.split, m, -(-n // 4) * 4),
+                       dtype=torch.float32, device=device)
 
 
 def pad_cols(t: torch.Tensor) -> torch.Tensor:
@@ -210,6 +212,13 @@ def library() -> ctypes.CDLL:
                            i, i, i, i, i,     # bn, split, stages, tile, kper
                            i, ctypes.POINTER(i), ctypes.POINTER(p), p]
             fn.restype = ctypes.c_int
+            fn = lib.fused_matmul_grouped_launch
+            fn.argtypes = [p, p, p, p,        # x, w, y, ws
+                           i, i, i, i, i, i,  # groups, m, n, k, ldx, ldw
+                           i, i,              # in_dt, out_dt
+                           i, i, i, i, i,     # bn, split, stages, tile, kper
+                           i, ctypes.POINTER(i), ctypes.POINTER(p), p]
+            fn.restype = ctypes.c_int
             lib.fused_matmul_f32_tiles.argtypes = [ctypes.POINTER(i), i]
             lib.fused_matmul_f32_tiles.restype = i
             _lib = lib
@@ -222,6 +231,58 @@ def kernel_f32_tiles() -> tuple:
     out = (ctypes.c_int * (5 * 16))()
     count = library().fused_matmul_f32_tiles(out, 16)
     return tuple(tuple(out[5 * t:5 * t + 5]) for t in range(count))
+
+
+def _chain_codes(spec: tuple, operands: list) -> tuple:
+    """The epilogue chain as the library takes it: ``codes`` (5 x
+    ``MAX_STAGES`` ints: fn, kind, head, cast, operand dtype) and the
+    operand pointers in stage order."""
+    if len(spec) > MAX_STAGES:
+        raise ValueError(f"epilogue has {len(spec)} stages; the kernel takes "
+                         f"at most {MAX_STAGES}")
+    codes = (ctypes.c_int * (5 * MAX_STAGES))()
+    ptrs = (ctypes.c_void_p * MAX_STAGES)()
+    it = iter(operands)
+    for s, (fn, kind, head_pos, edt) in enumerate(spec):
+        codes[s] = FN[fn]
+        codes[MAX_STAGES + s] = KIND[kind]
+        codes[2 * MAX_STAGES + s] = int(head_pos)
+        codes[3 * MAX_STAGES + s] = CAST[edt]
+        if kind != "none":
+            op = next(it)
+            codes[4 * MAX_STAGES + s] = DT[op.dtype]
+            ptrs[s] = op.data_ptr()
+    return codes, ptrs
+
+
+def launch_grouped(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                   groups: int, m: int, n: int, k: int, p: Plan,
+                   spec: tuple, operands: list,
+                   ws: torch.Tensor | None = None) -> None:
+    """Launch the grouped route on the current stream: ``y[g] = chain(x[g]
+    @ w[g])`` for each of ``groups`` experts in one launch, with ``x``
+    ``[groups * m, ldx]`` (each expert's ``m`` rows back to back), ``w``
+    ``[groups * k, ldw]`` (each expert's ``k`` rows) and ``y [groups * m,
+    n]``.  ``p`` is ``plan(n, k, dtype)``, every expert's own 2-D plan, and
+    ``ws`` the fp32 route's ``workspace(m, n, p, groups=groups)``.  A full
+    epilogue operand is ``[groups * m, n]``, a row operand ``[n]``; the
+    caller has checked devices, dtypes, shapes and contiguity."""
+    if (ws is None) != (x.dtype != torch.float32 or p.split == 1):
+        raise ValueError(f"fused_matmul: an fp32 split of {p.split} takes a "
+                         f"workspace, and nothing else does")
+    codes, ptrs = _chain_codes(spec, operands)
+    tile = kper = 0
+    if x.dtype == torch.float32:
+        tile, kper = f32_tile(m, n, p.split), k_per_rank(k, p.split)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = library().fused_matmul_grouped_launch(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(),
+        ws.data_ptr() if ws is not None else None, groups, m, n, k,
+        x.shape[1], w.shape[1], DT[x.dtype], DT[y.dtype], p.bn, p.split,
+        p.stages, tile, kper, len(spec), codes, ptrs, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_matmul grouped launch failed: CUDA error "
+                           f"{err}")
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, m: int,
@@ -237,24 +298,10 @@ def launch(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, m: int,
     ``spec`` is the static chain ``((fn, kind, head_pos, dtype), ...)``
     and ``operands`` the row/full operand tensors in spec order; the
     caller has checked devices, dtypes, shapes and contiguity."""
-    if len(spec) > MAX_STAGES:
-        raise ValueError(f"epilogue has {len(spec)} stages; the kernel takes "
-                         f"at most {MAX_STAGES}")
     if (ws is None) != (x.dtype != torch.float32 or p.split == 1):
         raise ValueError(f"fused_matmul: an fp32 split of {p.split} takes a "
                          f"workspace, and nothing else does")
-    codes = (ctypes.c_int * (5 * MAX_STAGES))()
-    ptrs = (ctypes.c_void_p * MAX_STAGES)()
-    it = iter(operands)
-    for s, (fn, kind, head_pos, edt) in enumerate(spec):
-        codes[s] = FN[fn]
-        codes[MAX_STAGES + s] = KIND[kind]
-        codes[2 * MAX_STAGES + s] = int(head_pos)
-        codes[3 * MAX_STAGES + s] = CAST[edt]
-        if kind != "none":
-            op = next(it)
-            codes[4 * MAX_STAGES + s] = DT[op.dtype]
-            ptrs[s] = op.data_ptr()
+    codes, ptrs = _chain_codes(spec, operands)
     tile = kper = 0
     if x.dtype == torch.float32:
         tile, kper = f32_tile(m, n, p.split), k_per_rank(k, p.split)

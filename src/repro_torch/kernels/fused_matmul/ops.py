@@ -12,9 +12,16 @@ chain the kernel takes and its operand tensors (``_classify``), and then:
   dX route's layout, with the same plan and the same sums as its
   contiguous copy would take; any other strided ``w`` is copied.
 
+A 3-D ``w [E, k, n]`` with ``x [E, ..., k]`` is the grouped route (the MoE
+expert FFN): ONE launch computes every expert's product, each with the plan
+of its own 2-D launch, so it equals E launches of the 2-D route bitwise.
+Its plain version is ``ref.grouped_matmul_ref``.  It has no backward yet:
+under grad it raises on every device.
+
 ``launches`` counts kernel launches (incremented where the kernel launches
 and nowhere else); ``launches_by_shape`` splits it by ``(m, n, k, x dtype,
-chain)``.
+chain)``, a grouped launch by ``("grouped", E, m, n, k, x dtype, chain)``
+(m: each expert's rows).
 
 Gradients.  Under grad mode, when an input requires grad, ``fused_matmul``
 goes through ``FusedMatmulFn`` (an ``autograd.Function``) on every device:
@@ -108,6 +115,13 @@ def fused_matmul(x, w, epilogue=None, tile=None, out_dtype=None):
     with an input that requires grad, the call goes through
     ``FusedMatmulFn``."""
     out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    if w.ndim == 3:
+        if _requires_grad(x, w, epilogue):
+            raise NotImplementedError(
+                "the grouped GEMM (a 3-D weight: the MoE expert FFN) has no "
+                "backward yet: MoE training waits for the grouped dX / dW "
+                "routes (ROADMAP, queue 1: MoE training)")
+        return _grouped_matmul(x, w, epilogue, out_dt)
     if _requires_grad(x, w, epilogue):
         chain = tuple((fn, len(vals), at) for fn, vals, at in epilogue or [])
         vals = [v for _, vs, _ in epilogue or [] for v in vs]
@@ -156,6 +170,50 @@ def _fused_matmul(x, w, epilogue, out_dt):
         launches += 1
         launches_by_shape[(m, n, k, str(x.dtype), spec)] += 1
     return y.reshape(*lead, n)
+
+
+def _grouped_matmul(x, w, epilogue, out_dt):
+    """``x [E, ..., k] @ w [E, k, n]`` with the epilogue, one launch of the
+    grouped route on a CUDA tensor (the plain version on a CPU one)."""
+    if x.device.type == "cpu":
+        return ref.grouped_matmul_ref(x, w, epilogue=epilogue,
+                                      out_dtype=out_dt)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_matmul runs on cpu or cuda, got {x.device}")
+    E, k, n = w.shape
+    if x.ndim < 2 or x.shape[0] != E or x.shape[-1] != k:
+        raise ValueError(f"fused_matmul: x must be [E={E}, ..., k={k}] for "
+                         f"w {tuple(w.shape)}, got {tuple(x.shape)}")
+    if w.device != x.device or x.dtype != w.dtype:
+        raise ValueError(f"fused_matmul: x {x.dtype}@{x.device} and w "
+                         f"{w.dtype}@{w.device} must share device and dtype")
+    if x.dtype not in kernel.DT or out_dt not in kernel.DT:
+        raise ValueError(f"fused_matmul kernel takes float32/bfloat16, got "
+                         f"{x.dtype} -> {out_dt}")
+    if k == 0:
+        raise ValueError("fused_matmul: the grouped route takes no empty "
+                         "contraction")
+    lead = x.shape[1:-1]
+    m = math.prod(lead)
+    spec, operands = _classify(epilogue, E * m, n)
+    for op in operands:
+        if op.device != x.device or op.dtype not in kernel.DT:
+            raise ValueError(f"fused_matmul: epilogue operand {op.dtype}@"
+                             f"{op.device} not supported")
+    x2 = x.reshape(E * m, k).contiguous()
+    w2 = w.reshape(E * k, n).contiguous()
+    if x.dtype == torch.bfloat16:   # TMA rows: copies where (n, k) need it
+        x2, w2 = kernel.pad_cols(x2), kernel.pad_cols(w2)
+    y = torch.empty((E, *lead, n), dtype=out_dt, device=x.device)
+    global launches
+    if m > 0 and n > 0:
+        p = kernel.plan(n, k, x.dtype)
+        kernel.launch_grouped(x2, w2, y, E, m, n, k, p, spec, operands,
+                              ws=kernel.workspace(m, n, p, x.device,
+                                                  groups=E))
+        launches += 1
+        launches_by_shape[("grouped", E, m, n, k, str(x.dtype), spec)] += 1
+    return y
 
 
 def weight_operand(w):
@@ -330,8 +388,10 @@ class FusedMatmulFn(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def matmul_cost(m, n, k, eb):
+def matmul_cost(m, n, k, eb, groups: int = 1):
     """Roofline terms of one kernel launch, ``dict(flops, io_bytes)``:
     x ``[m, k]`` and w ``[k, n]`` read once, the output written once (the
-    epilogue runs on the resident output tile)."""
-    return dict(flops=2.0 * m * n * k, io_bytes=eb * (m * k + k * n + m * n))
+    epilogue runs on the resident output tile); ``groups`` such products
+    (the grouped route, ``m`` rows each) cost that many times one."""
+    return dict(flops=2.0 * groups * m * n * k,
+                io_bytes=eb * groups * (m * k + k * n + m * n))

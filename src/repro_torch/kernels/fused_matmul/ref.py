@@ -52,6 +52,19 @@ def fused_matmul_ref(x, w, epilogue=None, out_dtype=None):
     return y.to(out_dtype)
 
 
+def grouped_matmul_ref(x, w, epilogue=None, out_dtype=None):
+    """The grouped route's plain version: ``x [E, ..., m, k] @ w [E, k,
+    n]``, expert by expert, fp32 accumulation, then the epilogue (a full
+    operand ``[E, ..., m, n]``, a row operand ``[n]`` every expert
+    shares)."""
+    out_dtype = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    xf = x.to(torch.float32)
+    y = torch.stack([torch.matmul(xf[e], w[e].to(torch.float32))
+                     for e in range(w.shape[0])])
+    y = apply_epilogue(y, epilogue)
+    return y.to(out_dtype)
+
+
 def matmul_dx_ref(dy, w, out_dtype=None):
     """The input gradient's product ``dy [m, n] @ w [k, n]^T`` with fp32
     accumulation, in ``out_dtype`` (default ``dy``'s)."""

@@ -3,6 +3,7 @@ the family registry — the port of the JAX package's ``models/base.py``."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -60,6 +61,11 @@ class ModelConfig:
     gated_mlp: bool = True
     tie_embeddings: bool = False
     max_seq: int = 8192
+    # --- moe ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0
     # --- ssm / hybrid ---
     ssm_state: int = 64
     ssm_head_dim: int = 64
@@ -74,15 +80,19 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def n_params(self) -> float:
-        """Approximate parameter count (dense and hybrid families), the
+        """Approximate parameter count (dense, MoE and hybrid families), the
         reference's formula: its hybrid branch counts ``2 * n_heads *
         ssm_state`` where ``w_in`` holds ``2 * ssm_state`` columns, so a
-        rate over the real tree counts the tree's own leaves."""
+        rate over the real tree counts the tree's own leaves; its MoE
+        branch counts every layer's experts (a first dense layer as E
+        FFNs too) and no router."""
         d, L, ff, V = self.d_model, self.n_layers, self.d_ff, self.vocab
         hd = self.hd
         attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads \
             + hd * self.n_heads * d
         mlp = (3 if self.gated_mlp else 2) * d * ff
+        if self.family == "moe":
+            mlp *= self.n_experts
         emb = V * d * (1 if self.tie_embeddings else 2)
         body = L * (attn + mlp)
         if self.family == "hybrid":
@@ -90,6 +100,16 @@ class ModelConfig:
             mamba = d * (2 * din + 2 * self.n_heads * self.ssm_state) + din * d
             body = L * mamba + (attn + mlp)  # one shared block
         return body + emb
+
+    def n_active_params(self) -> float:
+        """The parameters one token's forward reads (the MFU lines' count):
+        for MoE the reference's dense equivalent with ``top_k`` experts'
+        FFNs; elsewhere ``n_params``."""
+        if self.family != "moe":
+            return self.n_params()
+        return dataclasses.replace(
+            self, family="dense",
+            d_ff=self.d_ff * max(self.top_k, 1)).n_params()
 
 
 @dataclass(frozen=True)
@@ -116,6 +136,43 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
     return x.mul_(std).to(dt)
+
+
+def _materialize_tree(specs: dict, generator, device) -> dict:
+    """``materialize`` over a (possibly nested) dict of specs, leaf by leaf
+    in sorted key order."""
+    return {k: (_materialize_tree(specs[k], generator, device)
+                if isinstance(specs[k], dict)
+                else materialize(specs[k], generator, device))
+            for k in sorted(specs)}
+
+
+def _check_shapes(specs: dict, params: dict, where: str) -> None:
+    for k, s in specs.items():
+        if isinstance(s, dict):
+            _check_shapes(s, params[k], f"{where}.{k}")
+            continue
+        got = tuple(params[k].shape)
+        if got != s.shape:
+            raise ValueError(f"{where}.{k}: expected {s.shape}, got {got}")
+
+
+def _frozen_tree(params: dict, device) -> nn.Module:
+    """A flat dict of tensors as a ``ParameterDict`` of frozen parameters;
+    a dict of such dicts (the MoE family's ``blocks.dense`` /
+    ``blocks.moe``) as a ``ModuleDict`` of them."""
+    if any(isinstance(v, dict) for v in params.values()):
+        return nn.ModuleDict({k: _frozen_tree(v, device)
+                              for k, v in params.items()})
+    return nn.ParameterDict({k: _frozen(v.to(device))
+                             for k, v in params.items()})
+
+
+def _plain_tree(mod: nn.Module) -> dict:
+    """The parameters of a ``_frozen_tree`` as plain (nested) dicts."""
+    if isinstance(mod, nn.ModuleDict):
+        return {k: _plain_tree(v) for k, v in mod.items()}
+    return dict(mod)
 
 
 def keep_in_place(slabs, new, regions: bool, where: str) -> None:
@@ -173,8 +230,7 @@ class BaseModel(nn.Module):
                 generator = torch.Generator(device=dev).manual_seed(0)
             params = {
                 "embed": materialize(specs["embed"], generator, dev),
-                "blocks": {k: materialize(specs["blocks"][k], generator, dev)
-                           for k in sorted(specs["blocks"])},
+                "blocks": _materialize_tree(specs["blocks"], generator, dev),
                 "ln_f": materialize(specs["ln_f"], generator, dev),
             }
             if "lm_head" in specs:
@@ -185,14 +241,9 @@ class BaseModel(nn.Module):
                     k: materialize(specs["shared"][k], generator, dev)
                     for k in sorted(specs["shared"])}
         for sub in ("blocks", "shared"):
-            for k, s in specs.get(sub, {}).items():
-                got = tuple(params[sub][k].shape)
-                if got != s.shape:
-                    raise ValueError(f"{sub}.{k}: expected {s.shape}, got "
-                                     f"{got}")
+            _check_shapes(specs.get(sub, {}), params.get(sub, {}), sub)
         self.embed = _frozen(params["embed"].to(dev))
-        self.blocks = nn.ParameterDict(
-            {k: _frozen(v.to(dev)) for k, v in params["blocks"].items()})
+        self.blocks = _frozen_tree(params["blocks"], dev)
         self.ln_f = _frozen(params["ln_f"].to(dev))
         self.lm_head = _frozen(params["lm_head"].to(dev)) \
             if "lm_head" in params else None
@@ -212,7 +263,7 @@ class BaseModel(nn.Module):
         ``ln_f``, ``lm_head`` when untied, ``shared`` where the family has
         it): the model's own tensors, so an update of a leaf in place
         updates the model."""
-        tree = {"embed": self.embed, "blocks": dict(self.blocks),
+        tree = {"embed": self.embed, "blocks": _plain_tree(self.blocks),
                 "ln_f": self.ln_f}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
@@ -261,21 +312,26 @@ class BaseModel(nn.Module):
         w = self.lm_head if self.lm_head is not None else self.embed
         shared = dict(self.shared) if self.shared is not None else {}
         stamp = tuple((t._version, t.data_ptr())
-                      for t in (*self.blocks.values(), *shared.values(),
+                      for t in (*self.blocks.parameters(), *shared.values(),
                                 self.ln_f, w))
         if self._compute is None or self._compute[0] != stamp:
             cdt = to_torch_dtype(self.cfg.compute_dtype)
             # a tied head is ``embed.T`` cast with its strides kept: the
             # GEMM reads it K-major in place (``fused_matmul``'s tb route)
             w = self.lm_head if self.lm_head is not None else self.embed.T
-            cp = {"layers": [{k: v[i].to(cdt) for k, v in self.blocks.items()}
-                             for i in range(self.cfg.n_layers)],
+            cp = {"layers": self._compute_layers(cdt),
                   "head": {"ln_f": self.ln_f.data, "w": w.data.to(cdt)},
                   "embed": self.embed.data}
             if self.shared is not None:
                 cp["shared"] = {k: v.data.to(cdt) for k, v in shared.items()}
             self._compute = stamp, cp
         return self._compute[1]
+
+    def _compute_layers(self, cdt) -> list:
+        """``compute_params``' per-layer dicts, each layer's slices of the
+        stacked ``blocks`` cast to ``cdt``."""
+        return [{k: v[i].to(cdt) for k, v in self.blocks.items()}
+                for i in range(self.cfg.n_layers)]
 
     def forward(self, batch: dict, params: Optional[dict] = None):
         """Returns logits [B, S, vocab].  Every weight is read from
@@ -317,8 +373,8 @@ def register_family(name: str):
 def get_model(cfg: ModelConfig, **kwargs):
     """Build the registered family's model (``kwargs``: device, params,
     generator)."""
-    # register "ssm", "dense" and "hybrid"
-    from . import mamba, rwkv, transformer  # noqa: F401
+    # register "ssm", "dense", "moe" and "hybrid"
+    from . import mamba, moe, rwkv, transformer  # noqa: F401
     if cfg.family not in _REGISTRY:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return _REGISTRY[cfg.family](cfg, **kwargs)

@@ -1,6 +1,6 @@
 """Weights carried across from the JAX package: its parameter tree, as
-numpy arrays, becomes the config's family (``DenseLM``, ``RWKV6``,
-``Zamba2``) on ``device``.  bf16 leaves arrive as float32 (exact) and are
+numpy arrays, becomes the config's family (``DenseLM``, ``MoELM``,
+``RWKV6``, ``Zamba2``) on ``device``.  bf16 leaves arrive as float32 (exact) and are
 stored in the config's ``param_dtype``.  ``paper_params_from_numpy`` does
 the same for the paper's four networks, whose parameters are a plain
 tree."""
@@ -19,16 +19,19 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     arrays (the reference's ``init_params`` output, leaf by leaf); a tied
     family has no ``lm_head``, and Zamba2's tree also holds ``shared``,
     its shared block's un-stacked leaves.  A sub-tree (``blocks``,
-    ``shared``) is a flat dict of leaves."""
+    ``shared``) is a flat dict of leaves, or for the MoE family ``blocks``
+    a dict of two such (``dense``, where the config has first dense layers,
+    and ``moe``: ``router [L, d, E]``, ``ewg`` / ``ewu [L, E, d, f]``,
+    ``ewd [L, E, f, d]`` beside the attention leaves)."""
     dev = resolve_device(device)
     pdt = to_torch_dtype(cfg.param_dtype)
 
     def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
         return torch.from_numpy(np.array(a, np.float32)).to(pdt).to(dev)
 
-    params = {k: ({kk: conv(vv) for kk, vv in v.items()}
-                  if isinstance(v, dict) else conv(v))
-              for k, v in tree.items()}
+    params = conv(tree)
     return get_model(cfg, device=dev, params=params)
 
 

@@ -1,0 +1,264 @@
+"""Mixture-of-Experts LM (Moonlight-16B-A3B, Granite-3.0-1B-A400M) — the
+port of the JAX package's ``models/moe.py``.
+
+Routing is capacity-based top-k with renormalized gates.  The expert FFN
+goes through ``tapir.expert_mlp``: in opaque mode its three GEMMs lower to
+one isolated launch of the 2-D GEMM kernel per expert; in tapir mode each
+is ONE launch of the kernel's grouped route, the gate's with its ``silu,
+mul`` epilogue fused — the MoE instance of the paper's exposed-library
+claim.
+
+The router's product ``x @ router`` is taken in fp32 through the GEMM
+kernel's fp32 route (``route_logits``), whose plan is a function of (n, k)
+alone: a token's logits, and so its experts and gates, never depend on
+which other rows run.  The grouped GEMM is M-stable in the same way and a
+row's result does not depend on where the dispatch put it in its expert's
+buffer, so a dropless decode step over 1, 2 or 4 live slots, and a suffix
+prefill, give each row the bits of their baselines.
+
+Dropless where ``S == 1`` (decode) and in slot prefill; the forward and
+the padded prefill drop past ``capacity_factor`` as the reference does.
+Left out: the expert-parallel ``shard_map`` dispatch and its sharding
+constraints (they need a mesh; see ROADMAP), and training (the grouped
+GEMM has no backward yet: a 3-D weight under grad raises).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..core import tapir
+from ..core.dtypes import to_torch_dtype
+from ..kernels.fused_matmul import ops as fm_ops
+from . import layers as L
+from .base import ModelConfig, ParamSpec, register_family
+from .transformer import DenseLM, _block_specs, abstract_params
+
+
+def _moe_block_specs(cfg: ModelConfig, n_layers: int) -> dict:
+    spec = _block_specs(cfg, n_layers)
+    for key in ("wg", "wu", "wd"):
+        spec.pop(key, None)
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    pdt = cfg.param_dtype
+    Lx = (n_layers,)
+    spec["router"] = ParamSpec(Lx + (d, E), pdt, ("layers", "embed", None))
+    spec["ewg"] = ParamSpec(Lx + (E, d, ff), pdt,
+                            ("layers", "expert", "embed", "mlp"))
+    spec["ewu"] = ParamSpec(Lx + (E, d, ff), pdt,
+                            ("layers", "expert", "embed", "mlp"))
+    spec["ewd"] = ParamSpec(Lx + (E, ff, d), pdt,
+                            ("layers", "expert", "mlp", "embed"))
+    return spec
+
+
+def moe_abstract_params(cfg: ModelConfig) -> dict:
+    """The reference's tree: ``blocks.dense`` (the first
+    ``first_dense_layers`` layers, where there are any) and ``blocks.moe``,
+    each stacked ``[L, ...]``."""
+    p = abstract_params(cfg)
+    F = cfg.first_dense_layers
+    blocks = {}
+    if F > 0:
+        blocks["dense"] = _block_specs(cfg, F)
+    blocks["moe"] = _moe_block_specs(cfg, cfg.n_layers - F)
+    p["blocks"] = blocks
+    return p
+
+
+def route_logits(xt, router):
+    """``xt [T, d] @ router [d, E]`` in fp32 through the GEMM kernel's fp32
+    route (the plain version on a CPU tensor): its plan is a function of
+    (E, d) alone, so a row's logits are the same bits at every T, where
+    ``torch.matmul`` may pick another algorithm for another row count."""
+    f32 = torch.float32
+    if xt.is_meta:   # ``tapir.lift``'s shape inference: no values
+        return xt.new_empty((xt.shape[0], router.shape[-1]), dtype=f32)
+    return fm_ops.fused_matmul(xt.to(f32), router.to(f32), out_dtype=f32)
+
+
+def _route_topk(xt, router, *, k: int, e: int, cap: int):
+    """Top-k routing: (renormalized gates, expert ids, capacity positions,
+    keep mask).  ONE composite shared by the per-op path (called directly)
+    and the region path (captured through ``tapir.lift``): the router's
+    data-dependent control stays a graph value feeding the dispatch's
+    scatter and the combine's gather."""
+    T = xt.shape[0]
+    probs = torch.softmax(route_logits(xt, router), dim=-1)    # [T, E]
+    gate, eidx = torch.topk(probs, k, dim=-1)                  # [T, K]
+    gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+    # capacity assignment: the position of each (token, k) in its expert
+    onehot = (eidx[..., None] == torch.arange(e, device=xt.device)
+              ).to(torch.int32)                                # [T, K, E]
+    flat = onehot.reshape(T * k, e)
+    # the running count down the T*K rows, scanned along the last dim of
+    # the transpose: torch's scan over an outer dim only E columns wide
+    # walks the rows nearly serially (5.6 ms a layer at T*K = 32768 on the
+    # H100); integer sums, so the same values either way
+    csum = torch.cumsum(flat.t().contiguous(), dim=1, dtype=torch.int32)
+    pos = csum.t() - flat                                      # pre-count
+    pos = torch.sum(pos * flat, dim=-1, dtype=torch.int32).reshape(T, k)
+    keep = pos < cap
+    pos = torch.where(keep, pos, cap - 1)
+    return gate, eidx.to(torch.int32), pos, keep
+
+
+def _dispatch_src(xt, keep, *, k: int, cdt: str):
+    """Token rows replicated per routed copy, zeroed where dropped — the
+    scatter-add update ``[T*K, d]``."""
+    T, d = xt.shape
+    src = torch.where(keep[..., None], xt[:, None].expand(T, k, d), 0)
+    return src.reshape(T * k, d).to(to_torch_dtype(cdt))
+
+
+def _combine_expert_out(fetched, keep, gate, *, k: int, cdt: str):
+    """Weighted sum of the gathered expert outputs over the k routes: each
+    route's product in the compute dtype, the routes added in order in
+    fp32 and rounded once (a row's sum never depends on how many rows
+    run)."""
+    T = keep.shape[0]
+    d = fetched.shape[-1]
+    dt = to_torch_dtype(cdt)
+    f = torch.where(keep[..., None], fetched.reshape(T, k, d), 0)
+    prod = f * gate[..., None].to(dt)
+    acc = prod[:, 0].to(torch.float32)
+    for j in range(1, k):
+        acc = acc + prod[:, j].to(torch.float32)
+    return acc.to(dt)
+
+
+@register_family("moe")
+class MoELM(DenseLM):
+    """A ``DenseLM`` whose FFN is the routed expert FFN; the first
+    ``first_dense_layers`` layers stay dense.  ``blocks`` holds ``dense``
+    (where there are such layers) and ``moe``, each stacked."""
+
+    FAMILY = "moe"
+
+    def _param_specs(self) -> dict:
+        return moe_abstract_params(self.cfg)
+
+    def _compute_layers(self, cdt) -> list:
+        """``compute_params``' layers with their kind markers: ``("dense",
+        p)`` for each first dense layer, then ``("moe", p)``."""
+        out = []
+        for kind in ("dense", "moe"):
+            if kind not in self.blocks:
+                continue
+            blk = self.blocks[kind]
+            n = next(iter(blk.values())).shape[0]
+            out += [(kind, {k: v[i].to(cdt) for k, v in blk.items()})
+                    for i in range(n)]
+        return out
+
+    # -- the routed FFN ------------------------------------------------------
+    def _moe_cap(self, T: int, S: int, dropless: bool) -> int:
+        cfg = self.cfg
+        cap = max(1, int(math.ceil(T * cfg.top_k / cfg.n_experts
+                                   * cfg.capacity_factor)))
+        cap = min(cap, T)
+        if S == 1 or dropless:
+            # decode and slot prefill: dropless (capacity is a training
+            # construct; a dropped token would corrupt generation, and
+            # bucket padding would evict real tokens)
+            cap = T
+        return cap
+
+    def _moe_ffn(self, p, x, dropless: bool = False):
+        """The routed FFN over ``x [B, S, d]``: route, scatter the tokens
+        into ``[E, cap, d]`` (past capacity dropped unless dropless),
+        the expert FFN, gather back, combine.  Inside a region the WHOLE
+        dispatch is region nodes: the router one lifted composite whose
+        outputs (gate / eidx / pos / keep) are graph values, the dispatch a
+        ``zero_init`` scatter and the combine a gather indexed by them, so
+        a MoE decode step's block is ONE region program, router included.
+        Outside a region the same calls run op by op (the reference's
+        ``_moe_ffn_global``); the expert-parallel dispatch needs a mesh,
+        which the port does not have."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        T = B * S
+        E, K = cfg.n_experts, cfg.top_k
+        cap = self._moe_cap(T, S, dropless)
+        cdt = str(x.dtype).split(".")[-1]
+        xt = x.reshape(T, d)
+        gate, eidx, pos, keep = tapir.lift(_route_topk, xt, p["router"],
+                                           k=K, e=E, cap=cap)
+        src = tapir.lift(_dispatch_src, xt, keep, k=K, cdt=cdt)
+        ef, pf = eidx.reshape(T * K), pos.reshape(T * K)
+        xe = tapir.scatter_new((E, cap, d), cdt, (ef, pf), src, mode="add")
+        ye = tapir.expert_mlp(xe, p["ewg"], p["ewu"], p["ewd"], cfg.act)
+        fetched = tapir.gather(ye, (ef, pf))
+        out = tapir.lift(_combine_expert_out, fetched, keep, gate, k=K,
+                         cdt=cdt)
+        return out.reshape(B, S, d)
+
+    # -- forward ---------------------------------------------------------
+    def backbone(self, h, blocks: Optional[dict] = None):
+        """The dense layers (each ONE region, as ``DenseLM``'s), then the
+        MoE layers: the attention sub-block a region, the routed FFN per
+        op."""
+        cos, sin = L.arange_rope_table(int(h.shape[1]), self.cfg.hd,
+                                       fraction=self._rope_frac(),
+                                       device=self.device)
+        cdt = h.dtype
+        if blocks is None:
+            blocks = self.param_tree()["blocks"]
+        attn_blk = tapir.parallel_region(self._attn_body, name="moe_attn")
+
+        def dense_body(p, x):
+            p = {k: v.to(cdt) for k, v in p.items()}
+            return self._block(p, x, cos, sin)
+
+        def moe_body(p, x):
+            p = {k: v.to(cdt) for k, v in p.items()}
+            x = attn_blk(p, x, cos, sin)
+            return x + self._moe_ffn(p, self._norm(x, p["ln2"]))
+
+        if "dense" in blocks:
+            h = tapir.scan_layers(dense_body, blocks["dense"], h)
+        return tapir.scan_layers(moe_body, blocks["moe"], h)
+
+    # -- serving ---------------------------------------------------------
+    def _cached_moe_block_body(self, p, x, cos, sin, ck, cv, pos0,
+                               is_prefill: bool):
+        """One MoE block against its cache slab: attention, cache writes
+        AND the routed FFN in ONE region (the padded prefill is not
+        dropless: S > 1)."""
+        x, ck, cv = self._cached_attn_body(p, x, cos, sin, ck, cv, pos0,
+                                           is_prefill)
+        x = x + self._moe_ffn(p, self._norm(x, p["ln2"]))
+        return x, ck, cv
+
+    def _cached_bodies(self) -> dict:
+        return {"dense": self._cached_block_body,
+                "moe": self._cached_moe_block_body}
+
+    def _slot_moe_block_body(self, p, x, rope_cos, rope_sin, ck, cv, pos,
+                             ptab):
+        """MoE decode block over the paged pool: attention, the page-table
+        cache scatter AND the routed FFN in ONE region."""
+        x, ck, cv = self._slot_attn_body(p, x, rope_cos, rope_sin, ck, cv,
+                                         pos, ptab)
+        x = x + self._moe_ffn(p, self._norm(x, p["ln2"]))
+        return x, ck, cv
+
+    def _slot_prefill_moe_block_body(self, p, x, rope_cos, rope_sin, ck, cv,
+                                     pos_vec, phys_vec, off_vec, prow, vlen):
+        # dropless: serving prefill pads prompts to a bucket, and capacity
+        # drops there would let padding evict real tokens
+        x, ck, cv = self._slot_prefill_attn_body(
+            p, x, rope_cos, rope_sin, ck, cv, pos_vec, phys_vec, off_vec,
+            prow, vlen)
+        x = x + self._moe_ffn(p, self._norm(x, p["ln2"]), dropless=True)
+        return x, ck, cv
+
+    def _slot_bodies(self) -> dict:
+        return {"dense": self._slot_block_body,
+                "moe": self._slot_moe_block_body}
+
+    def _slot_prefill_bodies(self) -> dict:
+        return {"dense": self._slot_prefill_block_body,
+                "moe": self._slot_prefill_moe_block_body}

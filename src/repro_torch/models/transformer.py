@@ -33,6 +33,12 @@ masked attention over the gathered per-slot view ``pool[ptab[s]]``),
 replayed from ``_PROGRAMS`` whichever slots are live.  The params come
 cast once from ``compute_params``, and ``pos`` advances in place, so every
 region input rebinds to the same tensors each step.
+
+Every per-layer loop picks the layer's block body by its kind
+(``_cached_bodies``, ``_slot_bodies``, ``_slot_prefill_bodies``): the slot
+parameters (``slot_params``) carry a ``("dense" | "moe", params)`` marker
+per layer, as the reference's do.  ``DenseLM``'s layers are all dense; the
+MoE family (``models/moe.py``) subclasses it.
 """
 from __future__ import annotations
 
@@ -188,6 +194,12 @@ class DenseBlocks:
         return bufs
 
 
+def _kinded(layer) -> tuple:
+    """A slot layer as ``(kind, params)``: a bare params dict is a dense
+    layer (``compute_params`` of a dense model)."""
+    return layer if isinstance(layer, tuple) else ("dense", layer)
+
+
 @register_family("dense")
 class DenseLM(DenseBlocks, BaseModel):
     """Dense GQA transformer.  ``params`` (a tree like ``abstract_params``
@@ -195,15 +207,29 @@ class DenseLM(DenseBlocks, BaseModel):
     ``generator`` (default: seed 0 on ``device``) by the reference's init
     rule.  ``device`` defaults to ``cuda`` and raises without a card."""
 
+    #: the config family this class builds (a subclass names its own)
+    FAMILY = "dense"
+
     def __init__(self, cfg: ModelConfig, device="cuda",
                  params: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense" or not cfg.gated_mlp:
-            raise NotImplementedError("only the gated dense family is ported")
+        if cfg.family != self.FAMILY or not cfg.gated_mlp:
+            raise NotImplementedError(f"{type(self).__name__} builds the "
+                                      f"gated {self.FAMILY!r} family, not "
+                                      f"{cfg.family!r}")
         self.cfg = cfg
-        self._set_params(abstract_params(cfg), device, params, generator)
+        self._set_params(self._param_specs(), device, params, generator)
         self._rope_bufs: dict = {}      # decode RoPE rows (``_rope_rows``)
+
+    def _param_specs(self) -> dict:
+        return abstract_params(self.cfg)
+
+    def slot_params(self) -> dict:
+        """``compute_params`` with every layer marked by its kind
+        (``("dense", p)``): what the serving engine hands the slot paths."""
+        cp = self.compute_params()
+        return {**cp, "layers": [_kinded(p) for p in cp["layers"]]}
 
     def supports_slots(self) -> bool:
         return True
@@ -273,13 +299,14 @@ class DenseLM(DenseBlocks, BaseModel):
         else:
             cos, sin = self._rope_rows(pos0, int(tokens.shape[1]),
                                        int(cache["k"].shape[2]))
-        blk = tapir.parallel_region(self._cached_block_body,
-                                    name="dense_cached_block")
+        blks = {kind: tapir.parallel_region(fn, name=f"{kind}_cached_block")
+                for kind, fn in self._cached_bodies().items()}
         regions = tapir.get_config().regions
         for i in range(cfg.n_layers):
             slab_k, slab_v = cache["k"][i], cache["v"][i]
-            h, ck, cv = blk(cp["layers"][i], h, cos, sin, slab_k,
-                            slab_v, pos0, is_prefill)
+            kind, p = _kinded(cp["layers"][i])
+            h, ck, cv = blks[kind](p, h, cos, sin, slab_k, slab_v, pos0,
+                                   is_prefill)
             keep_in_place((slab_k, slab_v), (ck, cv), regions,
                           f"layer {i}")
         head = tapir.parallel_region(self._slot_head_body, name="slot_head")
@@ -287,6 +314,10 @@ class DenseLM(DenseBlocks, BaseModel):
         logits = head(cp["head"], h[:, -1:])
         pos0.add_(tokens.shape[1])
         return logits, cache
+
+    def _cached_bodies(self) -> dict:
+        """The padded cache's block body of each layer kind."""
+        return {"dense": self._cached_block_body}
 
     def prefill(self, tokens, cache):
         """Prompts ``tokens [B, S]`` into an empty ``cache``; returns
@@ -394,6 +425,14 @@ class DenseLM(DenseBlocks, BaseModel):
         x = self._norm(x, hp["ln_f"])
         return tapir.linear(x, hp["w"])[:, -1]
 
+    def _slot_bodies(self) -> dict:
+        """The slot decode step's block body of each layer kind."""
+        return {"dense": self._slot_block_body}
+
+    def _slot_prefill_bodies(self) -> dict:
+        """The slot prefill's block body of each layer kind."""
+        return {"dense": self._slot_prefill_block_body}
+
     def decode_step_slots(self, sp, tokens, cache):
         """One decode step for EVERY slot.  tokens: [slots, 1] int32 (free
         slots carry don't-care tokens).  Returns (logits [slots, vocab],
@@ -407,11 +446,12 @@ class DenseLM(DenseBlocks, BaseModel):
                                          fraction=self._rope_frac(),
                                          device=tokens.device)
         pos = cache["pos"]
-        blk = tapir.parallel_region(self._slot_block_body,
-                                    name="slot_dense_block")
-        for i, p in enumerate(sp["layers"]):
-            h, ck, cv = blk(p, h, cos_t, sin_t, cache["k"][i], cache["v"][i],
-                            pos, ptab)
+        blks = {kind: tapir.parallel_region(fn, name=f"slot_{kind}_block")
+                for kind, fn in self._slot_bodies().items()}
+        for i, layer in enumerate(sp["layers"]):
+            kind, p = _kinded(layer)
+            h, ck, cv = blks[kind](p, h, cos_t, sin_t, cache["k"][i],
+                                   cache["v"][i], pos, ptab)
             cache["k"][i], cache["v"][i] = ck, cv
         head = tapir.parallel_region(self._slot_head_body, name="slot_head")
         logits = head(sp["head"], h)
@@ -447,11 +487,13 @@ class DenseLM(DenseBlocks, BaseModel):
         off_vec = torch.as_tensor(off, device=dev)
         prow = torch.as_tensor(row, device=dev)
         vlen = torch.tensor(start + Sb, dtype=torch.int32, device=dev)
-        blk = tapir.parallel_region(self._slot_prefill_block_body,
-                                    name="slot_dense_prefill")
-        for i, p in enumerate(sp["layers"]):
-            h, ck, cv = blk(p, h, cos_t, sin_t, cache["k"][i], cache["v"][i],
-                            pos_vec, phys_vec, off_vec, prow, vlen)
+        blks = {kind: tapir.parallel_region(fn, name=f"slot_{kind}_prefill")
+                for kind, fn in self._slot_prefill_bodies().items()}
+        for i, layer in enumerate(sp["layers"]):
+            kind, p = _kinded(layer)
+            h, ck, cv = blks[kind](p, h, cos_t, sin_t, cache["k"][i],
+                                   cache["v"][i], pos_vec, phys_vec, off_vec,
+                                   prow, vlen)
             cache["k"][i], cache["v"][i] = ck, cv
         r = plen - 1 - start
         head = tapir.parallel_region(self._slot_head_body, name="slot_head")

@@ -386,7 +386,7 @@ class ServingEngine:
         snap = _cache_snap()
         t0 = time.perf_counter()
         with use(self.cfg.tapir_config()):
-            self._sp = self.model.compute_params()
+            self._sp = self.model.slot_params()
             rs = self._fresh_slot_state(requests)
             self._slot_session(requests, max_steps, continuous, rs, t0)
         wall = time.perf_counter() - t0

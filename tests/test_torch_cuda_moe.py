@@ -1,0 +1,268 @@
+"""The MoE family on the card: the GEMM kernel's grouped route (the expert
+FFN) against its plain version and against the per-expert 2-D launches,
+the router's fp32 product, and Granite-3.0-1B-A400M at full width on two
+layers.  Every test here needs an NVIDIA card and skips without one; run
+them there with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_moe.py``.
+
+GEMM tolerances are ``tests/test_torch_cuda_kernels.py``'s: fp32 atol/rtol
+1e-4, bf16 atol 0.125, rtol 2e-2 (one bf16 rounding of values of order
+10).  Everything the serving guarantees rest on is bitwise: grouped =
+per-expert, a row's bits at every capacity C, the router's logits at every
+row count, graphed = eager, suffix = full prefill, tapir = opaque.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import tapir
+from repro_torch.kernels.fused_matmul import ops, ref
+from repro_torch.models import moe
+from repro_torch.models.base import get_model
+from repro_torch.models.moe import route_logits
+from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+ARCHS = ("granite_moe_1b_a400m", "moonshot_v1_16b_a3b")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _tol(dt):
+    return (1e-4, 1e-4) if dt == torch.float32 else (0.125, 2e-2)
+
+
+def _expert_shapes():
+    """(arch, name, E, k, n) of the expert FFN's three products."""
+    out = []
+    for arch in ARCHS:
+        c = get_config(arch)
+        out += [(arch, "gate", c.n_experts, c.d_model, c.d_ff),
+                (arch, "down", c.n_experts, c.d_ff, c.d_model)]
+    return out
+
+
+def _operands(cuda, E, C, k, n, dt, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(E, C, k, generator=g, device=cuda).to(dt)
+    w = (torch.randn(E, k, n, generator=g, device=cuda) / k ** 0.5).to(dt)
+    up = torch.randn(E, C, n, generator=g, device=cuda).to(dt)
+    return x, w, up
+
+
+def _gate_chain(up, dt):
+    name = str(dt).split(".")[-1]
+    return [("silu", [], {"dtype": name}), ("mul", [up], {"dtype": name})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [4, 240])
+@pytest.mark.parametrize("arch,name,E,k,n", _expert_shapes())
+def test_grouped_matches_plain_and_per_expert(cuda, dt, C, arch, name, E, k,
+                                              n):
+    """One grouped launch: within the GEMM tolerance of the plain version,
+    and bitwise the E per-expert 2-D launches (the gate with its silu, mul
+    epilogue on the full [E, C, n] operand)."""
+    x, w, up = _operands(cuda, E, C, k, n, dt, C + k + n)
+    epi = _gate_chain(up, dt) if name == "gate" else []
+    before = ops.launches
+    y = ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1 and y.shape == (E, C, n)
+    want = ref.grouped_matmul_ref(x, w, epilogue=epi, out_dtype=dt)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(y.float(), want.float(), atol=atol, rtol=rtol)
+    each = torch.stack([
+        ops.fused_matmul(x[e], w[e], out_dtype=dt,
+                         epilogue=[(f, [v[e] for v in vs], a)
+                                   for f, vs, a in epi])
+        for e in range(E)])
+    torch.cuda.synchronize()
+    assert torch.equal(y, each)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch,name,E,k,n", _expert_shapes())
+def test_grouped_row_bits_do_not_depend_on_capacity(cuda, dt, arch, name, E,
+                                                    k, n):
+    """Expert e's row i gives the same bits at C = 1 and at C = 1280 (the
+    row at 0 and at 777 of its buffer): what makes dropless decode over 1,
+    2 or 4 live slots, and a suffix prefill, equal their baselines."""
+    x, w, _ = _operands(cuda, E, 1280, k, n, dt, k + n)
+    full = ops.fused_matmul(x, w, out_dtype=dt)
+    one = ops.fused_matmul(x[:, 777:778].contiguous(), w, out_dtype=dt)
+    moved = ops.fused_matmul(x[:, 777:778].expand(E, 3, k).contiguous(), w,
+                             out_dtype=dt)
+    torch.cuda.synchronize()
+    assert torch.equal(one[:, 0], full[:, 777])
+    assert torch.equal(moved[:, 2], full[:, 777])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_router_logits_do_not_depend_on_rows(cuda, arch):
+    """The router's fp32 product goes through the GEMM's fp32 route, whose
+    plan is a function of (n, k) alone: a row's logits are the same bits at
+    m = 1, 4, 37 and 2048."""
+    c = get_config(arch)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2048, c.d_model, generator=g, device=cuda).to(
+        torch.bfloat16)
+    r = torch.randn(c.d_model, c.n_experts, generator=g, device=cuda) \
+        / c.d_model ** 0.5
+    full = route_logits(x, r)
+    for m in (1, 4, 37):
+        part = route_logits(x[:m], r)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[:m]), m
+    torch.testing.assert_close(full, x.float() @ r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_grouped_takes_no_gradient(cuda):
+    x = torch.randn(2, 4, 64, device=cuda, requires_grad=True)
+    w = torch.randn(2, 64, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        ops.fused_matmul(x, w)
+
+
+# ---------------------------------------------------------------------------
+# Granite-3.0-1B-A400M at full width, two layers
+# ---------------------------------------------------------------------------
+
+
+def _granite(device, layers=2):
+    """Granite-3.0-1B-A400M at full width cut to ``layers``: the first
+    layers of the 24-layer model drawn from seed 0, so the weights have the
+    served model's statistics (the init scales a stacked leaf by its layer
+    count: a model built 2 deep would draw them 3.5x larger)."""
+    full = get_config("granite_moe_1b_a400m")
+    gen = torch.Generator(device=device).manual_seed(0)
+    tree = get_model(full, device=device, generator=gen).param_tree()
+    tree["blocks"] = {kind: {k: v[:layers].clone() for k, v in leaves.items()}
+                      for kind, leaves in tree["blocks"].items()}
+    cfg = dataclasses.replace(full, n_layers=layers)
+    return cfg, get_model(cfg, device=device, params=tree)
+
+
+def _requests(vocab, seed=3):
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, 40).astype(np.int32)
+    prompts = [rng.integers(1, vocab, n).astype(np.int32) for n in (30, 7)]
+    prompts += [np.concatenate([prefix, rng.integers(1, vocab, n)
+                                .astype(np.int32)]) for n in (5, 12, 1)]
+    return [Request(rid=i, prompt=p, max_new=m)
+            for i, (p, m) in enumerate(zip(prompts, (6, 3, 8, 5, 4)))]
+
+
+def _serve(model, device, continuous=True, **cfg):
+    reqs = _requests(model.cfg.vocab)
+    eng = ServingEngine(model, batch=4, max_len=128, device=device,
+                        cfg=ServeConfig(page_len=16, **cfg))
+    out = eng.run(reqs) if continuous else eng.run_wave(reqs)
+    return [list(r.out) for r in out], eng.last_stats
+
+
+@pytest.mark.cuda
+def test_granite_card_matches_cpu(cuda, monkeypatch):
+    """Two layers at full width (``_granite``), the same weights, fp32
+    compute and no capacity drops on both (capacity factor E / K, as the
+    reference's serving test sets it: a drop moves with every earlier
+    token's route):
+    every token routed to the same experts on the card as on the CPU has
+    its logits within 1e-3 of the logits' largest (the plain versions'
+    sums in another order; ``tests/test_torch_cuda_zamba2.py``'s bound).
+    A token whose top-k differs must sit at a near-tie of the router (the
+    CPU's k-th and (k+1)-th probabilities within 1e-4: fp32 logits a few
+    ulps apart pick either), and such tokens are at most 2 % of the
+    routes; their rows, and the later rows of their sequence (causal
+    attention reads their keys), are left out of the logits check."""
+    cfg, m = _granite(cuda)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                capacity_factor=cfg.n_experts / cfg.top_k)
+    tree = m.param_tree()
+    cpu_tree = {k: ({kk: {kkk: t.cpu() for kkk, t in vv.items()}
+                     for kk, vv in v.items()} if k == "blocks"
+                    else v.cpu()) for k, v in tree.items()}
+    mc = get_model(cfg32, device="cuda", params=tree)
+    mh = get_model(cfg32, device="cpu", params=cpu_tree)
+    routes = {"cuda": [], "cpu": []}
+    route = moe._route_topk
+
+    def spy(xt, router, *, k, e, cap):
+        out = route(xt, router, k=k, e=e, cap=cap)
+        probs = torch.softmax(moe.route_logits(xt, router), dim=-1)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        routes[xt.device.type].append(
+            (torch.sort(out[1], dim=-1).values.cpu(),
+             (top[:, k - 1] - top[:, k]).cpu()))
+        return out
+
+    monkeypatch.setattr(moe, "_route_topk", spy)
+    B, S = 2, 64
+    toks = np.random.default_rng(1).integers(1, cfg.vocab, (B, S))
+    got = mc.forward({"tokens": torch.as_tensor(toks, device=cuda)}).cpu()
+    want = mh.forward({"tokens": torch.as_tensor(toks)})
+    assert len(routes["cuda"]) == len(routes["cpu"]) == cfg.n_layers
+    flipped = torch.zeros(B * S, dtype=torch.bool)
+    for (ids_c, _), (ids_h, margin) in zip(routes["cuda"], routes["cpu"]):
+        diff = (ids_c != ids_h).any(-1)
+        assert bool((margin[diff] < 1e-4).all()), margin[diff]
+        flipped |= diff
+    assert int(flipped.sum()) <= 0.02 * B * S
+    ok = ~torch.cummax(flipped.reshape(B, S).int(), dim=1).values.bool()
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().amax(-1).reshape(B, S)
+    assert err[ok].max() <= 1e-3 * want.abs().max(), (
+        err.max(), divmod(int(err.argmax()), S), want.abs().max())
+
+
+@pytest.mark.cuda
+def test_granite_graphed_equals_eager_and_continuous_equals_wave(cuda):
+    """Slot serving with the decode blocks replayed as CUDA graphs gives the
+    tokens of the eager run (``TapirConfig`` with graphs off is the per-op
+    control here: ``regions=False``), and continuous batching the tokens of
+    the wave baseline."""
+    _, m = _granite(cuda)
+    tapir.clear_cache()
+    graphed, st = _serve(m, cuda)
+    assert tapir.cache_stats()["graph_replays"] > 0
+    eager, _ = _serve(m, cuda, regions=False)
+    wave, _ = _serve(m, cuda, continuous=False)
+    assert graphed == eager == wave
+    assert st["prefix_hits"] == 2
+
+
+@pytest.mark.cuda
+def test_granite_suffix_prefill_equals_full(cuda):
+    """Prefix sharing on (suffix prefills over resident pages) and off
+    (every prompt prefilled whole): the same tokens."""
+    _, m = _granite(cuda)
+    shared, st = _serve(m, cuda)
+    whole, st2 = _serve(m, cuda, prefix_sharing=False)
+    assert st["prefix_hits"] == 2 and st2["prefix_hits"] == 0
+    assert shared == whole
+
+
+@pytest.mark.cuda
+def test_granite_tapir_tokens_equal_opaque(cuda):
+    """tapir (3 grouped launches a MoE layer) and opaque (3 x E per-expert
+    launches): the same tokens, from the same kernel."""
+    cfg, m = _granite(cuda)
+    ops.reset_counts()
+    tap, _ = _serve(m, cuda)
+    n_tap = ops.launches
+    ops.reset_counts()
+    opq, _ = _serve(m, cuda, mode="opaque")
+    n_opq = ops.launches
+    assert tap == opq
+    assert n_opq > n_tap

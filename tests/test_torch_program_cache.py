@@ -23,7 +23,8 @@ Attack surfaces, as there:
 5. **What an entry is**: the optimized graph, every node field the
    lowering reads, its callables rebound to the live traced graph's; the
    loaded graph's signature equals a fresh compile's for every SMOKE
-   serving region of qwen2.5-3b, ChatGLM3-6B, RWKV6-7B and Zamba2-7B, and
+   serving region of qwen2.5-3b, ChatGLM3-6B, RWKV6-7B, Zamba2-7B and
+   Moonlight-16B-A3B (dense and MoE layers), and
    a loaded program whose first call raises falls back to one compile.
 
 Subprocesses run with ``tmp_path`` as their working directory and the
@@ -759,9 +760,11 @@ def test_payload_round_trips_every_node_field():
                 rebuild_graph(decode_program_payload(raw), bad)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + ["moonshot_v1_16b_a3b"])
 def test_loaded_graph_equals_a_fresh_compile(tmp_path, arch):
-    """SMOKE serving of each family, cold (compiled and published), then
+    """SMOKE serving of each family (the MoE family's graphs: a
+    ``zero_init`` scatter, 3-D matmuls, a lifted router returning int and
+    bool outputs), cold (compiled and published), then
     warm from the store after ``clear_cache``: every region program is
     loaded (none compiled), its graph's signature equals the fresh
     compile's, its CUDA-graph verdict and written inputs are the same,
