@@ -15,6 +15,9 @@
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --moe-depths N,N,...
+    python3 chip_smoke.py --encdec
+    python3 chip_smoke.py --vlm
+    python3 chip_smoke.py --vlm-depths N,N,...
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -45,7 +48,12 @@ phases 33-37 alone (the program cache and the three dense configs), the
 thirteenth the build phase and phases 38-43 alone (the MoE family).  The
 fourteenth builds Moonlight-16B-A3B at full width at each depth given and
 prints each one's peak memory of slot serving and the forward, or the
-OOM: how M_LAYERS was chosen.
+OOM: how M_LAYERS was chosen.  The fifteenth runs the build phase and
+phases 44-48 alone (Whisper-small), the sixteenth the build phase and
+phase 49 alone (InternVL2-76B at V_LAYERS); the seventeenth builds
+InternVL2-76B at full width at each depth given, runs phase 49's model
+paths (not its kernel entries) and prints each one's peak memory or the
+OOM: how V_LAYERS was chosen.
 
 Phases, each printing one JSON line; any failure exits non-zero.  Every
 main-path run zeroes the three kernels' launch counts (forward and
@@ -384,6 +392,55 @@ compute, random weights from seed 0):
    163840-column head, the grouped launches of d_ff 1408, flash at
    D = 128 with 16 / 16 heads).
 
+The MoE models are then released, and the encoder-decoder and VLM
+families follow (``models/whisper.py``, ``models/vlm.py``; fp32 master
+weights from seed 0, bf16 compute):
+
+44. small_encdec_vlm_parity — Whisper's and InternVL2's SMOKE configs at
+   fp32 compute, the card against the CPU on the same weights: the
+   forward (with the frames / the image) and the padded cache's prefill
+   and 3 decode steps, within SMALL_TOL; then Whisper-small at full
+   width and all 12 + 12 layers (1500 frames, tied 51865-column head):
+   whisper_forward — ``forward`` and ``loss`` on W_B utterances (stub
+   frames from a seeded generator at scale 0.1) and W_SEQ (448)
+   transcript tokens, 36 flash and 133 GEMM launches a call
+   (``whisper_flash`` / ``whisper_gemms``), ``encode`` alone, every
+   attention node bound to ``flash_kernel`` and matmul to
+   ``fused_kernel``, a profiled forward with no library GEMM or
+   attention kernel;
+45. whisper_guarantees — region forward = per-op walk and = the opaque
+   control (193 unfused launches), bitwise; the cross K / V a prefill
+   writes = the K / V projections of ``encode``'s output, bitwise;
+46. whisper_serve — ``prefill(tokens, cache, frames)`` with W_PROMPT (4)
+   tokens a prompt and W_NEW (64) greedy ``decode_step``s, each call
+   held to its launches (12 flash, 73 GEMM a step): host p50 / p95, the
+   slabs in place (the cross K/V written once at prefill), graph
+   replays; the same tokens fed to the per-op walk and the opaque
+   control, bitwise at every call (graphed = eager); every call's logits
+   against the forward's at its position within W_SERVE_RTOL of the
+   largest;
+47. decode_steps — the decode step through ``decode_harness`` under
+   region capture and the opaque control: which regions replay CUDA
+   graphs (the decoder block where dispatch-bound; the head never: it
+   writes no input), p50 / p95, device ms, busy share, host ms by
+   region;
+48. whisper_kernels_vs_plain — every GEMM shape of those paths (the
+   fused self QKV, the cross K|V, cross Q + bias, wo + residual, wu +
+   bias + gelu, wd + bias + residual, the tied head read K-major in
+   place) against its plain version in bf16 and fp32, timed beside its
+   bound, ``library_fn``'s call and ``torch.matmul``; every flash shape
+   (non-causal over 1500 keys: the encoder's, the cross-attention's at
+   prefill and at a decode step; the decoder's causal) against its plain
+   version, timed beside its bound and SDPA;
+49. InternVL2-76B at full width cut to V_LAYERS of 80: vlm_forward
+   (``forward_phase`` on 1 x (256 image + 2048 text) tokens, the text
+   positions' logits) and its guarantees, vlm_padded (the image prefill
+   of 2 x (256 + 512) on the padded cache, 16 decode steps, against the
+   forward's last position), vlm_serve (text-only slot serving with the
+   serve phase's traffic) and vlm_guarantees (``serve_guarantees``),
+   vlm_memory (the peak and the card's free share); then every launch
+   shape against its plain version, timed (``dense_kernel_entries``).
+
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
 repository is not beside this file.
@@ -695,8 +752,9 @@ def launch_rows(shape) -> int:
     return shape[2] if shape[0] == "grouped" else shape[0]
 
 
-def forward_phase(model, cfg, b: int = FWD_B):
-    """``forward`` and ``loss`` at full width on b x FWD_S tokens: a
+def forward_phase(model, cfg, b: int = FWD_B, extra=None):
+    """``forward`` and ``loss`` at full width on b x FWD_S tokens (and the
+    tensors of ``extra``, merged into the batch: a VLM's image prefix): a
     first call (region programs built), a timed call, the loss, and one
     profiled forward.  Each zeroes and checks the counts: one flash launch
     per layer, ``gemms_of(cfg)`` GEMMs (a dense layer's 4: QKV, wo,
@@ -711,6 +769,7 @@ def forward_phase(model, cfg, b: int = FWD_B):
                                                 (b, FWD_S)),
                                    dtype=torch.int32, device="cuda")
              for name, lo in (("tokens", 1), ("labels", 0))}
+    batch.update(extra or {})
     n_l, n_g = cfg.n_layers, gemms_of(cfg)
     torch.cuda.reset_peak_memory_stats()
     with tapir.use(ServeConfig(target="gpu").tapir_config()):
@@ -1096,8 +1155,8 @@ def decode_harness(step, per_step: tuple) -> dict:
     (flash, GEMM and scan launches a step), and the graph cache's captures
     and replays read around it; then DEC_PROF steps under torch.profiler:
     the port's kernels it saw (held to ``per_step`` too where graphs
-    replayed), device ms and kernels per step, and the device's busy share
-    of the p50 step.  ``step()`` runs one step through the path's entry
+    replayed), the library kernels it saw, device ms and kernels per
+    step, and the device's busy share of the p50 step.  ``step()`` runs one step through the path's entry
     point."""
     import numpy as np
     import torch
@@ -1175,6 +1234,7 @@ def decode_harness(step, per_step: tuple) -> dict:
             "graphs": st1.get("graphs"),
             "graph_pool_bytes": st1.get("graph_pool_bytes"),
             "reserved_delta_bytes": torch.cuda.memory_reserved() - reserved0,
+            "library_kernels": library_kernels(by_name),
             "top": top_kernels(by_name, 6)}
 
 
@@ -2683,26 +2743,28 @@ def scan_times(paths) -> list:
 
 def library_fn(x, w, epi, spec):
     """One PyTorch call computing the same function: ``torch.matmul`` for
-    a bare product, ``torch.addmm`` for one added full operand, else
-    None.  A yardstick only; the port never calls it."""
+    a bare product, ``torch.addmm`` for one added full or row operand (a
+    bias), else None.  A yardstick only; the port never calls it."""
     import torch
     if not spec:
         return lambda: torch.matmul(x, w)
-    if len(spec) == 1 and spec[0][0] == "add" and spec[0][1] == "full":
+    if len(spec) == 1 and spec[0][0] == "add" and spec[0][1] in ("full",
+                                                                 "row"):
         res = epi[0][1][0]
         return lambda: torch.addmm(res, x, w)
     return None
 
 
 def gemm_times(shapes, launches, errs, gen, name_of,
-               tied=frozenset()) -> list:
+               tied=frozenset(), matmul: bool = False) -> list:
     """Per GEMM path shape, bf16: the kernel, its plain version and the
-    library yardstick (``torch.matmul`` for a bare product, ``torch.addmm``
-    for one added full operand, else none; never called by the port), each
+    library yardstick (``library_fn``; never called by the port), each
     timed alone with L2 flushed, and the roofline bound: x, w, the output
     and the epilogue operands moved once, 2mnk bf16 FLOPs.  A shape whose
     (n, k) is in ``tied`` takes w as a tied head does, ``embed.T``, which
-    the kernel reads K-major in place."""
+    the kernel reads K-major in place.  With ``matmul`` each entry also
+    has ``matmul_ms``: ``torch.matmul`` of the bare product on the same
+    operands, beside a chain no one library call computes."""
     import torch
     from repro_torch.kernels.fused_matmul import kernel, ops, ref
     out = []
@@ -2738,6 +2800,8 @@ def gemm_times(shapes, launches, errs, gen, name_of,
             "plan": p._asdict(),
             "tflops": 2.0 * m * n * k / (ms * 1e-3) / 1e12,
             "shape": [m, n, k, spec]})
+        if matmul:
+            out[-1]["matmul_ms"] = time_ms(lambda: torch.matmul(x, w))
         del x, w, epi
     return out
 
@@ -5560,7 +5624,7 @@ def moe_model(arch: str, layers: int = 0):
     return cfg, model
 
 
-def moe_mfu(cfg, tokens: int, seconds: float) -> float:
+def active_mfu(cfg, tokens: int, seconds: float) -> float:
     """Model FLOPs utilisation of a forward over ``tokens`` tokens: 2 FLOPs
     per active parameter (``n_active_params``: top_k experts' FFNs) and
     token, over ``seconds``, against the bf16 peak."""
@@ -5568,7 +5632,7 @@ def moe_mfu(cfg, tokens: int, seconds: float) -> float:
         / PEAK_FLOPS["bfloat16"]
 
 
-def moe_serve(tag: str, model, cfg) -> tuple:
+def slot_serve(tag: str, model, cfg) -> tuple:
     """``ServingEngine.run`` with the serve phase's traffic, launches held
     per decode step (``check_serve_launches``), and its line."""
     import torch
@@ -5590,7 +5654,7 @@ def moe_serve(tag: str, model, cfg) -> tuple:
             "step_p50_ms": st["step_p50"] * 1e3,
             "step_p95_ms": st["step_p95"] * 1e3,
             "ttft_p50_ms": st["ttft_p50"] * 1e3, "wall_s": st["wall_s"],
-            "decode_mfu": moe_mfu(cfg, SLOTS, st["step_p50"]),
+            "decode_mfu": active_mfu(cfg, SLOTS, st["step_p50"]),
             "prefix_hits": st["prefix_hits"],
             "kernel_launches": ops.launches,
             "decode_kernel_launches": decode_launches,
@@ -5878,7 +5942,7 @@ def small_moe_parity() -> dict:
 def granite_phases() -> list:
     """38-42 on Granite-3.0-1B-A400M at full width and depth (24 layers,
     32 experts top-8 of d_ff 512, 16 / 8 heads of 64; fp32 master weights
-    from seed 0, bf16 compute): 38 granite_serve (``moe_serve``) and the
+    from seed 0, bf16 compute): 38 granite_serve (``slot_serve``) and the
     same traffic through ``launch/serve.py``; 39 granite_forward
     (``forward_phase`` on 2 x 2048, MFU on the active parameters) and its
     guarantees (region = per-op bitwise, the opaque control's per-expert
@@ -5895,7 +5959,7 @@ def granite_phases() -> list:
     cfg, model = moe_model("granite_moe_1b_a400m")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    line, eng, reqs, out, by_shape = moe_serve("granite_serve", model, cfg)
+    line, eng, reqs, out, by_shape = slot_serve("granite_serve", model, cfg)
     emit(dict(line, init_s=init_s))
     emit(moe_launch_serve("granite_moe_1b_a400m"))
     fm_paths = collections.Counter(by_shape)
@@ -5903,7 +5967,7 @@ def granite_phases() -> list:
                 for s_ in by_shape}
     fwd, batch, logits, fm_fwd, fa_fwd = forward_phase(model, cfg)
     fwd.update(phase="granite_forward",
-               mfu=moe_mfu(cfg, FWD_B * FWD_S, fwd["wall_s"]),
+               mfu=active_mfu(cfg, FWD_B * FWD_S, fwd["wall_s"]),
                n_active_params=cfg.n_active_params())
     emit(fwd)
     emit(dict(forward_guarantees(model, cfg, batch, logits),
@@ -5914,7 +5978,7 @@ def granite_phases() -> list:
     emit(serve_guarantees(model, cfg, reqs, eng, out, "granite_guarantees"))
     del eng
     for line in decode_paths(model, cfg):
-        line["decode_mfu"] = moe_mfu(cfg, line["rows"],
+        line["decode_mfu"] = active_mfu(cfg, line["rows"],
                                      line["region"]["step_p50_ms"] / 1e3)
         emit(line)
     for tag, cnt in (("forward", fm_fwd), ("padded prefill", fm_pf),
@@ -5935,7 +5999,7 @@ def moonlight_phases(layers: int = M_LAYERS) -> list:
     """43 on Moonlight-16B-A3B at full width (64 experts top-6 of d_ff
     1408, 16 / 16 heads of 128, a dense first layer) cut to ``layers``
     (the full 48, ~110 GB of fp32 weights, do not fit one card): slot
-    serving with the serve phase's traffic (``moe_serve``), then
+    serving with the serve phase's traffic (``slot_serve``), then
     ``forward_phase`` on 1 x 2048 (MFU on the active parameters) and
     ``forward_guarantees``; then (the model released) every launch shape
     against its plain version, and its kernels-line entries."""
@@ -5945,7 +6009,7 @@ def moonlight_phases(layers: int = M_LAYERS) -> list:
     cfg, model = moe_model("moonshot_v1_16b_a3b", layers)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    line, eng, reqs, out, by_shape = moe_serve("moonlight_serve", model,
+    line, eng, reqs, out, by_shape = slot_serve("moonlight_serve", model,
                                                cfg)
     emit(dict(line, init_s=init_s, params_gb=sum(
         p.numel() * p.element_size() for p in model.parameters()) / 1e9))
@@ -5955,7 +6019,7 @@ def moonlight_phases(layers: int = M_LAYERS) -> list:
                 for s_ in by_shape}
     fwd, batch, logits, fm_fwd, fa_fwd = forward_phase(model, cfg, b=1)
     fwd.update(phase="moonlight_forward",
-               mfu=moe_mfu(cfg, FWD_S, fwd["wall_s"]),
+               mfu=active_mfu(cfg, FWD_S, fwd["wall_s"]),
                n_active_params=cfg.n_active_params())
     emit(fwd)
     emit(dict(forward_guarantees(model, cfg, batch, logits),
@@ -6006,7 +6070,7 @@ def moe_depths(depths: list) -> int:
                "layers": n_l}
         try:
             cfg, model = moe_model("moonshot_v1_16b_a3b", n_l)
-            line, eng, *_ = moe_serve("moe_depth_serve", model, cfg)
+            line, eng, *_ = slot_serve("moe_depth_serve", model, cfg)
             del eng
             fwd = forward_phase(model, cfg, b=1)[0]
             peak = torch.cuda.max_memory_allocated()
@@ -6023,6 +6087,782 @@ def moe_depths(depths: list) -> int:
         emit(out)
     emit({"phase": "moe_depths", "deepest_with_headroom":
           max(fits) if fits else None, "headroom": MOE_HEADROOM})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder and VLM families (phases 44-49): Whisper-small,
+# InternVL2-76B
+# ---------------------------------------------------------------------------
+
+#: Whisper-small's forward: utterances and transcript tokens (448, the
+#: published decoder context)
+W_B, W_SEQ = 4, 448
+#: its serving: prompt tokens and greedy decode steps a request, in a
+#: decoder cache of W_SEQ positions
+W_PROMPT, W_NEW = 4, 64
+#: served logits against the forward's at the same positions, on
+#: ``whisper_cut``'s 2 + 2 layers at fp32 compute: max |diff| over the
+#: largest |forward logit| (the reference's serving tolerance, 3e-3,
+#: taken relative to the logits' largest)
+W_SERVE_RTOL = 3e-3
+#: the SMOKE configs' card-vs-CPU bound at fp32 compute (logits)
+SMALL_TOL = 1e-3
+#: InternVL2-76B's depth on one card: the deepest of ``--vlm-depths``
+#: whose phases left VLM_HEADROOM of the card free
+V_LAYERS = 12
+VLM_HEADROOM = 0.10
+#: the image prefill: rows, text tokens after the image, decode steps
+V_PF_B, V_PF_S, V_PF_NEW = 2, 512, 16
+
+
+def whisper_gemms(cfg, what: str, unfused: bool = False) -> int:
+    """``fused_matmul`` launches of one Whisper call (``what``: forward,
+    prefill or decode): an encoder layer's 4 (QKV fused, wo, wu, wd), a
+    decoder layer's 7 in the forward and the prefill (self QKV, wo, cross
+    Q, the cross K|V of the encoder output, cross wo, wu, wd) and 6 at a
+    decode step (the cross K/V are cached), plus the head.  ``unfused``
+    (the per-op walk and the opaque control): Q, K and V one launch each,
+    6 / 10 / 8."""
+    if what == "decode":
+        return cfg.n_layers * (8 if unfused else 6) + 1
+    return cfg.n_enc_layers * (6 if unfused else 4) + \
+        cfg.n_layers * (10 if unfused else 7) + 1
+
+
+def whisper_flash(cfg, what: str) -> int:
+    """Flash launches of one call: an encoder layer's self-attention and a
+    decoder layer's self- and cross-attention (forward, prefill), or the
+    cross-attention alone (a decode step: the self-attention is the
+    masked composite over the cache, as in the reference)."""
+    if what == "decode":
+        return cfg.n_layers
+    return cfg.n_enc_layers + 2 * cfg.n_layers
+
+
+def whisper_model():
+    """(cfg, model): Whisper-small at full width and depth, fp32 master
+    weights from seed 0, bf16 compute."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import get_model
+    cfg = get_config("whisper_small")
+    return cfg, get_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+
+
+def whisper_inputs(cfg) -> tuple:
+    """(batch, prompts): ``frames [W_B, n_frames, d]`` drawn from a seeded
+    generator at scale 0.1 (the reference's test draws them so), tokens
+    and labels ``[W_B, W_SEQ]``; the serving prompts ``[W_B, W_PROMPT]``."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn((W_B, cfg.n_frames, cfg.d_model), generator=gen,
+                         device="cuda") * 0.1
+    rng = np.random.default_rng(2)
+
+    def ints(lo, shape):
+        return torch.as_tensor(rng.integers(lo, cfg.vocab, shape),
+                               dtype=torch.int32, device="cuda")
+
+    batch = {"frames": frames, "tokens": ints(1, (W_B, W_SEQ)),
+             "labels": ints(0, (W_B, W_SEQ))}
+    return batch, ints(1, (W_B, W_PROMPT))
+
+
+def whisper_forward_phase(model, cfg, batch) -> tuple:
+    """44. ``forward`` and ``loss`` at full width and depth on W_B
+    utterances (n_frames frames each) and W_SEQ transcript tokens: a first
+    call, a timed call, the loss and ``encode`` alone, each held to its
+    launches, and one profiled forward: device ms by kernel, the busy
+    share, no library GEMM or attention kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    n_fa, n_g = whisper_flash(cfg, "forward"), whisper_gemms(cfg, "forward")
+    torch.cuda.reset_peak_memory_stats()
+    with tapir.use(ServeConfig(target="gpu").tapir_config()):
+        _, cold_s, *_ = counted("whisper forward (first call)",
+                                lambda: model.forward(batch), n_fa, n_g)
+        logits, wall_s, fm, fa, _ = counted(
+            "whisper forward", lambda: model.forward(batch), n_fa, n_g)
+        peak = torch.cuda.max_memory_allocated()
+        loss, loss_s, *_ = counted("whisper loss", lambda: model.loss(batch),
+                                   n_fa, n_g)
+        _, enc_s, *_ = counted("whisper encode",
+                               lambda: model.encode(batch["frames"]),
+                               cfg.n_enc_layers, 4 * cfg.n_enc_layers)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.forward(batch)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    impls = {op: sorted(bound_impls(op, "tapir"))
+             for op in ("attention", "matmul")}
+    by_name = device_time_by_kernel(prof, 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(loss))
+    line = {"phase": "whisper_forward", "batch": W_B,
+            "frames": cfg.n_frames, "seq": W_SEQ,
+            "layers": [cfg.n_enc_layers, cfg.n_layers],
+            "d_model": cfg.d_model, "params": cfg.n_params(),
+            "logits_shape": list(logits.shape), "finite": finite,
+            "loss": float(loss), "impls": impls,
+            "flash_launches_per_forward": sum(fa.values()),
+            "gemm_launches_per_forward": sum(fm.values()),
+            "first_call_s": cold_s, "wall_s": wall_s, "loss_wall_s": loss_s,
+            "encode_wall_s": enc_s, "peak_mem_gb": peak / 1e9,
+            "profiled_wall_s": prof_s, "device_ms": busy,
+            "device_busy_share": busy / (wall_s * 1e3),
+            "flash_device_ms": sum(ms for k, (ms, _) in by_name.items()
+                                   if "flash" in k),
+            "gemm_device_ms": sum(ms for k, (ms, _) in by_name.items()
+                                  if "gemm" in k),
+            "library_kernels": library_kernels(by_name),
+            "top": top_kernels(by_name, 10)}
+    if (impls != {"attention": ["flash_kernel"], "matmul": ["fused_kernel"]}
+            or not finite or line["library_kernels"]
+            or tuple(logits.shape) != (W_B, W_SEQ, cfg.vocab)):
+        raise SystemExit(f"whisper forward: {line}")
+    return line, logits, fm, fa
+
+
+def whisper_guarantees(model, cfg, batch, logits) -> dict:
+    """45. The forward's guarantees: the region forward = the per-op walk
+    (``regions=False``; Q, K and V unfused) bitwise, = the opaque control
+    (sealed library calls, no fusion) bitwise, and the cross K / V a
+    prefill writes into every layer's slabs = the K / V projections of
+    ``encode``'s output (each alone; the prefill's region fuses them),
+    bitwise.  Any miss fails."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    n_fa, n_g = whisper_flash(cfg, "forward"), whisper_gemms(cfg, "forward",
+                                                             unfused=True)
+    out = {}
+    for tag, scfg in (("per_op", ServeConfig(target="gpu", regions=False)),
+                      ("opaque", ServeConfig(target="gpu", mode="opaque"))):
+        with tapir.use(scfg.tapir_config()):
+            got, wall, *_ = counted(f"whisper forward {tag}",
+                                    lambda: model.forward(batch), n_fa, n_g)
+        out[tag] = (bool(torch.equal(got, logits)),
+                    float((got.float() - logits.float()).abs().max()), wall)
+        del got
+    from repro_torch.kernels.fused_matmul import ops
+    B, nf, H, hd = W_B, cfg.n_frames, cfg.n_heads, cfg.hd
+    with tapir.use(ServeConfig(target="gpu").tapir_config()):
+        cache = model.init_cache(B, W_SEQ)
+        model.prefill(batch["tokens"][:, :W_PROMPT], cache, batch["frames"])
+        enc = model.encode(batch["frames"])
+    cross = all(
+        torch.equal(cache["ck"][i], ops.fused_matmul(
+            enc, p["ca_wk"]).reshape(B, nf, H, hd))
+        and torch.equal(cache["cv"][i], ops.fused_matmul(
+            enc, p["ca_wv"], epilogue=[("add", [p["ca_bv"]],
+                                        {"dtype": cfg.compute_dtype})]
+        ).reshape(B, nf, H, hd))
+        for i, p in enumerate(model.compute_params()["dec"]))
+    del cache, enc
+    line = {"phase": "whisper_guarantees",
+            "region_eq_per_op": out["per_op"][0],
+            "per_op_wall_s": out["per_op"][2],
+            "opaque_eq_tapir": out["opaque"][0],
+            "opaque_max_abs_diff": out["opaque"][1],
+            "opaque_wall_s": out["opaque"][2],
+            "opaque_attention_impls": sorted(bound_impls("attention",
+                                                         "opaque")),
+            "prefill_cross_kv_eq_encode_projections": cross}
+    if not (line["region_eq_per_op"] and line["opaque_eq_tapir"] and cross):
+        raise SystemExit(f"whisper guarantees: {line}")
+    return line
+
+
+def whisper_serve_run(model, cfg, frames, prompts, scfg, tag: str,
+                      forced=None) -> dict:
+    """``prefill(prompts, cache, frames)`` and W_NEW ``decode_step``s under
+    ``scfg``, each call held to its launches: greedy, or fed ``forced``
+    ``[W_B, W_NEW]`` (another run's tokens).  Returns the logits of every
+    call, the tokens fed, the host wall of each call and the launches by
+    shape, whether every slab stayed in place, and the graph replays."""
+    import torch
+    from repro_torch.core import tapir
+    unfused = scfg.mode == "opaque" or not scfg.regions
+    fm_dec, fa_dec = collections.Counter(), collections.Counter()
+    st0 = tapir.cache_stats()
+    with tapir.use(scfg.tapir_config()):
+        cache = model.init_cache(W_B, W_SEQ)
+        ptrs = {k: cache[k].data_ptr() for k in ("k", "v", "ck", "cv", "pos")}
+        (lg, cache), pf_s, fm_pf, fa_pf, _ = counted(
+            f"whisper {tag} prefill",
+            lambda: model.prefill(prompts, cache, frames),
+            whisper_flash(cfg, "prefill"),
+            whisper_gemms(cfg, "prefill", unfused))
+        logits, fed, walls = [lg], [], []
+        for i in range(W_NEW):
+            tok = (torch.argmax(lg, -1).to(torch.int32) if forced is None
+                   else forced[:, i])[:, None]
+            fed.append(tok)
+            (lg, cache), wall, fm, fa, _ = counted(
+                f"whisper {tag} decode step {i}",
+                lambda: model.decode_step(tok, cache),
+                whisper_flash(cfg, "decode"),
+                whisper_gemms(cfg, "decode", unfused))
+            logits.append(lg)
+            walls.append(wall)
+            fm_dec.update(fm)
+            fa_dec.update(fa)
+    st1 = tapir.cache_stats()
+    return {"logits": logits, "fed": torch.cat(fed, dim=1),
+            "prefill_s": pf_s, "walls": walls, "fm_pf": fm_pf,
+            "fa_pf": fa_pf, "fm_dec": fm_dec, "fa_dec": fa_dec,
+            "in_place": all(cache[k].data_ptr() == p
+                            for k, p in ptrs.items()),
+            "pos": int(cache["pos"]),
+            "replays": st1.get("graph_replays", 0)
+            - st0.get("graph_replays", 0)}
+
+
+def served_vs_forward(model, run, prompts, frames) -> dict:
+    """Every call's logits of a serving run (``whisper_serve_run``) against
+    ``model``'s forward over the served sequence (the prompts and the
+    tokens fed) at the same position: max |diff| over the forward's
+    largest logit, the argmax agreement, and whether the prefill's logits
+    are the forward's bitwise."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    seq = torch.cat([prompts, run["fed"]], dim=1)
+    with tapir.use(ServeConfig(target="gpu").tapir_config()):
+        full = model.forward({"tokens": seq, "frames": frames}).float()
+    want = full[:, prompts.shape[1] - 1:]
+    got = torch.stack([lg.float() for lg in run["logits"]], dim=1)
+    scale = float(want.abs().max())
+    return {"max_abs_diff": float((got - want).abs().max()),
+            "forward_logit_max": scale,
+            "rel": float((got - want).abs().max()) / scale,
+            "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean()),
+            "prefill_eq_forward_bitwise": bool(torch.equal(
+                run["logits"][0].float(), want[:, 0]))}
+
+
+def whisper_conditioning(model, cfg, batch) -> dict:
+    """How far the reference's init rule amplifies rounding at full depth
+    (a stacked leaf drawn at 1 / sqrt(its layer count): 0.29 for every
+    projection, attention scores in the tens to hundreds): the forward at
+    fp32 compute on the same weights, first utterance, once with flash's
+    kernel and once with the plain fp32 oracle (``attention_ref``) in its
+    place, two fp32 forms of one function; max |diff| over the largest
+    logit and the argmax agreement.  Reported, not bounded: it is the
+    floor under any serve-vs-forward bound at this depth."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import ServeConfig
+    f32 = get_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                    device="cuda", params=model.param_tree())
+    one = {"tokens": batch["tokens"][:1], "frames": batch["frames"][:1]}
+    outs = []
+    kernel_fn = fa_ops.flash_attention
+    for oracle in (False, True):
+        if oracle:
+            fa_ops.flash_attention = (
+                lambda q, k, v, causal=False, bias=None:
+                fa_ref.attention_ref(q, k, v, causal=causal))
+        try:
+            with tapir.use(ServeConfig(target="gpu").tapir_config()):
+                outs.append(f32.forward(one).float())
+        finally:
+            fa_ops.flash_attention = kernel_fn
+    scale = float(outs[0].abs().max())
+    del f32
+    tapir.clear_cache()
+    return {"fp32_kernel_vs_oracle_rel":
+            float((outs[0] - outs[1]).abs().max()) / scale,
+            "fp32_argmax_agreement": float(
+                (outs[0].argmax(-1) == outs[1].argmax(-1)).float().mean())}
+
+
+def whisper_cut(model, cfg, layers: int = 2, compute: str = "float32"):
+    """(cfg, model): the first ``layers`` layers of each of ``model``'s
+    stacks (the full-depth draw: the served model's weight scale), the
+    other leaves shared, at ``compute``."""
+    from repro_torch.models.base import get_model
+    tree = model.param_tree()
+    tree = {k: ({n: t[:layers] for n, t in v.items()}
+                if isinstance(v, dict) else v) for k, v in tree.items()}
+    cut = dataclasses.replace(cfg, n_layers=layers, n_enc_layers=layers,
+                              compute_dtype=compute)
+    return cut, get_model(cut, device="cuda", params=tree)
+
+
+def whisper_serve_phase(model, cfg, batch, prompts) -> tuple:
+    """46. Serving through the family's own entry points: W_B prompts of
+    W_PROMPT tokens with their utterances' frames, then W_NEW greedy
+    decode steps (host wall p50 / p95 per step, every slab in place, the
+    graph replays); the same tokens fed to the per-op walk and to the
+    opaque control, whose logits must equal the region run's bitwise at
+    every call (graphed = eager wherever a region replayed a graph).
+    Against the forward over the served sequence: the prefill's logits
+    must be the forward's bitwise; the decode steps' distance is reported
+    beside ``whisper_conditioning`` (at the reference's init, full depth
+    amplifies a rounding difference to the logits' own size, in fp32 as
+    in bf16); the bound is held where the model is well conditioned, on
+    ``whisper_cut``'s 2 + 2 layers at fp32 compute: the same serving run
+    within W_SERVE_RTOL of the largest logit at every call."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    frames = batch["frames"]
+    runs = {"region": whisper_serve_run(model, cfg, frames, prompts,
+                                        ServeConfig(target="gpu"),
+                                        "region")}
+    fed = runs["region"]["fed"]
+    for tag, scfg in (("per_op", ServeConfig(target="gpu", regions=False)),
+                      ("opaque", ServeConfig(target="gpu", mode="opaque"))):
+        runs[tag] = whisper_serve_run(model, cfg, frames, prompts, scfg, tag,
+                                      forced=fed)
+    reg = runs["region"]
+    same = {tag: all(torch.equal(a, b) for a, b in
+                     zip(reg["logits"], runs[tag]["logits"]))
+            for tag in ("per_op", "opaque")}
+    vs_fwd = served_vs_forward(model, reg, prompts, frames)
+    cut_cfg, cut = whisper_cut(model, cfg)
+    cut_run = whisper_serve_run(cut, cut_cfg, frames, prompts,
+                                ServeConfig(target="gpu"), "f32 cut")
+    cut_vs = served_vs_forward(cut, cut_run, prompts, frames)
+    del cut
+    walls = np.asarray(reg["walls"]) * 1e3
+    line = {"phase": "whisper_serve", "utterances": W_B,
+            "prompt": W_PROMPT, "decode_steps": W_NEW, "max_len": W_SEQ,
+            "prefill_s": reg["prefill_s"],
+            "step_p50_ms": float(np.median(walls)),
+            "step_p95_ms": float(np.percentile(walls, 95)),
+            "tok_per_s": W_B * W_NEW / (walls.sum() / 1e3),
+            "flash_launches_per_prefill": sum(reg["fa_pf"].values()),
+            "gemm_launches_per_prefill": sum(reg["fm_pf"].values()),
+            "flash_launches_per_decode_step":
+                sum(reg["fa_dec"].values()) // W_NEW,
+            "gemm_launches_per_decode_step":
+                sum(reg["fm_dec"].values()) // W_NEW,
+            "unfused_gemm_launches_per_decode_step":
+                sum(runs["opaque"]["fm_dec"].values()) // W_NEW,
+            "graph_replays_per_decode_step": reg["replays"] / W_NEW,
+            "cache_in_place": all(r["in_place"] for r in runs.values()),
+            "pos": reg["pos"],
+            "region_eq_per_op": same["per_op"],
+            "opaque_eq_tapir": same["opaque"],
+            "serve_vs_forward": vs_fwd,
+            "conditioning": whisper_conditioning(model, cfg, batch),
+            "f32_cut_serve_vs_forward": dict(cut_vs,
+                                             layers=[2, 2],
+                                             tolerance_rel=W_SERVE_RTOL),
+            "finite": all(bool(torch.isfinite(lg).all())
+                          for lg in reg["logits"]),
+            "sample_out": fed[0, :8].tolist()}
+    if not (same["per_op"] and same["opaque"] and line["cache_in_place"]
+            and line["finite"] and line["pos"] == W_PROMPT + W_NEW
+            and vs_fwd["prefill_eq_forward_bitwise"]
+            and cut_run["in_place"]
+            and cut_vs["rel"] <= W_SERVE_RTOL):
+        raise SystemExit(f"whisper serve: {line}")
+    fm = collections.Counter(reg["fm_pf"]) + reg["fm_dec"]
+    return line, fm, reg["fa_pf"], reg["fa_dec"], reg["fm_pf"]
+
+
+def whisper_decode_steps(model, cfg, batch, prompts) -> dict:
+    """47. The decode step timed (``decode_harness``) after a prefill, under
+    region capture and under the opaque control: host p50 / p95, device
+    ms, busy share, kernels and graph replays a step; which regions replay
+    as CUDA graphs (``replay_rules``: a dispatch-bound program that writes
+    an input in place, so the decoder block, never the head), the replays
+    a step held to them, no capture in the
+    timed window; and the library kernels a profiled step shows
+    (``decode_harness``'s ``library_kernels``: the masked self-attention
+    composite's products, the reference's composite, as in the dense
+    family's padded step)."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    n_l, n_fa = cfg.n_layers, whisper_flash(cfg, "decode")
+    tok = torch.ones((W_B, 1), dtype=torch.int32, device="cuda")
+    line = {"phase": "decode_steps", "path": "whisper padded", "rows": W_B,
+            "layers": n_l, "max_len": W_SEQ, "timed_steps": DEC_TIMED}
+    for tag, scfg in (("region", ServeConfig(target="gpu")),
+                      ("per_op", ServeConfig(target="gpu", mode="opaque"))):
+        with tapir.use(scfg.tapir_config()):
+            cache = model.init_cache(W_B, W_SEQ)
+            model.prefill(prompts, cache, batch["frames"])
+
+            def step():
+                return model.decode_step(tok, cache)[0]
+
+            line[tag] = decode_harness(step, (
+                n_fa, whisper_gemms(cfg, "decode", tag == "per_op"), 0))
+            if tag == "region":
+                line[tag].update(region_host_ms(step))
+    rules = {k: sorted(v) for k, v in tapir.replay_rules().items()}
+    line["replay_rules"] = {k: rules.get(k) for k in (
+        "whisper_cached_block", "whisper_head", "whisper_enc_block")}
+    # only a program that writes an input in place replays (the block's
+    # slabs); the head writes none and stays eager whatever its verdict
+    expect = n_l if True in rules.get("whisper_cached_block", []) else 0
+    line["expected_replays_per_step"] = expect
+    reg = line["region"]
+    if not (reg["graph_captures_in_window"] == 0
+            and reg["graph_replays_per_step"] == expect
+            and line["per_op"]["graph_replays_per_step"] == 0):
+        raise SystemExit(f"whisper decode steps: {line}")
+    return line
+
+
+def whisper_label(cfg):
+    """Names of Whisper's GEMM shapes for the kernels line."""
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
+
+    def name(s_, phase):
+        m, n, k, _, spec = s_
+        what = {(3 * d, d): "self_qkv", (2 * d, d): "cross_kv",
+                (ff, d): "wu", (d, ff): "wd", (V, d): "head"}.get((n, k))
+        if (n, k) == (d, d):
+            what = "cross_q" if [st[1] for st in spec] == ["row"] else "wo"
+        chain = "+".join(f"{fn}:{kind}" for fn, kind, _, _ in spec)
+        return (f"fused_matmul[whisper {phase} {what or f'n{n}_k{k}'}"
+                + (f" ({chain})" if chain else "") + f" m={m} n={n} k={k}]")
+    return name
+
+
+def whisper_kernel_entries(cfg, fm_paths, phase_of, fa_paths, gen) -> list:
+    """48. Every GEMM shape of Whisper's paths (bias, bias + gelu and bias
+    + residual epilogues; the tied 51865-column head, read K-major in
+    place: ``embed.T``) against its plain version in bf16 and fp32 and
+    timed beside its bound, ``library_fn``'s call and ``torch.matmul``;
+    every flash shape (non-causal over the 1500 frames: the encoder's, the
+    cross-attention's at prefill and at a decode step; the decoder's
+    causal) against its plain version and timed beside its bound and
+    SDPA."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel, ops
+    name = whisper_label(cfg)
+    tied = frozenset({(cfg.vocab, cfg.d_model)})
+    shapes = sorted(fm_paths, key=lambda s_: (s_[0], s_[1], s_[2]))
+    errs = gemm_vs_plain(shapes, gen, lambda s_: name(s_, phase_of[s_]),
+                         tied)
+    entries = gemm_times(shapes, fm_paths, errs, gen,
+                         lambda s_: name(s_, phase_of[s_]), tied,
+                         matmul=True)
+    fa_errs, fa_rels = flash_vs_plain([s_ for _, s_, _ in fa_paths],
+                                      extra=())
+    fa_entries = flash_times([(f"whisper {ph}", s_, c)
+                              for ph, s_, c in fa_paths])
+    head = torch.zeros((cfg.vocab, cfg.d_model), dtype=torch.bfloat16,
+                       device="cuda")
+    b, tb = ops.weight_operand(head.T)
+    emit({"phase": "whisper_kernels_vs_plain", "gemm_shapes": len(shapes),
+          "tolerance": TOL,
+          "gemm_max_err": {d: max(e for k_, e in errs.items()
+                                  if k_[-1] == d)
+                           for d in ("bfloat16", "float32")},
+          "flash_max_err": {f"{s_}/{d}": e for (s_, d), e in fa_errs.items()},
+          "flash_row_relative_err": {f"{s_}/{d}": e
+                                     for (s_, d), e in fa_rels.items()},
+          "tied_head_read_in_place": bool(
+              tb and b.data_ptr() == head.data_ptr()
+              and kernel.pad_cols(b) is b),
+          "gemm_ms_over_matmul_ms": {e["name"]: e["ms"] / e["matmul_ms"]
+                                     for e in entries},
+          "gemm_ms_over_bound_ms": {e["name"]: e["ms"] / e["bound_ms"]
+                                    for e in entries},
+          "flash_ms_over_sdpa_ms": {e["name"]: e["ms"] / e["library_ms"]
+                                    for e in fa_entries}})
+    return entries + fa_entries
+
+
+def small_encdec_vlm_parity() -> dict:
+    """Whisper's and InternVL2's SMOKE configs at fp32 compute on the card
+    against the same code on the CPU (the kernels' plain versions, which
+    the CPU tests hold against the JAX package), on the same weights: the
+    forward's logits (with the frames / the image) and the padded cache's
+    prefill and 3 decode steps, each within SMALL_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import ServeConfig
+    rng = np.random.default_rng(6)
+    line = {"phase": "small_encdec_vlm_parity", "tolerance": SMALL_TOL}
+    for arch, key, rows in (("whisper_small", "frames", "n_frames"),
+                            ("internvl2_76b", "image_embeds",
+                             "n_img_tokens")):
+        cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+        cpu = get_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+        toks = rng.integers(1, cfg.vocab, (2, 12)).astype(np.int32)
+        side = (rng.normal(size=(2, getattr(cfg, rows), cfg.d_model)) * .1
+                ).astype(np.float32)
+        res = {}
+        for dev, target in (("cpu", "cpu"), ("cuda", "gpu")):
+            model = cpu if dev == "cpu" else get_model(
+                cfg, device=dev, params=cpu.param_tree())
+            t = torch.as_tensor(toks, device=dev)
+            x = torch.as_tensor(side, device=dev)
+            with tapir.use(ServeConfig(target=target).tapir_config()):
+                out = [model.forward({"tokens": t, key: x})]
+                cache = model.init_cache(2, 40)
+                lg, cache = model.prefill(t[:, :9], cache, x)
+                out.append(lg)
+                for i in range(9, 12):
+                    lg, cache = model.decode_step(t[:, i:i + 1], cache)
+                    out.append(lg)
+            res[dev] = [o.float().cpu() for o in out]
+        errs = [float((a - b).abs().max())
+                for a, b in zip(res["cpu"], res["cuda"])]
+        line[arch] = {"forward_max_abs_err": errs[0],
+                      "serve_max_abs_err": max(errs[1:]),
+                      "finite": all(bool(torch.isfinite(o).all())
+                                    for o in res["cuda"])}
+        if not (line[arch]["finite"] and max(errs) <= SMALL_TOL):
+            raise SystemExit(f"small encdec / vlm parity: {line}")
+    return line
+
+
+def whisper_phases() -> list:
+    """44-48 on Whisper-small at full width and all 12 + 12 layers (768
+    wide, 12 / 12 heads of 64, 1500 frames, the 51865-row embedding tied
+    to the head; random weights from seed 0): the SMOKE parity of both
+    families, whisper_forward, whisper_guarantees, whisper_serve,
+    decode_steps, then (the model released) whisper_kernels_vs_plain and
+    the kernels line's entries."""
+    import torch
+    from repro_torch.core import tapir
+    emit(small_encdec_vlm_parity())
+    tapir.clear_cache()
+    t0 = time.perf_counter()
+    cfg, model = whisper_model()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch, prompts = whisper_inputs(cfg)
+    fwd, logits, fm_fwd, fa_fwd = whisper_forward_phase(model, cfg, batch)
+    emit(dict(fwd, init_s=init_s))
+    emit(whisper_guarantees(model, cfg, batch, logits))
+    del logits
+    serve, fm_serve, fa_pf, fa_dec, fm_pf = whisper_serve_phase(
+        model, cfg, batch, prompts)
+    emit(serve)
+    emit(whisper_decode_steps(model, cfg, batch, prompts))
+    fm_paths = collections.Counter(fm_fwd) + fm_serve
+    phase_of = {}
+    for tag, cnt in (("forward", fm_fwd), ("prefill", fm_pf),
+                     ("decode", fm_serve)):
+        for s_ in cnt:
+            phase_of.setdefault(s_, tag)
+    fa = (flash_paths_of("forward", fa_fwd) + flash_paths_of("prefill", fa_pf)
+          + flash_paths_of("decode", fa_dec))
+    del model, batch
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    return whisper_kernel_entries(cfg, fm_paths, phase_of, fa, gen)
+
+
+def vlm_model(layers: int):
+    """(cfg, model): InternVL2-76B at full width, ``layers`` deep, fp32
+    master weights from seed 0, bf16 compute."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import get_model
+    cfg = dataclasses.replace(get_config("internvl2_76b"), n_layers=layers)
+    return cfg, get_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+
+
+def vlm_image(cfg, b: int, seed: int):
+    """Stub patch embeddings ``[b, n_img_tokens, d]`` at scale 0.1."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, cfg.n_img_tokens, cfg.d_model), generator=gen,
+                       device="cuda") * 0.1
+
+
+def vlm_padded_phase(model, cfg) -> tuple:
+    """The image prefill on the padded cache: V_PF_B rows of
+    ``[image; V_PF_S tokens]`` (a first call, then a timed one into a
+    fresh cache), each held to one flash launch a layer and the dense
+    GEMMs, the cache written in place; then V_PF_NEW greedy decode steps
+    (``make_decode_step``); the prefill's logits against the forward's at
+    the last prompt position."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig, make_decode_step
+    rng = np.random.default_rng(3)
+    prompts = torch.as_tensor(rng.integers(1, cfg.vocab, (V_PF_B, V_PF_S)),
+                              dtype=torch.int32, device="cuda")
+    img = vlm_image(cfg, V_PF_B, 5)
+    n_img, n_l, n_g = cfg.n_img_tokens, cfg.n_layers, gemms_of(cfg)
+    scfg = ServeConfig(target="gpu")
+    decode = make_decode_step(model, cfg=scfg)
+    walls = []
+    with tapir.use(scfg.tapir_config()):
+        for tag in ("first call", "timed"):
+            cache = model.init_cache(V_PF_B, n_img + V_PF_S + V_PF_NEW)
+            ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
+            (logits, cache), wall, fm_pf, fa_pf, _ = counted(
+                f"vlm image prefill ({tag})",
+                lambda: model.prefill(prompts, cache, image_embeds=img),
+                n_l, n_g)
+            walls.append(wall)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    fm_dec, steps, out = collections.Counter(), [], []
+    for i in range(V_PF_NEW):
+        (nxt, cache), wall, fm, *_ = counted(
+            f"vlm decode step {i}", lambda: decode(tok, cache), 0, n_g)
+        fm_dec += fm
+        steps.append(wall)
+        tok = nxt[:, None]
+        out.append(nxt)
+    in_place = (cache["k"].data_ptr(), cache["v"].data_ptr()) == ptrs
+    with tapir.use(scfg.tapir_config()):
+        full = model.forward({"tokens": prompts, "image_embeds": img})
+    err = float((logits.float() - full[:, -1].float()).abs().max())
+    steps.sort()
+    toks = torch.stack(out, dim=1)
+    line = {"phase": "vlm_padded", "batch": V_PF_B, "image_tokens": n_img,
+            "prompt": V_PF_S, "decode_steps": V_PF_NEW,
+            "flash_launches_per_prefill": sum(fa_pf.values()),
+            "gemm_launches_per_prefill": sum(fm_pf.values()),
+            "gemm_launches_per_decode_step": sum(fm_dec.values()) // V_PF_NEW,
+            "prefill_first_call_s": walls[0], "prefill_s": walls[1],
+            "decode_step_p50_ms": steps[len(steps) // 2] * 1e3,
+            "decode_step_max_ms": steps[-1] * 1e3,
+            "pos": int(cache["pos"]), "kv_in_place": in_place,
+            "prefill_vs_forward_max_abs_diff": err,
+            "prefill_vs_forward_same_argmax": bool(torch.equal(
+                logits.argmax(-1), full[:, -1].argmax(-1))),
+            "finite": bool(torch.isfinite(logits).all()),
+            "sample_out": toks[0, :8].tolist()}
+    if not (in_place and line["finite"]
+            and line["pos"] == n_img + V_PF_S + V_PF_NEW
+            and bool(((toks >= 0) & (toks < cfg.vocab)).all())):
+        raise SystemExit(f"vlm padded: {line}")
+    return line, fm_pf, fa_pf, fm_dec
+
+
+def vlm_phases(layers: int = V_LAYERS, entries: bool = True) -> list:
+    """49 on InternVL2-76B at full width (8192 wide, 64 / 8 heads of 128,
+    d_ff 28672, vocab 128256; random weights from seed 0) cut to
+    ``layers`` (the 80 layers, ~274 GB of fp32 weights, do not fit one
+    card): vlm_forward (``forward_phase`` on 1 x (256 image + 2048 text)
+    tokens) and its guarantees (region = per-op bitwise, the opaque
+    control), vlm_padded (the image prefill and its decode steps), then
+    text-only slot serving (``slot_serve``) and ``serve_guarantees``
+    (rerun, run_wave, prefix sharing off, opaque = tapir), and the card's
+    peak memory and free share; then (the model released, with
+    ``entries``) every launch shape against its plain version and its
+    kernels-line entries.  Without ``entries`` returns the peak bytes."""
+    import torch
+    from repro_torch.core import tapir
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = vlm_model(layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    img = vlm_image(cfg, 1, 4)
+    fwd, batch, logits, fm_fwd, fa_fwd = forward_phase(
+        model, cfg, b=1, extra={"image_embeds": img})
+    fwd.update(phase="vlm_forward", init_s=init_s,
+               image_tokens=cfg.n_img_tokens,
+               mfu=active_mfu(cfg, cfg.n_img_tokens + FWD_S, fwd["wall_s"]),
+               params_gb=sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 1e9)
+    emit(fwd)
+    emit(dict(forward_guarantees(model, cfg, batch, logits),
+              phase="vlm_forward_guarantees"))
+    del logits, batch
+    pad, fm_pf, fa_pf, fm_dec = vlm_padded_phase(model, cfg)
+    emit(pad)
+    line, eng, reqs, out, by_shape = slot_serve("vlm_serve", model, cfg)
+    emit(line)
+    emit(serve_guarantees(model, cfg, reqs, eng, out, "vlm_guarantees"))
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "vlm_memory", "layers": layers, "peak_mem_gb": peak / 1e9,
+          "card_gb": total / 1e9, "free_share": 1 - peak / total,
+          "headroom": VLM_HEADROOM})
+    fm_paths = collections.Counter(by_shape)
+    phase_of = {s_: "decode" if launch_rows(s_) == SLOTS else "prefill"
+                for s_ in by_shape}
+    for tag, cnt in (("forward", fm_fwd), ("image prefill", fm_pf),
+                     ("padded decode", fm_dec)):
+        fm_paths.update(cnt)
+        for s_ in cnt:
+            phase_of.setdefault(s_, tag)
+    del eng, model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    if not entries:
+        return peak
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    fa = flash_paths_of("forward", fa_fwd) + flash_paths_of("image prefill",
+                                                            fa_pf)
+    return dense_kernel_entries(cfg, fm_paths, phase_of, fa, gen)
+
+
+def encdec_vlm_phases() -> list:
+    """Phases 44-49 (Whisper-small, then InternVL2-76B at V_LAYERS)."""
+    import torch
+    from repro_torch.core import tapir
+    t0 = time.perf_counter()
+    entries = whisper_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    entries += vlm_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "encdec_vlm_done", "whisper_s": t1 - t0,
+          "vlm_s": time.perf_counter() - t1,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    return entries
+
+
+def vlm_depths(depths: list) -> int:
+    """``--vlm-depths``: InternVL2-76B at full width at each depth in turn
+    through ``vlm_phases`` without its kernel entries (the forward, the
+    image prefill, slot serving and its guarantees): the peak device
+    memory and its share of the card, or the OOM; the deepest depth that
+    left VLM_HEADROOM of the card free; then stop."""
+    import gc
+    import torch
+    from repro_torch.core import tapir
+    print(card_line(), flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = []
+    for n_l in depths:
+        out = {"phase": "vlm_depth", "arch": "internvl2_76b", "layers": n_l}
+        try:
+            peak = vlm_phases(n_l, entries=False)
+            out.update(peak_mem_gb=peak / 1e9, card_gb=total / 1e9,
+                       free_share=1 - peak / total)
+            if 1 - peak / total >= VLM_HEADROOM:
+                fits.append(n_l)
+        except torch.cuda.OutOfMemoryError as e:
+            out.update(oom=str(e).splitlines()[0][:200],
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        tapir.clear_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(out)
+    emit({"phase": "vlm_depths", "deepest_with_headroom":
+          max(fits) if fits else None, "headroom": VLM_HEADROOM})
     return 0
 
 
@@ -6420,6 +7260,18 @@ def main() -> int:
                          "slot serving and the forward's peak memory or "
                          "OOM, and the deepest with MOE_HEADROOM free, and "
                          "stop")
+    ap.add_argument("--encdec", action="store_true",
+                    help="run the build phase and phases 44-48 (Whisper-"
+                         "small, and the SMOKE parity of the encoder-"
+                         "decoder and VLM families) alone, and stop")
+    ap.add_argument("--vlm", action="store_true",
+                    help="run the build phase and phase 49 (InternVL2-76B "
+                         "at V_LAYERS) alone, and stop")
+    ap.add_argument("--vlm-depths", metavar="N,N,...",
+                    help="InternVL2-76B at full width at each depth: the "
+                         "forward, the image prefill and slot serving's "
+                         "peak memory or OOM, and the deepest with "
+                         "VLM_HEADROOM free, and stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -6448,6 +7300,8 @@ def main() -> int:
                                args.zamba2_depths.split(",")], "zamba2_7b")
     if args.moe_depths:
         return moe_depths([int(v) for v in args.moe_depths.split(",")])
+    if args.vlm_depths:
+        return vlm_depths([int(v) for v in args.vlm_depths.split(",")])
     if args.decode_times:
         return decode_times()
     if args.scan_bwd_phases:
@@ -6560,9 +7414,10 @@ def main() -> int:
                                  f"{fa_kernel.kernel_tiles_bwd(dt, d)}, plan "
                                  f"{fa_kernel.plan_bwd(dt, d)}")
 
-    if args.dense or args.moe:
+    if args.dense or args.moe or args.encdec or args.vlm:
         entries = (dense_phases(probe_import=True) if args.dense
-                   else moe_phases())
+                   else moe_phases() if args.moe
+                   else whisper_phases() if args.encdec else vlm_phases())
         emit({"kernels": entries})
         emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
         print(card, flush=True)
@@ -6620,6 +7475,11 @@ def main() -> int:
 
     # -- 38-43. the MoE family ---------------------------------------------
     entries += moe_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+
+    # -- 44-49. the encoder-decoder and VLM families -----------------------
+    entries += encdec_vlm_phases()
 
     emit({"kernels": entries})
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

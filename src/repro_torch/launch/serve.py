@@ -4,7 +4,10 @@
         --device cuda --requests 8 --prompt-len 32 --max-new 16
 
 Runs on the card unless ``--device cpu``; weights are random, drawn from
-``--seed``.  Prints one JSON report line.
+``--seed``.  Prints one JSON report line.  ``--arch internvl2_76b`` serves
+text-only prompts through the dense family's slots, as the reference's
+launcher does; ``--arch whisper_small`` raises: its prefill needs audio
+frames, which no request carries.
 
 ``--program-cache-dir DIR`` keeps the region programs in an on-disk store
 (``repro_torch.cache``; ``--cache-mode read`` probes it without writing):
@@ -83,6 +86,13 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"--arch {args.arch}: the encoder-decoder family is not served "
+            f"from token prompts: its prefill needs the audio frames "
+            f"(WhisperED.prefill(tokens, cache, frames)), which no request "
+            f"carries, as in the reference, whose engine calls prefill "
+            f"without them")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
     model = get_model(cfg, device=dev, generator=gen)

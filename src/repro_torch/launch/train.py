@@ -103,6 +103,11 @@ def main(argv=None):
     remat = args.remat or ("auto" if args.capture_step else "full")
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(
+            f"--arch {args.arch}: training the {cfg.family} family waits "
+            f"for ROADMAP queue 1, item 13 (its batches carry frames or "
+            f"image embeddings the token pipeline does not make)")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = get_model(cfg, device=dev, generator=gen)
 

@@ -71,6 +71,10 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     shared_attn_every: int = 0     # zamba2: shared block period
+    # --- enc-dec / vlm ---
+    n_enc_layers: int = 0
+    n_frames: int = 1500           # whisper stub frontend length
+    n_img_tokens: int = 256        # vlm stub frontend length
     # params live in param_dtype; the slot path computes in compute_dtype
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -80,8 +84,10 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def n_params(self) -> float:
-        """Approximate parameter count (dense, MoE and hybrid families), the
-        reference's formula: its hybrid branch counts ``2 * n_heads *
+        """Approximate parameter count, the reference's formula: its
+        encoder-decoder branch counts the encoder's layers and one
+        cross-attention a decoder layer (no bias, norm or position
+        table); its hybrid branch counts ``2 * n_heads *
         ssm_state`` where ``w_in`` holds ``2 * ssm_state`` columns, so a
         rate over the real tree counts the tree's own leaves; its MoE
         branch counts every layer's experts (a first dense layer as E
@@ -95,6 +101,8 @@ class ModelConfig:
             mlp *= self.n_experts
         emb = V * d * (1 if self.tie_embeddings else 2)
         body = L * (attn + mlp)
+        if self.family == "encdec":
+            body += self.n_enc_layers * (attn + mlp) + L * attn  # cross attn
         if self.family == "hybrid":
             din = self.ssm_expand * d
             mamba = d * (2 * din + 2 * self.n_heads * self.ssm_state) + din * d
@@ -373,8 +381,8 @@ def register_family(name: str):
 def get_model(cfg: ModelConfig, **kwargs):
     """Build the registered family's model (``kwargs``: device, params,
     generator)."""
-    # register "ssm", "dense", "moe" and "hybrid"
-    from . import mamba, moe, rwkv, transformer  # noqa: F401
+    # register "ssm", "dense", "moe", "hybrid", "vlm" and "encdec"
+    from . import mamba, moe, rwkv, transformer, vlm, whisper  # noqa: F401
     if cfg.family not in _REGISTRY:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return _REGISTRY[cfg.family](cfg, **kwargs)

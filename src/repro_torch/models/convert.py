@@ -1,6 +1,6 @@
 """Weights carried across from the JAX package: its parameter tree, as
 numpy arrays, becomes the config's family (``DenseLM``, ``MoELM``,
-``RWKV6``, ``Zamba2``) on ``device``.  bf16 leaves arrive as float32 (exact) and are
+``RWKV6``, ``Zamba2``, ``InternVLM``, ``WhisperED``) on ``device``.  bf16 leaves arrive as float32 (exact) and are
 stored in the config's ``param_dtype``.  ``paper_params_from_numpy`` does
 the same for the paper's four networks, whose parameters are a plain
 tree."""
@@ -22,7 +22,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     ``shared``) is a flat dict of leaves, or for the MoE family ``blocks``
     a dict of two such (``dense``, where the config has first dense layers,
     and ``moe``: ``router [L, d, E]``, ``ewg`` / ``ewu [L, E, d, f]``,
-    ``ewd [L, E, f, d]`` beside the attention leaves)."""
+    ``ewd [L, E, f, d]`` beside the attention leaves).  The VLM's tree is
+    the dense one; the encoder-decoder's is ``{"embed", "enc_pos",
+    "dec_pos", "enc", "dec", "enc_ln_f", "dec_ln_f"}``, ``enc`` / ``dec``
+    flat dicts of stacked leaves with ``sa_`` / ``ca_`` prefixes."""
     dev = resolve_device(device)
     pdt = to_torch_dtype(cfg.param_dtype)
 

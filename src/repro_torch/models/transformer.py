@@ -11,7 +11,8 @@ dtype just before its block runs.
 Forward: embed, then ``scan_layers`` over ``dense_block`` regions (each
 block ONE region program: norms, the fused QKV GEMM, RoPE, the causal
 flash-attention node, the O-projection with its residual epilogue and the
-gated MLP), then the head.  ``loss`` adds the cross-entropy.
+MLP: gated, or with ``gated_mlp=False`` the reference's ``wu`` with its
+activation then ``wd``), then the head.  ``loss`` adds the cross-entropy.
 
 Padded cache (``init_cache`` / ``prefill`` / ``decode_step``): one
 ``[L, B, max_len, Hkv, hd]`` tensor for K and one for V plus a scalar
@@ -19,7 +20,9 @@ Padded cache (``init_cache`` / ``prefill`` / ``decode_step``): one
 in place (a donated ``dynamic_update_slice`` at ``pos``); prefill attends
 over the fresh K/V with the flash node, decode over the cache with the
 masked composite, its RoPE rows gathered at ``pos`` from the memoized
-full table into buffers kept per row count.  Both read the params cast once
+full table into buffers kept per row count.  The layer loop takes
+embeddings (``_run_embeds_with_cache``), so the VLM (``models/vlm.py``)
+prefills ``[image; prompt]`` through it.  Both read the params cast once
 (``compute_params``), end in a ``slot_head`` region, and advance ``pos``
 in place, so a decode step's region inputs are the same tensors at every
 step and its programs replay as CUDA graphs.
@@ -72,7 +75,8 @@ def _block_specs(cfg: ModelConfig, n_layers: int) -> dict:
         spec["bq"] = ParamSpec(Lx + (H * hd,), pdt, ("layers", "heads"), "zeros")
         spec["bk"] = ParamSpec(Lx + (Hkv * hd,), pdt, ("layers", "kv"), "zeros")
         spec["bv"] = ParamSpec(Lx + (Hkv * hd,), pdt, ("layers", "kv"), "zeros")
-    spec["wg"] = ParamSpec(Lx + (d, ff), pdt, ("layers", "embed", "mlp"))
+    if cfg.gated_mlp:
+        spec["wg"] = ParamSpec(Lx + (d, ff), pdt, ("layers", "embed", "mlp"))
     spec["wu"] = ParamSpec(Lx + (d, ff), pdt, ("layers", "embed", "mlp"))
     spec["wd"] = ParamSpec(Lx + (ff, d), pdt, ("layers", "mlp", "embed"))
     return spec
@@ -108,7 +112,11 @@ class DenseBlocks:
             else L.layernorm(x, scale)
 
     def _mlp(self, p, x):
-        return tapir.gated_mlp(x, p["wg"], p["wu"], p["wd"], self.cfg.act)
+        cfg = self.cfg
+        if cfg.gated_mlp:
+            return tapir.gated_mlp(x, p["wg"], p["wu"], p["wd"], cfg.act)
+        return tapir.linear(tapir.linear(x, p["wu"], activation=cfg.act),
+                            p["wd"])
 
     def _attn(self, p, x, cos, sin, causal=True, kv_cache=None):
         cfg = self.cfg
@@ -214,9 +222,9 @@ class DenseLM(DenseBlocks, BaseModel):
                  params: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != self.FAMILY or not cfg.gated_mlp:
+        if cfg.family != self.FAMILY:
             raise NotImplementedError(f"{type(self).__name__} builds the "
-                                      f"gated {self.FAMILY!r} family, not "
+                                      f"{self.FAMILY!r} family, not "
                                       f"{cfg.family!r}")
         self.cfg = cfg
         self._set_params(self._param_specs(), device, params, generator)
@@ -287,18 +295,25 @@ class DenseLM(DenseBlocks, BaseModel):
     def _run_with_cache(self, tokens, cache, is_prefill: bool):
         """Logits ``[B, vocab]`` of the last position; ``cache["pos"]``
         advances in place."""
+        return self._run_embeds_with_cache(self._embed(self.embed, tokens),
+                                           cache, is_prefill)
+
+    def _run_embeds_with_cache(self, h, cache, is_prefill: bool):
+        """The padded cache's layer loop over embeddings ``h [B, S, d]``
+        (the token path's, or the VLM's ``[image; prompt]``): logits
+        ``[B, vocab]`` of the last position; ``cache["pos"]`` advances in
+        place."""
         cfg = self.cfg
         cp = self.compute_params()
-        h = self._embed(self.embed, tokens)
         pos0 = cache["pos"]
+        S = int(h.shape[1])
         if is_prefill:
             # positions arange(S): the forward's own table
-            cos, sin = L.arange_rope_table(int(tokens.shape[1]), cfg.hd,
+            cos, sin = L.arange_rope_table(S, cfg.hd,
                                            fraction=self._rope_frac(),
-                                           device=tokens.device)
+                                           device=h.device)
         else:
-            cos, sin = self._rope_rows(pos0, int(tokens.shape[1]),
-                                       int(cache["k"].shape[2]))
+            cos, sin = self._rope_rows(pos0, S, int(cache["k"].shape[2]))
         blks = {kind: tapir.parallel_region(fn, name=f"{kind}_cached_block")
                 for kind, fn in self._cached_bodies().items()}
         regions = tapir.get_config().regions
@@ -312,7 +327,7 @@ class DenseLM(DenseBlocks, BaseModel):
         head = tapir.parallel_region(self._slot_head_body, name="slot_head")
         # only the last position's logits are served
         logits = head(cp["head"], h[:, -1:])
-        pos0.add_(tokens.shape[1])
+        pos0.add_(S)
         return logits, cache
 
     def _cached_bodies(self) -> dict:
