@@ -15,6 +15,9 @@
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --moe-depths N,N,...
+    python3 chip_smoke.py --moe-train
+    python3 chip_smoke.py --moe-train-depths N,N,...
+    python3 chip_smoke.py --moe-train-lrs LR,LR,...
     python3 chip_smoke.py --encdec
     python3 chip_smoke.py --vlm
     python3 chip_smoke.py --vlm-depths N,N,...
@@ -392,8 +395,36 @@ compute, random weights from seed 0):
    163840-column head, the grouped launches of d_ff 1408, flash at
    D = 128 with 16 / 16 heads).
 
-The MoE models are then released, and the encoder-decoder and VLM
-families follow (``models/whisper.py``, ``models/vlm.py``; fp32 master
+The MoE models are then released, and the family trains (fp32 master
+weights from seed 0, bf16 compute, fp32 AdamW; ``moe_train_phases``):
+
+43b. granite_train: Granite-3.0-1B-A400M at full width and all 24
+   layers, per op (remat full) on TRAIN_B x TRAIN_S tokens, each step
+   held to ``moe_train_launches`` (145 2-D GEMM forward, 168 grouped
+   forward with the gate's recompute, 73 / 73 dX / dW, 72 / 72 grouped
+   dX / dW, 48 / 24 flash forward / backward), no library GEMM or
+   attention kernel in a profiled step, the first batch's loss lower
+   after the steps; p50, device ms by route, busy share, peak, MFU on
+   ``n_active_params``;
+43c. granite_captured: the captured step (policy auto) on the same
+   weights, at 24 layers: the launches its joint graph implies, every
+   parameter after 3 steps = the per-op step's, bitwise;
+43d. granite_train_guarantees on a 2-layer cut drawn as the 24-layer
+   model draws it: tapir against opaque and 2 microbatches against 1
+   within MOE_GRAD_RTOL of each leaf's largest gradient, two identical
+   steps bitwise; granite_checkpoint: save, step, restore, the same step,
+   bitwise;
+43e. moonlight_train: Moonlight-16B-A3B at full width cut to
+   M_TRAIN_LAYERS (``--moe-train-depths 7,6,5``), per op on 1 x TRAIN_S;
+43f. each phase's kernel cases: the grouped dX / dW (bf16 at every path
+   shape and fp32 at MOE_F32_BWD: against the plain version, bitwise the
+   E per-expert launches, a row of dX at C = 1 the bits at C; timed
+   beside the bound and ``torch.bmm``), the 2-D dX / dW (QKV, wo, the
+   49155- and 163840-column heads), the router's fp32 dX / dW, flash's
+   backward at (2, 2048, 16/8, 64) and (1, 2048, 16/16, 128) beside
+   SDPA's.
+
+The encoder-decoder and VLM families follow (``models/whisper.py``, ``models/vlm.py``; fp32 master
 weights from seed 0, bf16 compute):
 
 44. small_encdec_vlm_parity — Whisper's and InternVL2's SMOKE configs at
@@ -529,11 +560,15 @@ def requests(vocab: int, seed: int):
 
 
 def label(n: int, k: int, cfg) -> str:
+    """The projection an ``[., k] @ [k, n]`` product of ``cfg`` is; a MoE
+    config has the dense MLP's only in its first dense layers (Granite's
+    gate|up would be named over its wo)."""
     d, hd = cfg.d_model, cfg.hd
     names = {((cfg.n_heads + 2 * cfg.n_kv_heads) * hd, d): "qkv",
-             (d, cfg.n_heads * hd): "wo", (2 * cfg.d_ff, d): "gate_up",
-             (d, cfg.d_ff): "wd", (cfg.vocab, d): "head",
-             (cfg.n_experts, d): "router"}
+             (d, cfg.n_heads * hd): "wo"}
+    if cfg.family != "moe" or cfg.first_dense_layers:
+        names.update({(2 * cfg.d_ff, d): "gate_up", (d, cfg.d_ff): "wd"})
+    names.update({(cfg.vocab, d): "head", (cfg.n_experts, d): "router"})
     return names.get((n, k), f"n{n}_k{k}")
 
 
@@ -1518,9 +1553,23 @@ LIBRARY_KERNEL = re.compile(
     r"efficient_attention|mem_eff|cudnn|sdpa", re.IGNORECASE)
 PORT_ANY = re.compile(r"(?<![A-Za-z_])((flash|gemm|scan|dkdv|dq)_(bf16|f32)"
                       r"_kernel|dkdv_sum_kernel|delta_kernel)")
-#: the GEMM's three layouts as its template arguments <BN, TA, TB> show
-#: them in a profile: the forward, dX = dY W^T and dW = X^T dY
+#: the GEMM's three layouts as its template arguments <BN, TA, TB, G> show
+#: them in a profile: the forward, dX = dY W^T and dW = X^T dY; G = 1 the
+#: grouped route's (the MoE expert FFN's)
 GEMM_ROUTE = {("0", "1"): "forward", ("0", "0"): "dx", ("1", "1"): "dw"}
+GEMM_NAME = re.compile(r"gemm_bf16_kernel<\d+, (\d), (\d)(?:, (\d))?>")
+
+
+def gemm_route_of(name: str):
+    """The route of a GEMM kernel's profile name: ``forward``, ``dx``,
+    ``dw`` (``grouped_`` before them for the grouped route), ``fp32`` for
+    the fp32 kernel, ``other`` for a bf16 layout the port does not launch,
+    None for a kernel that is not the GEMM's."""
+    m = GEMM_NAME.search(name)
+    if m:
+        route = GEMM_ROUTE.get(m.groups()[:2], "other")
+        return "grouped_" + route if m.group(3) == "1" else route
+    return "fp32" if "gemm_f32_kernel" in name else None
 
 
 def train_launches(n_l: int) -> dict:
@@ -1579,40 +1628,48 @@ def leaf_sample(model) -> list:
     return out
 
 
-def train_setup(model, cfg, make_step=None):
+def train_setup(model, cfg, make_step=None, rows: int = TRAIN_B,
+                lr=None):
     """(step, optimizer config, pipeline) of the train phases: remat full
-    (or ``make_step(model, opt)``'s step), fp32 AdamW, TRAIN_B x TRAIN_S
-    tokens of ``TokenPipeline``."""
+    (or ``make_step(model, opt)``'s step), fp32 AdamW at peak ``lr``
+    (default ``AdamWConfig``'s), ``rows`` x TRAIN_S tokens of
+    ``TokenPipeline``."""
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, make_train_step
-    opt = AdamWConfig(total_steps=TRAIN_STEPS + 2, warmup_steps=1)
+    opt = AdamWConfig(total_steps=TRAIN_STEPS + 2, warmup_steps=1,
+                      **({} if lr is None else {"lr": lr}))
     if make_step is not None:
         step = make_step(model, opt)
     else:
         step = make_train_step(model, opt, TrainConfig(remat="full",
                                                        target="gpu"))
-    pipe = TokenPipeline(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
+    pipe = TokenPipeline(DataConfig(seq_len=TRAIN_S, global_batch=rows,
                                     vocab=cfg.vocab))
     return step, opt, pipe
 
 
 def train_phase(model, cfg, want=None, counts=train_counts,
                 phase: str = "train", make_step=None, remat: str = "full",
-                check=None):
-    """``make_train_step`` at full width on TRAIN_B x TRAIN_S tokens of
-    ``TokenPipeline`` (remat full, fp32 AdamW; or ``make_step``'s step,
-    labelled ``remat``): one warm-up step, then
+                check=None, rows: int = TRAIN_B, refit: bool = False,
+                keep_params: bool = False, lr=None):
+    """``make_train_step`` at full width on ``rows`` (TRAIN_B) x TRAIN_S
+    tokens of ``TokenPipeline`` (remat full, fp32 AdamW; or ``make_step``'s
+    step, labelled ``remat``): one warm-up step, then
     TRAIN_STEPS timed steps, each with the counts zeroed just before it
     and held to ``want`` (default ``train_launches``; a callable is asked
     after the first step) just after, then one
     profiled step: no library GEMM or attention kernel may appear in it.
     ``check(step index, state)`` runs after each step.
-    The loss must be finite and fall.  Returns (line, the last timed
-    step's launches by shape: ``fm`` / ``bwd`` (the GEMM's forward and
-    backward routes), ``fa`` / ``fab`` (flash), ``ls`` / ``lsb`` (the
-    scan), and ``sample`` / ``sample3``: ``leaf_sample`` after the second
-    and the third step)."""
+    The loss must be finite and fall: from the first step's to the
+    last's, or (``refit``, where one step moves the loss by less than the
+    batches differ) on the first batch, evaluated again after the last
+    step.  Returns (line, the last timed step's launches by shape: ``fm``
+    / ``bwd`` (the GEMM's forward and backward routes), ``fa`` / ``fab``
+    (flash), ``ls`` / ``lsb`` (the scan), ``sample`` / ``sample3``:
+    ``leaf_sample`` after the second and the third step, and with
+    ``keep_params`` ``params3``: every parameter after the third step, on
+    the host).  ``lr``: AdamW's peak (``train_setup``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import to_device
@@ -1620,7 +1677,7 @@ def train_phase(model, cfg, want=None, counts=train_counts,
     fm_ops, fa_ops, ls_ops = kernel_ops()
     if want is None:
         want = train_launches(cfg.n_layers)
-    step, opt, pipe = train_setup(model, cfg, make_step)
+    step, opt, pipe = train_setup(model, cfg, make_step, rows, lr)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1649,6 +1706,10 @@ def train_phase(model, cfg, want=None, counts=train_counts,
             sample = leaf_sample(model)
         if s_ == 2:
             sample3 = leaf_sample(model)
+            if keep_params:
+                from repro_torch.optim import tree_leaves
+                params3 = [t.detach().cpu()
+                           for t in tree_leaves(model.param_tree())]
         snap = {"fm": fm_ops.launches_by_shape,
                 "bwd": fm_ops.bwd_launches_by_shape,
                 "fa": fa_ops.launches_by_shape,
@@ -1663,25 +1724,31 @@ def train_phase(model, cfg, want=None, counts=train_counts,
         state, met = step(state, batch)
         losses.append(float(met["loss"]))
         torch.cuda.synchronize()
+    refit_loss = None
+    if refit:
+        from repro_torch.core import tapir
+        from repro_torch.train import TrainConfig
+        with torch.no_grad(), tapir.use(TrainConfig(
+                target="gpu").tapir_config()):
+            refit_loss = float(model.loss(to_device(pipe.batch_at(0),
+                                                    "cuda")))
     by_name = device_time_by_kernel(prof, 1)
     library = sorted(k[:80] for k in by_name
                      if LIBRARY_KERNEL.search(k) and not PORT_ANY.search(k))
     gemm_ms = collections.Counter()
     for k, (ms, _) in by_name.items():
-        m_ = re.search(r"gemm_(?:bf16|f32)_kernel<\d+, (\d), (\d)>", k)
-        if m_:
-            gemm_ms[GEMM_ROUTE.get(m_.groups(), "other")] += ms
-        elif "gemm_f32_kernel" in k:
-            gemm_ms["fp32"] += ms
+        route = gemm_route_of(k)
+        if route:
+            gemm_ms[route] += ms
     busy = sum(ms for ms, _ in by_name.values())
     timed = sorted(walls[1:])
     p50 = timed[len(timed) // 2]
     n_params = sum(p.numel() for p in model.parameters())
     dense = n_params - cfg.vocab * cfg.d_model   # the embedding is a lookup
-    tokens = TRAIN_B * TRAIN_S
-    line = {"phase": phase, "batch": TRAIN_B, "seq": TRAIN_S,
+    tokens = rows * TRAIN_S
+    line = {"phase": phase, "batch": rows, "seq": TRAIN_S,
             "layers": cfg.n_layers, "params": n_params, "remat": remat,
-            "optimizer": "AdamW fp32 (mu, nu fp32)",
+            "optimizer": f"AdamW fp32 (mu, nu fp32), peak lr {opt.lr}",
             "losses": losses, "grad_norms": norms, "lrs": lrs,
             "first_step_s": walls[0], "step_s": walls[1:],
             "step_p50_s": p50, "tok_per_s": tokens / p50,
@@ -1709,7 +1776,13 @@ def train_phase(model, cfg, want=None, counts=train_counts,
     line.update({"library_kernels": library,
                  "top": top_kernels(by_name, 12)})
     finite = all(math.isfinite(v) for v in losses + norms)
-    if not finite or not losses[-1] < losses[0]:
+    falls = losses[-1] < losses[0]
+    if refit:
+        line.update(batch0_loss_before=losses[0],
+                    batch0_loss_after=refit_loss)
+        finite &= math.isfinite(refit_loss)
+        falls = refit_loss < losses[0]
+    if not finite or not falls:
         raise SystemExit(f"{phase}: loss not finite or not falling: {line}")
     if library:
         raise SystemExit(f"{phase}: library kernels in the profile: "
@@ -1717,6 +1790,8 @@ def train_phase(model, cfg, want=None, counts=train_counts,
     del state, met, batch, prof
     model.release_compute()
     snap["sample"], snap["sample3"] = sample, sample3
+    if keep_params:
+        snap["params3"] = params3
     return line, snap
 
 
@@ -1805,18 +1880,18 @@ def gemm_bwd_vs_plain(bwd_shapes, fwd_shapes, gen) -> dict:
             "bitwise_repeat": repeat}, errs
 
 
-def flash_bwd_vs_plain(shapes) -> tuple:
+def flash_bwd_vs_plain(shapes, extra=tuple(FA_BWD_EXTRA)) -> tuple:
     """The flash backward against ``flash_attention_bwd_ref`` (the plain
     version, explicit fp32 over the scores) and ``FlashAttentionFn``'s
     gradients against autograd through ``attention_ref`` on fp32 copies,
     in bf16 and fp32, at every shape the train phase launched and
-    FA_BWD_EXTRA (BWD_RTOL); the forward's lse against the plain
-    version's (1e-4 absolute); two calls bitwise equal."""
+    ``extra`` (FA_BWD_EXTRA) (BWD_RTOL); the forward's lse against the
+    plain version's (1e-4 absolute); two calls bitwise equal."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     out, repeat = {}, True
-    for i, shape in enumerate(sorted(set(shapes) | set(FA_BWD_EXTRA))):
+    for i, shape in enumerate(sorted(set(shapes) | set(extra))):
         b, sq, skv, hq, hkv, d, causal = shape
         for dname, dt in (("bfloat16", torch.bfloat16),
                           ("float32", torch.float32)):
@@ -1947,39 +2022,47 @@ def small_train_parity(arch: str = "qwen2_5_3b",
 
 
 def gemm_bwd_entries(bwd_shapes, errs, gen, cfg) -> list:
-    """Per backward route shape of the train phase, bf16: the kernel, its
-    plain version and ``torch.matmul`` on the same (transposed) operands
-    (the yardstick; never called by the port), each timed alone with L2
-    flushed, and the bound: both operands read once, the output written
-    once, 2mnk bf16 FLOPs."""
+    """Per backward route shape of the train phase, in its dtype: the
+    kernel, its plain version and ``torch.matmul`` on the same
+    (transposed) operands (the yardstick; never called by the port; fp32
+    with TF32 off), each timed alone with L2 flushed, and the bound: both
+    operands read once, the output written once, 2mnk FLOPs at the
+    dtype's peak."""
     import torch
     from repro_torch.kernels.fused_matmul import kernel
     out = []
     for (route, m, n, k, dts), launches in sorted(bwd_shapes.items()):
-        dt = torch.bfloat16
+        dname = dts.split(".")[-1]
+        dt = getattr(torch, dname)
         a, b = gemm_bwd_inputs(route, m, n, k, dt, gen)
         fn, plain, lib = gemm_bwd_call(route, a, b)
         ms = time_ms(fn)
-        nbytes = (a.numel() + b.numel() + m * n) * 2
-        t_bytes, t_ops = nbytes / HBM_BW, 2.0 * m * n * k / PEAK_FLOPS[
-            "bfloat16"]
+        nbytes = (a.numel() + b.numel() + m * n) * a.element_size()
+        t_bytes, t_ops = nbytes / HBM_BW, 2.0 * m * n * k / PEAK_FLOPS[dname]
         p = kernel.plan(n, k, dt)
         what = (label(k, n, cfg) if route == "dx" else label(n, m, cfg))
+        if dname == "float32":
+            what += " fp32"
+            design = (f"FMA register tiles over a cp.async ring, "
+                      f"{p.split} fixed-order ranks over k")
+        elif route == "dx":
+            design = ("TMA ring + wgmma, w read as the K-major B operand "
+                      "(dY W^T)")
+        else:
+            design = ("TMA ring + wgmma, x read as the MN-major A operand "
+                      "(transpose bit; X^T dY)")
+        if p.bn:
+            design += (f", 128x{p.bn} tile, split {p.split}, "
+                       f"{p.stages} stages")
         out.append({
             "name": f"fused_matmul_{route}[train {what} m={m} n={n} k={k}]",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": launches,
-            "max_abs_err": errs[(route, m, n, k, "bfloat16")],
+            "max_abs_err": errs[(route, m, n, k, dname)],
             "ms": ms, "plain_ms": time_ms(plain),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": time_ms(lib),
-            "design": ("TMA ring + wgmma, w read as the K-major B operand "
-                       "(dY W^T)" if route == "dx" else
-                       "TMA ring + wgmma, x read as the MN-major A operand "
-                       "(transpose bit; X^T dY)")
-                      + f", 128x{p.bn} tile, split {p.split}, "
-                        f"{p.stages} stages",
+            "library_ms": time_ms(lib), "design": design,
             "plan": p._asdict(),
             "tflops": 2.0 * m * n * k / (ms * 1e-3) / 1e12,
             "shape": [route, m, n, k]})
@@ -3967,17 +4050,25 @@ def tied_head_bwd_entries(m: int, cfg, launches: dict, gen) -> tuple:
 
 
 def zamba2_checkpoint_phase() -> dict:
-    """Zamba2-7B at full width cut to 2 layers (``shared_attn_every`` 2,
-    the 81-layer statistics), the per-op step on TRAIN_B x TRAIN_S tokens:
-    2 steps, then an async save (``CheckpointManager``: the leaves copied
-    to host memory before it returns), a third step while the files are
-    written, the wait; the third step's loss and every leaf kept; the
-    checkpoint restored into the same state (in place), and the third
-    step again: its loss and every leaf must equal the uninterrupted
-    step's, bit for bit, and every buffer keep its address.  Prints the
-    bytes written and the seconds of the host copy, the write and the
-    restore.  The directory is a temporary one under the working
-    directory, removed at the end."""
+    """``checkpoint_phase`` on Zamba2-7B at full width cut to 2 layers
+    (``shared_attn_every`` 2, the 81-layer statistics)."""
+    cfg, model = zamba2_cut(2, every=2)
+    line = checkpoint_phase(cfg, model, "zamba2_checkpoint")
+    line["shared_attn_every"] = cfg.shared_attn_every
+    return line
+
+
+def checkpoint_phase(cfg, model, tag: str) -> dict:
+    """The per-op step on TRAIN_B x TRAIN_S tokens of ``model`` (which the
+    phase takes over and releases): 2 steps, then an async save
+    (``CheckpointManager``: the leaves copied to host memory before it
+    returns), a third step while the files are written, the wait; the
+    third step's loss and every leaf kept; the checkpoint restored into
+    the same state (in place), and the third step again: its loss and
+    every leaf must equal the uninterrupted step's, bit for bit, and every
+    buffer keep its address.  Prints the bytes written and the seconds of
+    the host copy, the write and the restore.  The directory is a
+    temporary one under the working directory, removed at the end."""
     import shutil
     import tempfile
     import torch
@@ -3985,7 +4076,6 @@ def zamba2_checkpoint_phase() -> dict:
     from repro_torch.core import tapir
     from repro_torch.data import to_device
     from repro_torch.train import init_state
-    cfg, model = zamba2_cut(2, every=2)
     step, opt, pipe = train_setup(model, cfg)
     state = init_state(model, opt)
     ptrs = [t.data_ptr() for t in state_leaves(state)]
@@ -4019,8 +4109,7 @@ def zamba2_checkpoint_phase() -> dict:
         kept = ptrs == [t.data_ptr() for t in state_leaves(state)]
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    line = {"phase": "zamba2_checkpoint", "layers": cfg.n_layers,
-            "shared_attn_every": cfg.shared_attn_every,
+    line = {"phase": tag, "layers": cfg.n_layers,
             "restored_step": at, "leaves": len(manifest["leaves"]),
             "bytes_written": nbytes, "save_host_copy_s": host_s,
             "save_write_wait_s": wait_s, "restore_s": restore_s,
@@ -4031,7 +4120,7 @@ def zamba2_checkpoint_phase() -> dict:
     tapir.clear_cache()
     torch.cuda.empty_cache()
     if not (bitwise and kept and at == 2 and line["dir_removed"]):
-        raise SystemExit(f"zamba2_checkpoint: {line}")
+        raise SystemExit(f"{tag}: {line}")
     return line
 
 
@@ -4469,6 +4558,8 @@ CAPTURE_PEAK_GB = 74.0
 CAPTURE_SAMPLE_ATOL = 2e-3
 LAUNCH_KEYS = ("gemm_forward", "gemm_dx", "gemm_dw", "flash_forward",
                "flash_backward", "scan_forward", "scan_backward")
+#: the grouped GEMM's launches, counted apart on the MoE train paths
+MOE_KEYS = ("grouped_forward", "grouped_dx", "grouped_dw")
 
 
 def grad_graph():
@@ -4478,25 +4569,58 @@ def grad_graph():
                 if getattr(g, "grad_meta", None))
 
 
+def gemm_kind(g, n, keys) -> str:
+    """``grouped`` for a matmul node with a 3-D weight (the grouped route)
+    where ``keys`` count the grouped launches apart, else ``gemm``."""
+    grouped = "grouped_forward" in keys \
+        and len(g.nodes[n.inputs[1]].ttype.shape) == 3
+    return "grouped" if grouped else "gemm"
+
+
 def joint_graph_launches(g, keys=LAUNCH_KEYS) -> dict:
     """The launches a captured step makes, from its joint graph: each
     library node once forward and once more where its VJP replays it
     (remat ``recompute``); each GEMM's dX and dW once, and its product once
-    more where its epilogue chain is not adds alone (``epilogue_vjp``)."""
-    out = dict.fromkeys(LAUNCH_KEYS, 0)
+    more where its epilogue chain is not adds alone (``epilogue_vjp``);
+    the grouped GEMMs under ``grouped_*`` where ``keys`` has them; the MoE
+    router's fp32 product, inside the lifted ``_route_topk`` call (one
+    call for its four ``pyfunc`` outputs), as a GEMM without a chain."""
+    from repro_torch.models.moe import _route_topk
+    out = dict.fromkeys(LAUNCH_KEYS + MOE_KEYS, 0)
     kind = {"matmul": "gemm", "attention": "flash", "linear_scan": "scan"}
     for n in g.nodes.values():
-        if n.op not in kind:
-            continue
-        k = kind[n.op]
-        out[f"{k}_forward"] += 1 + (n.schedule.remat == "recompute")
-        if k == "gemm":
+        if n.op == "pyfunc" and n.attrs.get("fn") is _route_topk \
+                and n.attrs.get("out", 0) == 0:
+            out["gemm_forward"] += 1 + (n.schedule.remat == "recompute")
             out["gemm_dx"] += 1
             out["gemm_dw"] += 1
-            out["gemm_forward"] += any(fn != "add" for fn, _, _ in n.epilogue)
+        if n.op not in kind:
+            continue
+        k = gemm_kind(g, n, keys) if n.op == "matmul" else kind[n.op]
+        out[f"{k}_forward"] += 1 + (n.schedule.remat == "recompute")
+        if n.op == "matmul":
+            out[f"{k}_dx"] += 1
+            out[f"{k}_dw"] += 1
+            out[f"{k}_forward"] += any(fn != "add" for fn, _, _ in n.epilogue)
         else:
             out[f"{k}_backward"] += 1
     return {k: out[k] for k in keys}
+
+
+def captured_forward_expected(g, want_op: dict) -> dict:
+    """The GEMM forward launches a captured step must make, from the
+    per-op step's: one a product (the per-op step's dX count), one more a
+    recomputed product and one more a product whose chain is not adds
+    alone; the grouped ones apart where ``want_op`` counts them."""
+    out = {"gemm_forward": want_op["gemm_dx"]}
+    if "grouped_dx" in want_op:
+        out["grouped_forward"] = want_op["grouped_dx"]
+    for n in g.nodes.values():
+        if n.op == "matmul":
+            out[f"{gemm_kind(g, n, want_op)}_forward"] += (
+                (n.schedule.remat == "recompute")
+                + any(fn != "add" for fn, _, _ in n.epilogue))
+    return out
 
 
 def all_counts() -> dict:
@@ -4548,7 +4672,9 @@ def qwen_capture_model():
 def captured_train_phase(build=qwen_capture_model, tag="captured_train",
                          launches=lambda cfg, m: train_launches(
                              cfg.n_layers),
-                         counts=train_counts) -> dict:
+                         counts=train_counts, per_op_tag=None,
+                         annotate=None, exact: bool = False,
+                         refit: bool = False, snaps=None, lr=None) -> dict:
     """Phase 10c (29 for Zamba2): ``build()``'s model (qwen2.5-3b at full
     width and Q_CAPTURE_LAYERS layers, seed 0), TRAIN_B x TRAIN_S tokens:
     the per-op step (remat full) through ``train_phase``, held to
@@ -4560,7 +4686,13 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
     after 3 steps be within CAPTURE_SAMPLE_ATOL, GEMM dX / dW and the
     flash and scan backwards equal the per-op step's, and GEMM forward be
     one a product (the per-op step's dX count) plus one per recomputed
-    product."""
+    product and one per product whose chain is not adds alone
+    (``captured_forward_expected``).  ``per_op_tag`` names the per-op
+    line (default ``{tag}_per_op``), ``annotate(line, model, cfg)`` adds
+    to both lines before they print, ``exact`` holds every parameter
+    after 3 steps to the per-op step's bit for bit (host copies),
+    ``refit`` and ``lr`` are ``train_phase``'s, and ``snaps`` (a dict)
+    receives the per-op step's launches by shape under ``per_op``."""
     import torch
     from repro_torch.core import tapir
     from repro_torch.train import TrainConfig, make_region_train_step
@@ -4569,7 +4701,10 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
     cfg = model.cfg
     want = launches(cfg, model)
     per_op, snap_op = train_phase(model, cfg, want, counts,
-                                  phase=f"{tag}_per_op")
+                                  phase=per_op_tag or f"{tag}_per_op",
+                                  refit=refit, keep_params=exact, lr=lr)
+    if annotate is not None:
+        annotate(per_op, model, cfg)
     emit(per_op)
     del model
     tapir.clear_cache()
@@ -4582,7 +4717,9 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
         want=lambda: joint_graph_launches(grad_graph(), tuple(want)),
         make_step=lambda m, opt: make_region_train_step(
             m, opt, TrainConfig(remat="auto", target="gpu")),
-        check=capture_checker(seen))
+        check=capture_checker(seen), refit=refit, keep_params=exact, lr=lr)
+    if annotate is not None:
+        annotate(line, model, cfg)
     g = grad_graph()
     rec = collections.Counter(n.op for n in g.nodes.values()
                               if n.schedule.remat == "recompute")
@@ -4594,7 +4731,7 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
         "pipeline_s": seen["pipeline_s"],
         "graph_nodes": len(g.nodes), "grad_meta": g.grad_meta,
         "recomputed_by_op": dict(rec),
-        "gemm_forward_expected": want_op["gemm_dx"] + rec["matmul"],
+        "gemm_forward_expected": captured_forward_expected(g, want_op),
         "graphed": sorted(tapir.replay_rules().get("train_step", ())),
         "per_op": {k: per_op[k] for k in (
             "step_p50_s", "device_ms", "device_busy_share", "peak_mem_gb",
@@ -4616,14 +4753,26 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
         bad.append("step-1 loss differs from the per-op step's")
     if not max(diffs) <= CAPTURE_SAMPLE_ATOL:
         bad.append(f"leaf sample after 3 steps off by {max(diffs)}")
-    for k in ("gemm_dx", "gemm_dw", "flash_backward", "scan_backward"):
+    for k in ("gemm_dx", "gemm_dw", "flash_backward", "scan_backward",
+              "grouped_dx", "grouped_dw"):
         if got.get(k) != want_op.get(k):
             bad.append(f"{k} launches differ from the per-op step's")
-    if got["gemm_forward"] != line["gemm_forward_expected"]:
-        bad.append("GEMM forward launches != products + recomputed")
+    for k, v in line["gemm_forward_expected"].items():
+        if got[k] != v:
+            bad.append(f"{k} launches != products + recomputed + chains")
+    if exact:
+        line["params3_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(snap_op["params3"],
+                                              snap["params3"]))
+        if not line["params3_bitwise"]:
+            bad.append("the params after 3 steps differ from the per-op "
+                       "step's")
     if bad:
         raise SystemExit(f"{tag}: {bad}: {line}")
-    del model
+    if snaps is not None:
+        snaps["per_op"] = {k: v for k, v in snap_op.items()
+                           if k != "params3"}
+    del model, snap_op, snap
     tapir.clear_cache()
     torch.cuda.empty_cache()
     return line
@@ -5607,6 +5756,11 @@ MOE_REPLACES = "src/repro/core/lowering.py:124 (einsum, no Pallas kernel)"
 #: layers after it): the deepest of ``--moe-depths 20,16,12`` whose forward
 #: and slot serving peak left MOE_HEADROOM of the card free
 M_LAYERS = 20
+#: its depth for training on one card: the deepest of ``--moe-train-depths
+#: 7,6,5`` whose per-op step on 1 x TRAIN_S tokens peaked with MOE_HEADROOM
+#: of the card free (28.05 B parameters at 48 layers: ~450 GB of fp32
+#: weights, gradients and AdamW moments)
+M_TRAIN_LAYERS = 7
 MOE_HEADROOM = 0.10
 
 
@@ -5860,6 +6014,22 @@ def router_row_stability(cfg) -> dict:
     return {f"m{m}": v for m, v in ok.items()}
 
 
+def moe_path_shapes(fm_paths) -> tuple:
+    """(grouped, router, flat): a MoE config's ``launches_by_shape`` keys
+    split into the grouped launches (by ``(E, C, n, k, chain)``), the
+    router's fp32 products and the 2-D bf16 ones, each with its
+    launches."""
+    grouped = {s_[1:5] + (s_[6],): c for s_, c in fm_paths.items()
+               if s_[0] == "grouped"}
+    router = collections.Counter({s_: c for s_, c in fm_paths.items()
+                                  if s_[0] != "grouped"
+                                  and s_[3] == "torch.float32"})
+    flat = collections.Counter({s_: c for s_, c in fm_paths.items()
+                                if s_[0] != "grouped"
+                                and s_[3] != "torch.float32"})
+    return grouped, router, flat
+
+
 def moe_kernel_entries(cfg, fm_paths, phase_of, fa_paths, gen) -> list:
     """Every launch shape of a MoE config's paths against its plain version
     and timed (the kernels line's entries): the 2-D bf16 GEMMs (QKV, wo,
@@ -5867,16 +6037,9 @@ def moe_kernel_entries(cfg, fm_paths, phase_of, fa_paths, gen) -> list:
     router's fp32 product, the grouped launches (``grouped_vs_plain``,
     ``grouped_entries``) and flash."""
     tag = cfg.name.split("-")[0]
-    grouped = {s_[1:5] + (s_[6],): c for s_, c in fm_paths.items()
-               if s_[0] == "grouped"}
+    grouped, router, flat = moe_path_shapes(fm_paths)
     g_phase = {s_[1:5] + (s_[6],): ph for s_, ph in phase_of.items()
                if s_[0] == "grouped"}
-    router = collections.Counter({s_: c for s_, c in fm_paths.items()
-                                  if s_[0] != "grouped"
-                                  and s_[3] == "float32"})
-    flat = collections.Counter({s_: c for s_, c in fm_paths.items()
-                                if s_[0] != "grouped"
-                                and s_[3] != "float32"})
     entries = dense_kernel_entries(cfg, flat, phase_of, fa_paths, gen)
     shapes = sorted(grouped, key=lambda s_: (s_[0], s_[1], s_[2], s_[3]))
     errs = grouped_vs_plain(shapes, gen)
@@ -6086,6 +6249,493 @@ def moe_depths(depths: list) -> int:
                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         emit(out)
     emit({"phase": "moe_depths", "deepest_with_headroom":
+          max(fits) if fits else None, "headroom": MOE_HEADROOM})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# MoE training (phases 43b-43f): Granite-3.0-1B-A400M, Moonlight-16B-A3B
+# ---------------------------------------------------------------------------
+
+GRANITE, MOONLIGHT = "granite_moe_1b_a400m", "moonshot_v1_16b_a3b"
+#: AdamW's peak lr in Granite's train phases: at the reference's init its
+#: first gradient's norm is 1.29e8, all but 0.03 % of it the embedding's
+#: (Moonlight's at 7 layers: 1.1e3), and of ``--moe-train-lrs
+#: 3e-4,1e-4,3e-5,1e-5`` only this one lowered the first batch's loss
+#: over the phase's steps (Moonlight's falls at the default 3e-4)
+GRANITE_TRAIN_LR = 1e-5
+#: the 2-layer cut's guarantees that are not bitwise: each leaf's gradient
+#: in tapir mode against opaque mode, and with 2 microbatches against 1
+#: (dropless, so both route every token alike), max |diff| over the leaf's
+#: largest entry (BWD_RTOL's bf16 bound: a product's bf16 rounding of a
+#: gradient summed in another order)
+MOE_GRAD_RTOL = BWD_RTOL["bfloat16"]
+#: the grouped backward's fp32 check shape (E, C, k, n): fp32 runs on the
+#: paths only at SMOKE widths
+MOE_F32_BWD = (8, 65, 192, 128)
+
+
+def moe_train_launches(cfg) -> dict:
+    """The launches one per-op MoE train step makes under remat full, from
+    the code: a dense layer's 4 GEMMs (fused QKV, wo + residual, fused
+    gate|up, wd + residual) and a MoE layer's 3 2-D ones (fused QKV, wo +
+    residual, the fp32 router) and 3 grouped ones (up, gate + silu * up,
+    down), each twice (the forward and the recompute), the head once;
+    every forward product's dX and dW once; the gate's chain is not adds
+    alone, so its product is recomputed once more in the backward
+    (``epilogue_vjp``); flash twice forward and once backward a layer
+    (``tests/test_torch_moe_train.py`` holds the same counts on the
+    CPU)."""
+    d = cfg.first_dense_layers
+    m = cfg.n_layers - d
+    return {"gemm_forward": 2 * (4 * d + 3 * m) + 1,
+            "gemm_dx": 4 * d + 3 * m + 1, "gemm_dw": 4 * d + 3 * m + 1,
+            "grouped_forward": 7 * m, "grouped_dx": 3 * m,
+            "grouped_dw": 3 * m, "flash_forward": 2 * cfg.n_layers,
+            "flash_backward": cfg.n_layers}
+
+
+def moe_counts() -> dict:
+    """A step's launches with the grouped GEMM's apart."""
+    fm_ops, fa_ops, _ = kernel_ops()
+    grouped = sum(c for k, c in fm_ops.launches_by_shape.items()
+                  if k[0] == "grouped")
+    return {"gemm_forward": fm_ops.launches - grouped,
+            "gemm_dx": fm_ops.bwd_launches["dx"],
+            "gemm_dw": fm_ops.bwd_launches["dw"],
+            "grouped_forward": grouped,
+            "grouped_dx": fm_ops.bwd_launches["grouped_dx"],
+            "grouped_dw": fm_ops.bwd_launches["grouped_dw"],
+            "flash_forward": fa_ops.launches,
+            "flash_backward": fa_ops.bwd_launches}
+
+
+def moe_train_annotate(line, model, cfg) -> None:
+    """A MoE train line's MFU on the active parameters (6 x
+    ``n_active_params`` x tokens; every expert's weights counted would
+    claim the idle experts' FLOPs) and its grouped device time."""
+    tokens = line["batch"] * line["seq"]
+    line.update(
+        n_active_params=cfg.n_active_params(),
+        mfu=6.0 * cfg.n_active_params() * tokens / line["step_p50_s"]
+        / PEAK_FLOPS["bfloat16"],
+        mfu_what="6 x n_active_params x tokens / p50 / 989 TFLOP/s",
+        grouped_device_ms=sum(v for k, v in line["gemm_device_ms"].items()
+                              if k.startswith("grouped_")))
+
+
+def moe_cut(layers: int):
+    """(cfg, model): Granite-3.0-1B-A400M at full width cut to ``layers``,
+    its first layers as the 24-layer model draws them from seed 0 (the
+    init scales a stacked leaf by its layer count)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import get_model
+    full = get_config(GRANITE)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = get_model(full, device="cuda", generator=gen).param_tree()
+    tree["blocks"] = {kind: {k: v[:layers].clone() for k, v in leaves.items()}
+                      for kind, leaves in tree["blocks"].items()}
+    cfg = dataclasses.replace(full, n_layers=layers)
+    return cfg, get_model(cfg, device="cuda", params=tree)
+
+
+def moe_first_grads(model, batch, mode: str = "tapir") -> list:
+    """The loss and every leaf's gradient of one batch, per op (remat
+    full, the H100 profile) in ``mode``."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import TrainConfig
+    with tapir.use(TrainConfig(target="gpu", mode=mode).tapir_config()), \
+            model.trainable():
+        loss = model.loss(batch)
+        return [loss.detach()] + list(torch.autograd.grad(
+            loss, tree_leaves(model.param_tree())))
+
+
+def granite_train_guarantees() -> dict:
+    """Phase 43d on ``moe_cut(2)`` (full width, bf16 compute), TRAIN_B x
+    TRAIN_S tokens: tapir against opaque (3 x 32 per-expert 2-D launches a
+    layer, forward and backward) and 2 microbatches against 1 (capacity
+    factor E / K, dropless, so a token routes alike in a half batch; the
+    halves' gradients summed in fp32 and halved, as ``make_train_step``
+    does) each leaf within MOE_GRAD_RTOL of its largest entry; two
+    identical steps from the same weights, bitwise; then
+    ``checkpoint_phase`` (save, step, restore, the same step: bitwise)."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    from repro_torch.models.base import get_model
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg, model = moe_cut(2)
+    pipe = TokenPipeline(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                    vocab=cfg.vocab))
+    batch = to_device(pipe.batch_at(0), "cuda")
+    line = {"phase": "granite_train_guarantees", "layers": 2,
+            "batch": TRAIN_B, "seq": TRAIN_S, "rel_tolerance": MOE_GRAD_RTOL}
+    reset_counts()
+    tap = moe_first_grads(model, batch)
+    n_tap = kernel_ops()[0].launches
+    reset_counts()
+    opq = moe_first_grads(model, batch, "opaque")
+    n_opq = kernel_ops()[0].launches
+    line.update(tapir_vs_opaque_rel=grads_rel_err(opq[1:], tap[1:]),
+                tapir_vs_opaque_loss_rel=abs(float(opq[0] - tap[0]))
+                / abs(float(tap[0])),
+                tapir_vs_opaque_bitwise=all(torch.equal(a, b)
+                                            for a, b in zip(tap, opq)),
+                gemm_forward_launches={"tapir": n_tap, "opaque": n_opq})
+    del tap, opq
+    # microbatches: dropless, so the halves route every token as the whole
+    dl = get_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k), device="cuda",
+        params=model.param_tree())
+    whole = moe_first_grads(dl, batch)
+    halves = [moe_first_grads(dl, {k: v[i:i + 1] for k, v in batch.items()})
+              for i in range(TRAIN_B)]
+    acc = [h.float().clone() for h in halves[0]]
+    for a, h in zip(acc, halves[1]):
+        a.add_(h.float())
+    acc = [a / TRAIN_B for a in acc]
+    line.update(microbatches_rel=grads_rel_err(acc[1:], whole[1:]),
+                microbatches_loss_rel=abs(float(acc[0] - whole[0]))
+                / abs(float(whole[0])))
+    del dl, whole, halves, acc
+    # two identical steps from the same weights
+    tree = {k: ({kk: {kkk: t.clone() for kkk, t in vv.items()}
+                 for kk, vv in v.items()} if k == "blocks" else v.clone())
+            for k, v in model.param_tree().items()}
+    outs = []
+    for _ in range(2):
+        m_ = get_model(cfg, device="cuda", params={
+            k: ({kk: {kkk: t.clone() for kkk, t in vv.items()}
+                 for kk, vv in v.items()} if k == "blocks" else v.clone())
+            for k, v in tree.items()})
+        opt = AdamWConfig(total_steps=4, warmup_steps=1)
+        step = make_train_step(m_, opt, TrainConfig(target="gpu"))
+        st = init_state(m_, opt)
+        st, met = step(st, batch)
+        outs.append([met["loss"]] + tree_leaves(st["params"])
+                    + tree_leaves(st["opt"]))
+        del m_, step, st
+        tapir.clear_cache()
+    line["two_steps_bitwise"] = all(torch.equal(a, b)
+                                    for a, b in zip(*outs))
+    del outs, tree
+    emit(line)
+    bad = [k for k in ("tapir_vs_opaque_rel", "microbatches_rel")
+           if not line[k] <= MOE_GRAD_RTOL]
+    if bad or not line["two_steps_bitwise"] or \
+            not line["microbatches_loss_rel"] <= 1e-5 or \
+            not line["tapir_vs_opaque_loss_rel"] <= 1e-5:
+        raise SystemExit(f"granite_train_guarantees: {bad}: {line}")
+    ck = checkpoint_phase(cfg, model, "granite_checkpoint")
+    del model
+    return ck
+
+
+def grouped_bwd_inputs(route, E, m, n, k, dt, gen):
+    """Operands of one grouped backward product ``y [E, m, n]`` over a
+    contraction of k: dX, dy [E, m, k] and w [E, n, k] (the forward's
+    weight); dW, x [E, k, m] and dy [E, k, n]; the contraction's factor
+    scaled by 1 / sqrt(k)."""
+    import torch
+    if route == "dx":
+        a = torch.randn(E, m, k, generator=gen, device="cuda").to(dt)
+        b = (torch.randn(E, n, k, generator=gen, device="cuda")
+             / k ** 0.5).to(dt)
+    else:
+        a = torch.randn(E, k, m, generator=gen, device="cuda").to(dt)
+        b = (torch.randn(E, k, n, generator=gen, device="cuda")
+             / k ** 0.5).to(dt)
+    return a, b
+
+
+def grouped_bwd_calls(route, a, b):
+    """(the grouped launch, its plain version, the E per-expert 2-D
+    launches, ``torch.bmm`` of the same layout) of one product."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops, ref
+    dt, E = a.dtype, a.shape[0]
+    if route == "dx":
+        return (lambda: ops.matmul_dx_grouped(a, b, dt),
+                lambda: ref.grouped_matmul_dx_ref(a, b, dt),
+                lambda: torch.stack([ops.matmul_dx(a[e], b[e], dt)
+                                     for e in range(E)]),
+                lambda: torch.bmm(a, b.transpose(1, 2)))
+    return (lambda: ops.matmul_dw_grouped(a, b, dt),
+            lambda: ref.grouped_matmul_dw_ref(a, b, dt),
+            lambda: torch.stack([ops.matmul_dw(a[e], b[e], dt)
+                                 for e in range(E)]),
+            lambda: torch.bmm(a.transpose(1, 2), b))
+
+
+def grouped_bwd_entries(shapes, tag: str) -> tuple:
+    """Per grouped backward shape ``(route, E, m, n, k, launches)`` a train
+    phase launched: in bf16 the one launch against its plain version
+    (TOL), bitwise against the E per-expert ``matmul_dx`` /
+    ``matmul_dw`` launches and against itself; a row of dX at C = 1 the
+    bits of that row at C; timed (``time_ms``) beside the plain version,
+    ``torch.bmm`` of the same layout (the yardstick, never called by the
+    port) and the bound (the operands read once, the output written once,
+    2 E m n k bf16 FLOPs); and at MOE_F32_BWD in fp32 the same checks,
+    untimed.  Returns (entries, line)."""
+    import torch
+    from repro_torch.kernels.fused_matmul import kernel, ops
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    entries, errs = [], {}
+    E32, C32, k32, n32 = MOE_F32_BWD
+    f32_cases = [("dx", E32, C32, k32, n32), ("dw", E32, k32, n32, C32)]
+    for route, E, m, n, k, dname in (
+            [s_[:5] + ("bfloat16",) for s_ in shapes]
+            + [c + ("float32",) for c in f32_cases]):
+        dt = getattr(torch, dname)
+        a, b = grouped_bwd_inputs(route, E, m, n, k, dt, gen)
+        fn, plain, each, lib = grouped_bwd_calls(route, a, b)
+        y = fn()
+        err = float((y.float() - plain().float()).abs().max())
+        same = bool(torch.equal(y, each())) and bool(torch.equal(y, fn()))
+        row = True
+        if route == "dx":
+            row = bool(torch.equal(
+                ops.matmul_dx_grouped(a[:, -1:].contiguous(), b, dt)[:, 0],
+                y[:, -1]))
+        name = f"grouped {route} E={E} m={m} n={n} k={k} {dname}"
+        if not (err <= TOL[dname] and same and row):
+            raise SystemExit(f"{tag} grouped backward vs plain: {name} max "
+                             f"err {err} (<= {TOL[dname]}), = per-expert "
+                             f"and = itself {same}, row at C=1 {row}")
+        errs[name] = err
+        if dname == "bfloat16":
+            launches = next(s_[5] for s_ in shapes
+                            if s_[:5] == (route, E, m, n, k))
+            ms = time_ms(fn)
+            t_bytes = 2 * E * (m * k + k * n + m * n) / HBM_BW
+            t_ops = 2.0 * E * m * n * k / PEAK_FLOPS["bfloat16"]
+            p = kernel.plan(n, k, dt)
+            entries.append({
+                "name": f"fused_matmul_grouped_{route}[{tag} train E={E} "
+                        f"m={m} n={n} k={k}]",
+                "route": "cuda", "source": SOURCE, "replaces": MOE_REPLACES,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": time_ms(plain),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": time_ms(lib),
+                "design": "one launch, experts on blockIdx.z, rank-3 TMA "
+                          "maps; each expert the 2-D "
+                          + ("dX plan: W read K-major (dY W^T)"
+                             if route == "dx" else
+                             "dW plan: X read MN-major (X^T dY), C the "
+                             "contraction, zero-filled past C")
+                          + f", wgmma m64n{p.bn}k16, 128x{p.bn} tile, "
+                          + (f"{p.split}-way split, " if p.split > 1
+                             else "") + f"{p.stages} stages",
+                "plan": p._asdict(),
+                "tflops": 2.0 * E * m * n * k / (ms * 1e-3) / 1e12,
+                "shape": [route, E, m, n, k]})
+        del a, b, y
+    line = {"phase": f"{tag}_grouped_bwd_vs_plain", "tolerance": TOL,
+            "max_err": errs, "bitwise_per_expert": True,
+            "bitwise_repeat": True, "dx_row_bits_at_c1": True,
+            "grouped_ms_over_bmm_ms": {e["name"]: e["ms"] / e["library_ms"]
+                                       for e in entries},
+            "grouped_ms_over_bound_ms": {e["name"]: e["ms"] / e["bound_ms"]
+                                         for e in entries}}
+    return entries, line
+
+
+def moe_train_kernel_entries(snap, cfg, tag: str) -> list:
+    """A MoE train phase's kernel cases against their plain versions and
+    timed: the grouped dX / dW (``grouped_bwd_entries``), the 2-D dX / dW
+    (QKV, wo, the dense layer's, the head, the router's fp32 product:
+    ``gemm_bwd_vs_plain`` in bf16 and fp32, ``gemm_bwd_entries`` in the
+    path's dtype) and flash's backward (``flash_bwd_vs_plain`` without
+    FA_BWD_EXTRA, ``flash_bwd_entry``)."""
+    import torch
+    grouped = sorted((s_[1], s_[2], s_[3], s_[4], s_[5], c)
+                     for s_, c in snap["bwd"].items() if s_[0] == "grouped")
+    g_entries, g_line = grouped_bwd_entries(grouped, tag)
+    flat = {s_: c for s_, c in snap["bwd"].items() if s_[0] != "grouped"}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bwd_line, bwd_errs = gemm_bwd_vs_plain(list(flat), [], gen)
+    entries = gemm_bwd_entries(flat, bwd_errs, gen, cfg)
+    fab = {s_[:6] + (s_[7],): n for s_, n in snap["fab"].items()}
+    fb_line, fb_out = flash_bwd_vs_plain(list(fab), extra=())
+    f_entries = [flash_bwd_entry(shape, n, fb_out[(shape, "bfloat16")][3])
+                 for shape, n in sorted(fab.items())]
+    for e in entries + f_entries:
+        e["name"] = e["name"].replace("[train ", f"[{tag} train ")
+    emit(g_line)
+    emit({"phase": f"{tag}_train_kernels_vs_plain",
+          "gemm_bwd": {k: v for k, v in bwd_line.items() if k != "phase"},
+          "flash_bwd": {k: v for k, v in fb_line.items() if k != "phase"}})
+    return g_entries + entries + f_entries
+
+
+def moe_train_phases() -> list:
+    """Phases 43b-43f: the MoE family trains on the card (the serving
+    models released); returns their entries of the kernels line.
+
+    43b granite_train / 43c granite_captured: Granite-3.0-1B-A400M at full
+    width and all 24 layers, TRAIN_B x TRAIN_S tokens, per op (remat full)
+    through ``train_phase``, held to ``moe_train_launches``, then the
+    captured step (policy auto) on the same weights
+    (``captured_train_phase``: every parameter after 3 steps the per-op
+    step's, bitwise); AdamW at GRANITE_TRAIN_LR, the loss falling on the
+    first batch (``refit``: at that lr a step moves the loss by less than
+    the batches differ);
+    43d granite_train_guarantees and granite_checkpoint on a 2-layer cut;
+    43e moonlight_train: Moonlight-16B-A3B at full width cut to
+    M_TRAIN_LAYERS, 1 x TRAIN_S tokens, per op; 43f each phase's kernel
+    cases (``moe_train_kernel_entries``)."""
+    import torch
+    from repro_torch.core import tapir
+    t0 = time.perf_counter()
+    snaps = {}
+    # -- 43b-43c. Granite per op and captured -------------------------------
+    emit(captured_train_phase(
+        lambda: moe_model(GRANITE)[1], "granite_captured",
+        lambda cfg, m: moe_train_launches(cfg), moe_counts,
+        per_op_tag="granite_train", annotate=moe_train_annotate, exact=True,
+        refit=True, snaps=snaps, lr=GRANITE_TRAIN_LR))
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    # -- 43d. the guarantees on a 2-layer cut ------------------------------
+    emit(granite_train_guarantees())
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    # -- 43e. Moonlight at M_TRAIN_LAYERS ------------------------------------
+    cfg, model = moe_model(MOONLIGHT, M_TRAIN_LAYERS)
+    line, snaps["moonshot"] = train_phase(
+        model, cfg, moe_train_launches(cfg), moe_counts, "moonlight_train",
+        rows=1)
+    moe_train_annotate(line, model, cfg)
+    line.update(depth=f"{M_TRAIN_LAYERS} of 48 layers (--moe-train-depths)",
+                free_share=1 - line["peak_mem_gb"] * 1e9
+                / torch.cuda.get_device_properties(0).total_memory)
+    emit(line)
+    moon_cfg = cfg
+    del model
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    # -- 43f. the kernel cases -------------------------------------------------
+    from repro_torch.configs import get_config
+    entries = moe_train_kernel_entries(snaps["per_op"], get_config(GRANITE),
+                                       "granite")
+    entries += moe_train_kernel_entries(snaps["moonshot"], moon_cfg,
+                                        "moonshot")
+    emit({"phase": "moe_train_done", "moe_train_s": time.perf_counter() - t0,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    return entries
+
+
+def moe_train_lrs(lrs: list) -> int:
+    """``--moe-train-lrs``: Granite-3.0-1B-A400M at full width and depth
+    (TRAIN_B x TRAIN_S) and Moonlight-16B-A3B at M_TRAIN_LAYERS (1 x
+    TRAIN_S), seed 0: the first batch's largest gradients by leaf; then at
+    each peak lr the per-op step for the train phases' 1 + TRAIN_STEPS + 1
+    steps from the same weights, each step's loss and grad norm, and the
+    first batch's loss after them; then stop."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.data import to_device
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import TrainConfig, init_state
+    print(card_line(), flush=True)
+    for arch, layers, rows in ((GRANITE, 0, TRAIN_B),
+                               (MOONLIGHT, M_TRAIN_LAYERS, 1)):
+        for i, lr in enumerate(lrs):
+            tapir.clear_cache()
+            torch.cuda.empty_cache()
+            cfg, model = moe_model(arch, layers)
+            step, opt, pipe = train_setup(model, cfg, rows=rows, lr=lr)
+            batch0 = to_device(pipe.batch_at(0), "cuda")
+            if i == 0:
+                flat = {}
+
+                def walk(t, path):
+                    for k in sorted(t):
+                        if isinstance(t[k], dict):
+                            walk(t[k], f"{path}{k}.")
+                        else:
+                            flat[path + k] = t[k]
+                walk(model.param_tree(), "")
+                grads = moe_first_grads(model, batch0)[1:]
+                norms = {k: float(g.float().norm())
+                         for k, g in zip(flat, grads)}   # tree_leaves order
+                emit({"phase": "moe_train_grad_leaves", "arch": arch,
+                      "layers": cfg.n_layers,
+                      "grad_norm": math.sqrt(sum(v * v
+                                                 for v in norms.values())),
+                      "largest": sorted(norms.items(),
+                                        key=lambda kv: -kv[1])[:6],
+                      "param_std": {k: float(t.float().std())
+                                    for k, t in flat.items()}})
+                del grads, flat
+            state = init_state(model, opt)
+            losses, gnorms = [], []
+            for s_ in range(TRAIN_STEPS + 2):
+                state, m = step(state, to_device(pipe.batch_at(s_), "cuda"))
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            with torch.no_grad(), tapir.use(TrainConfig(
+                    target="gpu").tapir_config()):
+                after = float(model.loss(batch0))
+            emit({"phase": "moe_train_lr", "arch": arch,
+                  "layers": cfg.n_layers, "lr": lr, "losses": losses,
+                  "grad_norms": gnorms, "batch0_loss_before": losses[0],
+                  "batch0_loss_after": after})
+            del model, state, step, m
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return 0
+
+
+def moe_train_depths(depths: list) -> int:
+    """``--moe-train-depths``: Moonlight-16B-A3B at full width at each
+    depth in turn, the per-op train step (remat full) on 1 x TRAIN_S
+    tokens, 2 steps: the peak device memory and its share of the card, the
+    step seconds, or the OOM; the deepest depth that left MOE_HEADROOM of
+    the card free; then stop."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.data import to_device
+    from repro_torch.train import init_state
+    print(card_line(), flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = []
+    for n_l in depths:
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"phase": "moe_train_depth", "arch": MOONLIGHT, "layers": n_l}
+        model = None
+        try:
+            cfg, model = moe_model(MOONLIGHT, n_l)
+            step, opt, pipe = train_setup(model, cfg, rows=1)
+            state = init_state(model, opt)
+            walls = []
+            for s_ in range(2):
+                t0 = time.perf_counter()
+                state, m = step(state, to_device(pipe.batch_at(s_), "cuda"))
+                float(m["loss"])
+                walls.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            out.update(peak_mem_gb=peak / 1e9, card_gb=total / 1e9,
+                       free_share=1 - peak / total, step_s=walls,
+                       loss=float(m["loss"]))
+            if 1 - peak / total >= MOE_HEADROOM:
+                fits.append(n_l)
+            del state, m, step
+        except torch.cuda.OutOfMemoryError as e:
+            out.update(oom=str(e).splitlines()[0][:200],
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit(out)
+        del model
+    emit({"phase": "moe_train_depths", "deepest_with_headroom":
           max(fits) if fits else None, "headroom": MOE_HEADROOM})
     return 0
 
@@ -7260,6 +7910,22 @@ def main() -> int:
                          "slot serving and the forward's peak memory or "
                          "OOM, and the deepest with MOE_HEADROOM free, and "
                          "stop")
+    ap.add_argument("--moe-train", action="store_true",
+                    help="run the build phase and phases 43b-43f (MoE "
+                         "training: Granite-3.0-1B-A400M per op and "
+                         "captured, its guarantees, Moonlight-16B-A3B at "
+                         "M_TRAIN_LAYERS, their kernel cases) alone, and "
+                         "stop")
+    ap.add_argument("--moe-train-lrs", metavar="LR,LR,...",
+                    help="Granite-3.0-1B-A400M at full width and depth and "
+                         "Moonlight-16B-A3B at M_TRAIN_LAYERS: the first "
+                         "gradient's largest leaves, then the train phases' "
+                         "steps at each peak lr and the first batch's loss "
+                         "after them, and stop")
+    ap.add_argument("--moe-train-depths", metavar="N,N,...",
+                    help="Moonlight-16B-A3B at full width at each depth: "
+                         "the per-op train step's peak memory or OOM, and "
+                         "the deepest with MOE_HEADROOM free, and stop")
     ap.add_argument("--encdec", action="store_true",
                     help="run the build phase and phases 44-48 (Whisper-"
                          "small, and the SMOKE parity of the encoder-"
@@ -7300,6 +7966,12 @@ def main() -> int:
                                args.zamba2_depths.split(",")], "zamba2_7b")
     if args.moe_depths:
         return moe_depths([int(v) for v in args.moe_depths.split(",")])
+    if args.moe_train_lrs:
+        return moe_train_lrs([float(v) for v in
+                              args.moe_train_lrs.split(",")])
+    if args.moe_train_depths:
+        return moe_train_depths([int(v) for v in
+                                 args.moe_train_depths.split(",")])
     if args.vlm_depths:
         return vlm_depths([int(v) for v in args.vlm_depths.split(",")])
     if args.decode_times:
@@ -7414,9 +8086,10 @@ def main() -> int:
                                  f"{fa_kernel.kernel_tiles_bwd(dt, d)}, plan "
                                  f"{fa_kernel.plan_bwd(dt, d)}")
 
-    if args.dense or args.moe or args.encdec or args.vlm:
+    if args.dense or args.moe or args.moe_train or args.encdec or args.vlm:
         entries = (dense_phases(probe_import=True) if args.dense
                    else moe_phases() if args.moe
+                   else moe_train_phases() if args.moe_train
                    else whisper_phases() if args.encdec else vlm_phases())
         emit({"kernels": entries})
         emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
@@ -7475,6 +8148,11 @@ def main() -> int:
 
     # -- 38-43. the MoE family ---------------------------------------------
     entries += moe_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+
+    # -- 43b-43f. MoE training ---------------------------------------------
+    entries += moe_train_phases()
     tapir.clear_cache()
     torch.cuda.empty_cache()
 

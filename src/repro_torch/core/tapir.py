@@ -1412,7 +1412,9 @@ def expert_mlp(xe, w_gate, w_up, w_down, activation: str = "silu"):
     f]``, ``w_down [E, f, d]``.  In tapir mode each GEMM is ONE launch of
     the kernel's grouped route, the gate's with its activation and product
     fused; in opaque mode each is E isolated 2-D launches, one per
-    expert."""
+    expert.  Under grad the one-off program runs under autograd (each
+    GEMM through ``FusedMatmulFn``, the grouped ones with the grouped dX /
+    dW as their backward); it is never graphed and donates nothing."""
     reg = _active_region()
     if reg is not None:
         out = _build_expert_mlp(reg.g, reg.nid_of(xe), reg.nid_of(w_gate),

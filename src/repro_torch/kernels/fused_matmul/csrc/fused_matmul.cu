@@ -91,7 +91,11 @@
 // is read at the global row e C + i; a row operand is every expert's.  The
 // fp32 route takes the expert's base by plain pointer offsets.  Empty
 // capacity rows are computed like any other (dropless C = T: the reference's
-// semantics).
+// semantics).  The backward's two layouts run grouped the same way: dX[e]
+// = dY[e] [C, n] @ W[e]^T (w read K-major, the 2-D dX route's layout) and
+// dW[e] = X[e]^T [k, C] @ dY[e] [C, n] (x read MN-major, the 2-D dW
+// route's), whose contraction is C: a tile past C reads zeros in both
+// operands, and the split over C is the 2-D dW launch's plan(n, C).
 //
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): fused_matmul_launch returns cudaGetLastError() after the launch,
@@ -379,6 +383,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0, c1) of a 2-D map, or of expert c2's matrix of a rank-3
+// map (G = 1).
+template <int G>
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  if (G)
+    tma_load_3d(dst, map, bar, c0, c1, c2);
+  else
+    tma_load_2d(dst, map, bar, c0, c1);
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n"
                "barrier.cluster.wait.acquire;" ::: "memory");
@@ -559,9 +575,9 @@ template <int TA, int TB> struct Wgmma<256, TA, TB> {
 // wgmma accumulator layout (m64nN, f32): thread t of a warpgroup holds
 // d[4j + 2h + b] = D[16 (t / 32) + (t % 32) / 4 + 8h][8j + 2 (t % 4) + b].
 //
-// G = 1 is the grouped route (TA = 0, TB = 1): the maps are rank 3 with the
-// expert outer, blockIdx.z = expert * split + rank, `m` is each expert's
-// rows (C), and output row i of expert e is global row e m + i.
+// G = 1 is the grouped route (any of the three layouts): the maps are rank
+// 3 with the expert outer, blockIdx.z = expert * split + rank, `m` is each
+// expert's output rows, and output row i of expert e is global row e m + i.
 template <int BN, int TA, int TB, int G>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -609,25 +625,21 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
         uint8_t* slot = smem + st * STAGE;
         mbar_expect_tx(&full[st], STAGE);
         const int kc = (kt0 + i) * BK;
-        if (G) {
-          tma_load_3d(slot, &map_x, &full[st], kc, row0, expert);
-        } else if (TA == 0) {
-          tma_load_2d(slot, &map_x, &full[st], kc, row0);
+        if (TA == 0) {
+          tma_load<G>(slot, &map_x, &full[st], kc, row0, expert);
         } else {
-          tma_load_2d(slot, &map_x, &full[st], row0, kc);
-          tma_load_2d(slot + B_SUB, &map_x, &full[st], row0 + 64, kc);
+          tma_load<G>(slot, &map_x, &full[st], row0, kc, expert);
+          tma_load<G>(slot + B_SUB, &map_x, &full[st], row0 + 64, kc,
+                      expert);
         }
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j) {
-          if (G)
-            tma_load_3d(slot + A_TILE + j * B_SUB, &map_w, &full[st],
+          if (TB == 1)
+            tma_load<G>(slot + A_TILE + j * B_SUB, &map_w, &full[st],
                         col0 + 64 * j, kc, expert);
-          else if (TB == 1)
-            tma_load_2d(slot + A_TILE + j * B_SUB, &map_w, &full[st],
-                        col0 + 64 * j, kc);
           else
-            tma_load_2d(slot + A_TILE + j * B_SUB, &map_w, &full[st], kc,
-                        col0 + 64 * j);
+            tma_load<G>(slot + A_TILE + j * B_SUB, &map_w, &full[st], kc,
+                        col0 + 64 * j, expert);
         }
         if (i == min(stages, nk) - 1)   // the ring is full: meanwhile
           prefetch_operands(e, rbase, row0, m, col0 + rank * (BN / split),
@@ -1152,8 +1164,9 @@ static bool make_map3(CUtensorMap* map, const void* ptr, uint64_t inner,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// `groups` > 1 only with G = 1 (the grouped route: x [groups, m, k], w
-// [groups, k, n], y [groups, m, n]).
+// `groups` > 1 only with G = 1 (the grouped route: `groups` x and w
+// operands stored back to back, each as the 2-D launch stores its own, and
+// y [groups, m, n]).
 template <int BN, int TA, int TB, int G>
 static int launch_bf16(const void* x, const void* w, void* y, int groups,
                        int m, int n, int k, int ldx, int ldw, int split,
@@ -1164,17 +1177,17 @@ static int launch_bf16(const void* x, const void* w, void* y, int groups,
   if (smem > SMEM_MAX || ring < part_bytes(BN) || (BN / 8) % split != 0
       || (G == 0 && groups != 1) || (int64_t)groups * split > 65535)
     return (int)cudaErrorInvalidValue;
+  // a [outer, inner] operand; grouped, `groups` of them back to back
+  auto map = [&](CUtensorMap* mp, const void* p, uint64_t inner,
+                 uint64_t outer, int ld, uint32_t box) {
+    return G ? make_map3(mp, p, inner, outer, groups, ld, box)
+             : make_map(mp, p, inner, outer, ld, box);
+  };
   CUtensorMap map_x, map_w;
-  bool ok_x, ok_w;
-  if (G) {
-    ok_x = make_map3(&map_x, x, k, m, groups, ldx, CTA_M);
-    ok_w = make_map3(&map_w, w, n, k, groups, ldw, BK);
-  } else {
-    ok_x = TA ? make_map(&map_x, x, m, k, ldx, BK)
-              : make_map(&map_x, x, k, m, ldx, CTA_M);
-    ok_w = TB ? make_map(&map_w, w, n, k, ldw, BK)
-              : make_map(&map_w, w, k, n, ldw, 64);
-  }
+  const bool ok_x = TA ? map(&map_x, x, m, k, ldx, BK)
+                       : map(&map_x, x, k, m, ldx, CTA_M);
+  const bool ok_w = TB ? map(&map_w, w, n, k, ldw, BK)
+                       : map(&map_w, w, k, n, ldw, 64);
   if (!ok_x || !ok_w) return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
@@ -1330,31 +1343,36 @@ static Epilogue read_chain(int n_stages, const int* codes,
   return e;
 }
 
-// y [m, n] = chain(A @ B): A is x [m, k] with rows of ldx elements, or with
-// ta x stored [k, m] (A = x^T); B is w [k, n] with rows of ldw, or with tb
-// w stored [n, k] (B = w^T).  bn, split and stages are the bf16 route's
-// plan (kernel.py::plan); the fp32 route takes its tile index, its split
-// and the k of each rank (kper), and with split > 1 a workspace ws of
-// split * m * n4 floats (n4: n rounded up to 4).  The three layouts the
-// port launches: the forward (ta = tb = 0), the input gradient dY W^T (tb)
-// and the weight gradient X^T dY (ta).
-extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
-                                   void* ws, int m, int n, int k, int ldx,
-                                   int ldw, int ta, int tb,
-                                   int in_dt, int out_dt, int bn, int split,
-                                   int stages, int tile, int kper,
-                                   int n_stages,
-                                   const int* codes,
-                                   const void* const* operands,
-                                   void* stream) {
-  if (n_stages < 0 || n_stages > MAX_STAGES || m <= 0 || n <= 0 || k < 0)
+// y [groups, m, n] = chain(A[g] @ B[g]) for each of `groups` groups in one
+// launch (G = 1; a 2-D launch is G = 0 and one group).  A is x [m, k] with
+// rows of ldx elements, or with ta x stored [k, m] (A = x^T); B is w [k, n]
+// with rows of ldw, or with tb w stored [n, k] (B = w^T); a grouped
+// launch's groups are stored so, back to back.  bn, split and stages are
+// the bf16 route's plan (kernel.py::plan), every group's that of its own
+// 2-D launch; the fp32 route takes its tile index, its split and the k of
+// each rank (kper), and with split > 1 a workspace ws of groups * split *
+// m * n4 floats (n4: n rounded up to 4).  The three layouts the port
+// launches: the forward (ta = tb = 0), the input gradient dY W^T (tb) and
+// the weight gradient X^T dY (ta).
+template <int G>
+static int launch_layout(const void* x, const void* w, void* y, void* ws,
+                         int groups, int m, int n, int k, int ldx, int ldw,
+                         int ta, int tb, int in_dt, int out_dt, int bn,
+                         int split, int stages, int tile, int kper,
+                         int n_stages, const int* codes,
+                         const void* const* operands, void* stream) {
+  if (n_stages < 0 || n_stages > MAX_STAGES || groups <= 0 || m <= 0
+      || n <= 0 || k < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((ta != 0 && ta != 1) || (tb != 0 && tb != 1) || (ta && tb))
     return (int)cudaErrorInvalidValue;
   const Epilogue e = read_chain(n_stages, codes, operands);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if ((ta != 0 && ta != 1) || (tb != 0 && tb != 1) || (ta && tb))
-    return (int)cudaErrorInvalidValue;
-  // the stored rows' lengths: x's are k long (m with ta), w's n (k with tb)
+  // the stored rows: x's are k long (m with ta), w's n (k with tb); a
+  // group's x is m rows (k with ta), its w k rows (n with tb)
   const int rx = ta ? m : k, rw = tb ? k : n;
+  const int64_t sx = (int64_t)(ta ? k : m) * ldx;
+  const int64_t sw = (int64_t)(tb ? n : k) * ldw;
   if (in_dt != DT_BF16) {
     // the ranks' k ranges: multiples of 4 long (16-byte copies stay
     // aligned), together [0, k), the last one not empty; a split has its
@@ -1368,13 +1386,13 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
     const float* wf = reinterpret_cast<const float*>(w);
     float* wsf = reinterpret_cast<float*>(ws);
     if (ta)
-      return launch_tile<1, 0>(tile, xf, wf, y, wsf, 1, 0, 0, m, n, k, ldx,
-                               ldw, split, kper, out_dt, e, st);
+      return launch_tile<1, 0>(tile, xf, wf, y, wsf, groups, sx, sw, m, n,
+                               k, ldx, ldw, split, kper, out_dt, e, st);
     if (tb)
-      return launch_tile<0, 1>(tile, xf, wf, y, wsf, 1, 0, 0, m, n, k, ldx,
-                               ldw, split, kper, out_dt, e, st);
-    return launch_tile<0, 0>(tile, xf, wf, y, wsf, 1, 0, 0, m, n, k, ldx,
-                             ldw, split, kper, out_dt, e, st);
+      return launch_tile<0, 1>(tile, xf, wf, y, wsf, groups, sx, sw, m, n,
+                               k, ldx, ldw, split, kper, out_dt, e, st);
+    return launch_tile<0, 0>(tile, xf, wf, y, wsf, groups, sx, sw, m, n, k,
+                             ldx, ldw, split, kper, out_dt, e, st);
   }
   // TMA: 16-byte-aligned bases and row strides, no empty box
   if (k == 0 || ldx < rx || ldw < rw || ldx % 8 != 0 || ldw % 8 != 0
@@ -1383,53 +1401,44 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
       || split < 1 || split > 8 || stages < 2 || stages > 8)
     return (int)cudaErrorInvalidValue;
   if (ta)
-    return launch_bn<1, 1, 0>(bn, x, w, y, 1, m, n, k, ldx, ldw, split,
+    return launch_bn<1, 1, G>(bn, x, w, y, groups, m, n, k, ldx, ldw, split,
                               stages, out_dt, e, st);
   if (tb)
-    return launch_bn<0, 0, 0>(bn, x, w, y, 1, m, n, k, ldx, ldw, split,
+    return launch_bn<0, 0, G>(bn, x, w, y, groups, m, n, k, ldx, ldw, split,
                               stages, out_dt, e, st);
-  return launch_bn<0, 1, 0>(bn, x, w, y, 1, m, n, k, ldx, ldw, split,
+  return launch_bn<0, 1, G>(bn, x, w, y, groups, m, n, k, ldx, ldw, split,
                             stages, out_dt, e, st);
 }
 
-// The grouped route: y [groups, m, n] = chain(x [groups, m, k] @ w [groups,
-// k, n]) in one launch, every group with the plan of its own 2-D launch
-// (bn, split, stages; fp32: tile, split, kper, and with split > 1 a
-// workspace of groups * split * m * n4 floats).  x's rows are ldx
-// elements, w's ldw; each group's x is m rows and its w k rows, stored
-// back to back.  A full epilogue operand is [groups * m, n], a row
-// operand [n].
+// One product y [m, n] = chain(A @ B) (launch_layout with one group).
+extern "C" int fused_matmul_launch(const void* x, const void* w, void* y,
+                                   void* ws, int m, int n, int k, int ldx,
+                                   int ldw, int ta, int tb,
+                                   int in_dt, int out_dt, int bn, int split,
+                                   int stages, int tile, int kper,
+                                   int n_stages,
+                                   const int* codes,
+                                   const void* const* operands,
+                                   void* stream) {
+  return launch_layout<0>(x, w, y, ws, 1, m, n, k, ldx, ldw, ta, tb, in_dt,
+                          out_dt, bn, split, stages, tile, kper, n_stages,
+                          codes, operands, stream);
+}
+
+// The grouped route (launch_layout with G = 1): the MoE expert FFN (ta =
+// tb = 0) and its grouped dX (tb) and dW (ta).  A full epilogue operand is
+// [groups * m, n], a row operand [n].
 extern "C" int fused_matmul_grouped_launch(const void* x, const void* w,
                                            void* y, void* ws, int groups,
                                            int m, int n, int k, int ldx,
-                                           int ldw, int in_dt, int out_dt,
+                                           int ldw, int ta, int tb,
+                                           int in_dt, int out_dt,
                                            int bn, int split, int stages,
                                            int tile, int kper, int n_stages,
                                            const int* codes,
                                            const void* const* operands,
                                            void* stream) {
-  if (n_stages < 0 || n_stages > MAX_STAGES || groups <= 0 || m <= 0
-      || n <= 0 || k < 0)
-    return (int)cudaErrorInvalidValue;
-  const Epilogue e = read_chain(n_stages, codes, operands);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (in_dt != DT_BF16) {
-    if (ldx < k || ldw < n || split < 1 || kper < 4 || kper % 4 != 0
-        || (int64_t)(split - 1) * kper >= (k > 0 ? k : 1)
-        || (int64_t)split * kper < k
-        || (split > 1 && ws == nullptr))
-      return (int)cudaErrorInvalidValue;
-    return launch_tile<0, 0>(tile, reinterpret_cast<const float*>(x),
-                             reinterpret_cast<const float*>(w), y,
-                             reinterpret_cast<float*>(ws), groups,
-                             (int64_t)m * ldx, (int64_t)k * ldw, m, n, k,
-                             ldx, ldw, split, kper, out_dt, e, st);
-  }
-  if (k == 0 || ldx < k || ldw < n || ldx % 8 != 0 || ldw % 8 != 0
-      || reinterpret_cast<uintptr_t>(x) % 16 != 0
-      || reinterpret_cast<uintptr_t>(w) % 16 != 0
-      || split < 1 || split > 8 || stages < 2 || stages > 8)
-    return (int)cudaErrorInvalidValue;
-  return launch_bn<0, 1, 1>(bn, x, w, y, groups, m, n, k, ldx, ldw, split,
-                            stages, out_dt, e, st);
+  return launch_layout<1>(x, w, y, ws, groups, m, n, k, ldx, ldw, ta, tb,
+                          in_dt, out_dt, bn, split, stages, tile, kper,
+                          n_stages, codes, operands, stream);
 }

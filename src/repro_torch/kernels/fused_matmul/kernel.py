@@ -215,7 +215,7 @@ def library() -> ctypes.CDLL:
             fn = lib.fused_matmul_grouped_launch
             fn.argtypes = [p, p, p, p,        # x, w, y, ws
                            i, i, i, i, i, i,  # groups, m, n, k, ldx, ldw
-                           i, i,              # in_dt, out_dt
+                           i, i, i, i,        # ta, tb, in_dt, out_dt
                            i, i, i, i, i,     # bn, split, stages, tile, kper
                            i, ctypes.POINTER(i), ctypes.POINTER(p), p]
             fn.restype = ctypes.c_int
@@ -257,16 +257,20 @@ def _chain_codes(spec: tuple, operands: list) -> tuple:
 
 def launch_grouped(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
                    groups: int, m: int, n: int, k: int, p: Plan,
-                   spec: tuple, operands: list,
+                   spec: tuple, operands: list, ta: bool = False,
+                   tb: bool = False,
                    ws: torch.Tensor | None = None) -> None:
-    """Launch the grouped route on the current stream: ``y[g] = chain(x[g]
-    @ w[g])`` for each of ``groups`` experts in one launch, with ``x``
-    ``[groups * m, ldx]`` (each expert's ``m`` rows back to back), ``w``
-    ``[groups * k, ldw]`` (each expert's ``k`` rows) and ``y [groups * m,
-    n]``.  ``p`` is ``plan(n, k, dtype)``, every expert's own 2-D plan, and
-    ``ws`` the fp32 route's ``workspace(m, n, p, groups=groups)``.  A full
-    epilogue operand is ``[groups * m, n]``, a row operand ``[n]``; the
-    caller has checked devices, dtypes, shapes and contiguity."""
+    """Launch the grouped route on the current stream: ``y[g] = chain(A[g]
+    @ B[g])`` for each of ``groups`` experts in one launch, each expert's A
+    and B stored as :func:`launch` stores its own with the same ``ta`` /
+    ``tb``, the experts' back to back: ``x`` ``[groups * m, ldx]`` (with
+    ``ta``: ``[groups * k, ldx]``), ``w`` ``[groups * k, ldw]`` (with
+    ``tb``: ``[groups * n, ldw]``), ``y [groups * m, n]``.  The forward
+    takes neither; the grouped dX ``tb`` and the grouped dW ``ta``.  ``p``
+    is ``plan(n, k, dtype)``, every expert's own 2-D plan, and ``ws`` the
+    fp32 route's ``workspace(m, n, p, groups=groups)``.  A full epilogue
+    operand is ``[groups * m, n]``, a row operand ``[n]``; the caller has
+    checked devices, dtypes, shapes and contiguity."""
     if (ws is None) != (x.dtype != torch.float32 or p.split == 1):
         raise ValueError(f"fused_matmul: an fp32 split of {p.split} takes a "
                          f"workspace, and nothing else does")
@@ -278,8 +282,8 @@ def launch_grouped(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
     err = library().fused_matmul_grouped_launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(),
         ws.data_ptr() if ws is not None else None, groups, m, n, k,
-        x.shape[1], w.shape[1], DT[x.dtype], DT[y.dtype], p.bn, p.split,
-        p.stages, tile, kper, len(spec), codes, ptrs, stream)
+        x.shape[1], w.shape[1], int(ta), int(tb), DT[x.dtype], DT[y.dtype],
+        p.bn, p.split, p.stages, tile, kper, len(spec), codes, ptrs, stream)
     if err != 0:
         raise RuntimeError(f"fused_matmul grouped launch failed: CUDA error "
                            f"{err}")

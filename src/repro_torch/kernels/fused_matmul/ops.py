@@ -15,8 +15,12 @@ chain the kernel takes and its operand tensors (``_classify``), and then:
 A 3-D ``w [E, k, n]`` with ``x [E, ..., k]`` is the grouped route (the MoE
 expert FFN): ONE launch computes every expert's product, each with the plan
 of its own 2-D launch, so it equals E launches of the 2-D route bitwise.
-Its plain version is ``ref.grouped_matmul_ref``.  It has no backward yet:
-under grad it raises on every device.
+Its plain version is ``ref.grouped_matmul_ref``.  Its backward is the 2-D
+route's, grouped: dX and dW are one launch each of the kernel's grouped
+route in the dX / dW layouts (``matmul_dx_grouped``,
+``matmul_dw_grouped``), each expert with the plan of its own 2-D
+backward launch, so they equal E per-expert ``matmul_dx`` / ``matmul_dw``
+launches bitwise.
 
 ``launches`` counts kernel launches (incremented where the kernel launches
 and nowhere else); ``launches_by_shape`` splits it by ``(m, n, k, x dtype,
@@ -46,11 +50,14 @@ its forward is the same wrapper, its backward the reference's
   deterministic.
 
 On a CPU tensor the same backward runs the plain versions
-(``ref.matmul_dx_ref``, ``ref.matmul_dw_ref``).  ``bwd_launches`` counts
-the backward routes' launches by route (``"dx"``, ``"dw"``) and
-``bwd_launches_by_shape`` by ``(route, m, n, k, dtype)`` of the launched
-product; ``function_calls`` counts ``FusedMatmulFn``'s forward and
-backward on any device.
+(``ref.matmul_dx_ref``, ``ref.matmul_dw_ref``, and grouped
+``ref.grouped_matmul_dx_ref``, ``ref.grouped_matmul_dw_ref``).
+``bwd_launches`` counts the backward routes' launches by route (``"dx"``,
+``"dw"``, ``"grouped_dx"``, ``"grouped_dw"``) and ``bwd_launches_by_shape``
+by ``(route, m, n, k, dtype)`` of the launched product, a grouped one by
+``("grouped", route, E, m, n, k, dtype)`` (m, n, k: each expert's);
+``function_calls`` counts ``FusedMatmulFn``'s forward and backward on any
+device.
 """
 from __future__ import annotations
 
@@ -115,17 +122,17 @@ def fused_matmul(x, w, epilogue=None, tile=None, out_dtype=None):
     with an input that requires grad, the call goes through
     ``FusedMatmulFn``."""
     out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
-    if w.ndim == 3:
-        if _requires_grad(x, w, epilogue):
-            raise NotImplementedError(
-                "the grouped GEMM (a 3-D weight: the MoE expert FFN) has no "
-                "backward yet: MoE training waits for the grouped dX / dW "
-                "routes (ROADMAP, queue 1: MoE training)")
-        return _grouped_matmul(x, w, epilogue, out_dt)
     if _requires_grad(x, w, epilogue):
         chain = tuple((fn, len(vals), at) for fn, vals, at in epilogue or [])
         vals = [v for _, vs, _ in epilogue or [] for v in vs]
         return FusedMatmulFn.apply(x, w, chain, out_dt, *vals)
+    return _product(x, w, epilogue, out_dt)
+
+
+def _product(x, w, epilogue, out_dt):
+    """The forward product, the 2-D or (a 3-D ``w``) the grouped route."""
+    if w.ndim == 3:
+        return _grouped_matmul(x, w, epilogue, out_dt)
     return _fused_matmul(x, w, epilogue, out_dt)
 
 
@@ -247,26 +254,90 @@ def _check_pair(a, b, what: str) -> None:
                          f"{a.dtype}")
 
 
-def _launch_bwd(route, a, b, m, n, k, out_dt, ta, tb):
+def _launch_bwd(route, a, b, m, n, k, out_dt, ta, tb, groups: int = 0):
     """One launch of the kernel for a backward product ``y [m, n]`` over a
     contraction of ``k`` (``a``, ``b`` stored as ``kernel.launch`` takes
-    them with ``ta`` / ``tb``)."""
+    them with ``ta`` / ``tb``); with ``groups``, one launch of the grouped
+    route for that many such products (``a [groups, ., .]``, ``b``
+    likewise, ``y [groups, m, n]``), every group the plan of its own 2-D
+    launch."""
     if out_dt not in kernel.DT:
         raise ValueError(f"{route}: output dtype {out_dt} not supported")
-    y = torch.empty((m, n), dtype=out_dt, device=a.device)
+    lead = (groups,) if groups else ()
+    y = torch.empty(lead + (m, n), dtype=out_dt, device=a.device)
     if m == 0 or n == 0:
         return y
     if k == 0:
         return y.zero_()
-    a, b = a.contiguous(), b.contiguous()
+    a = a.reshape(-1, a.shape[-1]).contiguous()
+    b = b.reshape(-1, b.shape[-1]).contiguous()
     if a.dtype == torch.bfloat16:   # TMA rows: copies where widths need it
         a, b = kernel.pad_cols(a), kernel.pad_cols(b)
     p = kernel.plan(n, k, a.dtype)
-    kernel.launch(a, b, y, m, n, k, p, (), [], ta=ta, tb=tb,
-                  ws=kernel.workspace(m, n, p, a.device))
-    bwd_launches[route] += 1
-    bwd_launches_by_shape[(route, m, n, k, str(a.dtype))] += 1
+    ws = kernel.workspace(m, n, p, a.device, groups=max(groups, 1))
+    if groups:
+        kernel.launch_grouped(a, b, y, groups, m, n, k, p, (), [], ta=ta,
+                              tb=tb, ws=ws)
+        bwd_launches["grouped_" + route] += 1
+        bwd_launches_by_shape[("grouped", route, groups, m, n, k,
+                               str(a.dtype))] += 1
+    else:
+        kernel.launch(a, b, y, m, n, k, p, (), [], ta=ta, tb=tb, ws=ws)
+        bwd_launches[route] += 1
+        bwd_launches_by_shape[(route, m, n, k, str(a.dtype))] += 1
     return y
+
+
+def _check_grouped(a, b, what: str) -> None:
+    if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"{what}: [E, rows, cols] operands expected, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    _check_pair(a[0], b[0], what)
+
+
+def matmul_dx_grouped(dy, w, out_dtype=None):
+    """The grouped input gradient ``dy [E, ..., n] @ w[e] [k, n]^T -> [E,
+    ..., k]``, fp32 accumulation, in ``out_dtype`` (default ``dy``'s): ONE
+    launch of the grouped route with each ``w[e]`` read as the K-major B
+    operand, each expert the plan of its own ``matmul_dx`` launch (=
+    those E launches bitwise).  A CPU tensor runs
+    ``ref.grouped_matmul_dx_ref``; a CUDA tensor launches, or raises."""
+    out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else dy.dtype
+    if dy.device.type == "cpu":
+        return ref.grouped_matmul_dx_ref(dy, w, out_dt)
+    E, n = dy.shape[0], dy.shape[-1]
+    dy3 = dy.reshape(E, -1, n)
+    _check_grouped(dy3, w, "matmul_dx_grouped")
+    if w.shape[2] != n:
+        raise ValueError(f"matmul_dx_grouped: dy {tuple(dy.shape)} and w "
+                         f"{tuple(w.shape)} do not share n")
+    k = w.shape[1]
+    y = _launch_bwd("dx", dy3, w, dy3.shape[1], k, n, out_dt, False, True,
+                    groups=E)
+    return y.reshape(*dy.shape[:-1], k)
+
+
+def matmul_dw_grouped(x, dy, out_dtype=None):
+    """The grouped weight gradient ``x[e] [C, k]^T @ dy[e] [C, n] -> [E,
+    k, n]``, fp32 accumulation over each expert's C rows (a fixed-order
+    split where the plan splits), in ``out_dtype`` (default ``x``'s): ONE
+    launch of the grouped route with each ``x[e]`` read as the MN-major A
+    operand, each expert the plan of its own ``matmul_dw`` launch (= those
+    E launches bitwise).  A CPU tensor runs ``ref.grouped_matmul_dw_ref``;
+    a CUDA tensor launches, or raises."""
+    out_dt = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
+    if x.device.type == "cpu":
+        return ref.grouped_matmul_dw_ref(x, dy, out_dt)
+    E = x.shape[0]
+    x3 = x.reshape(E, -1, x.shape[-1])
+    dy3 = dy.reshape(E, -1, dy.shape[-1])
+    _check_grouped(x3, dy3, "matmul_dw_grouped")
+    if x3.shape[1] != dy3.shape[1]:
+        raise ValueError(f"matmul_dw_grouped: x {tuple(x.shape)} and dy "
+                         f"{tuple(dy.shape)} do not share C")
+    C, k = x3.shape[1:]
+    return _launch_bwd("dw", x3, dy3, k, dy3.shape[2], C, out_dt, True,
+                       False, groups=E)
 
 
 def matmul_dx(dy, w, out_dtype=None):
@@ -309,10 +380,11 @@ def matmul_dw(x, dy, out_dtype=None):
 
 def epilogue_vjp(x2, w, chain, vals, out_dt, dy2):
     """(dY0, operand gradients) of ``y = apply_epilogue(x2 @ w, chain,
-    vals).to(out_dt)`` at the cotangent ``dy2 [m, n]``.  dY0 comes in the
-    dtype of the chain's last stage (fp32 where it has none): its values
-    are the fp32 dY0's, exactly.  An operand gradient is None where its
-    operand needs none."""
+    vals).to(out_dt)`` at the cotangent ``dy2 [m, n]`` (grouped: ``x2 [E,
+    C, k] @ w [E, k, n]``, its rows ``m = E C`` in expert order).  dY0
+    comes in the dtype of the chain's last stage (fp32 where it has none):
+    its values are the fp32 dY0's, exactly.  An operand gradient is None
+    where its operand needs none."""
     n = w.shape[-1]
     if all(fn == "add" for fn, _, _ in chain):
         # an add's gradient needs no values: walk the chain backwards
@@ -334,7 +406,8 @@ def epilogue_vjp(x2, w, chain, vals, out_dt, dy2):
             it -= nv
             g = g.to(run[s])
         return g, grads
-    y0 = _fused_matmul(x2, w, None, torch.float32)   # the recompute launch
+    # the recompute launch
+    y0 = _product(x2, w, None, torch.float32).reshape(-1, n)
     with torch.enable_grad():
         y0 = y0.requires_grad_()
         leaves = [v.detach().requires_grad_(v.requires_grad) for v in vals]
@@ -350,8 +423,9 @@ def epilogue_vjp(x2, w, chain, vals, out_dt, dy2):
 
 class FusedMatmulFn(torch.autograd.Function):
     """``fused_matmul`` with the reference's ``fused_matmul_vjp`` as its
-    backward (see the module docstring).  Device-agnostic: the kernel's
-    routes on the card, the plain versions on the CPU."""
+    backward (see the module docstring), for a 2-D ``w`` and for the
+    grouped route's 3-D one.  Device-agnostic: the kernel's routes on the
+    card, the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, x, w, chain, out_dt, *vals):
@@ -359,7 +433,7 @@ class FusedMatmulFn(torch.autograd.Function):
         it = iter(vals)
         epi = [(fn, [next(it) for _ in range(nv)], at)
                for fn, nv, at in chain]
-        y = _fused_matmul(x, w, epi, out_dt)
+        y = _product(x, w, epi, out_dt)
         ctx.chain, ctx.out_dt = chain, out_dt
         ctx.save_for_backward(x, w, *vals)
         return y
@@ -369,17 +443,23 @@ class FusedMatmulFn(torch.autograd.Function):
         function_calls["backward"] += 1
         x, w, *vals = ctx.saved_tensors
         k, n = x.shape[-1], w.shape[-1]
-        x2 = x.reshape(-1, k)
+        grouped = w.ndim == 3
+        # grouped: each expert's rows [E, C, k]
+        x2 = x.reshape(w.shape[0], -1, k) if grouped else x.reshape(-1, k)
         dy2 = dy.reshape(-1, n)
         vals = [v.detach().requires_grad_(need)
                 for v, need in zip(vals, ctx.needs_input_grad[4:])]
         dy0, dvals = epilogue_vjp(x2, w, ctx.chain, vals, ctx.out_dt, dy2)
         dy0 = dy0.to(x.dtype)
+        if grouped:
+            dy0 = dy0.reshape(w.shape[0], -1, n)
+        dx_of, dw_of = ((matmul_dx_grouped, matmul_dw_grouped) if grouped
+                        else (matmul_dx, matmul_dw))
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = matmul_dx(dy0, w, x.dtype).reshape(x.shape)
+            dx = dx_of(dy0, w, x.dtype).reshape(x.shape)
         if ctx.needs_input_grad[1]:
-            dw = matmul_dw(x2, dy0, w.dtype)
+            dw = dw_of(x2, dy0, w.dtype)
         return (dx, dw, None, None, *dvals)
 
 

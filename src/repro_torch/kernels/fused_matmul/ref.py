@@ -79,3 +79,23 @@ def matmul_dw_ref(x, dy, out_dtype=None):
     out_dtype = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
     return torch.matmul(x.to(torch.float32).T,
                         dy.to(torch.float32)).to(out_dtype)
+
+
+def grouped_matmul_dx_ref(dy, w, out_dtype=None):
+    """The grouped input gradient's plain version: ``dy [E, ..., n] @ w[e]
+    [k, n]^T`` expert by expert (``matmul_dx_ref`` on each), in
+    ``out_dtype`` (default ``dy``'s)."""
+    return torch.stack([matmul_dx_ref(dy[e].reshape(-1, dy.shape[-1]), w[e],
+                                      out_dtype).reshape(
+                                          *dy.shape[1:-1], w.shape[1])
+                        for e in range(w.shape[0])])
+
+
+def grouped_matmul_dw_ref(x, dy, out_dtype=None):
+    """The grouped weight gradient's plain version: ``x[e] [C, k]^T @
+    dy[e] [C, n]`` expert by expert (``matmul_dw_ref`` on each), in
+    ``out_dtype`` (default ``x``'s)."""
+    return torch.stack([matmul_dw_ref(x[e].reshape(-1, x.shape[-1]),
+                                      dy[e].reshape(-1, dy.shape[-1]),
+                                      out_dtype)
+                        for e in range(x.shape[0])])

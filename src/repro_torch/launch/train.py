@@ -23,6 +23,13 @@ head dim 112, the tied head's two gradients); at the full 81 layers its
 fp32 state (106 GB) does not fit one card either, and ``chip_smoke.py``'s
 Zamba2 train phase trains it at a probed depth.
 
+``--arch granite_moe_1b_a400m`` trains the MoE family (the expert FFN's
+backward on the GEMM kernel's grouped dX / dW routes) at its full 24
+layers; ``--arch moonshot_v1_16b_a3b`` is accepted, but its full 48
+layers (28.05 B parameters, ~450 GB of fp32 weights, gradients and AdamW
+moments) do not fit one card, and ``chip_smoke.py``'s ``moonlight_train``
+phase trains it at full width and a probed depth.
+
 ``--capture-step`` trains with the captured step
 (``train/region_step.py``: the whole update one region program, the
 backward derived by ``core/autodiff.py``, the state donated); its default

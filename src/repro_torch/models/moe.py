@@ -16,11 +16,20 @@ row's result does not depend on where the dispatch put it in its expert's
 buffer, so a dropless decode step over 1, 2 or 4 live slots, and a suffix
 prefill, give each row the bits of their baselines.
 
-Dropless where ``S == 1`` (decode) and in slot prefill; the forward and
-the padded prefill drop past ``capacity_factor`` as the reference does.
-Left out: the expert-parallel ``shard_map`` dispatch and its sharding
-constraints (they need a mesh; see ROADMAP), and training (the grouped
-GEMM has no backward yet: a 3-D weight under grad raises).
+Dropless where ``S == 1`` (decode) and in slot prefill; the forward, the
+padded prefill and the training forward drop past ``capacity_factor`` as
+the reference does.  Left out: the expert-parallel ``shard_map`` dispatch
+and its sharding constraints (they need a mesh; see ROADMAP).
+
+Training: the loss differentiates through the router's fp32 product (the
+fp32 route's dX / dW), the softmax and the top-k values, the dispatch
+scatter (``index_put_(accumulate=True)`` on fresh zeros), the expert FFN
+(the grouped route's dX / dW, the gate's ``silu, mul`` chain through its
+recomputed product), the combine's gather and the fp32 sum over the k
+routes.  A dropped route aims at row ``cap - 1`` with a zero update, and
+its cotangent is zeroed by the ``where`` before the gather, so duplicate
+targets only ever add exact zeros: the backward is deterministic.  No
+auxiliary load-balancing loss: the reference has none.
 """
 from __future__ import annotations
 

@@ -15,7 +15,9 @@ step's ``TapirConfig`` (its ``mode``, ``remat`` and cost model) with the
 model's parameters made trainable for the call.  Any family with a
 ``loss`` trains: qwen2.5-3b (GEMMs and attention through their autograd
 ``Function``s), RWKV6 (GEMMs and the WKV scans, whose ``LinearScanFn``
-runs the hand-written scan backward on the card) and the paper's nets
+runs the hand-written scan backward on the card), Zamba2, the MoE family
+(its tree ``blocks.dense`` / ``blocks.moe`` with the 3-D expert leaves;
+the expert GEMMs' backward on the grouped route) and the paper's nets
 through ``launch/fig3.py``.  With ``microbatches`` k
 the batch splits into k slices along its rows; their gradients are summed
 in fp32 in microbatch order and the loss and gradients divided by k, as the

@@ -261,7 +261,9 @@ def _dies_in_step(n: int, monkeypatch):
 
 @pytest.mark.parametrize("capture", [False, True],
                          ids=["per_op", "captured"])
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "rwkv6_7b", "zamba2_7b"])
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "rwkv6_7b", "zamba2_7b",
+                                  "granite_moe_1b_a400m",
+                                  "moonshot_v1_16b_a3b"])
 def test_a_resumed_run_equals_the_uninterrupted_one(arch, capture, tmp_path,
                                                     capsys, monkeypatch):
     argv = ["--arch", arch, "--steps", "4", "--ckpt-every", "2"] + (

@@ -1,7 +1,7 @@
 """The MoE family on the card: the GEMM kernel's grouped route (the expert
-FFN) against its plain version and against the per-expert 2-D launches,
-the router's fp32 product, and Granite-3.0-1B-A400M at full width on two
-layers.  Every test here needs an NVIDIA card and skips without one; run
+FFN) and its grouped dX / dW against their plain versions and against the
+per-expert 2-D launches, the router's fp32 product, and
+Granite-3.0-1B-A400M at full width on two layers, served and trained.  Every test here needs an NVIDIA card and skips without one; run
 them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_moe.py``.
 
@@ -127,12 +127,90 @@ def test_router_logits_do_not_depend_on_rows(cuda, arch):
     torch.testing.assert_close(full, x.float() @ r, atol=1e-4, rtol=1e-4)
 
 
+def _bwd_shapes():
+    """(arch, name, E, C, k, n) of the expert FFN's products on the train
+    paths: Granite's 2 x 2048 tokens (C 1280 at capacity factor 1.25),
+    Moonlight's 1 x 2048 (C 240); the gate / up product (k = d_model, n =
+    d_ff) and the down product (k = d_ff, n = d_model)."""
+    out = []
+    for arch, C in zip(ARCHS, (1280, 240)):
+        c = get_config(arch)
+        out += [(arch, "gate", c.n_experts, C, c.d_model, c.d_ff),
+                (arch, "down", c.n_experts, C, c.d_ff, c.d_model)]
+    return out
+
+
+def _bwd_operands(cuda, E, C, k, n, dt, seed):
+    """x [E, C, k], w [E, k, n] (scaled by 1 / sqrt(k)) and a cotangent
+    dy [E, C, n] of the product."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(E, C, k, generator=g, device=cuda).to(dt)
+    w = (torch.randn(E, k, n, generator=g, device=cuda) / k ** 0.5).to(dt)
+    dy = torch.randn(E, C, n, generator=g, device=cuda).to(dt)
+    return x, w, dy
+
+
 @pytest.mark.cuda
-def test_grouped_takes_no_gradient(cuda):
-    x = torch.randn(2, 4, 64, device=cuda, requires_grad=True)
-    w = torch.randn(2, 64, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        ops.fused_matmul(x, w)
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch,name,E,C,k,n", _bwd_shapes())
+def test_grouped_dx_dw_match_plain_and_per_expert(cuda, dt, arch, name, E, C,
+                                                  k, n):
+    """The grouped dX (dY W^T, W read K-major) and dW (X^T dY, X read
+    MN-major, the contraction C): one launch each, within the GEMM
+    tolerance of the plain versions, and bitwise the E per-expert 2-D
+    ``matmul_dx`` / ``matmul_dw`` launches."""
+    x, w, dy = _bwd_operands(cuda, E, C, k, n, dt, C + k + n)
+    before = dict(ops.bwd_launches)
+    dx = ops.matmul_dx_grouped(dy, w, dt)
+    dw = ops.matmul_dw_grouped(x, dy, dt)
+    torch.cuda.synchronize()
+    for route in ("grouped_dx", "grouped_dw"):
+        assert ops.bwd_launches[route] == before.get(route, 0) + 1
+    assert dx.shape == (E, C, k) and dw.shape == (E, k, n)
+    atol, rtol = _tol(dt)
+    torch.testing.assert_close(dx.float(),
+                               ref.grouped_matmul_dx_ref(dy, w, dt).float(),
+                               atol=atol, rtol=rtol)
+    torch.testing.assert_close(dw.float(),
+                               ref.grouped_matmul_dw_ref(x, dy, dt).float(),
+                               atol=atol, rtol=rtol)
+    each_dx = torch.stack([ops.matmul_dx(dy[e], w[e], dt) for e in range(E)])
+    each_dw = torch.stack([ops.matmul_dw(x[e], dy[e], dt) for e in range(E)])
+    torch.cuda.synchronize()
+    assert torch.equal(dx, each_dx)
+    assert torch.equal(dw, each_dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_grouped_dw_reads_no_neighbouring_expert(cuda, dt):
+    """dW's contraction is C: a tile past C must read zeros, never the next
+    expert's rows, which follow in the same buffer.  With C = 65 (one row
+    past a 64-deep k tile) and the last expert's rows all NaN, every other
+    expert's dW is finite and equals its own 2-D launch."""
+    E, C, k, n = 4, 65, 192, 128
+    x, w, dy = _bwd_operands(cuda, E, C, k, n, dt, 11)
+    x[-1], dy[-1] = float("nan"), float("nan")
+    dw = ops.matmul_dw_grouped(x, dy, dt)
+    each = torch.stack([ops.matmul_dw(x[e], dy[e], dt)
+                        for e in range(E - 1)])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dw[:-1]).all())
+    assert torch.equal(dw[:-1], each)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch,name,E,C,k,n", _bwd_shapes()[::2])
+def test_grouped_dx_row_bits_do_not_depend_on_capacity(cuda, dt, arch, name,
+                                                       E, C, k, n):
+    """A row of the grouped dX is the same bits at C = 1 as at the path's
+    C (the last row of every expert's buffer run alone)."""
+    _, w, dy = _bwd_operands(cuda, E, C, k, n, dt, 7)
+    full = ops.matmul_dx_grouped(dy, w, dt)
+    one = ops.matmul_dx_grouped(dy[:, -1:].contiguous(), w, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(one[:, 0], full[:, -1])
 
 
 # ---------------------------------------------------------------------------
@@ -266,3 +344,109 @@ def test_granite_tapir_tokens_equal_opaque(cuda):
     n_opq = ops.launches
     assert tap == opq
     assert n_opq > n_tap
+
+
+# ---------------------------------------------------------------------------
+# Granite-3.0-1B-A400M training at full width, two layers
+# ---------------------------------------------------------------------------
+
+
+def _train_batches(cfg, device, n, batch=2, seq=256):
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    pipe = TokenPipeline(DataConfig(seq_len=seq, global_batch=batch,
+                                    vocab=cfg.vocab))
+    return [to_device(pipe.batch_at(s), device) for s in range(n)]
+
+
+def _first_grads(model, batch, target):
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import TrainConfig
+    with tapir.use(TrainConfig(target=target).tapir_config()), \
+            model.trainable():
+        loss = model.loss(batch)
+        return loss.detach(), torch.autograd.grad(
+            loss, tree_leaves(model.param_tree()))
+
+
+@pytest.mark.cuda
+def test_granite_train_gradients_card_match_cpu(cuda, monkeypatch):
+    """The 2-layer cut at fp32 compute on 1 x 64 tokens, capacity factor
+    1.25 (routes dropped, as in training): the card (grouped dX / dW, the
+    fp32 router's dX / dW, flash's backward) against the CPU (the plain
+    versions) on the same weights.  Every token must be routed to the same
+    experts on both (a flip is a near-tie of the router's fp32 logits and
+    fails the test rather than being hidden); then the loss within rtol
+    1e-5 and each leaf's gradient within 1e-3 of its largest entry (fp32
+    sums in other orders, through two layers and the 49155-column
+    head)."""
+    cfg, m = _granite(cuda)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tree = m.param_tree()
+    cpu_tree = {k: ({kk: {kkk: t.cpu() for kkk, t in vv.items()}
+                     for kk, vv in v.items()} if k == "blocks"
+                    else v.cpu()) for k, v in tree.items()}
+    mc = get_model(cfg32, device="cuda", params=tree)
+    mh = get_model(cfg32, device="cpu", params=cpu_tree)
+    routes = {"cuda": [], "cpu": []}
+    route = moe._route_topk
+
+    def spy(xt, router, *, k, e, cap):
+        out = route(xt, router, k=k, e=e, cap=cap)
+        routes[xt.device.type].append(tuple(t.detach().cpu()
+                                            for t in out[1:]))
+        return out
+
+    monkeypatch.setattr(moe, "_route_topk", spy)
+    batch = _train_batches(cfg, "cpu", 1, batch=1, seq=64)[0]
+    lc, gc = _first_grads(mc, {k: v.to(cuda) for k, v in batch.items()},
+                          "gpu")
+    lh, gh = _first_grads(mh, batch, "gpu")
+    for rc, rh in zip(routes["cuda"], routes["cpu"]):
+        for a, b in zip(rc, rh):
+            assert torch.equal(a, b), "a route differs between card and cpu"
+    assert any(bool((~rh[2]).any()) for rh in routes["cpu"])
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-5, atol=0)
+    for a, b in zip(gc, gh):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
+            b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_granite_captured_step_equals_per_op_bitwise(cuda, dtype):
+    """The 2-layer cut, 2 x 256 tokens, 2 steps: the captured step (policy
+    auto: the grouped GEMMs, the router lift, the ``zero_init`` scatter
+    and the gather differentiated by ``core/autodiff.py``) gives the
+    per-op step's loss at every step and its params and AdamW state, bit
+    for bit."""
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.train import (TrainConfig, init_state,
+                                   make_region_train_step, make_train_step)
+    cfg, m = _granite(cuda)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    tree = m.param_tree()
+    opt = AdamWConfig(lr=1e-3, total_steps=2, warmup_steps=1)
+    batches = _train_batches(cfg, cuda, 2)
+    out = {}
+    for kind in ("per_op", "captured"):
+        model = get_model(cfg, device=cuda, params={
+            k: ({kk: {kkk: t.clone() for kkk, t in vv.items()}
+                 for kk, vv in v.items()} if k == "blocks" else v.clone())
+            for k, v in tree.items()})
+        make = make_train_step if kind == "per_op" else (
+            lambda mm, o, c: make_region_train_step(
+                mm, o, dataclasses.replace(c, remat="auto")))
+        step = make(model, opt, TrainConfig(target="gpu"))
+        state = init_state(model, opt)
+        losses = []
+        for b in batches:
+            state, met = step(state, b)
+            losses.append(met["loss"].clone())
+        out[kind] = (losses, tree_leaves(state["params"])
+                     + tree_leaves(state["opt"]))
+        tapir.clear_cache()
+    assert all(torch.equal(a, b) for a, b in zip(out["per_op"][0],
+                                                 out["captured"][0]))
+    assert all(torch.equal(a, b) for a, b in zip(out["per_op"][1],
+                                                 out["captured"][1]))

@@ -311,14 +311,6 @@ def test_pipeline_folds_silu_mul_into_the_gate_gemm(pair):
     assert all(n.ttype.shape[0] == E for n in expert)
 
 
-def test_a_3d_weight_under_grad_raises(pair):
-    arch, jm, jp, tm = pair
-    toks = torch.as_tensor(_tokens(get_smoke(arch).vocab))
-    with tm.trainable(), pytest.raises(NotImplementedError,
-                                       match="MoE training"):
-        tm.loss({"tokens": toks, "labels": toks})
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launch_serve_takes_the_arch(arch, capsys):
     out = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",

@@ -1,7 +1,7 @@
 """The port's captured training step (``train/region_step.py``) against its
 per-op step (``train/step.py``, remat ``full``) and against the JAX
-package's captured step, at the SMOKE shapes of qwen2.5-3b, RWKV6-7B and
-Zamba2-7B on the CPU.
+package's captured step, at the SMOKE shapes of qwen2.5-3b, RWKV6-7B,
+Zamba2-7B and the two MoE configs on the CPU.
 
 The weights are the reference's ``init_params(PRNGKey(0))`` carried across
 as numpy (``models/convert.py``); the batches are ``TokenPipeline``'s.
@@ -9,7 +9,9 @@ qwen's steps run at the CPU cost model, RWKV6's and Zamba2's at the H100
 one (every scan through ``LinearScanFn``), as their per-op tests do.
 Zamba2's SSD gates are one tuple-returning composite (q, k, w) whose
 outputs share ``dtv``: the captured step must differentiate it as one
-call, as autograd does, to give the per-op step's bits.  Tolerances:
+call, as autograd does, to give the per-op step's bits; so is the MoE
+router (gates, ids, positions, keep), whose dispatch is a ``zero_init``
+scatter and whose combine a gather, around 3-D expert GEMMs.  Tolerances:
 
 * captured against per-op in fp32 compute: bitwise (``torch.equal``) in
   the loss at every step and in the params and the AdamW state after 3
@@ -49,7 +51,8 @@ from repro_torch.train.region_step import _ef_quantize
 
 B, S, STEPS = 2, 16, 3
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=STEPS)
-TARGET = {"qwen2_5_3b": "cpu", "rwkv6_7b": "gpu", "zamba2_7b": "gpu"}
+TARGET = {"qwen2_5_3b": "cpu", "rwkv6_7b": "gpu", "zamba2_7b": "gpu",
+          "granite_moe_1b_a400m": "cpu", "moonshot_v1_16b_a3b": "cpu"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -126,7 +129,7 @@ def _per_op_ef_step(model, opt_cfg, tcfg):
 
 
 @pytest.mark.parametrize("variant", ["plain", "microbatches", "int8_ef"])
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "rwkv6_7b", "zamba2_7b"])
+@pytest.mark.parametrize("arch", list(TARGET))
 def test_captured_step_equals_per_op_bitwise(arch, variant):
     opt_cfg = optim.AdamWConfig(**OPT)
     kw = {"target": TARGET[arch]}
