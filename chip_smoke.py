@@ -21,6 +21,9 @@
     python3 chip_smoke.py --encdec
     python3 chip_smoke.py --vlm
     python3 chip_smoke.py --vlm-depths N,N,...
+    python3 chip_smoke.py --encdec-train
+    python3 chip_smoke.py --vlm-train-depths N,N,...
+    python3 chip_smoke.py --encdec-train-lrs LR,LR,...
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -56,10 +59,17 @@ phases 44-48 alone (Whisper-small), the sixteenth the build phase and
 phase 49 alone (InternVL2-76B at V_LAYERS); the seventeenth builds
 InternVL2-76B at full width at each depth given, runs phase 49's model
 paths (not its kernel entries) and prints each one's peak memory or the
-OOM: how V_LAYERS was chosen.
+OOM: how V_LAYERS was chosen.  The eighteenth runs the build phase and
+phases 50-55 alone (training the encoder-decoder and VLM families, their
+kernel cases, the fault phases), the nineteenth trains InternVL2-76B at
+full width at each depth given, per op and captured, and prints each
+one's peak memory or the OOM (how V_TRAIN_LAYERS was chosen), the
+twentieth steps Whisper-small at each peak lr at the reference's init
+and at fan-in and prints the first batch's loss after the steps (how
+WHISPER_TRAIN_LR and WHISPER_TRAIN_INIT were chosen).
 
-Phases, each printing one JSON line; any failure exits non-zero.  Every
-main-path run zeroes the three kernels' launch counts (forward and
+Phases, each printing one JSON line (with ``at_s``, the seconds since the
+script started); any failure exits non-zero.  Every main-path run zeroes the three kernels' launch counts (forward and
 backward) just before it and reads them just after:
 
 1. device and build — the card's name and power limit, then the five
@@ -79,6 +89,7 @@ backward) just before it and reads them just after:
 2. serve — qwen2.5-3b at full width (all 36 layers, random weights from a
    seed) through ``ServingEngine.run``: 4 slots, max_len 512, 6 requests of
    48-200 prompt tokens (3 sharing a 128-token prefix), 16 new tokens each;
+   then phase 54's serving runs on the same model and requests (below);
 3. forward — ``forward`` and ``loss`` of the same model on 2 x 2048 tokens:
    36 ``flash_attention`` launches per call, every attention node bound to
    ``flash_kernel``, finite logits and loss, wall time, peak memory and a
@@ -472,6 +483,43 @@ weights from seed 0, bf16 compute):
    vlm_memory (the peak and the card's free share); then every launch
    shape against its plain version, timed (``dense_kernel_entries``).
 
+The serving models are then released, and both families train, and
+faults are injected (``encdec_train_phases``; fp32 master weights,
+bf16 compute, fp32 AdamW, remat full per op and policy auto captured):
+
+50. whisper_train — Whisper-small at full width and all 12 + 12 layers,
+   W_B x W_SEQ tokens over W_B x 1500 zero frames (``train_batch``, as
+   ``launch/train.py`` fills them), at WHISPER_TRAIN_INIT (fan-in: at the
+   reference's init the loss does not fall at any lr, queue 3), held to
+   ``whisper_train_launches`` (GEMM forward 289 = 133 + 132 recomputed +
+   24 bias + gelu recomputes, dX and dW 133, flash 72 / 36), the first
+   batch's loss lower after the steps, MFU over frames and tokens
+   (``whisper_train_annotate``);
+51. whisper_captured — the captured step on the same weights: every
+   parameter after 3 steps the per-op step's, bitwise;
+52. whisper_train_kernels_vs_plain — the tied 51865-column head's dX /
+   dW (``embed`` read in place, dY padded by ``kernel.pad_cols``, the
+   copy timed alone), every other dX / dW shape, ``FusedMatmulFn``'s
+   gradients through the bias, residual and bias + gelu epilogues, and
+   flash's backward at the encoder's (4, 1500, 1500), the cross
+   attention's (4, 448, 1500) and the decoder's causal (4, 448) shapes
+   (12 / 12 heads of 64), each against its plain version and timed
+   beside its bound and ``torch.matmul`` / SDPA's backward;
+53. vlm_train / vlm_captured — InternVL2-76B at full width cut to
+   V_TRAIN_LAYERS, 1 x (256 zero image + TRAIN_S text) tokens, per op
+   then captured (bitwise), and its kernel cases (flash's backward at
+   (1, 2304, 64/8, 128) causal, the 128256-column head's dX / dW);
+54. fault_serve / fault_straggle — qwen2.5-3b serving phase 2's requests
+   with a crash at decode step FAULT_STEP (slot checkpoints every
+   FAULT_CKPT_EVERY steps, restored into the session's own pools) and
+   with FAULT_STRAGGLE (admission shed), each request equal to the clean
+   run's tokens, exactly 1 failure and 1 restore (``fault_serve_phase``;
+   a full run runs them right after phase 2);
+55. fault_train — ``FaultTolerantLoop`` around Whisper's per-op step at
+   full width cut to 2 + 2 layers, a failure injected at step FT_FAIL:
+   restored from a checkpoint and replayed, every parameter, moment and
+   loss equal to the uninterrupted run's, bitwise.
+
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
 repository is not beside this file.
@@ -530,7 +578,14 @@ PROF_WINDOWS = 3
 PROF_PAD_S = 0.2
 
 
+#: when the script started (``time.perf_counter``): every phase line
+#: carries the seconds since then as ``at_s``
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj and "at_s" not in obj:
+        obj = dict(obj, at_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1628,11 +1683,26 @@ def leaf_sample(model) -> list:
     return out
 
 
+def train_batch(model, pipe, s_: int) -> dict:
+    """``pipe.batch_at(s_)`` on the card, and every other input of the
+    model's ``input_specs`` (Whisper's frames, InternVL's image
+    embeddings) as zeros of its shape and dtype, as ``launch/train.py``
+    fills them."""
+    import torch
+    from repro_torch.data import to_device
+    b = to_device(pipe.batch_at(s_), "cuda")
+    rows, seq = b["tokens"].shape
+    for k, spec in model.input_specs(seq, rows, "train").items():
+        if k not in b:
+            b[k] = torch.zeros(spec.shape, dtype=spec.dtype, device="cuda")
+    return b
+
+
 def train_setup(model, cfg, make_step=None, rows: int = TRAIN_B,
-                lr=None):
+                lr=None, seq: int = TRAIN_S):
     """(step, optimizer config, pipeline) of the train phases: remat full
     (or ``make_step(model, opt)``'s step), fp32 AdamW at peak ``lr``
-    (default ``AdamWConfig``'s), ``rows`` x TRAIN_S tokens of
+    (default ``AdamWConfig``'s), ``rows`` x ``seq`` (TRAIN_S) tokens of
     ``TokenPipeline``."""
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.optim import AdamWConfig
@@ -1644,7 +1714,7 @@ def train_setup(model, cfg, make_step=None, rows: int = TRAIN_B,
     else:
         step = make_train_step(model, opt, TrainConfig(remat="full",
                                                        target="gpu"))
-    pipe = TokenPipeline(DataConfig(seq_len=TRAIN_S, global_batch=rows,
+    pipe = TokenPipeline(DataConfig(seq_len=seq, global_batch=rows,
                                     vocab=cfg.vocab))
     return step, opt, pipe
 
@@ -1652,9 +1722,10 @@ def train_setup(model, cfg, make_step=None, rows: int = TRAIN_B,
 def train_phase(model, cfg, want=None, counts=train_counts,
                 phase: str = "train", make_step=None, remat: str = "full",
                 check=None, rows: int = TRAIN_B, refit: bool = False,
-                keep_params: bool = False, lr=None):
-    """``make_train_step`` at full width on ``rows`` (TRAIN_B) x TRAIN_S
-    tokens of ``TokenPipeline`` (remat full, fp32 AdamW; or ``make_step``'s
+                keep_params: bool = False, lr=None, seq: int = TRAIN_S):
+    """``make_train_step`` at full width on ``rows`` (TRAIN_B) x ``seq``
+    (TRAIN_S) tokens of ``TokenPipeline`` and zeros for the model's other
+    inputs (``train_batch``) (remat full, fp32 AdamW; or ``make_step``'s
     step, labelled ``remat``): one warm-up step, then
     TRAIN_STEPS timed steps, each with the counts zeroed just before it
     and held to ``want`` (default ``train_launches``; a callable is asked
@@ -1672,19 +1743,18 @@ def train_phase(model, cfg, want=None, counts=train_counts,
     the host).  ``lr``: AdamW's peak (``train_setup``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.data import to_device
     from repro_torch.train import init_state
     fm_ops, fa_ops, ls_ops = kernel_ops()
     if want is None:
         want = train_launches(cfg.n_layers)
-    step, opt, pipe = train_setup(model, cfg, make_step, rows, lr)
+    step, opt, pipe = train_setup(model, cfg, make_step, rows, lr, seq)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     state = init_state(model, opt)
     losses, norms, lrs, walls = [], [], [], []
     for s_ in range(1 + TRAIN_STEPS):
-        batch = to_device(pipe.batch_at(s_), "cuda")
+        batch = train_batch(model, pipe, s_)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -1718,7 +1788,7 @@ def train_phase(model, cfg, want=None, counts=train_counts,
                 "lsb": ls_ops.bwd_launches_by_shape}
         snap = {k: collections.Counter(v) for k, v in snap.items()}
     peak = torch.cuda.max_memory_allocated()
-    batch = to_device(pipe.batch_at(1 + TRAIN_STEPS), "cuda")
+    batch = train_batch(model, pipe, 1 + TRAIN_STEPS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         state, met = step(state, batch)
@@ -1730,8 +1800,7 @@ def train_phase(model, cfg, want=None, counts=train_counts,
         from repro_torch.train import TrainConfig
         with torch.no_grad(), tapir.use(TrainConfig(
                 target="gpu").tapir_config()):
-            refit_loss = float(model.loss(to_device(pipe.batch_at(0),
-                                                    "cuda")))
+            refit_loss = float(model.loss(train_batch(model, pipe, 0)))
     by_name = device_time_by_kernel(prof, 1)
     library = sorted(k[:80] for k in by_name
                      if LIBRARY_KERNEL.search(k) and not PORT_ANY.search(k))
@@ -1745,8 +1814,8 @@ def train_phase(model, cfg, want=None, counts=train_counts,
     p50 = timed[len(timed) // 2]
     n_params = sum(p.numel() for p in model.parameters())
     dense = n_params - cfg.vocab * cfg.d_model   # the embedding is a lookup
-    tokens = rows * TRAIN_S
-    line = {"phase": phase, "batch": rows, "seq": TRAIN_S,
+    tokens = rows * seq
+    line = {"phase": phase, "batch": rows, "seq": seq,
             "layers": cfg.n_layers, "params": n_params, "remat": remat,
             "optimizer": f"AdamW fp32 (mu, nu fp32), peak lr {opt.lr}",
             "losses": losses, "grad_norms": norms, "lrs": lrs,
@@ -3971,7 +4040,8 @@ def zamba2_scan_bwd_entry(key, launches: int, err) -> dict:
     return entry
 
 
-def tied_head_bwd_entries(m: int, cfg, launches: dict, gen) -> tuple:
+def tied_head_bwd_entries(m: int, cfg, launches: dict, gen,
+                          tag: str = "zamba2") -> tuple:
     """The tied head's two gradient products at ``m`` rows, bf16, as
     ``FusedMatmulFn``'s backward runs them for ``w = embed.T``: dX = dY
     embed (``matmul_dx`` reads ``embed`` in place, the forward's layout)
@@ -3983,8 +4053,11 @@ def tied_head_bwd_entries(m: int, cfg, launches: dict, gen) -> tuple:
     same operands (the yardstick), the bound (the operands read once, the
     output written once, 2mnk bf16 FLOPs); for dX also the route it
     replaced, ``embed.T`` copied contiguous first (``ms_copied_operand``,
-    the copy included), which must give the same bits.  Returns
-    (entries, line)."""
+    the copy included), which must give the same bits.  Where the vocab is
+    no multiple of 8 (Whisper's 51865) the wrapper copies dY into rows
+    padded to 16 bytes for TMA (``kernel.pad_cols``) inside both calls:
+    that copy is timed alone too (``pad_cols_ms``).  ``tag`` names the
+    model.  Returns (entries, line)."""
     import torch
     from repro_torch.kernels.fused_matmul import kernel
     from repro_torch.kernels.fused_matmul import ops, ref
@@ -4001,7 +4074,8 @@ def tied_head_bwd_entries(m: int, cfg, launches: dict, gen) -> tuple:
         "dw": (lambda: ops.matmul_dw(x, dy, dt),
                lambda: ref.matmul_dw_ref(x, dy, dt),
                lambda: torch.matmul(x.T, dy), (d, vocab, m))}
-    entries, line = [], {"phase": "zamba2_tied_head_bwd", "m": m}
+    entries, line = [], {"phase": f"{tag}_tied_head_bwd", "m": m}
+    pad_ms = time_ms(lambda: kernel.pad_cols(dy)) if vocab % 8 else None
     for route, (fn, plain, lib, (mm, nn, kk)) in calls.items():
         got, want = fn(), plain().float()
         err = float((got.float() - want).abs().max())
@@ -4019,7 +4093,7 @@ def tied_head_bwd_entries(m: int, cfg, launches: dict, gen) -> tuple:
         t_ops = 2.0 * mm * nn * kk / PEAK_FLOPS["bfloat16"]
         p = kernel.plan(nn, kk, dt)
         key = (route, mm, nn, kk, str(dt))
-        entry = {"name": f"fused_matmul_{route}[zamba2 train tied head "
+        entry = {"name": f"fused_matmul_{route}[{tag} train tied head "
                          f"m={mm} n={nn} k={kk}]",
                  "route": "cuda", "source": SOURCE, "replaces": REPLACES,
                  "launches": launches.get(key, 0), "max_abs_err": err,
@@ -4029,6 +4103,8 @@ def tied_head_bwd_entries(m: int, cfg, launches: dict, gen) -> tuple:
                  "library_ms": time_ms(lib), "plan": p._asdict(),
                  "tflops": 2.0 * mm * nn * kk / (ms * 1e-3) / 1e12,
                  "shape": [route, mm, nn, kk]}
+        if pad_ms is not None:
+            entry["pad_cols_ms"] = pad_ms
         if route == "dx":
             copied = lambda: ops.matmul_dx(  # noqa: E731
                 dy, e.T.contiguous(), dt)
@@ -4375,6 +4451,9 @@ def qwen_phases() -> list:
           "matmul_impls": sorted(impls),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "sample_out": out[0].out[:8]})
+    # -- 54. the same traffic under an injected crash and a straggle -------
+    fault_serve_phase(model, cfg, [list(r.out) for r in out], st)
+
     # fused_matmul launches of every main-path run by shape, and the path
     # that first launched each shape
     fm_paths = collections.Counter(by_shape)
@@ -4674,7 +4753,8 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
                              cfg.n_layers),
                          counts=train_counts, per_op_tag=None,
                          annotate=None, exact: bool = False,
-                         refit: bool = False, snaps=None, lr=None) -> dict:
+                         refit: bool = False, snaps=None, lr=None,
+                         rows: int = TRAIN_B, seq: int = TRAIN_S) -> dict:
     """Phase 10c (29 for Zamba2): ``build()``'s model (qwen2.5-3b at full
     width and Q_CAPTURE_LAYERS layers, seed 0), TRAIN_B x TRAIN_S tokens:
     the per-op step (remat full) through ``train_phase``, held to
@@ -4691,8 +4771,9 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
     line (default ``{tag}_per_op``), ``annotate(line, model, cfg)`` adds
     to both lines before they print, ``exact`` holds every parameter
     after 3 steps to the per-op step's bit for bit (host copies),
-    ``refit`` and ``lr`` are ``train_phase``'s, and ``snaps`` (a dict)
-    receives the per-op step's launches by shape under ``per_op``."""
+    ``refit``, ``lr``, ``rows`` and ``seq`` are ``train_phase``'s, and
+    ``snaps`` (a dict) receives the per-op step's launches by shape under
+    ``per_op``."""
     import torch
     from repro_torch.core import tapir
     from repro_torch.train import TrainConfig, make_region_train_step
@@ -4702,7 +4783,8 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
     want = launches(cfg, model)
     per_op, snap_op = train_phase(model, cfg, want, counts,
                                   phase=per_op_tag or f"{tag}_per_op",
-                                  refit=refit, keep_params=exact, lr=lr)
+                                  refit=refit, keep_params=exact, lr=lr,
+                                  rows=rows, seq=seq)
     if annotate is not None:
         annotate(per_op, model, cfg)
     emit(per_op)
@@ -4717,7 +4799,8 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
         want=lambda: joint_graph_launches(grad_graph(), tuple(want)),
         make_step=lambda m, opt: make_region_train_step(
             m, opt, TrainConfig(remat="auto", target="gpu")),
-        check=capture_checker(seen), refit=refit, keep_params=exact, lr=lr)
+        check=capture_checker(seen), refit=refit, keep_params=exact, lr=lr,
+        rows=rows, seq=seq)
     if annotate is not None:
         annotate(line, model, cfg)
     g = grad_graph()
@@ -6549,30 +6632,14 @@ def grouped_bwd_entries(shapes, tag: str) -> tuple:
 
 def moe_train_kernel_entries(snap, cfg, tag: str) -> list:
     """A MoE train phase's kernel cases against their plain versions and
-    timed: the grouped dX / dW (``grouped_bwd_entries``), the 2-D dX / dW
-    (QKV, wo, the dense layer's, the head, the router's fp32 product:
-    ``gemm_bwd_vs_plain`` in bf16 and fp32, ``gemm_bwd_entries`` in the
-    path's dtype) and flash's backward (``flash_bwd_vs_plain`` without
-    FA_BWD_EXTRA, ``flash_bwd_entry``)."""
-    import torch
+    timed: the grouped dX / dW (``grouped_bwd_entries``), then the 2-D dX
+    / dW (QKV, wo, the dense layer's, the head, the router's fp32
+    product) and flash's backward (``train_kernel_entries``)."""
     grouped = sorted((s_[1], s_[2], s_[3], s_[4], s_[5], c)
                      for s_, c in snap["bwd"].items() if s_[0] == "grouped")
     g_entries, g_line = grouped_bwd_entries(grouped, tag)
-    flat = {s_: c for s_, c in snap["bwd"].items() if s_[0] != "grouped"}
-    gen = torch.Generator(device="cuda").manual_seed(14)
-    bwd_line, bwd_errs = gemm_bwd_vs_plain(list(flat), [], gen)
-    entries = gemm_bwd_entries(flat, bwd_errs, gen, cfg)
-    fab = {s_[:6] + (s_[7],): n for s_, n in snap["fab"].items()}
-    fb_line, fb_out = flash_bwd_vs_plain(list(fab), extra=())
-    f_entries = [flash_bwd_entry(shape, n, fb_out[(shape, "bfloat16")][3])
-                 for shape, n in sorted(fab.items())]
-    for e in entries + f_entries:
-        e["name"] = e["name"].replace("[train ", f"[{tag} train ")
     emit(g_line)
-    emit({"phase": f"{tag}_train_kernels_vs_plain",
-          "gemm_bwd": {k: v for k, v in bwd_line.items() if k != "phase"},
-          "flash_bwd": {k: v for k, v in fb_line.items() if k != "phase"}})
-    return g_entries + entries + f_entries
+    return g_entries + train_kernel_entries(snap, cfg, tag)
 
 
 def moe_train_phases() -> list:
@@ -6788,6 +6855,34 @@ def whisper_flash(cfg, what: str) -> int:
     if what == "decode":
         return cfg.n_layers
     return cfg.n_enc_layers + 2 * cfg.n_layers
+
+
+def whisper_train_launches(cfg) -> dict:
+    """The launches one per-op Whisper train step makes under remat full,
+    from the code: ``whisper_gemms``' forward products (an encoder layer's
+    4, a decoder layer's 7, the head), each layer's again in the recompute
+    (the head is outside the remat'd stacks), and each layer's wu + bias +
+    gelu product once more in the backward (``epilogue_vjp``: the chain
+    is not adds alone; the biases, residuals and the cross K|V's bias take
+    the add-only walk); every forward product's dX and dW once (the stub
+    frames' position table is trained, so the first layer's input needs
+    its gradient too); flash twice forward and once backward an encoder
+    layer's self-attention and a decoder layer's self- and
+    cross-attention (``tests/test_torch_encdec_vlm_train.py`` holds the
+    same counts on the CPU)."""
+    fwd = whisper_gemms(cfg, "forward")
+    att = whisper_flash(cfg, "forward")
+    layers = cfg.n_enc_layers + cfg.n_layers
+    return {"gemm_forward": 2 * fwd - 1 + layers, "gemm_dx": fwd,
+            "gemm_dw": fwd, "flash_forward": 2 * att,
+            "flash_backward": att}
+
+
+def vlm_train_launches(cfg) -> dict:
+    """InternVL's per-op train step: the dense family's
+    (``train_launches``: the image prefix adds no product, its rows ride
+    in every GEMM's m)."""
+    return train_launches(cfg.n_layers)
 
 
 def whisper_model():
@@ -7516,6 +7611,521 @@ def vlm_depths(depths: list) -> int:
     return 0
 
 
+# -- training the encoder-decoder and VLM families; faults -------------------
+
+#: Whisper-small's AdamW peak lr and init on the card
+#: (``--encdec-train-lrs``): "reference", the reference's init rule, or
+#: "fan_in", every stacked weight matrix drawn again at 1 / sqrt(its rows).
+#: At the reference's init the first gradient's norm is 3.4e10 and the
+#: first batch's loss wanders by +-0.01 around 10.79 after the steps at
+#: every peak lr from 3e-6 to 3e-4; at fan-in it falls from 10.85 to 9.11
+#: at 3e-4
+WHISPER_TRAIN_LR = 3e-4
+WHISPER_TRAIN_INIT = "fan_in"
+#: InternVL2-76B's train depth on one card (``--vlm-train-depths``): the
+#: deepest whose per-op step and captured step both left VLM_HEADROOM free
+V_TRAIN_LAYERS = 2
+#: the fault phase: the crash's decode step and the checkpoint period
+#: (phase 2's traffic runs ~40 pool-wide decode steps), the straggle's
+#: first step, length and delay (a few times a decode step, so the
+#: watchdog's 4 x median flags it)
+FAULT_STEP, FAULT_CKPT_EVERY = 10, 4
+FAULT_STRAGGLE = {"start": 6, "repeat": 8, "delay_s": 0.1}
+#: the fault-tolerant train run: Whisper-small at full width cut to 2 + 2
+#: layers, steps, the failed step and the checkpoint period
+FT_LAYERS, FT_STEPS, FT_FAIL, FT_EVERY = 2, 4, 3, 2
+
+
+def whisper_fan_in(model) -> None:
+    """Draw every stacked weight matrix of ``model``'s encoder and decoder
+    again at 1 / sqrt(its rows) (seed 1), in place: the init under which
+    Whisper is well conditioned (``tests/test_torch_cuda_whisper_vlm.py``'s
+    ``fan_in``)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for stack in (model.enc, model.dec):
+            for name in sorted(stack.keys()):
+                t = stack[name]
+                if t.ndim == 3:
+                    t.copy_(torch.randn(t.shape, generator=gen,
+                                        device="cuda") / t.shape[1] ** 0.5)
+
+
+def whisper_train_model(init: str = None):
+    """(cfg, model): ``whisper_model()`` at ``init`` (default
+    WHISPER_TRAIN_INIT)."""
+    cfg, model = whisper_model()
+    if (init or WHISPER_TRAIN_INIT) == "fan_in":
+        whisper_fan_in(model)
+    return cfg, model
+
+
+def whisper_train_annotate(line, model, cfg) -> None:
+    """A Whisper train line's MFU over what a step computes: 6 x the
+    encoder's stacked weights x the frames, plus 6 x the decoder's stacked
+    weights and the tied head x the tokens (the embedding and position
+    tables are lookups)."""
+    enc = sum(t.numel() for t in model.enc.parameters())
+    dec = sum(t.numel() for t in model.dec.parameters()) \
+        + cfg.vocab * cfg.d_model
+    rows = line["batch"]
+    flop = 6.0 * (enc * rows * cfg.n_frames + dec * rows * line["seq"])
+    line.update(model_tflop_per_step=flop / 1e12,
+                mfu=flop / line["step_p50_s"] / PEAK_FLOPS["bfloat16"],
+                mfu_what="6 x (encoder weights x frames + decoder weights "
+                         "and head x tokens) / p50 / 989 TFLOP/s",
+                frames_per_step=rows * cfg.n_frames)
+
+
+def vlm_train_annotate(line, model, cfg) -> None:
+    """An InternVL train line's MFU over every position a step computes:
+    the image prefix's as well as the text's."""
+    n_params = sum(p.numel() for p in model.parameters())
+    dense = n_params - cfg.vocab * cfg.d_model
+    tokens = line["batch"] * (line["seq"] + cfg.n_img_tokens)
+    line.update(image_tokens=cfg.n_img_tokens,
+                model_tflop_per_step=6.0 * dense * tokens / 1e12,
+                mfu=6.0 * dense * tokens / line["step_p50_s"]
+                / PEAK_FLOPS["bfloat16"])
+
+
+def train_kernel_entries(snap, cfg, tag: str, fwd=()) -> list:
+    """A train phase's 2-D GEMM backward shapes and flash backward shapes
+    against their plain versions (``gemm_bwd_vs_plain`` in bf16 and fp32,
+    ``FusedMatmulFn``'s gradients at the forward shapes ``fwd``,
+    ``flash_bwd_vs_plain`` without FA_BWD_EXTRA) and timed
+    (``gemm_bwd_entries`` in the path's dtype, ``flash_bwd_entry``), the
+    names marked with ``tag``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    flat = {s_: c for s_, c in snap["bwd"].items() if s_[0] != "grouped"}
+    bwd_line, bwd_errs = gemm_bwd_vs_plain(list(flat), list(fwd), gen)
+    entries = gemm_bwd_entries(flat, bwd_errs, gen, cfg)
+    fab = {s_[:6] + (s_[7],): n for s_, n in snap["fab"].items()}
+    fb_line, fb_out = flash_bwd_vs_plain(list(fab), extra=())
+    f_entries = [flash_bwd_entry(shape, n, fb_out[(shape, "bfloat16")][3])
+                 for shape, n in sorted(fab.items())]
+    for e in entries + f_entries:
+        e["name"] = e["name"].replace("[train ", f"[{tag} train ")
+    emit({"phase": f"{tag}_train_kernels_vs_plain",
+          "gemm_bwd": {k: v for k, v in bwd_line.items() if k != "phase"},
+          "flash_bwd": {k: v for k, v in fb_line.items() if k != "phase"}})
+    return entries + f_entries
+
+
+def whisper_train_kernel_entries(snap, cfg) -> list:
+    """Phase 52: the Whisper train step's kernel cases.  Its tied
+    51865-column head's dX and dW (``tied_head_bwd_entries``: ``embed``
+    read in place, dY copied into padded rows by ``kernel.pad_cols`` and
+    that copy timed alone), then ``train_kernel_entries``: every other dX
+    / dW shape, ``FusedMatmulFn``'s gradients at every forward shape with
+    an epilogue (the row biases and residuals on the add-only walk, bias +
+    tanh GELU through the fp32 recompute launch), flash's backward at the
+    encoder's (non-causal, 1500 x 1500: ragged query and key tiles), the
+    cross-attention's (non-causal, 448 x 1500) and the decoder's causal
+    448 x 448."""
+    import torch
+    vocab = cfg.vocab
+    head = {s_: c for s_, c in snap["bwd"].items() if vocab in s_[1:4]}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    entries, line = tied_head_bwd_entries(W_B * W_SEQ, cfg, head, gen,
+                                          tag="whisper")
+    emit(line)
+    rest = dict(snap, bwd={s_: c for s_, c in snap["bwd"].items()
+                           if s_ not in head})
+    fwd = sorted({s_ for s_ in snap["fm"] if s_[4] and vocab not in s_[:3]},
+                 key=lambda s_: s_[:3])
+    return entries + train_kernel_entries(rest, cfg, "whisper", fwd)
+
+
+def vlm_train_phases() -> list:
+    """Phase 53: InternVL2-76B at full width cut to V_TRAIN_LAYERS of 80,
+    1 x (256 zero image tokens + TRAIN_S text tokens), fp32 AdamW: the
+    per-op step (remat full) through ``train_phase``, held to
+    ``vlm_train_launches``, the first batch's loss lower after the steps,
+    then the captured step (policy auto) on the same weights
+    (``captured_train_phase``: every parameter after 3 steps the per-op
+    step's, bitwise); then its kernel cases (the GEMM dX / dW shapes,
+    flash's backward at (1, 2304, 64/8, 128) causal)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tapir
+    snaps = {}
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def annotate(line, model, cfg):
+        vlm_train_annotate(line, model, cfg)
+        line.update(free_share=1 - line["peak_mem_gb"] * 1e9 / total,
+                    depth=f"{cfg.n_layers} of 80 layers "
+                          f"(--vlm-train-depths)")
+
+    emit(captured_train_phase(
+        lambda: vlm_model(V_TRAIN_LAYERS)[1], "vlm_captured",
+        lambda cfg, m: vlm_train_launches(cfg), per_op_tag="vlm_train",
+        annotate=annotate, exact=True, refit=True, snaps=snaps, rows=1))
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("internvl2_76b"),
+                              n_layers=V_TRAIN_LAYERS)
+    snap = snaps["per_op"]
+    fwd = sorted({s_ for s_ in snap["fm"] if s_[4] and cfg.vocab not in
+                  s_[:3]}, key=lambda s_: s_[:3])
+    return train_kernel_entries(snap, cfg, "vlm", fwd)
+
+
+def serve_pools(eng_cache) -> list:
+    return [t.data_ptr() for t in eng_cache["k"] + eng_cache["v"]]
+
+
+def fault_serve_phase(model=None, cfg=None, clean=None,
+                      clean_st=None) -> list:
+    """Phase 54 (run after phase 2 on its model and tokens in a full run):
+    qwen2.5-3b at full width serving phase 2's requests (4 slots, max_len
+    512) under faults, every request held to the clean run's tokens:
+
+    fault_serve — a crash injected at decode step FAULT_STEP, slot
+    checkpoints every FAULT_CKPT_EVERY steps into a temporary directory
+    under the working directory (removed afterwards): exactly 1 failure
+    and 1 restore, the decode steps and tokens the clean run's (the stats
+    roll back with the state), the restore written into the session's own
+    pools (every pool's ``data_ptr`` kept, so no CUDA graph is captured
+    anew for them);
+    fault_straggle — FAULT_STRAGGLE's delay from its step on for its
+    length: the watchdog flags the steps, admission sheds (bounded
+    backoff, patience 2), no failure, the step p95 above the p50.
+
+    ``model`` / ``cfg`` / ``clean`` (each request's tokens) / ``clean_st``
+    (its stats): phase 2's; without them the phase builds the model (seed
+    0) and serves the clean run itself.  Each line reports the CUDA graphs
+    the faulted run captured beside the clean run's."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.dist import Fault, ScriptedFaultInjector
+    from repro_torch.serve import ServeConfig, ServingEngine
+    own = model is None
+    if own:
+        from repro_torch.configs import get_config
+        from repro_torch.models.base import get_model
+        cfg = get_config("qwen2_5_3b")
+        model = get_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+    if clean is None:
+        eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN,
+                            cfg=ServeConfig(target="gpu"), device="cuda")
+        clean = [list(r.out) for r in eng.run(requests(cfg.vocab, seed=0))]
+        clean_st = dict(eng.last_stats)
+        del eng
+    lines = []
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_slot_", dir=os.getcwd())
+    try:
+        inj = ScriptedFaultInjector({FAULT_STEP: Fault("crash")})
+        eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN, device="cuda",
+                            cfg=ServeConfig(target="gpu", fault_injector=inj,
+                                            ckpt_dir=d,
+                                            ckpt_every=FAULT_CKPT_EVERY))
+        ptrs = {}
+        real = eng._restore_slot_state
+
+        def spy(requests_, ft, rs):
+            ptrs["before"] = serve_pools(rs.cache)
+            back = real(requests_, ft, rs)
+            ptrs["after"] = serve_pools(back.cache)
+            return back
+        eng._restore_slot_state = spy
+        t0 = time.perf_counter()
+        out = eng.run(requests(cfg.vocab, seed=0))
+        wall = time.perf_counter() - t0
+        st = dict(eng.last_stats)
+        del eng
+        line = {"phase": "fault_serve", "crash_at_step": FAULT_STEP,
+                "ckpt_every": FAULT_CKPT_EVERY,
+                "bitwise": [list(r.out) for r in out] == clean,
+                "done": all(r.done for r in out),
+                "failures": st["failures"], "restores": st["restores"],
+                "checkpoints": st["checkpoints"],
+                "decode_steps": st["decode_steps"], "tokens": st["tokens"],
+                "pools_kept": ptrs.get("before") == ptrs.get("after")
+                and bool(ptrs),
+                "graph_captures": st.get("graph_captures"),
+                "wall_s": wall, "step_p50_ms": st["step_p50"] * 1e3}
+        if clean_st is not None:
+            line.update(clean_wall_s=clean_st["wall_s"],
+                        clean_decode_steps=clean_st["decode_steps"],
+                        clean_graph_captures=clean_st.get("graph_captures"))
+        lines.append(line)
+        emit(line)
+        if not (line["bitwise"] and line["done"] and line["failures"] == 1
+                and line["restores"] == 1 and line["checkpoints"] >= 1
+                and line["pools_kept"]):
+            raise SystemExit(f"fault_serve: {line}")
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        inj = ScriptedFaultInjector(
+            {FAULT_STRAGGLE["start"]: Fault(
+                "straggle", delay_s=FAULT_STRAGGLE["delay_s"], host=0)},
+            repeat=FAULT_STRAGGLE["repeat"])
+        eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN, device="cuda",
+                            cfg=ServeConfig(target="gpu", fault_injector=inj,
+                                            ckpt_dir=d, straggle_patience=2,
+                                            shed_base=2, shed_cap=8,
+                                            straggle_escalate=3))
+        out = eng.run(requests(cfg.vocab, seed=0))
+        st = dict(eng.last_stats)
+        del eng
+        line = {"phase": "fault_straggle", **FAULT_STRAGGLE,
+                "bitwise": [list(r.out) for r in out] == clean,
+                "done": all(r.done for r in out),
+                "straggler_steps": st["straggler_steps"],
+                "shed_rounds": st["shed_rounds"],
+                "shed_steps": st["shed_steps"], "failures": st["failures"],
+                "checkpoints": st["checkpoints"],
+                "step_p50_ms": st["step_p50"] * 1e3,
+                "step_p95_ms": st["step_p95"] * 1e3, "wall_s": st["wall_s"]}
+        lines.append(line)
+        emit(line)
+        if not (line["bitwise"] and line["done"] and line["shed_rounds"] >= 1
+                and line["failures"] == 0
+                and line["step_p95_ms"] > line["step_p50_ms"]):
+            raise SystemExit(f"fault_straggle: {line}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if own:
+        del model
+        from repro_torch.core import tapir
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+    return lines
+
+
+def fault_train_phase() -> dict:
+    """Phase 55: ``dist/fault.py``'s ``FaultTolerantLoop`` around the
+    per-op step of Whisper-small at full width cut to FT_LAYERS + FT_LAYERS
+    layers (the full draw's first layers, bf16 compute), W_B x W_SEQ
+    tokens over zero frames, FT_STEPS steps with a checkpoint every
+    FT_EVERY (async) in a temporary directory under the working directory:
+    once uninterrupted, once from the same weights with a failure
+    injected at step FT_FAIL (restored from the step-FT_EVERY checkpoint
+    and replayed): every parameter and AdamW moment, and each step's
+    loss, equal the uninterrupted run's bitwise."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import tapir
+    from repro_torch.dist import FaultTolerantLoop
+    from repro_torch.models.base import get_model
+    from repro_torch.train import init_state
+    full_cfg, full = whisper_train_model()
+    tree = {k: ({n: t[:FT_LAYERS].clone() for n, t in v.items()}
+                if isinstance(v, dict) else v.detach().clone())
+            for k, v in full.param_tree().items()}
+    del full
+    cfg = dataclasses.replace(full_cfg, n_layers=FT_LAYERS,
+                              n_enc_layers=FT_LAYERS)
+    runs = {}
+    for tag, fail in (("clean", None), ("faulted", FT_FAIL)):
+        model = get_model(cfg, device="cuda", params={
+            k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                else v.clone()) for k, v in tree.items()})
+        step, opt, pipe = train_setup(model, cfg, rows=W_B, seq=W_SEQ,
+                                      lr=WHISPER_TRAIN_LR)
+        state = init_state(model, opt)
+        seen = set()
+
+        def inject(s_, _fail=fail):
+            if s_ == _fail and s_ not in seen:
+                seen.add(s_)
+                return True
+            return False
+        d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_train_", dir=os.getcwd())
+        try:
+            loop = FaultTolerantLoop(
+                step, CheckpointManager(d, keep_n=2, every=FT_EVERY),
+                lambda s_: train_batch(model, pipe, s_),
+                inject_failure=inject if fail is not None else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, stats = loop.run(state, 0, FT_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        runs[tag] = ([t.clone() for t in state_leaves(state)], stats, wall)
+        del model, state, step, loop
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+    (a, sa, wa), (b, sb, wb) = runs["clean"], runs["faulted"]
+    line = {"phase": "fault_train", "arch": "whisper_small",
+            "layers": f"{FT_LAYERS} + {FT_LAYERS}", "batch": W_B,
+            "seq": W_SEQ, "steps": FT_STEPS, "fail_at": FT_FAIL,
+            "ckpt_every": FT_EVERY,
+            "failures": sb.failures, "restores": sb.restores,
+            "steps_run": {"clean": sa.steps_run, "faulted": sb.steps_run},
+            "losses": {"clean": sa.losses, "faulted": sb.losses},
+            "wall_s": {"clean": wa, "faulted": wb},
+            "state_bitwise": len(a) == len(b) and all(
+                torch.equal(x, y) for x, y in zip(a, b)),
+            "losses_bitwise": sa.losses == sb.losses}
+    del a, b, runs
+    if not (line["state_bitwise"] and line["losses_bitwise"]
+            and sb.failures == 1 and sb.restores == 1
+            and sb.steps_run == FT_STEPS + FT_FAIL - FT_EVERY):
+        raise SystemExit(f"fault_train: {line}")
+    return line
+
+
+def encdec_train_phases(fault_serve: bool = True) -> list:
+    """Phases 50-55 (the serving models released); returns their entries
+    of the kernels line.
+
+    50 whisper_train / 51 whisper_captured: Whisper-small at full width
+    and all 12 + 12 layers, W_B x W_SEQ tokens over W_B x 1500 zero
+    frames (``launch/train.py``'s fill), per op (remat full) through
+    ``train_phase``, held to ``whisper_train_launches`` (289 GEMM forward:
+    133 + 132 recomputed + 24 bias + gelu recomputes; 133 / 133 dX / dW; 72
+    / 36 flash forward / backward), then the captured step (policy auto)
+    on the same weights: every parameter after 3 steps the per-op step's,
+    bitwise; AdamW at WHISPER_TRAIN_LR, the first batch's loss lower after
+    the steps; 52 its kernel cases (``whisper_train_kernel_entries``); 53
+    InternVL2-76B (``vlm_train_phases``); 54 the fault phase's serving
+    runs (``fault_serve_phase``; in a full run after phase 2 instead); 55
+    fault_train (``fault_train_phase``)."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    snaps = {}
+    emit(captured_train_phase(
+        lambda: whisper_train_model()[1], "whisper_captured",
+        lambda cfg, m: whisper_train_launches(cfg), train_counts,
+        per_op_tag="whisper_train", annotate=whisper_train_annotate,
+        exact=True, refit=True, snaps=snaps, lr=WHISPER_TRAIN_LR,
+        rows=W_B, seq=W_SEQ))
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    entries = whisper_train_kernel_entries(snaps["per_op"],
+                                           get_config("whisper_small"))
+    t1 = time.perf_counter()
+    entries += vlm_train_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    if fault_serve:
+        fault_serve_phase()
+    emit(fault_train_phase())
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "encdec_train_done", "whisper_train_s": t1 - t0,
+          "vlm_train_s": t2 - t1, "fault_s": time.perf_counter() - t2,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    return entries
+
+
+def train_depth_probe(build, depth: int, rows: int, seq: int,
+                      captured: bool) -> dict:
+    """``build(depth)``'s model, 2 steps of the per-op (or captured) step
+    on ``rows`` x ``seq`` tokens: the peak device memory and the step
+    seconds, or the OOM."""
+    import gc
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.train import (TrainConfig, init_state,
+                                   make_region_train_step)
+    tapir.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"layers": depth, "step": "captured" if captured else "per_op"}
+    model = state = step = None
+    try:
+        cfg, model = build(depth)
+        make = (lambda m, opt: make_region_train_step(
+            m, opt, TrainConfig(remat="auto", target="gpu"))) \
+            if captured else None
+        step, opt, pipe = train_setup(model, cfg, make, rows=rows, seq=seq)
+        state = init_state(model, opt)
+        walls = []
+        for s_ in range(2):
+            t0 = time.perf_counter()
+            state, m = step(state, train_batch(model, pipe, s_))
+            out["loss"] = float(m["loss"])
+            walls.append(time.perf_counter() - t0)
+        out.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   step_s=walls)
+    except torch.cuda.OutOfMemoryError as e:
+        out.update(oom=str(e).splitlines()[0][:200],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, state, step
+    tapir.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_train_depths(depths: list) -> int:
+    """``--vlm-train-depths``: InternVL2-76B at full width at each depth
+    in turn, the per-op and then the captured train step on 1 x (256 +
+    TRAIN_S) tokens (``train_depth_probe``): the peak and its share of the
+    card, or the OOM; the deepest depth of each step that left
+    VLM_HEADROOM of the card free; then stop."""
+    import torch
+    print(card_line(), flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = {"per_op": [], "captured": []}
+    for n_l in depths:
+        for captured in (False, True):
+            out = train_depth_probe(vlm_model, n_l, 1, TRAIN_S, captured)
+            out.update(phase="vlm_train_depth", arch="internvl2_76b",
+                       card_gb=total / 1e9)
+            if "oom" not in out:
+                out["free_share"] = 1 - out["peak_mem_gb"] * 1e9 / total
+                if out["free_share"] >= VLM_HEADROOM:
+                    fits[out["step"]].append(n_l)
+            emit(out)
+    emit({"phase": "vlm_train_depths", "headroom": VLM_HEADROOM,
+          "deepest_with_headroom": {k: max(v) if v else None
+                                    for k, v in fits.items()}})
+    return 0
+
+
+def encdec_train_lrs(lrs: list) -> int:
+    """``--encdec-train-lrs``: Whisper-small at full width and depth (W_B x
+    W_SEQ tokens over zero frames), seed 0, at the reference's init and at
+    fan-in, at each peak lr: the per-op step for the train phase's 1 +
+    TRAIN_STEPS + 1 steps from the same weights, each step's loss and grad
+    norm, and the first batch's loss after them; then stop."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.train import TrainConfig, init_state
+    print(card_line(), flush=True)
+    for init in ("reference", "fan_in"):
+        for lr in lrs:
+            tapir.clear_cache()
+            torch.cuda.empty_cache()
+            cfg, model = whisper_train_model(init)
+            step, opt, pipe = train_setup(model, cfg, rows=W_B, seq=W_SEQ,
+                                          lr=lr)
+            state = init_state(model, opt)
+            losses, norms = [], []
+            for s_ in range(TRAIN_STEPS + 2):
+                state, m = step(state, train_batch(model, pipe, s_))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            with torch.no_grad(), tapir.use(TrainConfig(
+                    target="gpu").tapir_config()):
+                after = float(model.loss(train_batch(model, pipe, 0)))
+            emit({"phase": "encdec_train_lr", "arch": "whisper_small",
+                  "init": init, "lr": lr, "losses": losses,
+                  "grad_norms": norms, "batch0_loss_before": losses[0],
+                  "batch0_loss_after": after})
+            del model, state, step, m
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return 0
+
+
 def paper_phases() -> list:
     """Phases 18-19 and the fp32 GEMM entries of the kernels line."""
     import torch
@@ -7938,6 +8548,19 @@ def main() -> int:
                          "forward, the image prefill and slot serving's "
                          "peak memory or OOM, and the deepest with "
                          "VLM_HEADROOM free, and stop")
+    ap.add_argument("--encdec-train", action="store_true",
+                    help="run the build phase and phases 50-55 (Whisper-"
+                         "small and InternVL2-76B training, their kernel "
+                         "cases, the fault phases) alone, and stop")
+    ap.add_argument("--vlm-train-depths", metavar="N,N,...",
+                    help="InternVL2-76B at full width at each depth: the "
+                         "per-op and the captured train step's peak memory "
+                         "or OOM, and the deepest with VLM_HEADROOM free, "
+                         "and stop")
+    ap.add_argument("--encdec-train-lrs", metavar="LR,LR,...",
+                    help="Whisper-small at full width and depth: the train "
+                         "phase's steps at each peak lr and the first "
+                         "batch's loss after them, and stop")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -7974,6 +8597,12 @@ def main() -> int:
                                  args.moe_train_depths.split(",")])
     if args.vlm_depths:
         return vlm_depths([int(v) for v in args.vlm_depths.split(",")])
+    if args.vlm_train_depths:
+        return vlm_train_depths([int(v) for v in
+                                 args.vlm_train_depths.split(",")])
+    if args.encdec_train_lrs:
+        return encdec_train_lrs([float(v) for v in
+                                 args.encdec_train_lrs.split(",")])
     if args.decode_times:
         return decode_times()
     if args.scan_bwd_phases:
@@ -8086,10 +8715,12 @@ def main() -> int:
                                  f"{fa_kernel.kernel_tiles_bwd(dt, d)}, plan "
                                  f"{fa_kernel.plan_bwd(dt, d)}")
 
-    if args.dense or args.moe or args.moe_train or args.encdec or args.vlm:
+    if args.dense or args.moe or args.moe_train or args.encdec or args.vlm \
+            or args.encdec_train:
         entries = (dense_phases(probe_import=True) if args.dense
                    else moe_phases() if args.moe
                    else moe_train_phases() if args.moe_train
+                   else encdec_train_phases() if args.encdec_train
                    else whisper_phases() if args.encdec else vlm_phases())
         emit({"kernels": entries})
         emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
@@ -8158,6 +8789,13 @@ def main() -> int:
 
     # -- 44-49. the encoder-decoder and VLM families -----------------------
     entries += encdec_vlm_phases()
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "encdec_vlm_done_at",
+          "elapsed_s": time.perf_counter() - t_start})
+
+    # -- 50-55. their training; faults (54's serving ran after phase 2) ----
+    entries += encdec_train_phases(fault_serve=False)
 
     emit({"kernels": entries})
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

@@ -84,8 +84,9 @@ FORMAT_VERSION = 1
 #: Pipeline semantics salt.  Part of every L2 key: any change to what the
 #: pass pipeline or the scheduler makes of the same raw graph MUST bump
 #: it, or old entries would replay stale graphs.  (torch, CUDA, the device
-#: kind and the kernels' sources are keyed separately.)
-PIPELINE_VERSION = "repro-torch-pipeline-1"
+#: kind and the kernels' sources are keyed separately.)  2: shared-input
+#: fusion stays within one inlined region call.
+PIPELINE_VERSION = "repro-torch-pipeline-2"
 
 #: the store's modes: "off" (every call a no-op), "read" (probe, never
 #: publish nor quarantine), "readwrite"

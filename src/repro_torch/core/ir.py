@@ -233,6 +233,14 @@ class TaskGraph:
         # replace_uses / add_epilogue / remove_node so fusion passes are
         # O(consumers) per rewrite instead of O(V·E).
         self._cons: Optional[dict[int, set[int]]] = None
+        # the inlined ``parallel_region`` call a node was traced in (a
+        # region captured inside another, as the captured training step's
+        # layers are): ``scope`` while tracing, ``scopes[nid]`` after.  The
+        # per-op step runs each such call as its own program, so the
+        # passes must not merge work across two calls where that would
+        # change a sum (``fusion.fuse_shared_input``).
+        self.scope: Optional[int] = None
+        self.scopes: dict[int, int] = {}
 
     # -- construction -------------------------------------------------------
     def add(self, op: str, inputs: Iterable[int], ttype: TensorType,
@@ -249,6 +257,8 @@ class TaskGraph:
             # tracer appends nodes in program order, so "existing readers"
             # is exactly the reads that precede the write).
             anti = tuple(c for c in self._ensure_cons().get(donates, ()))
+        if self.scope is not None:
+            self.scopes[nid] = self.scope
         self.nodes[nid] = Node(nid, op, inputs, ttype, attrs,
                                tuple(pdims), tuple(rdims),
                                donates=donates, anti=anti,

@@ -103,6 +103,13 @@ def fuse_shared_input(g: TaskGraph) -> int:
     the weights column-concat to one wide 2-D ``[k, sum_w]`` GEMM, whose
     output is sliced back into the members' values.
 
+    Members come from one scope: GEMMs of two inlined region calls (the
+    cross-attention K|V of every decoder layer on one encoder output,
+    when the captured training step unrolls the stack) stay apart, as the
+    per-op step runs them, each call its own program.  Fused, one dX would
+    sum every layer's contribution inside the kernel, where the per-op
+    step adds the layers' dX in autograd's order: other bits.
+
     Fixpoint iteration: groups are recomputed after every rewrite so nids
     never go stale."""
     fused = 0
@@ -112,12 +119,12 @@ def fuse_shared_input(g: TaskGraph) -> int:
             n = g.nodes[nid]
             if _is_plain_gemm(g, nid):
                 key = (n.inputs[0], n.attrs["k"], n.ttype.dtype,
-                       n.ttype.shape[:-1])
+                       n.ttype.shape[:-1], g.scopes.get(nid))
                 groups.setdefault(key, []).append(nid)
         target = next(((k, v) for k, v in groups.items() if len(v) >= 2), None)
         if target is None:
             return fused
-        (x, k, dtype, lead), members = target
+        (x, k, dtype, lead, scope), members = target
         w_nodes = [g.nodes[m].inputs[1] for m in members]
         wdt = g.nodes[w_nodes[0]].ttype.dtype
         widths = [g.nodes[m].ttype.shape[-1] for m in members]
@@ -127,6 +134,8 @@ def fuse_shared_input(g: TaskGraph) -> int:
         mm = g.add("matmul", (x, wc), out_t,
                    pdims=tuple(range(len(out_t.shape))),
                    rdims=(("k", k),), k=k, exposed=True)
+        if scope is not None:
+            g.scopes[mm] = scope
         off = 0
         for m, w in zip(members, widths):
             sl = g.add("slice", (mm,), g.nodes[m].ttype,

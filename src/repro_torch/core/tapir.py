@@ -61,6 +61,7 @@ Not ported yet (see ROADMAP): ``invalidate_mesh``.
 from __future__ import annotations
 
 import functools
+import itertools
 import threading
 import time
 import weakref
@@ -823,6 +824,10 @@ def _leaf_key(v):
     return ("obj", v)
 
 
+#: ids of inlined ``parallel_region`` calls
+_SCOPES = itertools.count()
+
+
 def parallel_region(fn=None, *, name: Optional[str] = None):
     """Decorator form of region capture: tensor arguments enter the region
     as lazy handles, the returned structure is materialized (one pipeline
@@ -833,7 +838,16 @@ def parallel_region(fn=None, *, name: Optional[str] = None):
 
         @functools.wraps(f)
         def wrapper(*args, **kwargs):
-            if _active_region() is not None or not get_config().regions:
+            outer = _active_region()
+            if outer is not None:
+                # inlined into the open region: its nodes carry this call's
+                # scope (see ``TaskGraph.scopes``)
+                prev, outer.g.scope = outer.g.scope, next(_SCOPES)
+                try:
+                    return f(*args, **kwargs)
+                finally:
+                    outer.g.scope = prev
+            if not get_config().regions:
                 return f(*args, **kwargs)
             cfg = get_config()
             leaves, spec = _flatten((args, kwargs))

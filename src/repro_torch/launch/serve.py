@@ -18,6 +18,14 @@ token, wall time and where its host seconds went (``cold``: tracing,
 building programs, the store's share of that, CUDA-graph capture, and
 the rest), so the first run's cold start stands beside a warm run of the
 same process.
+
+Faults, with the reference's flags: ``--ckpt-dir DIR`` keeps slot
+checkpoints (every ``--ckpt-every`` decode steps, and on demand), from
+which a recovery restores; ``--inject-crash STEP`` fails that decode step
+once; ``--inject-straggle STEP`` slows ``--straggle-repeat`` steps from
+there by ``--straggle-delay`` seconds each.  With any of them the report
+adds a ``fault`` block (failures, restores, checkpoints, shed rounds,
+flagged steps) and the step p95.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 
 from repro_torch.cache.disk import CACHE_MODES
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.dist.fault import Fault, ScriptedFaultInjector
 from repro_torch.models.base import get_model, resolve_device
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 from repro_torch.serve.engine import CACHE_KEYS
@@ -59,6 +68,16 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--mode", default="tapir", choices=["tapir", "opaque"])
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="slot-state checkpoint directory (enables restore)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="decode steps between periodic slot checkpoints")
+    ap.add_argument("--inject-crash", type=int, default=None, metavar="STEP",
+                    help="fail the decode step at this index once")
+    ap.add_argument("--inject-straggle", type=int, default=None,
+                    metavar="STEP", help="start straggling at this step")
+    ap.add_argument("--straggle-delay", type=float, default=0.05)
+    ap.add_argument("--straggle-repeat", type=int, default=8)
     ap.add_argument("--prefix-len", type=int, default=0,
                     help="tokens of system-prompt prefix shared by every "
                          "request (0 = fully distinct prompts)")
@@ -114,14 +133,26 @@ def main(argv=None):
                     deadline_s=args.deadline_s)
             for i in range(args.requests)]
 
+    faults = {}
+    if args.inject_crash is not None:
+        faults[args.inject_crash] = Fault("crash")
+    if args.inject_straggle is not None:
+        faults[args.inject_straggle] = Fault("straggle",
+                                             delay_s=args.straggle_delay)
+    injector = ScriptedFaultInjector(faults, repeat=args.straggle_repeat) \
+        if faults else None
+
     admit = args.admit_policy or ("slo" if args.deadline_s else "strict")
     eng = ServingEngine(model, batch=args.batch, max_len=args.max_len,
                         device=dev,
                         cfg=ServeConfig(mode=args.mode,
                                         target="gpu" if dev.type == "cuda"
                                         else "cpu",
+                                        fault_injector=injector,
                                         admit_policy=admit,
                                         prefix_sharing=not args.no_prefix_sharing,
+                                        ckpt_dir=args.ckpt_dir,
+                                        ckpt_every=args.ckpt_every,
                                         program_cache_dir=args.program_cache_dir,
                                         cache_mode=args.cache_mode))
     runs = []
@@ -163,6 +194,11 @@ def main(argv=None):
     }
     if args.program_cache_dir:
         report["cache"] = {k: st.get(k, 0) for k in CACHE_KEYS}
+    if injector is not None or args.ckpt_dir:
+        report["fault"] = {k: st.get(k, 0) for k in
+                           ("failures", "restores", "checkpoints",
+                            "shed_rounds", "straggler_steps")}
+        report["fault"]["l2_quarantined"] = st.get("l2_quarantined", 0)
     if len(runs) > 1:
         report["runs"] = [
             {"ttft_p50_ms": round(s_.get("ttft_p50", 0.0) * 1e3, 3),

@@ -45,9 +45,17 @@ the loop waits for the last write at the end.  ``--ckpt-dir`` defaults to
 ``/tmp/repro_ckpt``).  ``--resume`` restores the latest checkpoint into
 the freshly built state in place, or cold-starts with the reference's log
 line, then runs from that step to ``--steps``; the JSON line's ``steps``
-counts the steps run and ``start_step`` where they began.  The
-fault-tolerant loop around the steps waits for ``dist/fault.py`` (ROADMAP
-queue 1, item 7).
+counts the steps run and ``start_step`` where they began.  The steps run
+through ``dist/fault.py``'s ``FaultTolerantLoop``, as the reference's do:
+the line adds its ``failures`` and ``straggler_steps``.
+
+``--arch whisper_small`` and ``--arch internvl2_76b`` train the
+encoder-decoder and VLM families: ``batch_at`` adds every input of
+``model.input_specs(seq, batch, "train")`` that the token pipeline lacks
+(Whisper's ``frames``, InternVL's ``image_embeds``) as zeros of the
+spec's shape and dtype on the device, as the reference's launcher does.
+InternVL2-76B's 80 layers do not fit one card (~274 GB of fp32 weights
+alone); ``chip_smoke.py``'s VLM train phase trains it at a probed depth.
 """
 from __future__ import annotations
 
@@ -63,6 +71,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.data import DataConfig, TokenPipeline, to_device
+from repro_torch.dist.fault import FaultTolerantLoop
 from repro_torch.models.base import get_model, resolve_device
 from repro_torch.optim import AdamWConfig
 from repro_torch.core import tapir
@@ -110,11 +119,6 @@ def main(argv=None):
     remat = args.remat or ("auto" if args.capture_step else "full")
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"--arch {args.arch}: training the {cfg.family} family waits "
-            f"for ROADMAP queue 1, item 13 (its batches carry frames or "
-            f"image embeddings the token pipeline does not make)")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = get_model(cfg, device=dev, generator=gen)
 
@@ -141,21 +145,33 @@ def main(argv=None):
         except FileNotFoundError:
             log.info("no checkpoint found; cold start")
 
-    losses, t_start = [], None
-    for s in range(start_step, args.steps):
-        if s == start_step + 1:
-            t_start = time.perf_counter()
-        state, m = step_fn(state, to_device(pipe.batch_at(s), dev))
-        losses.append(float(m["loss"]))   # a synchronise
-        ckpt.maybe_save(s + 1, state)     # the count of steps done
-    ckpt.wait()
-    timed = len(losses) - 1
-    dt = time.perf_counter() - t_start if timed > 0 else float("nan")
+    def batch_at(step: int) -> dict:
+        b = to_device(pipe.batch_at(step), dev)
+        for k, spec in model.input_specs(args.seq, args.batch,
+                                         "train").items():
+            if k not in b:       # the stub modality frontends: zeros
+                b[k] = torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+        return b
+
+    starts = []
+
+    def timed_step(state, batch):
+        starts.append(time.perf_counter())
+        return step_fn(state, batch)
+
+    loop = FaultTolerantLoop(timed_step, ckpt, batch_at)
+    state, stats = loop.run(state, start_step, args.steps)
+    losses = stats.losses
+    # the first step builds the kernels and traces the regions: untimed
+    timed = stats.steps_run - 1
+    dt = time.perf_counter() - starts[1] if timed > 0 else float("nan")
     tok_s = timed * args.batch * args.seq / dt if timed > 0 else None
-    line = {"steps": len(losses), "start_step": start_step,
+    line = {"steps": stats.steps_run, "start_step": start_step,
             "tok_per_s": tok_s,
             "first_loss": losses[0] if losses else None,
-            "last_loss": losses[-1] if losses else None, "losses": losses}
+            "last_loss": losses[-1] if losses else None, "losses": losses,
+            "failures": stats.failures,
+            "straggler_steps": stats.straggler_steps}
     if args.capture_step:
         metas = [g.grad_meta for g in tapir.cached_graphs().values()
                  if getattr(g, "grad_meta", None)]

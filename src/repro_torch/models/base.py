@@ -121,6 +121,14 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputSpec:
+    """A model input's shape and dtype (the reference's
+    ``jax.ShapeDtypeStruct`` stand-in of ``input_specs``)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: str
@@ -366,6 +374,20 @@ class BaseModel(nn.Module):
 
     def supports_slots(self) -> bool:
         return False
+
+    def input_specs(self, seq_len: int, batch: int, kind: str) -> dict:
+        """``InputSpec`` stand-ins for every model input; ``kind``: train
+        | prefill | decode.  The launcher fills the keys its token pipeline
+        lacks with zeros of these shapes and dtypes, as the reference's
+        does."""
+        tok = InputSpec((batch, seq_len), torch.int32)
+        if kind == "train":
+            return {"tokens": tok, "labels": tok}
+        if kind == "prefill":
+            return {"tokens": tok}
+        if kind == "decode":
+            return {"tokens": InputSpec((batch, 1), torch.int32)}
+        raise ValueError(kind)
 
 
 _REGISTRY: dict[str, Callable] = {}

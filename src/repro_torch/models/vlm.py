@@ -22,7 +22,7 @@ import torch
 
 from ..core import tapir
 from ..core.dtypes import to_torch_dtype
-from .base import register_family
+from .base import InputSpec, register_family
 from .transformer import DenseLM
 
 
@@ -64,3 +64,15 @@ class InternVLM(DenseLM):
             return super().prefill(tokens, cache)
         h = self._with_image(self.embed, tokens, image_embeds)
         return self._run_embeds_with_cache(h, cache, is_prefill=True)
+
+    def input_specs(self, seq_len: int, batch: int, kind: str) -> dict:
+        """The base specs plus the stub frontend's ``image_embeds [batch,
+        n_img_tokens, d_model]`` in the compute dtype for train and
+        prefill."""
+        cfg = self.cfg
+        specs = super().input_specs(seq_len, batch, kind)
+        if kind in ("train", "prefill"):
+            specs["image_embeds"] = InputSpec(
+                (batch, cfg.n_img_tokens, cfg.d_model),
+                to_torch_dtype(cfg.compute_dtype))
+        return specs

@@ -50,7 +50,8 @@ import torch
 from ..core import tapir
 from ..core.dtypes import to_torch_dtype
 from . import layers as L
-from .base import (BaseModel, ModelConfig, ParamSpec, _check_shapes,
+from .base import (BaseModel, InputSpec, ModelConfig, ParamSpec,
+                   _check_shapes,
                    _frozen, _frozen_tree, _materialize_tree, _plain_tree,
                    embed_lookup, keep_in_place, register_family,
                    resolve_device)
@@ -382,3 +383,15 @@ class WhisperED(BaseModel):
         """``tokens [B, S]`` at positions ``pos ..``; returns (logits
         ``[B, vocab]`` of the last, cache)."""
         return self._run_with_cache(tokens, cache, None, is_prefill=False)
+
+    # -- inputs -----------------------------------------------------------
+    def input_specs(self, seq_len: int, batch: int, kind: str) -> dict:
+        """The base specs plus the stub frontend's ``frames [batch,
+        n_frames, d_model]`` in the compute dtype for train and prefill."""
+        cfg = self.cfg
+        specs = super().input_specs(seq_len, batch, kind)
+        if kind in ("train", "prefill"):
+            specs["frames"] = InputSpec(
+                (batch, cfg.n_frames, cfg.d_model),
+                to_torch_dtype(cfg.compute_dtype))
+        return specs

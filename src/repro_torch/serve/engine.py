@@ -30,8 +30,32 @@ by the reference's padded-wave loop over them (``_run_padded_waves``):
 
 The step-time statistics (``last_stats``' ``step_p50`` / ``step_p95``,
 the SLO shed's estimate, ``preempt_cost``'s step time) come from the
-decode steps' rolling window of the last 256 (``StepWindow``), as the
-reference takes them from its straggler watchdog's.
+decode steps' ``StragglerWatchdog`` (``dist/fault.py``, a rolling window
+of 256), as the reference takes them.
+
+**Faults** (``_run_slots``): the slot session runs under a supervised
+recovery loop.  ``ServeConfig.fault_injector`` is consulted before every
+pool-wide decode step: a ``crash`` or ``host`` fault aborts the session,
+and the next attempt restores the latest slot checkpoint (or, with none,
+replays from scratch) and goes on; greedy decode is deterministic, so
+every request's tokens equal a clean run's.  On one device a ``host``
+fault is a same-device restore, as the reference's is without a mesh.
+A ``straggle`` fault slows the step; the watchdog flags it, and
+``straggle_patience`` flagged steps in a row pause admission for a
+bounded, doubling number of ticks (``shed_base`` .. ``shed_cap``), after
+``straggle_escalate`` such rounds the engine checkpoints and raises a
+``host`` fault.  Past ``max_failures`` recoveries the run gives up.
+
+**Slot checkpoints** (``ckpt_dir``, every ``ckpt_every`` decode steps
+and on demand): the pools, ``ptab``, ``pos`` and the ``rng`` leaf through
+``checkpoint/ckpt.py`` in the reference's format (a checkpoint written by
+either engine restores in the other), the scheduler's host state
+(queue, slots, feed tokens, every request's tokens, ``PagePool.to_meta``,
+the stats) as its JSON meta.  A save copies the device state to the host
+before it returns (the pools are updated in place, so a snapshot that
+aliased them would move on with them); a restore copies the checkpoint
+into the session's own pools, so every decode step's inputs stay the same
+tensors (no CUDA graph is captured anew).
 
 ``ServeConfig.program_cache_dir`` points the engine's region programs at
 the on-disk program store (``repro_torch.cache``): a warm replica compiles
@@ -39,13 +63,11 @@ none of them, and ``last_stats`` carries each run's cache counters
 (``compiled_programs``, ``l2_hits``, ...) and where its cold-start seconds
 went (tracing, building programs, the store, CUDA-graph capture).
 
-Not ported yet: fault injection, checkpoints, the straggler watchdog's
-flagging (shed and escalate) and meshes.  Asking for one raises
-``NotImplementedError``.
+Not ported yet: meshes (the mesh shrink of a ``host`` fault with them).
+Asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-import collections
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -54,8 +76,10 @@ import numpy as np
 import torch
 
 from ..cache.disk import check_cache_mode
+from ..checkpoint.ckpt import restore_checkpoint, save_checkpoint
 from ..core.schedule import CPU_COST_MODEL, H100_COST_MODEL
 from ..core.tapir import TapirConfig, cache_stats, use
+from ..dist.fault import Fault, FaultInjector, StragglerWatchdog
 from ..models.base import resolve_device
 from ..models.layers import bucket_pow2
 from .pages import (PagePool, copy_cache_pages, identity_row, preempt_cost,
@@ -81,9 +105,27 @@ class ServeConfig:
     shared_pages: Optional[int] = None
     #: eviction arm for priority preemption: "auto" | "park" | "replay"
     preempt_mode: str = "auto"
-    #: not ported yet; setting either raises NotImplementedError
-    fault_injector: Any = None
+    # -- fault tolerance (slot path; see ``_run_slots``) ------------------
+    #: deterministic fault source, consulted before every pool decode step
+    fault_injector: Optional[FaultInjector] = None
+    #: slot-state checkpoints (pools, per-slot pos, queue, rng) land here;
+    #: None disables durability — recovery replays from scratch
     ckpt_dir: Optional[str] = None
+    #: decode steps between periodic checkpoints (0 = on-demand only)
+    ckpt_every: int = 0
+    #: recoveries before the run gives up
+    max_failures: int = 8
+    #: watchdog: a step slower than threshold x rolling median is flagged
+    straggler_threshold: float = 4.0
+    #: consecutive flagged steps before admission sheds load
+    straggle_patience: int = 3
+    #: the shed pause starts at shed_base decode ticks and doubles per
+    #: round (bounded exponential backoff) up to shed_cap
+    shed_base: int = 2
+    shed_cap: int = 16
+    #: shed rounds with straggle persisting before the suspect host is
+    #: evicted (checkpoint -> restore)
+    straggle_escalate: int = 3
     # -- persistent program cache (L2; see ``repro_torch.cache``) ---------
     #: on-disk program store; None serves memory-only (every process
     #: compiles its own region programs)
@@ -93,11 +135,6 @@ class ServeConfig:
     cache_mode: str = "readwrite"
 
     def __post_init__(self):
-        for name in ("fault_injector", "ckpt_dir"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"ServeConfig.{name} is not ported to the torch engine "
-                    f"yet")
         check_cache_mode(self.cache_mode)
         if self.target not in ("gpu", "cpu"):
             raise ValueError(f"target must be 'gpu' or 'cpu', got "
@@ -110,6 +147,10 @@ class ServeConfig:
             raise ValueError(
                 f"preempt_mode must be 'auto', 'park' or 'replay', "
                 f"got {self.preempt_mode!r}")
+        if self.shed_base < 0 or self.shed_cap < 0:
+            raise ValueError(
+                f"shed_base/shed_cap must be >= 0, got "
+                f"{self.shed_base}/{self.shed_cap}")
         if self.page_len is not None and self.page_len <= 0:
             raise ValueError(f"page_len must be positive, got "
                              f"{self.page_len}")
@@ -187,37 +228,22 @@ class Request:
                 f"{self.arrival_step}")
 
 
-#: decode steps the step-time statistics cover: the reference watchdog's
-#: rolling window
-STEP_WINDOW = 256
+class _EngineFault(Exception):
+    """Aborts the slot session; carries the injected Fault."""
 
-
-class StepWindow:
-    """The wall times of the last ``STEP_WINDOW`` decode steps, with the
-    median and 95th percentile that the reference's ``StragglerWatchdog``
-    reports over its rolling window (``dist/fault.py``)."""
-
-    def __init__(self):
-        self._durations: collections.deque = collections.deque(
-            maxlen=STEP_WINDOW)
-
-    def observe(self, duration_s: float) -> None:
-        self._durations.append(duration_s)
-
-    @property
-    def p50(self) -> float:
-        return float(np.median(list(self._durations))) \
-            if self._durations else 0.0
-
-    @property
-    def p95(self) -> float:
-        return float(np.percentile(list(self._durations), 95)) \
-            if self._durations else 0.0
+    def __init__(self, fault: Fault):
+        super().__init__(f"injected fault: {fault}")
+        self.fault = fault
 
 
 @dataclass
 class _SlotRunState:
+    """Everything a slot session needs to resume: the device state
+    (``cache`` pools + page table + ``rng``) checkpoints as one tree, the
+    host-side scheduler and page-policy fields as the checkpoint's JSON
+    meta; all of it rolls back together on a restore."""
     cache: Any
+    rng: Any
     slot_idx: list               # per-slot index into ``requests``, -1 free
     slot_steps: list             # per-slot decode-step budget used
     tokens: np.ndarray           # [slots, 1] next feed token per slot
@@ -231,10 +257,11 @@ class _SlotRunState:
     parked: dict = field(default_factory=dict)   # rid -> feed-state record
     step: int = 0                # completed pool-wide scheduler ticks
     occ_sum: float = 0.0
-    steps: StepWindow = field(default_factory=StepWindow)  # step wall times
-    ttft: list = field(default_factory=list)
-    qwait: list = field(default_factory=list)
     st: dict = field(default_factory=dict)
+    backoff: int = 0             # admission pause ticks remaining (shed)
+    shed_rounds: int = 0
+    straggle_run: int = 0        # consecutive flagged steps
+    suspect: Optional[int] = None  # device id blamed for the straggle
 
 
 def _pct(xs, q) -> float:
@@ -357,20 +384,28 @@ class ServingEngine:
         self.last_stats = st
         return requests
 
-    def _fresh_slot_state(self, requests) -> _SlotRunState:
+    def _fresh_slot_state(self, requests, tokens_dev=None) -> _SlotRunState:
+        """A new session from scratch: a fresh slot cache, every request
+        queued.  ``tokens_dev`` (the run's feed buffer) is reused when
+        given, so a replay keeps the decode step's input tensor."""
         for r in requests:
             r.out, r.done = [], False
         cfg = self.cfg
         pool = PagePool(self.slots, self.max_len, cfg.page_len,
                         cfg.shared_pages)
+        if tokens_dev is None:
+            tokens_dev = torch.zeros((self.slots, 1), dtype=torch.int32,
+                                     device=self.device)
         return _SlotRunState(
             cache=self.model.init_slot_cache(self.slots, self.max_len,
                                              cfg.page_len, cfg.shared_pages),
+            # greedy today; checkpointed as the reference's PRNGKey(0), so
+            # a sampler fits the same recovery protocol and state schema
+            rng=torch.zeros((2,), dtype=torch.uint32, device=self.device),
             slot_idx=[-1] * self.slots,
             slot_steps=[0] * self.slots,
             tokens=np.zeros((self.slots, 1), np.int32),
-            tokens_dev=torch.zeros((self.slots, 1), dtype=torch.int32,
-                                   device=self.device),
+            tokens_dev=tokens_dev,
             pool=pool,
             ptab_host=np.stack([identity_row(s, pool.pps)
                                 for s in range(self.slots)]),
@@ -382,19 +417,125 @@ class ServingEngine:
                 "prefix_tokens_saved": 0, "preemptions": 0, "parked": 0,
                 "replayed": 0, "slo_shed": 0})
 
+    def _save_slot_ckpt(self, rs: _SlotRunState, requests, ft: dict) -> None:
+        """One atomic snapshot: the pools, ``ptab``, per-slot ``pos`` and
+        ``rng`` as the device tree (copied to the host before the write:
+        the pools move on in place), the queue, slot assignments, feed
+        tokens, every admitted request's progress and the stats as JSON
+        meta, in the reference's layout.  A restore rewinds all of it."""
+        if self.cfg.ckpt_dir is None:
+            return
+        meta = {"step": rs.step,
+                "pending": [int(i) for i in rs.pending],
+                "slot_idx": [int(i) for i in rs.slot_idx],
+                "slot_steps": [int(s) for s in rs.slot_steps],
+                "tokens": [int(t) for t in rs.tokens[:, 0]],
+                "fed": [int(f) for f in rs.fed],
+                "slot_seq": [int(q) for q in rs.slot_seq],
+                "seq": int(rs.seq),
+                "outs": {str(i): [int(t) for t in requests[i].out]
+                         for i in range(len(requests)) if requests[i].out},
+                "done": [i for i, r in enumerate(requests) if r.done],
+                "parked": {str(r): {"tok": int(v["tok"]),
+                                    "steps": int(v["steps"]),
+                                    "fed": int(v["fed"])}
+                           for r, v in rs.parked.items()},
+                "pool": rs.pool.to_meta(),
+                "st": {k: int(v) for k, v in rs.st.items()},
+                "occ_sum": float(rs.occ_sum)}
+        save_checkpoint(self.cfg.ckpt_dir, rs.step,
+                        {"cache": rs.cache, "rng": rs.rng},
+                        keep_n=2, blocking=True, meta=meta)
+        ft["checkpoints"] += 1
+
+    def _restore_slot_state(self, requests, ft: dict,
+                            rs: _SlotRunState) -> _SlotRunState:
+        """The latest slot checkpoint copied into the failed session's own
+        pools, ``ptab``, ``pos`` and ``rng`` (``rs``: each tensor keeps its
+        storage), with the host state from its meta.  No checkpoint: a
+        fresh session; greedy decode is deterministic, so a replay from
+        scratch still ends in the clean run's tokens."""
+        ft["restores"] += 1
+        if self.cfg.ckpt_dir is None:
+            return self._fresh_slot_state(requests, rs.tokens_dev)
+        try:
+            state, _, manifest = restore_checkpoint(
+                self.cfg.ckpt_dir, {"cache": rs.cache, "rng": rs.rng})
+        except FileNotFoundError:
+            return self._fresh_slot_state(requests, rs.tokens_dev)
+        meta = manifest["meta"]
+        done = set(meta["done"])
+        for i, r in enumerate(requests):
+            out = meta["outs"].get(str(i))
+            r.out = list(out) if out is not None else []
+            r.done = i in done
+        return _SlotRunState(
+            cache=state["cache"], rng=state["rng"],
+            slot_idx=list(meta["slot_idx"]),
+            slot_steps=list(meta["slot_steps"]),
+            tokens=np.asarray(meta["tokens"], np.int32).reshape(-1, 1),
+            tokens_dev=rs.tokens_dev,
+            pool=PagePool.from_meta(meta["pool"], self.slots, self.max_len,
+                                    self.cfg.page_len,
+                                    self.cfg.shared_pages),
+            ptab_host=state["cache"]["ptab"].cpu().numpy().copy(),
+            pending=list(meta["pending"]),
+            fed=list(meta["fed"]),
+            slot_seq=list(meta["slot_seq"]), seq=int(meta["seq"]),
+            parked={int(r): dict(v) for r, v in meta["parked"].items()},
+            step=int(meta["step"]),
+            occ_sum=float(meta["occ_sum"]), st=dict(meta["st"]))
+
+    def _handle_fault(self, fault: Fault, ft: dict) -> None:
+        """Post-mortem reconfiguration.  On a mesh a fault that blames a
+        host evicts it (the reference's shrink, which waits for the mesh
+        port); on one device there is nothing to reconfigure: the next
+        attempt restores on the same device, and the programs and the
+        params survive, so the replay hits the program cache."""
+
     def _run_slots(self, requests, max_steps: int, continuous: bool):
+        """The recovery loop around the slot session: a session runs until
+        an injected (or escalated) fault aborts it; the next attempt
+        restores the latest checkpoint and replays.  Every request's
+        tokens equal a fault-free run's: everything the session reads
+        (pools, pos, queue, feed tokens, request progress) rolls back to
+        one snapshot, and greedy decode is deterministic."""
+        cfg = self.cfg
+        wd = StragglerWatchdog(threshold=cfg.straggler_threshold)
+        ft = {"failures": 0, "restores": 0, "mesh_shrinks": 0,
+              "checkpoints": 0, "shed_steps": 0, "shed_rounds": 0}
         snap = _cache_snap()
         t0 = time.perf_counter()
-        with use(self.cfg.tapir_config()):
+        # wall-clock observability rides outside the checkpointed stats
+        ft["_t0"] = t0
+        ft["_ttft"] = []
+        ft["_qwait"] = []
+        rs = None
+        with use(cfg.tapir_config()):
             self._sp = self.model.slot_params()
-            rs = self._fresh_slot_state(requests)
-            self._slot_session(requests, max_steps, continuous, rs, t0)
+            while True:
+                rs = self._fresh_slot_state(requests) if rs is None \
+                    else self._restore_slot_state(requests, ft, rs)
+                try:
+                    self._slot_session(requests, max_steps, continuous, rs,
+                                       ft, wd)
+                    break
+                except _EngineFault as ef:
+                    ft["failures"] += 1
+                    if ft["failures"] > cfg.max_failures:
+                        raise RuntimeError(
+                            f"slot serving failed {ft['failures']} times; "
+                            "giving up") from ef
+                    self._handle_fault(ef.fault, ft)
         wall = time.perf_counter() - t0
+        ttft, qwait = ft.pop("_ttft"), ft.pop("_qwait")
+        ft.pop("_t0")
         st = rs.st
-        st.update(step_p50=rs.steps.p50, step_p95=rs.steps.p95,
-                  ttft_p50=_pct(rs.ttft, 50), ttft_p95=_pct(rs.ttft, 95),
-                  queue_wait_p50=_pct(rs.qwait, 50),
-                  queue_wait_p95=_pct(rs.qwait, 95),
+        st.update(ft, straggler_steps=len(wd.flagged),
+                  step_p50=wd.p50, step_p95=wd.p95,
+                  ttft_p50=_pct(ttft, 50), ttft_p95=_pct(ttft, 95),
+                  queue_wait_p50=_pct(qwait, 50),
+                  queue_wait_p95=_pct(qwait, 95),
                   wall_s=wall,
                   tok_per_s=st["tokens"] / wall if wall > 0 else 0.0,
                   mean_occupancy=(rs.occ_sum / st["decode_steps"]
@@ -432,7 +573,7 @@ class ServingEngine:
         return k0[0].numel() * k0.element_size() * len(rs.cache["k"]) * 2
 
     def _admit_into(self, requests, idx: int, s: int, rs: _SlotRunState,
-                    slot_req, t0: float) -> None:
+                    slot_req, ft: dict) -> None:
         """Admit ``requests[idx]`` into free slot ``s``: resume it from
         parked pages, replay it from its recorded tokens, or prefill it
         fresh — binding any resident shared prefix first."""
@@ -505,9 +646,9 @@ class ServingEngine:
             r.out.append(tok)
             rs.st["admitted"] += 1
             rs.st["tokens"] += 1
-            now = time.perf_counter() - t0
-            rs.qwait.append(now)
-            rs.ttft.append(now)
+            now = time.perf_counter() - ft["_t0"]
+            ft["_qwait"].append(now)
+            ft["_ttft"].append(now)
         if cfg.prefix_sharing and k == 0:
             # total miss: publish the prompt-covering pages so the NEXT
             # request sharing this prefix prefills only its suffix
@@ -526,13 +667,13 @@ class ServingEngine:
         rs.slot_seq[s] = rs.seq
 
     def _slo_shed(self, requests, elig: list, rs: _SlotRunState,
-                  t0: float) -> list:
+                  ft: dict, wd: StragglerWatchdog) -> list:
         """admit_policy="slo": drop eligible requests whose deadline the
         observed p50 step time says can no longer be met."""
         if self.cfg.admit_policy != "slo":
             return elig
-        now = time.perf_counter() - t0
-        p50 = rs.steps.p50
+        now = time.perf_counter() - ft["_t0"]
+        p50 = wd.p50
         keep = []
         for i in elig:
             r = requests[i]
@@ -547,7 +688,7 @@ class ServingEngine:
         return keep
 
     def _preempt_for(self, requests, idx: int, rs: _SlotRunState,
-                     slot_req) -> Optional[int]:
+                     slot_req, wd: StragglerWatchdog) -> Optional[int]:
         """Evict the lowest-priority running slot (ties: most recently
         admitted) iff ``requests[idx]`` outranks it STRICTLY; the victim is
         parked or dropped for replay, whichever ``preempt_cost`` prices
@@ -570,7 +711,7 @@ class ServingEngine:
                 n_out=len(victim.out), page_bytes=self._page_bytes(rs),
                 pps=pool.pps, page_len=pool.page_len,
                 model_flops_per_tok=self._flops_per_tok(),
-                step_s=(rs.steps.p50 or 1e-3)).arm
+                step_s=(wd.p50 or 1e-3)).arm
         if arm == "park":
             if pool.park(rs.cache, victim.rid, s, length):
                 rs.parked[victim.rid] = {"tok": int(rs.tokens[s, 0]),
@@ -590,8 +731,10 @@ class ServingEngine:
         return s
 
     def _slot_session(self, requests, max_steps: int, continuous: bool,
-                      rs: _SlotRunState, t0: float) -> None:
-        model, sp = self.model, self._sp
+                      rs: _SlotRunState, ft: dict,
+                      wd: StragglerWatchdog) -> None:
+        model, cfg, sp = self.model, self.cfg, self._sp
+        injector = cfg.fault_injector
 
         def eligible():
             # highest priority first; FIFO (submission index) within one
@@ -599,38 +742,58 @@ class ServingEngine:
                            if requests[i].arrival_step <= rs.step),
                           key=lambda i: (-requests[i].priority, i))
 
-        slot_req: list[Optional[Request]] = [None] * self.slots
+        slot_req: list[Optional[Request]] = [
+            requests[i] if i >= 0 else None for i in rs.slot_idx]
         while rs.pending or any(r is not None for r in slot_req):
+            if rs.backoff > 0:
+                # shedding: admission paused, running slots keep draining
+                rs.backoff -= 1
+                ft["shed_steps"] += 1
             # admission: continuous fills ANY free slot every tick; wave
             # only refills once the whole pool has drained
-            if continuous or all(r is None for r in slot_req):
-                for idx in self._slo_shed(requests, eligible(), rs, t0):
+            elif continuous or all(r is None for r in slot_req):
+                for idx in self._slo_shed(requests, eligible(), rs, ft, wd):
                     s = next((t for t in range(self.slots)
                               if slot_req[t] is None), None)
                     if s is None:
                         break
-                    self._admit_into(requests, idx, s, rs, slot_req, t0)
+                    self._admit_into(requests, idx, s, rs, slot_req, ft)
                 if continuous:
                     elig = eligible()
                     if elig and all(r is not None for r in slot_req):
-                        s = self._preempt_for(requests, elig[0], rs, slot_req)
+                        s = self._preempt_for(requests, elig[0], rs,
+                                              slot_req, wd)
                         if s is not None:
                             self._admit_into(requests, elig[0], s, rs,
-                                             slot_req, t0)
+                                             slot_req, ft)
             if not any(r is not None for r in slot_req):
                 if rs.pending:
                     rs.step += 1    # nothing runnable yet: advance the clock
                 continue
+            # injected faults for the coming step: a hard fault aborts the
+            # session (the recovery loop restores); a straggle slows THIS
+            # step, so the watchdog sees it as a real one
+            delay = 0.0
+            if injector is not None:
+                f = injector.on_decode_step(rs.step)
+                if f is not None and f.kind in ("host", "crash"):
+                    raise _EngineFault(f)
+                if f is not None and f.kind == "straggle":
+                    delay = f.delay_s
+                    if f.host is not None:
+                        rs.suspect = f.host
             # one decode step for the WHOLE pool (free slots carry
             # don't-care tokens; their writes land in their own pages)
             rs.occ_sum += sum(r is not None for r in slot_req) / self.slots
             rs.st["decode_steps"] += 1
             t_step = time.perf_counter()
+            if delay:
+                time.sleep(delay)
             rs.tokens_dev.copy_(torch.from_numpy(rs.tokens))
             logits, rs.cache = model.decode_step_slots(sp, rs.tokens_dev,
                                                        rs.cache)
             nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
-            rs.steps.observe(time.perf_counter() - t_step)
+            dt = time.perf_counter() - t_step
             for s, r in enumerate(slot_req):
                 if r is None:
                     continue
@@ -652,3 +815,22 @@ class ServingEngine:
                         rs.st["preempted"] += 1
                     self._release(s, rs, slot_req)
             rs.step += 1
+            # straggler policy: sustained straggle sheds admission with a
+            # bounded exponential backoff; past the budget it escalates to
+            # evicting the suspect host (checkpoint first)
+            if wd.observe(rs.step - 1, dt):
+                rs.straggle_run += 1
+            else:
+                rs.straggle_run = 0
+            if rs.straggle_run >= cfg.straggle_patience and rs.backoff == 0:
+                if rs.shed_rounds >= cfg.straggle_escalate:
+                    self._save_slot_ckpt(rs, requests, ft)
+                    raise _EngineFault(Fault("host", host=rs.suspect))
+                rs.shed_rounds += 1
+                ft["shed_rounds"] += 1
+                rs.backoff = min(cfg.shed_cap,
+                                 cfg.shed_base * 2 ** (rs.shed_rounds - 1))
+                rs.straggle_run = 0
+                self._save_slot_ckpt(rs, requests, ft)     # on demand
+            elif cfg.ckpt_every > 0 and rs.step % cfg.ckpt_every == 0:
+                self._save_slot_ckpt(rs, requests, ft)

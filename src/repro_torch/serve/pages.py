@@ -25,6 +25,10 @@ Invariants (carried to ROADMAP):
   prompt that exactly covers its matched prefix, whose last token must
   re-run to produce logits — triggers COPY-ON-WRITE: the boundary page
   is copied into the slot's private run before the suffix prefill.
+* Prefix pages checkpoint ONCE: they live in the pool (part of the
+  device tree the engine checkpoints), never per-referencing-slot; this
+  module's host state travels as JSON meta next to it (``to_meta`` /
+  ``from_meta``, the reference's layout).
 
 ``PrefixIndex`` hashes prompt prefixes at page granularity (chained
 sha256, token-exact verified — a hash collision can cost a miss, never
@@ -279,6 +283,50 @@ class PagePool:
         row = identity_row(slot, self.pps)
         row[:len(shared)] = shared
         return row
+
+    # -- checkpoint meta -------------------------------------------------
+    def to_meta(self) -> dict:
+        """The pool's host state as JSON-able meta."""
+        return {
+            "free": [int(p) for p in self.free],
+            "clock": int(self.clock),
+            "slot_entry": list(self.slot_entry),
+            "slot_bound": [int(b) for b in self.slot_bound],
+            "entries": {h: {"pages": [int(p) for p in e.pages],
+                            "tokens": [int(t) for t in e.tokens],
+                            "refs": int(e.refs),
+                            "last_use": int(e.last_use)}
+                        for h, e in self.entries.items()},
+            "parked": {str(r): {"pages": [int(p) for p in v["pages"]],
+                                "first": int(v["first"]),
+                                "length": int(v["length"]),
+                                "entry": v["entry"],
+                                "bound": int(v["bound"])}
+                       for r, v in self.parked.items()},
+        }
+
+    @classmethod
+    def from_meta(cls, meta: dict, slots: int, max_len: int,
+                  page_len: Optional[int] = None,
+                  shared_pages: Optional[int] = None) -> "PagePool":
+        """The pool ``to_meta`` described (its own or the reference's)."""
+        pool = cls(slots, max_len, page_len, shared_pages)
+        pool.free = list(meta["free"])
+        pool.clock = int(meta["clock"])
+        pool.slot_entry = list(meta["slot_entry"])
+        pool.slot_bound = list(meta["slot_bound"])
+        pool.entries = {
+            h: _Entry(pages=list(v["pages"]),
+                      tokens=np.asarray(v["tokens"], np.int32),
+                      refs=int(v["refs"]), last_use=int(v["last_use"]))
+            for h, v in meta["entries"].items()}
+        pool.parked = {int(r): {"pages": list(v["pages"]),
+                                "first": int(v["first"]),
+                                "length": int(v["length"]),
+                                "entry": v["entry"],
+                                "bound": int(v["bound"])}
+                       for r, v in meta["parked"].items()}
+        return pool
 
 
 # -- eviction cost model -----------------------------------------------------

@@ -9,9 +9,10 @@ compute (``params_from_numpy``).
   finish, with the same greedy tokens, and the same counts
   (``tests/test_continuous_batching.py`` holds the reference to the same
   behaviours);
-* the step-time window: ``StepWindow`` gives the reference
-  ``StragglerWatchdog``'s p50 and p95 on the same durations, past its 256
-  steps, and the engine's ``last_stats`` read that window.
+* the step-time window: the port's ``StragglerWatchdog`` (which the
+  engine takes its step statistics from) gives the reference's p50, p95
+  and flags on the same durations, past its 256 steps, and the engine's
+  ``last_stats`` read that window.
 """
 import dataclasses
 
@@ -29,7 +30,7 @@ from repro.serve import ServingEngine as JServingEngine
 from repro_torch.configs import get_smoke
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import Request, ServeConfig, ServingEngine
-from repro_torch.serve import engine as engine_mod
+from repro_torch.dist import fault as fault_mod
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -159,14 +160,14 @@ def _synthetic_steps(monkeypatch, durations):
     """Make the engine's window observe ``durations`` (in order) in place
     of the measured step times; returns the list of what it observed."""
     seen = []
-    observe = engine_mod.StepWindow.observe
+    observe = fault_mod.StragglerWatchdog.observe
 
-    def fake(self, _measured):
+    def fake(self, step, _measured):
         d = durations[len(seen)]
         seen.append(d)
-        observe(self, d)
+        return observe(self, step, d)
 
-    monkeypatch.setattr(engine_mod.StepWindow, "observe", fake)
+    monkeypatch.setattr(fault_mod.StragglerWatchdog, "observe", fake)
     return seen
 
 
@@ -194,17 +195,18 @@ def test_slo_shed_estimates_with_the_window_p50(pair, monkeypatch):
 
 
 def test_step_window_matches_straggler_watchdog():
-    """The same durations into the port's window and the reference's
-    watchdog give equal p50 and p95, before, at and past 256 steps."""
+    """The same durations into the port's watchdog and the reference's
+    give equal p50 and p95, before, at and past 256 steps, and flag the
+    same steps."""
     rng = np.random.default_rng(0)
     durations = rng.lognormal(-4.0, 0.6, 1000).tolist()
-    win, wd = engine_mod.StepWindow(), StragglerWatchdog()
+    win, wd = fault_mod.StragglerWatchdog(), StragglerWatchdog()
     assert win.p50 == wd.p50 == 0.0 and win.p95 == wd.p95 == 0.0
     for i, d in enumerate(durations, 1):
-        win.observe(d)
-        wd.observe(i, d)
+        assert win.observe(i, d) == wd.observe(i, d)
         if i in (1, 10, 255, 256, 257, 400, 1000):
             assert win.p50 == wd.p50 and win.p95 == wd.p95, i
+    assert win.flagged == wd.flagged
     assert win.p50 != float(np.median(durations))
 
 

@@ -285,3 +285,139 @@ def test_whisper_guarantees_bitwise(cuda, whisper2):
     for tag in ("per_op", "opaque"):
         assert all(torch.equal(a, b)
                    for a, b in zip(runs["region"], runs[tag])), tag
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward shapes the encoder-decoder and VLM train steps
+# bring (chip_smoke.py's BWD_RTOL: each gradient within 2e-2 / 1e-4 of its
+# largest entry, bf16 / fp32)
+# ---------------------------------------------------------------------------
+
+BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _rel(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _train_flash_shapes():
+    """(B, Sq, Skv, Hq, Hkv, D, causal) of the train steps' attention:
+    Whisper's encoder (non-causal 1500 x 1500: ragged query and key tiles,
+    the last key tile 92 wide), cross-attention (non-causal, 448 queries
+    over 1500 frames) and decoder (causal 448); InternVL's causal 256 +
+    2048 positions, GQA 8."""
+    w, v = get_config("whisper_small"), get_config("internvl2_76b")
+    h, d = w.n_heads, w.hd
+    return [(4, 1500, 1500, h, h, d, False), (4, 448, 1500, h, h, d, False),
+            (4, 448, 448, h, h, d, True),
+            (1, 2304, 2304, v.n_heads, v.n_kv_heads, v.hd, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _train_flash_shapes())
+def test_flash_backward_at_train_shapes_matches_plain(cuda, dt, shape):
+    """The flash backward (one launch) against
+    ``flash_attention_bwd_ref``, each of dQ, dK, dV within BWD_RTOL of its
+    largest entry, and bitwise on a second call."""
+    b, sq, skv, hq, hkv, d, causal = shape
+    g = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q = torch.randn(b, sq, hq, d, generator=g, device=cuda).to(dt)
+    k = torch.randn(b, skv, hkv, d, generator=g, device=cuda).to(dt)
+    v = torch.randn(b, skv, hkv, d, generator=g, device=cuda).to(dt)
+    o, lse = fa_ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dt)
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert fa_ops.bwd_launches == before + 1
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    assert _rel(got, want) <= BWD_RTOL[dt]
+    again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,m,k,n,chain", [
+    s_ for s_ in _gemm_shapes() if s_[0].startswith("whisper") and s_[4]])
+def test_gemm_backward_through_whisper_epilogues(cuda, dt, name, m, k, n,
+                                                 chain):
+    """``FusedMatmulFn``'s gradients of x, w and every epilogue operand
+    against autograd through ``fused_matmul_ref`` (BWD_RTOL): a chain of
+    adds (a row bias, a residual) takes the add-only walk, bias + tanh GELU
+    recomputes its product in fp32, one more forward launch."""
+    x, w, epi = _operands(cuda, m, k, n, chain, dt, m + n)
+    leaves = [x, w] + [t for _, vals, _ in epi for t in vals]
+    for t in leaves:
+        t.requires_grad_(True)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn(m, n, generator=g, device=cuda).to(dt)
+    y = ops.fused_matmul(x, w, epilogue=epi, out_dtype=dt)
+    before = ops.launches
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    recompute = any(fn != "add" for fn, _ in chain)
+    assert ops.launches == before + int(recompute)
+    want = torch.autograd.grad(
+        ref.fused_matmul_ref(x, w, epilogue=epi, out_dtype=dt), leaves, dy)
+    assert _rel(got, want) <= BWD_RTOL[dt]
+
+
+@pytest.mark.cuda
+def test_whisper_tied_head_backward_pads_and_matches_plain(cuda):
+    """The 51865-column tied head's dX (``embed`` read in place) and dW at
+    the train step's 4 x 448 rows, bf16, through the padded rows
+    ``kernel.pad_cols`` copies: within BWD_RTOL of the plain versions."""
+    c = get_config("whisper_small")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = torch.bfloat16
+    emb = (torch.randn(c.vocab, c.d_model, generator=g, device=cuda)
+           / 60).to(dt)
+    x = torch.randn(1792, c.d_model, generator=g, device=cuda).to(dt)
+    dy = (torch.randn(1792, c.vocab, generator=g, device=cuda) / 100).to(dt)
+    assert c.vocab % 8 == 1
+    dx = ops.matmul_dx(dy, emb.T, dt)
+    dw = ops.matmul_dw(x, dy, dt)
+    assert _rel([dx, dw], [ref.matmul_dx_ref(dy, emb.T, dt),
+                           ref.matmul_dw_ref(x, dy, dt)]) <= BWD_RTOL[dt]
+    assert torch.equal(dx, ops.matmul_dx(dy, emb.T.contiguous(), dt))
+
+
+@pytest.mark.cuda
+def test_whisper_captured_step_equals_per_op_bitwise(cuda):
+    """Whisper-small at full width on 2 + 2 layers of the 12 + 12 draw,
+    bf16 compute, 2 x 64 tokens over zero frames: 2 captured steps (policy
+    auto) against 2 per-op steps (remat full) from the same weights, every
+    loss, parameter and AdamW moment bitwise."""
+    from repro_torch.data import DataConfig, TokenPipeline, to_device
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.train import (TrainConfig, init_state,
+                                   make_region_train_step, make_train_step)
+    cfg, cpu, _ = _whisper2(False)
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    pipe = TokenPipeline(DataConfig(seq_len=64, global_batch=2,
+                                    vocab=cfg.vocab))
+    runs = []
+    for make, remat in ((make_train_step, "full"),
+                        (make_region_train_step, "auto")):
+        tapir.clear_cache()
+        model = get_model(cfg, device="cuda", params={
+            k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                else v.clone()) for k, v in cpu.param_tree().items()})
+        opt = AdamWConfig(total_steps=4, warmup_steps=1)
+        step = make(model, opt, TrainConfig(remat=remat, target="gpu"))
+        state = init_state(model, opt)
+        losses = []
+        for s_ in range(2):
+            batch = to_device(pipe.batch_at(s_), "cuda")
+            for k, spec in model.input_specs(64, 2, "train").items():
+                batch.setdefault(k, torch.zeros(spec.shape, dtype=spec.dtype,
+                                                device="cuda"))
+            state, m = step(state, batch)
+            losses.append(m["loss"].clone())
+        runs.append((losses, [t.clone() for t in tree_leaves(state)]))
+    (la, sa), (lb, sb) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert all(torch.equal(a, b) for a, b in zip(sa, sb))

@@ -284,9 +284,15 @@ def test_pools_update_in_place_and_programs_replay(bf16_model):
 
 
 def test_unported_serving_features_raise(bf16_model):
-    for kw in ({"fault_injector": object()}, {"ckpt_dir": "ck"}):
-        with pytest.raises(NotImplementedError):
-            ServeConfig(**kw)
+    # fault injection and slot checkpoints are ported
+    # (tests/test_torch_fault.py): their fields construct and are checked
+    # as the reference's are
+    from repro_torch.dist import ScriptedFaultInjector
+    scfg = ServeConfig(fault_injector=ScriptedFaultInjector({}),
+                       ckpt_dir="ck", ckpt_every=4)
+    assert (scfg.ckpt_dir, scfg.ckpt_every) == ("ck", 4)
+    with pytest.raises(ValueError, match="shed_base"):
+        ServeConfig(shed_base=-1)
     # the program cache is ported: it reaches the engine's tapir config
     tap = ServeConfig(program_cache_dir="pc", cache_mode="read").tapir_config()
     assert (tap.program_cache_dir, tap.cache_mode) == ("pc", "read")

@@ -261,10 +261,12 @@ def test_non_gated_dense_lm_matches_reference():
     assert chains == [(), ("gelu",)]
 
 
-def test_launchers(capsys):
+def test_launchers(capsys, tmp_path):
     """``launch/serve.py --arch internvl2_76b`` serves text-only slots, as
-    the reference's launcher does; training the family waits for its
-    queue item."""
+    the reference's launcher does; ``launch/train.py`` trains the family on
+    zero image embeddings, as the reference's does
+    (``tests/test_torch_encdec_vlm_train.py`` holds its steps to the
+    reference's)."""
     out = serve_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                           "--requests", "3", "--batch", "2",
                           "--prompt-len", "20", "--prefix-len", "16",
@@ -272,6 +274,8 @@ def test_launchers(capsys):
     rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rep["requests"] == 3 and rep["new_tokens"] == 9 == sum(
         len(r.out) for r in out)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                        "--steps", "1"])
+    train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                    "--steps", "1", "--batch", "2", "--seq", "8",
+                    "--ckpt-dir", str(tmp_path)])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["steps"] == 1 and np.isfinite(line["first_loss"])
