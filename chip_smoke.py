@@ -7,7 +7,7 @@
     python3 chip_smoke.py --flash-bwd-times OUT [--src DIR]
     python3 chip_smoke.py --scan-times OUT [--src DIR]
     python3 chip_smoke.py --scan-bwd-phases
-    python3 chip_smoke.py --decode-times [--src DIR]
+    python3 chip_smoke.py --decode-times [--decode-archs A,B] [--src DIR]
     python3 chip_smoke.py --fig3-times [--src DIR]
     python3 chip_smoke.py --capture-depths N,N,...
     python3 chip_smoke.py --profile-windows N
@@ -24,6 +24,7 @@
     python3 chip_smoke.py --encdec-train
     python3 chip_smoke.py --vlm-train-depths N,N,...
     python3 chip_smoke.py --encdec-train-lrs LR,LR,...
+    python3 chip_smoke.py --mesh [--mesh-layers N] [--mesh-nccl-probe]
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -66,7 +67,10 @@ full width at each depth given, per op and captured, and prints each
 one's peak memory or the OOM (how V_TRAIN_LAYERS was chosen), the
 twentieth steps Whisper-small at each peak lr at the reference's init
 and at fan-in and prints the first batch's loss after the steps (how
-WHISPER_TRAIN_LR and WHISPER_TRAIN_INIT were chosen).
+WHISPER_TRAIN_LR and WHISPER_TRAIN_INIT were chosen).  The twenty-first
+runs the build phase and phase 56 alone (the mesh), at ``--mesh-layers``
+deep, first trying NCCL with two ranks on the card with
+``--mesh-nccl-probe``.
 
 Phases, each printing one JSON line (with ``at_s``, the seconds since the
 script started); any failure exits non-zero.  Every main-path run zeroes the three kernels' launch counts (forward and
@@ -247,15 +251,16 @@ parameters, gradients and AdamW moments alone exceed the card):
    the bound (and the design's byte floor with its two workspaces of
    checkpoints, one every ``kernel.plan_bwd(dtype).group`` chunks).
 
-The RWKV6 model is then released, and Zamba2-7B at full width and depth
-(81 Mamba2 layers, d_model 3584, 112 SSD heads of 64 x 64 state, the
-shared attention + MLP block of 32 heads of 112 applied 13 times, vocab
-32000, the head tied to the embedding; random weights from seed 0)
-takes its place:
+The RWKV6 model is then released, and Zamba2-7B at full width and
+Z_SERVE_LAYERS deep (18 of its 81 Mamba2 layers since PR 32, for the
+whole run's time; d_model 3584, 112 SSD heads of 64 x 64 state, the
+shared attention + MLP block of 32 heads of 112 after every 6 layers,
+vocab 32000, the head tied to the embedding; random weights from seed 0,
+drawn as the 81-layer model draws them) takes its place:
 
-20. zamba2_forward — ``forward`` and ``loss`` on 2 x 2048 tokens: 81
-   ``linear_scan`` launches (the GLA form), 13 ``flash_attention`` and
-   215 ``fused_matmul`` (``zamba2_gemms``) per call, every scan node bound
+20. zamba2_forward — ``forward`` and ``loss`` on 2 x 2048 tokens: one
+   ``linear_scan`` launch a layer (the GLA form), one ``flash_attention``
+   a shared application and ``zamba2_gemms`` ``fused_matmul`` per call, every scan node bound
    to ``kernel``, every attention node to ``flash_kernel``, every matmul
    to ``fused_kernel``, finite logits and loss, wall time, peak memory,
    device time by kernel, no library GEMM or attention kernel;
@@ -519,6 +524,26 @@ bf16 compute, fp32 AdamW, remat full per op and policy auto captured):
    full width cut to 2 + 2 layers, a failure injected at step FT_FAIL:
    restored from a checkpoint and replayed, every parameter, moment and
    loss equal to the uninterrupted run's, bitwise.
+
+Then the mesh (``mesh_phases``; ``--mesh`` runs the build and it alone):
+
+56. mesh_reference / mesh_ranks / mesh_guarantees /
+   mesh_kernels_vs_plain — qwen2.5-3b at full width and MESH_PROOF_LAYERS
+   deep (``--mesh``: MESH_LAYERS)
+   on a (data 2, model 2) mesh of four rank processes sharing the card
+   over gloo (``repro_torch.testing.run_ranks``; NCCL refuses two ranks
+   on one device, ``--mesh-nccl-probe`` shows it): the one-device port on
+   the same weights first (the forward's logits, the slot engine's
+   tokens), then on every rank its block of the forward's logits, its
+   slot-served tokens (six requests, a shared prefix, one preemption) and,
+   after a ``host`` fault on the rank at (1, 0), the shrunk (1, 2) mesh's
+   tokens (failures 1, restores 1, mesh_shrinks 1, the old fingerprint's
+   programs purged, the new one's present), all bitwise the one-device
+   run's; per rank its peak memory, one decode step's all-gathers and
+   their host time; then every GEMM launch at a rank's shard widths (its
+   q | k | v and gate | up column blocks, concatenated, and the head) and
+   flash at 8 / 1 heads against their plain versions, timed.  The ranks time-slice the
+   one card: no number of it is a multi-card figure.
 
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
@@ -3700,18 +3725,15 @@ def zamba2_scan_entry(name: str, key, launches: int, decay: str = "model",
 
 
 def zamba2_phases() -> list:
-    """Phases 20-27 on Zamba2-7B at full width and depth (81 layers, the
-    shared block 13 times, random weights from seed 0); returns their
-    entries of the kernels line."""
+    """Phases 20-27 on Zamba2-7B at full width, Z_SERVE_LAYERS deep (the
+    shared block after every 6, random weights from seed 0 drawn as the
+    81-layer model draws them, ``zamba2_cut``); returns their entries of
+    the kernels line."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import tapir
-    from repro_torch.models.base import get_model
-    cfg = get_config("zamba2_7b")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = get_model(cfg, device="cuda",
-                      generator=torch.Generator(device="cuda").manual_seed(0))
+    cfg, model = zamba2_cut(Z_SERVE_LAYERS)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -3850,11 +3872,15 @@ def zamba2_phases() -> list:
 #: Zamba2-7B's depth in the per-op train phase (full width, 2 x 2048
 #: tokens, remat full, fp32 AdamW) and in the captured step's phase
 #: (policy auto), multiples of shared_attn_every (6) so that no plain tail
-#: is left, chosen by ``--zamba2-depths``' peak probe (PERF.md section 4):
+#: is left; ``--zamba2-depths``' peak probe allows 36 (PERF.md section 4:
 #: at all 81 layers the fp32 params, gradients and moments alone take
-#: 106 GB
-Z_TRAIN_LAYERS = 36
+#: 106 GB), and the per-op phase runs 18 since PR 32 for the whole run's
+#: time (the mesh)
+Z_TRAIN_LAYERS = 18
 Z_CAPTURE_LAYERS = 18
+#: Zamba2-7B's depth in phases 20-27 (forward, serving, decode steps):
+#: all 81 until PR 32, cut for the whole run's time (the mesh)
+Z_SERVE_LAYERS = 18
 #: the depth whose init statistics a cut model keeps
 Z_FULL_LAYERS = 81
 
@@ -8418,12 +8444,18 @@ def fig3_times() -> int:
     return 0
 
 
-def decode_times() -> int:
-    """The ``--decode-times`` mode: the serve phase's run twice (time to
-    first token cold, then warm) and ``decode_paths`` without its checks,
-    for qwen2.5-3b and then RWKV6-7B at full width, with the tree on
-    ``sys.path`` (``--src``: another checkout's); one JSON line each, then
-    the card line.  The kernels are built first, outside every timing."""
+#: ``--decode-times``' models unless ``--decode-archs`` names others
+DECODE_TIMES_ARCHS = "qwen2_5_3b,rwkv6_7b"
+
+
+def decode_times(archs: str = DECODE_TIMES_ARCHS) -> int:
+    """The ``--decode-times`` mode: for each model of ``archs`` at full
+    width, in order, qwen2.5-3b's serve phase run twice (time to first
+    token cold, then warm), then ``decode_paths`` without its checks
+    (Whisper-small: ``whisper_decode_steps`` after a prefill), with the
+    tree on ``sys.path`` (``--src``: another checkout's); one JSON line
+    each, then the card line.  The kernels are built first, outside every
+    timing."""
     import torch
     import repro_torch
     from repro_torch.configs import get_config
@@ -8441,7 +8473,15 @@ def decode_times() -> int:
     emit({"phase": "decode_times",
           "tree": os.path.relpath(os.path.dirname(repro_torch.__file__),
                                   HERE)})
-    for arch in ("qwen2_5_3b", "rwkv6_7b"):
+    for arch in archs.split(","):
+        if arch == "whisper_small":
+            cfg, model = whisper_model()
+            batch, prompts = whisper_inputs(cfg)
+            emit(whisper_decode_steps(model, cfg, batch, prompts))
+            del model, batch, prompts
+            tapir.clear_cache()
+            torch.cuda.empty_cache()
+            continue
         cfg = get_config(arch)
         model = get_model(cfg, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(0))
@@ -8468,6 +8508,334 @@ def decode_times() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 56. the mesh: qwen2.5-3b on four ranks, (data 2, model 2), on one card
+# ---------------------------------------------------------------------------
+
+#: the rank grid, the depth (all 36 layers unless --mesh-layers cuts it),
+#: the forward batch (rows, tokens), the seed of the weights and tokens,
+#: the new tokens a request decodes, the decode step the host fault fires
+#: before (after the checkpoint at step MESH_CKPT_EVERY), and the ranks'
+#: time limit
+MESH_SHAPE = (2, 2)
+MESH_LAYERS = 36
+#: the whole run's mesh depth: 36 layers put the run past 1000 s on the
+#: slower of the card's hosts; ``--mesh`` runs MESH_LAYERS
+MESH_PROOF_LAYERS = 12
+MESH_FWD = (2, 256)
+MESH_SEED = 7
+MESH_NEW = 8
+MESH_CKPT_EVERY = 8
+MESH_FAULT_STEP = 9
+MESH_TIMEOUT_S = 420
+#: a rank's shard widths at (2, 2): the projection each N is (q | k | v
+#: and gate | up are the rank's column blocks concatenated, 1024 + 2 x 128
+#: and 2 x 5504)
+MESH_SHARD_N = {1280: "wq|wk|wv", 11008: "wg|wu", 75968: "head"}
+
+
+def mesh_config(layers: int):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2_5_3b"), n_layers=layers)
+
+
+def mesh_requests(cfg):
+    """``requests``' six (three sharing a 128-token prefix) at
+    ``MESH_NEW`` new tokens each, the last at priority 5 arriving at step
+    4, when four lower ones hold every slot: one preemption."""
+    reqs = requests(cfg.vocab, seed=MESH_SEED)
+    for r in reqs:
+        r.max_new = MESH_NEW
+    reqs[-1].priority, reqs[-1].arrival_step = 5, 4
+    return reqs
+
+
+def mesh_tokens(cfg):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(MESH_SEED)
+    return torch.as_tensor(rng.integers(1, cfg.vocab, MESH_FWD),
+                           dtype=torch.int32, device="cuda")
+
+
+def mesh_reference(cfg, tmp: str) -> dict:
+    """The one-device port on the same weights (drawn from MESH_SEED, leaf
+    by leaf, as every rank draws them) and inputs: the forward's logits
+    (saved for the ranks) and the slot engine's tokens."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.serve import ServeConfig, ServingEngine
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    model = DenseLM(cfg, device="cuda", generator=gen)
+    t0 = time.perf_counter()
+    with tapir.use(ServeConfig().tapir_config()):
+        logits = model.forward({"tokens": mesh_tokens(cfg)})
+    torch.save(logits.cpu(), os.path.join(tmp, "logits.pt"))
+    eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN)
+    out = eng.run(mesh_requests(cfg))
+    ref = {"tokens": [r.out for r in out],
+           "decode_steps": eng.last_stats["decode_steps"],
+           "preemptions": eng.last_stats["preemptions"],
+           "prefix_hits": eng.last_stats["prefix_hits"],
+           "s": time.perf_counter() - t0,
+           "logits_finite": bool(torch.isfinite(logits).all())}
+    with open(os.path.join(tmp, "ref.json"), "w") as f:
+        json.dump(ref, f)
+    del model, eng, logits
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return ref
+
+
+#: each rank's body (``repro_torch.testing.run_ranks``): build this rank's
+#: blocks of the model, the forward, the clean serve and the host-fault
+#: serve, each held to the one-device run bit for bit
+MESH_RANK_BODY = """
+import time
+sys.path.insert(0, os.environ["CHIP_SMOKE_DIR"])
+import chip_smoke as cs
+from repro_torch.core import tapir
+from repro_torch.dist import use_mesh
+from repro_torch.dist.fault import Fault, ScriptedFaultInjector
+from repro_torch.dist.sharding import local_block
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.fused_matmul import ops as fm_ops
+from repro_torch.launch.mesh import make_test_mesh, rank_of
+from repro_torch.models.transformer import DenseLM
+from repro_torch.serve import ServeConfig, ServingEngine
+A = json.loads(os.environ["MESH_ARGS"])
+tmp = A["tmp"]
+with open(os.path.join(tmp, "ref.json")) as f:
+    ref = json.load(f)
+cfg = cs.mesh_config(A["layers"])
+mesh = make_test_mesh(*A["shape"])
+result["backend"] = backend
+result["coords"] = list(mesh.coords)
+t0 = time.perf_counter()
+gen = torch.Generator(device="cuda").manual_seed(cs.MESH_SEED)
+model = DenseLM(cfg, device="cuda", generator=gen, mesh=mesh)
+torch.cuda.synchronize()
+result["build_s"] = time.perf_counter() - t0
+result["param_gb"] = sum(p.numel() * p.element_size()
+                         for p in model.parameters()) / 1e9
+for ops in (fm_ops, fa_ops):
+    ops.reset_counts()
+t0 = time.perf_counter()
+with use_mesh(mesh), tapir.use(ServeConfig().tapir_config()):
+    logits = model.forward({"tokens": cs.mesh_tokens(cfg)})
+    spec = getattr(logits, tapir.SPEC_ATTR)
+whole = torch.load(os.path.join(tmp, "logits.pt"))
+result["forward"] = {
+    "s": time.perf_counter() - t0, "spec": list(spec),
+    "block": list(logits.shape),
+    "bitwise": bool(torch.equal(logits.cpu(),
+                                local_block(whole, spec, mesh)))}
+del logits, whole
+eng = ServingEngine(model, batch=cs.SLOTS, max_len=cs.MAX_LEN, mesh=mesh)
+mesh.stats.clear()
+t0 = time.perf_counter()
+out = eng.run(cs.mesh_requests(cfg))
+st = eng.last_stats
+steps = st["decode_steps"]
+result["serve"] = {
+    "s": time.perf_counter() - t0,
+    "bitwise": [r.out for r in out] == ref["tokens"],
+    "decode_steps": steps, "preemptions": st["preemptions"],
+    "prefix_hits": st["prefix_hits"], "step_p50_ms": st["step_p50"] * 1e3,
+    "gathers": mesh.stats["gathers"],
+    "gather_s": mesh.stats["gather_s"],
+    "graph_captures": st["graph_captures"]}
+result["gemm"] = [[list(k), v] for k, v in fm_ops.launches_by_shape.items()]
+result["flash"] = [[list(k), v] for k, v in fa_ops.launches_by_shape.items()]
+result["gemm_launches"], result["flash_launches"] = (fm_ops.launches,
+                                                     fa_ops.launches)
+# one decode step alone: its collectives and their host seconds
+mesh.stats.clear()
+fm_ops.reset_counts()
+with use_mesh(mesh), tapir.use(ServeConfig().tapir_config()):
+    sp = eng._build_slot_params()
+    cache = eng._init_slot_cache()
+    feed = torch.zeros((cs.SLOTS, 1), dtype=torch.int32, device="cuda")
+    model.decode_step_slots(sp, feed, cache)
+    torch.cuda.synchronize()
+    mesh.stats.clear()
+    t0 = time.perf_counter()
+    model.decode_step_slots(sp, feed, cache)
+    torch.cuda.synchronize()
+result["decode_step"] = {"s": time.perf_counter() - t0,
+                         "gathers": mesh.stats["gathers"],
+                         "gather_s": mesh.stats["gather_s"]}
+del sp, cache
+old_fp = mesh.fingerprint
+victim = rank_of(mesh, 1, 0)
+eng2 = ServingEngine(model, batch=cs.SLOTS, max_len=cs.MAX_LEN, mesh=mesh,
+                     cfg=ServeConfig(fault_injector=ScriptedFaultInjector(
+                         {cs.MESH_FAULT_STEP: Fault("host", host=victim)}),
+                         ckpt_dir=os.path.join(tmp, "ck"),
+                         ckpt_every=cs.MESH_CKPT_EVERY))
+t0 = time.perf_counter()
+out2 = eng2.run(cs.mesh_requests(cfg))
+fault = {"s": time.perf_counter() - t0, "evicted": eng2.evicted,
+         "victim": victim}
+if not eng2.evicted:
+    progs = {k[-1] for k in tapir._PROGRAMS}
+    fault.update(
+        bitwise=[r.out for r in out2] == ref["tokens"],
+        mesh=list(eng2.mesh.devices.shape),
+        stats={k: eng2.last_stats[k] for k in
+               ("failures", "restores", "mesh_shrinks", "checkpoints")},
+        old_purged=old_fp not in progs,
+        new_present=eng2.mesh.fingerprint in progs)
+result["fault"] = fault
+result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+"""
+
+
+def mesh_nccl_probe() -> dict:
+    """Two ranks on the one card with NCCL named explicitly: whether NCCL
+    takes two ranks on one device (the reason the mesh runs on gloo)."""
+    from repro_torch.testing import run_ranks
+    body = """
+t = torch.ones(4, device="cuda") * (rank + 1)
+dist.all_reduce(t)
+torch.cuda.synchronize()
+result["sum"] = float(t[0])
+"""
+    try:
+        res = run_ranks(body, 2, device="cuda", timeout=120,
+                        backend="nccl")
+        return {"nccl_two_ranks_one_card": "ran", "result": res}
+    except AssertionError as e:
+        text = str(e)
+        lines = [ln for ln in text.splitlines()
+                 if "rror" in ln or "uplicate" in ln]
+        return {"nccl_two_ranks_one_card": "refused",
+                "error": lines[-3:] if lines else text[-600:]}
+
+
+def mesh_entries(results, gen) -> list:
+    """The kernels line's entries at a rank's shard shapes: every GEMM
+    launch shape whose N is a shard width (MESH_SHARD_N: q | k | v, gate |
+    up, the head) and every flash shape, each against its plain version
+    and timed beside its bound and the library call; launches summed over
+    the four ranks' main-path runs."""
+    gemm2, flash = {}, {}
+    for r in results:
+        for k, v in r["gemm"]:
+            if k[0] == "grouped":
+                continue
+            m, n, kk, dt, spec = k
+            key = (m, n, kk, dt, tuple(tuple(s) for s in spec))
+            if n in MESH_SHARD_N and dt == "torch.bfloat16":
+                gemm2[key] = gemm2.get(key, 0) + v
+        for k, v in r["flash"]:
+            key = tuple(k[:6]) + (k[7],)
+            flash[key] = flash.get(key, 0) + v
+    need = {name: any(k[1] == n for k in gemm2)
+            for n, name in MESH_SHARD_N.items()}
+    need["flash 8 / 1 heads"] = any(k[3:5] == (8, 1) for k in flash)
+    if not all(need.values()):
+        raise SystemExit(f"mesh: a shard shape was never launched: {need}")
+
+    def name2(s_):
+        return (f"fused_matmul[qwen2.5 mesh {MESH_SHARD_N[s_[1]]} "
+                f"m={s_[0]} n={s_[1]} k={s_[2]}]")
+    shapes = sorted(gemm2)
+    errs = gemm_vs_plain(shapes, gen, name2)
+    entries = gemm_times(shapes, gemm2, errs, gen, name2)
+    fshapes = sorted(flash)
+    fa_errs, fa_rels = flash_vs_plain(fshapes, extra=())
+    fent = flash_times([("qwen2.5 mesh", s_, flash[s_]) for s_ in fshapes])
+    emit({"phase": "mesh_kernels_vs_plain", "gemm_shapes": len(shapes),
+          "flash_shapes": len(fshapes), "tolerance": TOL,
+          "gemm_max_err": {d: max([e for k_, e in errs.items()
+                                   if k_[-1] == d], default=None)
+                           for d in ("bfloat16", "float32")},
+          "flash_max_err": {f"{s_}/{d}": e
+                            for (s_, d), e in fa_errs.items()}})
+    return entries + fent
+
+
+def mesh_phases(layers: int = MESH_LAYERS, probe_nccl: bool = False) -> list:
+    """56: qwen2.5-3b at full width and ``layers`` deep on a (2, 2) mesh of
+    four rank processes, over gloo when they share one card (NCCL takes
+    one rank per device), over NCCL when each has its own: each rank's forward block, slot-served tokens (a
+    shared prefix, one preemption) and, after a host fault on the rank at
+    (1, 0), the shrunk (1, 2) mesh's tokens, all bitwise the one-device
+    port's on the same weights; per rank its peak memory and its
+    collectives and their host time per decode step; then the kernels at
+    the ranks' shard shapes against their plain versions."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import choose_backend
+    from repro_torch.testing import run_ranks
+    cfg = mesh_config(layers)
+    backend = choose_backend("cuda", MESH_SHAPE[0] * MESH_SHAPE[1])
+    if probe_nccl:
+        emit({"phase": "mesh_nccl_probe", **mesh_nccl_probe()})
+    tmp = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(HERE, "build"))
+    ref = mesh_reference(cfg, tmp)
+    emit({"phase": "mesh_reference", "layers": layers, **{
+        k: v for k, v in ref.items() if k != "tokens"}})
+    t0 = time.perf_counter()
+    res = run_ranks(MESH_RANK_BODY, MESH_SHAPE[0] * MESH_SHAPE[1],
+                    device="cuda", timeout=MESH_TIMEOUT_S,
+                    env={"CHIP_SMOKE_DIR": HERE, "MESH_ARGS": json.dumps(
+                        {"tmp": tmp, "layers": layers,
+                         "shape": list(MESH_SHAPE)})})
+    ranks_s = time.perf_counter() - t0
+    per_rank = []
+    for r in res:
+        sv, fw, fl, ds = r["serve"], r["forward"], r["fault"], r["decode_step"]
+        per_rank.append({
+            "coords": r["coords"], "backend": r["backend"],
+            "build_s": r["build_s"], "param_gb": r["param_gb"],
+            "peak_gb": r["peak_gb"], "forward_s": fw["s"],
+            "forward_block": fw["block"], "forward_spec": fw["spec"],
+            "serve_s": sv["s"], "decode_steps": sv["decode_steps"],
+            "step_p50_ms": sv["step_p50_ms"],
+            "collectives_per_decode_step": ds["gathers"],
+            "collective_ms_per_decode_step": ds["gather_s"] * 1e3,
+            "decode_step_ms": ds["s"] * 1e3,
+            "serve_collectives": sv["gathers"],
+            "serve_collective_s": sv["gather_s"],
+            "graph_captures": sv["graph_captures"],
+            "fault_s": fl["s"], "evicted": fl["evicted"]})
+    emit({"phase": "mesh_ranks", "layers": layers, "shape": MESH_SHAPE,
+          "ranks_s": ranks_s, "ranks": per_rank})
+    bad = []
+    for i, r in enumerate(res):
+        if r["backend"] != backend:
+            bad.append(f"rank {i} backend {r['backend']}, not {backend}")
+        if not r["forward"]["bitwise"]:
+            bad.append(f"rank {i} forward differs from one device")
+        if not r["serve"]["bitwise"]:
+            bad.append(f"rank {i} tokens differ from one device")
+        if r["serve"]["preemptions"] < 1 or r["serve"]["prefix_hits"] < 1:
+            bad.append(f"rank {i}: no preemption or prefix hit")
+        fl = r["fault"]
+        want_evicted = tuple(r["coords"])[0] == 1
+        if fl["evicted"] != want_evicted:
+            bad.append(f"rank {i} evicted {fl['evicted']}")
+        if not fl["evicted"] and not (
+                fl["bitwise"] and fl["mesh"] == [1, 2]
+                and fl["stats"]["failures"] == 1
+                and fl["stats"]["restores"] == 1
+                and fl["stats"]["mesh_shrinks"] == 1
+                and fl["old_purged"] and fl["new_present"]):
+            bad.append(f"rank {i} fault run {fl}")
+    emit({"phase": "mesh_guarantees", "forward_bitwise": all(
+        r["forward"]["bitwise"] for r in res),
+        "serve_bitwise": all(r["serve"]["bitwise"] for r in res),
+        "fault": [r["fault"] for r in res], "failures": bad})
+    if bad:
+        raise SystemExit(f"mesh: {bad}")
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    return mesh_entries(res, gen)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -8491,6 +8859,10 @@ def main() -> int:
     ap.add_argument("--decode-times", action="store_true",
                     help="time the three decode steps and the serve "
                          "phase's time to first token, and stop")
+    ap.add_argument("--decode-archs", metavar="ARCH,ARCH,...",
+                    default=DECODE_TIMES_ARCHS,
+                    help="with --decode-times: the models, in order "
+                         "(whisper_small times its padded decode step)")
     ap.add_argument("--fig3-times", action="store_true",
                     help="run the fig3 phase (the paper nets' steps, "
                          "device time, ratios) alone, and stop")
@@ -8561,6 +8933,15 @@ def main() -> int:
                     help="Whisper-small at full width and depth: the train "
                          "phase's steps at each peak lr and the first "
                          "batch's loss after them, and stop")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run the build phase and phase 56 alone (the "
+                         "mesh: qwen2.5-3b on four ranks on the card)")
+    ap.add_argument("--mesh-layers", metavar="N", type=int,
+                    default=MESH_LAYERS,
+                    help="with --mesh: the model's depth")
+    ap.add_argument("--mesh-nccl-probe", action="store_true",
+                    help="with --mesh: first try NCCL with two ranks on "
+                         "the one card and print what it does")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -8604,7 +8985,7 @@ def main() -> int:
         return encdec_train_lrs([float(v) for v in
                                  args.encdec_train_lrs.split(",")])
     if args.decode_times:
-        return decode_times()
+        return decode_times(args.decode_archs)
     if args.scan_bwd_phases:
         return scan_bwd_phases()
     if args.fig3_times:
@@ -8716,8 +9097,10 @@ def main() -> int:
                                  f"{fa_kernel.plan_bwd(dt, d)}")
 
     if args.dense or args.moe or args.moe_train or args.encdec or args.vlm \
-            or args.encdec_train:
-        entries = (dense_phases(probe_import=True) if args.dense
+            or args.encdec_train or args.mesh:
+        entries = (mesh_phases(args.mesh_layers, args.mesh_nccl_probe)
+                   if args.mesh
+                   else dense_phases(probe_import=True) if args.dense
                    else moe_phases() if args.moe
                    else moe_train_phases() if args.moe_train
                    else encdec_train_phases() if args.encdec_train
@@ -8796,6 +9179,11 @@ def main() -> int:
 
     # -- 50-55. their training; faults (54's serving ran after phase 2) ----
     entries += encdec_train_phases(fault_serve=False)
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+
+    # -- 56. the mesh: four ranks on the card ------------------------------
+    entries += mesh_phases(MESH_PROOF_LAYERS)
 
     emit({"kernels": entries})
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

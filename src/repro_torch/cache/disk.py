@@ -556,8 +556,8 @@ class ProgramDiskCache:
 
     def invalidate(self, fingerprint: tuple) -> int:
         """Purge every entry compiled under mesh ``fingerprint`` (recorded
-        in the sidecar); both files are removed, not quarantined.  The
-        port runs on one device, whose fingerprint is ``()``."""
+        in the sidecar); both files are removed, not quarantined.  With no
+        mesh the fingerprint is ``()``."""
         fp = [list(p) for p in fingerprint]     # JSON round-trip form
         n = 0
         for digest, meta in self.entries():

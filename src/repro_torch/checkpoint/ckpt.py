@@ -29,8 +29,10 @@ Restore copies each leaf into the template's own tensor (``copy_``) on
 that tensor's device: every ``data_ptr`` survives, so the in-place AdamW
 and the captured step's donated state stay bound to the same storage.  A
 missing or extra key, or a leaf of another shape or dtype, raises.
-``shardings=`` (the reference's elastic re-shard on load) waits for the
-mesh port (ROADMAP queue 1, item 8) and raises.
+``shardings=`` (the reference's elastic re-shard on load) is a tree of
+``dist.sharding.NamedSharding`` parallel to the template: each stored
+(whole) leaf is cut to this rank's block of that layout on that mesh,
+whatever mesh wrote it, and copied into the template's block.
 
 An async save copies every leaf to host memory before it returns (the
 training step updates params and moments in place, so a writer thread
@@ -183,11 +185,10 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
                        *, shardings=None, host_id: int = 0):
     """Load ``step`` (default: the latest) into ``template``'s own tensors
-    in place; returns ``(template, step, manifest)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...): re-sharding on load needs "
-            "the mesh port (ROADMAP queue 1, item 8)")
+    in place; returns ``(template, step, manifest)``.  With ``shardings``
+    each template leaf is this rank's block of its ``NamedSharding``."""
+    from ..dist.sharding import global_shape, local_block
+    flat_sh = flatten(shardings) if shardings is not None else {}
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -204,13 +205,18 @@ def restore_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
                            f"{sorted(stored - set(flat))}")
         for k, dst in flat.items():
             want = manifest["leaves"][k]
+            sh = flat_sh.get(k)
+            full = tuple(dst.shape) if sh is None else \
+                global_shape(tuple(dst.shape), sh.spec, sh.mesh)
             if want["dtype"] != _dtype_name(dst) or \
-                    tuple(want["shape"]) != tuple(dst.shape):
+                    tuple(want["shape"]) != full:
                 raise ValueError(
                     f"checkpoint step {step}: {k} is {want['dtype']} "
                     f"{tuple(want['shape'])}, the template's "
-                    f"{_dtype_name(dst)} {tuple(dst.shape)}")
+                    f"{_dtype_name(dst)} {full}")
             src = _from_host(data[k], want["dtype"])
+            if sh is not None:
+                src = local_block(src, sh.spec, sh.mesh)
             if tuple(src.shape) != tuple(dst.shape) or \
                     src.dtype != dst.dtype:
                 raise ValueError(f"checkpoint step {step}: {k} stored as "

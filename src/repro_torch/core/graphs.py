@@ -332,6 +332,20 @@ class GraphCache:
                 "graph_evictions": self.stats["evictions"],
                 "graph_capture_s": float(self.stats["capture_s"])}
 
+    def drop(self, pred: Callable[[Any], bool]) -> int:
+        """Release every graph (and sighting) of the program keys ``pred``
+        accepts; returns the number of graphs released."""
+        n = 0
+        for key in [k for k in self._graphs if pred(k)]:
+            for table in self._graphs.pop(key).values():
+                for g in table.values():
+                    g.refs = []
+                    self.backend.release(g.handle)
+                    n += 1
+        for key in [k for k in self._seen if pred(k)]:
+            del self._seen[key]
+        return n
+
     def clear(self) -> None:
         for g in self.graphs():
             g.refs = []

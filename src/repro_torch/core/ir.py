@@ -63,6 +63,10 @@ PRIMITIVE_OPS = frozenset({
     # ``attrs["fn"]`` on its lowered inputs.  Keeps norms/RoPE/etc. inside a
     # single region graph without reimplementing their numerics in the IR.
     "pyfunc",
+    # a value moved between mesh layouts (attrs ``src`` / ``dst`` spec
+    # tuples): the lowering's rank-order all-gather and / or this rank's
+    # slice (``dist.sharding.reshard_tensor``)
+    "reshard",
     # stateful-buffer ops (KV cache / SSM state).  ``dynamic_slice`` reads a
     # window at a (possibly data-dependent) offset; ``dynamic_update_slice``
     # writes one and may *donate* its buffer input (``Node.donates``) so the

@@ -412,6 +412,13 @@ def written_inputs(g: TaskGraph) -> frozenset:
                      for n in g.nodes.values() if _donates_input(n, g.nodes))
 
 
+def holds_collective(g: TaskGraph) -> bool:
+    """Whether a program runs a collective: a ``reshard`` that gathers."""
+    return any(n.op == "reshard" and any(e is not None
+                                         for e in (n.attrs["src"] or ()))
+               for n in g.nodes.values())
+
+
 def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
     op = node.op
     if op == "input":
@@ -480,6 +487,10 @@ def _lower_node(node: Node, env: dict, inputs: dict, nodes: dict) -> Any:
             prep = env[pkey] = scatter_prep(
                 tuple(env[i] for i in rest[:n_idx]), lead, mode, buf.device)
         return scatter_drop(buf, None, upd, mode, in_place, prep=prep)
+    if op == "reshard":
+        from ..dist.sharding import current_mesh, reshard_tensor
+        return reshard_tensor(env[node.inputs[0]], node.attrs["src"],
+                              node.attrs["dst"], current_mesh())
     if op == "matmul":
         return _lower_matmul(node, env)
     if op == "attention":

@@ -8,22 +8,42 @@ Mirrors TapirXLA's split:
 * ``mode="opaque"``  — the per-op control: early per-op heuristics, library
   calls sealed, no cross-op fusion.
 
-The port runs on one device, so there is no ambient mesh: the mesh
-fingerprint that keys every compiled program is the constant ``()`` and no
-pass ever sees a model axis.
+The ambient mesh (``dist.sharding.use_mesh``) keys every compiled program
+through ``mesh_fingerprint()``.  No pass changes under a mesh: a rank
+traces its own blocks, so the shared-input fusion concatenates the rank's
+column blocks (``[wq_r | wk_r | wv_r]``), and the GEMM's split is a
+function of k alone, so each column keeps the bits it has on one device.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from ...dist.sharding import current_mesh
 from ..ir import TaskGraph
 from ..schedule import CostModel, assign_early_heuristics, assign_schedules
 from .cse import cse
 from .fusion import fuse_added_gemms, fuse_epilogues, fuse_shared_input
 from .inline import expose_libraries, seal_libraries
 
-#: structural identity of the (absent) mesh — part of every cache key
-MESH_FINGERPRINT: tuple = ()
+#: the ambient mesh, or None (``dist.sharding.use_mesh``)
+ambient_mesh = current_mesh
+
+
+def mesh_has_model_axis() -> bool:
+    """True when an ambient mesh with a "model" axis is active: a rank may
+    hold a block of a contraction, which a GEMM then gathers
+    (``tapir._k_operand``)."""
+    m = ambient_mesh()
+    return m is not None and "model" in m.axis_names
+
+
+def mesh_fingerprint() -> tuple:
+    """Structural identity of the ambient mesh: ``((axis, size), ...)``, or
+    ``()`` with none.  Part of every compile-cache key: a program lowered
+    for one mesh holds collectives and block shapes of that mesh, and must
+    never replay under another."""
+    m = ambient_mesh()
+    return () if m is None else m.fingerprint
 
 
 def optimize_graph(g: TaskGraph) -> TaskGraph:

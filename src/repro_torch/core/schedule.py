@@ -144,10 +144,41 @@ def pick_scan_chunk(seq: int, d_k: int, d_v: int, dtype: str,
     return max(1, min(c, max(seq, 1)))
 
 
+def _dim_shard(node: Node, d: int, mesh_axes: Optional[dict]) -> int:
+    """Mesh-axis product output dim ``d`` is split over (1 if unsharded)."""
+    if not mesh_axes or node.sharding is None or d >= len(node.sharding):
+        return 1
+    entry = node.sharding[d]
+    if entry is None:
+        return 1
+    f = 1
+    for ax in (entry if isinstance(entry, tuple) else (entry,)):
+        f *= mesh_axes.get(ax, 1)
+    return f
+
+
+def shard_factor(node: Node, mesh_axes: Optional[dict] = None) -> float:
+    """How many blocks the whole of this node's value is split into: the
+    product of the mesh-axis sizes its ``sharding`` annotation names.
+    The reference divides a node's logical cost by it; under the port's
+    explicit SPMD a rank traces its own block, so the node's shapes, and
+    every cost computed from them (``pick_gqa_impl``, the registry), are
+    per shard already, and this factor only relates them to the whole
+    (``assign_schedules`` notes it)."""
+    if not mesh_axes or node.sharding is None:
+        return 1.0
+    f = 1.0
+    for d in range(len(node.sharding)):
+        f *= _dim_shard(node, d, mesh_axes)
+    return max(f, 1.0)
+
+
 def pick_gqa_impl(node: Node, cm: CostModel) -> str:
     """GQA materialized attention: grouped einsum (no K/V copy) vs a K/V
     repeat to the full head count, by the same inequality the registry's
-    repeat/grouped costs reduce to (one device: no shard factors)."""
+    repeat/grouped costs reduce to.  Per shard: on a mesh the node is the
+    rank's block (its heads and rows), so the copy and the compute both
+    count what this rank does (``shard_factor``)."""
     b, s, h, d = node.attrs["q_shape"]
     hkv = node.attrs.get("kv_heads", h)
     if not hkv or hkv >= h:
@@ -384,6 +415,9 @@ def assign_schedules(g: TaskGraph, cm: CostModel) -> TaskGraph:
     else ``serial``; library ops get tiles and their impl (``pick_impl``)."""
     cache_ops = ("dynamic_update_slice", "dynamic_slice", "index", "slice",
                  "gather", "scatter")
+    from .passes import ambient_mesh
+    mesh = ambient_mesh()
+    mesh_axes = dict(mesh.shape) if mesh is not None else None
     for nid in g.topo_order():
         node = g.nodes[nid]
         if node.op in ("input", "const"):
@@ -438,6 +472,10 @@ def assign_schedules(g: TaskGraph, cm: CostModel) -> TaskGraph:
                 pick_impl(g, node, cm)
             else:
                 node.schedule.impl = "opaque"
+            f = shard_factor(node, mesh_axes)
+            if f > 1:
+                node.schedule.notes.append(
+                    f"per shard: 1/{f:g} of the whole ({node.sharding})")
         node.schedule.serialized = all(
             b == "serial" for b in node.schedule.dim_binding.values()) and bool(
             node.schedule.dim_binding)

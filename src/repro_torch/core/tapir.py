@@ -56,7 +56,17 @@ buffer, ``zero_init``), ``expert_mlp`` the expert FFN over ``[E, C, d]``
 with 3-D weights, whose GEMMs lower to the kernel's grouped route in tapir
 mode and to one 2-D launch per expert in opaque mode.
 
-Not ported yet (see ROADMAP): ``invalidate_mesh``.
+Meshes: every cache key ends with the ambient mesh's fingerprint
+(``passes.mesh_fingerprint``), and ``invalidate_mesh`` purges one
+fingerprint's programs from memory and from every attached store.  Under
+explicit SPMD a region traces the rank's blocks; ``annotate_sharding`` /
+``reshard`` (through ``dist.shard_act``) record the layout of a value, or
+a ``reshard`` node the lowering runs as a slice or a rank-order
+all-gather; a GEMM whose activation holds a block of the weight's K rows
+(the column-sharded gate|up before a replicated down projection) gathers
+it first.  Concrete tensors carry their layout as an attribute
+(``SPEC_ATTR``): a region input's node takes it, a region output gets its
+node's.
 """
 from __future__ import annotations
 
@@ -78,10 +88,14 @@ from .dtypes import dtype_name, to_torch_dtype
 from .ir import TaskGraph, TensorType
 from .lowering import (_EW, conv2d_out_hw, dynamic_slice_clamped,
                        dynamic_update_slice_clamped, emit, gather_clamped,
-                       scatter_drop, written_inputs)
-from .passes import MESH_FINGERPRINT, run_pipeline
+                       holds_collective, scatter_drop, written_inputs)
+from .passes import mesh_fingerprint, mesh_has_model_axis, run_pipeline
 from .schedule import (CPU_COST_MODEL, H100_COST_MODEL, CostModel,
                        dispatch_bound)
+
+#: the attribute a concrete tensor carries its mesh layout (a spec tuple)
+#: under: set by ``shard_act``, the engine's placement and region outputs
+SPEC_ATTR = "_mesh_spec"
 
 # ---------------------------------------------------------------------------
 # Config
@@ -192,12 +206,26 @@ def _cfg_key(cfg: TapirConfig) -> tuple:
     # the last three stay (mode, cost model, mesh): introspection reads
     # them from the end of a key
     return (cfg.ablate_serialization, cfg.mode,
-            cfg.resolved_cost_model().name, MESH_FINGERPRINT)
+            cfg.resolved_cost_model().name, mesh_fingerprint())
+
+
+def _layout_context() -> tuple:
+    """Under a mesh, the logical sizes ``dist.shard_act`` reads layouts
+    off: the same block shapes mean other layouts (a batch of 1 whole, or
+    one rank's row of 2), so a replay key carries them.  ``()`` with no
+    mesh."""
+    if not mesh_fingerprint():
+        return ()
+    from ..dist.sharding import current_sizes
+    return tuple(sorted(current_sizes().items()))
 
 
 def _graphed(g: TaskGraph, cfg: TapirConfig) -> bool:
-    """A region program's CUDA-graph verdict (``core.graphs``)."""
-    return cfg.mode == "tapir" and dispatch_bound(g, cfg.resolved_cost_model())
+    """A region program's CUDA-graph verdict (``core.graphs``): never one
+    that holds a collective (gloo runs it on the host, outside any
+    stream a graph could capture)."""
+    return (cfg.mode == "tapir" and not holds_collective(g)
+            and dispatch_bound(g, cfg.resolved_cost_model()))
 
 
 def _build(g: TaskGraph, cfg: TapirConfig, key: tuple,
@@ -385,7 +413,7 @@ def _l2_publish(l2, digest: str, g: TaskGraph, refs: list,
                 or (graphed, written) != (prog.graphed, prog.written)):
             return False
         meta = {"graph_name": g.name,
-                "mesh_fingerprint": [list(p) for p in MESH_FINGERPRINT],
+                "mesh_fingerprint": [list(p) for p in mesh_fingerprint()],
                 "input_names": [n for n, _ in g.inputs],
                 "graph_signature": sig, "graphed": prog.graphed,
                 "written": sorted(prog.written), "n_nodes": len(g.nodes),
@@ -663,6 +691,82 @@ def is_traced(x) -> bool:
     return isinstance(x, TracedTensor)
 
 
+def layout_of(x) -> Optional[tuple]:
+    """The recorded layout of ``x`` (a spec tuple), or None: a traced
+    value's node annotation, a concrete tensor's ``SPEC_ATTR``."""
+    if isinstance(x, TracedTensor):
+        if not x._region.closed:
+            return x._region.g.nodes[x._region.nid_of(x)].sharding
+        x = x.materialize()
+    return getattr(x, SPEC_ATTR, None)
+
+
+def annotate_sharding(x, spec):
+    """Record ``spec`` (a spec tuple, already resolved against the ambient
+    mesh by ``dist.shard_act``) as the layout of ``x``: on a traced value
+    the ``sharding`` annotation of its producing node, which rides through
+    every pass (CSE unifies only equal ones, fusion moves it to the node
+    that takes over the value); on a concrete tensor its ``SPEC_ATTR``."""
+    spec = tuple(spec)
+    if isinstance(x, TracedTensor) and not x._region.closed:
+        reg = x._region
+        nid = reg.nid_of(x)
+        reg.g.nodes[nid].sharding = spec
+        return x if x.nid == nid else reg.handle(nid)
+    if isinstance(x, TracedTensor):
+        x = x.materialize()
+    setattr(x, SPEC_ATTR, spec)
+    return x
+
+
+def reshard(x, src: Optional[tuple], dst: Optional[tuple], spec: tuple):
+    """``x``, a rank's block held under ``src``, as its block under
+    ``dst`` (both without size-1 axes; ``spec`` is the annotation to
+    record).  Equal layouts only annotate.  Otherwise, in a region, a
+    ``reshard`` node (the lowering's slice / rank-order all-gather); on a
+    concrete tensor, the same now."""
+    from ..dist.sharding import current_mesh, global_shape, local_shape
+    if src == dst:
+        return annotate_sharding(x, spec)
+    mesh = current_mesh()
+    if isinstance(x, TracedTensor) and not x._region.closed:
+        reg = x._region
+        xi = reg.nid_of(x)
+        shape = local_shape(global_shape(x.shape, src, mesh), dst, mesh)
+        nid = reg.g.add("reshard", (xi,), TensorType(shape, x.ttype.dtype),
+                        pdims=tuple(range(len(shape))), src=src, dst=dst,
+                        sharding=tuple(spec))
+        return reg.handle(nid)
+    from ..dist.sharding import reshard_tensor
+    t = x.materialize() if isinstance(x, TracedTensor) else x
+    out = reshard_tensor(t, src, dst, mesh)
+    setattr(out, SPEC_ATTR, tuple(spec))
+    return out
+
+
+def _gather_k(g: TaskGraph, xi: int, k_full: int) -> int:
+    """The activation ``xi`` whose last dim holds this rank's block of a
+    contraction of ``k_full`` over the model axis (a column-sharded
+    projection feeding a replicated one): all-gather it in rank order, so
+    the consumer's sum stays whole on every rank."""
+    x_t = g.nodes[xi].ttype
+    nd = len(x_t.shape)
+    src = (None,) * (nd - 1) + ("model",)
+    return g.add("reshard", (xi,),
+                 TensorType(tuple(x_t.shape[:-1]) + (k_full,), x_t.dtype),
+                 pdims=tuple(range(nd)), src=src, dst=None,
+                 sharding=(None,) * nd)
+
+
+def _k_operand(g: TaskGraph, xi: int, wi: int) -> int:
+    """``xi`` ready to contract with ``wi``'s rows: gathered where it holds
+    a block of them under a model axis."""
+    k_x, k_w = g.nodes[xi].ttype.shape[-1], g.nodes[wi].ttype.shape[-2]
+    if k_x != k_w and mesh_has_model_axis():
+        return _gather_k(g, xi, k_w)
+    return xi
+
+
 def in_region() -> bool:
     """True while a region capture is open on this thread."""
     return _active_region() is not None
@@ -715,6 +819,9 @@ class _Region:
                 name = self._inp_name[key] = f"a{len(self._inp_vals)}"
                 self._inp_vals.append(x)     # also pins id(x)
             nid = self.g.add_input(name, _tt(x))
+            spec = getattr(x, SPEC_ATTR, None)
+            if spec is not None:
+                self.g.nodes[nid].sharding = spec
             self._inp_by_id[key] = nid
         return nid
 
@@ -816,7 +923,9 @@ _PROGRAMS: dict[tuple, tuple] = {}
 
 def _leaf_key(v):
     if isinstance(v, torch.Tensor):
-        return ("arr", tuple(v.shape), dtype_name(v.dtype), str(v.device))
+        spec = getattr(v, SPEC_ATTR, None)
+        key = ("arr", tuple(v.shape), dtype_name(v.dtype), str(v.device))
+        return key if spec is None else key + (spec,)
     try:
         hash(v)
     except TypeError:
@@ -861,7 +970,8 @@ def parallel_region(fn=None, *, name: Optional[str] = None):
                           for i, v in enumerate(leaves))
             key = None
             if all(k is not None for k in lks):
-                key = (f_id, spec, tuple(lks), alias) + _cfg_key(cfg)
+                key = (f_id, spec, tuple(lks), alias,
+                       _layout_context()) + _cfg_key(cfg)
                 hit = _PROGRAMS.get(key)
                 if hit is not None and hit[0] is getattr(f, "__func__", f):
                     _CACHE_STATS["hits"] += 1
@@ -888,11 +998,14 @@ def parallel_region(fn=None, *, name: Optional[str] = None):
                 _CACHE_STATS["trace_s"] += time.perf_counter() - t0 - r.run_s
             out_leaves, out_spec = _flatten(out)
             pending = r._pending()
+            # each output's layout, read before the pipeline rewrites g
+            lay = [_pending_layout(r, h) for h in pending]
             if pending:
                 r._run(pending)
             r.closed = True
+            _set_layouts([h._concrete for h in pending], lay)
             _maybe_cache_program(key, f, r, pending, out_leaves, out_spec,
-                                 argpos)
+                                 argpos, lay)
             return _unflatten(out_spec, [
                 v._concrete if isinstance(v, TracedTensor) else v
                 for v in out_leaves])
@@ -900,8 +1013,18 @@ def parallel_region(fn=None, *, name: Optional[str] = None):
     return deco(fn) if fn is not None else deco
 
 
+def _pending_layout(r: _Region, h: TracedTensor):
+    return r.g.nodes[h.nid].sharding if h.nid in r.g.nodes else None
+
+
+def _set_layouts(vals, lay) -> None:
+    for v, spec in zip(vals, lay):
+        if spec is not None:
+            setattr(v, SPEC_ATTR, spec)
+
+
 def _maybe_cache_program(key, f, r: _Region, pending, out_leaves,
-                         out_spec, argpos) -> None:
+                         out_spec, argpos, lay=()) -> None:
     """Record a replay closure for this call site if the capture was clean:
     no mid-region flush, every region input came from an argument leaf, and
     the output is reconstructible from (results, arg leaves, constants)."""
@@ -929,12 +1052,15 @@ def _maybe_cache_program(key, f, r: _Region, pending, out_leaves,
             spec.append(("const", lv))
     prog_c, key_c = r._last_prog, r._last_key
     binding, spec = tuple(binding), tuple(spec)
+    lay = tuple(lay) if any(x is not None for x in lay) else ()
 
     def replay(leaves, prog_c=prog_c, key_c=key_c, binding=binding,
-               spec=spec, out_spec=out_spec):
+               spec=spec, out_spec=out_spec, lay=lay):
         results = _run_program(
             key_c, prog_c,
             {f"a{i}": leaves[j] for i, j in enumerate(binding)})
+        if lay:
+            _set_layouts(results, lay)
         outs = [results[i] if tag == "res"
                 else leaves[i] if tag == "arg" else i
                 for tag, i in spec]
@@ -1180,6 +1306,7 @@ def _pd(t: TensorType) -> tuple[int, ...]:
 
 def _build_linear(g: TaskGraph, xi: int, wi: int, bi: Optional[int],
                   ri: Optional[int], activation: Optional[str]) -> int:
+    xi = _k_operand(g, xi, wi)
     x_t, w_t = g.nodes[xi].ttype, g.nodes[wi].ttype
     out_t = TensorType(tuple(x_t.shape[:-1]) + (w_t.shape[-1],), x_t.dtype)
     k = x_t.shape[-1]
@@ -1222,6 +1349,8 @@ def _build_gated_mlp(g: TaskGraph, xi: int, wgi: int, wui: int, wdi: int,
                rdims=(("k", k),), k=k)
     act = g.add("ew", (mg,), hid_t, pdims=_pd(hid_t), fn=activation)
     prod = g.add("ew", (act, mu), hid_t, pdims=_pd(hid_t), fn="mul")
+    prod = _k_operand(g, prod, wdi)
+    f = g.nodes[prod].ttype.shape[-1]
     out_t = TensorType(tuple(x_t.shape[:-1]) +
                        (g.nodes[wdi].ttype.shape[-1],), x_t.dtype)
     return g.add("matmul", (prod, wdi), out_t, pdims=_pd(out_t),
@@ -1699,6 +1828,25 @@ def program_cache(cfg: Optional[TapirConfig] = None):
     ``invalidate(fingerprint)`` are the store-wide maintenance that the
     in-memory ``clear_cache()`` deliberately does not do."""
     return _l2_for(cfg or get_config())
+
+
+def invalidate_mesh(fingerprint: tuple) -> int:
+    """Drop every cached program, graph and replay entry compiled under
+    mesh ``fingerprint`` (the last element of every key), its CUDA
+    graphs, and its entries in every attached on-disk store, so a mesh
+    that left the job cannot replay, from memory or from disk.  Returns
+    the number of entries evicted (memory + disk)."""
+    fingerprint = tuple(tuple(p) for p in fingerprint)
+    n = 0
+    for cache in (_CACHE, _GRAPHS, _PROGRAMS, _PROVENANCE):
+        dead = [k for k in cache if k and k[-1] == fingerprint]
+        for k in dead:
+            del cache[k]
+        n += len(dead)
+    graphs.CACHE.drop(lambda k: bool(k) and k[-1] == fingerprint)
+    for l2 in _L2_INSTANCES.values():
+        n += l2.invalidate(fingerprint)
+    return n
 
 
 def clear_cache() -> None:

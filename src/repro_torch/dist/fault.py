@@ -49,18 +49,20 @@ class Fault:
     """One injected failure event.
 
     kind:
-      "host"     — a mesh host died: the run restores the latest slot
-                   checkpoint on a mesh rebuilt without ``host``.  On one
-                   device there is no mesh to shrink: a same-device
-                   restore, as the reference does with no mesh.
+      "host"     — a mesh host died: on a mesh, ``host`` is the global
+                   rank to blame; the run evicts its data row
+                   (``launch.mesh.shrink_mesh``) and restores the latest
+                   slot checkpoint on the shrunk mesh.  On one device
+                   there is no mesh to shrink: a same-device restore, as
+                   the reference does with no mesh.
       "crash"    — the decode step failed without losing a device:
                    restore and replay on the same device.
       "straggle" — the step completes ``delay_s`` slower: feeds the
                    watchdog / admission-shedding path instead of raising.
 
-    ``host`` attributes the fault to a device id (straggle escalation
-    blames it); ``slot`` optionally attributes it to a slot (stats
-    only)."""
+    ``host`` attributes the fault to a rank (a device id on one device;
+    straggle escalation blames it); ``slot`` optionally attributes it to
+    a slot (stats only)."""
     kind: str                    # "host" | "crash" | "straggle"
     host: Optional[int] = None
     slot: Optional[int] = None

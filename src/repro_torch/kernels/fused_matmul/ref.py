@@ -7,15 +7,42 @@ import torch.nn.functional as F
 
 from ...core.dtypes import to_torch_dtype
 
+#: elements per call of ``_lanes``: a multiple of every CPU vector loop's
+#: step, and below ATen's grain, so one call runs on one thread
+_LANE_BLOCK = 16384
+
+
+def _lanes(f):
+    """``f`` (a unary transcendental) whose bits on a CPU tensor depend on
+    the element alone.  ATen's CPU loops take the last elements of a row
+    that do not fill two vector widths through a scalar path that rounds
+    otherwise, so a strided column slice (a fused GEMM's member) and a
+    contiguous block of the same values could differ.  Here the values
+    are copied flat, zero-padded to whole blocks and run block by block,
+    so every element takes the vector path."""
+    def lanes(x):
+        if x.device.type != "cpu" or not x.is_floating_point() \
+                or x.numel() == 0:
+            return f(x)
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % 64
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        out = torch.cat([f(c) for c in flat.split(_LANE_BLOCK)])
+        return out[:x.numel()].reshape(x.shape)
+    return lanes
+
+
 _EW = {
     "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
     "maximum": torch.maximum, "minimum": torch.minimum, "neg": torch.neg,
-    "exp": torch.exp, "log": torch.log, "rsqrt": torch.rsqrt,
-    "square": torch.square, "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid, "relu": torch.relu,
+    "exp": _lanes(torch.exp), "log": _lanes(torch.log),
+    "rsqrt": _lanes(torch.rsqrt), "square": torch.square,
+    "tanh": _lanes(torch.tanh), "sigmoid": _lanes(torch.sigmoid),
+    "relu": torch.relu,
     # jax.nn.gelu's default is the tanh approximation; torch's is not
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "silu": F.silu,
+    "gelu": _lanes(lambda x: F.gelu(x, approximate="tanh")),
+    "silu": _lanes(F.silu),
     "abs": lambda x: _abs(x), "sqrt": torch.sqrt,
 }
 
@@ -44,10 +71,24 @@ def apply_epilogue(y, epilogue):
     return y
 
 
+def matmul_f32(x, w):
+    """``x [..., k] @ w [k, n]`` in fp32 whose every row and column is the
+    same bits whatever the row count or the column range asked for: BLAS
+    takes a one-row product to its gemv path, which sums in another order
+    than its gemm, so one row goes through a two-row call.  A column or
+    row shard of a product (a rank's block on a mesh) then equals that
+    block of the whole product."""
+    if x.numel() == x.shape[-1] and x.numel() > 0:
+        x2 = x.reshape(1, x.shape[-1])
+        y = torch.matmul(torch.cat([x2, torch.zeros_like(x2)]), w)[:1]
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x, w)
+
+
 def fused_matmul_ref(x, w, epilogue=None, out_dtype=None):
     """x: [..., m, k] @ w: [k, n] with fp32 accumulation, then epilogue."""
     out_dtype = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
-    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    y = matmul_f32(x.to(torch.float32), w.to(torch.float32))
     y = apply_epilogue(y, epilogue)
     return y.to(out_dtype)
 
@@ -59,7 +100,7 @@ def grouped_matmul_ref(x, w, epilogue=None, out_dtype=None):
     shares)."""
     out_dtype = to_torch_dtype(out_dtype) if out_dtype is not None else x.dtype
     xf = x.to(torch.float32)
-    y = torch.stack([torch.matmul(xf[e], w[e].to(torch.float32))
+    y = torch.stack([matmul_f32(xf[e], w[e].to(torch.float32))
                      for e in range(w.shape[0])])
     y = apply_epilogue(y, epilogue)
     return y.to(out_dtype)

@@ -154,13 +154,24 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
     return x.mul_(std).to(dt)
 
 
-def _materialize_tree(specs: dict, generator, device) -> dict:
+def _materialize_tree(specs: dict, generator, device,
+                      place: Optional[Callable] = None) -> dict:
     """``materialize`` over a (possibly nested) dict of specs, leaf by leaf
-    in sorted key order."""
-    return {k: (_materialize_tree(specs[k], generator, device)
+    in sorted key order; ``place(spec, leaf)`` (a rank's block on a mesh)
+    is applied to each leaf as it is drawn, so no more than one full leaf
+    exists at a time."""
+    place = place or (lambda spec, t: t)
+    return {k: (_materialize_tree(specs[k], generator, device, place)
                 if isinstance(specs[k], dict)
-                else materialize(specs[k], generator, device))
+                else place(specs[k], materialize(specs[k], generator,
+                                                 device)))
             for k in sorted(specs)}
+
+
+def _place_tree(specs: dict, params: dict, place: Callable) -> dict:
+    return {k: (_place_tree(specs[k], params[k], place)
+                if isinstance(specs[k], dict) else place(specs[k], params[k]))
+            for k in params}
 
 
 def _check_shapes(specs: dict, params: dict, where: str) -> None:
@@ -224,6 +235,27 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def placement_axes(cfg, axes: tuple, mesh) -> tuple:
+    """A weight's (or activation's) logical axes as a model of ``cfg``
+    places it on ``mesh``: a GQA group is never split across ranks, so
+    where the kv heads do not divide the model axis, neither the q nor the
+    kv heads shard (their projections and the attention stay whole on
+    every rank)."""
+    if "model" in mesh.axis_names and cfg.n_kv_heads % mesh.shape["model"]:
+        return tuple(None if a in ("heads", "kv") else a for a in axes)
+    return tuple(axes)
+
+
+def head_axes(cfg) -> tuple:
+    """The logical axes of the q and kv head dims under the ambient mesh
+    (``placement_axes``' rule): ``("heads", "kv")`` or ``(None, None)``."""
+    from ..dist.sharding import current_mesh
+    mesh = current_mesh()
+    if mesh is None:
+        return "heads", "kv"
+    return placement_axes(cfg, ("heads", "kv"), mesh)
+
+
 class BaseModel(nn.Module):
     """The train/serve entry points every family implements, and the
     weights they share: ``embed``, ``blocks`` (stacked ``[L, ...]``),
@@ -234,30 +266,54 @@ class BaseModel(nn.Module):
     cfg: "ModelConfig"
 
     def _set_params(self, specs: dict, device, params: Optional[dict],
-                    generator: Optional[torch.Generator]) -> None:
+                    generator: Optional[torch.Generator], mesh=None) -> None:
         """Own the weights as frozen parameters: ``params`` (a tree like
         ``specs`` of tensors, block shapes checked), or drawn from
         ``generator`` (default: seed 0 on ``device``) by the reference's
         init rule, leaf by leaf in a fixed order.  ``device`` defaults to
-        ``cuda`` at every entry point and raises without a card."""
+        ``cuda`` at every entry point and raises without a card.
+
+        On a ``mesh`` of more than one rank each leaf is kept as this
+        rank's block (``dist.sharding.tp_last_dim_spec`` of its placement
+        axes), cut as soon as it is drawn: the same values as the
+        one-device model's, and never the whole model in memory."""
         dev = resolve_device(device)
+        self.mesh_layout = None
+        place = lambda spec, t: t                       # noqa: E731
+        if mesh is not None and mesh.size > 1:
+            from ..dist.sharding import place as place_block
+            from ..dist.sharding import tp_last_dim_spec
+            self.mesh_layout = self._mesh_layout(mesh)
+
+            def place(spec, t):
+                axes = placement_axes(self.cfg, spec.axes, mesh)
+                return place_block(t, tp_last_dim_spec(axes, t.shape, mesh),
+                                   mesh)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
             params = {
-                "embed": materialize(specs["embed"], generator, dev),
-                "blocks": _materialize_tree(specs["blocks"], generator, dev),
-                "ln_f": materialize(specs["ln_f"], generator, dev),
+                "embed": place(specs["embed"], materialize(
+                    specs["embed"], generator, dev)),
+                "blocks": _materialize_tree(specs["blocks"], generator, dev,
+                                            place),
+                "ln_f": place(specs["ln_f"], materialize(
+                    specs["ln_f"], generator, dev)),
             }
             if "lm_head" in specs:
-                params["lm_head"] = materialize(specs["lm_head"], generator,
-                                                dev)
+                params["lm_head"] = place(specs["lm_head"], materialize(
+                    specs["lm_head"], generator, dev))
             if "shared" in specs:
                 params["shared"] = {
-                    k: materialize(specs["shared"][k], generator, dev)
+                    k: place(specs["shared"][k],
+                             materialize(specs["shared"][k], generator, dev))
                     for k in sorted(specs["shared"])}
-        for sub in ("blocks", "shared"):
-            _check_shapes(specs.get(sub, {}), params.get(sub, {}), sub)
+        else:
+            for sub in ("blocks", "shared"):
+                _check_shapes(specs.get(sub, {}), params.get(sub, {}), sub)
+            params = {k: (place(specs[k], v) if not isinstance(v, dict)
+                          else _place_tree(specs[k], v, place))
+                      for k, v in params.items()}
         self.embed = _frozen(params["embed"].to(dev))
         self.blocks = _frozen_tree(params["blocks"], dev)
         self.ln_f = _frozen(params["ln_f"].to(dev))
@@ -273,6 +329,32 @@ class BaseModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _mesh_layout(self, mesh) -> tuple:
+        """What a rank's blocks depend on: the model axis's size and this
+        rank's coordinate on it."""
+        if "model" not in mesh.axis_names:
+            return (1, 0)
+        return (mesh.shape["model"], mesh.coord("model"))
+
+    def check_mesh(self, mesh) -> None:
+        """Raise unless this model's weights are the blocks ``mesh`` asks
+        of this rank (a shrunk mesh keeps each survivor's model
+        coordinate, so its blocks stay valid)."""
+        want = self._mesh_layout(mesh) if mesh is not None \
+            and mesh.size > 1 else None
+        if want != self.mesh_layout and not (
+                want is None and self.mesh_layout is None):
+            raise ValueError(f"model weights are placed for (model size, "
+                             f"coord) {self.mesh_layout}, the mesh asks "
+                             f"for {want}")
+
+    def logical_sizes(self, batch: int) -> dict:
+        """The global sizes of the logical axes ``shard_act`` reads an
+        activation's layout off (``dist.logical_sizes``)."""
+        cfg = self.cfg
+        return {"batch": batch, "heads": cfg.n_heads, "kv": cfg.n_kv_heads,
+                "mlp": cfg.d_ff, "vocab": cfg.vocab}
 
     def param_tree(self) -> dict:
         """The parameters as the reference's tree (``embed``, ``blocks``,
@@ -334,14 +416,28 @@ class BaseModel(nn.Module):
             cdt = to_torch_dtype(self.cfg.compute_dtype)
             # a tied head is ``embed.T`` cast with its strides kept: the
             # GEMM reads it K-major in place (``fused_matmul``'s tb route)
-            w = self.lm_head if self.lm_head is not None else self.embed.T
+            w = self.lm_head.data if self.lm_head is not None \
+                else self.tied_head(self.embed.data)
             cp = {"layers": self._compute_layers(cdt),
-                  "head": {"ln_f": self.ln_f.data, "w": w.data.to(cdt)},
+                  "head": {"ln_f": self.ln_f.data, "w": w.to(cdt)},
                   "embed": self.embed.data}
             if self.shared is not None:
                 cp["shared"] = {k: v.data.to(cdt) for k, v in shared.items()}
             self._compute = stamp, cp
         return self._compute[1]
+
+    def tied_head(self, embed):
+        """``embed.T``, the tied head; on a mesh this rank's vocab columns
+        of it (the rows of ``embed`` it selects, transposed: the same
+        K-major layout)."""
+        from ..dist.sharding import (current_mesh, local_block,
+                                     tp_last_dim_spec)
+        mesh = current_mesh()
+        if mesh is None or mesh.size <= 1 or \
+                getattr(self, "mesh_layout", None) is None:
+            return embed.T
+        spec = tp_last_dim_spec(("embed", "vocab"), embed.T.shape, mesh)
+        return local_block(embed, (spec[1], None), mesh).T
 
     def _compute_layers(self, cdt) -> list:
         """``compute_params``' per-layer dicts, each layer's slices of the

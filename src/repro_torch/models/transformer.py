@@ -52,10 +52,12 @@ import torch
 
 from ..core import tapir
 from ..core.dtypes import to_torch_dtype
+from ..dist import logical_sizes, shard_act
+from ..dist.sharding import current_sizes
 from ..serve.pages import identity_row, page_geometry
 from . import layers as L
-from .base import (BaseModel, ModelConfig, ParamSpec, keep_in_place,
-                   register_family)
+from .base import (BaseModel, ModelConfig, ParamSpec, head_axes,
+                   keep_in_place, register_family)
 
 
 def _block_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -124,12 +126,17 @@ class DenseBlocks:
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         bs = [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None
         q, k, v = tapir.multi_linear(x, [p["wq"], p["wk"], p["wv"]], bs)
-        q = q.reshape(B, S, H, hd)
-        k = k.reshape(B, S, Hkv, hd)
-        v = v.reshape(B, S, Hkv, hd)
+        # on a mesh a rank holds its heads: -1 is its share of H / Hkv
+        q = q.reshape(B, S, -1, hd)
+        k = k.reshape(B, S, -1, hd)
+        v = v.reshape(B, S, -1, hd)
         frac = self._rope_frac()
         q = L.apply_rope(q, cos, sin, frac)
         k = L.apply_rope(k, cos, sin, frac)
+        hq, hkv = head_axes(self.cfg)
+        q = shard_act(q, "batch", None, hq, None)
+        k = shard_act(k, "batch", None, hkv, None)
+        v = shard_act(v, "batch", None, hkv, None)
         if kv_cache is None:
             o = tapir.attention(q, k, v, causal=causal)
         else:
@@ -144,6 +151,10 @@ class DenseBlocks:
             else:
                 o = _decode_attention(q, ck, cv, cpos + S)
             kv_cache = (ck, cv)
+        # heads over model on the attention's value, then gathered in rank
+        # order before wo: a K-split wo would add partial sums across ranks
+        o = shard_act(o, "batch", None, hq, None)
+        o = shard_act(o, "batch", None, None, None)
         out = tapir.linear(o.reshape(B, S, H * hd), p["wo"])
         return out, kv_cache
 
@@ -162,7 +173,7 @@ class DenseBlocks:
         epilogue).  With ``TapirConfig(regions=False)`` the same body runs
         op by op, bitwise-equal."""
         blk = tapir.parallel_region(self._block_body, name="dense_block")
-        return blk(p, x, cos, sin)
+        return shard_act(blk(p, x, cos, sin), "batch", "seq", None)
 
     def _cached_attn_body(self, p, x, cos, sin, ck, cv, pos0,
                           is_prefill: bool):
@@ -220,18 +231,81 @@ class DenseLM(DenseBlocks, BaseModel):
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  params: Optional[dict] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         if cfg.family != self.FAMILY:
             raise NotImplementedError(f"{type(self).__name__} builds the "
                                       f"{self.FAMILY!r} family, not "
                                       f"{cfg.family!r}")
         self.cfg = cfg
-        self._set_params(self._param_specs(), device, params, generator)
+        self._set_params(self._param_specs(), device, params, generator,
+                         mesh)
         self._rope_bufs: dict = {}      # decode RoPE rows (``_rope_rows``)
 
     def _param_specs(self) -> dict:
         return abstract_params(self.cfg)
+
+    def param_axes(self) -> dict:
+        """The logical axes of every weight, in ``param_tree()``'s
+        structure (the reference's ``param_axes``)."""
+        def axes(t):
+            return {k: axes(v) for k, v in t.items()} \
+                if isinstance(t, dict) else tuple(t.axes)
+        return axes(self._param_specs())
+
+    def slot_param_axes(self) -> dict:
+        """The logical axes of ``slot_params()``' leaves (a layer's leaves
+        lose the stacked ``layers`` axis; the head is ``(embed, vocab)``)."""
+        blocks = {k: tuple(s.axes[1:])
+                  for k, s in _block_specs(self.cfg, 1).items()}
+        return {"layers": [("dense", dict(blocks))
+                           for _ in range(self.cfg.n_layers)],
+                "head": {"ln_f": ("embed",), "w": ("embed", "vocab")},
+                "embed": ("vocab", "embed")}
+
+    def slot_cache_axes(self) -> dict:
+        """Logical axes of the page pools ``[P, page_len, Hkv, hd]``: kv
+        heads over ``model`` when they divide; the page dims stay whole
+        (page ids are data, so a split would make every write a
+        collective), and so do ``ptab`` / ``pos``."""
+        a = (None, None, "kv", None)
+        n = self.cfg.n_layers
+        return {"k": [a] * n, "v": [a] * n, "ptab": (), "pos": ()}
+
+    def slot_param_shapes(self) -> dict:
+        """The whole shapes of ``slot_params()``' leaves, in its tree."""
+        cfg = self.cfg
+        blocks = {k: tuple(s.shape[1:])
+                  for k, s in _block_specs(cfg, 1).items()}
+        return {"layers": [("dense", dict(blocks))
+                           for _ in range(cfg.n_layers)],
+                "head": {"ln_f": (cfg.d_model,),
+                         "w": (cfg.d_model, cfg.vocab)},
+                "embed": (cfg.vocab, cfg.d_model)}
+
+    def slot_cache_shapes(self, slots: int, max_len: int,
+                          page_len: Optional[int] = None,
+                          shared_pages: Optional[int] = None) -> dict:
+        """The whole shapes of ``init_slot_cache``'s leaves."""
+        cfg = self.cfg
+        pl, pps = page_geometry(max_len, page_len)
+        if shared_pages is None:
+            shared_pages = slots * pps
+        pool = (1 + slots * pps + shared_pages, pl, cfg.n_kv_heads, cfg.hd)
+        n = cfg.n_layers
+        return {"k": [pool] * n, "v": [pool] * n, "ptab": (slots, pps),
+                "pos": (slots,)}
+
+    def cache_shapes(self, batch: int, max_len: int) -> dict:
+        """The whole shapes of ``init_cache``'s leaves."""
+        cfg = self.cfg
+        kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": kv, "v": kv, "pos": ()}
+
+    def cache_axes(self) -> dict:
+        """Logical axes of the padded cache ``[L, B, max_len, Hkv, hd]``."""
+        a = ("layers", "batch", None, "kv", None)
+        return {"k": a, "v": a, "pos": ()}
 
     def slot_params(self) -> dict:
         """``compute_params`` with every layer marked by its kind
@@ -269,24 +343,27 @@ class DenseLM(DenseBlocks, BaseModel):
         x = self._norm(x, params["ln_f"])
         w = params.get("lm_head")
         if w is None:
-            w = params["embed"].T
-        return tapir.linear(x, w.to(x.dtype))
+            w = self.tied_head(params["embed"])
+        return shard_act(tapir.linear(x, w.to(x.dtype)), "batch", None,
+                         "vocab")
 
     def forward(self, batch: dict, params: Optional[dict] = None):
         """Logits ``[B, S, vocab]`` of ``batch["tokens"] [B, S]``, every
         weight read from ``params`` (default: ``param_tree()``)."""
         if params is None:
             params = self.param_tree()
-        h = self._embed(params["embed"], batch["tokens"])
-        return self._head(self.backbone(h, params["blocks"]), params)
+        tokens = batch["tokens"]
+        with logical_sizes(**self.logical_sizes(int(tokens.shape[0]))):
+            h = shard_act(self._embed(params["embed"], tokens),
+                          "batch", "seq", None)
+            return self._head(self.backbone(h, params["blocks"]), params)
 
     # -- padded-cache serving ----------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
         """``k`` / ``v``: ``[L, batch, max_len, Hkv, hd]`` in the compute
         dtype; ``pos``: the shared length, a scalar int32."""
-        cfg = self.cfg
-        kv = to_torch_dtype(cfg.compute_dtype)
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        kv = to_torch_dtype(self.cfg.compute_dtype)
+        shape = self.cache_shapes(batch, max_len)["k"]
         dev = self.device
         return {"k": torch.zeros(shape, dtype=kv, device=dev),
                 "v": torch.zeros(shape, dtype=kv, device=dev),
@@ -303,6 +380,11 @@ class DenseLM(DenseBlocks, BaseModel):
         (the token path's, or the VLM's ``[image; prompt]``): logits
         ``[B, vocab]`` of the last position; ``cache["pos"]`` advances in
         place."""
+        with logical_sizes(**self.logical_sizes(int(h.shape[0]))):
+            return self._embeds_with_cache(
+                shard_act(h, "batch", None, None), cache, is_prefill)
+
+    def _embeds_with_cache(self, h, cache, is_prefill: bool):
         cfg = self.cfg
         cp = self.compute_params()
         pos0 = cache["pos"]
@@ -355,17 +437,15 @@ class DenseLM(DenseBlocks, BaseModel):
         (see ``serve.pages``)."""
         cfg = self.cfg
         kv = to_torch_dtype(cfg.compute_dtype)
-        pl, pps = page_geometry(max_len, page_len)
-        if shared_pages is None:
-            shared_pages = slots * pps
-        P = 1 + slots * pps + shared_pages
-        shape = (P, pl, cfg.n_kv_heads, cfg.hd)
+        shapes = self.slot_cache_shapes(slots, max_len, page_len,
+                                        shared_pages)
+        pps = shapes["ptab"][1]
         dev = self.device
         ptab = np.stack([identity_row(s, pps) for s in range(slots)])
-        return {"k": [torch.zeros(shape, dtype=kv, device=dev)
-                      for _ in range(cfg.n_layers)],
-                "v": [torch.zeros(shape, dtype=kv, device=dev)
-                      for _ in range(cfg.n_layers)],
+        return {"k": [torch.zeros(s, dtype=kv, device=dev)
+                      for s in shapes["k"]],
+                "v": [torch.zeros(s, dtype=kv, device=dev)
+                      for s in shapes["v"]],
                 "ptab": torch.as_tensor(ptab, device=dev),
                 "pos": torch.zeros((slots,), dtype=torch.int32, device=dev)}
 
@@ -373,33 +453,54 @@ class DenseLM(DenseBlocks, BaseModel):
         """Attention sub-block over the paged pool; every data-dependent
         piece (RoPE rows, page targets, per-slot lengths) is a graph value."""
         cfg = self.cfg
+        hd = cfg.hd
+        hq, hkv = head_axes(self.cfg)
+        # on a mesh a rank decodes its block of the slots (over data) and
+        # its heads (over model); ``pos`` / ``ptab`` stay whole for the
+        # writes below
+        x = shard_act(x, "batch", None, None)
+        pos_b = shard_act(pos, "batch")
+        ptab_b = shard_act(ptab, "batch", None)
         B = x.shape[0]
-        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         xn = self._norm(x, p["ln1"])
         bs = [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None
         q, k, v = tapir.multi_linear(xn, [p["wq"], p["wk"], p["wv"]], bs)
-        q = q.reshape(B, 1, H, hd)
-        k = k.reshape(B, 1, Hkv, hd)
-        v = v.reshape(B, 1, Hkv, hd)
+        q = q.reshape(B, 1, -1, hd)
+        k = k.reshape(B, 1, -1, hd)
+        v = v.reshape(B, 1, -1, hd)
+        q = shard_act(q, "batch", None, hq, None)
+        k = shard_act(k, "batch", None, hkv, None)
+        v = shard_act(v, "batch", None, hkv, None)
         rot2 = rope_cos.shape[-1]
-        cos = tapir.gather(rope_cos, (pos,)).reshape(B, 1, rot2)
-        sin = tapir.gather(rope_sin, (pos,)).reshape(B, 1, rot2)
+        cos = tapir.gather(rope_cos, (pos_b,)).reshape(B, 1, rot2)
+        sin = tapir.gather(rope_sin, (pos_b,)).reshape(B, 1, rot2)
         frac = self._rope_frac()
         q = L.apply_rope(q, cos, sin, frac)
         k = L.apply_rope(k, cos, sin, frac)
+        # the pools are replicated over data: every rank writes every
+        # slot's row (its block's rows gathered in rank order)
+        k = shard_act(shard_act(k, "batch", None, hkv, None),
+                      None, None, hkv, None)
+        v = shard_act(shard_act(v, "batch", None, hkv, None),
+                      None, None, hkv, None)
+        n_all = pos.shape[0]
         pidx, off = _page_coords_t(pos, page_len=int(ck.shape[1]))
-        phys = tapir.gather(ptab, (np.arange(B), pidx))
-        ck = tapir.scatter(ck, (phys, off), k.reshape(B, Hkv, hd))
-        cv = tapir.scatter(cv, (phys, off), v.reshape(B, Hkv, hd))
-        o = _paged_attention(q, ck, cv, ptab, pos + 1)
-        x = x + tapir.linear(o.reshape(B, 1, H * hd), p["wo"])
-        return x, ck, cv
+        phys = tapir.gather(ptab, (np.arange(n_all), pidx))
+        ck = tapir.scatter(ck, (phys, off), k.reshape(n_all, -1, hd))
+        cv = tapir.scatter(cv, (phys, off), v.reshape(n_all, -1, hd))
+        ck = shard_act(ck, None, None, hkv, None)
+        cv = shard_act(cv, None, None, hkv, None)
+        o = _paged_attention(q, ck, cv, ptab_b, pos_b + 1)
+        o = shard_act(o, "batch", None, hq, None)
+        o = shard_act(o, "batch", None, None, None)
+        x = x + tapir.linear(o.reshape(B, 1, -1), p["wo"])
+        return shard_act(x, "batch", None, None), ck, cv
 
     def _slot_block_body(self, p, x, rope_cos, rope_sin, ck, cv, pos, ptab):
         x, ck, cv = self._slot_attn_body(p, x, rope_cos, rope_sin, ck, cv,
                                          pos, ptab)
         x = x + self._mlp(p, self._norm(x, p["ln2"]))
-        return x, ck, cv
+        return shard_act(x, "batch", None, None), ck, cv
 
     def _slot_prefill_attn_body(self, p, x, rope_cos, rope_sin, ck, cv,
                                 pos_vec, phys_vec, off_vec, prow, vlen):
@@ -410,22 +511,27 @@ class DenseLM(DenseBlocks, BaseModel):
         each row exactly as a full prefill does."""
         cfg = self.cfg
         B, S, _ = x.shape
-        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        hd = cfg.hd
+        hq, hkv = head_axes(self.cfg)
         xn = self._norm(x, p["ln1"])
         bs = [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None
         q, k, v = tapir.multi_linear(xn, [p["wq"], p["wk"], p["wv"]], bs)
-        q = q.reshape(B, S, H, hd)
-        k = k.reshape(B, S, Hkv, hd)
-        v = v.reshape(B, S, Hkv, hd)
+        q = shard_act(q.reshape(B, S, -1, hd), None, None, hq, None)
+        k = shard_act(k.reshape(B, S, -1, hd), None, None, hkv, None)
+        v = shard_act(v.reshape(B, S, -1, hd), None, None, hkv, None)
         cos = tapir.gather(rope_cos, (pos_vec,))
         sin = tapir.gather(rope_sin, (pos_vec,))
         frac = self._rope_frac()
         q = L.apply_rope(q, cos, sin, frac)
         k = L.apply_rope(k, cos, sin, frac)
-        ck = tapir.scatter(ck, (phys_vec, off_vec), k.reshape(S, Hkv, hd))
-        cv = tapir.scatter(cv, (phys_vec, off_vec), v.reshape(S, Hkv, hd))
+        ck = tapir.scatter(ck, (phys_vec, off_vec), k.reshape(S, -1, hd))
+        cv = tapir.scatter(cv, (phys_vec, off_vec), v.reshape(S, -1, hd))
+        ck = shard_act(ck, None, None, hkv, None)
+        cv = shard_act(cv, None, None, hkv, None)
         o = _paged_prefill_attn(q, ck, cv, prow, vlen)
-        x = x + tapir.linear(o.reshape(B, S, H * hd), p["wo"])
+        o = shard_act(o, None, None, hq, None)
+        o = shard_act(o, None, None, None, None)
+        x = x + tapir.linear(o.reshape(B, S, -1), p["wo"])
         return x, ck, cv
 
     def _slot_prefill_block_body(self, p, x, rope_cos, rope_sin, ck, cv,
@@ -437,8 +543,12 @@ class DenseLM(DenseBlocks, BaseModel):
         return x, ck, cv
 
     def _slot_head_body(self, hp, x):
+        """The head's logits of the last row, whole on every rank: the
+        vocab columns (and the slots' rows) gathered in rank order, so
+        the host's argmax reads the same row everywhere."""
         x = self._norm(x, hp["ln_f"])
-        return tapir.linear(x, hp["w"])[:, -1]
+        logits = shard_act(tapir.linear(x, hp["w"])[:, -1], "batch", "vocab")
+        return shard_act(logits, None, None)
 
     def _slot_bodies(self) -> dict:
         """The slot decode step's block body of each layer kind."""
@@ -453,6 +563,10 @@ class DenseLM(DenseBlocks, BaseModel):
         slots carry don't-care tokens).  Returns (logits [slots, vocab],
         cache); per-slot positions advance by one and the pools update in
         place."""
+        with logical_sizes(**self.logical_sizes(int(tokens.shape[0]))):
+            return self._decode_slots(sp, tokens, cache)
+
+    def _decode_slots(self, sp, tokens, cache):
         cfg = self.cfg
         h = self._embed(sp["embed"], tokens)
         pl = cache["k"][0].shape[1]
@@ -479,6 +593,11 @@ class DenseLM(DenseBlocks, BaseModel):
         ``[start, start + Sb)`` of the prompt, right-padded to a bucket;
         ``start > 0`` is a suffix prefill over resident shared-prefix
         pages.  Returns (logits [1, vocab] at prompt row plen-1, cache)."""
+        with logical_sizes(**self.logical_sizes(int(tokens.shape[0]))):
+            return self._prefill_slot(sp, tokens, cache, slot, plen, start)
+
+    def _prefill_slot(self, sp, tokens, cache, slot: int, plen: int,
+                      start: int):
         cfg = self.cfg
         dev = tokens.device
         Sb = tokens.shape[1]
@@ -521,18 +640,38 @@ def _decode_attention(q, ck, cv, valid_len):
     """Masked attention over the padded cache: inside a region ONE
     ``pyfunc`` node (ordered after the cache writes it reads), outside a
     direct call of the same composite."""
+    kw = _pairs_kw(q, ck)
     if any(tapir.is_traced(t) for t in (q, ck, cv, valid_len)):
-        return tapir.lift(_masked_decode_attention, q, ck, cv, valid_len)
-    return _masked_decode_attention(q, ck, cv, valid_len)
+        return tapir.lift(_masked_decode_attention, q, ck, cv, valid_len,
+                          **kw)
+    return _masked_decode_attention(q, ck, cv, valid_len, **kw)
 
 
-def _masked_decode_attention(q, ck, cv, valid_len):
+def _pairs_kw(q, ck) -> dict:
+    """``{"pairs": (rows, kv heads)}`` of the whole call where this rank
+    holds a share of the masked composite's (row, kv head) pairs (read
+    off ``dist.logical_sizes``), else ``{}``: one device keeps its call."""
+    rows, kv_heads = q.shape[0], ck.shape[2]
+    sizes = current_sizes()
+    whole = (sizes.get("batch", rows), sizes.get("kv", kv_heads))
+    return {} if whole == (rows, kv_heads) else {"pairs": whole}
+
+
+def _masked_decode_attention(q, ck, cv, valid_len, pairs=None):
     """Masked attention over a static-length KV view.  q: [B,S,H,hd],
     ck/cv: [B,maxlen,Hkv,hd]; key positions >= the query's position are
     masked; ``valid_len`` is a scalar or a per-slot [B] vector.  Scores and
     the PV product accumulate in fp32 (the reference's
     ``preferred_element_type``), and masked scores take fp32's most
-    negative finite value, as there."""
+    negative finite value, as there.
+
+    ``pairs`` (a mesh rank's call, ``_pairs_kw``): the whole call's
+    (rows, kv heads).  The rank's share is zero-padded up to it, so the
+    einsums run at the one-device call's shape and cuBLAS takes the same
+    kernels: each pair keeps its bits, and only the mesh pays for the
+    padding."""
+    if pairs is not None:
+        return _on_whole_pairs(q, ck, cv, valid_len, pairs)
     B, S, H, hd = q.shape
     maxlen, Hkv = ck.shape[1], ck.shape[2]
     grp = H // Hkv
@@ -551,6 +690,29 @@ def _masked_decode_attention(q, ck, cv, valid_len):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
+def _on_whole_pairs(q, ck, cv, valid_len, pairs):
+    """``_masked_decode_attention`` of a share of the pairs, run at the
+    whole call's shape: the share in the corner of zeros (padded rows
+    have no valid key, so their softmax is uniform, never NaN)."""
+    B, S, H, hd = q.shape
+    Hkv = ck.shape[2]
+    grp = H // Hkv
+    Bw, Hw = pairs
+    qw = q.new_zeros((Bw, S, Hw, grp, hd))
+    qw[:B, :, :Hkv] = q.reshape(B, S, Hkv, grp, hd)
+    kw = ck.new_zeros((Bw, ck.shape[1], Hw, hd))
+    kw[:B, :, :Hkv] = ck
+    vw = cv.new_zeros((Bw, cv.shape[1], Hw, hd))
+    vw[:B, :, :Hkv] = cv
+    vl = valid_len
+    if vl.ndim:
+        vl = valid_len.new_zeros((Bw,))
+        vl[:B] = valid_len
+    o = _masked_decode_attention(qw.reshape(Bw, S, Hw * grp, hd), kw, vw,
+                                 vl)
+    return o.reshape(Bw, S, Hw, grp, hd)[:B, :, :Hkv].reshape(B, S, H, hd)
+
+
 def _page_coords(pos, *, page_len):
     """Split absolute positions into (page index, in-page offset)."""
     return ((pos // page_len).to(torch.int32),
@@ -563,7 +725,7 @@ def _page_coords_t(pos, *, page_len):
     return _page_coords(pos, page_len=page_len)
 
 
-def _paged_decode_attention(q, ck, cv, ptab, valid_len):
+def _paged_decode_attention(q, ck, cv, ptab, valid_len, pairs=None):
     """Masked attention over each slot's view ``pool[ptab[s]]`` of the page
     pool: each query row depends only on its own keys, never on which
     pages back them."""
@@ -573,16 +735,18 @@ def _paged_decode_attention(q, ck, cv, ptab, valid_len):
     idx = ptab.to(torch.int64)
     vk = ck[idx].reshape(B, pps * pl, Hkv, hd)
     vv = cv[idx].reshape(B, pps * pl, Hkv, hd)
-    return _masked_decode_attention(q, vk, vv, valid_len)
+    return _masked_decode_attention(q, vk, vv, valid_len, pairs)
 
 
 def _paged_attention(q, ck, cv, ptab, valid_len):
+    kw = _pairs_kw(q, ck)
     if any(tapir.is_traced(t) for t in (q, ck, cv, ptab, valid_len)):
-        return tapir.lift(_paged_decode_attention, q, ck, cv, ptab, valid_len)
-    return _paged_decode_attention(q, ck, cv, ptab, valid_len)
+        return tapir.lift(_paged_decode_attention, q, ck, cv, ptab,
+                          valid_len, **kw)
+    return _paged_decode_attention(q, ck, cv, ptab, valid_len, **kw)
 
 
-def _paged_prefill_attention(q, ck, cv, prow, valid_len):
+def _paged_prefill_attention(q, ck, cv, prow, valid_len, pairs=None):
     """Prefill attention for one slot through its page row (q: [1,S,H,hd],
     prow: [pps]); the masked decode composite, so a suffix prefill is
     row-for-row equal to a full one."""
@@ -591,11 +755,12 @@ def _paged_prefill_attention(q, ck, cv, prow, valid_len):
     idx = prow.to(torch.int64)
     vk = ck[idx].reshape(1, pps * pl, Hkv, hd)
     vv = cv[idx].reshape(1, pps * pl, Hkv, hd)
-    return _masked_decode_attention(q, vk, vv, valid_len)
+    return _masked_decode_attention(q, vk, vv, valid_len, pairs)
 
 
 def _paged_prefill_attn(q, ck, cv, prow, valid_len):
+    kw = _pairs_kw(q, ck)
     if any(tapir.is_traced(t) for t in (q, ck, cv, prow, valid_len)):
         return tapir.lift(_paged_prefill_attention, q, ck, cv, prow,
-                          valid_len)
-    return _paged_prefill_attention(q, ck, cv, prow, valid_len)
+                          valid_len, **kw)
+    return _paged_prefill_attention(q, ck, cv, prow, valid_len, **kw)

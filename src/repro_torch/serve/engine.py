@@ -63,8 +63,21 @@ none of them, and ``last_stats`` carries each run's cache counters
 (``compiled_programs``, ``l2_hits``, ...) and where its cold-start seconds
 went (tracing, building programs, the store, CUDA-graph capture).
 
-Not ported yet: meshes (the mesh shrink of a ``host`` fault with them).
-Asking for one raises ``NotImplementedError``.
+**Meshes** (``ServingEngine(mesh=...)``; tensor parallel is the only
+layout): one engine per rank, every rank running the same host loop.  The
+slot parameters are pinned to their tensor-parallel blocks (``pin_slot_params``:
+only N dims split, K dims replicated), the page pools to theirs
+(``slot_cache_shardings``: kv heads over ``model``, replicated over
+``data``), and the slot programs capture and key under the ambient mesh,
+whose lowering gathers in rank order where a value must be whole: every
+rank's tokens are the one-device engine's bit for bit.  A ``host`` fault
+that blames a rank shrinks the mesh without that rank's data row
+(``launch.mesh.shrink_mesh``; every rank helps form the new groups, then
+the evicted ones leave the run), purges the old fingerprint's programs
+(``tapir.invalidate_mesh``, both tiers), re-pins the parameters and
+restores the latest slot checkpoint through ``shardings=``.  A slot
+checkpoint holds whole leaves (gathered, written by the mesh's first
+rank), so it restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -78,9 +91,13 @@ import torch
 from ..cache.disk import check_cache_mode
 from ..checkpoint.ckpt import restore_checkpoint, save_checkpoint
 from ..core.schedule import CPU_COST_MODEL, H100_COST_MODEL
-from ..core.tapir import TapirConfig, cache_stats, use
+from ..core.tapir import (SPEC_ATTR, TapirConfig, cache_stats,
+                          invalidate_mesh, use)
 from ..dist.fault import Fault, FaultInjector, StragglerWatchdog
-from ..models.base import resolve_device
+from ..dist.sharding import (NamedSharding, gather_full, local_shape,
+                             logical_to_pspec, place, tp_last_dim_spec,
+                             tree_map_axes, use_mesh)
+from ..models.base import placement_axes, resolve_device
 from ..models.layers import bucket_pow2
 from .pages import (PagePool, copy_cache_pages, identity_row, preempt_cost,
                     private_page)
@@ -168,18 +185,111 @@ class ServeConfig:
                            cache_mode=self.cache_mode)
 
 
+def _shardings(tree, axes, mesh):
+    """``NamedSharding`` tree from parallel (tensor or shape, logical-axes)
+    trees: the one rule for every serving cache layout (a ``batch`` dim
+    over the data axes, the rest by ``logical_to_pspec``)."""
+    def one(ax, t):
+        shape = tuple(getattr(t, "shape", t))
+        return NamedSharding(mesh, logical_to_pspec(ax, mesh, shape=shape)
+                             if ax else ())
+    return tree_map_axes(one, axes, tree)
+
+
+def _placed_axes(model, axes, mesh):
+    return tree_map_axes(lambda ax: placement_axes(model.cfg, ax, mesh),
+                         axes)
+
+
+def cache_shardings(model, mesh, batch: int, max_len: int):
+    """``NamedSharding`` tree of the padded cache of ``model.init_cache``."""
+    return _shardings(model.cache_shapes(batch, max_len),
+                      _placed_axes(model, model.cache_axes(), mesh), mesh)
+
+
+def slot_cache_shardings(model, mesh, slots: int, max_len: int,
+                         page_len: Optional[int] = None,
+                         shared_pages: Optional[int] = None):
+    """``NamedSharding`` tree of the slot-paged cache: per-layer
+    ``[P, page_len, Hkv, hd]`` pools with kv heads over ``model`` (when
+    they divide), replicated over ``data``; the page dims stay whole
+    (per-slot writes land at data-dependent pages)."""
+    return _shardings(model.slot_cache_shapes(slots, max_len, page_len,
+                                              shared_pages),
+                      _placed_axes(model, model.slot_cache_axes(), mesh),
+                      mesh)
+
+
+def place_tree(tree, shardings):
+    """Each leaf of ``tree`` (whole) as this rank's block of its
+    ``NamedSharding``, carrying its layout."""
+    def one(sh, t):
+        return place(t, sh.spec, sh.mesh) if sh.spec else t
+    if isinstance(shardings, NamedSharding):
+        return one(shardings, tree)
+    if isinstance(shardings, dict):
+        return {k: place_tree(tree[k], shardings[k]) for k in shardings}
+    return type(shardings)(place_tree(t, sh) for t, sh in zip(tree,
+                                                              shardings))
+
+
+def pin_slot_params(model, sp, mesh):
+    """The ``slot_params`` tree with its decode TP layout: only a leaf's
+    LAST dim shards, and only when its logical axis maps to ``model`` and
+    divides (``dist.sharding.tp_last_dim_spec``).  The GEMM N dims (wq /
+    wk / wv / wg / wu / the head: column sharding, every output element
+    summed on one rank) split over ``model``; the K-dim weights (wo, wd)
+    stay replicated — a K split would add partial sums across ranks and
+    break the bitwise serving guarantee.  A whole leaf is cut to this
+    rank's block; a leaf that already is that block (a model built on the
+    mesh) is checked and kept."""
+    if mesh is None or mesh.size <= 1:
+        return sp
+    if getattr(model, "mesh_layout", None) is not None:
+        model.check_mesh(mesh)
+    axes = _placed_axes(model, model.slot_param_axes(), mesh)
+
+    def one(ax, shape, v):
+        if not hasattr(v, "shape"):
+            return v                     # ("dense" / "moe") kind markers
+        spec = tp_last_dim_spec(ax, shape, mesh)
+        if tuple(v.shape) == tuple(shape):
+            return place(v, spec, mesh)
+        if tuple(v.shape) != local_shape(shape, spec, mesh):
+            raise ValueError(f"slot param {tuple(v.shape)} is neither "
+                             f"{tuple(shape)} nor its block under {spec}")
+        setattr(v, SPEC_ATTR, spec)
+        return v
+
+    return tree_map_axes(one, axes, model.slot_param_shapes(), sp)
+
+
+def _check_mesh(mesh) -> None:
+    """A mesh is ``launch.mesh.Mesh`` (or None): anything else is refused
+    before it reaches a program key."""
+    from ..launch.mesh import Mesh
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a launch.mesh.Mesh or None, got "
+                        f"{type(mesh).__name__}")
+
+
 def make_prefill_step(model, mesh=None, cfg: ServeConfig = ServeConfig()):
     """``prefill(tokens [B, S], cache) -> (logits [B, vocab], cache)``: the
     padded-cache prefill of ``model.init_cache``'s cache under ``cfg``, on
     the model's device.  The cache's K/V tensors are written in place (the
-    reference donates the cache)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported to the torch "
-                                  "engine yet")
+    reference donates the cache).  On a ``mesh`` the step runs under it;
+    a whole cache is first cut to this rank's blocks (``cache_shardings``,
+    the returned cache), and the logits come back whole."""
+    _check_mesh(mesh)
     tap = cfg.tapir_config()
 
     def prefill(tokens, cache):
-        with use(tap):
+        with use_mesh(mesh), use(tap):
+            if mesh is not None and mesh.size > 1 and \
+                    getattr(cache["k"], SPEC_ATTR, None) is None:
+                cache = place_tree(cache, cache_shardings(
+                    model, mesh, int(cache["k"].shape[1]),
+                    int(cache["k"].shape[2])))
             return model.prefill(torch.as_tensor(tokens, device=model.device),
                                  cache)
 
@@ -188,14 +298,13 @@ def make_prefill_step(model, mesh=None, cfg: ServeConfig = ServeConfig()):
 
 def make_decode_step(model, mesh=None, cfg: ServeConfig = ServeConfig()):
     """``decode(tokens [B, 1], cache) -> (next_token [B] int32, cache)``:
-    one greedy step (argmax, the first index on a tie)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported to the torch "
-                                  "engine yet")
+    one greedy step (argmax, the first index on a tie), under ``mesh``
+    when given (the cache as ``make_prefill_step`` returned it)."""
+    _check_mesh(mesh)
     tap = cfg.tapir_config()
 
     def decode(tokens, cache):
-        with use(tap):
+        with use_mesh(mesh), use(tap):
             logits, cache = model.decode_step(
                 torch.as_tensor(tokens, device=model.device), cache)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
@@ -296,9 +405,7 @@ class ServingEngine:
 
     def __init__(self, model, batch: int = 8, max_len: int = 2048,
                  cfg: ServeConfig = ServeConfig(), device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported to the torch "
-                                      "engine yet")
+        _check_mesh(mesh)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -310,6 +417,10 @@ class ServingEngine:
         #: scheduling stats of the most recent ``run``/``run_wave`` call
         self.last_stats: dict = {}
         self._sp = None            # the run's params (compute_params)
+        #: the mesh this rank serves on (None: one device); a host fault
+        #: shrinks it, and a rank it evicts stops serving (``evicted``)
+        self.mesh = mesh
+        self.evicted = False
 
     def run(self, requests: list[Request],
             max_steps: int = 256) -> list[Request]:
@@ -337,8 +448,8 @@ class ServingEngine:
         sequence start and are processed), one prefill, then greedy decode
         until every member is done or ``max_steps`` is reached; the wave
         blocks until its slowest member finishes."""
-        prefill = make_prefill_step(self.model, cfg=self.cfg)
-        decode = make_decode_step(self.model, cfg=self.cfg)
+        prefill = make_prefill_step(self.model, self.mesh, cfg=self.cfg)
+        decode = make_decode_step(self.model, self.mesh, cfg=self.cfg)
         for r in requests:
             r.out, r.done = [], False
         st = {"tokens": 0, "admitted": 0, "rejected": 0, "preempted": 0,
@@ -397,8 +508,7 @@ class ServingEngine:
             tokens_dev = torch.zeros((self.slots, 1), dtype=torch.int32,
                                      device=self.device)
         return _SlotRunState(
-            cache=self.model.init_slot_cache(self.slots, self.max_len,
-                                             cfg.page_len, cfg.shared_pages),
+            cache=self._init_slot_cache(),
             # greedy today; checkpointed as the reference's PRNGKey(0), so
             # a sampler fits the same recovery protocol and state schema
             rng=torch.zeros((2,), dtype=torch.uint32, device=self.device),
@@ -416,6 +526,34 @@ class ServingEngine:
                 "decode_steps": 0, "prefix_hits": 0,
                 "prefix_tokens_saved": 0, "preemptions": 0, "parked": 0,
                 "replayed": 0, "slo_shed": 0})
+
+    def _multi(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _init_slot_cache(self):
+        """A fresh slot cache; on a mesh each pool is this rank's block
+        (``slot_cache_shardings``)."""
+        cfg = self.cfg
+        cache = self.model.init_slot_cache(self.slots, self.max_len,
+                                           cfg.page_len, cfg.shared_pages)
+        if self._multi():
+            cache = place_tree(cache, self._cache_shardings())
+        return cache
+
+    def _cache_shardings(self):
+        cfg = self.cfg
+        return slot_cache_shardings(self.model, self.mesh, self.slots,
+                                    self.max_len, cfg.page_len,
+                                    cfg.shared_pages)
+
+    def _mesh_fp(self) -> tuple:
+        """The fingerprint of ``self.mesh`` (``passes.mesh_fingerprint``'s
+        form, of this explicit mesh)."""
+        return () if self.mesh is None else self.mesh.fingerprint
+
+    def _build_slot_params(self):
+        return pin_slot_params(self.model, self.model.slot_params(),
+                               self.mesh)
 
     def _save_slot_ckpt(self, rs: _SlotRunState, requests, ft: dict) -> None:
         """One atomic snapshot: the pools, ``ptab``, per-slot ``pos`` and
@@ -443,9 +581,22 @@ class ServingEngine:
                 "pool": rs.pool.to_meta(),
                 "st": {k: int(v) for k, v in rs.st.items()},
                 "occ_sum": float(rs.occ_sum)}
-        save_checkpoint(self.cfg.ckpt_dir, rs.step,
-                        {"cache": rs.cache, "rng": rs.rng},
-                        keep_n=2, blocking=True, meta=meta)
+        state = {"cache": rs.cache, "rng": rs.rng}
+        if not self._multi():
+            save_checkpoint(self.cfg.ckpt_dir, rs.step, state, keep_n=2,
+                            blocking=True, meta=meta)
+        else:
+            # whole leaves (every rank gathers: a collective), written by
+            # the mesh's first rank; the others wait for the commit
+            full = {"cache": {k: ([gather_full(t, self.mesh) for t in v]
+                                  if isinstance(v, list)
+                                  else gather_full(v, self.mesh))
+                              for k, v in rs.cache.items()},
+                    "rng": rs.rng}
+            if self.mesh.rank == self.mesh.leader():
+                save_checkpoint(self.cfg.ckpt_dir, rs.step, full, keep_n=2,
+                                blocking=True, meta=meta)
+            self.mesh.barrier()
         ft["checkpoints"] += 1
 
     def _restore_slot_state(self, requests, ft: dict,
@@ -458,9 +609,15 @@ class ServingEngine:
         ft["restores"] += 1
         if self.cfg.ckpt_dir is None:
             return self._fresh_slot_state(requests, rs.tokens_dev)
+        shardings = None
+        if self._multi():
+            # the CURRENT mesh's layout: after a shrink, the new one's
+            shardings = {"cache": self._cache_shardings(),
+                         "rng": NamedSharding(self.mesh, ())}
         try:
             state, _, manifest = restore_checkpoint(
-                self.cfg.ckpt_dir, {"cache": rs.cache, "rng": rs.rng})
+                self.cfg.ckpt_dir, {"cache": rs.cache, "rng": rs.rng},
+                shardings=shardings)
         except FileNotFoundError:
             return self._fresh_slot_state(requests, rs.tokens_dev)
         meta = manifest["meta"]
@@ -487,11 +644,27 @@ class ServingEngine:
             occ_sum=float(meta["occ_sum"]), st=dict(meta["st"]))
 
     def _handle_fault(self, fault: Fault, ft: dict) -> None:
-        """Post-mortem reconfiguration.  On a mesh a fault that blames a
-        host evicts it (the reference's shrink, which waits for the mesh
-        port); on one device there is nothing to reconfigure: the next
-        attempt restores on the same device, and the programs and the
-        params survive, so the replay hits the program cache."""
+        """Post-mortem reconfiguration: a fault blaming a mesh rank evicts
+        its data row (shrunk mesh -> new fingerprint -> a clean compile);
+        the dead fingerprint's programs are purged from memory and disk
+        so nothing stale can replay, and the parameters are re-pinned.  A
+        crash without a blamed rank (or on one device) restores on the
+        same mesh: programs and params survive, so the replay hits the
+        program cache."""
+        old_fp = self._mesh_fp()
+        if fault.host is not None and self.mesh is not None:
+            from ..launch.mesh import shrink_mesh
+            try:
+                new_mesh = shrink_mesh(self.mesh, fault.host)
+            except ValueError:
+                new_mesh = None     # not in the mesh / pure TP: same mesh
+            if new_mesh is not None:
+                self.mesh = new_mesh
+                ft["mesh_shrinks"] += 1
+                self.evicted = not new_mesh.member
+        if self._mesh_fp() != old_fp:
+            invalidate_mesh(old_fp)
+            self._sp = None         # re-pin params on the new mesh
 
     def _run_slots(self, requests, max_steps: int, continuous: bool):
         """The recovery loop around the slot session: a session runs until
@@ -511,22 +684,27 @@ class ServingEngine:
         ft["_ttft"] = []
         ft["_qwait"] = []
         rs = None
-        with use(cfg.tapir_config()):
-            self._sp = self.model.slot_params()
-            while True:
-                rs = self._fresh_slot_state(requests) if rs is None \
-                    else self._restore_slot_state(requests, ft, rs)
-                try:
+        self._sp = None
+        while True:
+            try:
+                with use_mesh(self.mesh), use(cfg.tapir_config()):
+                    if self._sp is None:
+                        self._sp = self._build_slot_params()
+                    rs = self._fresh_slot_state(requests) if rs is None \
+                        else self._restore_slot_state(requests, ft, rs)
                     self._slot_session(requests, max_steps, continuous, rs,
                                        ft, wd)
-                    break
-                except _EngineFault as ef:
-                    ft["failures"] += 1
-                    if ft["failures"] > cfg.max_failures:
-                        raise RuntimeError(
-                            f"slot serving failed {ft['failures']} times; "
-                            "giving up") from ef
+                break
+            except _EngineFault as ef:
+                ft["failures"] += 1
+                if ft["failures"] > cfg.max_failures:
+                    raise RuntimeError(
+                        f"slot serving failed {ft['failures']} times; "
+                        "giving up") from ef
+                with use(cfg.tapir_config()):
                     self._handle_fault(ef.fault, ft)
+                if self.evicted:
+                    break           # this rank left the mesh
         wall = time.perf_counter() - t0
         ttft, qwait = ft.pop("_ttft"), ft.pop("_qwait")
         ft.pop("_t0")

@@ -23,6 +23,7 @@ import dataclasses
 import json
 import os
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,7 @@ from repro_torch.checkpoint import (CheckpointManager, all_steps,
                                     save_checkpoint)
 from repro_torch.checkpoint.ckpt import flatten
 from repro_torch.configs import get_smoke
+from repro_torch.dist.sharding import NamedSharding
 from repro_torch.launch import train as launch_train
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.train import init_state
@@ -230,8 +232,16 @@ def test_restore_writes_in_place_and_refuses_a_mismatch(tmp_path):
     for t in bad:
         with pytest.raises((KeyError, ValueError)):
             restore_checkpoint(d, t)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        restore_checkpoint(d, tmpl, shardings={})
+    # shardings (the elastic restore, tests/test_torch_mesh_serving.py):
+    # none named restores whole leaves; a block that does not tile the
+    # stored leaf is refused
+    out, _, _ = restore_checkpoint(d, tmpl, shardings={})
+    assert torch.equal(out["w"], _small_state()["w"])
+    half = types.SimpleNamespace(axis_names=("model",), shape={"model": 2},
+                                 coord=lambda a: 0)
+    with pytest.raises(ValueError):
+        restore_checkpoint(d, tmpl, shardings={
+            "w": NamedSharding(half, (None, "model"))})
 
 
 def _run(argv):

@@ -246,9 +246,12 @@ def test_decode_argmax_takes_the_first_index_on_a_tie(pair):
 
 
 def test_serve_steps_refuse_a_mesh(pair):
+    """The steps take a ``launch.mesh.Mesh`` (``tests/
+    test_torch_mesh_serving.py`` runs them on one); anything else that
+    claims to be a mesh is refused."""
     _, _, tm = pair
     for make in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             make(tm, mesh=object())
 
 

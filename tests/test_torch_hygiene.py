@@ -54,6 +54,22 @@ def test_the_import_walk_covers_every_package():
     assert {"checkpoint", "cache"} <= want and want <= pkgs
 
 
+def test_the_import_walk_covers_the_mesh_modules():
+    """The mesh layer's modules (the rules, the mesh, the rank harness)
+    are walked, and the rank harness's body imports no JAX either."""
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("dist/sharding.py", "dist/__init__.py", "launch/mesh.py",
+                "testing.py"):
+        assert port / rel in PORT_FILES, rel
+    from repro_torch import testing
+    body = ast.parse(testing._PREAMBLE + testing._EPILOGUE)
+    mods = [a.name for n in ast.walk(body) if isinstance(n, ast.Import)
+            for a in n.names] + [n.module for n in ast.walk(body)
+                                 if isinstance(n, ast.ImportFrom)]
+    assert mods and not [m for m in mods
+                         if m.split(".")[0] in FORBIDDEN], mods
+
+
 def test_the_import_walk_catches_what_it_must(tmp_path):
     src = ("import jax.numpy as jnp\nfrom repro.core import ir\n"
            "def f():\n    import jaxlib\n    __import__('repro.serve')\n"

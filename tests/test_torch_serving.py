@@ -298,7 +298,9 @@ def test_unported_serving_features_raise(bf16_model):
     assert (tap.program_cache_dir, tap.cache_mode) == ("pc", "read")
     with pytest.raises(ValueError, match="cache_mode"):
         ServeConfig(cache_mode="sometimes")
-    with pytest.raises(NotImplementedError):
+    # meshes are ported (tests/test_torch_mesh_serving.py): a thing that
+    # is not a launch.mesh.Mesh is refused
+    with pytest.raises(TypeError, match="Mesh"):
         ServingEngine(bf16_model, batch=2, max_len=32, device="cpu",
                       mesh=object())
     with pytest.raises(ValueError, match="overflows"):

@@ -65,6 +65,7 @@ from repro_torch.kernels.fused_matmul import ops as fm_ops
 from repro_torch.kernels.linear_scan import ops as ls_ops
 from repro_torch.kernels.linear_scan import ref as ls_ref
 from repro_torch.launch import train as launch_train
+from repro_torch.models import layers as L
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.train import TrainConfig, init_state, make_train_step
 
@@ -280,8 +281,15 @@ def test_gla_scan_dw_against_an_fp64_recurrence(reference, monkeypatch):
     gradient within 2e-6 of its largest.  Autograd of the fp32 chunk form
     (what XLA differentiates in the reference's tapir mode) is 10x
     farther off in dw, the difference-form cancellation the hand-written
-    backward avoids; dq, dk and dv it matches."""
+    backward avoids; dq, dk and dv it matches.
+
+    The RoPE tables are made here, in fp32: the memo may hold tables an
+    earlier test of the file made with ``torch.float32`` read as fp64
+    (``test_first_gradients_against_an_fp64_evaluation``), which would
+    move this forward's scan operands."""
     _, tree = reference
+    monkeypatch.setattr(L, "_ARANGE_ROPE", {})
+    monkeypatch.setattr(L, "_FULL_ROPE", {})
     tm = _port(tree)
     calls = []
     real = ls_ref.linear_scan_bwd_ref
