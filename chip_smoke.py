@@ -25,6 +25,7 @@
     python3 chip_smoke.py --vlm-train-depths N,N,...
     python3 chip_smoke.py --encdec-train-lrs LR,LR,...
     python3 chip_smoke.py --mesh [--mesh-layers N] [--mesh-nccl-probe]
+    python3 chip_smoke.py --moe-mesh
 
 The second form times the GEMM again at the path shapes that a full run
 (its output in OUT) counted, bf16 and fp32 (forward, dX, dW), and does
@@ -49,8 +50,7 @@ was chosen.  The tenth profiles N windows shaped like a decode window
 (plain torch kernels and a CUDA graph, no port kernel) with and without
 PROF_PAD_S of idle card at each end, and counts the kernels each keeps:
 why the decode windows are padded.  The eleventh does what the ninth does
-for Zamba2-7B, per op and captured: how Z_TRAIN_LAYERS and
-Z_CAPTURE_LAYERS were chosen.  The twelfth runs the build phase and
+for Zamba2-7B, per op and captured: how Z_TRAIN_LAYERS was chosen.  The twelfth runs the build phase and
 phases 33-37 alone (the program cache and the three dense configs), the
 thirteenth the build phase and phases 38-43 alone (the MoE family).  The
 fourteenth builds Moonlight-16B-A3B at full width at each depth given and
@@ -68,9 +68,10 @@ one's peak memory or the OOM (how V_TRAIN_LAYERS was chosen), the
 twentieth steps Whisper-small at each peak lr at the reference's init
 and at fan-in and prints the first batch's loss after the steps (how
 WHISPER_TRAIN_LR and WHISPER_TRAIN_INIT were chosen).  The twenty-first
-runs the build phase and phase 56 alone (the mesh), at ``--mesh-layers``
-deep, first trying NCCL with two ranks on the card with
-``--mesh-nccl-probe``.
+runs the build phase and phases 56 and 57 alone (the mesh), qwen2.5-3b at
+``--mesh-layers`` deep, first trying NCCL with two ranks on the card
+with ``--mesh-nccl-probe``; the twenty-second runs the build phase and
+phase 57 alone (the MoE mesh at full depth).
 
 Phases, each printing one JSON line (with ``at_s``, the seconds since the
 script started); any failure exits non-zero.  Every main-path run zeroes the three kernels' launch counts (forward and
@@ -305,8 +306,9 @@ period, drawn with the 81-layer init's statistics, seed 0):
    p50, tokens/s, MFU (and ``mfu_applied``: the shared block counted
    once an application and the tied head), peak memory, device ms by
    kernel and the busy share, no library kernel in a profiled step;
-29. zamba2_captured_train — 10c's measurement at Z_CAPTURE_LAYERS: the
-   per-op step, then the captured step (policy auto) on the same weights;
+29. zamba2_captured_train — 10c's measurement at Z_TRAIN_LAYERS: the
+   captured step (policy auto) on phase 28's weights, held to phase 28's
+   per-op step;
 30. zamba2_captured_parity — ``captured_pair`` at 2 layers (the shared
    block after both), fp32: captured = per-op bitwise over 2 steps in
    every loss, the params and the AdamW state;
@@ -525,7 +527,8 @@ bf16 compute, fp32 AdamW, remat full per op and policy auto captured):
    restored from a checkpoint and replayed, every parameter, moment and
    loss equal to the uninterrupted run's, bitwise.
 
-Then the mesh (``mesh_phases``; ``--mesh`` runs the build and it alone):
+Then the mesh (``mesh_phases``; ``--mesh`` runs the build and it alone,
+56 and 57 in one set of four rank processes):
 
 56. mesh_reference / mesh_ranks / mesh_guarantees /
    mesh_kernels_vs_plain — qwen2.5-3b at full width and MESH_PROOF_LAYERS
@@ -544,6 +547,21 @@ Then the mesh (``mesh_phases``; ``--mesh`` runs the build and it alone):
    q | k | v and gate | up column blocks, concatenated, and the head) and
    flash at 8 / 1 heads against their plain versions, timed.  The ranks time-slice the
    one card: no number of it is a multi-card figure.
+57. moe_mesh_reference / moe_mesh_ranks / moe_mesh_guarantees /
+   moe_mesh_kernels_vs_plain — Granite-3.0-1B-A400M at full width and
+   depth (24 layers, 32 experts top-8) on the same ranks (``--moe-mesh``:
+   alone), its expert leaves placed by whole experts (16 a rank): the
+   one-device port first (each data shard's row forwarded as its own
+   batch, routes dropped at the config's capacity; the whole batch at
+   MOE_MESH_NO_DROP; the slot engine's tokens), then on every rank its
+   block of both forwards and its slot-served tokens (a shared prefix,
+   one preemption), bitwise; per rank its weights against one device's,
+   its peak memory, one decode step's all-gathers and their host time;
+   then every 2-D launch the ranks made (q | k | v at the head shard, n
+   1024, and no whole q | k | v; wo, the head, the router's fp32 route)
+   and every grouped launch at a rank's 16 experts against its plain
+   version (the grouped ones also against those experts' rows of the
+   32-expert launch, bitwise) and flash at 8 / 4 heads of 64, timed.
 
 Then the kernels line, the card line, and the result line last.  Exits
 non-zero without printing a result when no card is present or the
@@ -679,7 +697,13 @@ def make_inputs(m, n, k, spec, dt, gen, tied: bool = False):
     return x, w, epi
 
 
-def time_ms(fn, iters: int = 10, hold: bool = True) -> float:
+#: ``time_ms(plain=True)``: a plain version slower than this (ms) on its
+#: first timed run is timed SLOW_PLAIN_ITERS times
+SLOW_PLAIN_MS, SLOW_PLAIN_ITERS = 5.0, 3
+
+
+def time_ms(fn, iters: int = 10, hold: bool = True,
+            plain: bool = False) -> float:
     """Median time of one call in ms, each launch measured alone with L2
     flushed before it (the serving path finds its weights cold: a model's
     layers stream through the 50 MB L2 between two uses of one).  The
@@ -688,12 +712,17 @@ def time_ms(fn, iters: int = 10, hold: bool = True) -> float:
     about 1 ms (``torch.cuda._sleep``) while the host enqueues the call,
     so the events bracket the call's device time alone; without it they
     also hold the host's time to issue the call (``ms_with_issue`` of
-    ``--gemm-times``)."""
+    ``--gemm-times``).  ``plain``: ``fn`` is a kernel's plain version (a
+    yardstick the port never runs), and one slower than SLOW_PLAIN_MS is
+    timed SLOW_PLAIN_ITERS times, not ``iters``; a kernel is always timed
+    ``iters`` times."""
     import torch
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     times = []
-    for _ in range(iters):
+    for i in range(iters):
+        if plain and i == SLOW_PLAIN_ITERS and times[0] > SLOW_PLAIN_MS:
+            break
         flush.max()
         if hold:
             torch.cuda._sleep(2_000_000)
@@ -1180,7 +1209,7 @@ def flash_entry(name: str, shape, launches: int, plain: bool = True) -> dict:
              "replaces": FA_REPLACES, "launches": launches,
              "max_abs_err": err, "ms": ms}
     if plain:
-        entry["plain_ms"] = time_ms(ref_fn)
+        entry["plain_ms"] = time_ms(ref_fn, plain=True)
     entry.update({"bound_ms": bound, "bound_by": by, "library_ms": lib,
                   "design": design, "plan": plan,
                   "tflops": flash_flops(shape) / (ms * 1e-3) / 1e12,
@@ -2153,7 +2182,7 @@ def gemm_bwd_entries(bwd_shapes, errs, gen, cfg) -> list:
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": launches,
             "max_abs_err": errs[(route, m, n, k, dname)],
-            "ms": ms, "plain_ms": time_ms(plain),
+            "ms": ms, "plain_ms": time_ms(plain, plain=True),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib), "design": design,
@@ -2252,7 +2281,7 @@ def flash_bwd_entry(shape, launches: int, err=None,
              "replaces": FA_REPLACES, "launches": launches,
              "max_abs_err": err, "ms": ms}
     if plain:
-        entry["plain_ms"] = time_ms(ref_fn)
+        entry["plain_ms"] = time_ms(ref_fn, plain=True)
     entry.update({"bound_ms": max(t_bytes, t_ops) * 1e3,
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                   "library_ms": time_ms(lib), "design": design, "plan": plan,
@@ -2895,7 +2924,7 @@ def scan_entry(name: str, key, launches: int, plain: bool = True,
     err = float((got.float() - want.float()).abs().max())
     del got, want
     ms = time_ms(fn)
-    plain_ms = time_ms(ref_fn) if plain else None
+    plain_ms = time_ms(ref_fn, plain=True) if plain else None
     bound, by = scan_bound(key, **bound_kw)
     return {"name": name, "route": "cuda", "source": LS_SOURCE,
             "replaces": LS_REPLACES, "launches": launches,
@@ -2954,7 +2983,8 @@ def gemm_times(shapes, launches, errs, gen, name_of,
         ms = time_ms(lambda: ops.fused_matmul(x, w, epilogue=epi,
                                               out_dtype=dt))
         plain = time_ms(lambda: ref.fused_matmul_ref(x, w, epilogue=epi,
-                                                     out_dtype=dt))
+                                                     out_dtype=dt),
+                        plain=True)
         lib_fn = library_fn(x, w, epi, spec)
         lib_ms = time_ms(lib_fn) if lib_fn is not None else None
         nbytes = (x.numel() + w.numel() + m * n) * x.element_size() + sum(
@@ -3364,7 +3394,7 @@ def scan_bwd_entry(name: str, key, launches: int, err, plain: bool = True):
     return {"name": name, "route": "cuda", "source": LS_BWD_SOURCE,
             "replaces": LS_REPLACES, "launches": launches,
             "max_abs_err": err, "ms": ms,
-            "plain_ms": time_ms(ref_fn) if plain else None,
+            "plain_ms": time_ms(ref_fn, plain=True) if plain else None,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "design_floor_ms": floor,
             "checkpoint_every": scan_bwd_group("torch.bfloat16"),
@@ -3871,13 +3901,12 @@ def zamba2_phases() -> list:
 
 #: Zamba2-7B's depth in the per-op train phase (full width, 2 x 2048
 #: tokens, remat full, fp32 AdamW) and in the captured step's phase
-#: (policy auto), multiples of shared_attn_every (6) so that no plain tail
-#: is left; ``--zamba2-depths``' peak probe allows 36 (PERF.md section 4:
-#: at all 81 layers the fp32 params, gradients and moments alone take
-#: 106 GB), and the per-op phase runs 18 since PR 32 for the whole run's
-#: time (the mesh)
+#: (policy auto), which is held to the per-op phase's step: a multiple of
+#: shared_attn_every (6) so that no plain tail is left;
+#: ``--zamba2-depths``' peak probe allows 36 (PERF.md section 4: at all 81
+#: layers the fp32 params, gradients and moments alone take 106 GB); both
+#: run 18 for the whole run's time
 Z_TRAIN_LAYERS = 18
-Z_CAPTURE_LAYERS = 18
 #: Zamba2-7B's depth in phases 20-27 (forward, serving, decode steps):
 #: all 81 until PR 32, cut for the whole run's time (the mesh)
 Z_SERVE_LAYERS = 18
@@ -4049,7 +4078,8 @@ def zamba2_scan_bwd_entry(key, launches: int, err) -> dict:
                      f"Dk={dk} Dv={dv} {variant} chunk={chunk}]",
              "route": "cuda", "source": LS_BWD_SOURCE,
              "replaces": LS_REPLACES, "launches": launches,
-             "max_abs_err": err, "ms": ms, "plain_ms": time_ms(ref_fn),
+             "max_abs_err": err, "ms": ms,
+             "plain_ms": time_ms(ref_fn, plain=True),
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None, "decay": Z_DECAYS["model"],
@@ -4123,7 +4153,8 @@ def tied_head_bwd_entries(m: int, cfg, launches: dict, gen,
                          f"m={mm} n={nn} k={kk}]",
                  "route": "cuda", "source": SOURCE, "replaces": REPLACES,
                  "launches": launches.get(key, 0), "max_abs_err": err,
-                 "rel_err": rel, "ms": ms, "plain_ms": time_ms(plain),
+                 "rel_err": rel, "ms": ms,
+                 "plain_ms": time_ms(plain, plain=True),
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "library_ms": time_ms(lib), "plan": p._asdict(),
@@ -4250,11 +4281,13 @@ def zamba2_train_phases() -> list:
     del model
     tapir.clear_cache()
     torch.cuda.empty_cache()
-    # -- 29. the captured step at Z_CAPTURE_LAYERS beside the per-op --------
+    # -- 29. the captured step at Z_TRAIN_LAYERS beside the per-op ----------
+    # the per-op step it is held to is phase 28's, at the same depth on the
+    # same weights (seed 0): not run a second time
     emit(captured_train_phase(
-        lambda: zamba2_cut(Z_CAPTURE_LAYERS)[1], "zamba2_captured_train",
+        lambda: zamba2_cut(Z_TRAIN_LAYERS)[1], "zamba2_captured_train",
         lambda cfg, m: zamba2_train_launches(cfg.n_layers, m.n_groups),
-        all_counts))
+        all_counts, per_op_run=(line, snap)))
     # -- 30. captured = per-op at 2 layers, fp32 ----------------------------
     pair = captured_pair("zamba2_7b", "float32", 2)
     po, cap = pair["per_op"], pair["captured"]
@@ -4780,7 +4813,8 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
                          counts=train_counts, per_op_tag=None,
                          annotate=None, exact: bool = False,
                          refit: bool = False, snaps=None, lr=None,
-                         rows: int = TRAIN_B, seq: int = TRAIN_S) -> dict:
+                         rows: int = TRAIN_B, seq: int = TRAIN_S,
+                         per_op_run=None) -> dict:
     """Phase 10c (29 for Zamba2): ``build()``'s model (qwen2.5-3b at full
     width and Q_CAPTURE_LAYERS layers, seed 0), TRAIN_B x TRAIN_S tokens:
     the per-op step (remat full) through ``train_phase``, held to
@@ -4799,7 +4833,9 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
     after 3 steps to the per-op step's bit for bit (host copies),
     ``refit``, ``lr``, ``rows`` and ``seq`` are ``train_phase``'s, and
     ``snaps`` (a dict) receives the per-op step's launches by shape under
-    ``per_op``."""
+    ``per_op``.  ``per_op_run``: the (line, launches) ``train_phase``
+    already returned for this step at this depth, reused in place of a
+    second per-op run (Zamba2's phase 28)."""
     import torch
     from repro_torch.core import tapir
     from repro_torch.train import TrainConfig, make_region_train_step
@@ -4807,18 +4843,20 @@ def captured_train_phase(build=qwen_capture_model, tag="captured_train",
     model = build()
     cfg = model.cfg
     want = launches(cfg, model)
-    per_op, snap_op = train_phase(model, cfg, want, counts,
-                                  phase=per_op_tag or f"{tag}_per_op",
-                                  refit=refit, keep_params=exact, lr=lr,
-                                  rows=rows, seq=seq)
-    if annotate is not None:
-        annotate(per_op, model, cfg)
-    emit(per_op)
-    del model
-    tapir.clear_cache()
-    torch.cuda.empty_cache()
-
-    model = build()
+    if per_op_run is not None:
+        per_op, snap_op = per_op_run
+    else:
+        per_op, snap_op = train_phase(model, cfg, want, counts,
+                                      phase=per_op_tag or f"{tag}_per_op",
+                                      refit=refit, keep_params=exact, lr=lr,
+                                      rows=rows, seq=seq)
+        if annotate is not None:
+            annotate(per_op, model, cfg)
+        emit(per_op)
+        del model
+        tapir.clear_cache()
+        torch.cuda.empty_cache()
+        model = build()
     seen: dict = {}
     line, snap = train_phase(
         model, cfg, phase=tag, remat="auto", counts=counts,
@@ -5536,7 +5574,8 @@ def fp32_gemm_entries(fwd, bwd, first, gen) -> list:
         out.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": time_ms(plain),
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(plain, plain=True),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib) if lib is not None else None,
@@ -6043,7 +6082,8 @@ def grouped_entries(shapes, launches, errs, gen, cfg, phase_of) -> list:
         ms = time_ms(lambda: ops.fused_matmul(x, w, epilogue=epi,
                                               out_dtype=dt))
         plain = time_ms(lambda: ref.grouped_matmul_ref(x, w, epilogue=epi,
-                                                       out_dtype=dt))
+                                                       out_dtype=dt),
+                       plain=True)
         lib = time_ms(lambda: torch.bmm(x, w))
         nbytes = (x.numel() + w.numel() + E * C * n) * 2 + sum(
             v.numel() * v.element_size() for _, vals, _ in epi for v in vals)
@@ -6072,13 +6112,14 @@ def grouped_entries(shapes, launches, errs, gen, cfg, phase_of) -> list:
     return out
 
 
-def router_entries(shapes, launches, gen, cfg) -> list:
+def router_entries(shapes, launches, gen, cfg, tag=None) -> list:
     """The router's fp32 product at each of its path shapes (m, E, d): the
     kernel's fp32 route against its plain version, timed beside it, the
-    bound (fp32 FMA peak) and ``torch.matmul`` with TF32 off."""
+    bound (fp32 FMA peak) and ``torch.matmul`` with TF32 off; ``tag``
+    (default the config's name) leads each entry's name."""
     import torch
     from repro_torch.kernels.fused_matmul import kernel, ops, ref
-    tag = cfg.name.split("-")[0]
+    tag = tag or cfg.name.split("-")[0]
     out = []
     for s_ in shapes:
         m, n, k = s_[:3]
@@ -6095,7 +6136,8 @@ def router_entries(shapes, launches, gen, cfg) -> list:
             "name": f"fused_matmul[{tag} router fp32 m={m} n={n} k={k}]",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": launches[s_], "max_abs_err": err, "ms": ms,
-            "plain_ms": time_ms(lambda: ref.fused_matmul_ref(x, w)),
+            "plain_ms": time_ms(lambda: ref.fused_matmul_ref(x, w),
+                                plain=True),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lambda: torch.matmul(x, w)),
@@ -6629,7 +6671,7 @@ def grouped_bwd_entries(shapes, tag: str) -> tuple:
                         f"m={m} n={n} k={k}]",
                 "route": "cuda", "source": SOURCE, "replaces": MOE_REPLACES,
                 "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": time_ms(plain),
+                "plain_ms": time_ms(plain, plain=True),
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": time_ms(lib),
@@ -8527,11 +8569,15 @@ MESH_SEED = 7
 MESH_NEW = 8
 MESH_CKPT_EVERY = 8
 MESH_FAULT_STEP = 9
-MESH_TIMEOUT_S = 420
+MESH_TIMEOUT_S = 600
 #: a rank's shard widths at (2, 2): the projection each N is (q | k | v
 #: and gate | up are the rank's column blocks concatenated, 1024 + 2 x 128
 #: and 2 x 5504)
 MESH_SHARD_N = {1280: "wq|wk|wv", 11008: "wg|wu", 75968: "head"}
+#: 57: the MoE config the same ranks run at full width and depth, and a
+#: capacity factor at which no route drops (the capacity is every token)
+MOE_MESH_ARCH = "granite_moe_1b_a400m"
+MOE_MESH_NO_DROP = 64.0
 
 
 def mesh_config(layers: int):
@@ -8589,10 +8635,99 @@ def mesh_reference(cfg, tmp: str) -> dict:
     return ref
 
 
-#: each rank's body (``repro_torch.testing.run_ranks``): build this rank's
-#: blocks of the model, the forward, the clean serve and the host-fault
-#: serve, each held to the one-device run bit for bit
-MESH_RANK_BODY = """
+def moe_mesh_config():
+    from repro_torch.configs import get_config
+    return get_config(MOE_MESH_ARCH)
+
+
+@contextlib.contextmanager
+def dropped_routes():
+    """Inside, the routes each MoE routing call drops past capacity
+    (``moe._route_topk``'s keep mask) are appended to the yielded list."""
+    from repro_torch.models import moe
+    counts, route = [], moe._route_topk
+
+    def spy(*a, **k):
+        out = route(*a, **k)
+        if not out[3].is_meta:           # not a region's shape inference
+            counts.append(int((~out[3]).sum()))
+        return out
+    moe._route_topk = spy
+    try:
+        yield counts
+    finally:
+        moe._route_topk = route
+
+
+def moe_mesh_forwards(model, cfg, tok, rows: int):
+    """(the forward of each ``rows``-row block of ``tok`` as its own batch
+    at the config's capacity, the routes it dropped, the forward of the
+    whole batch at MOE_MESH_NO_DROP): on a mesh each data rank's block is
+    its own batch already."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.serve import ServeConfig
+    with tapir.use(ServeConfig().tapir_config()), dropped_routes() as drops:
+        outs = [model.forward({"tokens": tok[i:i + rows]})
+                for i in range(0, tok.shape[0], rows)]
+        # one block (a rank's): the forward's own tensor, with its layout
+        shards = outs[0] if len(outs) == 1 else torch.cat(outs)
+        dropped = sum(drops)
+        # the capacity is read from the config at every call
+        model.cfg = dataclasses.replace(cfg,
+                                        capacity_factor=MOE_MESH_NO_DROP)
+        try:
+            drops.clear()
+            whole = model.forward({"tokens": tok})
+            whole_dropped = sum(drops)
+        finally:
+            model.cfg = cfg
+    return shards, dropped, whole, whole_dropped
+
+
+def moe_mesh_reference(cfg, tmp: str) -> dict:
+    """57's one-device port on the weights every rank draws (MESH_SEED):
+    each data shard's row forwarded as its own batch (routes drop at the
+    config's capacity), the whole batch forwarded where none drops, both
+    saved for the ranks, and the slot engine's tokens."""
+    import torch
+    from repro_torch.core import tapir
+    from repro_torch.models.base import get_model
+    from repro_torch.serve import ServingEngine
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    t0 = time.perf_counter()
+    model = get_model(cfg, device="cuda", generator=gen)
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in model.parameters()) / 1e9
+    tok = mesh_tokens(cfg)
+    shards, dropped, whole, whole_dropped = moe_mesh_forwards(
+        model, cfg, tok, MESH_FWD[0] // MESH_SHAPE[0])
+    torch.save(shards.cpu(), os.path.join(tmp, "moe_logits_shard.pt"))
+    torch.save(whole.cpu(), os.path.join(tmp, "moe_logits_whole.pt"))
+    eng = ServingEngine(model, batch=SLOTS, max_len=MAX_LEN)
+    out = eng.run(mesh_requests(cfg))
+    ref = {"tokens": [r.out for r in out], "param_gb": param_gb,
+           "dropped_routes": dropped, "no_drop_dropped": whole_dropped,
+           "decode_steps": eng.last_stats["decode_steps"],
+           "preemptions": eng.last_stats["preemptions"],
+           "prefix_hits": eng.last_stats["prefix_hits"],
+           "step_p50_ms": eng.last_stats["step_p50"] * 1e3,
+           "s": time.perf_counter() - t0,
+           "logits_finite": bool(torch.isfinite(shards).all()
+                                 and torch.isfinite(whole).all())}
+    with open(os.path.join(tmp, "moe_ref.json"), "w") as f:
+        json.dump(ref, f)
+    del model, eng, shards, whole
+    tapir.clear_cache()
+    torch.cuda.empty_cache()
+    return ref
+
+
+#: the ranks' body (``repro_torch.testing.run_ranks``): the mesh, then
+#: phase 56's part (qwen2.5-3b) and / or 57's (Granite), each building
+#: this rank's blocks of its model and holding its runs to the one-device
+#: port's bit for bit
+MESH_RANK_PRELUDE = """
 import time
 sys.path.insert(0, os.environ["CHIP_SMOKE_DIR"])
 import chip_smoke as cs
@@ -8603,16 +8738,35 @@ from repro_torch.dist.sharding import local_block
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fused_matmul import ops as fm_ops
 from repro_torch.launch.mesh import make_test_mesh, rank_of
-from repro_torch.models.transformer import DenseLM
 from repro_torch.serve import ServeConfig, ServingEngine
 A = json.loads(os.environ["MESH_ARGS"])
 tmp = A["tmp"]
-with open(os.path.join(tmp, "ref.json")) as f:
-    ref = json.load(f)
-cfg = cs.mesh_config(A["layers"])
 mesh = make_test_mesh(*A["shape"])
 result["backend"] = backend
 result["coords"] = list(mesh.coords)
+def decode_step_alone(model, eng):
+    # one decode step alone: its collectives and their host seconds
+    with use_mesh(mesh), tapir.use(ServeConfig().tapir_config()):
+        sp = eng._build_slot_params()
+        cache = eng._init_slot_cache()
+        feed = torch.zeros((cs.SLOTS, 1), dtype=torch.int32, device="cuda")
+        model.decode_step_slots(sp, feed, cache)
+        torch.cuda.synchronize()
+        mesh.stats.clear()
+        t0 = time.perf_counter()
+        model.decode_step_slots(sp, feed, cache)
+        torch.cuda.synchronize()
+    return {"s": time.perf_counter() - t0, "gathers": mesh.stats["gathers"],
+            "gather_s": mesh.stats["gather_s"]}
+"""
+
+#: 56's part of the ranks' body: qwen2.5-3b's forward, clean serve and
+#: host-fault serve
+MESH_RANK_BODY = """
+from repro_torch.models.transformer import DenseLM
+with open(os.path.join(tmp, "ref.json")) as f:
+    ref = json.load(f)
+cfg = cs.mesh_config(A["layers"])
 t0 = time.perf_counter()
 gen = torch.Generator(device="cuda").manual_seed(cs.MESH_SEED)
 model = DenseLM(cfg, device="cuda", generator=gen, mesh=mesh)
@@ -8651,23 +8805,7 @@ result["gemm"] = [[list(k), v] for k, v in fm_ops.launches_by_shape.items()]
 result["flash"] = [[list(k), v] for k, v in fa_ops.launches_by_shape.items()]
 result["gemm_launches"], result["flash_launches"] = (fm_ops.launches,
                                                      fa_ops.launches)
-# one decode step alone: its collectives and their host seconds
-mesh.stats.clear()
-fm_ops.reset_counts()
-with use_mesh(mesh), tapir.use(ServeConfig().tapir_config()):
-    sp = eng._build_slot_params()
-    cache = eng._init_slot_cache()
-    feed = torch.zeros((cs.SLOTS, 1), dtype=torch.int32, device="cuda")
-    model.decode_step_slots(sp, feed, cache)
-    torch.cuda.synchronize()
-    mesh.stats.clear()
-    t0 = time.perf_counter()
-    model.decode_step_slots(sp, feed, cache)
-    torch.cuda.synchronize()
-result["decode_step"] = {"s": time.perf_counter() - t0,
-                         "gathers": mesh.stats["gathers"],
-                         "gather_s": mesh.stats["gather_s"]}
-del sp, cache
+result["decode_step"] = decode_step_alone(model, eng)
 old_fp = mesh.fingerprint
 victim = rank_of(mesh, 1, 0)
 eng2 = ServingEngine(model, batch=cs.SLOTS, max_len=cs.MAX_LEN, mesh=mesh,
@@ -8690,6 +8828,68 @@ if not eng2.evicted:
         new_present=eng2.mesh.fingerprint in progs)
 result["fault"] = fault
 result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+del model, eng, eng2
+tapir.clear_cache()
+torch.cuda.empty_cache()
+"""
+
+#: 57's part: Granite-3.0-1B-A400M at full width and depth, its expert
+#: leaves placed by whole experts (E / model a rank): the forward (each
+#: data rank's row its own batch, routes dropped at the config's
+#: capacity; then the whole batch at MOE_MESH_NO_DROP) and the clean serve
+MOE_MESH_RANK_BODY = """
+from repro_torch.models.base import get_model
+with open(os.path.join(tmp, "moe_ref.json")) as f:
+    mref = json.load(f)
+mcfg = cs.moe_mesh_config()
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+gen = torch.Generator(device="cuda").manual_seed(cs.MESH_SEED)
+model = get_model(mcfg, device="cuda", generator=gen, mesh=mesh)
+torch.cuda.synchronize()
+m = {"build_s": time.perf_counter() - t0,
+     "param_gb": sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9,
+     "expert_block": list(model.blocks["moe"]["ewg"].shape)}
+for ops in (fm_ops, fa_ops):
+    ops.reset_counts()
+t0 = time.perf_counter()
+tok = cs.mesh_tokens(mcfg)
+with use_mesh(mesh):
+    # a data rank's row is its batch: the forward of the whole on the mesh
+    logits, dropped, nodrop, nodrop_dropped = cs.moe_mesh_forwards(
+        model, mcfg, tok, tok.shape[0])
+spec = getattr(logits, tapir.SPEC_ATTR)
+shard_ref = torch.load(os.path.join(tmp, "moe_logits_shard.pt"))
+whole_ref = torch.load(os.path.join(tmp, "moe_logits_whole.pt"))
+m["forward"] = {
+    "s": time.perf_counter() - t0, "spec": list(spec),
+    "block": list(logits.shape), "dropped_routes": dropped,
+    "no_drop_dropped": nodrop_dropped,
+    "bitwise_per_shard": bool(torch.equal(
+        logits.cpu(), local_block(shard_ref, spec, mesh))),
+    "bitwise_whole_no_drop": bool(torch.equal(
+        nodrop.cpu(), local_block(whole_ref, spec, mesh)))}
+del logits, nodrop, shard_ref, whole_ref
+eng = ServingEngine(model, batch=cs.SLOTS, max_len=cs.MAX_LEN, mesh=mesh)
+mesh.stats.clear()
+t0 = time.perf_counter()
+out = eng.run(cs.mesh_requests(mcfg))
+st = eng.last_stats
+m["serve"] = {
+    "s": time.perf_counter() - t0,
+    "bitwise": [r.out for r in out] == mref["tokens"],
+    "decode_steps": st["decode_steps"], "preemptions": st["preemptions"],
+    "prefix_hits": st["prefix_hits"], "step_p50_ms": st["step_p50"] * 1e3,
+    "gathers": mesh.stats["gathers"], "gather_s": mesh.stats["gather_s"],
+    "graph_captures": st["graph_captures"]}
+m["gemm"] = [[list(k), v] for k, v in fm_ops.launches_by_shape.items()]
+m["flash"] = [[list(k), v] for k, v in fa_ops.launches_by_shape.items()]
+m["gemm_launches"], m["flash_launches"] = fm_ops.launches, fa_ops.launches
+m["decode_step"] = decode_step_alone(model, eng)
+m["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+result["moe"] = m
+del model, eng
 """
 
 
@@ -8758,34 +8958,177 @@ def mesh_entries(results, gen) -> list:
     return entries + fent
 
 
-def mesh_phases(layers: int = MESH_LAYERS, probe_nccl: bool = False) -> list:
-    """56: qwen2.5-3b at full width and ``layers`` deep on a (2, 2) mesh of
-    four rank processes, over gloo when they share one card (NCCL takes
-    one rank per device), over NCCL when each has its own: each rank's forward block, slot-served tokens (a
-    shared prefix, one preemption) and, after a host fault on the rank at
-    (1, 0), the shrunk (1, 2) mesh's tokens, all bitwise the one-device
-    port's on the same weights; per rank its peak memory and its
-    collectives and their host time per decode step; then the kernels at
-    the ranks' shard shapes against their plain versions."""
+def moe_mesh_label(shape, cfg) -> str:
+    """The projection a 2-D launch shape ``(m, n, k, dtype, epilogue)`` of
+    a MoE mesh rank is (``label`` at a rank's widths): q | k | v at the
+    rank's head shard, wo (replicated: its activation's K rows gathered),
+    the router, the head (whole where the vocab does not divide the model
+    axis).  Where q | k | v and wo share (n, k) (Granite's, 1024 x 1024),
+    wo is the one with the residual add folded into its epilogue."""
+    _, n, k, _, spec = shape
+    d, hd, model = cfg.d_model, cfg.hd, MESH_SHAPE[1]
+    names = {"wq|wk|wv": ((cfg.n_heads + 2 * cfg.n_kv_heads) * hd // model,
+                          d),
+             "wo": (d, cfg.n_heads * hd), "router": (cfg.n_experts, d),
+             "head": (cfg.vocab, d)}
+    found = [nm for nm, nk in names.items() if nk == (n, k)]
+    if len(found) > 1:
+        found = ["wo" if spec else "wq|wk|wv"]
+    return found[0] if found else f"n{n}_k{k}"
+
+
+def moe_mesh_entries(results, gen) -> list:
+    """57's kernels-line entries at a rank's shapes: every 2-D launch the
+    ranks made (q | k | v at the head shard, wo and the head in bf16, the
+    router's fp32 route at a rank's rows) against its plain version and
+    timed beside its bound and ``torch.matmul``; every grouped launch
+    (E / model = 16 experts; the gate with its ``silu, mul`` chain, up,
+    down at each C the forward, the slot prefills and the decode steps
+    ran) against its plain version (``grouped_vs_plain``), a 16-expert
+    launch against those experts' rows of the 32-expert launch (bitwise),
+    and flash at 8 / 4 heads of 64; timed beside their bounds and
+    ``torch.bmm`` / SDPA, launches summed over the ranks' main-path runs."""
+    import torch
+    from repro_torch.kernels.fused_matmul import ops
+    cfg = moe_mesh_config()
+    E = cfg.n_experts // MESH_SHAPE[1]
+    grouped, flash = collections.Counter(), collections.Counter()
+    flat, router = collections.Counter(), collections.Counter()
+    for r in results:
+        for k, v in r["moe"]["gemm"]:
+            if k[0] == "grouped":
+                if k[5] == "torch.bfloat16":
+                    spec = tuple(tuple(s_) for s_ in k[6])
+                    grouped[tuple(k[1:5]) + (spec,)] += v
+                continue
+            m, n, kk, dt, spec = k
+            key = (m, n, kk, dt, tuple(tuple(s_) for s_ in spec))
+            (router if dt == "torch.float32" else flat)[key] += v
+        for k, v in r["moe"]["flash"]:
+            flash[tuple(k[:6]) + (k[7],)] += v
+    heads = (cfg.n_heads // MESH_SHAPE[1], cfg.n_kv_heads // MESH_SHAPE[1])
+    qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+    need = {"grouped at E / model": bool(grouped) and all(
+                s_[0] == E for s_ in grouped),
+            "flash at the head shard": any(k[3:5] == heads for k in flash),
+            "q|k|v at the head shard": any(
+                k[1:3] == (qkv // MESH_SHAPE[1], cfg.d_model) and not k[4]
+                for k in flat),
+            "no whole q|k|v": not any(
+                k[1:3] == (qkv, cfg.d_model) for k in flat),
+            "the router's fp32 route": any(
+                k[1:3] == (cfg.n_experts, cfg.d_model) for k in router)}
+    if not all(need.values()):
+        raise SystemExit(f"moe mesh: a rank's shape was never launched: "
+                         f"{need} ({sorted(grouped)}, {sorted(flash)}, "
+                         f"{sorted(flat)}, {sorted(router)})")
+
+    def name2(s_):
+        return (f"fused_matmul[granite mesh rank {moe_mesh_label(s_, cfg)} "
+                f"m={s_[0]} n={s_[1]} k={s_[2]}]")
+    fl_shapes = sorted(flat, key=lambda s_: (s_[1], s_[2], s_[0]))
+    fl_errs = gemm_vs_plain(fl_shapes, gen, name2)
+    fl_entries = gemm_times(fl_shapes, flat, fl_errs, gen, name2)
+    r_entries = router_entries(sorted(router), router, gen, cfg,
+                               tag="granite mesh rank")
+    shapes = sorted(grouped, key=lambda s_: (s_[1], s_[2], s_[3]))
+    errs = grouped_vs_plain(shapes, gen)
+    # a rank's launch over its experts = those rows of the whole call
+    halves = {}
+    for s_ in shapes:
+        _, C, n, k, spec = s_
+        x, w, epi = grouped_inputs(2 * E, C, n, k, spec, torch.bfloat16, gen)
+        whole = ops.fused_matmul(x, w, epilogue=epi, out_dtype=torch.bfloat16)
+        for lo in (0, E):
+            part = ops.fused_matmul(
+                x[lo:lo + E], w[lo:lo + E], out_dtype=torch.bfloat16,
+                epilogue=[(f, [v[lo:lo + E] if v.ndim == 3 else v
+                               for v in vs], a) for f, vs, a in epi])
+            halves[f"C={C} n={n} k={k} experts {lo}:{lo + E}"] = bool(
+                torch.equal(part, whole[lo:lo + E]))
+        del x, w, epi, whole, part
+    phase_of = {s_: "mesh rank" for s_ in shapes}
+    g_entries = grouped_entries(shapes, grouped, errs, gen, cfg, phase_of)
+    fshapes = sorted(flash)
+    fa_errs, _ = flash_vs_plain(fshapes, extra=())
+    fent = flash_times([("granite mesh", s_, flash[s_]) for s_ in fshapes])
+    emit({"phase": "moe_mesh_kernels_vs_plain", "grouped_shapes": len(shapes),
+          "gemm_shapes": len(fl_shapes), "router_shapes": len(r_entries),
+          "flash_shapes": len(fshapes), "tolerance": TOL,
+          "gemm_max_err": {d: max([e for k_, e in fl_errs.items()
+                                   if k_[-1] == d], default=None)
+                           for d in ("bfloat16", "float32")},
+          "router_max_err": max(e["max_abs_err"] for e in r_entries),
+          "grouped_max_err": {d: max(e for k_, e in errs.items()
+                                     if k_[-1] == d)
+                              for d in ("bfloat16", "float32")},
+          "rank_launch_is_whole_rows": halves,
+          "flash_max_err": {f"{s_}/{d}": e
+                            for (s_, d), e in fa_errs.items()},
+          "grouped_ms_over_bmm_ms": {e["name"]: e["ms"] / e["library_ms"]
+                                     for e in g_entries}})
+    if not all(halves.values()):
+        raise SystemExit(f"moe mesh: a 16-expert launch differs from the "
+                         f"32-expert launch's rows: {halves}")
+    return fl_entries + r_entries + g_entries + fent
+
+
+def mesh_phases(layers: int = MESH_LAYERS, probe_nccl: bool = False,
+                dense: bool = True) -> list:
+    """56 (``dense``): qwen2.5-3b at full width and ``layers`` deep, and
+    57: Granite-3.0-1B-A400M at full width and depth, on a (2, 2)
+    mesh of four rank processes (one ``run_ranks`` for both), over gloo
+    when they share one card (NCCL takes one rank per device), over NCCL
+    when each has its own.  56: each rank's forward block, slot-served
+    tokens (a shared prefix, one preemption) and, after a host fault on
+    the rank at (1, 0), the shrunk (1, 2) mesh's tokens, all bitwise the
+    one-device port's on the same weights.  57: each rank's forward block
+    bitwise the one-device forward of its data shard's row (routes
+    dropped) and of the whole batch where none drops, its slot-served
+    tokens bitwise.  Per rank its weights, peak memory and its collectives
+    and their host time per decode step; then the kernels at the ranks'
+    shapes against their plain versions."""
     import tempfile
     import torch
     from repro_torch.launch.mesh import choose_backend
     from repro_torch.testing import run_ranks
-    cfg = mesh_config(layers)
     backend = choose_backend("cuda", MESH_SHAPE[0] * MESH_SHAPE[1])
     if probe_nccl:
         emit({"phase": "mesh_nccl_probe", **mesh_nccl_probe()})
     tmp = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(HERE, "build"))
-    ref = mesh_reference(cfg, tmp)
-    emit({"phase": "mesh_reference", "layers": layers, **{
-        k: v for k, v in ref.items() if k != "tokens"}})
+    body = MESH_RANK_PRELUDE
+    if dense:
+        ref = mesh_reference(mesh_config(layers), tmp)
+        emit({"phase": "mesh_reference", "layers": layers, **{
+            k: v for k, v in ref.items() if k != "tokens"}})
+        body += MESH_RANK_BODY
+    mref = moe_mesh_reference(moe_mesh_config(), tmp)
+    emit({"phase": "moe_mesh_reference", "arch": MOE_MESH_ARCH,
+          **{k: v for k, v in mref.items() if k != "tokens"}})
+    body += MOE_MESH_RANK_BODY
     t0 = time.perf_counter()
-    res = run_ranks(MESH_RANK_BODY, MESH_SHAPE[0] * MESH_SHAPE[1],
+    res = run_ranks(body, MESH_SHAPE[0] * MESH_SHAPE[1],
                     device="cuda", timeout=MESH_TIMEOUT_S,
                     env={"CHIP_SMOKE_DIR": HERE, "MESH_ARGS": json.dumps(
                         {"tmp": tmp, "layers": layers,
                          "shape": list(MESH_SHAPE)})})
     ranks_s = time.perf_counter() - t0
+    entries = []
+    bad = [f"rank {i} backend {r['backend']}, not {backend}"
+           for i, r in enumerate(res) if r["backend"] != backend]
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    if dense:
+        bad += dense_mesh_lines(res, layers, ranks_s)
+    bad += moe_mesh_lines(res, mref, ranks_s)
+    if bad:
+        raise SystemExit(f"mesh: {bad}")
+    if dense:
+        entries += mesh_entries(res, gen)
+    return entries + moe_mesh_entries(res, gen)
+
+
+def dense_mesh_lines(res, layers: int, ranks_s: float) -> list:
+    """56's ``mesh_ranks`` and ``mesh_guarantees`` lines; the failures."""
     per_rank = []
     for r in res:
         sv, fw, fl, ds = r["serve"], r["forward"], r["fault"], r["decode_step"]
@@ -8807,8 +9150,6 @@ def mesh_phases(layers: int = MESH_LAYERS, probe_nccl: bool = False) -> list:
           "ranks_s": ranks_s, "ranks": per_rank})
     bad = []
     for i, r in enumerate(res):
-        if r["backend"] != backend:
-            bad.append(f"rank {i} backend {r['backend']}, not {backend}")
         if not r["forward"]["bitwise"]:
             bad.append(f"rank {i} forward differs from one device")
         if not r["serve"]["bitwise"]:
@@ -8830,10 +9171,59 @@ def mesh_phases(layers: int = MESH_LAYERS, probe_nccl: bool = False) -> list:
         r["forward"]["bitwise"] for r in res),
         "serve_bitwise": all(r["serve"]["bitwise"] for r in res),
         "fault": [r["fault"] for r in res], "failures": bad})
-    if bad:
-        raise SystemExit(f"mesh: {bad}")
-    gen = torch.Generator(device="cuda").manual_seed(56)
-    return mesh_entries(res, gen)
+    return bad
+
+
+def moe_mesh_lines(res, mref: dict, ranks_s: float) -> list:
+    """57's ``moe_mesh_ranks`` and ``moe_mesh_guarantees`` lines (the
+    decode p50 is four processes time-slicing one card over gloo: not a
+    multi-card figure); the failures."""
+    per_rank, bad = [], []
+    for i, r in enumerate(res):
+        m = r["moe"]
+        fw, sv, ds = m["forward"], m["serve"], m["decode_step"]
+        per_rank.append({
+            "coords": r["coords"], "build_s": m["build_s"],
+            "param_gb": m["param_gb"], "one_device_param_gb":
+            mref["param_gb"], "expert_block": m["expert_block"],
+            "peak_gb": m["peak_gb"], "forward_s": fw["s"],
+            "forward_block": fw["block"], "forward_spec": fw["spec"],
+            "dropped_routes": fw["dropped_routes"],
+            "serve_s": sv["s"], "decode_steps": sv["decode_steps"],
+            "step_p50_ms": sv["step_p50_ms"], "time_sliced": True,
+            "collectives_per_decode_step": ds["gathers"],
+            "collective_ms_per_decode_step": ds["gather_s"] * 1e3,
+            "decode_step_ms": ds["s"] * 1e3,
+            "serve_collectives": sv["gathers"],
+            "serve_collective_s": sv["gather_s"],
+            "graph_captures": sv["graph_captures"],
+            "gemm_launches": m["gemm_launches"],
+            "flash_launches": m["flash_launches"]})
+        if not (fw["bitwise_per_shard"] and fw["dropped_routes"] > 0):
+            bad.append(f"rank {i} forward with drops {fw}")
+        if not (fw["bitwise_whole_no_drop"] and fw["no_drop_dropped"] == 0):
+            bad.append(f"rank {i} forward at no drop {fw}")
+        if not sv["bitwise"]:
+            bad.append(f"rank {i} MoE tokens differ from one device")
+        if sv["preemptions"] < 1 or sv["prefix_hits"] < 1:
+            bad.append(f"rank {i}: no MoE preemption or prefix hit")
+        if not m["param_gb"] < mref["param_gb"]:
+            bad.append(f"rank {i} holds {m['param_gb']} GB of weights, one "
+                       f"device {mref['param_gb']}")
+    emit({"phase": "moe_mesh_ranks", "arch": MOE_MESH_ARCH,
+          "shape": MESH_SHAPE, "ranks_s": ranks_s, "ranks": per_rank})
+    emit({"phase": "moe_mesh_guarantees",
+          "forward_bitwise_per_shard": all(
+              r["moe"]["forward"]["bitwise_per_shard"] for r in res),
+          "forward_bitwise_whole_no_drop": all(
+              r["moe"]["forward"]["bitwise_whole_no_drop"] for r in res),
+          "serve_bitwise": all(r["moe"]["serve"]["bitwise"] for r in res),
+          "preemptions": [r["moe"]["serve"]["preemptions"] for r in res],
+          "prefix_hits": [r["moe"]["serve"]["prefix_hits"] for r in res],
+          "failures": bad})
+    return bad
+
+
 
 
 def main() -> int:
@@ -8942,6 +9332,10 @@ def main() -> int:
     ap.add_argument("--mesh-nccl-probe", action="store_true",
                     help="with --mesh: first try NCCL with two ranks on "
                          "the one card and print what it does")
+    ap.add_argument("--moe-mesh", action="store_true",
+                    help="run the build phase and phase 57 alone (the MoE "
+                         "mesh: Granite-3.0-1B-A400M at full depth on four "
+                         "ranks on the card)")
     ap.add_argument("--src", help="with --gemm-times, --flash-times, "
                                   "--flash-bwd-times, --scan-times, "
                                   "--decode-times or --fig3-times: another "
@@ -9097,9 +9491,10 @@ def main() -> int:
                                  f"{fa_kernel.plan_bwd(dt, d)}")
 
     if args.dense or args.moe or args.moe_train or args.encdec or args.vlm \
-            or args.encdec_train or args.mesh:
-        entries = (mesh_phases(args.mesh_layers, args.mesh_nccl_probe)
-                   if args.mesh
+            or args.encdec_train or args.mesh or args.moe_mesh:
+        entries = (mesh_phases(args.mesh_layers, args.mesh_nccl_probe,
+                               dense=not args.moe_mesh)
+                   if args.mesh or args.moe_mesh
                    else dense_phases(probe_import=True) if args.dense
                    else moe_phases() if args.moe
                    else moe_train_phases() if args.moe_train
@@ -9182,7 +9577,7 @@ def main() -> int:
     tapir.clear_cache()
     torch.cuda.empty_cache()
 
-    # -- 56. the mesh: four ranks on the card ------------------------------
+    # -- 56-57. the mesh: four ranks on the card, qwen2.5-3b then Granite --
     entries += mesh_phases(MESH_PROOF_LAYERS)
 
     emit({"kernels": entries})

@@ -164,7 +164,10 @@ def shard_factor(node: Node, mesh_axes: Optional[dict] = None) -> float:
     explicit SPMD a rank traces its own block, so the node's shapes, and
     every cost computed from them (``pick_gqa_impl``, the registry), are
     per shard already, and this factor only relates them to the whole
-    (``assign_schedules`` notes it)."""
+    (``assign_schedules`` notes it).  The MoE expert FFN on a mesh is such
+    a node: its GEMMs hold a rank's ``E / model`` experts (annotated on
+    the expert dim by ``tapir._build_expert_mlp``), so they are costed at
+    that block and noted as 1/model of the whole ``E``."""
     if not mesh_axes or node.sharding is None:
         return 1.0
     f = 1.0

@@ -1362,20 +1362,26 @@ def _build_expert_mlp(g: TaskGraph, xi: int, wgi: int, wui: int, wdi: int,
     """The expert FFN over ``x [E, C, d]`` with ``w [E, d, f]`` / ``[E, f,
     d]``: three 3-D matmuls (E a batch of each) and the gate's activation
     and product, which tapir mode's epilogue fusion folds into the gate
-    GEMM."""
+    GEMM.  Where ``x`` is a rank's block of the experts (its annotation
+    shards dim 0), every node is that block and is annotated so
+    (``schedule.shard_factor``)."""
     E, C, d = g.nodes[xi].ttype.shape
     dt = g.nodes[xi].ttype.dtype
     f = g.nodes[wgi].ttype.shape[-1]
+    spec = g.nodes[xi].sharding
+    ex = (spec[0], None, None) if spec and spec[0] is not None else None
     hid_t = TensorType((E, C, f), dt)
     mg = g.add("matmul", (xi, wgi), hid_t, pdims=(0, 1, 2),
-               rdims=(("k", d),), k=d)
+               rdims=(("k", d),), sharding=ex, k=d)
     mu = g.add("matmul", (xi, wui), hid_t, pdims=(0, 1, 2),
-               rdims=(("k", d),), k=d)
-    act = g.add("ew", (mg,), hid_t, pdims=(0, 1, 2), fn=activation)
-    prod = g.add("ew", (act, mu), hid_t, pdims=(0, 1, 2), fn="mul")
+               rdims=(("k", d),), sharding=ex, k=d)
+    act = g.add("ew", (mg,), hid_t, pdims=(0, 1, 2), sharding=ex,
+                fn=activation)
+    prod = g.add("ew", (act, mu), hid_t, pdims=(0, 1, 2), sharding=ex,
+                 fn="mul")
     out_t = TensorType((E, C, d), dt)
     return g.add("matmul", (prod, wdi), out_t, pdims=(0, 1, 2),
-                 rdims=(("k", f),), k=f)
+                 rdims=(("k", f),), sharding=ex, k=f)
 
 
 def _build_attention(g: TaskGraph, qi: int, ki: int, vi: int,
@@ -1570,6 +1576,7 @@ def expert_mlp(xe, w_gate, w_up, w_down, activation: str = "silu"):
 
     def build(g: TaskGraph):
         xi = g.add_input("x", _tt(xe))
+        g.nodes[xi].sharding = getattr(xe, SPEC_ATTR, None)
         wg = g.add_input("wg", _tt(w_gate))
         wu = g.add_input("wu", _tt(w_up))
         wd = g.add_input("wd", _tt(w_down))

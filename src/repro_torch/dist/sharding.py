@@ -312,6 +312,24 @@ def tp_last_dim_spec(axes: Sequence[Optional[str]], shape: tuple,
     return tuple(s if s == "model" else None for s in spec)
 
 
+def weight_spec(axes: Sequence[Optional[str]], shape: tuple, mesh) -> tuple:
+    """The placement of a weight on ``mesh``, one rule for the forward and
+    slot serving.  An expert leaf (a dim with logical axis ``"expert"``:
+    ``ewg`` / ``ewu [E, d, ff]``, ``ewd [E, ff, d]``, stacked ``[L, E,
+    ...]``) shards that dim over ``model`` when it divides ``E`` and
+    nothing else, so every expert stays whole on one rank and no product
+    is split over K; where ``E`` does not divide, it stays whole on every
+    rank.  Any other leaf takes ``tp_last_dim_spec``.  (The reference's
+    serving rule column-shards the expert leaves over ``d_ff`` instead;
+    the port follows its expert-parallel dispatch, whose activations
+    shard on ``"expert"``, and keeps one copy.)"""
+    if "expert" not in axes:
+        return tp_last_dim_spec(axes, shape, mesh)
+    only = tuple(a if a == "expert" else None for a in axes)
+    spec = logical_to_pspec(only, mesh, shape=tuple(shape))
+    return tuple(s if s == "model" else None for s in spec)
+
+
 def gather_full(t: torch.Tensor, mesh) -> torch.Tensor:
     """The whole tensor of a rank's block ``t`` (its recorded layout,
     all-gathered in rank order); ``t`` itself when it is whole."""

@@ -13,6 +13,7 @@ from torch import nn
 
 from ..core import tapir
 from ..core.dtypes import to_torch_dtype
+from ..dist import shard_act
 
 
 def embed_lookup(embed, tokens, cdt: str):
@@ -274,21 +275,21 @@ class BaseModel(nn.Module):
         ``cuda`` at every entry point and raises without a card.
 
         On a ``mesh`` of more than one rank each leaf is kept as this
-        rank's block (``dist.sharding.tp_last_dim_spec`` of its placement
-        axes), cut as soon as it is drawn: the same values as the
+        rank's block (``dist.sharding.weight_spec`` of its placement
+        axes: an N-dim column block, or an expert leaf's block of whole
+        experts), cut as soon as it is drawn: the same values as the
         one-device model's, and never the whole model in memory."""
         dev = resolve_device(device)
         self.mesh_layout = None
         place = lambda spec, t: t                       # noqa: E731
         if mesh is not None and mesh.size > 1:
             from ..dist.sharding import place as place_block
-            from ..dist.sharding import tp_last_dim_spec
+            from ..dist.sharding import weight_spec
             self.mesh_layout = self._mesh_layout(mesh)
 
             def place(spec, t):
                 axes = placement_axes(self.cfg, spec.axes, mesh)
-                return place_block(t, tp_last_dim_spec(axes, t.shape, mesh),
-                                   mesh)
+                return place_block(t, weight_spec(axes, t.shape, mesh), mesh)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -455,8 +456,13 @@ class BaseModel(nn.Module):
         """Mean cross-entropy of ``forward(batch, params)`` against
         ``batch["labels"]`` (over ``batch["mask"]`` when given), a scalar
         fp32 tensor.  Through ``lift``, so a region capture keeps it as
-        one node; outside a region it is a direct call."""
-        logits = self.forward(batch, params)
+        one node; outside a region it is a direct call.  On a mesh, where
+        ``batch`` is the whole batch as the forward takes it, every rank
+        takes the whole batch's mean in the one-device order: the logits
+        are gathered in rank order first, so no sum is split across ranks
+        (the reference's loss under a mesh is the whole batch's mean
+        too)."""
+        logits = shard_act(self.forward(batch, params), None, None, None)
         labels = batch["labels"]
         mask = batch.get("mask")
         if mask is None:

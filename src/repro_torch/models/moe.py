@@ -18,8 +18,22 @@ prefill, give each row the bits of their baselines.
 
 Dropless where ``S == 1`` (decode) and in slot prefill; the forward, the
 padded prefill and the training forward drop past ``capacity_factor`` as
-the reference does.  Left out: the expert-parallel ``shard_map`` dispatch
-and its sharding constraints (they need a mesh; see ROADMAP).
+the reference does.
+
+On a mesh (explicit SPMD, ``launch/mesh.py``) the expert leaves are
+placed by whole experts: ``E / model`` of them a rank
+(``dist.sharding.weight_spec``), the router replicated.  The routed FFN
+is one mechanism per op and in regions: a rank routes its data shard's
+rows (so the forward's capacity is counted per data shard, the
+reference's expert-parallel ``_moe_ffn_ep``), scatters them into the
+whole ``[E, cap, d]``, keeps its experts' block (``shard_act`` on
+``"expert"``), runs ``expert_mlp`` on it with its expert blocks, and
+all-gathers the outputs on the expert dim in rank order before the
+gather and combine, which run as on one device.  Where the reference
+adds the ranks' partial combines (``psum`` over ``model``), the port
+never splits a sum: each token's k routes are added in the one-device
+order.  The padded prefill gathers the batch first, so its capacity is
+the whole batch's, as on one device.
 
 Training: the loss differentiates through the router's fp32 product (the
 fp32 route's dX / dW), the softmax and the top-k values, the dispatch
@@ -40,6 +54,7 @@ import torch
 
 from ..core import tapir
 from ..core.dtypes import to_torch_dtype
+from ..dist import shard_act
 from ..kernels.fused_matmul import ops as fm_ops
 from . import layers as L
 from .base import ModelConfig, ParamSpec, register_family
@@ -162,6 +177,31 @@ class MoELM(DenseLM):
                     for i in range(n)]
         return out
 
+    def logical_sizes(self, batch: int) -> dict:
+        return {**super().logical_sizes(batch),
+                "expert": self.cfg.n_experts}
+
+    def _slot_layers(self, field: str) -> list:
+        """``slot_params()``' layers of one ``ParamSpec`` field (``axes``
+        or ``shape``, the stacked dim dropped), each under its kind
+        marker: the router and expert leaves under ``"moe"``."""
+        cfg = self.cfg
+        per = {kind: {k: tuple(getattr(s, field)[1:])
+                      for k, s in specs(cfg, 1).items()}
+               for kind, specs in (("dense", _block_specs),
+                                   ("moe", _moe_block_specs))}
+        F = cfg.first_dense_layers
+        kinds = ["dense"] * F + ["moe"] * (cfg.n_layers - F)
+        return [(k, dict(per[k])) for k in kinds]
+
+    def slot_param_axes(self) -> dict:
+        return {**super().slot_param_axes(),
+                "layers": self._slot_layers("axes")}
+
+    def slot_param_shapes(self) -> dict:
+        return {**super().slot_param_shapes(),
+                "layers": self._slot_layers("shape")}
+
     # -- the routed FFN ------------------------------------------------------
     def _moe_cap(self, T: int, S: int, dropless: bool) -> int:
         cfg = self.cfg
@@ -175,7 +215,8 @@ class MoELM(DenseLM):
             cap = T
         return cap
 
-    def _moe_ffn(self, p, x, dropless: bool = False):
+    def _moe_ffn(self, p, x, dropless: bool = False,
+                 whole_batch: bool = False):
         """The routed FFN over ``x [B, S, d]``: route, scatter the tokens
         into ``[E, cap, d]`` (past capacity dropped unless dropless),
         the expert FFN, gather back, combine.  Inside a region the WHOLE
@@ -184,9 +225,19 @@ class MoELM(DenseLM):
         ``zero_init`` scatter and the combine a gather indexed by them, so
         a MoE decode step's block is ONE region program, router included.
         Outside a region the same calls run op by op (the reference's
-        ``_moe_ffn_global``); the expert-parallel dispatch needs a mesh,
-        which the port does not have."""
+        ``_moe_ffn_global``).
+
+        On a mesh ``x`` is this rank's data shard, so ``T`` (and the
+        capacity) is its own: the reference's expert-parallel dispatch.
+        The dispatch buffer is cut to this rank's experts, the expert FFN
+        runs on them, and the outputs are all-gathered on the expert dim
+        in rank order (no sum across ranks).  ``whole_batch`` (the padded
+        prefill) first gathers every data rank's rows, so the capacity is
+        counted over the whole batch as one device counts it, and returns
+        this rank's rows."""
         cfg = self.cfg
+        if whole_batch:
+            x = shard_act(shard_act(x, "batch", None, None), None, None, None)
         B, S, d = x.shape
         T = B * S
         E, K = cfg.n_experts, cfg.top_k
@@ -198,11 +249,14 @@ class MoELM(DenseLM):
         src = tapir.lift(_dispatch_src, xt, keep, k=K, cdt=cdt)
         ef, pf = eidx.reshape(T * K), pos.reshape(T * K)
         xe = tapir.scatter_new((E, cap, d), cdt, (ef, pf), src, mode="add")
+        # on a mesh: this rank's experts, then every rank's outputs
+        xe = shard_act(xe, "expert", None, None)
         ye = tapir.expert_mlp(xe, p["ewg"], p["ewu"], p["ewd"], cfg.act)
+        ye = shard_act(shard_act(ye, "expert", None, None), None, None, None)
         fetched = tapir.gather(ye, (ef, pf))
         out = tapir.lift(_combine_expert_out, fetched, keep, gate, k=K,
-                         cdt=cdt)
-        return out.reshape(B, S, d)
+                         cdt=cdt).reshape(B, S, d)
+        return shard_act(out, "batch", None, None) if whole_batch else out
 
     # -- forward ---------------------------------------------------------
     def backbone(self, h, blocks: Optional[dict] = None):
@@ -235,10 +289,11 @@ class MoELM(DenseLM):
                                is_prefill: bool):
         """One MoE block against its cache slab: attention, cache writes
         AND the routed FFN in ONE region (the padded prefill is not
-        dropless: S > 1)."""
+        dropless: S > 1; on a mesh its capacity is the whole batch's)."""
         x, ck, cv = self._cached_attn_body(p, x, cos, sin, ck, cv, pos0,
                                            is_prefill)
-        x = x + self._moe_ffn(p, self._norm(x, p["ln2"]))
+        x = x + self._moe_ffn(p, self._norm(x, p["ln2"]),
+                              whole_batch=is_prefill)
         return x, ck, cv
 
     def _cached_bodies(self) -> dict:

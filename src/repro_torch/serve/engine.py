@@ -63,10 +63,11 @@ none of them, and ``last_stats`` carries each run's cache counters
 (``compiled_programs``, ``l2_hits``, ...) and where its cold-start seconds
 went (tracing, building programs, the store, CUDA-graph capture).
 
-**Meshes** (``ServingEngine(mesh=...)``; tensor parallel is the only
-layout): one engine per rank, every rank running the same host loop.  The
-slot parameters are pinned to their tensor-parallel blocks (``pin_slot_params``:
-only N dims split, K dims replicated), the page pools to theirs
+**Meshes** (``ServingEngine(mesh=...)``; tensor parallel, and expert
+parallel for the MoE family): one engine per rank, every rank running the
+same host loop.  The slot parameters are pinned to their blocks
+(``pin_slot_params``: only N dims split, K dims replicated, an expert
+leaf split into whole experts), the page pools to theirs
 (``slot_cache_shardings``: kv heads over ``model``, replicated over
 ``data``), and the slot programs capture and key under the ambient mesh,
 whose lowering gathers in rank order where a value must be whole: every
@@ -95,8 +96,8 @@ from ..core.tapir import (SPEC_ATTR, TapirConfig, cache_stats,
                           invalidate_mesh, use)
 from ..dist.fault import Fault, FaultInjector, StragglerWatchdog
 from ..dist.sharding import (NamedSharding, gather_full, local_shape,
-                             logical_to_pspec, place, tp_last_dim_spec,
-                             tree_map_axes, use_mesh)
+                             logical_to_pspec, place, tree_map_axes,
+                             use_mesh, weight_spec)
 from ..models.base import placement_axes, resolve_device
 from ..models.layers import bucket_pow2
 from .pages import (PagePool, copy_cache_pages, identity_row, preempt_cost,
@@ -234,15 +235,18 @@ def place_tree(tree, shardings):
 
 
 def pin_slot_params(model, sp, mesh):
-    """The ``slot_params`` tree with its decode TP layout: only a leaf's
-    LAST dim shards, and only when its logical axis maps to ``model`` and
-    divides (``dist.sharding.tp_last_dim_spec``).  The GEMM N dims (wq /
-    wk / wv / wg / wu / the head: column sharding, every output element
-    summed on one rank) split over ``model``; the K-dim weights (wo, wd)
-    stay replicated — a K split would add partial sums across ranks and
-    break the bitwise serving guarantee.  A whole leaf is cut to this
-    rank's block; a leaf that already is that block (a model built on the
-    mesh) is checked and kept."""
+    """The ``slot_params`` tree with its decode layout, the forward's
+    placement (``dist.sharding.weight_spec``): a dense leaf shards only
+    its LAST dim, and only when its logical axis maps to ``model`` and
+    divides.  The GEMM N dims (wq / wk / wv / wg / wu / the head: column
+    sharding, every output element summed on one rank) split over
+    ``model``; the K-dim weights (wo, wd) stay replicated — a K split
+    would add partial sums across ranks and break the bitwise serving
+    guarantee.  An expert leaf (``ewg`` / ``ewu`` / ``ewd``) shards its
+    expert dim over ``model`` where that divides ``E``: a rank holds
+    whole experts.  A whole leaf is cut to this rank's block; a leaf that
+    already is that block (a model built on the mesh) is checked and
+    kept."""
     if mesh is None or mesh.size <= 1:
         return sp
     if getattr(model, "mesh_layout", None) is not None:
@@ -252,7 +256,7 @@ def pin_slot_params(model, sp, mesh):
     def one(ax, shape, v):
         if not hasattr(v, "shape"):
             return v                     # ("dense" / "moe") kind markers
-        spec = tp_last_dim_spec(ax, shape, mesh)
+        spec = weight_spec(ax, shape, mesh)
         if tuple(v.shape) == tuple(shape):
             return place(v, spec, mesh)
         if tuple(v.shape) != local_shape(shape, spec, mesh):

@@ -108,6 +108,32 @@ def test_grouped_row_bits_do_not_depend_on_capacity(cuda, dt, arch, name, E,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [2, 80])
+@pytest.mark.parametrize("name", ["gate", "up", "down"])
+def test_a_launch_over_an_expert_block_is_the_whole_launch_s_rows(
+        cuda, dt, C, name):
+    """Granite's expert products on a model rank's block: the launch over
+    experts [8:16) (and [0:8)) of a 16-expert buffer equals those rows of
+    the 16-expert launch, bitwise, at a mesh rank's decode (C 2) and
+    forward (C 80) shapes; the gate with its silu, mul chain."""
+    c = get_config("granite_moe_1b_a400m")
+    E = c.n_experts // 2
+    k, n = (c.d_ff, c.d_model) if name == "down" else (c.d_model, c.d_ff)
+    x, w, up = _operands(cuda, E, C, k, n, dt, C + k + n + E)
+
+    def launch(lo, hi):
+        epi = _gate_chain(up[lo:hi], dt) if name == "gate" else []
+        return ops.fused_matmul(x[lo:hi], w[lo:hi], epilogue=epi,
+                                out_dtype=dt)
+    whole = launch(0, E)
+    for lo in (0, E // 2):
+        part = launch(lo, lo + E // 2)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[lo:lo + E // 2]), lo
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ARCHS)
 def test_router_logits_do_not_depend_on_rows(cuda, arch):
     """The router's fp32 product goes through the GEMM's fp32 route, whose
